@@ -1,0 +1,27 @@
+"""mosfhet_torch: TFHE (FHE over the torus) in PyTorch, with CUDA kernels
+written by hand for NVIDIA Hopper.
+
+The port of the repository's TPU package, module for module.  Torus words
+are int64 tensors holding u64 bits; all ciphertext arithmetic is exact
+wraparound mod 2^64 through a CRT-NTT, so given the same key material and
+inputs the port produces the same 64-bit words as the TPU package.
+
+Entry points run on the CUDA card unless the caller passes a device
+(``device="cpu"``); without a card and without a device they raise.
+"""
+
+from . import params
+from . import torus
+from . import rng
+from . import ntt
+from . import polynomial
+from . import tlwe
+from . import trlwe
+from . import trgsw
+from . import bootstrap
+from . import bridge
+from .ops import pbs_kernel
+from ._device import default_device
+from .params import PARAM_REGISTRY, TFHEParams, get_params
+
+__version__ = "0.1.0"

@@ -1,0 +1,95 @@
+"""numpy <-> port converters for keys and ciphertexts.
+
+Key material made elsewhere (the TPU package, a file) crosses as numpy
+arrays: u64 torus words and residues as ``uint64`` (or their ``int64``
+view), secret keys as ``int64``.  This module imports no other framework;
+the caller hands over plain arrays of the objects' fields.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._device import default_device
+from .bootstrap import BootstrapKey
+from .tlwe import TLWE, TLWEKey
+from .trgsw import TRGSW, TRGSWDFT
+from .trlwe import TRLWE, TRLWEKey
+
+
+def to_tensor(x, device=None) -> torch.Tensor:
+    """u64 or int64 array -> int64 tensor with the same bits (a copy, so
+    read-only inputs are fine)."""
+    x = np.asarray(x)
+    if x.dtype == np.uint64:
+        x = x.view(np.int64)
+    return torch.from_numpy(np.array(x, dtype=np.int64)).to(
+        default_device(device))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int64 tensor of torus words -> uint64 array."""
+    return t.detach().cpu().numpy().view(np.uint64)
+
+
+def tlwe_key_from_numpy(s, sigma: float, device=None) -> TLWEKey:
+    return TLWEKey(s=to_tensor(s, device), sigma=sigma)
+
+
+def trlwe_key_from_numpy(s, sigma: float, s_bound: int,
+                         device=None) -> TRLWEKey:
+    return TRLWEKey(s=to_tensor(s, device), sigma=sigma, s_bound=s_bound)
+
+
+def key_to_numpy(key) -> np.ndarray:
+    """Secret key coefficients (TLWEKey or TRLWEKey) as int64."""
+    return key.s.cpu().numpy()
+
+
+def tlwe_from_numpy(a, b, device=None) -> TLWE:
+    return TLWE(a=to_tensor(a, device), b=to_tensor(b, device))
+
+
+def tlwe_to_numpy(c: TLWE):
+    return to_numpy(c.a), to_numpy(c.b)
+
+
+def trlwe_from_numpy(a, b, device=None) -> TRLWE:
+    return TRLWE(a=to_tensor(a, device), b=to_tensor(b, device))
+
+
+def trlwe_to_numpy(c: TRLWE):
+    return to_numpy(c.a), to_numpy(c.b)
+
+
+def trgsw_from_numpy(rows, l: int, Bg_bit: int, device=None) -> TRGSW:
+    return TRGSW(rows=to_tensor(rows, device), l=l, Bg_bit=Bg_bit)
+
+
+def trgsw_to_numpy(g: TRGSW) -> np.ndarray:
+    return to_numpy(g.rows)
+
+
+def trgsw_dft_from_numpy(v, vs, l: int, Bg_bit: int, primes,
+                         device=None) -> TRGSWDFT:
+    return TRGSWDFT(v=to_tensor(v, device),
+                    vs=None if vs is None else to_tensor(vs, device),
+                    l=l, Bg_bit=Bg_bit, primes=tuple(int(p) for p in primes))
+
+
+def trgsw_dft_to_numpy(g: TRGSWDFT):
+    return to_numpy(g.v), None if g.vs is None else to_numpy(g.vs)
+
+
+def bootstrap_key_from_numpy(v, vs, n: int, k: int, N: int, l: int,
+                             Bg_bit: int, primes, device=None) -> BootstrapKey:
+    """An unfold=1 bootstrap key from its NTT-form rows and Shoup companions
+    [n, (k+1)l, k+1, P, N]; the kernel's 32-bit copies are built here, once."""
+    dev = default_device(device)
+    return BootstrapKey.from_dft(to_tensor(v, "cpu"), to_tensor(vs, "cpu"),
+                                 n, k, N, l, Bg_bit, primes).to(dev)
+
+
+def bootstrap_key_to_numpy(bk: BootstrapKey):
+    return to_numpy(bk.v), to_numpy(bk.vs)

@@ -1,0 +1,117 @@
+"""TRGSW: gadget ciphertexts (`src/trgsw.c:130-175`).
+
+A TRGSW is (k+1)*l TRLWE rows in one tensor; row r = comp*l + digit
+encrypts m * X^e * h_digit added at component ``comp``.  The NTT form
+carries Shoup companions for the external product's key multiplies.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import ntt as _ntt
+from . import trlwe as _trlwe
+from .torus import TORUS_BITS, to_i64
+from .trlwe import TRLWEKey
+
+
+@dataclasses.dataclass
+class TRGSWKey:
+    trlwe_key: TRLWEKey
+    l: int
+    Bg_bit: int
+
+    def plan(self) -> _ntt.NTTPlan:
+        """Plan for external products: J=(k+1)l digit convolutions with
+        |digit| <= Bg/2 against centred torus operands."""
+        N, k = self.trlwe_key.N, self.trlwe_key.k
+        bound = _ntt.external_product_bound(N, self.Bg_bit, self.l, k)
+        return _ntt.get_plan(N, _ntt.primes_for_bound(bound),
+                             self.trlwe_key.s.device)
+
+
+def new_key(trlwe_key: TRLWEKey, l: int, Bg_bit: int) -> TRGSWKey:
+    return TRGSWKey(trlwe_key=trlwe_key, l=l, Bg_bit=Bg_bit)
+
+
+@dataclasses.dataclass
+class TRGSW:
+    """rows[..., r, c, N]: r = comp*l + digit, c the component (b last)."""
+    rows: torch.Tensor
+    l: int
+    Bg_bit: int
+
+    @property
+    def k(self):
+        return self.rows.shape[-2] - 1
+
+    @property
+    def N(self):
+        return self.rows.shape[-1]
+
+
+@dataclasses.dataclass
+class TRGSWDFT:
+    """NTT-form TRGSW with Shoup companions: [..., r, c, P, N] int64."""
+    v: torch.Tensor
+    vs: torch.Tensor | None
+    l: int
+    Bg_bit: int
+    primes: tuple
+
+    @property
+    def k(self):
+        return self.v.shape[-3] - 1
+
+    @property
+    def N(self):
+        return self.v.shape[-1]
+
+    def plan(self) -> _ntt.NTTPlan:
+        return _ntt.get_plan(self.N, self.primes, self.v.device)
+
+
+def _gadget_values(l: int, Bg_bit: int, device):
+    return torch.tensor([to_i64(1 << (TORUS_BITS - (i + 1) * Bg_bit))
+                         for i in range(l)], dtype=torch.int64, device=device)
+
+
+def _add_monomial_rows(rows, m, e, l, Bg_bit, k, N):
+    """rows[..., comp*l + i, comp, :] += m * h_i * X^(e mod N) with the sign
+    of X^N folded into m (`trgsw.c:152-168`).  m, e: int64 tensors of the
+    batch shape rows.shape[:-3]."""
+    dev = rows.device
+    m = torch.where((e & N) != 0, -m, m)
+    e = e & (N - 1)
+    h = _gadget_values(l, Bg_bit, dev) * m.unsqueeze(-1)           # [..., l]
+    onehot = (torch.arange(N, device=dev) == e.unsqueeze(-1)).to(torch.int64)
+    r = torch.arange((k + 1) * l, device=dev) // l                 # comp of row
+    c = torch.arange(k + 1, device=dev)
+    sel = (r[:, None] == c[None, :]).to(torch.int64)               # [R, k+1]
+    hh = h.repeat((1,) * (h.dim() - 1) + (k + 1,))                 # [..., R]
+    return rows + (sel[:, :, None] * hh[..., :, None, None]
+                   * onehot[..., None, None, :])
+
+
+def monomial_encrypt(m, e, key: TRGSWKey,
+                     generator: torch.Generator) -> TRGSW:
+    """TRGSW(m * X^e) (`trgsw_monomial_sample`, `trgsw.c:152-175`), batched
+    over the shape of the int64 tensors ``m`` and ``e``."""
+    l, Bg_bit = key.l, key.Bg_bit
+    k, N = key.trlwe_key.k, key.trlwe_key.N
+    R = (k + 1) * l
+    dev = key.trlwe_key.s.device
+    m = torch.as_tensor(m, dtype=torch.int64, device=dev)
+    e = torch.as_tensor(e, dtype=torch.int64, device=dev)
+    zeros = torch.zeros(m.shape + (R, N), dtype=torch.int64, device=dev)
+    rows = _trlwe.encrypt(zeros, key.trlwe_key, generator).stacked()
+    rows = _add_monomial_rows(rows, m, e, l, Bg_bit, k, N)
+    return TRGSW(rows=rows, l=l, Bg_bit=Bg_bit)
+
+
+def to_dft(g: TRGSW, plan: _ntt.NTTPlan, with_shoup: bool = True) -> TRGSWDFT:
+    v = _ntt.to_ntt_u64(g.rows, plan)
+    vs = _ntt.make_shoup(v, plan.p[:, None]) if with_shoup else None
+    return TRGSWDFT(v=v, vs=vs, l=g.l, Bg_bit=g.Bg_bit, primes=plan.primes)
