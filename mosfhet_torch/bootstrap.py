@@ -1,5 +1,6 @@
-"""Bootstrapping without unfolding: key generation, blind rotation and the
-functional / programmable bootstrap (`src/bootstrap.c:3-21,107-122,192-220`).
+"""Bootstrapping without unfolding: key generation, blind rotation, the
+functional / programmable bootstrap and the full-domain bootstrap "this
+work" (`src/bootstrap.c:3-21,107-122,192-220,519-538`).
 
 The reference's `if a_i == 0: continue` branch is dropped: X^0 - 1 = 0, so
 the dense CMUX adds exactly zero.
@@ -12,6 +13,7 @@ import math
 import torch
 from torch import nn
 
+from . import tlwe as _tlwe
 from . import trgsw as _trgsw
 from . import trlwe as _trlwe
 from ._device import default_device
@@ -136,3 +138,18 @@ def programmable_bootstrap(tv: TRLWE, c: TLWE, bk: BootstrapKey,
     a = ((c.a << kappa) + rnd_os) & theta_mask
     b = ((c.b << kappa) + rnd_os) & theta_mask
     return functional_bootstrap(tv, TLWE(a=a, b=b), bk, 1 << (precision - 1))
+
+
+def fdfb_this_work(tv: TRLWE, c: TLWE, bk: BootstrapKey,
+                   tlwe_ksk: _tlwe.TLWEKSKey, precision: int) -> TLWE:
+    """Full-domain functional bootstrap ("this work"): a sign bootstrap, its
+    key switch back to the LWE key added to the input, then a half-domain
+    bootstrap (`full_domain_functional_bootstrap`, `bootstrap.c:519-538`).
+    On CUDA tensors two blind-rotate launches and one key-switch launch."""
+    sign = to_i64((1 << (TORUS_BITS - 2)) - (1 << (TORUS_BITS - precision - 2)))
+    tv_sign = _trlwe.torus_packing(
+        torch.tensor([sign], dtype=torch.int64, device=c.b.device), bk.k, bk.N)
+    ct_sign = functional_bootstrap(tv_sign, c, bk, 1 << (precision - 1))
+    ct_sign = TLWE(a=ct_sign.a, b=ct_sign.b - sign)
+    in2 = _tlwe.add(_tlwe.keyswitch(ct_sign, tlwe_ksk), c)
+    return functional_bootstrap(tv, in2, bk, 1 << precision)

@@ -13,7 +13,7 @@ import torch
 
 from ._device import default_device
 from .bootstrap import BootstrapKey
-from .tlwe import TLWE, TLWEKey
+from .tlwe import TLWE, TLWEKey, TLWEKSKey, TLWEKSKeyM, TLWEKSKeyPrepared
 from .trgsw import TRGSW, TRGSWDFT
 from .trlwe import TRLWE, TRLWEKey
 
@@ -93,3 +93,42 @@ def bootstrap_key_from_numpy(v, vs, n: int, k: int, N: int, l: int,
 
 def bootstrap_key_to_numpy(bk: BootstrapKey):
     return to_numpy(bk.v), to_numpy(bk.vs)
+
+
+def tlwe_ks_key_from_numpy(a, b, t: int, base_bit: int,
+                           device=None) -> TLWEKSKey:
+    """A precomputed KS table from its mask words a [n_in, t, base-1,
+    n_out] and bodies b [n_in, t, base-1], joined once into the kernel's
+    [n_in, t, base-1, n_out+1] form."""
+    ab = np.concatenate([np.asarray(a).view(np.int64),
+                         np.asarray(b).view(np.int64)[..., None]], axis=-1)
+    return TLWEKSKey(to_tensor(ab, device), t, base_bit)
+
+
+def tlwe_ks_key_to_numpy(ksk: TLWEKSKey):
+    return to_numpy(ksk.a), to_numpy(ksk.b)
+
+
+def tlwe_ks_key_m_from_numpy(a, b, t: int, base_bit: int,
+                             device=None) -> TLWEKSKeyM:
+    return TLWEKSKeyM(a=to_tensor(a, device), b=to_tensor(b, device), t=t,
+                      base_bit=base_bit)
+
+
+def tlwe_ks_key_m_to_numpy(ksk: TLWEKSKeyM):
+    return to_numpy(ksk.a), to_numpy(ksk.b)
+
+
+def tlwe_ks_key_prepared_from_numpy(a_nib, b_nib, t: int, base_bit: int,
+                                    device=None) -> TLWEKSKeyPrepared:
+    """The int8-limb KS key; limbs a_nib [16, n_in*t, n_out] and b_nib
+    [16, n_in*t] as int8 arrays."""
+    dev = default_device(device)
+    return TLWEKSKeyPrepared(
+        a_nib=torch.from_numpy(np.array(a_nib, dtype=np.int8)).to(dev),
+        b_nib=torch.from_numpy(np.array(b_nib, dtype=np.int8)).to(dev),
+        t=t, base_bit=base_bit)
+
+
+def tlwe_ks_key_prepared_to_numpy(ksk: TLWEKSKeyPrepared):
+    return ksk.a_nib.cpu().numpy(), ksk.b_nib.cpu().numpy()

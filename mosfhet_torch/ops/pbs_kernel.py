@@ -1,19 +1,28 @@
-"""The blind rotation: kernel plan, plain PyTorch version and CUDA wrapper.
+"""The device kernels of the bootstrap and the gate: for each, a plain
+PyTorch version and the wrapper of its hand-written CUDA kernel.
 
-The whole n-step CMUX chain
+The wrapper launches the kernel on CUDA tensors (and raises if it does not
+build or launch) and takes the plain version, the same arithmetic in int64
+PyTorch, only for CPU tensors.  The two give the same words.
 
-    acc += BK_i (x) ((X^{a_i} - 1) * acc)        for i = 0 .. n-1
+1. The blind rotation: the whole n-step CMUX chain
 
-runs on a CUDA tensor as ONE launch of the hand-written kernel in
-``csrc/blind_rotate.cu`` and on a CPU tensor as its plain version, the
-same arithmetic in int64 PyTorch.  The two are bit-identical.
+       acc += BK_i (x) ((X^{a_i} - 1) * acc)        for i = 0 .. n-1
 
-Layouts (as the TPU package's kernel takes them):
-  acc0        [B, k+1, N]               int64 (u64 torus words)
-  a_int       [n, B]                    int32 rotation exponents in [0, 2N]
-  keyv, keyvs [n, (k+1)l, k+1, P, N]    int32 holding u32 bits: the NTT-form
-                                        bootstrap key and its Shoup
-                                        companions (which can exceed 2^31)
+   in ONE launch of ``csrc/blind_rotate.cu``.  Layouts (as the TPU
+   package's kernel takes them):
+     acc0        [B, k+1, N]               int64 (u64 torus words)
+     a_int       [n, B]                    int32 rotation exponents in [0, 2N]
+     keyv, keyvs [n, (k+1)l, k+1, P, N]    int32 holding u32 bits: the
+                                           NTT-form bootstrap key and its
+                                           Shoup companions (can exceed 2^31)
+
+2. The TLWE key switch's select-sum (``csrc/tlwe_keyswitch.cu``):
+
+       out[b] = sum over (i, j) with d[b, i, j] != 0 of ab[i, j, d - 1]
+     dig  [B, n_in, t]                 int32 digits in [0, base)
+     ab   [n_in, t, base-1, n_out+1]   int64: KS table, mask words then b
+     out  [B, n_out+1]                 int64, the subtrahend of (0, b)
 """
 
 from __future__ import annotations
@@ -170,3 +179,73 @@ def blind_rotate_scan(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
 
 
 blind_rotate_scan.launches = 0
+
+
+# --- the key switch's select-sum -------------------------------------------
+
+def tlwe_keyswitch_sum_plain(dig, ab):
+    """The select-sum as a gather in int64 PyTorch, on any device, over n_in
+    in chunks that keep the [B, chunk, t, n_out+1] gather near 64 MB.  A
+    digit outside [1, base) selects nothing, as in the kernels."""
+    tlwe_keyswitch_sum_plain.calls += 1
+    B, n_in, t = dig.shape
+    base_m1, width = ab.shape[2], ab.shape[3]
+    out = torch.zeros((B, width), dtype=torch.int64, device=ab.device)
+    chunk = min(n_in, max(1, (64 << 20) // max(1, B * t * width * 8)))
+    for i0 in range(0, n_in, chunk):
+        d = dig[:, i0:i0 + chunk].to(torch.int64)            # [B, c, t]
+        c = d.shape[1]
+        rows = ab[i0:i0 + chunk].reshape(c * t * base_m1, width)
+        pos = (torch.arange(c, device=d.device)[:, None] * t
+               + torch.arange(t, device=d.device)) * base_m1
+        nz = (d > 0) & (d <= base_m1)
+        g = rows[pos + (d - 1).clamp(0, base_m1 - 1)]        # [B, c, t, width]
+        out += torch.where(nz[..., None], g, 0).sum((1, 2))
+    return out
+
+
+tlwe_keyswitch_sum_plain.calls = 0
+
+
+@functools.cache
+def _ks_lib() -> ctypes.CDLL:
+    lib = _build.load("tlwe_keyswitch")
+    lib.tlwe_keyswitch_sum_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.tlwe_keyswitch_sum_launch.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def tlwe_keyswitch_sum(dig, ab):
+    """The select-sum.  CUDA tensors: one launch of the kernel, and an error
+    raised if it does not build or launch.  CPU tensors: the plain version.
+    Returns [B, n_out+1] int64."""
+    dev = ab.device
+    if dev.type == "cpu":
+        return tlwe_keyswitch_sum_plain(dig, ab)
+    if dev.type != "cuda":
+        raise ValueError(f"tlwe_keyswitch_sum runs on cuda or cpu, not {dev}")
+    if ab.dim() != 4 or dig.dim() != 3:
+        raise ValueError(f"want dig [B, n_in, t] and ab [n_in, t, base-1, "
+                         f"n_out+1], got {tuple(dig.shape)}, {tuple(ab.shape)}")
+    n_in, t, base_m1, width = ab.shape
+    B = dig.shape[0]
+    _check("dig", dig, torch.int32, (B, n_in, t), dev)
+    _check("ab", ab, torch.int64, (n_in, t, base_m1, width), dev)
+    out = torch.empty((B, width), dtype=torch.int64, device=dev)
+    if B == 0 or width == 0:
+        return out
+    lib = _ks_lib()
+    err = lib.tlwe_keyswitch_sum_launch(
+        dig.data_ptr(), ab.data_ptr(), out.data_ptr(), B, n_in * t, base_m1,
+        width, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("tlwe_keyswitch kernel launch failed: "
+                           + lib.cuda_error_string(err).decode())
+    tlwe_keyswitch_sum.launches += 1
+    return out
+
+
+tlwe_keyswitch_sum.launches = 0

@@ -16,6 +16,7 @@ from . import polynomial as _poly
 from . import rng as _rng
 from ._device import default_device
 from .tlwe import TLWE, TLWEKey
+from .torus import int2torus
 
 
 @dataclasses.dataclass
@@ -134,3 +135,21 @@ def torus_packing(values, k: int, N: int) -> TRLWE:
     size = values.shape[-1]
     return noiseless_trivial(
         torch.repeat_interleave(values, N // size, dim=-1), k, N)
+
+
+def torus_packing_many_lut(values, lut_size: int, n_luts: int, k: int,
+                           N: int) -> TRLWE:
+    """b[(i*n_luts + j)*N/(lut_size*n_luts) + c] = in[j*lut_size + i]
+    (`trlwe_torus_packing_many_LUT`, `trlwe.c:678-687`)."""
+    interleaved = values.reshape(n_luts, lut_size).t().reshape(-1)
+    return noiseless_trivial(torch.repeat_interleave(
+        interleaved, N // (lut_size * n_luts), dim=-1), k, N)
+
+
+def lut_packing(values, in_prec: int, out_prec: int, k: int, N: int) -> TRLWE:
+    """Integer LUT -> torus packing (`trlwe_LUT_packing`, `trlwe.c:669-675`)."""
+    values = int2torus(torch.as_tensor(values, dtype=torch.int64), out_prec)
+    if values.shape[-1] != 1 << in_prec:
+        raise ValueError(f"a LUT of precision {in_prec} has {1 << in_prec} "
+                         f"entries, got {values.shape[-1]}")
+    return torus_packing(values, k, N)

@@ -1,5 +1,7 @@
-"""The hand-written CUDA blind-rotate kernel against its plain PyTorch
-version, bit for bit.  Needs a CUDA card: without one every test here skips.
+"""The hand-written CUDA kernels (blind rotation, key-switch select-sum)
+against their plain PyTorch versions, bit for bit, and the int8 key switch
+through `torch._int_mm`.  Needs a CUDA card: without one every test here
+skips.
 
 This file imports nothing but PyTorch, numpy and the port, so it runs on a
 machine that has no TPU-package dependencies:
@@ -57,3 +59,51 @@ def test_cuda_kernel_matches_plain(N, k, l, Bg_bit, n, B):
     assert tpk.blind_rotate_scan.launches == launches + 1
     want = tpk.blind_rotate_scan_plain(*args)
     assert torch.equal(got, want)
+
+
+def random_ks_inputs(B, n_in, t, base_m1, width, seed):
+    """Random digits in [0, base) with 0 and base-1 present, and a random
+    u64 KS table [n_in, t, base-1, width] (as int64)."""
+    rng = np.random.default_rng(seed)
+    dig = rng.integers(0, base_m1 + 1, size=(B, n_in, t), dtype=np.int32)
+    dig[0, 0, 0], dig[-1, -1, -1] = 0, base_m1
+    ab = rng.integers(0, 1 << 64, size=(n_in, t, base_m1, width),
+                      dtype=np.uint64)
+    return dig, ab
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_in,t,base_m1,width", [
+    (3, 2048, 8, 15, 633),     # TFHEpp-L2 key-switch widths
+    (5, 64, 8, 15, 17),        # a ragged column block
+    (2, 37, 5, 7, 300),        # SET_2-like digits, odd n_in
+    (1, 1100, 4, 3, 5),        # more than one shared-memory tile of digits
+])
+def test_cuda_keyswitch_sum_matches_plain(B, n_in, t, base_m1, width):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dig, ab = random_ks_inputs(B, n_in, t, base_m1, width, seed=n_in + width)
+    d = torch.from_numpy(dig).cuda()
+    tab = to_tensor(ab, "cuda")
+    launches = tpk.tlwe_keyswitch_sum.launches
+    got = tpk.tlwe_keyswitch_sum(d, tab)
+    torch.cuda.synchronize()
+    assert tpk.tlwe_keyswitch_sum.launches == launches + 1
+    assert torch.equal(got, tpk.tlwe_keyswitch_sum_plain(d, tab))
+
+
+@pytest.mark.gpu
+def test_cuda_int8_keyswitch_matches_no_precomp():
+    """`keyswitch_mxu` through `torch._int_mm` (padded: batch 5 < 17,
+    n_out 13 not a multiple of 8) equals `keyswitch_no_precomp`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mosfhet_torch import tlwe
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    in_key = tlwe.new_binary_key(100, 2.0**-30, gen, "cuda")
+    out_key = tlwe.new_binary_key(13, 2.0**-30, gen, "cuda")
+    ksk = tlwe.new_ks_key_no_precomp(out_key, in_key, 5, 3, gen, "cuda")
+    c = tlwe.encrypt(torch.arange(5, device="cuda") << 59, in_key, gen)
+    want = tlwe.keyswitch_no_precomp(c, ksk)
+    got = tlwe.keyswitch_mxu(c, tlwe.prepare_ks_key_mxu(ksk))
+    assert torch.equal(got.a, want.a) and torch.equal(got.b, want.b)
