@@ -36,8 +36,27 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               call, no plain call); decrypt within 2^58 of the LUT; the
               whole call with the plain versions on the first 2
               ciphertexts gives the same words.
-  9. report   the fdfb and pbs lines, the card line, the kernels line, and
-              the result line last.
+  9. k345     the external-product apply-scan kernel (K3, broadcast and
+              per-row keys, G=2, B=5), the unfolded-rotation kernel (K4) and
+              the UBR phase-1 kernel (K5) (u = 2, 4, 8 with G = 2, 2, 1 and
+              B=3, exponents 0, N and 2N present) against their plain
+              versions at full TFHEpp-L2 widths on random inputs: bit-exact.
+ 10. unfolded TFHEPP_L2 with unfolding u=4: the port's keygen (timed, key
+              bytes printed), then bootstrap.functional_bootstrap on phase
+              4's LUT and 512 ciphertexts: exactly 1 K4 launch per call and
+              nothing else, decrypt within 2^58; K4 timed per launch beside
+              its bound and its plain version on the same inputs
+              (bit-exact).
+ 11. ubr      TFHEPP_L2 with u=8: keygen (chunked), one ciphertext of
+              m = 2/8, 256 random 4-slot LUTs; multivalue phase 1 is 1 K5
+              launch, phase 2 is 1 K3 launch; every LUT within 2^58 of its
+              slot 2; both kernels timed beside their bounds and their plain
+              versions on the same inputs (bit-exact); peak device memory.
+ 12. extprod  trgsw.external_product at L2 on 512 TRLWEs, with one TRGSW
+              broadcast and with one TRGSW per row: 1 K3 launch each,
+              bit-exact against the plain version, decrypt within 2^58.
+ 13. report   the pbs, gate, fdfb, unfolded, ubr and extprod lines, the card
+              line, the kernels line, and the result line last.
 
 Imports nothing but PyTorch, numpy and the port.
 """
@@ -57,6 +76,9 @@ REPS = 3             # timed repetitions of the warm bootstrap
 KS_REPS = 10         # timed launches of the key-switch kernel
 FDFB_PREC = 3        # the TPU bench suite's fdfb_this_work precision
 SEED = 2024
+U_PBS = 4            # the README's best full-bootstrap unfolding
+U_UBR = 8            # bench_unfolded.py's UBR unfolding for K >= 159 LUTs
+UBR_LUTS = 256       # bench_unfolded.py's LUT count
 DECRYPT_BOUND = 2.0**58
 # Key-switch noise at L2: ~15,360 nonzero digits x (2^-15)^2 gives sigma
 # ~2^-8.05 of the torus, ~2^56 in words; 2^60 is ~8 sigma.
@@ -64,6 +86,13 @@ KS_DECRYPT_BOUND = 2.0**60
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64     # Hopper SM: 64 INT32 units (Hopper white paper)
 SHOUP_MULTIPLIES = 3        # one Shoup product: mulhi + two 32-bit multiplies
+BARRETT_MULTIPLIES = 4      # a runtime-key product: mul, two mulhi, mul
+CENTRED_SHOUP = 2           # a u64 word to one centred residue: two Shoup
+U64_ADD_OPS = 2             # a u64 add as INT32 operations
+RUNTIME_KEY_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT "
+                            "external product or an unfolded combine")
+KERNELS = ("blind_rotate_scan", "tlwe_keyswitch_sum", "ext_product_apply_scan",
+           "unfolded_rotate", "ubr_phase1_combine")
 # No PyTorch call computes the key-switch select-sum on int64 CUDA tensors.
 KS_LIBRARY_NOTE = ("none: torch.sparse.mm of the one-hot digits and the "
                    "table raises \"addmm_sparse_cuda\" not implemented for "
@@ -151,31 +180,119 @@ def keyswitch_bound_ms(dig, ab, max_clock_mhz):
             "rows_selected": rows, "int32_per_s": int_rate}
 
 
+def int_rate_per_s(max_clock_mhz):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * max_clock_mhz * 1e6
+
+
+def ops_bytes_bound(int32_ops, nbytes, max_clock_mhz):
+    """The larger of INT32 operations over the INT32 rate and bytes over
+    HBM, in ms, with its basis."""
+    rate = int_rate_per_s(max_clock_mhz)
+    t_ops, t_bytes = int32_ops / rate, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "int32_ops": int32_ops, "bytes": nbytes, "int32_per_s": rate}
+
+
+def butterflies(kp, rows):
+    return rows * (kp.N // 2) * int(math.log2(kp.N))
+
+
+def apply_scan_bound(kp, B, G, per_row, max_clock_mhz):
+    """K3, per ciphertext and step: J*P digit and C*P inverse NTTs (one
+    Shoup product per butterfly), J*C*P*N Barrett products, one Garner
+    product per output word; bytes: the keys read once, acc in and out."""
+    J, C, P, N = kp.J, kp.C, kp.P, kp.N
+    shoup = butterflies(kp, J * P + C * P) + C * N
+    ops = (SHOUP_MULTIPLIES * shoup + BARRETT_MULTIPLIES * J * C * P * N) \
+        * B * G
+    nbytes = G * (B if per_row else 1) * J * C * P * N * 4 + 2 * B * C * N * 8
+    return ops_bytes_bound(ops, nbytes, max_clock_mhz)
+
+
+def unfolded_bound(kp, B, G, M, max_clock_mhz):
+    """K4, per ciphertext and group: J*P digit, J*C*P key and C*P inverse
+    NTTs, J*C*P*N centred reductions (two Shoup products each) and Barrett
+    products, J*C*N*M u64 rotate-adds, one Garner product per word; bytes:
+    the key products read once, acc in and out, the exponents."""
+    J, C, P, N = kp.J, kp.C, kp.P, kp.N
+    shoup = (butterflies(kp, J * P + J * C * P + C * P)
+             + CENTRED_SHOUP * J * C * P * N + C * N)
+    ops = (SHOUP_MULTIPLIES * shoup + BARRETT_MULTIPLIES * J * C * P * N
+           + U64_ADD_OPS * J * C * N * M) * B * G
+    nbytes = G * M * J * C * N * 8 + 2 * B * C * N * 8 + B * G * M * 4
+    return ops_bytes_bound(ops, nbytes, max_clock_mhz)
+
+
+def ubr_phase1_bound(kp, B, G, M, max_clock_mhz):
+    """K5, per ciphertext and group: J*C*P key NTTs, J*C*P*N centred
+    reductions, J*C*N*M u64 rotate-adds; bytes: the key products read once,
+    the exponents, the u32 output."""
+    J, C, P, N = kp.J, kp.C, kp.P, kp.N
+    shoup = butterflies(kp, J * C * P) + CENTRED_SHOUP * J * C * P * N
+    ops = (SHOUP_MULTIPLIES * shoup + U64_ADD_OPS * J * C * N * M) * B * G
+    nbytes = G * M * J * C * N * 8 + B * G * M * 4 + B * G * J * C * P * N * 4
+    return ops_bytes_bound(ops, nbytes, max_clock_mhz)
+
+
 @contextlib.contextmanager
 def plain_kernels(pk):
     """Route every kernel wrapper to its plain version for the duration, so
     an entry point runs its plain whole on CUDA tensors."""
-    saved = pk.blind_rotate_scan, pk.tlwe_keyswitch_sum
-    pk.blind_rotate_scan = pk.blind_rotate_scan_plain
-    pk.tlwe_keyswitch_sum = pk.tlwe_keyswitch_sum_plain
+    saved = {name: getattr(pk, name) for name in KERNELS}
+    for name in KERNELS:
+        setattr(pk, name, getattr(pk, name + "_plain"))
     try:
         yield
     finally:
-        pk.blind_rotate_scan, pk.tlwe_keyswitch_sum = saved
+        for name, fn in saved.items():
+            setattr(pk, name, fn)
 
 
 def zero_counts(pk):
-    pk.blind_rotate_scan.launches = 0
-    pk.blind_rotate_scan_plain.calls = 0
-    pk.tlwe_keyswitch_sum.launches = 0
-    pk.tlwe_keyswitch_sum_plain.calls = 0
+    for name in KERNELS:
+        getattr(pk, name).launches = 0
+        getattr(pk, name + "_plain").calls = 0
 
 
 def read_counts(pk):
-    return {"blind_rotate_scan": pk.blind_rotate_scan.launches,
-            "tlwe_keyswitch_sum": pk.tlwe_keyswitch_sum.launches,
-            "blind_rotate_scan_plain": pk.blind_rotate_scan_plain.calls,
-            "tlwe_keyswitch_sum_plain": pk.tlwe_keyswitch_sum_plain.calls}
+    counts = {name: getattr(pk, name).launches for name in KERNELS}
+    counts.update({name + "_plain": getattr(pk, name + "_plain").calls
+                   for name in KERNELS})
+    return counts
+
+
+def check_counts(path, counts, want):
+    """Every count zero but those named in ``want``, which must match."""
+    full = {name: 0 for name in counts}
+    full.update(want)
+    if counts != full:
+        fail(f"{path}: counts {counts}, want {want} and nothing else")
+
+
+def random_u64(rs, shape, dev):
+    return torch.from_numpy(rs.integers(0, 1 << 64, shape, dtype=np.uint64)
+                            .view(np.int64)).to(dev)
+
+
+def random_residues_i32(rs, shape, primes, dev):
+    """Random canonical residues [..., P, N] as u32 bits in int32."""
+    pr = np.array(primes, np.uint64)[:, None]
+    r = rs.integers(0, 1 << 62, shape, dtype=np.uint64) % pr
+    return torch.from_numpy(r.astype(np.uint32).view(np.int32)).to(dev)
+
+
+def random_exponents(rs, B, G, M, N, dev):
+    """[B, G, M] int32 in [0, 2N] with 0, N and 2N present."""
+    rot = rs.integers(0, 2 * N + 1, (B, G, M), dtype=np.int32)
+    rot[0, 0, 0], rot[-1, -1, -1], rot[0, -1, M // 2] = 0, 2 * N, N
+    return torch.from_numpy(rot).to(dev)
+
+
+def same_or_fail(what, got, want):
+    if not torch.equal(got, want):
+        fail(f"{what}: {int((got != want).sum())} words differ")
 
 
 def main():
@@ -235,8 +352,8 @@ def main():
     key_tlwe = tlwe.new_binary_key(p.n, p.lwe_sigma, gen, dev)
     key_trlwe = trlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, dev)
     key_out = trlwe.extract_tlwe_key(key_trlwe)
-    bk = bootstrap.new_key(trgsw.new_key(key_trlwe, p.l, p.Bg_bit), key_tlwe,
-                           gen, dev)
+    gk = trgsw.new_key(key_trlwe, p.l, p.Bg_bit)
+    bk = bootstrap.new_key(gk, key_tlwe, gen, dev)
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
     key_bytes = (bk.v32.numel() + bk.vs32.numel()) * 4
@@ -260,11 +377,8 @@ def main():
     pbs_counts = read_counts(pk)
     launches = pbs_counts["blind_rotate_scan"]
     peak = torch.cuda.max_memory_allocated()
-    if pbs_counts != {"blind_rotate_scan": 1 + REPS, "tlwe_keyswitch_sum": 0,
-                      "blind_rotate_scan_plain": 0,
-                      "tlwe_keyswitch_sum_plain": 0}:
-        fail(f"main path: counts {pbs_counts} over {1 + REPS} calls (want 1 "
-             f"rotation launch per call, no key switch, no plain call)")
+    check_counts(f"main path over {1 + REPS} calls", pbs_counts,
+                 {"blind_rotate_scan": 1 + REPS})
     if out.a.shape != (BATCH, p.k * p.N) or out.b.shape != (BATCH,):
         fail(f"output shapes {tuple(out.a.shape)}, {tuple(out.b.shape)}")
     if not (torch.equal(out.a, out2.a) and torch.equal(out.b, out2.b)):
@@ -340,11 +454,7 @@ def main():
     ks_out = tlwe.keyswitch(out, ksk)
     torch.cuda.synchronize()
     gate_counts = read_counts(pk)
-    if gate_counts != {"blind_rotate_scan": 0, "tlwe_keyswitch_sum": 1,
-                       "blind_rotate_scan_plain": 0,
-                       "tlwe_keyswitch_sum_plain": 0}:
-        fail(f"gate: counts {gate_counts} (want 1 ks launch, no rotation, "
-             f"no plain call)")
+    check_counts("gate", gate_counts, {"tlwe_keyswitch_sum": 1})
     ks_err = signed_max_abs(tlwe.phase(ks_out, key_tlwe) - luts[slots])
     if not ks_err <= KS_DECRYPT_BOUND:
         fail(f"gate decrypt: max error 2^{math.log2(ks_err):.1f} > 2^60")
@@ -387,12 +497,8 @@ def main():
     fdfb_counts = read_counts(pk)
     fdfb_peak = torch.cuda.max_memory_allocated()
     calls = 1 + REPS
-    if fdfb_counts != {"blind_rotate_scan": 2 * calls,
-                       "tlwe_keyswitch_sum": calls,
-                       "blind_rotate_scan_plain": 0,
-                       "tlwe_keyswitch_sum_plain": 0}:
-        fail(f"fdfb path: counts {fdfb_counts} over {calls} calls (want 2 "
-             f"rotation and 1 key-switch launches per call, no plain call)")
+    check_counts(f"fdfb path over {calls} calls", fdfb_counts,
+                 {"blind_rotate_scan": 2 * calls, "tlwe_keyswitch_sum": calls})
     if out8.a.shape != (BATCH, p.k * p.N) or out8.b.shape != (BATCH,):
         fail(f"fdfb output shapes {tuple(out8.a.shape)}, "
              f"{tuple(out8.b.shape)}")
@@ -407,10 +513,8 @@ def main():
         fdfb_plain2_ms, out_p = cuda_ms(
             lambda: bootstrap.fdfb_this_work(tv8, c2, bk, ksk, FDFB_PREC), 1)
     plain_counts = read_counts(pk)
-    if plain_counts != {"blind_rotate_scan": 0, "tlwe_keyswitch_sum": 0,
-                        "blind_rotate_scan_plain": 2,
-                        "tlwe_keyswitch_sum_plain": 1}:
-        fail(f"plain fdfb: counts {plain_counts}")
+    check_counts("plain fdfb", plain_counts,
+                 {"blind_rotate_scan_plain": 2, "tlwe_keyswitch_sum_plain": 1})
     if not (torch.equal(out_p.a, out8.a[:2]) and torch.equal(out_p.b,
                                                              out8.b[:2])):
         fail("plain fdfb of the first 2 ciphertexts != the kernel path")
@@ -423,20 +527,228 @@ def main():
         f"{fdfb_peak / 2**30:.2f} GiB; counts {fdfb_counts}; plain whole "
         f"call on 2 ciphertexts {fdfb_plain2_ms:.3f} ms, bit-exact")
 
-    # 9. report
-    launches_by_path = {
-        "blind_rotate_scan": {"pbs": launches,
-                              "gate": gate_counts["blind_rotate_scan"],
-                              "fdfb": fdfb_counts["blind_rotate_scan"]},
-        "tlwe_keyswitch_sum": {"pbs": pbs_counts["tlwe_keyswitch_sum"],
-                               "gate": gate_counts["tlwe_keyswitch_sum"],
-                               "fdfb": fdfb_counts["tlwe_keyswitch_sum"]}}
+    # 9. K3, K4, K5 vs plain at full L2 widths on random inputs
+    J, C, P, N = kp.J, kp.C, kp.P, kp.N
+    for per_row in (False, True):
+        B_r, G_r = 5, 2
+        acc_r = random_u64(rs, (B_r, C, N), dev)
+        rows = (G_r, B_r) if per_row else (G_r,)
+        sa_r = random_residues_i32(rs, rows + (J, C, P, N), primes, dev)
+        got = pk.ext_product_apply_scan(acc_r, sa_r, kp, per_row)
+        torch.cuda.synchronize()
+        same_or_fail(f"K3 (per_row={per_row}) vs plain at L2 widths", got,
+                     pk.ext_product_apply_scan_plain(acc_r, sa_r, kp, per_row))
+    for u, G_r in ((2, 2), (4, 2), (8, 1)):
+        B_r, M = 3, 1 << u
+        acc_r = random_u64(rs, (B_r, C, N), dev)
+        su_r = random_u64(rs, (G_r, M, J, C, N), dev)
+        rot_r = random_exponents(rs, B_r, G_r, M, N, dev)
+        got = pk.unfolded_rotate(acc_r, rot_r, su_r, kp)
+        torch.cuda.synchronize()
+        same_or_fail(f"K4 (u={u}) vs plain at L2 widths", got,
+                     pk.unfolded_rotate_plain(acc_r, rot_r, su_r, kp))
+        got = pk.ubr_phase1_combine(su_r, rot_r, kp)
+        torch.cuda.synchronize()
+        same_or_fail(f"K5 (u={u}) vs plain at L2 widths", got,
+                     pk.ubr_phase1_combine_plain(su_r, rot_r, kp))
+    del acc_r, su_r, rot_r, sa_r, got
+    log("# K3 (broadcast and per-row, G=2, B=5), K4 and K5 (u=2, 4, 8; "
+        "exponents 0, N, 2N) vs plain at L2 widths: bit-exact")
+
+    # 10. the unfolded PBS at u=4 on phase 4's LUT and ciphertexts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bk4 = bootstrap.new_key(gk, key_tlwe, gen, dev, unfolding=U_PBS)
+    torch.cuda.synchronize()
+    keygen4_s = time.perf_counter() - t0
+    su4_bytes = bk4.su.numel() * bk4.su.element_size()
+    log(f"# unfolded keygen (u={U_PBS}): {keygen4_s:.3f} s; key "
+        f"{tuple(bk4.su.shape)} u64 = {su4_bytes} B")
+    zero_counts(pk)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out4 = bootstrap.functional_bootstrap(tv, cs, bk4, 4)
+    torch.cuda.synchronize()
+    first4_s = time.perf_counter() - t0
+    ub_ms, out4b = cuda_ms(
+        lambda: bootstrap.functional_bootstrap(tv, cs, bk4, 4), REPS)
+    ub_counts = read_counts(pk)
+    ub_peak = torch.cuda.max_memory_allocated()
+    check_counts(f"unfolded path over {1 + REPS} calls", ub_counts,
+                 {"unfolded_rotate": 1 + REPS})
+    if out4.a.shape != (BATCH, p.k * p.N) or out4.b.shape != (BATCH,):
+        fail(f"unfolded output shapes {tuple(out4.a.shape)}, "
+             f"{tuple(out4.b.shape)}")
+    if not (torch.equal(out4.a, out4b.a) and torch.equal(out4.b, out4b.b)):
+        fail("repeated unfolded bootstraps of the same inputs differ")
+    err4 = signed_max_abs(tlwe.phase(out4, key_out) - luts[slots])
+    if not err4 <= DECRYPT_BOUND:
+        fail(f"unfolded decrypt: max error 2^{math.log2(err4):.1f} > 2^58")
+    acc_in4, rot4, _ = bootstrap.unfolded_rotate_inputs(
+        bootstrap.rotate_test_vector(tv, cs, bk4, 4), cs.a, bk4)
+    kp4 = bk4.kernel_plan()
+    k4_ms, acc_k4 = cuda_ms(
+        lambda: pk.unfolded_rotate(acc_in4, rot4, bk4.su, kp4), REPS)
+    k4_plain_ms, acc_p4 = cuda_ms(
+        lambda: pk.unfolded_rotate_plain(acc_in4, rot4, bk4.su, kp4), 1)
+    k4_err = signed_max_abs(acc_k4 - acc_p4)
+    if k4_err != 0.0:
+        fail(f"K4 != plain on the unfolded path's inputs "
+             f"({int((acc_k4 != acc_p4).sum())} words)")
+    ext4 = trlwe.extract_tlwe(trlwe.from_stacked(acc_k4), 0)
+    if not (torch.equal(ext4.a, out4.a) and torch.equal(ext4.b, out4.b)):
+        fail("unfolded path output != extract of K4's rotation")
+    G4, M4 = bk4.su.shape[0], bk4.su.shape[1]
+    k4_bound = unfolded_bound(kp4, BATCH, G4, M4, max_clock)
+    log(f"# unfolded PBS (u={U_PBS}): first call {first4_s:.3f} s; warm "
+        f"{ub_ms:.3f} ms per batch of {BATCH} = {BATCH / ub_ms * 1e3:.2f} "
+        f"boot/s (u=1: {BATCH / pbs_ms * 1e3:.2f}); decrypt OK (max err "
+        f"2^{math.log2(max(err4, 1.0)):.1f}); peak {ub_peak / 2**30:.2f} GiB")
+    log(f"# unfolded_rotate at B={BATCH}, G={G4}, M={M4}: kernel "
+        f"{k4_ms:.3f} ms/launch, plain {k4_plain_ms:.3f} ms on the same "
+        f"inputs, bound {k4_bound['bound_ms']:.3f} ms ({k4_bound['bound_by']}"
+        f": {k4_bound['int32_ops']:.4g} int32 ops, {k4_bound['bytes']:.4g} "
+        f"B); bit-exact")
+    del acc_in4, rot4, acc_k4, acc_p4, bk4
+
+    # 11. UBR at u=8: one ciphertext, 256 LUTs
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bk8 = bootstrap.new_key(gk, key_tlwe, gen, dev, unfolding=U_UBR)
+    torch.cuda.synchronize()
+    keygen8_s = time.perf_counter() - t0
+    su8_bytes = bk8.su.numel() * bk8.su.element_size()
+    keygen8_peak = torch.cuda.max_memory_allocated()
+    log(f"# unfolded keygen (u={U_UBR}): {keygen8_s:.3f} s; key "
+        f"{tuple(bk8.su.shape)} u64 = {su8_bytes} B; peak "
+        f"{keygen8_peak / 2**30:.2f} GiB")
+    c1 = tlwe.encrypt(torus.double2torus(2 / 8.0, dev), key_tlwe, gen)
+    lut_vals = rng.uniform_torus(gen, (UBR_LUTS, 4), dev)
+    tvs = trlwe.torus_packing(lut_vals, p.k, p.N)
+    zero_counts(pk)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sa = bootstrap.multivalue_bootstrap_UBR_phase1(c1, bk8)
+    torch.cuda.synchronize()
+    ph1_s = time.perf_counter() - t0
+    ph1_counts = read_counts(pk)
+    check_counts("UBR phase 1", ph1_counts, {"ubr_phase1_combine": 1})
+    zero_counts(pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_u = bootstrap.multivalue_bootstrap_UBR_phase2(tvs, c1, sa, bk8, 4)
+    torch.cuda.synchronize()
+    ph2_s = time.perf_counter() - t0
+    ph2_counts = read_counts(pk)
+    ubr_peak = torch.cuda.max_memory_allocated()
+    check_counts("UBR phase 2", ph2_counts, {"ext_product_apply_scan": 1})
+    if out_u.a.shape != (UBR_LUTS, p.k * p.N):
+        fail(f"UBR output shape {tuple(out_u.a.shape)}")
+    ubr_err = signed_max_abs(tlwe.phase(out_u, key_out) - lut_vals[:, 2])
+    if not ubr_err <= DECRYPT_BOUND:
+        fail(f"UBR decrypt: max error 2^{math.log2(ubr_err):.1f} > 2^58")
+    kp8 = bk8.kernel_plan()
+    rot8, _ = bootstrap.ubr_phase1_inputs(c1, bk8)
+    k5_ms, sa_k = cuda_ms(lambda: pk.ubr_phase1_combine(bk8.su, rot8, kp8),
+                          REPS)
+    k5_plain_ms, sa_p = cuda_ms(
+        lambda: pk.ubr_phase1_combine_plain(bk8.su, rot8, kp8), 1)
+    k5_err = signed_max_abs(pk.i32_as_u32(sa_k) - pk.i32_as_u32(sa_p))
+    if k5_err != 0.0:
+        fail(f"K5 != plain on the UBR inputs ({int((sa_k != sa_p).sum())} "
+             f"words)")
+    if not torch.equal(pk.i32_as_u32(sa_k[0]), sa.v):
+        fail("UBR phase 1 output != K5's words")
+    acc_u, sa32, per_row, _ = bootstrap.ubr_phase2_inputs(tvs, c1, sa, bk8, 4)
+    k3_ms, acc_k3 = cuda_ms(
+        lambda: pk.ext_product_apply_scan(acc_u, sa32, kp8, per_row), REPS)
+    k3_plain_ms, acc_p3 = cuda_ms(
+        lambda: pk.ext_product_apply_scan_plain(acc_u, sa32, kp8, per_row), 1)
+    k3_err = signed_max_abs(acc_k3 - acc_p3)
+    if k3_err != 0.0:
+        fail(f"K3 != plain on the UBR phase-2 inputs "
+             f"({int((acc_k3 != acc_p3).sum())} words)")
+    ext_u = trlwe.extract_tlwe(trlwe.from_stacked(acc_k3), 0)
+    if not (torch.equal(ext_u.a, out_u.a) and torch.equal(ext_u.b, out_u.b)):
+        fail("UBR phase 2 output != extract of K3's products")
+    G8, M8 = bk8.su.shape[0], bk8.su.shape[1]
+    k5_bound = ubr_phase1_bound(kp8, 1, G8, M8, max_clock)
+    k3_bound = apply_scan_bound(kp8, UBR_LUTS, G8, per_row, max_clock)
+    log(f"# UBR (u={U_UBR}, G={G8}, M={M8}): phase 1 first call "
+        f"{ph1_s * 1e3:.3f} ms, K5 {k5_ms:.3f} ms/launch (plain "
+        f"{k5_plain_ms:.3f} ms, bound {k5_bound['bound_ms']:.3f} ms "
+        f"{k5_bound['bound_by']}); phase 2 of {UBR_LUTS} LUTs first call "
+        f"{ph2_s * 1e3:.3f} ms, K3 {k3_ms:.3f} ms/launch = "
+        f"{k3_ms / UBR_LUTS:.4f} ms per LUT (plain {k3_plain_ms:.3f} ms, "
+        f"bound {k3_bound['bound_ms']:.3f} ms {k3_bound['bound_by']}); "
+        f"bit-exact; decrypt OK (max err 2^{math.log2(max(ubr_err, 1.0)):.1f}"
+        f"); peak {ubr_peak / 2**30:.2f} GiB")
+    del bk8, sa, sa_k, sa_p, sa32, acc_u, acc_k3, acc_p3, rot8
+
+    # 12. trgsw.external_product at L2 on 512 TRLWEs, both modes
+    m_ep = rng.uniform_torus(gen, (BATCH, p.N), dev)
+    c_ep = trlwe.encrypt(m_ep, key_trlwe, gen)
+    e_ep = (torch.arange(BATCH, device=dev) * 7) % (2 * p.N)
+    g_all = trgsw.to_dft(trgsw.monomial_encrypt(
+        torch.ones(BATCH, dtype=torch.int64, device=dev), e_ep, gk, gen),
+        gk.plan(), with_shoup=False)
+    g_one = trgsw.TRGSWDFT(v=g_all.v[5], vs=None, l=p.l, Bg_bit=p.Bg_bit,
+                           primes=g_all.primes)
+    ep = {}
+    for mode, g, e in (("broadcast", g_one, e_ep[5]),
+                       ("per_row", g_all, e_ep)):
+        zero_counts(pk)
+        out_ep = trgsw.external_product(c_ep, g)
+        torch.cuda.synchronize()
+        counts = read_counts(pk)
+        check_counts(f"external product ({mode})", counts,
+                     {"ext_product_apply_scan": 1})
+        zero_counts(pk)
+        with plain_kernels(pk):
+            plain_ep_ms, out_p = cuda_ms(
+                lambda: trgsw.external_product(c_ep, g), 1)
+        check_counts(f"plain external product ({mode})", read_counts(pk),
+                     {"ext_product_apply_scan_plain": 1})
+        if not (torch.equal(out_ep.a, out_p.a)
+                and torch.equal(out_ep.b, out_p.b)):
+            fail(f"external product ({mode}) != plain")
+        want = trlwe.mul_by_xai(trlwe.noiseless_trivial(m_ep, p.k, p.N), e).b
+        ep_err = signed_max_abs(trlwe.phase(out_ep, key_trlwe) - want)
+        if not ep_err <= DECRYPT_BOUND:
+            fail(f"external product ({mode}) decrypt: max error "
+                 f"2^{math.log2(ep_err):.1f} > 2^58")
+        ep_ms, _ = cuda_ms(lambda: trgsw.external_product(c_ep, g), REPS)
+        ep[mode] = {"ms": ep_ms, "plain_ms": plain_ep_ms,
+                    "launches": counts["ext_product_apply_scan"],
+                    "decrypt_max_err_log2": math.log2(max(ep_err, 1.0)),
+                    "bound": apply_scan_bound(kp, BATCH, 1,
+                                              mode == "per_row", max_clock)}
+        log(f"# external_product ({mode}) on {BATCH} TRLWEs: {ep_ms:.3f} ms "
+            f"per call, plain {plain_ep_ms:.3f} ms, bound "
+            f"{ep[mode]['bound']['bound_ms']:.3f} ms; 1 K3 launch; "
+            f"bit-exact; decrypt OK (max err "
+            f"2^{ep[mode]['decrypt_max_err_log2']:.1f})")
+    del g_all, g_one, c_ep, m_ep, out_ep, out_p
+
+    # 13. report
+    paths = {"pbs": pbs_counts, "gate": gate_counts, "fdfb": fdfb_counts,
+             "unfolded": ub_counts, "ubr_phase1": ph1_counts,
+             "ubr_phase2": ph2_counts}
+    paths.update({f"extprod_{mode}": {"ext_product_apply_scan":
+                                      ep[mode]["launches"]} for mode in ep})
+
+    def by_path(name):
+        return {path: c.get(name, 0) for path, c in paths.items()}
+
     kernels = [{
         "name": "blind_rotate_scan", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/blind_rotate.cu",
         "replaces": "mosfhet_tpu/ops/pbs_kernel.py:1404",
         "launches": fdfb_counts["blind_rotate_scan"],
-        "launches_by_path": launches_by_path["blind_rotate_scan"],
+        "launches_by_path": by_path("blind_rotate_scan"),
         "max_abs_err": max_abs_err, "bit_exact": True,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": None,
@@ -445,11 +757,41 @@ def main():
         "source": "mosfhet_torch/ops/csrc/tlwe_keyswitch.cu",
         "replaces": "mosfhet_tpu/ops/pbs_kernel.py:2070",
         "launches": fdfb_counts["tlwe_keyswitch_sum"],
-        "launches_by_path": launches_by_path["tlwe_keyswitch_sum"],
+        "launches_by_path": by_path("tlwe_keyswitch_sum"),
         "max_abs_err": ks_max_abs_err, "bit_exact": True,
         "ms": ks_ms, "plain_ms": ks_plain_ms,
         "bound_ms": ks_bound["bound_ms"], "bound_by": ks_bound["bound_by"],
         "library_ms": None, "library_note": KS_LIBRARY_NOTE,
+    }, {
+        "name": "ext_product_apply_scan", "route": "cuda",
+        "source": "mosfhet_torch/ops/csrc/ext_product_apply.cu",
+        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:1944",
+        "launches": ph2_counts["ext_product_apply_scan"],
+        "launches_by_path": by_path("ext_product_apply_scan"),
+        "max_abs_err": k3_err, "bit_exact": True,
+        "ms": k3_ms, "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound["bound_ms"], "bound_by": k3_bound["bound_by"],
+        "library_ms": None, "library_note": RUNTIME_KEY_LIBRARY_NOTE,
+    }, {
+        "name": "unfolded_rotate", "route": "cuda",
+        "source": "mosfhet_torch/ops/csrc/unfolded_rotate.cu",
+        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:3123",
+        "launches": ub_counts["unfolded_rotate"],
+        "launches_by_path": by_path("unfolded_rotate"),
+        "max_abs_err": k4_err, "bit_exact": True,
+        "ms": k4_ms, "plain_ms": k4_plain_ms,
+        "bound_ms": k4_bound["bound_ms"], "bound_by": k4_bound["bound_by"],
+        "library_ms": None, "library_note": RUNTIME_KEY_LIBRARY_NOTE,
+    }, {
+        "name": "ubr_phase1_combine", "route": "cuda",
+        "source": "mosfhet_torch/ops/csrc/ubr_phase1.cu",
+        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:2881",
+        "launches": ph1_counts["ubr_phase1_combine"],
+        "launches_by_path": by_path("ubr_phase1_combine"),
+        "max_abs_err": k5_err, "bit_exact": True,
+        "ms": k5_ms, "plain_ms": k5_plain_ms,
+        "bound_ms": k5_bound["bound_ms"], "bound_by": k5_bound["bound_by"],
+        "library_ms": None, "library_note": RUNTIME_KEY_LIBRARY_NOTE,
     }]
     log(json.dumps({"pbs": {
         "params": p.name, "batch": BATCH, "keygen_s": keygen_s,
@@ -469,6 +811,24 @@ def main():
         "decrypt_max_err_log2": math.log2(max(fdfb_err, 1.0)),
         "rotation_ms": kernel_ms, "keyswitch_ms": ks_ms, "glue_ms": glue_ms,
         "plain_first2_ms": fdfb_plain2_ms}}))
+    log(json.dumps({"unfolded": {
+        "params": p.name, "unfolding": U_PBS, "batch": BATCH,
+        "keygen_s": keygen4_s, "key_bytes": su4_bytes,
+        "first_call_s": first4_s, "warm_ms": ub_ms,
+        "boot_per_s": BATCH / ub_ms * 1e3,
+        "boot_per_s_unfold1": BATCH / pbs_ms * 1e3, "peak_bytes": ub_peak,
+        "decrypt_max_err_log2": math.log2(max(err4, 1.0)),
+        "rotation_ms": k4_ms, "glue_ms": ub_ms - k4_ms, "bound": k4_bound}}))
+    log(json.dumps({"ubr": {
+        "params": p.name, "unfolding": U_UBR, "luts": UBR_LUTS,
+        "keygen_s": keygen8_s, "key_bytes": su8_bytes,
+        "keygen_peak_bytes": keygen8_peak, "peak_bytes": ubr_peak,
+        "phase1_first_ms": ph1_s * 1e3, "phase1_ms": k5_ms,
+        "phase2_first_ms": ph2_s * 1e3, "phase2_ms": k3_ms,
+        "phase2_ms_per_lut": k3_ms / UBR_LUTS,
+        "decrypt_max_err_log2": math.log2(max(ubr_err, 1.0)),
+        "phase1_bound": k5_bound, "phase2_bound": k3_bound}}))
+    log(json.dumps({"extprod": {"params": p.name, "batch": BATCH, **ep}}))
     log(f"# whole script: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

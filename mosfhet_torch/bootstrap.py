@@ -1,6 +1,7 @@
-"""Bootstrapping without unfolding: key generation, blind rotation, the
-functional / programmable bootstrap and the full-domain bootstrap "this
-work" (`src/bootstrap.c:3-21,107-122,192-220,519-538`).
+"""Bootstrapping: key generation, the blind rotation without and with
+unfolding, the functional / programmable bootstrap, the full-domain
+bootstrap "this work" and the UBR multi-value bootstrap
+(`src/bootstrap.c:3-48,107-190,192-220,519-538`).
 
 The reference's `if a_i == 0: continue` branch is dropped: X^0 - 1 = 0, so
 the dense CMUX adds exactly zero.
@@ -20,24 +21,35 @@ from ._device import default_device
 from .ops import pbs_kernel as _pk
 from .tlwe import TLWE, TLWEKey
 from .torus import TORUS_BITS, to_i64, torus2int
-from .trgsw import TRGSWKey
+from .trgsw import TRGSWDFT, TRGSWKey
 from .trlwe import TRLWE, from_stacked
+
+# TRGSWs encrypted at once by the unfolded keygen: the encryption's
+# intermediates (mask NTTs) stay near 1.6 GB at TFHEpp-L2 beside the key.
+KEYGEN_CHUNK = 1024
 
 
 class BootstrapKey(nn.Module):
-    """NTT-form TRGSW(s_i) stacked over i, [n, (k+1)l, k+1, P, N].
+    """The bootstrap key, held once as buffers, so ``.to(device)`` moves it.
 
-    Only the kernel's 32-bit copies are held (residues and Shoup companions
-    are < 2^32, so nothing is lost): ``v32``/``vs32`` as int32 buffers with
-    u32 bits, so ``.to(device)`` moves them.  ``v``/``vs`` give the int64
-    values."""
+    unfolding == 1: NTT-form TRGSW(s_i) stacked over i, [n, (k+1)l, k+1, P,
+    N], as the kernel's 32-bit copies (residues and Shoup companions are
+    < 2^32, so nothing is lost): ``v32``/``vs32`` int32 buffers with u32
+    bits; ``v``/``vs`` give the int64 values.
 
-    def __init__(self, v32: torch.Tensor, vs32: torch.Tensor, n: int, k: int,
-                 N: int, l: int, Bg_bit: int, primes):
+    unfolding == u > 1: the time-domain TRGSWs of the key-bit products
+    (`bootstrap.c:23-48`), ``su`` int64 [n/u, 2^u, (k+1)l, k+1, N] holding
+    u64 words, the layout the unfolded kernels read."""
+
+    def __init__(self, v32: torch.Tensor | None, vs32: torch.Tensor | None,
+                 n: int, k: int, N: int, l: int, Bg_bit: int, primes,
+                 su: torch.Tensor | None = None, unfolding: int = 1):
         super().__init__()
         self.register_buffer("v32", v32)
         self.register_buffer("vs32", vs32)
+        self.register_buffer("su", su)
         self.n, self.k, self.N, self.l, self.Bg_bit = n, k, N, l, Bg_bit
+        self.unfolding = unfolding
         self.primes = tuple(int(p) for p in primes)
 
     @classmethod
@@ -54,26 +66,65 @@ class BootstrapKey(nn.Module):
     def vs(self):
         return _pk.i32_as_u32(self.vs32)
 
+    @property
+    def device(self) -> torch.device:
+        return (self.su if self.unfolding > 1 else self.v32).device
+
+    def su_u64(self):
+        """The key products [n/u, 2^u, (k+1)l, k+1, N] as u64 words."""
+        return self.su
+
     def kernel_plan(self) -> _pk.PBSKernelPlan:
         return _pk.get_kernel_plan(self.N, self.primes, self.l, self.Bg_bit,
-                                   self.k, self.v32.device)
+                                   self.k, self.device)
+
+
+def _unfolded_messages(s, unfolding: int):
+    """prod_u (j_u ? s[g u + u'] : 1 - s[g u + u']) for every group g and
+    mask combination j, [n/u * 2^u] (`bootstrap.c:39-43`)."""
+    u, M = unfolding, 1 << unfolding
+    s = s.reshape(-1, u)
+    bits = (torch.arange(M, device=s.device)[:, None]
+            >> torch.arange(u, device=s.device)) & 1           # [M, u]
+    terms = torch.where(bits[None] == 1, s[:, None, :], 1 - s[:, None, :])
+    return terms.prod(dim=-1).reshape(-1)
 
 
 def new_key(out_key: TRGSWKey, in_key: TLWEKey, generator: torch.Generator,
-            device=None) -> BootstrapKey:
-    """TRGSW(s_i) for every input-key coefficient, batched over the n keys
-    (`new_bootstrap_key_wo_unfolding`, `bootstrap.c:3-21`).  Computed where
-    the keys live, returned on ``device``."""
+            device=None, unfolding: int = 1) -> BootstrapKey:
+    """Bootstrap key generation (`new_bootstrap_key`, `bootstrap.c:3-48`).
+
+    unfolding 1: TRGSW(s_i) for every input-key coefficient, batched over
+    the n keys.  unfolding u > 1: TRGSW of the 2^u key-bit products of each
+    group of u coefficients, encrypted in chunks of ``KEYGEN_CHUNK`` straight
+    into the key buffer (n/u * 2^u TRGSWs: 5.3 GB at TFHEpp-L2, u=8).
+    Computed where the keys live, returned on ``device``."""
     dev = default_device(device)
     l, Bg_bit = out_key.l, out_key.Bg_bit
     k, N = out_key.trlwe_key.k, out_key.trlwe_key.N
+    n = in_key.n
     plan = out_key.plan()
     s = in_key.s.to(plan.device)
-    g = _trgsw.monomial_encrypt(s, torch.zeros_like(s), out_key, generator)
-    gd = _trgsw.to_dft(g, plan, with_shoup=True)
-    bk = BootstrapKey.from_dft(gd.v, gd.vs, in_key.n, k, N, l, Bg_bit,
-                               plan.primes)
-    return bk.to(dev)
+    if unfolding == 1:
+        g = _trgsw.monomial_encrypt(s, torch.zeros_like(s), out_key,
+                                    generator)
+        gd = _trgsw.to_dft(g, plan, with_shoup=True)
+        bk = BootstrapKey.from_dft(gd.v, gd.vs, n, k, N, l, Bg_bit,
+                                   plan.primes)
+        return bk.to(dev)
+    if unfolding < 1 or n % unfolding:
+        raise ValueError(f"unfolding {unfolding} must divide n = {n}")
+    ms = _unfolded_messages(s, unfolding)
+    R = (k + 1) * l
+    su = torch.empty((ms.shape[0], R, k + 1, N), dtype=torch.int64,
+                     device=plan.device)
+    for i0 in range(0, ms.shape[0], KEYGEN_CHUNK):
+        m = ms[i0:i0 + KEYGEN_CHUNK]
+        su[i0:i0 + m.shape[0]] = _trgsw.monomial_encrypt(
+            m, torch.zeros_like(m), out_key, generator).rows
+    su = su.reshape(n // unfolding, 1 << unfolding, R, k + 1, N)
+    return BootstrapKey(None, None, n, k, N, l, Bg_bit, plan.primes, su=su,
+                        unfolding=unfolding).to(dev)
 
 
 def blind_rotate_inputs(tv: TRLWE, a, bk: BootstrapKey):
@@ -94,8 +145,52 @@ def blind_rotate(tv: TRLWE, a, bk: BootstrapKey) -> TRLWE:
 
     tv: TRLWE accumulator (batched or not); a: [..., n] LWE mask.  On CUDA
     tensors one kernel launch, on CPU tensors the plain version."""
+    if bk.unfolding != 1:
+        raise ValueError("blind_rotate needs a key without unfolding")
     acc0, a_int, batch = blind_rotate_inputs(tv, a, bk)
     acc = _pk.blind_rotate_scan(acc0, a_int, bk.v32, bk.vs32, bk.kernel_plan())
+    return from_stacked(acc.reshape(batch + (bk.k + 1, bk.N)))
+
+
+def _unfold_rotations(a, bk: BootstrapKey):
+    """Per group and mask combination, round((sum_{i in m} a[g u + i]) 2N)
+    (`bootstrap.c:128-136`): int32 [..., n/u, 2^u] in [0, 2N), as the TPU
+    package computes them.  A sum that rounds to 2N wraps to 0, the same
+    rotation; the kernels also take 2N itself."""
+    u, M = bk.unfolding, 1 << bk.unfolding
+    a_grp = a.reshape(tuple(a.shape[:-1]) + (bk.n // u, 1, u))
+    bits = (torch.arange(M, device=a.device)[:, None]
+            >> torch.arange(u, device=a.device)) & 1           # [M, u]
+    sums = (a_grp * bits).unbind(-1)                      # u x [..., G, M]
+    total = sums[0]
+    for t in sums[1:]:
+        total = total + t                                      # wraps mod 2^64
+    return torus2int(total, int(math.log2(2 * bk.N))).to(torch.int32)
+
+
+def unfolded_rotate_inputs(tv: TRLWE, a, bk: BootstrapKey):
+    """The kernel's operands for `blind_rotate_unfolded`: the accumulators
+    flattened to [B, k+1, N], the exponents int32 [B, n/u, 2^u], and the
+    batch shape (that of ``tv`` and ``a`` broadcast)."""
+    N, k = bk.N, bk.k
+    st = tv.stacked()
+    batch = torch.broadcast_shapes(tuple(a.shape[:-1]), tuple(st.shape[:-2]))
+    B = math.prod(batch)
+    acc0 = st.expand(batch + (k + 1, N)).reshape(B, k + 1, N).contiguous()
+    a_full = a.expand(batch + tuple(a.shape[-1:])).reshape(B, -1)
+    return acc0, _unfold_rotations(a_full, bk).contiguous(), batch
+
+
+def blind_rotate_unfolded(tv: TRLWE, a, bk: BootstrapKey) -> TRLWE:
+    """Unfolded blind rotation (`blind_rotate_unfolded`,
+    `bootstrap.c:124-148`): per group of u mask coefficients, the 2^u key
+    TRGSWs rotated by X^{sum a} and summed mod 2^64, then one external
+    product.  On CUDA tensors one kernel launch for all groups, on CPU
+    tensors the plain version."""
+    if bk.unfolding == 1:
+        raise ValueError("blind_rotate_unfolded needs an unfolded key")
+    acc0, rot, batch = unfolded_rotate_inputs(tv, a, bk)
+    acc = _pk.unfolded_rotate(acc0, rot, bk.su, bk.kernel_plan())
     return from_stacked(acc.reshape(batch + (bk.k + 1, bk.N)))
 
 
@@ -115,9 +210,12 @@ def rotate_test_vector(tv: TRLWE, c: TLWE, bk: BootstrapKey,
 
 def functional_bootstrap_wo_extract(tv: TRLWE, c: TLWE, bk: BootstrapKey,
                                     torus_base: int) -> TRLWE:
-    """Rotate the test vector by -round(b), then blind-rotate by the mask
-    (`bootstrap.c:192-198`)."""
-    return blind_rotate(rotate_test_vector(tv, c, bk, torus_base), c.a, bk)
+    """Rotate the test vector by -round(b), then blind-rotate by the mask,
+    unfolded when the key is (`bootstrap.c:192-198`)."""
+    acc = rotate_test_vector(tv, c, bk, torus_base)
+    if bk.unfolding == 1:
+        return blind_rotate(acc, c.a, bk)
+    return blind_rotate_unfolded(acc, c.a, bk)
 
 
 def functional_bootstrap(tv: TRLWE, c: TLWE, bk: BootstrapKey,
@@ -145,7 +243,8 @@ def fdfb_this_work(tv: TRLWE, c: TLWE, bk: BootstrapKey,
     """Full-domain functional bootstrap ("this work"): a sign bootstrap, its
     key switch back to the LWE key added to the input, then a half-domain
     bootstrap (`full_domain_functional_bootstrap`, `bootstrap.c:519-538`).
-    On CUDA tensors two blind-rotate launches and one key-switch launch."""
+    On CUDA tensors two blind-rotate launches (unfolded ones with an
+    unfolded key) and one key-switch launch."""
     sign = to_i64((1 << (TORUS_BITS - 2)) - (1 << (TORUS_BITS - precision - 2)))
     tv_sign = _trlwe.torus_packing(
         torch.tensor([sign], dtype=torch.int64, device=c.b.device), bk.k, bk.N)
@@ -153,3 +252,65 @@ def fdfb_this_work(tv: TRLWE, c: TLWE, bk: BootstrapKey,
     ct_sign = TLWE(a=ct_sign.a, b=ct_sign.b - sign)
     in2 = _tlwe.add(_tlwe.keyswitch(ct_sign, tlwe_ksk), c)
     return functional_bootstrap(tv, in2, bk, 1 << precision)
+
+
+# --- UBR multi-value bootstrap (`bootstrap.c:151-190`) ---------------------
+
+def ubr_phase1_inputs(c: TLWE, bk: BootstrapKey):
+    """The kernel's operand for phase 1: the exponents int32 [B, n/u, 2^u]
+    of the flattened ciphertexts, and their batch shape."""
+    if bk.unfolding == 1:
+        raise ValueError("UBR needs an unfolded bootstrap key")
+    batch = tuple(c.a.shape[:-1])
+    rot = _unfold_rotations(c.a.reshape(math.prod(batch), -1), bk)
+    return rot.contiguous(), batch
+
+
+def multivalue_bootstrap_UBR_phase1(c: TLWE, bk: BootstrapKey) -> TRGSWDFT:
+    """Cache the per-group combined TRGSWs of ciphertext(s) ``c`` for reuse
+    across LUTs (`multivalue_bootstrap_UBR_phase1`).  Returns an NTT-form
+    TRGSW [..., n/u, (k+1)l, k+1, P, N] without Shoup companions.  On CUDA
+    tensors one kernel launch, on CPU tensors the plain version."""
+    rot, batch = ubr_phase1_inputs(c, bk)
+    v32 = _pk.ubr_phase1_combine(bk.su, rot, bk.kernel_plan())
+    return TRGSWDFT(v=_pk.i32_as_u32(v32).reshape(batch + v32.shape[1:]),
+                    vs=None, l=bk.l, Bg_bit=bk.Bg_bit, primes=bk.primes)
+
+
+def ubr_phase2_inputs(tv: TRLWE, c: TLWE, sa: TRGSWDFT, bk: BootstrapKey,
+                      torus_base: int):
+    """The kernel's operands for phase 2: the rotated test vectors
+    flattened to [B, k+1, N]; the cache as u32 residues in int32, [n/u, J,
+    C, P, N] when it is one ciphertext's (broadcast over the batch) or
+    [n/u, B, J, C, P, N] when it is batched (one per row); that choice; and
+    the batch shape."""
+    N, k = bk.N, bk.k
+    acc_st = rotate_test_vector(tv, c, bk, torus_base).stacked()
+    v32 = _pk.u32_as_i32(sa.v)
+    key_shape = tuple(v32.shape[-5:])                          # G, J, C, P, N
+    per_row = v32.dim() > 5
+    batch = torch.broadcast_shapes(tuple(acc_st.shape[:-2]),
+                                   tuple(v32.shape[:-5]))
+    B = math.prod(batch)
+    acc0 = acc_st.expand(batch + (k + 1, N)).reshape(B, k + 1, N).contiguous()
+    if per_row:
+        v32 = v32.expand(batch + key_shape).reshape((B,) + key_shape) \
+                 .transpose(0, 1)                              # [G, B, ...]
+    return acc0, v32.contiguous(), per_row, batch
+
+
+def multivalue_bootstrap_UBR_phase2(tv: TRLWE, c: TLWE, sa: TRGSWDFT,
+                                    bk: BootstrapKey,
+                                    torus_base: int) -> TLWE:
+    """Apply the cached products to test vectors
+    (`multivalue_bootstrap_UBR_phase2`, `bootstrap.c:176-190`).
+
+    An unbatched cache ``sa`` [n/u, J, C, P, N] (one ciphertext) is applied
+    to a batch of test vectors ``tv`` (many LUTs): one kernel launch with
+    the cache broadcast.  A batched cache [..., n/u, J, C, P, N] (one per
+    ciphertext of ``c``) is one launch with a cache per row.  CPU tensors
+    take the plain version."""
+    acc0, sa32, per_row, batch = ubr_phase2_inputs(tv, c, sa, bk, torus_base)
+    out = _pk.ext_product_apply_scan(acc0, sa32, bk.kernel_plan(), per_row)
+    return _trlwe.extract_tlwe(
+        from_stacked(out.reshape(batch + (bk.k + 1, bk.N))), 0)

@@ -73,6 +73,10 @@ def trgsw_to_numpy(g: TRGSW) -> np.ndarray:
 
 def trgsw_dft_from_numpy(v, vs, l: int, Bg_bit: int, primes,
                          device=None) -> TRGSWDFT:
+    """An NTT-form TRGSW, batched or not, with or without Shoup companions
+    (``vs`` None).  Residues may come as u64 (the TPU package's jnp paths)
+    or u32 (its kernels); this is also how a UBR phase-1 cache
+    [..., n/u, J, C, P, N] crosses."""
     return TRGSWDFT(v=to_tensor(v, device),
                     vs=None if vs is None else to_tensor(vs, device),
                     l=l, Bg_bit=Bg_bit, primes=tuple(int(p) for p in primes))
@@ -93,6 +97,30 @@ def bootstrap_key_from_numpy(v, vs, n: int, k: int, N: int, l: int,
 
 def bootstrap_key_to_numpy(bk: BootstrapKey):
     return to_numpy(bk.v), to_numpy(bk.vs)
+
+
+def unfolded_bootstrap_key_from_numpy(su_planes, n: int, k: int, N: int,
+                                      l: int, Bg_bit: int, primes,
+                                      unfolding: int,
+                                      device=None) -> BootstrapKey:
+    """An unfolded bootstrap key from the TPU package's u32 limb planes
+    [2, n/u, 2^u, (k+1)l, k+1, N] (plane 0 the low limb), joined into the
+    port's int64 [n/u, 2^u, (k+1)l, k+1, N] u64 words."""
+    planes = np.asarray(su_planes, dtype=np.uint32)
+    if planes.shape[0] != 2:
+        raise ValueError("the port holds 64-bit torus words: want 2 planes, "
+                         f"got {planes.shape[0]}")
+    su = planes[0].astype(np.uint64) | (planes[1].astype(np.uint64) << 32)
+    return BootstrapKey(None, None, n, k, N, l, Bg_bit, primes,
+                        su=to_tensor(su, "cpu"),
+                        unfolding=unfolding).to(default_device(device))
+
+
+def unfolded_bootstrap_key_to_numpy(bk: BootstrapKey) -> np.ndarray:
+    """The key products as the TPU package's u32 limb planes."""
+    su = to_numpy(bk.su)
+    return np.stack([(su & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                     (su >> np.uint64(32)).astype(np.uint32)])
 
 
 def tlwe_ks_key_from_numpy(a, b, t: int, base_bit: int,

@@ -340,6 +340,14 @@ def pointwise_mul_acc_key(a, key_val, key_shoup, plan: NTTPlan, dim: int):
     return barrett_small(s, pp, plan.mu[:, None])
 
 
+def pointwise_mul_acc_generic(a, b, plan: NTTPlan, dim: int):
+    """sum over ``dim`` of a * b for two runtime operands (no Shoup
+    companions).  Residues are < 2^30, so each product is exact in int64
+    (< 2^60); the reduced products sum far below 2^63."""
+    pp = plan.p[:, None]
+    return torch.remainder(torch.remainder(a * b, pp).sum(dim=dim), pp)
+
+
 def add(a, b, plan: NTTPlan):
     pp = plan.p[:, None]
     s = a + b

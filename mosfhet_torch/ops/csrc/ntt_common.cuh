@@ -1,0 +1,230 @@
+// Device helpers shared by the port's CUDA kernels (sm_90a): 32-bit modular
+// products, the negacyclic NTT on the plan's psi_rev tables, Garner CRT back
+// to exact u64 words, gadget digits and the negacyclic rotation.
+//
+// Counterparts of the TPU package's kernel helpers (ops/pbs_kernel.py):
+// `_shoup_lazy` (108), `_barrett_lazy` (125), `_fwd_ntt` (150), `_inv_ntt`
+// (291), `_decompose_digit` (661), `_garner_limbs` (682),
+// `_negacyclic_rotate_limbs` (998) and `_limbs_to_resi` (1694).  Every
+// function here returns canonical residues in [0, p), so any kernel built
+// from them gives the same words as the plain PyTorch versions.
+//
+// Each kernel source includes this header and is compiled into its own
+// shared library, so everything here has internal linkage.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxP = 5;
+
+// The kernel plan's constants, read from the int64 host array that
+// `PBSKernelPlan.host_consts` builds (see `parse_consts`).
+struct PbsConsts {
+  uint32_t p[kMaxP], ninv[kMaxP], ninvs[kMaxP];
+  uint32_t cinv[kMaxP], cinvs[kMaxP];
+  uint32_t gw[kMaxP][kMaxP], gws[kMaxP][kMaxP];
+  // runtime-operand products and the centred u64 -> residue reduction
+  uint32_t mup[kMaxP];          // floor(2^62 / p) - 2^32
+  uint32_t red1[kMaxP];         // floor(2^32 / p), Shoup companion of 1
+  uint32_t c32[kMaxP], c32s[kMaxP];  // 2^32 mod p and its Shoup companion
+  uint32_t c64m[kMaxP];         // 2^64 mod p
+  uint64_t offset;              // gadget offset (rounded)
+  int N, logN, C, l, Bg_bit, P;
+};
+
+// consts: N, k, l, Bg_bit, P, offset (u64 bits), then p[P], ninv[P],
+// ninvs[P], cinv[P], cinvs[P], gw[P*P], gws[P*P], mup[P], red1[P], c32[P],
+// c32s[P], c64m[P].  Returns false on a configuration no kernel takes.
+inline bool parse_consts(const int64_t* consts, PbsConsts& K) {
+  K = PbsConsts{};
+  K.N = int(consts[0]);
+  K.C = int(consts[1]) + 1;
+  K.l = int(consts[2]);
+  K.Bg_bit = int(consts[3]);
+  K.P = int(consts[4]);
+  K.offset = uint64_t(consts[5]);
+  const int P = K.P;
+  if (P < 2 || P > kMaxP || K.N < 4 || (K.N & (K.N - 1))) return false;
+  K.logN = 0;
+  while ((1 << K.logN) < K.N) ++K.logN;
+  const int64_t* c = consts + 6;
+  for (int m = 0; m < P; ++m) {
+    K.p[m] = uint32_t(c[m]);
+    K.ninv[m] = uint32_t(c[P + m]);
+    K.ninvs[m] = uint32_t(c[2 * P + m]);
+    K.cinv[m] = uint32_t(c[3 * P + m]);
+    K.cinvs[m] = uint32_t(c[4 * P + m]);
+    for (int j = 0; j < P; ++j) {
+      K.gw[m][j] = uint32_t(c[5 * P + m * P + j]);
+      K.gws[m][j] = uint32_t(c[5 * P + P * P + m * P + j]);
+    }
+    const int64_t* e = c + 5 * P + 2 * P * P;
+    K.mup[m] = uint32_t(e[m]);
+    K.red1[m] = uint32_t(e[P + m]);
+    K.c32[m] = uint32_t(e[2 * P + m]);
+    K.c32s[m] = uint32_t(e[3 * P + m]);
+    K.c64m[m] = uint32_t(e[4 * P + m]);
+  }
+  return true;
+}
+
+// a * w mod p in [0, 2p) for any a < 2^32, w < p, ws = floor(w 2^32 / p).
+__device__ __forceinline__ uint32_t shoup_lazy(uint32_t a, uint32_t w,
+                                               uint32_t ws, uint32_t p) {
+  return a * w - __umulhi(a, ws) * p;
+}
+
+__device__ __forceinline__ uint32_t shoup(uint32_t a, uint32_t w, uint32_t ws,
+                                          uint32_t p) {
+  uint32_t r = shoup_lazy(a, w, ws, p);
+  return r >= p ? r - p : r;
+}
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
+                                            uint32_t p) {
+  uint32_t s = a + b;
+  return s >= p ? s - p : s;
+}
+
+__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
+                                            uint32_t p) {
+  uint32_t s = a + p - b;
+  return s >= p ? s - p : s;
+}
+
+// a * b mod p in [0, p) for two runtime residues a, b < p, with p in
+// (2^30 / 1.75, 2^30) and mup = floor(2^62 / p) - 2^32 (the TPU's
+// `_barrett_lazy`): z = a b < 2^60, t = floor(z / 2^30) < 2^30,
+// q = t + mulhi(t, mup) = floor(t floor(2^62/p) / 2^32) is at most 2 below
+// floor(z / p), so z - q p < 3p < 2^32 and two conditional subtractions end
+// canonical.  Four 32-bit multiplies.
+__device__ __forceinline__ uint32_t barrett(uint32_t a, uint32_t b,
+                                            uint32_t p, uint32_t mup) {
+  const uint32_t zlo = a * b, zhi = __umulhi(a, b);
+  const uint32_t t = (zhi << 2) | (zlo >> 30);
+  const uint32_t q = t + __umulhi(t, mup);
+  uint32_t r = zlo - q * p;
+  r = r >= 2 * p ? r - 2 * p : r;
+  return r >= p ? r - p : r;
+}
+
+// Residue mod prime m of the centred (signed) representative of the u64
+// word x, as `ntt.to_resi_u64` defines it: lo + hi 2^32 - [x >= 2^63] 2^64.
+__device__ __forceinline__ uint32_t centred_residue(uint64_t x, int m,
+                                                    const PbsConsts& K) {
+  const uint32_t p = K.p[m];
+  const uint32_t lo = uint32_t(x), hi = uint32_t(x >> 32);
+  const uint32_t t0 = shoup(lo, 1u, K.red1[m], p);
+  const uint32_t t1 = shoup(hi, K.c32[m], K.c32s[m], p);
+  const uint32_t s = add_mod(t0, t1, p);
+  return (hi >> 31) ? sub_mod(s, K.c64m[m], p) : s;
+}
+
+// Coefficient k of X^a * row (negacyclic, length N, a in [0, 2N]):
+// +-row[(k - a) mod N], negated when (k - a) mod 2N >= N; a == 2N is the
+// identity.
+__device__ __forceinline__ uint64_t rotated_word(const uint64_t* row, int k,
+                                                 int a, int N) {
+  const int m = (k - a) & (2 * N - 1);
+  const uint64_t v = row[m & (N - 1)];
+  return (m & N) ? 0 - v : v;
+}
+
+// Signed gadget digit d (0-based, most significant first) of the word x
+// with the rounded offset already added, as a residue mod p.
+__device__ __forceinline__ int gadget_digit(uint64_t x_plus_offset, int d,
+                                            const PbsConsts& K) {
+  const int shift = 64 - (d + 1) * K.Bg_bit;
+  const int mask = (1 << K.Bg_bit) - 1, half = 1 << (K.Bg_bit - 1);
+  return int((x_plus_offset >> shift) & uint64_t(mask)) - half;
+}
+
+__device__ __forceinline__ uint32_t small_residue(int digit, uint32_t p) {
+  return digit < 0 ? uint32_t(digit + int(p)) : uint32_t(digit);
+}
+
+// Forward negacyclic NTT of `rows` rows of length N in place; row r uses
+// prime r % P.  Cooley-Tukey with merged psi powers: stage (m, t) pairs
+// x[i 2t + j] with x[i 2t + j + t] under psi_rev[m + i].  Block-wide; ends
+// with a barrier.
+template <int P>
+__device__ void forward_ntt(uint32_t* x, int rows, const PbsConsts& K,
+                            const uint32_t* __restrict__ tw,
+                            const uint32_t* __restrict__ tws) {
+  const int N = K.N, lh = K.logN - 1;
+  const int total = rows << lh;
+  for (int m = 1, lt = lh; m < N; m <<= 1, --lt) {
+    const int t = 1 << lt;
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int r = idx >> lh, b = idx & ((1 << lh) - 1);
+      const int pi = r % P;
+      const uint32_t p = K.p[pi];
+      const int i = b >> lt, j = b & (t - 1);
+      uint32_t* row = x + r * N;
+      const int u = (i << (lt + 1)) + j;
+      const uint32_t S = tw[pi * N + m + i], Ss = tws[pi * N + m + i];
+      const uint32_t U = row[u];
+      const uint32_t V = shoup(row[u + t], S, Ss, p);
+      row[u] = add_mod(U, V, p);
+      row[u + t] = sub_mod(U, V, p);
+    }
+    __syncthreads();
+  }
+}
+
+// Inverse (Gentleman-Sande) of `forward_ntt` without the 1/N scaling.
+template <int P>
+__device__ void inverse_ntt(uint32_t* x, int rows, const PbsConsts& K,
+                            const uint32_t* __restrict__ tw,
+                            const uint32_t* __restrict__ tws) {
+  const int N = K.N, lh = K.logN - 1;
+  const int total = rows << lh;
+  for (int lt = 0, h = N >> 1; h >= 1; ++lt, h >>= 1) {
+    const int t = 1 << lt;
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int r = idx >> lh, b = idx & ((1 << lh) - 1);
+      const int pi = r % P;
+      const uint32_t p = K.p[pi];
+      const int i = b >> lt, j = b & (t - 1);
+      uint32_t* row = x + r * N;
+      const int u = (i << (lt + 1)) + j;
+      const uint32_t S = tw[pi * N + h + i], Ss = tws[pi * N + h + i];
+      const uint32_t U = row[u], V = row[u + t];
+      row[u] = add_mod(U, V, p);
+      row[u + t] = shoup(sub_mod(U, V, p), S, Ss, p);
+    }
+    __syncthreads();
+  }
+}
+
+// Unscaled inverse-NTT outputs of one coefficient -> exact value mod 2^64.
+template <int P>
+__device__ __forceinline__ uint64_t garner(const uint32_t* spec_c, int k,
+                                           const PbsConsts& K) {
+  uint32_t d[P];
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    const uint32_t p = K.p[m];
+    const uint32_t r = shoup(spec_c[m * K.N + k], K.ninv[m], K.ninvs[m], p);
+    if (m == 0) {
+      d[0] = r;
+      continue;
+    }
+    uint32_t acc = d[0];  // d[0] < p_0 < p_m
+#pragma unroll
+    for (int j = 1; j < m; ++j)
+      acc = add_mod(acc, shoup(d[j], K.gw[m][j], K.gws[m][j], p), p);
+    d[m] = shoup(sub_mod(r, acc, p), K.cinv[m], K.cinvs[m], p);
+  }
+  const uint32_t top = d[P - 1], ptop = K.p[P - 1];
+  uint64_t v = top > ptop / 2 ? uint64_t(top) - ptop : uint64_t(top);
+#pragma unroll
+  for (int m = P - 2; m >= 0; --m) v = v * K.p[m] + d[m];
+  return v;
+}
+
+}  // namespace

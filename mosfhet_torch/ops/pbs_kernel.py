@@ -23,6 +23,35 @@ PyTorch, only for CPU tensors.  The two give the same words.
      dig  [B, n_in, t]                 int32 digits in [0, base)
      ab   [n_in, t, base-1, n_out+1]   int64: KS table, mask words then b
      out  [B, n_out+1]                 int64, the subtrahend of (0, b)
+
+3. The external-product apply scan (``csrc/ext_product_apply.cu``): G
+   replace-mode external products with runtime keys,
+
+       acc <- SA_g (x) acc                          for g = 0 .. G-1
+     acc0  [B, k+1, N]                    int64
+     sa32  [G, (k+1)l, k+1, P, N]         int32 holding u32 canonical
+           or [G, B, (k+1)l, k+1, P, N]   NTT residues (one key per row)
+
+4. The unfolded blind rotation (``csrc/unfolded_rotate.cu``): for each
+   group g the key products rotated and summed mod 2^64, then one
+   replace-mode external product,
+
+       acc <- (sum_m X^{rot[b,g,m]} SU[g,m]) (x) acc    for g = 0 .. G-1
+     acc0  [B, k+1, N]                    int64
+     rot   [B, G, M]                      int32 exponents in [0, 2N]
+     su    [G, M, (k+1)l, k+1, N]         int64 (u64 words), M = 2^u
+
+5. UBR phase 1 (``csrc/ubr_phase1.cu``): the same combination per (b, g)
+   in NTT form, without the product,
+
+       out[b, g] = NTT(sum_m X^{rot[b,g,m]} SU[g,m])
+     out   [B, G, (k+1)l, k+1, P, N]      int32 holding u32 canonical residues
+
+The three runtime-key kernels multiply two residues with a 32-bit Barrett
+product, and reduce u64 words to the residues of their centred (signed)
+representatives, as ``ntt.to_resi_u64`` does: the plain versions use
+``ntt.pointwise_mul_acc_generic`` and ``ntt.to_ntt_u64``, and both end in
+canonical residues, so the words agree.
 """
 
 from __future__ import annotations
@@ -39,6 +68,9 @@ from ..torus import gadget_decompose, gadget_offset, to_i64
 from . import _build
 
 U32_MASK = 0xFFFFFFFF
+# The Barrett product of two runtime residues (``csrc/ntt_common.cuh``)
+# needs floor(2^62 / p) in [2^32, 2^33) and a quotient error below 3.
+BARRETT_MIN_PRIME = int((1 << 30) / 1.75)
 
 
 def u32_as_i32(x: torch.Tensor) -> torch.Tensor:
@@ -59,8 +91,8 @@ class PBSKernelPlan:
 
     def __init__(self, N: int, primes, l: int, Bg_bit: int, k: int, device):
         primes = tuple(int(p) for p in primes)
-        if not all((1 << 28) < p < (1 << 30) for p in primes):
-            raise ValueError("the kernel needs primes in (2^28, 2^30)")
+        if not all(BARRETT_MIN_PRIME < p < (1 << 30) for p in primes):
+            raise ValueError("the kernels need primes in (2^30 / 1.75, 2^30)")
         self.N, self.primes, self.l, self.Bg_bit, self.k = \
             N, primes, l, Bg_bit, k
         self.P, self.C, self.J = len(primes), k + 1, (k + 1) * l
@@ -84,7 +116,13 @@ class PBSKernelPlan:
             np.array([N, k, l, Bg_bit, P, to_i64(self.offset)], np.int64),
             np.array(primes, np.int64),
             self.ntt.n_inv.cpu().numpy(), self.ntt.n_inv_shoup.cpu().numpy(),
-            cinv, cinvs, gw.reshape(-1), gws.reshape(-1)])
+            cinv, cinvs, gw.reshape(-1), gws.reshape(-1),
+            # runtime-key products and the centred u64 reduction
+            np.array([(1 << 62) // p - (1 << 32) for p in primes], np.int64),
+            np.array([(1 << 32) // p for p in primes], np.int64),
+            np.array([(1 << 32) % p for p in primes], np.int64),
+            np.array([((1 << 32) % p << 32) // p for p in primes], np.int64),
+            np.array([(1 << 64) % p for p in primes], np.int64)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,14 +166,30 @@ blind_rotate_scan_plain.calls = 0
 # --- CUDA kernel wrapper -------------------------------------------------------
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("blind_rotate")
-    lib.blind_rotate_launch.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.blind_rotate_launch.restype = ctypes.c_int
+def _kernel_lib(name: str, entry: str, n_ptr: int, n_int: int):
+    """The built library of ``csrc/<name>.cu`` with the argument types of its
+    C entry: ``n_ptr`` pointers, ``n_int`` ints, then the stream."""
+    lib = _build.load(name)
+    getattr(lib, entry).argtypes = [ctypes.c_void_p] * n_ptr + [
+        ctypes.c_int] * n_int + [ctypes.c_void_p]
+    getattr(lib, entry).restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(name: str, entry: str, n_ptr: int, n_int: int, *args):
+    """Call the C entry, which launches on the current stream and returns
+    `cudaGetLastError()`; raise on anything but success."""
+    lib = _kernel_lib(name, entry, n_ptr, n_int)
+    err = getattr(lib, entry)(*args)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.cuda_error_string(err).decode())
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check(name, t, dtype, shape, device):
@@ -145,6 +199,10 @@ def _check(name, t, dtype, shape, device):
             f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device}"
             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+
+
+def _check_plan(kp: PBSKernelPlan, dev):
+    _check("plan tables", kp.fwd_tw, torch.int32, (kp.P, kp.N), dev)
 
 
 def blind_rotate_scan(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
@@ -163,17 +221,13 @@ def blind_rotate_scan(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
     _check("a_int", a_int, torch.int32, (n, B), dev)
     _check("keyv", keyv, torch.int32, key_shape, dev)
     _check("keyvs", keyvs, torch.int32, key_shape, dev)
-    _check("plan tables", kp.fwd_tw, torch.int32, (kp.P, kp.N), dev)
-    lib = _lib()
+    _check_plan(kp, dev)
     acc = acc0.clone()
-    err = lib.blind_rotate_launch(
-        acc.data_ptr(), a_int.data_ptr(), keyv.data_ptr(), keyvs.data_ptr(),
-        kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(), kp.inv_tw.data_ptr(),
-        kp.inv_tws.data_ptr(), kp.host_consts.ctypes.data, B, n,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError("blind_rotate kernel launch failed: "
-                           + lib.cuda_error_string(err).decode())
+    _launch("blind_rotate", "blind_rotate_launch", 9, 2,
+            acc.data_ptr(), a_int.data_ptr(), keyv.data_ptr(),
+            keyvs.data_ptr(), kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
+            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(),
+            kp.host_consts.ctypes.data, B, n, _stream(dev))
     blind_rotate_scan.launches += 1
     return acc
 
@@ -207,17 +261,6 @@ def tlwe_keyswitch_sum_plain(dig, ab):
 tlwe_keyswitch_sum_plain.calls = 0
 
 
-@functools.cache
-def _ks_lib() -> ctypes.CDLL:
-    lib = _build.load("tlwe_keyswitch")
-    lib.tlwe_keyswitch_sum_launch.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.tlwe_keyswitch_sum_launch.restype = ctypes.c_int
-    lib.cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def tlwe_keyswitch_sum(dig, ab):
     """The select-sum.  CUDA tensors: one launch of the kernel, and an error
     raised if it does not build or launch.  CPU tensors: the plain version.
@@ -237,15 +280,177 @@ def tlwe_keyswitch_sum(dig, ab):
     out = torch.empty((B, width), dtype=torch.int64, device=dev)
     if B == 0 or width == 0:
         return out
-    lib = _ks_lib()
-    err = lib.tlwe_keyswitch_sum_launch(
-        dig.data_ptr(), ab.data_ptr(), out.data_ptr(), B, n_in * t, base_m1,
-        width, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError("tlwe_keyswitch kernel launch failed: "
-                           + lib.cuda_error_string(err).decode())
+    _launch("tlwe_keyswitch", "tlwe_keyswitch_sum_launch", 3, 4,
+            dig.data_ptr(), ab.data_ptr(), out.data_ptr(), B, n_in * t,
+            base_m1, width, _stream(dev))
     tlwe_keyswitch_sum.launches += 1
     return out
 
 
 tlwe_keyswitch_sum.launches = 0
+
+
+# --- the external-product apply scan (K3) -----------------------------------
+
+def ext_product_replace(acc, key, plan: _ntt.NTTPlan, l: int, Bg_bit: int):
+    """key (x) acc in replace mode (`trgsw_mul_trlwe_DFT`,
+    `trgsw.c:385-423`): acc [B, C, N] int64; key [J, C, P, N] (one TRGSW for
+    the batch) or [B, J, C, P, N] (one per row), canonical int64 residues.
+    Returns [B, C, N]."""
+    B, C, N = acc.shape
+    digits = gadget_decompose(acc, Bg_bit, l).reshape(B, C * l, N)
+    spec = _ntt.to_ntt_small(digits, plan)                     # [B, J, P, N]
+    acc_ntt = _ntt.pointwise_mul_acc_generic(spec.unsqueeze(2), key, plan,
+                                             dim=1)            # [B, C, P, N]
+    return _ntt.from_ntt_u64(acc_ntt, plan)
+
+
+def ext_product_apply_scan_plain(acc0, sa32, kp: PBSKernelPlan,
+                                 per_row: bool = False):
+    """The G replace-mode external products in int64 PyTorch, on any
+    device.  A per-row step key [B, J, C, P, N] and a broadcast one
+    [J, C, P, N] take the same code."""
+    ext_product_apply_scan_plain.calls += 1
+    acc = acc0
+    for g in range(sa32.shape[0]):
+        acc = ext_product_replace(acc, i32_as_u32(sa32[g]), kp.ntt, kp.l,
+                                  kp.Bg_bit)
+    return acc
+
+
+ext_product_apply_scan_plain.calls = 0
+
+
+def ext_product_apply_scan(acc0, sa32, kp: PBSKernelPlan,
+                           per_row: bool = False):
+    """acc <- SA_g (x) acc for g = 0 .. G-1.  CUDA tensors: one launch of
+    the kernel whatever G and B are, and an error raised if it does not
+    build or launch.  CPU tensors: the plain version.  Returns [B, C, N]."""
+    dev = acc0.device
+    if dev.type == "cpu":
+        return ext_product_apply_scan_plain(acc0, sa32, kp, per_row)
+    if dev.type != "cuda":
+        raise ValueError(f"ext_product_apply_scan runs on cuda or cpu, "
+                         f"not {dev}")
+    B = acc0.shape[0]
+    G = sa32.shape[0]
+    row = (kp.J, kp.C, kp.P, kp.N)
+    _check("acc0", acc0, torch.int64, (B, kp.C, kp.N), dev)
+    _check("sa32", sa32, torch.int32, (G, B) + row if per_row else (G,) + row,
+           dev)
+    _check_plan(kp, dev)
+    acc = acc0.clone()
+    if B == 0 or G == 0:
+        return acc
+    _launch("ext_product_apply", "ext_product_apply_launch", 7, 3,
+            acc.data_ptr(), sa32.data_ptr(), kp.fwd_tw.data_ptr(),
+            kp.fwd_tws.data_ptr(), kp.inv_tw.data_ptr(),
+            kp.inv_tws.data_ptr(), kp.host_consts.ctypes.data, B, G,
+            int(per_row), _stream(dev))
+    ext_product_apply_scan.launches += 1
+    return acc
+
+
+ext_product_apply_scan.launches = 0
+
+
+# --- the unfolded blind rotation (K4) and UBR phase 1 (K5) -----------------
+
+def combine_rotated(su_g, rot_g):
+    """sum_m X^{rot_g[:, m]} * su_g[m] mod 2^64: su_g [M, J, C, N] int64,
+    rot_g [B, M] -> [B, J, C, N] (`bootstrap.c:128-146`)."""
+    comb = None
+    for m in range(su_g.shape[0]):
+        t = _poly.mul_by_xai(su_g[m], rot_g[:, m, None, None])
+        comb = t if comb is None else comb + t
+    return comb
+
+
+def unfolded_rotate_plain(acc0, rot, su, kp: PBSKernelPlan):
+    """The unfolded blind rotation in int64 PyTorch, on any device: per
+    group, the combined TRGSW in NTT form, then a replace-mode external
+    product (`blind_rotate_unfolded`, `bootstrap.c:124-148`)."""
+    unfolded_rotate_plain.calls += 1
+    acc = acc0
+    for g in range(su.shape[0]):
+        key = _ntt.to_ntt_u64(combine_rotated(su[g], rot[:, g]), kp.ntt)
+        acc = ext_product_replace(acc, key, kp.ntt, kp.l, kp.Bg_bit)
+    return acc
+
+
+unfolded_rotate_plain.calls = 0
+
+
+def _check_unfolded(rot, su, kp: PBSKernelPlan, B: int, dev):
+    G, M = su.shape[0], su.shape[1]
+    _check("rot", rot, torch.int32, (B, G, M), dev)
+    _check("su", su, torch.int64, (G, M, kp.J, kp.C, kp.N), dev)
+    _check_plan(kp, dev)
+    return G, M
+
+
+def unfolded_rotate(acc0, rot, su, kp: PBSKernelPlan):
+    """The unfolded blind rotation.  CUDA tensors: one launch of the kernel
+    for all G groups, and an error raised if it does not build or launch.
+    CPU tensors: the plain version.  Returns [B, C, N]."""
+    dev = acc0.device
+    if dev.type == "cpu":
+        return unfolded_rotate_plain(acc0, rot, su, kp)
+    if dev.type != "cuda":
+        raise ValueError(f"unfolded_rotate runs on cuda or cpu, not {dev}")
+    B = acc0.shape[0]
+    _check("acc0", acc0, torch.int64, (B, kp.C, kp.N), dev)
+    G, M = _check_unfolded(rot, su, kp, B, dev)
+    acc = acc0.clone()
+    if B == 0 or G == 0:
+        return acc
+    _launch("unfolded_rotate", "unfolded_rotate_launch", 8, 3,
+            acc.data_ptr(), rot.data_ptr(), su.data_ptr(),
+            kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
+            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(),
+            kp.host_consts.ctypes.data, B, G, M, _stream(dev))
+    unfolded_rotate.launches += 1
+    return acc
+
+
+unfolded_rotate.launches = 0
+
+
+def ubr_phase1_combine_plain(su, rot, kp: PBSKernelPlan):
+    """UBR phase 1 in int64 PyTorch, on any device: per (b, g) the combined
+    TRGSW in NTT form (`multivalue_bootstrap_UBR_phase1`,
+    `bootstrap.c:151-175`).  Returns [B, G, J, C, P, N] int32 holding u32
+    canonical residues."""
+    ubr_phase1_combine_plain.calls += 1
+    out = [_ntt.to_ntt_u64(combine_rotated(su[g], rot[:, g]), kp.ntt)
+           for g in range(su.shape[0])]
+    return u32_as_i32(torch.stack(out, dim=1))
+
+
+ubr_phase1_combine_plain.calls = 0
+
+
+def ubr_phase1_combine(su, rot, kp: PBSKernelPlan):
+    """UBR phase 1.  CUDA tensors: one launch of the kernel for all (b, g),
+    and an error raised if it does not build or launch.  CPU tensors: the
+    plain version.  Returns [B, G, J, C, P, N] int32 (u32 residues)."""
+    dev = su.device
+    if dev.type == "cpu":
+        return ubr_phase1_combine_plain(su, rot, kp)
+    if dev.type != "cuda":
+        raise ValueError(f"ubr_phase1_combine runs on cuda or cpu, not {dev}")
+    B = rot.shape[0]
+    G, M = _check_unfolded(rot, su, kp, B, dev)
+    out = torch.empty((B, G, kp.J, kp.C, kp.P, kp.N), dtype=torch.int32,
+                      device=dev)
+    if B == 0 or G == 0:
+        return out
+    _launch("ubr_phase1", "ubr_phase1_launch", 6, 3, su.data_ptr(),
+            rot.data_ptr(), out.data_ptr(), kp.fwd_tw.data_ptr(),
+            kp.fwd_tws.data_ptr(), kp.host_consts.ctypes.data, B, G, M,
+            _stream(dev))
+    ubr_phase1_combine.launches += 1
+    return out
+
+
+ubr_phase1_combine.launches = 0

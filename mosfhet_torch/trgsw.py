@@ -1,20 +1,24 @@
-"""TRGSW: gadget ciphertexts (`src/trgsw.c:130-175`).
+"""TRGSW: gadget ciphertexts and the external product (`src/trgsw.c:130-175,
+385-423`).
 
 A TRGSW is (k+1)*l TRLWE rows in one tensor; row r = comp*l + digit
-encrypts m * X^e * h_digit added at component ``comp``.  The NTT form
-carries Shoup companions for the external product's key multiplies.
+encrypts m * X^e * h_digit added at component ``comp``.  The NTT form may
+carry Shoup companions for key multiplies; the external product does not
+read them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from . import ntt as _ntt
 from . import trlwe as _trlwe
+from .ops import pbs_kernel as _pk
 from .torus import TORUS_BITS, to_i64
-from .trlwe import TRLWEKey
+from .trlwe import TRLWE, TRLWEKey, from_stacked
 
 
 @dataclasses.dataclass
@@ -54,7 +58,8 @@ class TRGSW:
 
 @dataclasses.dataclass
 class TRGSWDFT:
-    """NTT-form TRGSW with Shoup companions: [..., r, c, P, N] int64."""
+    """NTT-form TRGSW [..., r, c, P, N] int64 canonical residues, with Shoup
+    companions ``vs`` or without (None)."""
     v: torch.Tensor
     vs: torch.Tensor | None
     l: int
@@ -115,3 +120,28 @@ def to_dft(g: TRGSW, plan: _ntt.NTTPlan, with_shoup: bool = True) -> TRGSWDFT:
     v = _ntt.to_ntt_u64(g.rows, plan)
     vs = _ntt.make_shoup(v, plan.p[:, None]) if with_shoup else None
     return TRGSWDFT(v=v, vs=vs, l=g.l, Bg_bit=g.Bg_bit, primes=plan.primes)
+
+
+def external_product(c: TRLWE, g: TRGSWDFT) -> TRLWE:
+    """TRGSW (x) TRLWE, the library's hot kernel (`trgsw_mul_trlwe_DFT`,
+    `trgsw.c:385-423`), batched over the leading axes of both operands.
+
+    On CUDA tensors one launch of the apply-scan kernel with G=1: one TRGSW
+    [J, C, P, N] is broadcast over the batch, a batch of them [..., J, C, P,
+    N] is taken one per row.  On CPU tensors its plain version.  ``g.vs`` is
+    not read."""
+    k, N = g.k, g.N
+    kp = _pk.get_kernel_plan(N, g.primes, g.l, g.Bg_bit, k, g.v.device)
+    st = c.stacked()
+    per_row = g.v.dim() > 4
+    batch = torch.broadcast_shapes(st.shape[:-2], g.v.shape[:-4])
+    B = math.prod(batch)
+    x = st.expand(batch + st.shape[-2:]).reshape(B, k + 1, N).contiguous()
+    v32 = _pk.u32_as_i32(g.v)
+    key_shape = tuple(v32.shape[-4:])
+    if per_row:
+        sa = v32.expand(batch + key_shape).reshape((1, B) + key_shape)
+    else:
+        sa = v32.reshape((1,) + key_shape)
+    out = _pk.ext_product_apply_scan(x, sa.contiguous(), kp, per_row)
+    return from_stacked(out.reshape(batch + (k + 1, N)))

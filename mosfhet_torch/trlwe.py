@@ -16,7 +16,7 @@ from . import polynomial as _poly
 from . import rng as _rng
 from ._device import default_device
 from .tlwe import TLWE, TLWEKey
-from .torus import int2torus
+from .torus import gadget_decompose, int2torus
 
 
 @dataclasses.dataclass
@@ -127,6 +127,14 @@ def extract_tlwe(c: TRLWE, idx: int = 0) -> TLWE:
     g = c.a.index_select(-1, src)                        # [..., k, N]
     g = torch.where(j > idx, -g, g)
     return TLWE(a=g.reshape(g.shape[:-2] + (k * N,)), b=c.b[..., idx])
+
+
+def decompose(c: TRLWE, Bg_bit: int, l: int, rounded: bool = True):
+    """All components' gadget digits in TRGSW row order [..., (k+1)l, N]
+    (row = comp*l + digit, b last; `trlwe_decompose`, `trlwe.c:636-660`),
+    with the rounded offset of the hot paths by default."""
+    d = gadget_decompose(c.stacked(), Bg_bit, l, rounded)  # [..., k+1, l, N]
+    return d.reshape(d.shape[:-3] + ((c.k + 1) * l, c.N))
 
 
 def torus_packing(values, k: int, N: int) -> TRLWE:

@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels (blind rotation, key-switch select-sum)
-against their plain PyTorch versions, bit for bit, and the int8 key switch
-through `torch._int_mm`.  Needs a CUDA card: without one every test here
+"""The hand-written CUDA kernels (blind rotation, key-switch select-sum,
+external-product apply scan, unfolded rotation, UBR phase 1) against their
+plain PyTorch versions, bit for bit, and the int8 key switch through
+`torch._int_mm`.  Needs a CUDA card: without one every test here
 skips.
 
 This file imports nothing but PyTorch, numpy and the port, so it runs on a
@@ -107,3 +108,94 @@ def test_cuda_int8_keyswitch_matches_no_precomp():
     want = tlwe.keyswitch_no_precomp(c, ksk)
     got = tlwe.keyswitch_mxu(c, tlwe.prepare_ks_key_mxu(ksk))
     assert torch.equal(got.a, want.a) and torch.equal(got.b, want.b)
+
+
+def random_residues(rng, shape, primes):
+    """Random canonical residues [..., P, N] of ``primes`` as u32."""
+    p = np.array(primes, np.uint64)[:, None]
+    return (rng.integers(0, 1 << 62, size=shape, dtype=np.uint64)
+            % p).astype(np.uint32)
+
+
+def random_exponents(rng, B, G, M, N):
+    """Exponents [B, G, M] in [0, 2N] with 0, N and 2N present."""
+    rot = rng.integers(0, 2 * N + 1, size=(B, G, M), dtype=np.int32)
+    rot[0, 0, 0], rot[-1, -1, -1], rot[0, -1, M // 2] = 0, 2 * N, N
+    return rot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,k,l,Bg_bit,G,B", [
+    (2048, 1, 4, 9, 2, 5),     # TFHEpp-L2 widths
+    (256, 2, 3, 8, 3, 3),      # k=2
+    (2048, 1, 1, 23, 2, 7),    # SET_2 digits: four primes
+])
+@pytest.mark.parametrize("per_row", [False, True],
+                         ids=["broadcast", "per_row"])
+def test_cuda_ext_product_apply_matches_plain(N, k, l, Bg_bit, G, B, per_row):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    C, J = k + 1, (k + 1) * l
+    primes = ntt.primes_for_bound(ntt.external_product_bound(N, Bg_bit, l, k))
+    rng = np.random.default_rng(N + G + per_row)
+    acc0 = rng.integers(0, 1 << 64, size=(B, C, N), dtype=np.uint64)
+    rows = (G, B) if per_row else (G,)
+    sa = random_residues(rng, rows + (J, C, len(primes), N), primes)
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    args = (to_tensor(acc0, "cuda"), as_i32(sa, "cuda"), kp, per_row)
+    launches = tpk.ext_product_apply_scan.launches
+    got = tpk.ext_product_apply_scan(*args)
+    torch.cuda.synchronize()
+    assert tpk.ext_product_apply_scan.launches == launches + 1
+    assert torch.equal(got, tpk.ext_product_apply_scan_plain(*args))
+
+
+def random_unfolded_inputs(N, k, l, Bg_bit, u, G, B, seed):
+    """Random accumulators, exponents and key products su [G, 2^u, J, C, N]
+    (u64 words), on the card."""
+    C, J, M = k + 1, (k + 1) * l, 1 << u
+    primes = ntt.primes_for_bound(ntt.external_product_bound(N, Bg_bit, l, k))
+    rng = np.random.default_rng(seed)
+    acc0 = rng.integers(0, 1 << 64, size=(B, C, N), dtype=np.uint64)
+    su = rng.integers(0, 1 << 64, size=(G, M, J, C, N), dtype=np.uint64)
+    rot = random_exponents(rng, B, G, M, N)
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    return (to_tensor(acc0, "cuda"), torch.from_numpy(rot).cuda(),
+            to_tensor(su, "cuda"), kp)
+
+
+UNFOLDED_CASES = [
+    (2048, 1, 4, 9, 2, 2, 3),     # TFHEpp-L2 widths, u = 2, 4, 8
+    (2048, 1, 4, 9, 4, 2, 3),
+    (2048, 1, 4, 9, 8, 1, 3),
+    (256, 2, 3, 8, 3, 2, 2),      # k=2
+    (2048, 1, 1, 23, 4, 2, 2),    # four primes
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,k,l,Bg_bit,u,G,B", UNFOLDED_CASES)
+def test_cuda_unfolded_rotate_matches_plain(N, k, l, Bg_bit, u, G, B):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    acc0, rot, su, kp = random_unfolded_inputs(N, k, l, Bg_bit, u, G, B,
+                                               seed=N + u)
+    launches = tpk.unfolded_rotate.launches
+    got = tpk.unfolded_rotate(acc0, rot, su, kp)
+    torch.cuda.synchronize()
+    assert tpk.unfolded_rotate.launches == launches + 1
+    assert torch.equal(got, tpk.unfolded_rotate_plain(acc0, rot, su, kp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,k,l,Bg_bit,u,G,B", UNFOLDED_CASES)
+def test_cuda_ubr_phase1_matches_plain(N, k, l, Bg_bit, u, G, B):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, rot, su, kp = random_unfolded_inputs(N, k, l, Bg_bit, u, G, B,
+                                            seed=N + u + 1)
+    launches = tpk.ubr_phase1_combine.launches
+    got = tpk.ubr_phase1_combine(su, rot, kp)
+    torch.cuda.synchronize()
+    assert tpk.ubr_phase1_combine.launches == launches + 1
+    assert torch.equal(got, tpk.ubr_phase1_combine_plain(su, rot, kp))

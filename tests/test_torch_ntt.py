@@ -63,12 +63,16 @@ def test_kernel_plan_matches(N):
     c = kp.host_consts
     assert list(c[6:6 + P]) == list(PRIMES)
     gw = c[6 + 5 * P:6 + 5 * P + P * P].reshape(P, P)
-    gws = c[6 + 5 * P + P * P:].reshape(P, P)
+    gws = c[6 + 5 * P + P * P:6 + 5 * P + 2 * P * P].reshape(P, P)
     for m in range(P):
         for j, (w, ws) in enumerate(jkp.garner_w[m]):
             assert (gw[m, j], gws[m, j]) == (w, ws)
         if m:
             assert (c[6 + 3 * P + m], c[6 + 4 * P + m]) == jkp.garner_cinv[m]
+    # the runtime-key Barrett constant and the centred u64 reduction's
+    mup, red1, c32, c32s, c64m = c[6 + 5 * P + 2 * P * P:].reshape(5, P)
+    assert list(mup) == jkp.mup and list(red1) == jkp.red1
+    assert list(zip(c32, c32s)) == jkp.c32 and list(c64m) == jkp.c64m
 
 
 @pytest.mark.parametrize("N", [64, 256, 2048])
