@@ -55,8 +55,27 @@ Phases; any failure ends the script with a non-zero exit and no result line:
  12. extprod  trgsw.external_product at L2 on 512 TRLWEs, with one TRGSW
               broadcast and with one TRGSW per row: 1 K3 launch each,
               bit-exact against the plain version, decrypt within 2^58.
- 13. report   the pbs, gate, fdfb, unfolded, ubr and extprod lines, the card
-              line, the kernels line, and the result line last.
+ 13. ga67     the automorphism key-switch kernel (K6) on 64 ciphertexts
+              with a random full 2048-entry keyset (ginv 1, 2N-1 and random
+              ones; kidx 0 and N-1 present) and the GA rotation kernel (K7)
+              with n cut to 4, B=8 (generators 1 and 2N-1 present) against
+              their plain versions at full TFHEpp-L2 widths: bit-exact.
+ 14. ga       TFHEPP_L2 through the GA bootstrap: the port's GA keygen
+              (timed, key bytes printed), then
+              bootstrap_ga.functional_bootstrap_ga on phase 4's LUT and 512
+              ciphertexts, torus base 4: exactly 1 K6 and 1 K7 launch per
+              call and nothing else, decrypt within 2^58; K6 and K7 timed per
+              launch beside their bounds and their plain versions on the
+              path's own inputs (bit-exact), and K7 once more with every
+              generator 1 (its keyset reads all from one L2-resident entry).
+ 15. trlweks  keyswitch.trlwe_keyswitch (from a second ring key) and
+              keyswitch.eval_automorphism (a random odd generator, its key
+              from new_automorphism_ks_keyset) on 512 TRLWEs: one K6 launch
+              each, bit-exact against the plain version, decrypt within
+              trlwe_ks_bound (2^40 at L2).
+ 16. report   the pbs, gate, fdfb, unfolded, ubr, extprod, ga and trlweks
+              lines, the card line, the kernels line, and the result line
+              last.
 
 Imports nothing but PyTorch, numpy and the port.
 """
@@ -92,7 +111,10 @@ U64_ADD_OPS = 2             # a u64 add as INT32 operations
 RUNTIME_KEY_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT "
                             "external product or an unfolded combine")
 KERNELS = ("blind_rotate_scan", "tlwe_keyswitch_sum", "ext_product_apply_scan",
-           "unfolded_rotate", "ubr_phase1_combine")
+           "unfolded_rotate", "ubr_phase1_combine", "auto_keyswitch_stream",
+           "ga_scan_fused")
+GA_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT key switch "
+                   "with per-row keys or a Galois permutation")
 # No PyTorch call computes the key-switch select-sum on int64 CUDA tensors.
 KS_LIBRARY_NOTE = ("none: torch.sparse.mm of the one-hot digits and the "
                    "table raises \"addmm_sparse_cuda\" not implemented for "
@@ -234,6 +256,67 @@ def ubr_phase1_bound(kp, B, G, M, max_clock_mhz):
     ops = (SHOUP_MULTIPLIES * shoup + U64_ADD_OPS * J * C * N * M) * B * G
     nbytes = G * M * J * C * N * 8 + B * G * M * 4 + B * G * J * C * P * N * 4
     return ops_bytes_bound(ops, nbytes, max_clock_mhz)
+
+
+def trlwe_ks_bound(p, t, base_bit):
+    """Decrypt bound of a TRLWE key switch with t digits of base_bit bits
+    under a binary ring key: per coefficient k t N products of a digit
+    (uniform, variance 2^(2 base_bit)/12) with a key row's noise (sigma
+    rlwe_sigma 2^64 in words), plus the k N/2 dropped remainders of the mask
+    words (uniform below 2^(64 - t base_bit)) times the key bits, plus the
+    input's own noise.  Returns 2^ceil(log2(64 sigma)): 2^40 at TFHEpp-L2
+    with t=4, base_bit=9 (sigma 2^33.7)."""
+    sig_w = p.rlwe_sigma * 2.0**64
+    var = (p.k * t * p.N * 2.0**(2 * base_bit) / 12 * sig_w**2
+           + p.k * p.N / 2 * 2.0**(2 * (64 - t * base_bit)) / 12 + sig_w**2)
+    return 2.0**math.ceil(math.log2(64 * math.sqrt(var)))
+
+
+def entry_bytes(kp_ks):
+    """Bytes of one keyset entry [Jk, C, Pk, N] u32."""
+    return (kp_ks.C - 1) * kp_ks.l * kp_ks.C * kp_ks.P * kp_ks.N * 4
+
+
+def distinct_entry_bytes(kidx, kp_ks):
+    """Bytes of the distinct keyset entries that these indices select."""
+    return int(torch.unique(kidx).numel()) * entry_bytes(kp_ks)
+
+
+def auto_ks_bound(kp_ks, B, kidx, max_clock_mhz):
+    """K6: one key switch per ciphertext (a step's second half); bytes: the
+    distinct keyset entries read once, the words in and out, kidx and
+    ginv."""
+    C, P, N = kp_ks.C, kp_ks.P, kp_ks.N
+    Jk = (C - 1) * kp_ks.l
+    shoup = butterflies(kp_ks, Jk * P + C * P) + C * N
+    ops = (SHOUP_MULTIPLIES * shoup + BARRETT_MULTIPLIES * Jk * C * P * N) * B
+    nbytes = (distinct_entry_bytes(kidx, kp_ks) + 2 * B * C * N * 8 + B * 8)
+    return ops_bytes_bound(ops, nbytes, max_clock_mhz)
+
+
+def ga_bound(kp, kp_ks, gens, max_clock_mhz):
+    """K7 over n steps and B ciphertexts.  Per step and ciphertext: the
+    external product (J*P digit and C*P inverse NTTs, J*C*P*N Shoup key
+    products, one Garner product per word), then the key switch (Jk*Pk digit
+    and C*Pk inverse NTTs, Jk*C*Pk*N Barrett key products, Garner).  Bytes:
+    the TRGSW keys and the distinct keyset entries these generators select,
+    each read once, acc in and out, the generators.  Also the keyset bytes
+    the blocks gather (one entry per ciphertext and step)."""
+    n, B = gens.shape
+    J, C, P, N = kp.J, kp.C, kp.P, kp.N
+    Jk, Pk = (C - 1) * kp_ks.l, kp_ks.P
+    shoup = (butterflies(kp, J * P + C * P) + J * C * P * N + C * N
+             + butterflies(kp_ks, Jk * Pk + C * Pk) + C * N)
+    barrett = Jk * C * Pk * N
+    ops = (SHOUP_MULTIPLIES * shoup + BARRETT_MULTIPLIES * barrett) * n * B
+    kidx = (gens.to(torch.int64) - 1) >> 1
+    nbytes = (2 * n * kp.J * kp.C * kp.P * kp.N * 4
+              + distinct_entry_bytes(kidx, kp_ks)
+              + 2 * B * kp.C * kp.N * 8 + n * B * 4)
+    out = ops_bytes_bound(ops, nbytes, max_clock_mhz)
+    out["gathered_bytes"] = n * B * entry_bytes(kp_ks)
+    out["products_per_step"] = shoup + barrett
+    return out
 
 
 @contextlib.contextmanager
@@ -733,10 +816,177 @@ def main():
             f"2^{ep[mode]['decrypt_max_err_log2']:.1f})")
     del g_all, g_one, c_ep, m_ep, out_ep, out_p
 
-    # 13. report
+    # 13. K6 and K7 vs plain at full L2 widths on random inputs
+    from mosfhet_torch import bootstrap_ga, keyswitch, polynomial
+    kp_ks = pk.get_kernel_plan(p.N, primes, p.l, p.Bg_bit, p.k, dev)
+    G_full, Jk = p.N, p.k * p.l
+    ak_r = random_residues_i32(rs, (G_full, Jk, C, P, N), primes, dev)
+    inv2n = torch.from_numpy(bootstrap_ga.inverse_mod_2n_table(N)).to(dev)
+    B_r = 64
+    x_r = random_u64(rs, (B_r, C, N), dev)
+    kidx_np = rs.integers(0, G_full, B_r, dtype=np.int32)
+    kidx_np[0], kidx_np[-1] = 0, G_full - 1
+    ginv_np = rs.integers(0, N, B_r, dtype=np.int32) * 2 + 1
+    ginv_np[0], ginv_np[1] = 1, 2 * N - 1
+    kidx_r, ginv_r = (torch.from_numpy(v).to(dev) for v in (kidx_np, ginv_np))
+    got = pk.auto_keyswitch_stream(x_r, ak_r, kidx_r, ginv_r, kp_ks)
+    torch.cuda.synchronize()
+    same_or_fail("K6 vs plain at L2 widths", got,
+                 pk.auto_keyswitch_stream_plain(x_r, ak_r, kidx_r, ginv_r,
+                                                kp_ks))
+    n_r, B_r = 4, 8
+    acc_r = random_u64(rs, (B_r, C, N), dev)
+    sv_r = random_residues_i32(rs, (n_r, J, C, P, N), primes, dev)
+    pr_t = torch.tensor(primes, dtype=torch.int64, device=dev)[:, None]
+    svs_r = pk.u32_as_i32((pk.i32_as_u32(sv_r) << 32) // pr_t)
+    gens_np = rs.integers(0, N, (n_r, B_r), dtype=np.int32) * 2 + 1
+    gens_np[0, 0], gens_np[-1, -1] = 1, 2 * N - 1
+    gens_r = torch.from_numpy(gens_np).to(dev)
+    got = pk.ga_scan_fused(acc_r, gens_r, sv_r, svs_r, ak_r, inv2n, kp, kp_ks)
+    torch.cuda.synchronize()
+    same_or_fail("K7 vs plain at L2 widths", got,
+                 pk.ga_scan_fused_plain(acc_r, gens_r, sv_r, svs_r, ak_r,
+                                        inv2n, kp, kp_ks))
+    del ak_r, x_r, acc_r, sv_r, svs_r, got
+    log("# K6 (B=64, full random keyset; ginv 1, 2N-1; kidx 0, N-1) and K7 "
+        "(n=4, B=8; generators 1, 2N-1) vs plain at L2 widths: bit-exact")
+
+    # 14. the GA bootstrap on phase 4's LUT and ciphertexts
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bkg = bootstrap_ga.new_key(gk, key_tlwe, gen, dev)
+    torch.cuda.synchronize()
+    ga_keygen_s = time.perf_counter() - t0
+    ga_keygen_peak = torch.cuda.max_memory_allocated()
+    ga_key_bytes = sum(t.numel() * t.element_size()
+                       for t in (bkg.s_v32, bkg.s_vs32, bkg.ak, bkg.inv2n))
+    log(f"# GA keygen: {ga_keygen_s:.3f} s; TRGSW {tuple(bkg.s_v32.shape)} "
+        f"u32 x2, keyset {tuple(bkg.ak.shape)} u32; {ga_key_bytes} B in all; "
+        f"peak {ga_keygen_peak / 2**30:.2f} GiB")
+    zero_counts(pk)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_g = bootstrap_ga.functional_bootstrap_ga(tv, cs, bkg, 4)
+    torch.cuda.synchronize()
+    ga_first_s = time.perf_counter() - t0
+    ga_ms, out_g2 = cuda_ms(
+        lambda: bootstrap_ga.functional_bootstrap_ga(tv, cs, bkg, 4), REPS)
+    ga_counts = read_counts(pk)
+    ga_peak = torch.cuda.max_memory_allocated()
+    check_counts(f"GA path over {1 + REPS} calls", ga_counts,
+                 {"auto_keyswitch_stream": 1 + REPS,
+                  "ga_scan_fused": 1 + REPS})
+    if out_g.a.shape != (BATCH, p.k * p.N) or out_g.b.shape != (BATCH,):
+        fail(f"GA output shapes {tuple(out_g.a.shape)}, "
+             f"{tuple(out_g.b.shape)}")
+    if not (torch.equal(out_g.a, out_g2.a) and torch.equal(out_g.b, out_g2.b)):
+        fail("repeated GA bootstraps of the same inputs differ")
+    ga_err = signed_max_abs(tlwe.phase(out_g, key_out) - luts[slots])
+    if not ga_err <= DECRYPT_BOUND:
+        fail(f"GA decrypt: max error 2^{math.log2(ga_err):.1f} > 2^58")
+    acc_g, kidx0, ginv0, gens, _ = bootstrap_ga.ga_rotate_inputs(
+        bootstrap.rotate_test_vector(tv, cs, bkg, 4), cs.a, bkg)
+    kpg, kpg_ks = bkg.kernel_plans()
+    k6_ms, acc_k6 = cuda_ms(lambda: pk.auto_keyswitch_stream(
+        acc_g, bkg.ak, kidx0, ginv0, kpg_ks), KS_REPS)
+    k6_plain_ms, acc_p6 = cuda_ms(lambda: pk.auto_keyswitch_stream_plain(
+        acc_g, bkg.ak, kidx0, ginv0, kpg_ks), 1)
+    k6_err = signed_max_abs(acc_k6 - acc_p6)
+    if k6_err != 0.0:
+        fail(f"K6 != plain on the GA path's inputs "
+             f"({int((acc_k6 != acc_p6).sum())} words)")
+    ga_args = (gens, bkg.s_v32, bkg.s_vs32, bkg.ak, bkg.inv2n, kpg, kpg_ks)
+    k7_ms, acc_k7 = cuda_ms(lambda: pk.ga_scan_fused(acc_k6, *ga_args), REPS)
+    k7_plain_ms, acc_p7 = cuda_ms(
+        lambda: pk.ga_scan_fused_plain(acc_k6, *ga_args), 1)
+    k7_err = signed_max_abs(acc_k7 - acc_p7)
+    if k7_err != 0.0:
+        fail(f"K7 != plain on the GA path's inputs "
+             f"({int((acc_k7 != acc_p7).sum())} words)")
+    # the same launch with every generator 1: every block reads keyset
+    # entry 0, which stays in L2, against the path's random entries
+    k7_entry0_ms, _ = cuda_ms(lambda: pk.ga_scan_fused(
+        acc_k6, torch.ones_like(gens), *ga_args[1:]), 1)
+    ext_g = trlwe.extract_tlwe(trlwe.from_stacked(acc_k7), 0)
+    if not (torch.equal(ext_g.a, out_g.a) and torch.equal(ext_g.b, out_g.b)):
+        fail("GA path output != extract of K7's rotation")
+    k6_bound = auto_ks_bound(kpg_ks, BATCH, kidx0, max_clock)
+    k7_bound = ga_bound(kpg, kpg_ks, gens, max_clock)
+    log(f"# GA bootstrap: first call {ga_first_s:.3f} s; warm {ga_ms:.3f} ms "
+        f"per batch of {BATCH} = {BATCH / ga_ms * 1e3:.2f} boot/s (PBS u=1: "
+        f"{BATCH / pbs_ms * 1e3:.2f}); decrypt OK (max err "
+        f"2^{math.log2(max(ga_err, 1.0)):.1f}); peak {ga_peak / 2**30:.2f} GiB")
+    log(f"# auto_keyswitch_stream at B={BATCH}: kernel {k6_ms:.3f} ms/launch "
+        f"(mean of {KS_REPS}), plain {k6_plain_ms:.3f} ms, bound "
+        f"{k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}: "
+        f"{k6_bound['int32_ops']:.4g} int32 ops, {k6_bound['bytes']:.4g} B); "
+        f"bit-exact")
+    log(f"# ga_scan_fused at B={BATCH}, n={bkg.n}: kernel {k7_ms:.3f} "
+        f"ms/launch, plain {k7_plain_ms:.3f} ms, bound "
+        f"{k7_bound['bound_ms']:.3f} ms ({k7_bound['bound_by']}: "
+        f"{k7_bound['int32_ops']:.4g} int32 ops, {k7_bound['bytes']:.4g} B "
+        f"once, {k7_bound['gathered_bytes']:.4g} B of keyset gathered); "
+        f"bit-exact; every generator 1 (keyset entry 0 only): "
+        f"{k7_entry0_ms:.3f} ms")
+    del acc_g, acc_k6, acc_p6, acc_k7, acc_p7
+
+    # 15. the TRLWE key switch and eval_automorphism on 512 TRLWEs
+    key_in = trlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, dev)
+    ksk_r = keyswitch.new_trlwe_ks_key(key_trlwe, key_in, p.l, p.Bg_bit, gen,
+                                       dev)
+    gen_auto = int(rs.integers(0, p.N)) * 2 + 1
+    ksk_auto = keyswitch.new_automorphism_ks_keyset(
+        key_trlwe, [gen_auto], p.l, p.Bg_bit, gen, dev)[gen_auto]
+    m_ks = rng.uniform_torus(gen, (BATCH, p.N), dev)
+    rks_bound = trlwe_ks_bound(p, p.l, p.Bg_bit)
+    ks_cases = {
+        "trlwe_keyswitch": (trlwe.encrypt(m_ks, key_in, gen),
+                            lambda c: keyswitch.trlwe_keyswitch(c, ksk_r),
+                            m_ks),
+        "eval_automorphism": (trlwe.encrypt(m_ks, key_trlwe, gen),
+                              lambda c: keyswitch.eval_automorphism(
+                                  c, gen_auto, ksk_auto),
+                              polynomial.permute(m_ks, gen_auto))}
+    trlwe_ks = {}
+    for name, (c_in, fn, want) in ks_cases.items():
+        zero_counts(pk)
+        out_ks = fn(c_in)
+        torch.cuda.synchronize()
+        counts = read_counts(pk)
+        check_counts(name, counts, {"auto_keyswitch_stream": 1})
+        zero_counts(pk)
+        with plain_kernels(pk):
+            plain_ks_ms, out_p = cuda_ms(lambda: fn(c_in), 1)
+        check_counts(f"plain {name}", read_counts(pk),
+                     {"auto_keyswitch_stream_plain": 1})
+        if not (torch.equal(out_ks.a, out_p.a)
+                and torch.equal(out_ks.b, out_p.b)):
+            fail(f"{name} != plain")
+        ks_e = signed_max_abs(trlwe.phase(out_ks, key_trlwe) - want)
+        if not ks_e <= rks_bound:
+            fail(f"{name} decrypt: max error 2^{math.log2(ks_e):.1f} > "
+                 f"2^{math.log2(rks_bound):.0f}")
+        ks_call_ms, _ = cuda_ms(lambda: fn(c_in), REPS)
+        trlwe_ks[name] = {
+            "ms": ks_call_ms, "plain_ms": plain_ks_ms,
+            "launches": counts["auto_keyswitch_stream"],
+            "decrypt_max_err_log2": math.log2(max(ks_e, 1.0)),
+            "decrypt_bound_log2": math.log2(rks_bound)}
+        log(f"# {name} on {BATCH} TRLWEs: {ks_call_ms:.3f} ms per call, "
+            f"plain {plain_ks_ms:.3f} ms; 1 K6 launch; bit-exact; decrypt OK "
+            f"(max err 2^{trlwe_ks[name]['decrypt_max_err_log2']:.1f} "
+            f"against 2^{math.log2(rks_bound):.0f})")
+    trlwe_ks["eval_automorphism"]["gen"] = gen_auto
+    del ksk_r, ksk_auto, m_ks, ks_cases, out_ks, out_p
+
+    # 16. report
     paths = {"pbs": pbs_counts, "gate": gate_counts, "fdfb": fdfb_counts,
              "unfolded": ub_counts, "ubr_phase1": ph1_counts,
-             "ubr_phase2": ph2_counts}
+             "ubr_phase2": ph2_counts, "ga": ga_counts}
+    paths.update({name: {"auto_keyswitch_stream": c["launches"]}
+                  for name, c in trlwe_ks.items()})
     paths.update({f"extprod_{mode}": {"ext_product_apply_scan":
                                       ep[mode]["launches"]} for mode in ep})
 
@@ -792,6 +1042,26 @@ def main():
         "ms": k5_ms, "plain_ms": k5_plain_ms,
         "bound_ms": k5_bound["bound_ms"], "bound_by": k5_bound["bound_by"],
         "library_ms": None, "library_note": RUNTIME_KEY_LIBRARY_NOTE,
+    }, {
+        "name": "auto_keyswitch_stream", "route": "cuda",
+        "source": "mosfhet_torch/ops/csrc/auto_keyswitch.cu",
+        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:2374",
+        "launches": ga_counts["auto_keyswitch_stream"],
+        "launches_by_path": by_path("auto_keyswitch_stream"),
+        "max_abs_err": k6_err, "bit_exact": True,
+        "ms": k6_ms, "plain_ms": k6_plain_ms,
+        "bound_ms": k6_bound["bound_ms"], "bound_by": k6_bound["bound_by"],
+        "library_ms": None, "library_note": GA_LIBRARY_NOTE,
+    }, {
+        "name": "ga_scan_fused", "route": "cuda",
+        "source": "mosfhet_torch/ops/csrc/ga_scan.cu",
+        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:2558",
+        "launches": ga_counts["ga_scan_fused"],
+        "launches_by_path": by_path("ga_scan_fused"),
+        "max_abs_err": k7_err, "bit_exact": True,
+        "ms": k7_ms, "plain_ms": k7_plain_ms,
+        "bound_ms": k7_bound["bound_ms"], "bound_by": k7_bound["bound_by"],
+        "library_ms": None, "library_note": GA_LIBRARY_NOTE,
     }]
     log(json.dumps({"pbs": {
         "params": p.name, "batch": BATCH, "keygen_s": keygen_s,
@@ -829,6 +1099,19 @@ def main():
         "decrypt_max_err_log2": math.log2(max(ubr_err, 1.0)),
         "phase1_bound": k5_bound, "phase2_bound": k3_bound}}))
     log(json.dumps({"extprod": {"params": p.name, "batch": BATCH, **ep}}))
+    log(json.dumps({"ga": {
+        "params": p.name, "batch": BATCH, "torus_base": 4,
+        "keygen_s": ga_keygen_s, "key_bytes": ga_key_bytes,
+        "keygen_peak_bytes": ga_keygen_peak, "first_call_s": ga_first_s,
+        "warm_ms": ga_ms, "boot_per_s": BATCH / ga_ms * 1e3,
+        "boot_per_s_pbs_unfold1": BATCH / pbs_ms * 1e3, "peak_bytes": ga_peak,
+        "decrypt_max_err_log2": math.log2(max(ga_err, 1.0)),
+        "auto_ks_ms": k6_ms, "rotation_ms": k7_ms,
+        "rotation_entry0_ms": k7_entry0_ms,
+        "glue_ms": ga_ms - k6_ms - k7_ms, "auto_ks_bound": k6_bound,
+        "rotation_bound": k7_bound}}))
+    log(json.dumps({"trlweks": {"params": p.name, "batch": BATCH,
+                                "t": p.l, "base_bit": p.Bg_bit, **trlwe_ks}}))
     log(f"# whole script: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -19,6 +19,8 @@ from . import tlwe
 from . import trlwe
 from . import trgsw
 from . import bootstrap
+from . import keyswitch
+from . import bootstrap_ga
 from . import bridge
 from .ops import pbs_kernel
 from ._device import default_device

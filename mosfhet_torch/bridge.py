@@ -13,6 +13,9 @@ import torch
 
 from ._device import default_device
 from .bootstrap import BootstrapKey
+from .bootstrap_ga import GABootstrapKey
+from .keyswitch import TRLWEKSKey
+from .ops.pbs_kernel import i32_as_u32, u32_as_i32
 from .tlwe import TLWE, TLWEKey, TLWEKSKey, TLWEKSKeyM, TLWEKSKeyPrepared
 from .trgsw import TRGSW, TRGSWDFT
 from .trlwe import TRLWE, TRLWEKey
@@ -121,6 +124,39 @@ def unfolded_bootstrap_key_to_numpy(bk: BootstrapKey) -> np.ndarray:
     su = to_numpy(bk.su)
     return np.stack([(su & np.uint64(0xFFFFFFFF)).astype(np.uint32),
                      (su >> np.uint64(32)).astype(np.uint32)])
+
+
+def ga_bootstrap_key_from_numpy(s_v, s_vs, ak_v, inv2n, n: int, k: int,
+                                N: int, l: int, Bg_bit: int, ks_t: int,
+                                ks_base_bit: int, primes, ks_primes,
+                                device=None) -> GABootstrapKey:
+    """A GA bootstrap key from the TPU package's fields: the NTT-form
+    TRGSW(X^{s_i}) rows and Shoup companions [n, (k+1)l, k+1, P, N], the
+    keyset residues [N, k t, k+1, P_ks, N] (its Shoup companions are not
+    needed) and the inverse table [N]."""
+    dev = default_device(device)
+    return GABootstrapKey(
+        u32_as_i32(to_tensor(s_v, dev)), u32_as_i32(to_tensor(s_vs, dev)),
+        u32_as_i32(to_tensor(ak_v, dev)),
+        torch.from_numpy(np.asarray(inv2n, np.int32).copy()).to(dev),
+        n, k, N, l, Bg_bit, ks_t, ks_base_bit, primes, ks_primes)
+
+
+def ga_bootstrap_key_to_numpy(bk: GABootstrapKey):
+    """(s_v, s_vs, ak_v) as uint64 residues and inv2n as int32."""
+    return (to_numpy(bk.s_v), to_numpy(bk.s_vs),
+            to_numpy(i32_as_u32(bk.ak)), bk.inv2n.cpu().numpy())
+
+
+def trlwe_ks_key_from_numpy(v, t: int, base_bit: int, primes,
+                            device=None) -> TRLWEKSKey:
+    """A TRLWE key-switch key from its NTT-form residues [k_in, t, k_out+1,
+    P, N] (the Shoup companions are not needed)."""
+    return TRLWEKSKey(u32_as_i32(to_tensor(v, device)), t, base_bit, primes)
+
+
+def trlwe_ks_key_to_numpy(ksk: TRLWEKSKey) -> np.ndarray:
+    return to_numpy(ksk.v)
 
 
 def tlwe_ks_key_from_numpy(a, b, t: int, base_bit: int,

@@ -47,7 +47,24 @@ PyTorch, only for CPU tensors.  The two give the same words.
        out[b, g] = NTT(sum_m X^{rot[b,g,m]} SU[g,m])
      out   [B, G, (k+1)l, k+1, P, N]      int32 holding u32 canonical residues
 
-The three runtime-key kernels multiply two residues with a 32-bit Barrett
+6. The automorphism key switch (``csrc/auto_keyswitch.cu``): per row the
+   Galois permutation psi_g (X -> X^g, given by ginv = g^-1 mod 2N), then
+   the TRLWE key switch against the keyset entry the row selects,
+
+       out[b] = (0, b') - sum_j dec_j(a') (x) AK[kidx[b]],  (a', b') = psi_g(x[b])
+     x     [B, k+1, N]                     int64
+     ak32  [G, k t, k+1, P, N]             int32 holding u32 canonical residues
+     kidx  [B], ginv [B]                   int32 (ginv = 1: no permutation)
+
+7. The GA blind rotation (``csrc/ga_scan.cu``): n steps of an external
+   product, a Galois permutation and an automorphism key switch,
+
+       acc <- AK[(g_i - 1)/2] o psi_{g_i} (BK_i (x) acc)    for i = 0 .. n-1
+     gens  [n, B]                          int32 odd generators g_i
+     sv32, svs32 [n, (k+1)l, k+1, P, N]    int32: TRGSW(X^{s_i}) and Shoup
+     inv2n [N]                             int32: g^-1 mod 2N at (g - 1)/2
+
+The runtime-key kernels (3-7) multiply two residues with a 32-bit Barrett
 product, and reduce u64 words to the residues of their centred (signed)
 representatives, as ``ntt.to_resi_u64`` does: the plain versions use
 ``ntt.pointwise_mul_acc_generic`` and ``ntt.to_ntt_u64``, and both end in
@@ -454,3 +471,134 @@ def ubr_phase1_combine(su, rot, kp: PBSKernelPlan):
 
 
 ubr_phase1_combine.launches = 0
+
+
+# --- the automorphism key switch (K6) and the GA rotation (K7) -------------
+
+def auto_keyswitch_rows(x, ak32, kidx, ginv, kp: PBSKernelPlan):
+    """K6's arithmetic in int64 PyTorch: per row, (a', b') = psi(x[b]) with
+    psi given by ginv[b], then (0, b') - sum_j dec_j(a') (x) ak32[kidx[b]]
+    under the key-switch plan ``kp`` (t = kp.l digits of kp.Bg_bit bits,
+    row c t + j the j-th digit of mask component c; `trlwe_keyswitch`,
+    `keyswitch.c:162-193`).  x [B, C, N] int64; ak32 [G, (C-1)t, C, P, N];
+    kidx, ginv [B]."""
+    perm = _poly.permute_by_inverse(x, ginv.to(torch.int64)[:, None])
+    B, C, N = perm.shape
+    k = C - 1
+    digits = gadget_decompose(perm[:, :k], kp.Bg_bit, kp.l)
+    spec = _ntt.to_ntt_small(digits.reshape(B, k * kp.l, N),
+                             kp.ntt)                           # [B, kt, P, N]
+    key = i32_as_u32(ak32[kidx.to(torch.int64)])              # [B, kt, C, P, N]
+    acc = _ntt.pointwise_mul_acc_generic(spec.unsqueeze(2), key, kp.ntt, dim=1)
+    out = -_ntt.from_ntt_u64(acc, kp.ntt)
+    out[:, k] += perm[:, k]
+    return out
+
+
+def auto_keyswitch_stream_plain(x, ak32, kidx, ginv, kp: PBSKernelPlan):
+    """The automorphism key switch in int64 PyTorch, on any device."""
+    auto_keyswitch_stream_plain.calls += 1
+    return auto_keyswitch_rows(x, ak32, kidx, ginv, kp)
+
+
+auto_keyswitch_stream_plain.calls = 0
+
+
+def auto_keyswitch_stream(x, ak32, kidx, ginv, kp: PBSKernelPlan):
+    """The automorphism key switch (TRLWE key switch when ginv is 1).  CUDA
+    tensors: one launch of the kernel, and an error raised if it does not
+    build or launch.  CPU tensors: the plain version.  ``kidx`` must lie
+    in [0, G): the kernel reads the entries it names without a check (one
+    on the device would cost a sync per call).  Returns [B, C, N] int64."""
+    dev = x.device
+    if dev.type == "cpu":
+        return auto_keyswitch_stream_plain(x, ak32, kidx, ginv, kp)
+    if dev.type != "cuda":
+        raise ValueError(f"auto_keyswitch_stream runs on cuda or cpu, "
+                         f"not {dev}")
+    B, G = x.shape[0], ak32.shape[0]
+    _check("x", x, torch.int64, (B, kp.C, kp.N), dev)
+    _check("ak32", ak32, torch.int32,
+           (G, (kp.C - 1) * kp.l, kp.C, kp.P, kp.N), dev)
+    _check("kidx", kidx, torch.int32, (B,), dev)
+    _check("ginv", ginv, torch.int32, (B,), dev)
+    _check_plan(kp, dev)
+    out = torch.empty_like(x)
+    if B == 0:
+        return out
+    _launch("auto_keyswitch", "auto_keyswitch_launch", 10, 1,
+            x.data_ptr(), ak32.data_ptr(), kidx.data_ptr(), ginv.data_ptr(),
+            out.data_ptr(), kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
+            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(),
+            kp.host_consts.ctypes.data, B, _stream(dev))
+    auto_keyswitch_stream.launches += 1
+    return out
+
+
+auto_keyswitch_stream.launches = 0
+
+
+def ga_scan_fused_plain(acc0, gens, sv32, svs32, ak32, inv2n,
+                        kp: PBSKernelPlan, kp_ks: PBSKernelPlan):
+    """The GA rotation in int64 PyTorch, on any device: per step the
+    replace-mode external product with TRGSW(X^{s_i}), then the Galois
+    permutation and automorphism key switch of ``gens[i]``
+    (`blind_rotate_ga`, `bootstrap_ga.c:39-60`).  The Shoup companions
+    ``svs32`` are not read: the product ends canonical either way."""
+    ga_scan_fused_plain.calls += 1
+    acc = acc0
+    inv = inv2n.to(torch.int64)
+    for i in range(gens.shape[0]):
+        t = ext_product_replace(acc, i32_as_u32(sv32[i]), kp.ntt, kp.l,
+                                kp.Bg_bit)
+        kidx = (gens[i].to(torch.int64) - 1) >> 1
+        acc = auto_keyswitch_rows(t, ak32, kidx, inv[kidx], kp_ks)
+    return acc
+
+
+ga_scan_fused_plain.calls = 0
+
+
+def ga_scan_fused(acc0, gens, sv32, svs32, ak32, inv2n, kp: PBSKernelPlan,
+                  kp_ks: PBSKernelPlan):
+    """The whole GA rotation.  CUDA tensors: one launch of the kernel, and an
+    error raised if it does not build or launch.  CPU tensors: the plain
+    version.  ``gens`` must be odd in [1, 2 min(G, N)): (g - 1)/2 indexes
+    the keyset and ``inv2n`` unchecked, as in `auto_keyswitch_stream`.
+    Returns [B, C, N] int64."""
+    dev = acc0.device
+    if dev.type == "cpu":
+        return ga_scan_fused_plain(acc0, gens, sv32, svs32, ak32, inv2n, kp,
+                                   kp_ks)
+    if dev.type != "cuda":
+        raise ValueError(f"ga_scan_fused runs on cuda or cpu, not {dev}")
+    if (kp_ks.N, kp_ks.C) != (kp.N, kp.C):
+        raise ValueError("the two plans must share N and k")
+    B, n, G = acc0.shape[0], gens.shape[0], ak32.shape[0]
+    key_shape = (n, kp.J, kp.C, kp.P, kp.N)
+    _check("acc0", acc0, torch.int64, (B, kp.C, kp.N), dev)
+    _check("gens", gens, torch.int32, (n, B), dev)
+    _check("sv32", sv32, torch.int32, key_shape, dev)
+    _check("svs32", svs32, torch.int32, key_shape, dev)
+    _check("ak32", ak32, torch.int32,
+           (G, (kp.C - 1) * kp_ks.l, kp.C, kp_ks.P, kp.N), dev)
+    _check("inv2n", inv2n, torch.int32, (kp.N,), dev)
+    _check_plan(kp, dev)
+    _check_plan(kp_ks, dev)
+    acc = acc0.clone()
+    if B == 0 or n == 0:
+        return acc
+    _launch("ga_scan", "ga_scan_launch", 16, 2,
+            acc.data_ptr(), gens.data_ptr(), sv32.data_ptr(),
+            svs32.data_ptr(), ak32.data_ptr(), inv2n.data_ptr(),
+            kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
+            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(),
+            kp_ks.fwd_tw.data_ptr(), kp_ks.fwd_tws.data_ptr(),
+            kp_ks.inv_tw.data_ptr(), kp_ks.inv_tws.data_ptr(),
+            kp.host_consts.ctypes.data, kp_ks.host_consts.ctypes.data,
+            B, n, _stream(dev))
+    ga_scan_fused.launches += 1
+    return acc
+
+
+ga_scan_fused.launches = 0

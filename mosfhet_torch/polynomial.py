@@ -1,7 +1,9 @@
-"""Negacyclic polynomial rotations on torus tensors [..., N] (int64 bits).
+"""Negacyclic polynomial rotations and Galois automorphisms on torus
+tensors [..., N] (int64 bits).
 
-Mirrors `src/polynomial.c:184-235`.  Rotation amounts may be per-batch
-tensors: the blind rotate turns every ciphertext by its own exponent.
+Mirrors `src/polynomial.c:184-235,442-450`.  Rotation amounts and
+generator inverses may be per-batch tensors: the blind rotate turns every
+ciphertext by its own exponent, the GA rotation by its own generator.
 """
 
 from __future__ import annotations
@@ -30,3 +32,27 @@ def mul_by_xai(x, a):
 def mul_by_xai_minus_1(x, a):
     """x * (X^a - 1)."""
     return mul_by_xai(x, a) - x
+
+
+def permute_by_inverse(x, ginv):
+    """The Galois automorphism X^i -> X^(g i) of an odd generator g given by
+    its inverse mod 2N: out[..., j] = +-x[..., (j ginv mod 2N) mod N],
+    negated when (j ginv mod 2N) >= N.  ``ginv``: an odd int or an integer
+    tensor broadcastable to x.shape[:-1]."""
+    N = x.shape[-1]
+    j = torch.arange(N, dtype=torch.int64, device=x.device)
+    ginv = torch.as_tensor(ginv, dtype=torch.int64, device=x.device)
+    ic = (j * ginv.unsqueeze(-1)) & (2 * N - 1)
+    neg = (ic & N) != 0
+    idx = ic & (N - 1)
+    shape = torch.broadcast_shapes(x.shape, idx.shape)
+    g = torch.gather(x.expand(shape), -1, idx.expand(shape))
+    return torch.where(neg.expand(shape), -g, g)
+
+
+def permute(x, gen: int):
+    """x^i -> x^(gen i) for an odd ``gen`` (`polynomial_permute`,
+    `polynomial.c:442-450`; even generators are not automorphisms)."""
+    if gen % 2 != 1:
+        raise ValueError(f"permute needs an odd Galois generator, got {gen}")
+    return permute_by_inverse(x, pow(int(gen), -1, 2 * x.shape[-1]))

@@ -118,6 +118,12 @@ def mul_by_xai(c: TRLWE, a) -> TRLWE:
                  b=_poly.mul_by_xai(c.b, a))
 
 
+def permute(c: TRLWE, gen: int) -> TRLWE:
+    """The Galois automorphism X -> X^gen on every component (first half of
+    `trlwe_eval_automorphism`, `trlwe.c:775-781`)."""
+    return TRLWE(a=_poly.permute(c.a, gen), b=_poly.permute(c.b, gen))
+
+
 def extract_tlwe(c: TRLWE, idx: int = 0) -> TLWE:
     """TRLWE -> TLWE of coefficient ``idx`` of the phase (`trlwe.c:540-552`):
     a'[i*N + j] = a_i[idx-j] for j <= idx, else -a_i[N+idx-j]."""

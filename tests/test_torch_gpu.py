@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (blind rotation, key-switch select-sum,
-external-product apply scan, unfolded rotation, UBR phase 1) against their
-plain PyTorch versions, bit for bit, and the int8 key switch through
+external-product apply scan, unfolded rotation, UBR phase 1, automorphism
+key switch, GA rotation) against their plain PyTorch versions, bit for
+bit, and the int8 key switch through
 `torch._int_mm`.  Needs a CUDA card: without one every test here
 skips.
 
@@ -199,3 +200,69 @@ def test_cuda_ubr_phase1_matches_plain(N, k, l, Bg_bit, u, G, B):
     torch.cuda.synchronize()
     assert tpk.ubr_phase1_combine.launches == launches + 1
     assert torch.equal(got, tpk.ubr_phase1_combine_plain(su, rot, kp))
+
+
+def random_ks_keyset(rng, N, k, t, base_bit, G):
+    """Random keyset residues [G, k t, k+1, P, N] (u32) under the key-switch
+    plan's primes, and those primes."""
+    primes = ntt.primes_for_bound(ntt.conv_bound(N, 1 << (base_bit - 1),
+                                                 k * t * t))
+    return primes, random_residues(rng, (G, k * t, k + 1, len(primes), N),
+                                   primes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,k,t,base_bit,G,B", [
+    (2048, 1, 4, 9, 16, 6),     # TFHEpp-L2 widths, a cut keyset
+    (256, 2, 3, 8, 5, 4),       # k=2
+    (128, 1, 2, 10, 128, 3),    # the GA tests' widths, the whole keyset
+    (2048, 1, 1, 23, 4, 3),     # SET_2 digits: four primes
+])
+def test_cuda_auto_keyswitch_matches_plain(N, k, t, base_bit, G, B):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(N + G)
+    primes, ak = random_ks_keyset(rng, N, k, t, base_bit, G)
+    x = rng.integers(0, 1 << 64, size=(B, k + 1, N), dtype=np.uint64)
+    kidx = rng.integers(0, G, size=B, dtype=np.int32)
+    kidx[0], kidx[-1] = 0, G - 1
+    ginv = (rng.integers(0, N, size=B, dtype=np.int32) * 2 + 1)
+    ginv[0], ginv[1] = 1, 2 * N - 1
+    kp = tpk.get_kernel_plan(N, primes, t, base_bit, k, "cuda")
+    args = (to_tensor(x, "cuda"), as_i32(ak, "cuda"),
+            torch.from_numpy(kidx).cuda(), torch.from_numpy(ginv).cuda(), kp)
+    launches = tpk.auto_keyswitch_stream.launches
+    got = tpk.auto_keyswitch_stream(*args)
+    torch.cuda.synchronize()
+    assert tpk.auto_keyswitch_stream.launches == launches + 1
+    assert torch.equal(got, tpk.auto_keyswitch_stream_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,k,l,Bg_bit,n,B", [
+    (2048, 1, 4, 9, 3, 4),      # TFHEpp-L2 widths, n cut to 3
+    (256, 2, 3, 8, 2, 3),       # k=2
+    (128, 1, 2, 10, 4, 5),      # the GA tests' widths
+    (256, 1, 1, 18, 2, 3),      # four primes for the product, three for KS
+])
+def test_cuda_ga_scan_matches_plain(N, k, l, Bg_bit, n, B):
+    """The whole keyset (G = N), generators 1 and 2N-1 present."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from mosfhet_torch.bootstrap_ga import inverse_mod_2n_table
+    primes, acc0, _, sv, svs = random_rotation_inputs(N, k, l, Bg_bit, n, B,
+                                                      seed=N + n)
+    rng = np.random.default_rng(N + l)
+    ks_primes, ak = random_ks_keyset(rng, N, k, l, Bg_bit, N)
+    gens = rng.integers(0, N, size=(n, B), dtype=np.int32) * 2 + 1
+    gens[0, 0], gens[-1, -1] = 1, 2 * N - 1
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    kp_ks = tpk.get_kernel_plan(N, ks_primes, l, Bg_bit, k, "cuda")
+    args = (to_tensor(acc0, "cuda"), torch.from_numpy(gens).cuda(),
+            as_i32(sv, "cuda"), as_i32(svs, "cuda"), as_i32(ak, "cuda"),
+            torch.from_numpy(inverse_mod_2n_table(N)).cuda(), kp, kp_ks)
+    launches = tpk.ga_scan_fused.launches
+    got = tpk.ga_scan_fused(*args)
+    torch.cuda.synchronize()
+    assert tpk.ga_scan_fused.launches == launches + 1
+    assert torch.equal(got, tpk.ga_scan_fused_plain(*args))
