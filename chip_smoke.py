@@ -73,9 +73,29 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               from new_automorphism_ks_keyset) on 512 TRLWEs: one K6 launch
               each, bit-exact against the plain version, decrypt within
               trlwe_ks_bound (2^40 at L2).
- 16. report   the pbs, gate, fdfb, unfolded, ubr, extprod, ga and trlweks
-              lines, the card line, the kernels line, and the result line
-              last.
+ 16. tp       the gadget-row split CMUX step against its plain versions at
+              full TFHEpp-L2 widths on random inputs (B=5, exponents 0, N
+              and 2N present): K8a over key rows [0, J/2), [J/2, J) and
+              [3J/4, J), K8b on 2 and 8 partials whose top residues sum
+              past 2^32: bit-exact.
+ 17. mesh     parallel.mesh.pbs_on_mesh on phase 4's LUT, key and 512
+              ciphertexts, on (data, model) meshes of the one card: (1, 2),
+              (1, 4), (2, 2) through K8a and K8b, (2, 1) through K1.  Counts
+              zeroed just before each mesh's calls and read just after:
+              exactly n data model K8a and n data K8b launches per call
+              (data K1 launches with model 1) and nothing else; words equal
+              to phase 4's, decrypt within 2^58; first-call and warm ms,
+              boot/s, peak memory.  K8a and K8b timed per launch on the
+              path's own inputs (the (1, 2) mesh's first step) beside their
+              bounds and their plain versions (bit-exact).
+ 18. meshplain unfolded_pbs_on_mesh with the u=4 key and ga_pbs_on_mesh with
+              the GA key, model 2, on the first 32 ciphertexts: words equal
+              to phase 10's (K4) and phase 14's (K7) outputs for them; these
+              routes are plain PyTorch (no kernel launch), as in the TPU
+              package.
+ 19. report   the pbs, gate, fdfb, unfolded, ubr, extprod, ga, trlweks and
+              mesh lines, the card line, the kernels line, and the result
+              line last.
 
 Imports nothing but PyTorch, numpy and the port.
 """
@@ -112,7 +132,13 @@ RUNTIME_KEY_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT "
                             "external product or an unfolded combine")
 KERNELS = ("blind_rotate_scan", "tlwe_keyswitch_sum", "ext_product_apply_scan",
            "unfolded_rotate", "ubr_phase1_combine", "auto_keyswitch_stream",
-           "ga_scan_fused")
+           "ga_scan_fused", "partial_step", "finish_step")
+TP_LIBRARY_NOTE = ("none: no PyTorch call computes a partial external "
+                   "product or an NTT-domain finish")
+# (data, model) meshes of the one card for pbs_on_mesh (phase 17)
+MESH_SHAPES = ((1, 2), (1, 4), (2, 2), (2, 1))
+TP_REPS = 20         # timed launches of K8a and K8b
+MESH_CUT = 32        # ciphertexts of the plain-PyTorch mesh routes (phase 18)
 GA_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT key switch "
                    "with per-row keys or a Galois permutation")
 # No PyTorch call computes the key-switch select-sum on int64 CUDA tensors.
@@ -316,6 +342,31 @@ def ga_bound(kp, kp_ks, gens, max_clock_mhz):
     out = ops_bytes_bound(ops, nbytes, max_clock_mhz)
     out["gathered_bytes"] = n * B * entry_bytes(kp_ks)
     out["products_per_step"] = shoup + barrett
+    return out
+
+
+def partial_step_bound(kp, B, j_local, max_clock_mhz):
+    """K8a for B ciphertexts over j_local key rows: per ciphertext j_local*P
+    digit NTTs and j_local*C*P*N Shoup key products; bytes: acc in, the
+    exponents, the key rows and their companions, the partial out."""
+    C, P, N = kp.C, kp.P, kp.N
+    shoup = butterflies(kp, j_local * P) + j_local * C * P * N
+    nbytes = (B * C * N * 8 + B * 4 + 2 * j_local * C * P * N * 4
+              + B * C * P * N * 4)
+    out = ops_bytes_bound(SHOUP_MULTIPLIES * shoup * B, nbytes, max_clock_mhz)
+    out["products_per_ciphertext"] = shoup
+    return out
+
+
+def finish_step_bound(kp, B, m, max_clock_mhz):
+    """K8b for B ciphertexts on m partials: per ciphertext C*P inverse NTTs
+    and one Garner product per word; bytes: the m partials in, acc in and
+    out."""
+    C, P, N = kp.C, kp.P, kp.N
+    shoup = butterflies(kp, C * P) + C * N
+    nbytes = m * B * C * P * N * 4 + 2 * B * C * N * 8
+    out = ops_bytes_bound(SHOUP_MULTIPLIES * shoup * B, nbytes, max_clock_mhz)
+    out["products_per_ciphertext"] = shoup
     return out
 
 
@@ -693,7 +744,7 @@ def main():
         f"inputs, bound {k4_bound['bound_ms']:.3f} ms ({k4_bound['bound_by']}"
         f": {k4_bound['int32_ops']:.4g} int32 ops, {k4_bound['bytes']:.4g} "
         f"B); bit-exact")
-    del acc_in4, rot4, acc_k4, acc_p4, bk4
+    del acc_in4, rot4, acc_k4, acc_p4          # bk4 and out4: phase 18
 
     # 11. UBR at u=8: one ciphertext, 256 LUTs
     torch.cuda.reset_peak_memory_stats()
@@ -981,12 +1032,155 @@ def main():
     trlwe_ks["eval_automorphism"]["gen"] = gen_auto
     del ksk_r, ksk_auto, m_ks, ks_cases, out_ks, out_p
 
-    # 16. report
+    # 16. K8a and K8b vs plain at full L2 widths on random inputs
+    B_r = 5
+    acc_r = random_u64(rs, (B_r, C, N), dev)
+    a_np = rs.integers(0, 2 * N + 1, B_r, dtype=np.int32)
+    a_np[:3] = 0, N, 2 * N
+    a_r = torch.from_numpy(a_np).to(dev)
+    for j0, jl in ((0, J // 2), (J // 2, J // 2), (3 * J // 4, J // 4)):
+        kv_r = random_residues_i32(rs, (jl, C, P, N), primes, dev)
+        kvs_r = pk.u32_as_i32((pk.i32_as_u32(kv_r) << 32) // pr_t)
+        got = pk.partial_step(acc_r, a_r, j0, kv_r, kvs_r, kp)
+        torch.cuda.synchronize()
+        same_or_fail(f"K8a (rows [{j0}, {j0 + jl})) vs plain at L2 widths",
+                     got, pk.partial_step_plain(acc_r, a_r, j0, kv_r, kvs_r,
+                                                kp))
+    for m_r in (2, 8):
+        parts_r = random_residues_i32(rs, (m_r, B_r, C, P, N), primes, dev)
+        parts_r[:, 0, 0, :, 0] = pk.u32_as_i32(pr_t[:, 0] - 1)
+        got = pk.finish_step(acc_r.clone(), parts_r, kp)
+        torch.cuda.synchronize()
+        same_or_fail(f"K8b ({m_r} partials) vs plain at L2 widths", got,
+                     pk.finish_step_plain(acc_r.clone(), parts_r, kp))
+    del acc_r, a_r, kv_r, kvs_r, parts_r, got
+    log(f"# K8a (rows [0, {J // 2}), [{J // 2}, {J}), [{3 * J // 4}, {J}); "
+        f"B={B_r}; exponents 0, N, 2N) and K8b (2 and 8 partials) vs plain "
+        "at L2 widths: bit-exact")
+
+    # 17. pbs_on_mesh on meshes of the one card
+    from mosfhet_torch.parallel import mesh as pmesh
+    mesh_runs, mesh_counts = {}, {}
+    for data, model in MESH_SHAPES:
+        name = f"mesh_{data}x{model}"
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = pmesh.pbs_on_mesh(pmesh.make_mesh([dev] * (data * model),
+                                                data=data, model=model),
+                                bk, 4)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        zero_counts(pk)
+        t0 = time.perf_counter()
+        out_m = run(tv, cs)
+        torch.cuda.synchronize()
+        mesh_first_s = time.perf_counter() - t0
+        mesh_ms, out_m2 = cuda_ms(lambda: run(tv, cs), REPS)
+        counts = read_counts(pk)
+        mesh_peak = torch.cuda.max_memory_allocated()
+        calls = 1 + REPS
+        check_counts(f"{name} over {calls} calls", counts,
+                     {"partial_step": calls * bk.n * data * model,
+                      "finish_step": calls * bk.n * data} if model > 1
+                     else {"blind_rotate_scan": calls * data})
+        for o in (out_m, out_m2):
+            if not (torch.equal(o.a, out.a) and torch.equal(o.b, out.b)):
+                fail(f"{name} output != phase 4's functional_bootstrap")
+        m_err = signed_max_abs(tlwe.phase(out_m, key_out) - luts[slots])
+        if not m_err <= DECRYPT_BOUND:
+            fail(f"{name} decrypt: max error 2^{math.log2(m_err):.1f} > 2^58")
+        mesh_counts[name] = counts
+        mesh_runs[name] = {
+            "data": data, "model": model, "setup_s": setup_s,
+            "first_call_s": mesh_first_s, "warm_ms": mesh_ms,
+            "boot_per_s": BATCH / mesh_ms * 1e3, "peak_bytes": mesh_peak,
+            "decrypt_max_err_log2": math.log2(max(m_err, 1.0)),
+            "launches_per_call": {k: v // calls for k, v in counts.items()
+                                  if v}}
+        log(f"# pbs_on_mesh ({data} x {model}): key slices {setup_s:.3f} s; "
+            f"first call {mesh_first_s:.3f} s; warm {mesh_ms:.3f} ms per "
+            f"batch of {BATCH} = {BATCH / mesh_ms * 1e3:.2f} boot/s (K1 "
+            f"alone: {BATCH / pbs_ms * 1e3:.2f}); words equal to phase 4's; "
+            f"decrypt OK (max err 2^{math.log2(max(m_err, 1.0)):.1f}); peak "
+            f"{mesh_peak / 2**30:.2f} GiB; launches per call "
+            f"{mesh_runs[name]['launches_per_call']}")
+        del run, out_m, out_m2
+    # K8a and K8b alone on the (1, 2) mesh's first step: the path's inputs
+    jl2 = J // 2
+    tp_args = [(acc_in, a_int[0].contiguous(), s * jl2,
+                bk.v32[0, s * jl2:(s + 1) * jl2].contiguous(),
+                bk.vs32[0, s * jl2:(s + 1) * jl2].contiguous(), bkp)
+               for s in range(2)]
+    parts_k = torch.empty((2, BATCH, C, P, N), dtype=torch.int32, device=dev)
+    k8a_ms, _ = cuda_ms(lambda: pk.partial_step(*tp_args[0],
+                                                out=parts_k[0]), TP_REPS)
+    pk.partial_step(*tp_args[1], out=parts_k[1])
+    k8a_plain_ms, part_p = cuda_ms(lambda: pk.partial_step_plain(
+        *tp_args[0]), 1)
+    k8a_err = signed_max_abs(pk.i32_as_u32(parts_k[0])
+                             - pk.i32_as_u32(part_p))
+    same_or_fail("K8a on the path's inputs (shard 1)", parts_k[1],
+                 pk.partial_step_plain(*tp_args[1]))
+    if k8a_err != 0.0:
+        fail("K8a != plain on the path's inputs (shard 0)")
+    acc_f = acc_in.clone()
+    k8b_ms, _ = cuda_ms(lambda: pk.finish_step(acc_f, parts_k, bkp), TP_REPS)
+    acc_k8 = pk.finish_step(acc_in.clone(), parts_k, bkp)
+    k8b_plain_ms, acc_p8 = cuda_ms(
+        lambda: pk.finish_step_plain(acc_in.clone(), parts_k, bkp), 1)
+    k8b_err = signed_max_abs(acc_k8 - acc_p8)
+    if k8b_err != 0.0:
+        fail("K8b != plain on the path's inputs")
+    one_step = pk.blind_rotate_scan(acc_in, a_int[:1].contiguous(),
+                                    bk.v32[:1], bk.vs32[:1], bkp)
+    same_or_fail("K8a x 2 + K8b vs one K1 step", acc_k8, one_step)
+    k8a_bound = partial_step_bound(bkp, BATCH, jl2, max_clock)
+    k8b_bound = finish_step_bound(bkp, BATCH, 2, max_clock)
+    log(f"# partial_step (K8a) at B={BATCH}, {jl2} key rows: kernel "
+        f"{k8a_ms:.4f} ms/launch (mean of {TP_REPS}), plain "
+        f"{k8a_plain_ms:.3f} ms, bound {k8a_bound['bound_ms']:.4f} ms "
+        f"({k8a_bound['bound_by']}: {k8a_bound['int32_ops']:.4g} int32 ops, "
+        f"{k8a_bound['bytes']:.4g} B); finish_step (K8b) on 2 partials: "
+        f"kernel {k8b_ms:.4f} ms/launch, plain {k8b_plain_ms:.3f} ms, bound "
+        f"{k8b_bound['bound_ms']:.4f} ms ({k8b_bound['bound_by']}: "
+        f"{k8b_bound['int32_ops']:.4g} int32 ops, {k8b_bound['bytes']:.4g} "
+        f"B); bit-exact; 2 K8a + K8b = one K1 step, word for word")
+    del tp_args, parts_k, part_p, acc_f, acc_k8, acc_p8, one_step
+
+    # 18. the plain-PyTorch mesh routes (model 2) on the first ciphertexts
+    n_cut = min(MESH_CUT, BATCH)
+    c_cut = tlwe.TLWE(a=cs.a[:n_cut].contiguous(),
+                      b=cs.b[:n_cut].contiguous())
+    mesh12 = pmesh.make_mesh([dev] * 2, data=1, model=2)
+    plain_routes = {}
+    for name, fn, key, want in (
+            ("unfolded", pmesh.unfolded_pbs_on_mesh, bk4, out4),
+            ("ga", pmesh.ga_pbs_on_mesh, bkg, out_g)):
+        zero_counts(pk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_m = fn(mesh12, key, 4, model_axis="model")(tv, c_cut)
+        torch.cuda.synchronize()
+        route_s = time.perf_counter() - t0
+        check_counts(f"{name}_pbs_on_mesh (1 x 2)", read_counts(pk), {})
+        if not (torch.equal(got_m.a, want.a[:n_cut])
+                and torch.equal(got_m.b, want.b[:n_cut])):
+            fail(f"{name}_pbs_on_mesh (1 x 2) != the single-device kernel "
+                 f"path's words")
+        plain_routes[name] = {"s": route_s, "ciphertexts": n_cut}
+        log(f"# {name}_pbs_on_mesh (1 x 2, plain PyTorch) on {n_cut} "
+            f"ciphertexts: {route_s:.3f} s; words equal to the "
+            f"single-device kernel path's")
+    del bk4, out4, got_m, c_cut
+
+    # 19. report
     paths = {"pbs": pbs_counts, "gate": gate_counts, "fdfb": fdfb_counts,
              "unfolded": ub_counts, "ubr_phase1": ph1_counts,
              "ubr_phase2": ph2_counts, "ga": ga_counts}
     paths.update({name: {"auto_keyswitch_stream": c["launches"]}
                   for name, c in trlwe_ks.items()})
+    paths.update(mesh_counts)
     paths.update({f"extprod_{mode}": {"ext_product_apply_scan":
                                       ep[mode]["launches"]} for mode in ep})
 
@@ -1062,6 +1256,26 @@ def main():
         "ms": k7_ms, "plain_ms": k7_plain_ms,
         "bound_ms": k7_bound["bound_ms"], "bound_by": k7_bound["bound_by"],
         "library_ms": None, "library_note": GA_LIBRARY_NOTE,
+    }, {
+        "name": "partial_step", "route": "cuda",
+        "source": "mosfhet_torch/ops/csrc/tp_step.cu",
+        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:1536",
+        "launches": sum(c["partial_step"] for c in mesh_counts.values()),
+        "launches_by_path": by_path("partial_step"),
+        "max_abs_err": k8a_err, "bit_exact": True,
+        "ms": k8a_ms, "plain_ms": k8a_plain_ms,
+        "bound_ms": k8a_bound["bound_ms"], "bound_by": k8a_bound["bound_by"],
+        "library_ms": None, "library_note": TP_LIBRARY_NOTE,
+    }, {
+        "name": "finish_step", "route": "cuda",
+        "source": "mosfhet_torch/ops/csrc/tp_step.cu",
+        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:1651",
+        "launches": sum(c["finish_step"] for c in mesh_counts.values()),
+        "launches_by_path": by_path("finish_step"),
+        "max_abs_err": k8b_err, "bit_exact": True,
+        "ms": k8b_ms, "plain_ms": k8b_plain_ms,
+        "bound_ms": k8b_bound["bound_ms"], "bound_by": k8b_bound["bound_by"],
+        "library_ms": None, "library_note": TP_LIBRARY_NOTE,
     }]
     log(json.dumps({"pbs": {
         "params": p.name, "batch": BATCH, "keygen_s": keygen_s,
@@ -1112,6 +1326,11 @@ def main():
         "rotation_bound": k7_bound}}))
     log(json.dumps({"trlweks": {"params": p.name, "batch": BATCH,
                                 "t": p.l, "base_bit": p.Bg_bit, **trlwe_ks}}))
+    log(json.dumps({"mesh": {
+        "params": p.name, "batch": BATCH,
+        "boot_per_s_k1": BATCH / pbs_ms * 1e3,
+        **mesh_runs, "k8a_bound": k8a_bound, "k8b_bound": k8b_bound,
+        "plain_routes": plain_routes}}))
     log(f"# whole script: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

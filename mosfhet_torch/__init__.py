@@ -22,6 +22,7 @@ from . import bootstrap
 from . import keyswitch
 from . import bootstrap_ga
 from . import bridge
+from . import parallel
 from .ops import pbs_kernel
 from ._device import default_device
 from .params import PARAM_REGISTRY, TFHEParams, get_params

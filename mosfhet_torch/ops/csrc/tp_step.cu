@@ -1,0 +1,240 @@
+// One CMUX step split over the bootstrap key's gadget rows, for NVIDIA
+// Hopper (sm_90a): the two kernels of the gadget-row (tensor-parallel)
+// sharded blind rotation of `parallel/mesh.py`.
+//
+// Replaces the TPU kernels `partial_step_tiles` (the TPU package's
+// ops/pbs_kernel.py:1536, body `_make_partial_step_kernel` :1477) and
+// `finish_step_tiles` (ops/pbs_kernel.py:1651, body
+// `_make_finish_step_kernel` :1595).  Together, per ciphertext, they compute
+// K1's step (blind_rotate.cu)
+//
+//   acc += BK_i (x) ((X^{a_i} - 1) * acc)
+//
+// with the key's J = (k+1) l rows cut into m shards of J/m rows:
+//
+//   K8a  partial_step: rot = X^a acc - acc; for the global rows j in
+//        [j0, j0 + j_local): digit row j (component j / l, digit j % l of
+//        the WHOLE decomposition), forward NTT, Shoup multiply-accumulate
+//        against the shard's key rows.  Writes the exact (canonical, < p)
+//        NTT-domain partial [C][P][N] of the ciphertext.
+//   K8b  finish_step: reduces the m partials of every shard to their sum
+//        mod p (add_mod, canonical after each add, so exact for any m: the
+//        TPU's u32 psum needed m p < 2^32, this needs nothing), inverse
+//        NTTs of the C*P spectra, Garner to u64, and acc += delta in place
+//        (the TPU kernel aliases acc to its output).
+//
+// The cross-shard sum is therefore a gather, not an add: the caller puts
+// the m partials side by side ([m, B, C, P, N], each shard's K8a writing its
+// own slot; a shard on another card is copied in), and K8b reduces them.
+// K8a is K1's steps 1-3 and K8b its steps 4-6, built from the same
+// ntt_common.cuh helpers, so a split step gives K1's words.
+//
+// Design.  One thread block per ciphertext, as in K1; nothing carries over
+// between steps inside a kernel (the step loop, and the sum between the two
+// halves, are the caller's).  K8a keeps rot (C x N u64), the spectra
+// (C x P x N u32) and one digit row's NTT buffer (P x N u32) in shared
+// memory, 104 KiB at N=2048, k=1, P=3; acc is read from device memory.
+// K8b keeps the C*P spectra, 48 KiB.  The partial and the sum go through
+// device memory: at TFHEpp-L2, batch 512, 25.2 MB per shard and step.
+//
+// What bounds them on this card.  K8a: integer multiplies, as K1 (at m = 2
+// per ciphertext 12 NTTs x 11,264 butterflies + 49,152 key products, each
+// a Shoup product of three 32-bit multiplies), with its bytes (acc in,
+// partial out, the shard's key rows) below that.  K8b: bytes (m partials
+// and acc in, acc out) above its 6 inverse NTTs and Garner.  This first
+// version does not fuse the m shards' partials of one card into one launch
+// and synchronises the whole block at each NTT stage, as K1 does.
+
+#include "ntt_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 1024;
+
+template <int P>
+__global__ void __launch_bounds__(kThreads, 1)
+partial_step_kernel(const uint64_t* __restrict__ acc_g,
+                    const int32_t* __restrict__ a_g,
+                    const uint32_t* __restrict__ keyv,
+                    const uint32_t* __restrict__ keyvs,
+                    const uint32_t* __restrict__ ftw,
+                    const uint32_t* __restrict__ ftws,
+                    uint32_t* __restrict__ out_g, const PbsConsts Kp, int j0,
+                    int j_local) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ PbsConsts K;
+  if (threadIdx.x == 0) K = Kp;
+  __syncthreads();
+  const int N = K.N, C = K.C, l = K.l, CN = K.C * K.N;
+  uint64_t* rot = reinterpret_cast<uint64_t*>(smem);       // [C][N]
+  uint32_t* spec = reinterpret_cast<uint32_t*>(rot + CN);  // [C][P][N]
+  uint32_t* work = spec + C * P * N;                       // [P][N]
+
+  const uint64_t* acc_b = acc_g + size_t(blockIdx.x) * CN;
+  const int a = a_g[blockIdx.x];  // in [0, 2N]
+  // 1. rot + offset, with rot = X^a acc - acc
+  for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
+    const int c = idx >> K.logN, k = idx & (N - 1);
+    rot[idx] = rotated_word(acc_b + c * N, k, a, N) - acc_b[idx] + K.offset;
+  }
+  for (int idx = threadIdx.x; idx < C * P * N; idx += blockDim.x) spec[idx] = 0;
+  __syncthreads();
+
+  for (int jj = 0; jj < j_local; ++jj) {
+    // 2. global digit row j = (component c_j, digit d), residues mod each p
+    const int j = j0 + jj, cj = j / l, d = j % l;
+    for (int k = threadIdx.x; k < N; k += blockDim.x) {
+      const int digit = gadget_digit(rot[cj * N + k], d, K);
+#pragma unroll
+      for (int pi = 0; pi < P; ++pi)
+        work[pi * N + k] = small_residue(digit, K.p[pi]);
+    }
+    __syncthreads();
+    // 3. forward NTTs, then spec[c][p] += NTT(digit row) * key row jj
+    forward_ntt<P>(work, P, K, ftw, ftws);
+    for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x) {
+      const int pi = idx >> K.logN, k = idx & (N - 1);
+      const uint32_t p = K.p[pi], x = work[idx];
+      for (int c = 0; c < C; ++c) {
+        const size_t ko = (size_t(jj * C + c) * P + pi) * N + k;
+        uint32_t* sp = spec + (c * P + pi) * N + k;
+        *sp = add_mod(*sp, shoup(x, keyv[ko], keyvs[ko], p), p);
+      }
+    }
+    __syncthreads();
+  }
+  uint32_t* out_b = out_g + size_t(blockIdx.x) * C * P * N;
+  for (int idx = threadIdx.x; idx < C * P * N; idx += blockDim.x)
+    out_b[idx] = spec[idx];
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads, 1)
+finish_step_kernel(uint64_t* __restrict__ acc_g,
+                   const uint32_t* __restrict__ parts_g,
+                   const uint32_t* __restrict__ itw,
+                   const uint32_t* __restrict__ itws, const PbsConsts Kp,
+                   int m, int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ PbsConsts K;
+  if (threadIdx.x == 0) K = Kp;
+  __syncthreads();
+  const int N = K.N, C = K.C, CN = K.C * K.N, CPN = K.C * P * K.N;
+  uint32_t* spec = reinterpret_cast<uint32_t*>(smem);  // [C][P][N]
+
+  // 4a. the sum of the m partials mod p, canonical after every add
+  const size_t part_stride = size_t(B) * CPN;
+  const uint32_t* parts_b = parts_g + size_t(blockIdx.x) * CPN;
+  for (int idx = threadIdx.x; idx < CPN; idx += blockDim.x) {
+    const uint32_t p = K.p[(idx >> K.logN) % P];
+    uint32_t s = parts_b[idx];
+    for (int j = 1; j < m; ++j) s = add_mod(s, parts_b[j * part_stride + idx], p);
+    spec[idx] = s;
+  }
+  __syncthreads();
+  // 4b. inverse NTTs of all C*P spectra
+  inverse_ntt<P>(spec, C * P, K, itw, itws);
+  // 5-6. Garner (with 1/N) and the carry-add into acc
+  uint64_t* acc_b = acc_g + size_t(blockIdx.x) * CN;
+  for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
+    const int c = idx >> K.logN, k = idx & (N - 1);
+    acc_b[idx] += garner<P>(spec + c * P * N, k, K);
+  }
+}
+
+template <int P>
+cudaError_t launch_partial(const uint64_t* acc, const int32_t* a,
+                           const uint32_t* keyv, const uint32_t* keyvs,
+                           const uint32_t* ftw, const uint32_t* ftws,
+                           uint32_t* out, const PbsConsts& K, int B, int j0,
+                           int j_local, cudaStream_t stream) {
+  const size_t smem = size_t(K.C) * K.N * sizeof(uint64_t) +
+                      size_t(K.C * P + P) * K.N * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      partial_step_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  partial_step_kernel<P><<<B, kThreads, smem, stream>>>(
+      acc, a, keyv, keyvs, ftw, ftws, out, K, j0, j_local);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_finish(uint64_t* acc, const uint32_t* parts,
+                          const uint32_t* itw, const uint32_t* itws,
+                          const PbsConsts& K, int B, int m,
+                          cudaStream_t stream) {
+  const size_t smem = size_t(K.C) * P * K.N * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      finish_step_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  finish_step_kernel<P><<<B, kThreads, smem, stream>>>(acc, parts, itw, itws,
+                                                       K, m, B);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// consts: the plan's int64 host array (layout in ntt_common.cuh).
+// acc [B, k+1, N] u64 (read); a [B] int32 in [0, 2N]; keyv/keyvs
+// [j_local, k+1, P, N] u32, global key rows [j0, j0 + j_local); out
+// [B, k+1, P, N] u32 canonical residues.
+int partial_step_launch(const void* acc, const void* a, const void* keyv,
+                        const void* keyvs, const void* ftw, const void* ftws,
+                        void* out, const int64_t* consts, int B, int j0,
+                        int j_local, void* stream) {
+  PbsConsts K;
+  if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
+  if (j0 < 0 || j_local < 1 || j0 + j_local > K.C * K.l)
+    return int(cudaErrorInvalidValue);
+  if (B == 0) return int(cudaSuccess);
+  auto* acc64 = static_cast<const uint64_t*>(acc);
+  auto* a32 = static_cast<const int32_t*>(a);
+  auto* kv = static_cast<const uint32_t*>(keyv);
+  auto* ks = static_cast<const uint32_t*>(keyvs);
+  auto* f = static_cast<const uint32_t*>(ftw);
+  auto* fs = static_cast<const uint32_t*>(ftws);
+  auto* o = static_cast<uint32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (K.P) {
+    case 2: err = launch_partial<2>(acc64, a32, kv, ks, f, fs, o, K, B, j0, j_local, st); break;
+    case 3: err = launch_partial<3>(acc64, a32, kv, ks, f, fs, o, K, B, j0, j_local, st); break;
+    case 4: err = launch_partial<4>(acc64, a32, kv, ks, f, fs, o, K, B, j0, j_local, st); break;
+    default: err = launch_partial<5>(acc64, a32, kv, ks, f, fs, o, K, B, j0, j_local, st); break;
+  }
+  return int(err);
+}
+
+// acc [B, k+1, N] u64, updated in place; parts [m, B, k+1, P, N] u32, each
+// partial canonical (< p).
+int finish_step_launch(void* acc, const void* parts, const void* itw,
+                       const void* itws, const int64_t* consts, int B, int m,
+                       void* stream) {
+  PbsConsts K;
+  if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
+  if (m < 1) return int(cudaErrorInvalidValue);
+  if (B == 0) return int(cudaSuccess);
+  auto* acc64 = static_cast<uint64_t*>(acc);
+  auto* pt = static_cast<const uint32_t*>(parts);
+  auto* iv = static_cast<const uint32_t*>(itw);
+  auto* is = static_cast<const uint32_t*>(itws);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (K.P) {
+    case 2: err = launch_finish<2>(acc64, pt, iv, is, K, B, m, st); break;
+    case 3: err = launch_finish<3>(acc64, pt, iv, is, K, B, m, st); break;
+    case 4: err = launch_finish<4>(acc64, pt, iv, is, K, B, m, st); break;
+    default: err = launch_finish<5>(acc64, pt, iv, is, K, B, m, st); break;
+  }
+  return int(err);
+}
+
+const char* cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

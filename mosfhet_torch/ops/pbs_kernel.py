@@ -64,6 +64,25 @@ PyTorch, only for CPU tensors.  The two give the same words.
      sv32, svs32 [n, (k+1)l, k+1, P, N]    int32: TRGSW(X^{s_i}) and Shoup
      inv2n [N]                             int32: g^-1 mod 2N at (g - 1)/2
 
+8. The gadget-row split of one CMUX step (``csrc/tp_step.cu``), for a
+   bootstrap key whose J = (k+1)l rows are sharded over devices
+   (``parallel.mesh``).  The partial (K8a) over the global key rows
+   [j0, j0 + j_local),
+
+       part = sum_{j in rows} NTT(dec_j(X^{a} acc - acc)) * BK_i[j]
+     acc         [B, k+1, N]               int64 (read only)
+     a           [B]                       int32, this step's exponents
+     keyv, keyvs [j_local, k+1, P, N]      int32 with u32 bits: the rows
+     part        [B, k+1, P, N]            int32 holding u32 canonical residues
+
+   and the finish (K8b) on the m partials of all shards,
+
+       acc += INTT(sum_s part_s mod p)      (acc updated in place)
+     parts       [m, B, k+1, P, N]         int32, each canonical
+
+   K8b reduces the m partials itself (canonical after every add), so the
+   sum is exact for any m; the TPU's u32 psum needed m * max(p) < 2^32.
+
 The runtime-key kernels (3-7) multiply two residues with a 32-bit Barrett
 product, and reduce u64 words to the residues of their centred (signed)
 representatives, as ``ntt.to_resi_u64`` does: the plain versions use
@@ -155,16 +174,27 @@ def get_kernel_plan(N: int, primes, l: int, Bg_bit: int, k: int,
 
 # --- plain version -------------------------------------------------------------
 
-def cmux_step(acc, keyv, keyvs, a, plan: _ntt.NTTPlan, l: int, Bg_bit: int):
-    """acc += BK_i (x) (X^{a} * acc - acc), one CMUX (`bootstrap.c:113-118`).
-    acc [B, C, N] int64; a [B]; keyv/keyvs [J, C, P, N] int64 canonical."""
+def cmux_partial(acc, a, j0: int, keyv, keyvs, plan: _ntt.NTTPlan, l: int,
+                 Bg_bit: int):
+    """The NTT-domain external product of key rows [j0, j0 + len(keyv)) with
+    the matching digit rows of X^{a} * acc - acc: canonical residues
+    [B, C, P, N] int64.  acc [B, C, N] int64; a [B]; keyv/keyvs
+    [len, C, P, N] int64 canonical.  Row j is component j // l, digit j % l
+    of the whole decomposition."""
     B, C, N = acc.shape
     rot = _poly.mul_by_xai(acc, a.unsqueeze(-1)) - acc
     digits = gadget_decompose(rot, Bg_bit, l).reshape(B, C * l, N)
-    spec = _ntt.to_ntt_small(digits, plan)                     # [B, J, P, N]
-    acc_ntt = _ntt.pointwise_mul_acc_key(spec.unsqueeze(2), keyv, keyvs,
-                                         plan, dim=1)          # [B, C, P, N]
-    return acc + _ntt.from_ntt_u64(acc_ntt, plan)
+    spec = _ntt.to_ntt_small(digits[:, j0:j0 + keyv.shape[0]],
+                             plan)                             # [B, j, P, N]
+    return _ntt.pointwise_mul_acc_key(spec.unsqueeze(2), keyv, keyvs,
+                                      plan, dim=1)             # [B, C, P, N]
+
+
+def cmux_step(acc, keyv, keyvs, a, plan: _ntt.NTTPlan, l: int, Bg_bit: int):
+    """acc += BK_i (x) (X^{a} * acc - acc), one CMUX (`bootstrap.c:113-118`).
+    acc [B, C, N] int64; a [B]; keyv/keyvs [J, C, P, N] int64 canonical."""
+    return acc + _ntt.from_ntt_u64(
+        cmux_partial(acc, a, 0, keyv, keyvs, plan, l, Bg_bit), plan)
 
 
 def blind_rotate_scan_plain(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
@@ -195,11 +225,15 @@ def _kernel_lib(name: str, entry: str, n_ptr: int, n_int: int):
     return lib
 
 
-def _launch(name: str, entry: str, n_ptr: int, n_int: int, *args):
-    """Call the C entry, which launches on the current stream and returns
-    `cudaGetLastError()`; raise on anything but success."""
+def _launch(name: str, entry: str, n_ptr: int, n_int: int, dev, *args):
+    """Call the C entry, which launches on ``dev``'s current stream and
+    returns `cudaGetLastError()`; raise on anything but success.  ``dev`` is
+    made the current device for the call: the CUDA runtime launches into the
+    current device, and a tensor on another card (a mesh shard) needs its
+    own."""
     lib = _kernel_lib(name, entry, n_ptr, n_int)
-    err = getattr(lib, entry)(*args)
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(*args, _stream(dev))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.cuda_error_string(err).decode())
@@ -240,11 +274,11 @@ def blind_rotate_scan(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
     _check("keyvs", keyvs, torch.int32, key_shape, dev)
     _check_plan(kp, dev)
     acc = acc0.clone()
-    _launch("blind_rotate", "blind_rotate_launch", 9, 2,
+    _launch("blind_rotate", "blind_rotate_launch", 9, 2, dev,
             acc.data_ptr(), a_int.data_ptr(), keyv.data_ptr(),
             keyvs.data_ptr(), kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
             kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(),
-            kp.host_consts.ctypes.data, B, n, _stream(dev))
+            kp.host_consts.ctypes.data, B, n)
     blind_rotate_scan.launches += 1
     return acc
 
@@ -297,9 +331,9 @@ def tlwe_keyswitch_sum(dig, ab):
     out = torch.empty((B, width), dtype=torch.int64, device=dev)
     if B == 0 or width == 0:
         return out
-    _launch("tlwe_keyswitch", "tlwe_keyswitch_sum_launch", 3, 4,
+    _launch("tlwe_keyswitch", "tlwe_keyswitch_sum_launch", 3, 4, dev,
             dig.data_ptr(), ab.data_ptr(), out.data_ptr(), B, n_in * t,
-            base_m1, width, _stream(dev))
+            base_m1, width)
     tlwe_keyswitch_sum.launches += 1
     return out
 
@@ -359,11 +393,11 @@ def ext_product_apply_scan(acc0, sa32, kp: PBSKernelPlan,
     acc = acc0.clone()
     if B == 0 or G == 0:
         return acc
-    _launch("ext_product_apply", "ext_product_apply_launch", 7, 3,
+    _launch("ext_product_apply", "ext_product_apply_launch", 7, 3, dev,
             acc.data_ptr(), sa32.data_ptr(), kp.fwd_tw.data_ptr(),
             kp.fwd_tws.data_ptr(), kp.inv_tw.data_ptr(),
             kp.inv_tws.data_ptr(), kp.host_consts.ctypes.data, B, G,
-            int(per_row), _stream(dev))
+            int(per_row))
     ext_product_apply_scan.launches += 1
     return acc
 
@@ -421,11 +455,11 @@ def unfolded_rotate(acc0, rot, su, kp: PBSKernelPlan):
     acc = acc0.clone()
     if B == 0 or G == 0:
         return acc
-    _launch("unfolded_rotate", "unfolded_rotate_launch", 8, 3,
+    _launch("unfolded_rotate", "unfolded_rotate_launch", 8, 3, dev,
             acc.data_ptr(), rot.data_ptr(), su.data_ptr(),
             kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
             kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(),
-            kp.host_consts.ctypes.data, B, G, M, _stream(dev))
+            kp.host_consts.ctypes.data, B, G, M)
     unfolded_rotate.launches += 1
     return acc
 
@@ -462,10 +496,9 @@ def ubr_phase1_combine(su, rot, kp: PBSKernelPlan):
                       device=dev)
     if B == 0 or G == 0:
         return out
-    _launch("ubr_phase1", "ubr_phase1_launch", 6, 3, su.data_ptr(),
+    _launch("ubr_phase1", "ubr_phase1_launch", 6, 3, dev, su.data_ptr(),
             rot.data_ptr(), out.data_ptr(), kp.fwd_tw.data_ptr(),
-            kp.fwd_tws.data_ptr(), kp.host_consts.ctypes.data, B, G, M,
-            _stream(dev))
+            kp.fwd_tws.data_ptr(), kp.host_consts.ctypes.data, B, G, M)
     ubr_phase1_combine.launches += 1
     return out
 
@@ -526,11 +559,11 @@ def auto_keyswitch_stream(x, ak32, kidx, ginv, kp: PBSKernelPlan):
     out = torch.empty_like(x)
     if B == 0:
         return out
-    _launch("auto_keyswitch", "auto_keyswitch_launch", 10, 1,
+    _launch("auto_keyswitch", "auto_keyswitch_launch", 10, 1, dev,
             x.data_ptr(), ak32.data_ptr(), kidx.data_ptr(), ginv.data_ptr(),
             out.data_ptr(), kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
             kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(),
-            kp.host_consts.ctypes.data, B, _stream(dev))
+            kp.host_consts.ctypes.data, B)
     auto_keyswitch_stream.launches += 1
     return out
 
@@ -588,7 +621,7 @@ def ga_scan_fused(acc0, gens, sv32, svs32, ak32, inv2n, kp: PBSKernelPlan,
     acc = acc0.clone()
     if B == 0 or n == 0:
         return acc
-    _launch("ga_scan", "ga_scan_launch", 16, 2,
+    _launch("ga_scan", "ga_scan_launch", 16, 2, dev,
             acc.data_ptr(), gens.data_ptr(), sv32.data_ptr(),
             svs32.data_ptr(), ak32.data_ptr(), inv2n.data_ptr(),
             kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
@@ -596,9 +629,104 @@ def ga_scan_fused(acc0, gens, sv32, svs32, ak32, inv2n, kp: PBSKernelPlan,
             kp_ks.fwd_tw.data_ptr(), kp_ks.fwd_tws.data_ptr(),
             kp_ks.inv_tw.data_ptr(), kp_ks.inv_tws.data_ptr(),
             kp.host_consts.ctypes.data, kp_ks.host_consts.ctypes.data,
-            B, n, _stream(dev))
+            B, n)
     ga_scan_fused.launches += 1
     return acc
 
 
 ga_scan_fused.launches = 0
+
+
+# --- the gadget-row split CMUX step (K8a, K8b) ------------------------------
+
+def partial_step_plain(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan):
+    """K8a in int64 PyTorch, on any device: `cmux_partial` over the global
+    key rows [j0, j0 + j_local).  Returns [B, C, P, N] int32 (u32
+    canonical residues)."""
+    partial_step_plain.calls += 1
+    return u32_as_i32(cmux_partial(acc, a, j0, i32_as_u32(keyv),
+                                   i32_as_u32(keyvs), kp.ntt, kp.l,
+                                   kp.Bg_bit))
+
+
+partial_step_plain.calls = 0
+
+
+def partial_step(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan, out=None):
+    """The partial of one CMUX step over key rows [j0, j0 + j_local).  CUDA
+    tensors: one launch of the kernel, written into ``out`` [B, C, P, N]
+    int32 when given (a slot of the buffer `finish_step` reads), and an
+    error raised if it does not build or launch.  CPU tensors: the plain
+    version.  Returns the partial."""
+    dev = acc.device
+    if dev.type == "cpu":
+        part = partial_step_plain(acc, a, j0, keyv, keyvs, kp)
+        return part if out is None else out.copy_(part)
+    if dev.type != "cuda":
+        raise ValueError(f"partial_step runs on cuda or cpu, not {dev}")
+    B, j_local = acc.shape[0], keyv.shape[0]
+    if not (0 <= j0 and 1 <= j_local and j0 + j_local <= kp.J):
+        raise ValueError(f"key rows [{j0}, {j0 + j_local}) outside "
+                         f"[0, {kp.J})")
+    row = (j_local, kp.C, kp.P, kp.N)
+    _check("acc", acc, torch.int64, (B, kp.C, kp.N), dev)
+    _check("a", a, torch.int32, (B,), dev)
+    _check("keyv", keyv, torch.int32, row, dev)
+    _check("keyvs", keyvs, torch.int32, row, dev)
+    _check_plan(kp, dev)
+    if out is None:
+        out = torch.empty((B, kp.C, kp.P, kp.N), dtype=torch.int32,
+                          device=dev)
+    _check("out", out, torch.int32, (B, kp.C, kp.P, kp.N), dev)
+    if B == 0:
+        return out
+    _launch("tp_step", "partial_step_launch", 8, 3, dev,
+            acc.data_ptr(), a.data_ptr(), keyv.data_ptr(), keyvs.data_ptr(),
+            kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(), out.data_ptr(),
+            kp.host_consts.ctypes.data, B, j0, j_local)
+    partial_step.launches += 1
+    return out
+
+
+partial_step.launches = 0
+
+
+def finish_step_plain(acc, parts, kp: PBSKernelPlan):
+    """K8b in int64 PyTorch, on any device: acc += INTT(sum of the m
+    partials mod p), the tail of `cmux_step`.  ``acc`` is updated in place
+    and returned."""
+    finish_step_plain.calls += 1
+    s = torch.remainder(i32_as_u32(parts).sum(dim=0), kp.ntt.p[:, None])
+    return acc.add_(_ntt.from_ntt_u64(s, kp.ntt))
+
+
+finish_step_plain.calls = 0
+
+
+def finish_step(acc, parts, kp: PBSKernelPlan):
+    """The finish of one CMUX step on the partials ``parts`` [m, B, C, P, N]
+    of all m shards: their sum mod p, inverse NTT, Garner, and acc += that,
+    in place (the TPU kernel aliases acc to its output).  CUDA tensors: one
+    launch of the kernel, and an error raised if it does not build or
+    launch.  CPU tensors: the plain version.  Returns acc."""
+    dev = acc.device
+    if dev.type == "cpu":
+        return finish_step_plain(acc, parts, kp)
+    if dev.type != "cuda":
+        raise ValueError(f"finish_step runs on cuda or cpu, not {dev}")
+    B, m = acc.shape[0], parts.shape[0]
+    _check("acc", acc, torch.int64, (B, kp.C, kp.N), dev)
+    _check("parts", parts, torch.int32, (m, B, kp.C, kp.P, kp.N), dev)
+    _check_plan(kp, dev)
+    if m < 1:
+        raise ValueError("finish_step needs at least one partial")
+    if B == 0:
+        return acc
+    _launch("tp_step", "finish_step_launch", 5, 2, dev,
+            acc.data_ptr(), parts.data_ptr(), kp.inv_tw.data_ptr(),
+            kp.inv_tws.data_ptr(), kp.host_consts.ctypes.data, B, m)
+    finish_step.launches += 1
+    return acc
+
+
+finish_step.launches = 0

@@ -1,9 +1,10 @@
 """The hand-written CUDA kernels (blind rotation, key-switch select-sum,
 external-product apply scan, unfolded rotation, UBR phase 1, automorphism
-key switch, GA rotation) against their plain PyTorch versions, bit for
-bit, and the int8 key switch through
-`torch._int_mm`.  Needs a CUDA card: without one every test here
-skips.
+key switch, GA rotation, the gadget-row split CMUX step) against their
+plain PyTorch versions, bit for bit, the int8 key switch through
+`torch._int_mm`, and the sharded bootstrap on a mesh of one card (and of
+every card, where there are several).  Needs a CUDA card: without one
+every test here skips.
 
 This file imports nothing but PyTorch, numpy and the port, so it runs on a
 machine that has no TPU-package dependencies:
@@ -266,3 +267,117 @@ def test_cuda_ga_scan_matches_plain(N, k, l, Bg_bit, n, B):
     torch.cuda.synchronize()
     assert tpk.ga_scan_fused.launches == launches + 1
     assert torch.equal(got, tpk.ga_scan_fused_plain(*args))
+
+
+L2_SPLIT = (2048, 1, 4, 9)     # TFHEpp-L2 widths: J = 8 key rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("j0,j_local", [(0, 4), (4, 4), (6, 2)],
+                         ids=["m2_first", "m2_second", "m4_last"])
+def test_cuda_partial_step_matches_plain(j0, j_local):
+    """K8a over the global key rows [j0, j0 + j_local) of J = 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, k, l, Bg_bit = L2_SPLIT
+    B = 5
+    primes, acc0, a_int, keyv, keyvs = random_rotation_inputs(
+        N, k, l, Bg_bit, 1, B, seed=90 + j0)
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    args = (to_tensor(acc0, "cuda"), torch.from_numpy(a_int[0]).cuda(), j0,
+            as_i32(keyv[0, :j_local].copy(), "cuda"),
+            as_i32(keyvs[0, :j_local].copy(), "cuda"), kp)
+    launches = tpk.partial_step.launches
+    got = tpk.partial_step(*args)
+    torch.cuda.synchronize()
+    assert tpk.partial_step.launches == launches + 1
+    assert torch.equal(got, tpk.partial_step_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 8])
+def test_cuda_finish_step_matches_plain(m):
+    """K8b on the partials of m shards; the largest residues present, so
+    the sum reaches m (p - 1) (beyond 2^32 at m = 8)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, k, l, Bg_bit = L2_SPLIT
+    B = 5
+    primes = ntt.primes_for_bound(ntt.external_product_bound(N, Bg_bit, l, k))
+    rng = np.random.default_rng(100 + m)
+    acc0 = to_tensor(rng.integers(0, 1 << 64, size=(B, k + 1, N),
+                                  dtype=np.uint64), "cuda")
+    parts = random_residues(rng, (m, B, k + 1, len(primes), N), primes)
+    parts[:, 0, 0, :, 0] = np.array(primes, np.uint32) - 1
+    parts = as_i32(parts, "cuda")
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    want = tpk.finish_step_plain(acc0.clone(), parts, kp)
+    acc = acc0.clone()
+    launches = tpk.finish_step.launches
+    got = tpk.finish_step(acc, parts, kp)
+    torch.cuda.synchronize()
+    assert tpk.finish_step.launches == launches + 1
+    assert got is acc and torch.equal(got, want)
+
+
+def _mesh_case(n, B, seed):
+    """A random unfold=1 key at L2 widths with its depth cut to n, random
+    ciphertexts and a random LUT, on the card."""
+    from mosfhet_torch import bootstrap, trlwe
+    from mosfhet_torch.tlwe import TLWE
+    N, k, l, Bg_bit = L2_SPLIT
+    primes, _, _, keyv, keyvs = random_rotation_inputs(N, k, l, Bg_bit, n, 1,
+                                                       seed=seed)
+    bk = bootstrap.BootstrapKey(as_i32(keyv, "cuda"), as_i32(keyvs, "cuda"),
+                                n, k, N, l, Bg_bit, primes)
+    rng = np.random.default_rng(seed)
+    c = TLWE(a=to_tensor(rng.integers(0, 1 << 64, size=(B, n),
+                                      dtype=np.uint64), "cuda"),
+             b=to_tensor(rng.integers(0, 1 << 64, size=B, dtype=np.uint64),
+                         "cuda"))
+    tv = trlwe.torus_packing(to_tensor(rng.integers(
+        0, 1 << 64, size=4, dtype=np.uint64), "cuda"), k, N)
+    return bk, tv, c
+
+
+@pytest.mark.gpu
+def test_cuda_pbs_on_mesh_one_card():
+    """A (1, 2) mesh of the one card, n cut to 6: 12 K8a and 6 K8b
+    launches, the words of the single-device bootstrap (K1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from mosfhet_torch import bootstrap
+    from mosfhet_torch.parallel import mesh
+    n, B = 6, 4
+    bk, tv, c = _mesh_case(n, B, seed=110)
+    want = bootstrap.functional_bootstrap(tv, c, bk, 4)
+    run = mesh.pbs_on_mesh(mesh.make_mesh([torch.device("cuda")] * 2,
+                                          data=1, model=2), bk, 4)
+    before = (tpk.partial_step.launches, tpk.finish_step.launches)
+    got = run(tv, c)
+    torch.cuda.synchronize()
+    assert (tpk.partial_step.launches - before[0],
+            tpk.finish_step.launches - before[1]) == (2 * n, n)
+    assert torch.equal(got.a, want.a) and torch.equal(got.b, want.b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", ["data", "model"])
+def test_cuda_pbs_on_mesh_across_cards(split):
+    """Every card as one shard, of the batch or of the key's rows (a model
+    size that divides J = 8): the words of the single-device bootstrap."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from mosfhet_torch import bootstrap
+    from mosfhet_torch.parallel import mesh
+    count = torch.cuda.device_count()
+    n_dev = count if split == "data" else max(
+        d for d in (2, 4, 8) if d <= count)
+    n, B = 6, 2 * n_dev
+    bk, tv, c = _mesh_case(n, B, seed=120)
+    want = bootstrap.functional_bootstrap(tv, c, bk, 4)
+    m = mesh.make_mesh([torch.device("cuda", i) for i in range(n_dev)],
+                       model=1 if split == "data" else n_dev)
+    got = mesh.pbs_on_mesh(m, bk, 4)(tv, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got.a, want.a) and torch.equal(got.b, want.b)
