@@ -93,9 +93,34 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               to phase 10's (K4) and phase 14's (K7) outputs for them; these
               routes are plain PyTorch (no kernel launch), as in the TPU
               package.
- 19. report   the pbs, gate, fdfb, unfolded, ubr, extprod, ga, trlweks and
-              mesh lines, the card line, the kernels line, and the result
-              line last.
+ 19. set3     params.SET_3 (n=807, N=4096, l=1, Bg_bit=22, 4 primes),
+              where K1, K3, K4, K6, K7 and K8a keep some buffers in a global
+              workspace: keygen (timed, key bytes), then
+              bootstrap.functional_bootstrap on 512 ciphertexts at full
+              depth: exactly 1 K1 launch per call, decrypt within 2^58; K1
+              timed beside its bound and its plain version on the path's
+              own inputs (bit-exact); then K3 (both key modes), K4 (u=2), K7
+              (a 64-entry keyset) and K8a (rows [0, 2) and [1, 2)) at SET_3
+              widths with cut depth on 64 random ciphertexts, each timed
+              beside its bound and held to its plain version (bit-exact);
+              then the GA keygen and bootstrap_ga.functional_bootstrap_ga
+              on the same 512 ciphertexts (1 K6 and 1 K7 launch per call,
+              decrypt within 2^58), K6 held to its plain version on the
+              path's inputs.
+ 20. torus32  the 32-bit torus, in a child interpreter (this script with
+              --torus32 and MOSFHET_TORUS_BITS=32): K1's and K2's one-limb
+              forms against their plain versions on random inputs; then
+              `bench_torus32.py`'s L2_32 (n=632, N=2048, l=3, Bg_bit=7; key
+              switch t=6, base_bit=4; 2 primes) through the entry points:
+              keygen, functional_bootstrap of 512 ciphertexts (1 K1 launch
+              per call, decrypt within 2^26), tlwe.keyswitch of its outputs
+              (1 K2 launch, within 2^27), fdfb_this_work at precision 3 (2
+              K1 and 1 K2 launches per call, within 2^26); K1 and K2 timed on
+              the path's own inputs beside their bounds and plain versions
+              (bit-exact).  The child's failure fails the script.
+ 21. report   the pbs, gate, fdfb, unfolded, ubr, extprod, ga, trlweks,
+              mesh, set3 and torus32 lines, the card line, the kernels line,
+              and the result line last.
 
 Imports nothing but PyTorch, numpy and the port.
 """
@@ -103,6 +128,7 @@ Imports nothing but PyTorch, numpy and the port.
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -141,6 +167,16 @@ TP_REPS = 20         # timed launches of K8a and K8b
 MESH_CUT = 32        # ciphertexts of the plain-PyTorch mesh routes (phase 18)
 GA_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT key switch "
                    "with per-row keys or a Galois permutation")
+SET3_CUT = 64        # ciphertexts of the SET_3 K3, K4, K7, K8a checks
+SET3_GA_ENTRIES = 64  # keyset entries of the SET_3 K7 check
+# The 32-bit torus: benchmarks/bench_torus32.py's parameter set (L2_32)
+L2_32 = dict(n=632, N=2048, k=1, l=3, Bg_bit=7, t=6, base_bit=4,
+             lwe_sigma=2.0**-15, rlwe_sigma=2.0**-25, name="L2_32")
+DECRYPT_BOUND_32 = 2.0**26   # bench_torus32.py:45,54
+# Key-switch noise at L2_32: ~11,520 nonzero digits x (2^-15)^2 gives sigma
+# ~2^-8.26 of the torus, ~2^23.7 in u32 words; 2^27 is ~10 sigma.
+KS_DECRYPT_BOUND_32 = 2.0**27
+TORUS32_TIMEOUT_S = 600
 # No PyTorch call computes the key-switch select-sum on int64 CUDA tensors.
 KS_LIBRARY_NOTE = ("none: torch.sparse.mm of the one-hot digits and the "
                    "table raises \"addmm_sparse_cuda\" not implemented for "
@@ -195,7 +231,7 @@ def rotation_bound_ms(kp, n, B, key_bytes, max_clock_mhz):
     multiplies = SHOUP_MULTIPLIES * mod_products * n * B
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     int_rate = sms * INT32_LANES_PER_SM * max_clock_mhz * 1e6
-    nbytes = key_bytes + 2 * B * C * N * 8 + n * B * 4
+    nbytes = key_bytes + 2 * B * C * N * kp.torus_bits // 8 + n * B * 4
     t_ops, t_bytes = multiplies / int_rate, nbytes / HBM_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -205,9 +241,10 @@ def rotation_bound_ms(kp, n, B, key_bytes, max_clock_mhz):
 
 def keyswitch_bound_ms(dig, ab, max_clock_mhz):
     """Least time the card needs for the select-sum on these digits: the
-    larger of its u64 adds (one per nonzero digit and column, 2 INT32
-    operations each) over the INT32 rate and its bytes (the distinct table
-    rows the digits select, read once, the digits, the output) over HBM."""
+    larger of its word adds (one per nonzero digit and column; 2 INT32
+    operations for a u64 word, 1 for a u32 word) over the INT32 rate and its
+    bytes (the distinct table rows the digits select, read once, the
+    digits, the output) over HBM."""
     B, n_in, t = dig.shape
     base_m1, width = ab.shape[2], ab.shape[3]
     d = dig.to(torch.int64).reshape(B, n_in * t)
@@ -220,11 +257,13 @@ def keyswitch_bound_ms(dig, ab, max_clock_mhz):
     rows = int(selected.sum())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     int_rate = sms * INT32_LANES_PER_SM * max_clock_mhz * 1e6
-    nbytes = rows * width * 8 + dig.numel() * dig.element_size() + B * width * 8
-    t_ops, t_bytes = 2 * adds / int_rate, nbytes / HBM_BYTES_PER_S
+    w = ab.element_size()
+    nbytes = rows * width * w + dig.numel() * dig.element_size() + B * width * w
+    ops = adds * w // 4
+    t_ops, t_bytes = ops / int_rate, nbytes / HBM_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "u64_adds": adds, "int32_ops": 2 * adds, "bytes": nbytes,
+            "word_adds": adds, "int32_ops": ops, "bytes": nbytes,
             "rows_selected": rows, "int32_per_s": int_rate}
 
 
@@ -427,6 +466,464 @@ def random_exponents(rs, B, G, M, N, dev):
 def same_or_fail(what, got, want):
     if not torch.equal(got, want):
         fail(f"{what}: {int((got != want).sum())} words differ")
+
+
+def sparse_select_sum(dig, ab):
+    """The select-sum as one library call, where PyTorch has one: the
+    one-hot digits [B, n_in t (base-1)] as a sparse matrix of ab's dtype,
+    then torch.sparse.mm by the table rows.  Returns the call (built here,
+    outside any timing) and a note; the call is None when the probe raised,
+    and the note then says what PyTorch answered."""
+    B, n_in, t = dig.shape
+    base_m1, width = ab.shape[2], ab.shape[3]
+    d = dig.reshape(B, n_in * t).to(torch.int64)
+    at = torch.nonzero((d > 0) & (d <= base_m1))
+    cols = at[:, 1] * base_m1 + d[at[:, 0], at[:, 1]] - 1
+    onehot = torch.sparse_coo_tensor(
+        torch.stack([at[:, 0], cols]),
+        torch.ones(at.shape[0], dtype=ab.dtype, device=ab.device),
+        (B, n_in * t * base_m1)).coalesce()
+    rows = ab.reshape(-1, width)
+    try:
+        torch.sparse.mm(onehot, rows)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, (f"none: torch.sparse.mm of the one-hot digits and the "
+                      f"{ab.dtype} table raised \"{str(e).splitlines()[0]}\" "
+                      f"(torch {torch.__version__}); embedding_bag takes "
+                      f"floating weights only")
+    return (lambda: torch.sparse.mm(onehot, rows),
+            "torch.sparse.mm of the one-hot digits by the table rows")
+
+
+def placement(pk, kernel, kp, **kw):
+    """Where ``kernel``'s buffers live at ``kp``'s shape on this card, as
+    the wrapper places them: S shared, W workspace, I in place."""
+    layout, stride = pk.kernel_layout(kernel, kp,
+                                      pk._smem_budget(kernel, 0), **kw)
+    where = "".join("S" if o >= 0 else "I" if o == -1 else "W"
+                    for o in layout[2:])
+    return {"where": where, "smem_bytes": int(layout[0]),
+            "workspace_bytes_per_block": int(stride)}
+
+
+def set3_phase(dev, max_clock):
+    """Phase 19: SET_3, whose shapes put buffers of K1, K3, K4, K7 and K8a
+    in a global workspace.  Returns its report and the kernels' entries."""
+    from mosfhet_torch import bootstrap, bootstrap_ga, ntt, params, rng, \
+        tlwe, torus, trgsw, trlwe
+    from mosfhet_torch.bootstrap_ga import inverse_mod_2n_table
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    p = params.SET_3
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    key_tlwe = tlwe.new_binary_key(p.n, p.lwe_sigma, gen, dev)
+    key_trlwe = trlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, dev)
+    key_out = trlwe.extract_tlwe_key(key_trlwe)
+    bk = bootstrap.new_key(trgsw.new_key(key_trlwe, p.l, p.Bg_bit), key_tlwe,
+                           gen, dev)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    key_bytes = (bk.v32.numel() + bk.vs32.numel()) * 4
+    kp = bk.kernel_plan()
+    where = {name: placement(pk, name, kp, **kw) for name, kw in (
+        ("blind_rotate", {}), ("ext_product_apply", {}),
+        ("unfolded_rotate", {"M": 4}), ("tp_step", {}))}
+    log(f"# SET_3 keygen: {keygen_s:.3f} s; key {tuple(bk.v32.shape)} u32 "
+        f"x2 = {key_bytes} B; P={kp.P}; placements {where}")
+    luts = rng.uniform_torus(gen, (4,), dev)
+    tv = trlwe.torus_packing(luts, p.k, p.N)
+    slots = torch.arange(BATCH, device=dev) % 4
+    cs = tlwe.encrypt(torus.double2torus(slots.to(torch.float64) / 8.0),
+                      key_tlwe, gen)
+    zero_counts(pk)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = bootstrap.functional_bootstrap(tv, cs, bk, 4)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    pbs_ms, out2 = cuda_ms(
+        lambda: bootstrap.functional_bootstrap(tv, cs, bk, 4), REPS)
+    counts = read_counts(pk)
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(f"SET_3 PBS over {1 + REPS} calls", counts,
+                 {"blind_rotate_scan": 1 + REPS})
+    if out.a.shape != (BATCH, p.k * p.N) or not (
+            torch.equal(out.a, out2.a) and torch.equal(out.b, out2.b)):
+        fail("SET_3 PBS: wrong shape or repeated calls differ")
+    err = signed_max_abs(tlwe.phase(out, key_out) - luts[slots])
+    if not err <= DECRYPT_BOUND:
+        fail(f"SET_3 decrypt: max error 2^{math.log2(err):.1f} > 2^58")
+    acc_in, a_int, _ = bootstrap.blind_rotate_inputs(
+        bootstrap.rotate_test_vector(tv, cs, bk, 4), cs.a, bk)
+    k1_ms, acc_k = cuda_ms(
+        lambda: pk.blind_rotate_scan(acc_in, a_int, bk.v32, bk.vs32, kp),
+        REPS)
+    k1_plain_ms, acc_p = cuda_ms(
+        lambda: pk.blind_rotate_scan_plain(acc_in, a_int, bk.v32, bk.vs32,
+                                           kp), 1)
+    same_or_fail("SET_3 K1 vs plain on the path's inputs", acc_k, acc_p)
+    ext = trlwe.extract_tlwe(trlwe.from_stacked(acc_k), 0)
+    if not (torch.equal(ext.a, out.a) and torch.equal(ext.b, out.b)):
+        fail("SET_3 PBS output != extract of the kernel's rotation")
+    k1_bound = rotation_bound_ms(kp, bk.n, BATCH, key_bytes, max_clock)
+    log(f"# SET_3 PBS (n={p.n}, N={p.N}, P={kp.P}): first call "
+        f"{first_s:.3f} s; warm {pbs_ms:.3f} ms per batch of {BATCH} = "
+        f"{BATCH / pbs_ms * 1e3:.2f} boot/s; decrypt OK (max err "
+        f"2^{math.log2(max(err, 1.0)):.1f}); peak {peak / 2**30:.2f} GiB; "
+        f"K1 {k1_ms:.3f} ms/launch, plain {k1_plain_ms:.3f} ms, bound "
+        f"{k1_bound['bound_ms']:.3f} ms ({k1_bound['bound_by']}); bit-exact")
+    del acc_in, a_int, acc_k, acc_p, out, out2
+
+    # K3, K4, K7, K8a at SET_3 widths, cut depth, on random inputs
+    rs = np.random.default_rng(SEED + 4)
+    J, C, P, N, B = kp.J, kp.C, kp.P, kp.N, SET3_CUT
+    acc_r = random_u64(rs, (B, C, N), dev)
+    runs = {}
+
+    def held(name, kernel_fn, plain_fn, bound, reps=REPS):
+        k_ms, got = cuda_ms(kernel_fn, reps)
+        p_ms, want = cuda_ms(plain_fn, 1)
+        same_or_fail(f"SET_3 {name} vs plain", got, want)
+        runs[name] = {"B": B, "ms": k_ms, "plain_ms": p_ms,
+                      "max_abs_err": signed_max_abs(got - want),
+                      "bound_ms": bound["bound_ms"],
+                      "bound_by": bound["bound_by"]}
+
+    G3 = 2
+    for per_row in (False, True):
+        rows = (G3, B) if per_row else (G3,)
+        sa = random_residues_i32(rs, rows + (J, C, P, N), kp.primes, dev)
+        held("ext_product_apply_scan" + ("/per_row" if per_row else ""),
+             lambda: pk.ext_product_apply_scan(acc_r, sa, kp, per_row),
+             lambda: pk.ext_product_apply_scan_plain(acc_r, sa, kp, per_row),
+             apply_scan_bound(kp, B, G3, per_row, max_clock))
+    del sa
+    M4 = 4                                    # u = 2
+    su = random_u64(rs, (G3, M4, J, C, N), dev)
+    rot = random_exponents(rs, B, G3, M4, N, dev)
+    held("unfolded_rotate", lambda: pk.unfolded_rotate(acc_r, rot, su, kp),
+         lambda: pk.unfolded_rotate_plain(acc_r, rot, su, kp),
+         unfolded_bound(kp, B, G3, M4, max_clock))
+    del su, rot
+    n7, G7 = 4, SET3_GA_ENTRIES
+    ks_primes = ntt.primes_for_bound(ntt.conv_bound(
+        N, 1 << (p.Bg_bit - 1), p.k * p.l * p.l))
+    kp_ks = pk.get_kernel_plan(N, ks_primes, p.l, p.Bg_bit, p.k, dev)
+    sv = random_residues_i32(rs, (n7, J, C, P, N), kp.primes, dev)
+    svs = pk.u32_as_i32(torch.div(pk.i32_as_u32(sv) << 32,
+                                  kp.ntt.p[:, None], rounding_mode="floor"))
+    ak = random_residues_i32(rs, (G7, p.k * p.l, C, kp_ks.P, N), ks_primes,
+                             dev)
+    gens = torch.from_numpy(rs.integers(0, G7, (n7, B), dtype=np.int32) * 2
+                            + 1).to(dev)
+    gens[0, 0], gens[-1, -1] = 1, 2 * G7 - 1
+    inv2n = torch.from_numpy(inverse_mod_2n_table(N)).to(dev)
+    held("ga_scan_fused",
+         lambda: pk.ga_scan_fused(acc_r, gens, sv, svs, ak, inv2n, kp, kp_ks),
+         lambda: pk.ga_scan_fused_plain(acc_r, gens, sv, svs, ak, inv2n, kp,
+                                        kp_ks),
+         ga_bound(kp, kp_ks, gens, max_clock))
+    where["ga_scan"] = placement(pk, "ga_scan", kp, P_ks=kp_ks.P)
+    del sv, svs, ak
+    a_r = torch.from_numpy(rs.integers(0, 2 * N + 1, B, dtype=np.int32)).to(
+        dev)
+    kv = bk.v32[0].contiguous()
+    kvs = bk.vs32[0].contiguous()
+    for j0, j_local in ((0, J), (J // 2, J - J // 2)):
+        rows_v = kv[j0:j0 + j_local].contiguous()
+        rows_s = kvs[j0:j0 + j_local].contiguous()
+        held(f"partial_step/rows{j0}-{j0 + j_local}",
+             lambda: pk.partial_step(acc_r, a_r, j0, rows_v, rows_s, kp),
+             lambda: pk.partial_step_plain(acc_r, a_r, j0, rows_v, rows_s,
+                                           kp),
+             partial_step_bound(kp, B, j_local, max_clock))
+    log("# SET_3 K3 (broadcast, per row; G=2), K4 (u=2, G=2), K7 (n=4, "
+        f"{G7} keyset entries, P_ks={kp_ks.P}) and K8a at B={B}: "
+        + "; ".join(f"{name} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
+                    f"bound {r['bound_ms']:.4f} {r['bound_by']})"
+                    for name, r in runs.items()) + "; bit-exact")
+    del acc_r, kv, kvs
+
+    # the GA bootstrap at SET_3: K6 (perm in the workspace), then K7
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bkg = bootstrap_ga.new_key(trgsw.new_key(key_trlwe, p.l, p.Bg_bit),
+                               key_tlwe, gen, dev)
+    torch.cuda.synchronize()
+    ga_keygen_s = time.perf_counter() - t0
+    ga_key_bytes = sum(t.numel() * t.element_size()
+                       for t in (bkg.s_v32, bkg.s_vs32, bkg.ak, bkg.inv2n))
+    zero_counts(pk)
+    out_g = bootstrap_ga.functional_bootstrap_ga(tv, cs, bkg, 4)
+    ga_ms, out_g2 = cuda_ms(
+        lambda: bootstrap_ga.functional_bootstrap_ga(tv, cs, bkg, 4), REPS)
+    ga_counts = read_counts(pk)
+    check_counts(f"SET_3 GA path over {1 + REPS} calls", ga_counts,
+                 {"auto_keyswitch_stream": 1 + REPS,
+                  "ga_scan_fused": 1 + REPS})
+    if not (torch.equal(out_g.a, out_g2.a) and torch.equal(out_g.b, out_g2.b)):
+        fail("repeated SET_3 GA bootstraps of the same inputs differ")
+    ga_err = signed_max_abs(tlwe.phase(out_g, key_out) - luts[slots])
+    if not ga_err <= DECRYPT_BOUND:
+        fail(f"SET_3 GA decrypt: max error 2^{math.log2(ga_err):.1f} > 2^58")
+    acc_g, kidx0, ginv0, gens0, _ = bootstrap_ga.ga_rotate_inputs(
+        bootstrap.rotate_test_vector(tv, cs, bkg, 4), cs.a, bkg)
+    kpg, kpg_ks = bkg.kernel_plans()
+    B = BATCH
+    held("auto_keyswitch_stream/ga_path",
+         lambda: pk.auto_keyswitch_stream(acc_g, bkg.ak, kidx0, ginv0,
+                                          kpg_ks),
+         lambda: pk.auto_keyswitch_stream_plain(acc_g, bkg.ak, kidx0, ginv0,
+                                                kpg_ks),
+         auto_ks_bound(kpg_ks, BATCH, kidx0, max_clock), reps=KS_REPS)
+    where["auto_keyswitch"] = placement(pk, "auto_keyswitch", kpg_ks)
+    log(f"# SET_3 GA bootstrap (P_ks={kpg_ks.P}): keygen {ga_keygen_s:.3f} "
+        f"s, {ga_key_bytes} B; warm {ga_ms:.3f} ms per batch of {BATCH} = "
+        f"{BATCH / ga_ms * 1e3:.2f} boot/s; decrypt OK (max err "
+        f"2^{math.log2(max(ga_err, 1.0)):.1f}); K6 "
+        f"{runs['auto_keyswitch_stream/ga_path']['ms']:.3f} ms/launch "
+        f"(plain {runs['auto_keyswitch_stream/ga_path']['plain_ms']:.3f}), "
+        f"placement {where['auto_keyswitch']}; bit-exact")
+    del bkg, acc_g, out_g, out_g2
+    report = {"params": p.name, "batch": BATCH, "P": kp.P,
+              "keygen_s": keygen_s, "key_bytes": key_bytes,
+              "first_call_s": first_s, "warm_ms": pbs_ms,
+              "boot_per_s": BATCH / pbs_ms * 1e3, "peak_bytes": peak,
+              "decrypt_max_err_log2": math.log2(max(err, 1.0)),
+              "rotation_ms": k1_ms, "glue_ms": pbs_ms - k1_ms,
+              "bound": k1_bound, "placements": where, "kernel_runs": runs,
+              "ga": {"keygen_s": ga_keygen_s, "key_bytes": ga_key_bytes,
+                     "warm_ms": ga_ms, "boot_per_s": BATCH / ga_ms * 1e3,
+                     "decrypt_max_err_log2": math.log2(max(ga_err, 1.0)),
+                     "counts": ga_counts}}
+    k1_entry = {
+        "name": "blind_rotate_scan/set3", "route": "cuda",
+        "source": "mosfhet_torch/ops/csrc/blind_rotate.cu",
+        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:1404",
+        "launches": counts["blind_rotate_scan"],
+        "launches_by_path": {"set3": counts["blind_rotate_scan"]},
+        "max_abs_err": 0.0, "bit_exact": True, "ms": k1_ms,
+        "plain_ms": k1_plain_ms, "bound_ms": k1_bound["bound_ms"],
+        "bound_by": k1_bound["bound_by"], "library_ms": None,
+        "placement": where["blind_rotate"]}
+    return report, k1_entry, runs
+
+
+def torus32_phase():
+    """Phase 20: run this script as a child at the 32-bit torus; relay its
+    log; return its report (the last line of its output)."""
+    env = dict(os.environ, MOSFHET_TORUS_BITS="32")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--torus32"], env=env, capture_output=True,
+                       text=True, timeout=TORUS32_TIMEOUT_S)
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"# [torus32] {line.lstrip('# ')}")
+    if r.returncode != 0 or not lines:
+        print(r.stderr[-4000:], file=sys.stderr)
+        fail(f"the TORUS32 child exited with {r.returncode}")
+    return json.loads(lines[-1])
+
+
+def torus32_main():
+    """The child of phase 20: the port imported at the 32-bit torus."""
+    from mosfhet_torch import bootstrap, ntt, params, rng, tlwe, torus, \
+        trgsw, trlwe
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    if torus.TORUS_BITS != 32 or torus.TORUS_DTYPE != torch.int32:
+        fail("the TORUS32 child needs MOSFHET_TORUS_BITS=32")
+    dev = torch.device("cuda")
+    max_clock = float(nvidia_smi("clocks.max.sm").split()[0])
+    p = params.TFHEParams(**L2_32)
+    primes = ntt.primes_for_bound(
+        ntt.external_product_bound(p.N, p.Bg_bit, p.l, p.k))
+    kp = pk.get_kernel_plan(p.N, primes, p.l, p.Bg_bit, p.k, dev)
+    rs = np.random.default_rng(SEED + 32)
+
+    # K1 and K2's one-limb forms vs plain on random inputs
+    n_short, b_short = 8, 4
+    acc0 = torch.from_numpy(rs.integers(0, 1 << 32, (b_short, kp.C, p.N),
+                                        dtype=np.uint64).astype(np.uint32)
+                            .view(np.int32)).to(dev)
+    a_np = rs.integers(0, 2 * p.N + 1, (n_short, b_short), dtype=np.int32)
+    a_np[0, 0], a_np[1, 1], a_np[-1, -1] = 0, 2 * p.N, p.N
+    a_short = torch.from_numpy(a_np).to(dev)
+    kv32 = random_residues_i32(rs, (n_short, kp.J, kp.C, kp.P, p.N), primes,
+                               dev)
+    kvs32 = pk.u32_as_i32(torch.div(pk.i32_as_u32(kv32) << 32,
+                                    kp.ntt.p[:, None], rounding_mode="floor"))
+    same_or_fail("K1/torus32 vs plain on random inputs",
+                 pk.blind_rotate_scan(acc0, a_short, kv32, kvs32, kp),
+                 pk.blind_rotate_scan_plain(acc0, a_short, kv32, kvs32, kp))
+    n_in, base_m1 = p.k * p.N, (1 << p.base_bit) - 1
+    dig_np = rs.integers(0, base_m1 + 1, (b_short, n_in, p.t), dtype=np.int32)
+    dig_np[0, 0, 0], dig_np[-1, -1, -1] = 0, base_m1
+    ab_rand = torch.from_numpy(rs.integers(
+        0, 1 << 32, (n_in, p.t, base_m1, p.n + 1), dtype=np.uint64)
+        .astype(np.uint32).view(np.int32)).to(dev)
+    d = torch.from_numpy(dig_np).to(dev)
+    same_or_fail("K2/torus32 vs plain on random inputs",
+                 pk.tlwe_keyswitch_sum(d, ab_rand),
+                 pk.tlwe_keyswitch_sum_plain(d, ab_rand))
+    del ab_rand
+    log(f"# K1 (n={n_short}, B={b_short}) and K2 (B={b_short}) one-limb "
+        f"forms vs plain at L2_32 widths: bit-exact")
+
+    # keygen and the PBS through the entry points
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    key_tlwe = tlwe.new_binary_key(p.n, p.lwe_sigma, gen, dev)
+    key_trlwe = trlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, dev)
+    key_out = trlwe.extract_tlwe_key(key_trlwe)
+    bk = bootstrap.new_key(trgsw.new_key(key_trlwe, p.l, p.Bg_bit), key_tlwe,
+                           gen, dev)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    key_bytes = (bk.v32.numel() + bk.vs32.numel()) * 4
+    if bk.primes != primes:
+        fail(f"L2_32 key primes {bk.primes}, want {primes}")
+    kp = bk.kernel_plan()
+    log(f"# L2_32 keygen: {keygen_s:.3f} s; primes {primes}; key "
+        f"{tuple(bk.v32.shape)} u32 x2 = {key_bytes} B; K1 placement "
+        f"{placement(pk, 'blind_rotate', kp)}")
+    luts = rng.uniform_torus(gen, (4,), dev)
+    tv = trlwe.torus_packing(luts, p.k, p.N)
+    slots = torch.arange(BATCH, device=dev) % 4
+    cs = tlwe.encrypt(torus.double2torus(slots.to(torch.float64) / 8.0),
+                      key_tlwe, gen)
+    if cs.b.dtype != torch.int32 or tv.b.dtype != torch.int32:
+        fail("L2_32 words are not int32")
+    zero_counts(pk)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = bootstrap.functional_bootstrap(tv, cs, bk, 4)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    pbs_ms, out2 = cuda_ms(
+        lambda: bootstrap.functional_bootstrap(tv, cs, bk, 4), REPS)
+    pbs_counts = read_counts(pk)
+    pbs_peak = torch.cuda.max_memory_allocated()
+    check_counts(f"L2_32 PBS over {1 + REPS} calls", pbs_counts,
+                 {"blind_rotate_scan": 1 + REPS})
+    if out.a.shape != (BATCH, p.k * p.N) or out.a.dtype != torch.int32 or \
+            not (torch.equal(out.a, out2.a) and torch.equal(out.b, out2.b)):
+        fail("L2_32 PBS: wrong shape or dtype, or repeated calls differ")
+    err = signed_max_abs(tlwe.phase(out, key_out) - luts[slots])
+    if not err < DECRYPT_BOUND_32:
+        fail(f"L2_32 decrypt: max error 2^{math.log2(err):.1f} >= 2^26")
+    acc_in, a_int, _ = bootstrap.blind_rotate_inputs(
+        bootstrap.rotate_test_vector(tv, cs, bk, 4), cs.a, bk)
+    k1_ms, acc_k = cuda_ms(
+        lambda: pk.blind_rotate_scan(acc_in, a_int, bk.v32, bk.vs32, kp),
+        REPS)
+    k1_plain_ms, acc_p = cuda_ms(
+        lambda: pk.blind_rotate_scan_plain(acc_in, a_int, bk.v32, bk.vs32,
+                                           kp), 1)
+    same_or_fail("K1/torus32 vs plain on the path's inputs", acc_k, acc_p)
+    ext = trlwe.extract_tlwe(trlwe.from_stacked(acc_k), 0)
+    if not (torch.equal(ext.a, out.a) and torch.equal(ext.b, out.b)):
+        fail("L2_32 PBS output != extract of the kernel's rotation")
+    k1_bound = rotation_bound_ms(kp, bk.n, BATCH, key_bytes, max_clock)
+    log(f"# L2_32 PBS: first call {first_s:.3f} s; warm {pbs_ms:.3f} ms per "
+        f"batch of {BATCH} = {BATCH / pbs_ms * 1e3:.2f} boot/s; decrypt OK "
+        f"(max err 2^{math.log2(max(err, 1.0)):.1f}); peak "
+        f"{pbs_peak / 2**30:.2f} GiB; K1 {k1_ms:.3f} ms/launch, plain "
+        f"{k1_plain_ms:.3f} ms, bound {k1_bound['bound_ms']:.3f} ms "
+        f"({k1_bound['bound_by']}: {k1_bound['multiplies']:.4g} int32 "
+        f"multiplies); bit-exact")
+    del acc_in, a_int, acc_k, acc_p
+
+    # the gate's key switch, then fdfb_this_work
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ksk = tlwe.new_ks_key(key_tlwe, key_out, p.t, p.base_bit, gen, dev)
+    torch.cuda.synchronize()
+    ks_keygen_s = time.perf_counter() - t0
+    ks_key_bytes = ksk.ab.numel() * ksk.ab.element_size()
+    zero_counts(pk)
+    ks_out = tlwe.keyswitch(out, ksk)
+    torch.cuda.synchronize()
+    gate_counts = read_counts(pk)
+    check_counts("L2_32 gate", gate_counts, {"tlwe_keyswitch_sum": 1})
+    ks_err = signed_max_abs(tlwe.phase(ks_out, key_tlwe) - luts[slots])
+    if not ks_err < KS_DECRYPT_BOUND_32:
+        fail(f"L2_32 gate decrypt: max error 2^{math.log2(ks_err):.1f}")
+    dig = tlwe.keyswitch_inputs(out, ksk)
+    k2_ms, sub_k = cuda_ms(lambda: pk.tlwe_keyswitch_sum(dig, ksk.ab),
+                           KS_REPS)
+    k2_plain_ms, sub_p = cuda_ms(
+        lambda: pk.tlwe_keyswitch_sum_plain(dig, ksk.ab), 1)
+    same_or_fail("K2/torus32 vs plain on the gate's inputs", sub_k, sub_p)
+    k2_bound = keyswitch_bound_ms(dig, ksk.ab, max_clock)
+    library, library_note = sparse_select_sum(dig, ksk.ab)
+    library_ms = None
+    if library is not None:
+        library_ms, sub_l = cuda_ms(library, KS_REPS)
+        same_or_fail("torch.sparse.mm select-sum vs K2/torus32", sub_l, sub_k)
+        del sub_l
+    log(f"# library call: {library_note}"
+        + (f": {library_ms:.3f} ms" if library_ms is not None else ""))
+    log(f"# L2_32 gate: KS keygen {ks_keygen_s:.3f} s, table "
+        f"{tuple(ksk.ab.shape)} int32 = {ks_key_bytes} B; decrypt OK (max "
+        f"err 2^{math.log2(max(ks_err, 1.0)):.1f}); K2 {k2_ms:.3f} ms/launch "
+        f"(mean of {KS_REPS}), plain {k2_plain_ms:.3f} ms, bound "
+        f"{k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}); bit-exact")
+    del dig, sub_k, sub_p
+    luts8 = rng.uniform_torus(gen, (8,), dev)
+    tv8 = trlwe.torus_packing_many_lut(luts8, 4, 2, p.k, p.N)
+    m8 = torch.arange(BATCH, device=dev) % 8
+    c8 = tlwe.encrypt(torus.int2torus(m8, FDFB_PREC), key_tlwe, gen)
+    zero_counts(pk)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out8 = bootstrap.fdfb_this_work(tv8, c8, bk, ksk, FDFB_PREC)
+    torch.cuda.synchronize()
+    fdfb_first_s = time.perf_counter() - t0
+    fdfb_ms, out8b = cuda_ms(
+        lambda: bootstrap.fdfb_this_work(tv8, c8, bk, ksk, FDFB_PREC), REPS)
+    fdfb_counts = read_counts(pk)
+    fdfb_peak = torch.cuda.max_memory_allocated()
+    calls = 1 + REPS
+    check_counts(f"L2_32 fdfb over {calls} calls", fdfb_counts,
+                 {"blind_rotate_scan": 2 * calls, "tlwe_keyswitch_sum": calls})
+    if not (torch.equal(out8.a, out8b.a) and torch.equal(out8.b, out8b.b)):
+        fail("repeated L2_32 fdfb calls on the same inputs differ")
+    fdfb_err = signed_max_abs(tlwe.phase(out8, key_out) - luts8[m8])
+    if not fdfb_err < DECRYPT_BOUND_32:
+        fail(f"L2_32 fdfb decrypt: max error 2^{math.log2(fdfb_err):.1f}")
+    log(f"# L2_32 fdfb_this_work: first call {fdfb_first_s:.3f} s; warm "
+        f"{fdfb_ms:.3f} ms per batch of {BATCH} = "
+        f"{BATCH / fdfb_ms * 1e3:.2f} fdfb/s (2 x K1 {k1_ms:.3f} + K2 "
+        f"{k2_ms:.3f} + glue {fdfb_ms - 2 * k1_ms - k2_ms:.3f} ms); decrypt "
+        f"OK (max err 2^{math.log2(max(fdfb_err, 1.0)):.1f}); peak "
+        f"{fdfb_peak / 2**30:.2f} GiB")
+    print(json.dumps({
+        "params": p.name, "batch": BATCH, "primes": list(primes),
+        "keygen_s": keygen_s, "key_bytes": key_bytes,
+        "pbs": {"first_call_s": first_s, "warm_ms": pbs_ms,
+                "boot_per_s": BATCH / pbs_ms * 1e3, "peak_bytes": pbs_peak,
+                "decrypt_max_err_log2": math.log2(max(err, 1.0)),
+                "glue_ms": pbs_ms - k1_ms},
+        "gate": {"ks_keygen_s": ks_keygen_s, "ks_key_bytes": ks_key_bytes,
+                 "decrypt_max_err_log2": math.log2(max(ks_err, 1.0))},
+        "fdfb": {"first_call_s": fdfb_first_s, "warm_ms": fdfb_ms,
+                 "fdfb_per_s": BATCH / fdfb_ms * 1e3, "peak_bytes": fdfb_peak,
+                 "decrypt_max_err_log2": math.log2(max(fdfb_err, 1.0)),
+                 "glue_ms": fdfb_ms - 2 * k1_ms - k2_ms},
+        "counts": {"pbs": pbs_counts, "gate": gate_counts,
+                   "fdfb": fdfb_counts},
+        "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
+        "k2": {"ms": k2_ms, "plain_ms": k2_plain_ms, "bound": k2_bound,
+               "library_ms": library_ms, "library_note": library_note}}))
+    return 0
 
 
 def main():
@@ -1174,7 +1671,13 @@ def main():
             f"single-device kernel path's")
     del bk4, out4, got_m, c_cut
 
-    # 19. report
+    # 19. SET_3, with buffers beyond shared memory
+    set3, k1_set3, set3_runs = set3_phase(dev, max_clock)
+
+    # 20. the 32-bit torus, in a child interpreter
+    t32 = torus32_phase()
+
+    # 21. report
     paths = {"pbs": pbs_counts, "gate": gate_counts, "fdfb": fdfb_counts,
              "unfolded": ub_counts, "ubr_phase1": ph1_counts,
              "ubr_phase2": ph2_counts, "ga": ga_counts}
@@ -1277,6 +1780,38 @@ def main():
         "bound_ms": k8b_bound["bound_ms"], "bound_by": k8b_bound["bound_by"],
         "library_ms": None, "library_note": TP_LIBRARY_NOTE,
     }]
+    for entry in kernels:
+        runs3 = {name: r for name, r in set3_runs.items()
+                 if name.split("/")[0] == entry["name"]}
+        if runs3:
+            entry["set3"] = runs3
+    kernels.append(k1_set3)
+    c32 = t32["counts"]
+    kernels += [{
+        "name": "blind_rotate_scan/torus32", "route": "cuda",
+        "source": "mosfhet_torch/ops/csrc/blind_rotate.cu",
+        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:1404",
+        "launches": c32["fdfb"]["blind_rotate_scan"],
+        "launches_by_path": {f"{path}32": c["blind_rotate_scan"]
+                             for path, c in c32.items()},
+        "max_abs_err": 0.0, "bit_exact": True, "ms": t32["k1"]["ms"],
+        "plain_ms": t32["k1"]["plain_ms"],
+        "bound_ms": t32["k1"]["bound"]["bound_ms"],
+        "bound_by": t32["k1"]["bound"]["bound_by"], "library_ms": None,
+    }, {
+        "name": "tlwe_keyswitch_sum/torus32", "route": "cuda",
+        "source": "mosfhet_torch/ops/csrc/tlwe_keyswitch.cu",
+        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:2070",
+        "launches": c32["fdfb"]["tlwe_keyswitch_sum"],
+        "launches_by_path": {f"{path}32": c["tlwe_keyswitch_sum"]
+                             for path, c in c32.items()},
+        "max_abs_err": 0.0, "bit_exact": True, "ms": t32["k2"]["ms"],
+        "plain_ms": t32["k2"]["plain_ms"],
+        "bound_ms": t32["k2"]["bound"]["bound_ms"],
+        "bound_by": t32["k2"]["bound"]["bound_by"],
+        "library_ms": t32["k2"]["library_ms"],
+        "library_note": t32["k2"]["library_note"],
+    }]
     log(json.dumps({"pbs": {
         "params": p.name, "batch": BATCH, "keygen_s": keygen_s,
         "first_call_s": first_s, "warm_ms": pbs_ms,
@@ -1331,6 +1866,9 @@ def main():
         "boot_per_s_k1": BATCH / pbs_ms * 1e3,
         **mesh_runs, "k8a_bound": k8a_bound, "k8b_bound": k8b_bound,
         "plain_routes": plain_routes}}))
+    log(json.dumps({"set3": set3}))
+    log(json.dumps({"torus32": {key: t32[key] for key in t32
+                                if key != "counts"}}))
     log(f"# whole script: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
@@ -1341,4 +1879,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(torus32_main() if sys.argv[1:] == ["--torus32"] else main())

@@ -2,9 +2,11 @@
 written by hand for NVIDIA Hopper.
 
 The port of the repository's TPU package, module for module.  Torus words
-are int64 tensors holding u64 bits; all ciphertext arithmetic is exact
-wraparound mod 2^64 through a CRT-NTT, so given the same key material and
-inputs the port produces the same 64-bit words as the TPU package.
+are int64 tensors holding u64 bits, or int32 tensors holding u32 bits at the
+32-bit torus (``MOSFHET_TORUS_BITS=32`` at import, the reference's
+``-DTORUS32``); all ciphertext arithmetic is exact wraparound mod 2^64 (or
+2^32) through a CRT-NTT, so given the same key material and inputs the port
+produces the same words as the TPU package.
 
 Entry points run on the CUDA card unless the caller passes a device
 (``device="cpu"``); without a card and without a device they raise.

@@ -5,6 +5,12 @@ bootstrap "this work" and the UBR multi-value bootstrap
 
 The reference's `if a_i == 0: continue` branch is dropped: X^0 - 1 = 0, so
 the dense CMUX adds exactly zero.
+
+At the 32-bit torus (``MOSFHET_TORUS_BITS=32``) the unfold=1 path runs:
+`new_key`, `functional_bootstrap`, `programmable_bootstrap` and
+`fdfb_this_work`, through K1's and K2's one-limb forms.  Unfolding and UBR
+at 32 bits (the one-limb K3, K4 and K5) are still to be ported: `new_key`
+with unfolding > 1 raises NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from . import trlwe as _trlwe
 from ._device import default_device
 from .ops import pbs_kernel as _pk
 from .tlwe import TLWE, TLWEKey
-from .torus import TORUS_BITS, to_i64, torus2int
+from .torus import TORUS_BITS, TORUS_DTYPE, to_signed, torus2int
 from .trgsw import TRGSWDFT, TRGSWKey
 from .trlwe import TRLWE, from_stacked
 
@@ -75,8 +81,9 @@ class BootstrapKey(nn.Module):
         return self.su
 
     def kernel_plan(self) -> _pk.PBSKernelPlan:
+        """The kernels' plan at the module's torus width."""
         return _pk.get_kernel_plan(self.N, self.primes, self.l, self.Bg_bit,
-                                   self.k, self.device)
+                                   self.k, self.device, TORUS_BITS)
 
 
 def _unfolded_messages(s, unfolding: int):
@@ -114,6 +121,9 @@ def new_key(out_key: TRGSWKey, in_key: TLWEKey, generator: torch.Generator,
         return bk.to(dev)
     if unfolding < 1 or n % unfolding:
         raise ValueError(f"unfolding {unfolding} must divide n = {n}")
+    if TORUS_BITS == 32:
+        raise NotImplementedError("unfolded keys at the 32-bit torus are "
+                                  "still to be ported")
     ms = _unfolded_messages(s, unfolding)
     R = (k + 1) * l
     su = torch.empty((ms.shape[0], R, k + 1, N), dtype=torch.int64,
@@ -196,7 +206,7 @@ def blind_rotate_unfolded(tv: TRLWE, a, bk: BootstrapKey) -> TRLWE:
 
 def _prec_offset(torus_base: int) -> int:
     """double2torus(1/(4*torus_base)) (`bootstrap.c:194`)."""
-    return to_i64((1 << TORUS_BITS) // (4 * torus_base))
+    return to_signed((1 << TORUS_BITS) // (4 * torus_base))
 
 
 def rotate_test_vector(tv: TRLWE, c: TLWE, bk: BootstrapKey,
@@ -231,8 +241,8 @@ def programmable_bootstrap(tv: TRLWE, c: TLWE, bk: BootstrapKey,
     """Input rounding (kappa shift, theta mask), then the bootstrap
     (`programmable_bootstrap`, `bootstrap.c:208-220`)."""
     log_N2 = int(math.log2(2 * bk.N))
-    rnd_os = to_i64(1 << (TORUS_BITS - log_N2 + theta - 1))
-    theta_mask = to_i64(~((1 << (TORUS_BITS - log_N2 + theta)) - 1))
+    rnd_os = to_signed(1 << (TORUS_BITS - log_N2 + theta - 1))
+    theta_mask = to_signed(~((1 << (TORUS_BITS - log_N2 + theta)) - 1))
     a = ((c.a << kappa) + rnd_os) & theta_mask
     b = ((c.b << kappa) + rnd_os) & theta_mask
     return functional_bootstrap(tv, TLWE(a=a, b=b), bk, 1 << (precision - 1))
@@ -245,9 +255,11 @@ def fdfb_this_work(tv: TRLWE, c: TLWE, bk: BootstrapKey,
     bootstrap (`full_domain_functional_bootstrap`, `bootstrap.c:519-538`).
     On CUDA tensors two blind-rotate launches (unfolded ones with an
     unfolded key) and one key-switch launch."""
-    sign = to_i64((1 << (TORUS_BITS - 2)) - (1 << (TORUS_BITS - precision - 2)))
+    sign = to_signed((1 << (TORUS_BITS - 2))
+                     - (1 << (TORUS_BITS - precision - 2)))
     tv_sign = _trlwe.torus_packing(
-        torch.tensor([sign], dtype=torch.int64, device=c.b.device), bk.k, bk.N)
+        torch.tensor([sign], dtype=TORUS_DTYPE, device=c.b.device), bk.k,
+        bk.N)
     ct_sign = functional_bootstrap(tv_sign, c, bk, 1 << (precision - 1))
     ct_sign = TLWE(a=ct_sign.a, b=ct_sign.b - sign)
     in2 = _tlwe.add(_tlwe.keyswitch(ct_sign, tlwe_ksk), c)

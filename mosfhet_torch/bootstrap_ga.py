@@ -15,6 +15,10 @@ Parameter envelope (the reference's forced-all-odd variant,
 1/2N biases the accumulated rotation by ~n/4 slots, so decryption needs
 roughly n < 2N / torus_base (n=632, N=2048, torus_base=4 at TFHEpp-L2).
 The words agree with the TPU package's outside it too.
+
+64-bit torus only: the GA bootstrap at the 32-bit torus (which the TPU
+package runs in jnp, with no kernel) is still to be ported, and `new_key`
+raises NotImplementedError under ``MOSFHET_TORUS_BITS=32``.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from ._device import default_device
 from .bootstrap import rotate_test_vector
 from .ops import pbs_kernel as _pk
 from .tlwe import TLWE, TLWEKey
-from .torus import torus2int
+from .torus import TORUS_BITS, torus2int
 from .trgsw import TRGSWKey
 from .trlwe import TRLWE, from_stacked
 
@@ -111,6 +115,9 @@ def new_key(out_key: TRGSWKey, in_key: TLWEKey, generator: torch.Generator,
     base_bit).  The keyset is encrypted ``GA_KEYGEN_CHUNK`` generators at a
     time straight into its buffer.  Computed where the keys live, returned
     on ``device``."""
+    if TORUS_BITS == 32:
+        raise NotImplementedError("the GA bootstrap at the 32-bit torus is "
+                                  "still to be ported")
     dev = default_device(device)
     tk = out_key.trlwe_key
     l, Bg_bit, k, N = out_key.l, out_key.Bg_bit, tk.k, tk.N

@@ -2,8 +2,10 @@
 
 Key material made elsewhere (the TPU package, a file) crosses as numpy
 arrays: u64 torus words and residues as ``uint64`` (or their ``int64``
-view), secret keys as ``int64``.  This module imports no other framework;
-the caller hands over plain arrays of the objects' fields.
+view), u32 torus words (the 32-bit torus) as ``uint32`` (or ``int32``),
+secret keys as ``int64``.  Residues cross as ``uint64`` at either width.
+This module imports no other framework; the caller hands over plain arrays
+of the objects' fields.
 """
 
 from __future__ import annotations
@@ -22,18 +24,24 @@ from .trlwe import TRLWE, TRLWEKey
 
 
 def to_tensor(x, device=None) -> torch.Tensor:
-    """u64 or int64 array -> int64 tensor with the same bits (a copy, so
-    read-only inputs are fine)."""
+    """u32 or int32 array -> int32 tensor, any other integer array (u64,
+    int64) -> int64 tensor, with the same bits (a copy, so read-only inputs
+    are fine)."""
     x = np.asarray(x)
-    if x.dtype == np.uint64:
-        x = x.view(np.int64)
-    return torch.from_numpy(np.array(x, dtype=np.int64)).to(
-        default_device(device))
+    if x.dtype in (np.uint32, np.int32):
+        x = np.array(x.view(np.int32))
+    else:
+        if x.dtype == np.uint64:
+            x = x.view(np.int64)
+        x = np.array(x, dtype=np.int64)
+    return torch.from_numpy(x).to(default_device(device))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """int64 tensor of torus words -> uint64 array."""
-    return t.detach().cpu().numpy().view(np.uint64)
+    """Tensor of torus words -> unsigned array: int64 to uint64, int32 to
+    uint32."""
+    x = t.detach().cpu().numpy()
+    return x.view(np.uint32 if x.dtype == np.int32 else np.uint64)
 
 
 def tlwe_key_from_numpy(s, sigma: float, device=None) -> TLWEKey:
@@ -164,8 +172,7 @@ def tlwe_ks_key_from_numpy(a, b, t: int, base_bit: int,
     """A precomputed KS table from its mask words a [n_in, t, base-1,
     n_out] and bodies b [n_in, t, base-1], joined once into the kernel's
     [n_in, t, base-1, n_out+1] form."""
-    ab = np.concatenate([np.asarray(a).view(np.int64),
-                         np.asarray(b).view(np.int64)[..., None]], axis=-1)
+    ab = np.concatenate([np.asarray(a), np.asarray(b)[..., None]], axis=-1)
     return TLWEKSKey(to_tensor(ab, device), t, base_bit)
 
 

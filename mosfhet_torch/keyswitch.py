@@ -8,6 +8,10 @@ one launch of the automorphism key-switch kernel (K6,
 CPU tensors: a key-switch key is a keyset of one entry, selected by index
 0 with no permutation; `eval_automorphism` passes the generator's inverse
 and the kernel permutes as it loads.
+
+64-bit torus only: the 32-bit form (K6's one-limb form) is still to be
+ported, and `new_trlwe_ks_key` raises NotImplementedError under
+``MOSFHET_TORUS_BITS=32``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from . import polynomial as _poly
 from . import trlwe as _trlwe
 from ._device import default_device
 from .ops import pbs_kernel as _pk
+from .torus import TORUS_BITS
 from .trgsw import _gadget_values
 from .trlwe import TRLWE, TRLWEKey, from_stacked
 
@@ -75,6 +80,9 @@ def new_trlwe_ks_key(out_key: TRLWEKey, in_key: TRLWEKey, t: int,
                      device=None) -> TRLWEKSKey:
     """(`trlwe_new_KS_key`, `keyswitch.c:12-37`).  Computed where the keys
     live, returned on ``device``."""
+    if TORUS_BITS == 32:
+        raise NotImplementedError("the TRLWE key switch at the 32-bit torus "
+                                  "is still to be ported")
     dev = default_device(device)
     plan = _ks_plan(out_key.N, base_bit, t, in_key.k * t, out_key.s.device)
     ms = in_key.s[:, None, :] * _gadget_values(t, base_bit,

@@ -1,9 +1,10 @@
-"""Exact negacyclic NTT over 30-bit Proth primes with CRT readback to u64.
+"""Exact negacyclic NTT over 30-bit Proth primes with CRT readback to torus
+words.
 
 Polynomial products are exact:
 
-    u64 coefficients --(mod p_m)--> residues --NTT--> pointwise mul/acc
-        --iNTT--> residues --Garner CRT--> exact value mod 2^64
+    torus coefficients --(mod p_m)--> residues --NTT--> pointwise mul/acc
+        --iNTT--> residues --Garner CRT--> exact value mod 2^64 (or 2^32)
 
 The product of the primes exceeds twice the largest negacyclic-convolution
 magnitude of each use, so the CRT reconstruction is exact.  Residues are
@@ -28,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from .torus import TORUS_BITS
+from .torus import TORUS_BITS, TORUS_DTYPE, wrap
 
 # Proth primes in (2^28, 2^30) with 2^21 | p-1, ascending (Garner needs
 # p_j < p_m for j < m).  < 2^30 keeps lazy values and butterfly sums inside
@@ -53,7 +54,8 @@ def primes_for_bound(bound: int):
 
 def conv_bound(N: int, max_abs_digit: int, j_terms: int) -> int:
     """|sum_{j<J} digit_j (*) torus_j| bound for |digits| <= max_abs_digit
-    and centred torus coefficients <= 2^63."""
+    and centred torus coefficients <= 2^(TORUS_BITS-1): 2 primes at the
+    32-bit torus where the 64-bit one takes 3 or 4."""
     return N * max_abs_digit * (1 << (TORUS_BITS - 1)) * j_terms
 
 
@@ -216,10 +218,10 @@ def to_resi_i64(x, plan: NTTPlan):
 
 
 def to_resi_u64(x, plan: NTTPlan):
-    """u64 torus coefficients [..., N] -> residues of their centred
-    (signed) representatives, which is what the int64 bit pattern already
-    is.  Halves the magnitude bound of downstream convolutions; the final
-    mod-2^64 readback is unaffected."""
+    """Torus coefficients [..., N] (int64 or int32 words) -> residues of
+    their centred (signed) representatives, which is what the word's bit
+    pattern already is at either width.  Halves the magnitude bound of
+    downstream convolutions; the final mod-2^bits readback is unaffected."""
     return to_resi_i64(x, plan)
 
 
@@ -287,7 +289,8 @@ def garner_u64(r, plan: NTTPlan):
 
     Mixed-radix reconstruction with a centred top digit: any integer with
     |value| < prod(p)/2 round-trips exactly.  The Horner step wraps mod
-    2^64 in int64."""
+    2^64 in int64, so its low 32 bits are the value mod 2^32 (the TPU
+    kernel's `_garner_limb32`)."""
     P = plan.P
     ts = [r[..., 0, :]]
     for m in range(1, P):
@@ -309,13 +312,15 @@ def garner_u64(r, plan: NTTPlan):
     return v
 
 
-def from_ntt_u64(x, plan: NTTPlan):
-    """[..., P, N] NTT domain -> exact torus coefficients [..., N]."""
-    return garner_u64(inverse_ntt(x, plan), plan)
+def from_ntt_u64(x, plan: NTTPlan, dtype: torch.dtype = TORUS_DTYPE):
+    """[..., P, N] NTT domain -> exact torus coefficients [..., N] as words
+    of ``dtype`` (the Garner value truncated to 32 bits for int32)."""
+    return wrap(garner_u64(inverse_ntt(x, plan), plan), dtype)
 
 
 def to_ntt_u64(x, plan: NTTPlan):
-    """Torus coefficients [..., N] -> NTT domain [..., P, N]."""
+    """Torus coefficients [..., N] (int64 or int32 words) -> NTT domain
+    [..., P, N]."""
     return forward_ntt(to_resi_u64(x, plan), plan)
 
 

@@ -18,8 +18,10 @@
 // keyset entry (runtime residues, no Shoup companions), read straight from
 // global memory and coalesced along N; then C x P inverse NTTs and Garner
 // write (0, b') - sum to global memory.  Shared memory: perm 32 KiB,
-// spectra 48 KiB, one digit row's NTTs 24 KiB at TFHEpp-L2.  The code is
-// `ga_common.cuh`'s, which K7 runs once per step.
+// spectra 48 KiB, one digit row's NTTs 24 KiB at TFHEpp-L2.  Where they do
+// not all fit (256 KiB at N=4096 with a 4-prime key-switch plan, the GA
+// key's at SET_3) the wrapper moves perm to a global workspace.  The code
+// is `ga_common.cuh`'s, which K7 runs once per step.
 //
 // What bounds it on this card: bytes, at the GA path's B=512.  Each
 // ciphertext reads its own 192 KiB keyset entry (distinct entries for
@@ -33,8 +35,9 @@
 namespace {
 
 constexpr int kThreads = 1024;
+enum { kWork, kSpec, kPerm, kNumBuf };  // buffers, as the wrapper lists them
 
-template <int PK>
+template <int PK, bool S>
 __global__ void __launch_bounds__(kThreads, 1)
 auto_keyswitch_kernel(const uint64_t* __restrict__ x_g,
                       const uint32_t* __restrict__ ak,
@@ -44,38 +47,51 @@ auto_keyswitch_kernel(const uint64_t* __restrict__ x_g,
                       const uint32_t* __restrict__ ftw,
                       const uint32_t* __restrict__ ftws,
                       const uint32_t* __restrict__ itw,
-                      const uint32_t* __restrict__ itws, const PbsConsts Kp) {
+                      const uint32_t* __restrict__ itws, unsigned char* ws,
+                      const PbsConsts Kp, const Layout L) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ PbsConsts K;
   if (threadIdx.x == 0) K = Kp;
   __syncthreads();
-  const int N = K.N, C = K.C, CN = K.C * K.N;
-  uint64_t* perm = reinterpret_cast<uint64_t*>(smem);        // [C][N]
-  uint32_t* spec = reinterpret_cast<uint32_t*>(perm + CN);   // [C][PK][N]
-  uint32_t* work = spec + C * PK * N;                        // [PK][N]
+  const int CN = K.C * K.N;
+  uint64_t* perm = buffer<S, uint64_t>(L, kPerm, smem, ws, nullptr);  // [C][N]
+  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][PK][N]
+  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [PK][N]
 
   const int b = blockIdx.x;
-  const size_t entry = size_t(C - 1) * K.l * C * PK * N;
+  const size_t entry = size_t(K.C - 1) * K.l * K.C * PK * K.N;
   galois_permute(x_g + size_t(b) * CN, perm, ginv[b], K);
   keyswitch_entry<PK>(perm, out_g + size_t(b) * CN, ak + kidx[b] * entry,
                       spec, work, K, ftw, ftws, itw, itws);
 }
 
-template <int PK>
-cudaError_t launch(const uint64_t* x, const uint32_t* ak, const int32_t* kidx,
-                   const int32_t* ginv, uint64_t* out, const uint32_t* ftw,
-                   const uint32_t* ftws, const uint32_t* itw,
-                   const uint32_t* itws, const PbsConsts& K, int B,
-                   cudaStream_t stream) {
-  const size_t smem = size_t(K.C) * K.N * sizeof(uint64_t) +
-                      size_t(K.C * PK + PK) * K.N * sizeof(uint32_t);
+struct Args {
+  const uint64_t* x;
+  const uint32_t* ak;
+  const int32_t *kidx, *ginv;
+  uint64_t* out;
+  const uint32_t *ftw, *ftws, *itw, *itws;
+  unsigned char* ws;
+  int B;
+  cudaStream_t stream;
+};
+
+template <int PK, bool S>
+cudaError_t launch_s(const Args& x, const PbsConsts& K, const Layout& L) {
   cudaError_t err = cudaFuncSetAttribute(
-      auto_keyswitch_kernel<PK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      auto_keyswitch_kernel<PK, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
   if (err != cudaSuccess) return err;
-  auto_keyswitch_kernel<PK><<<B, kThreads, smem, stream>>>(
-      x, ak, kidx, ginv, out, ftw, ftws, itw, itws, K);
+  auto_keyswitch_kernel<PK, S><<<x.B, kThreads, L.smem, x.stream>>>(
+      x.x, x.ak, x.kidx, x.ginv, x.out, x.ftw, x.ftws, x.itw, x.itws, x.ws,
+      K, L);
   return cudaGetLastError();
+}
+
+template <int PK>
+cudaError_t launch(const Args& x, const PbsConsts& K, const Layout& L) {
+  return all_shared(L, kNumBuf) ? launch_s<PK, true>(x, K, L)
+                                : launch_s<PK, false>(x, K, L);
 }
 
 }  // namespace
@@ -83,34 +99,38 @@ cudaError_t launch(const uint64_t* x, const uint32_t* ak, const int32_t* kidx,
 extern "C" {
 
 // consts: the key-switch plan's int64 host array (layout in ntt_common.cuh;
-// its l and Bg_bit are the key switch's t and base_bit).  x, out [B, k+1, N]
-// u64; ak [G, k t, k+1, P, N] u32; kidx [B] int32 in [0, G); ginv [B] int32
-// odd; twiddles [P, N] u32.
+// its l and Bg_bit are the key switch's t and base_bit); layout: the buffer
+// placement (smem bytes, workspace stride, offsets of work, spec, perm); ws:
+// the workspace, B x stride bytes (null when the stride is 0).  x, out
+// [B, k+1, N] u64; ak [G, k t, k+1, P, N] u32; kidx [B] int32 in [0, G);
+// ginv [B] int32 odd; twiddles [P, N] u32.
 int auto_keyswitch_launch(const void* x, const void* ak, const void* kidx,
                           const void* ginv, void* out, const void* ftw,
                           const void* ftws, const void* itw, const void* itws,
-                          const int64_t* consts, int B, void* stream) {
+                          void* ws, const int64_t* consts,
+                          const int64_t* layout, int B, void* stream) {
   PbsConsts K;
   if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
   if (B == 0) return int(cudaSuccess);
-  auto* x64 = static_cast<const uint64_t*>(x);
-  auto* a32 = static_cast<const uint32_t*>(ak);
-  auto* ki = static_cast<const int32_t*>(kidx);
-  auto* gi = static_cast<const int32_t*>(ginv);
-  auto* o64 = static_cast<uint64_t*>(out);
-  auto* f = static_cast<const uint32_t*>(ftw);
-  auto* fs = static_cast<const uint32_t*>(ftws);
-  auto* iv = static_cast<const uint32_t*>(itw);
-  auto* is = static_cast<const uint32_t*>(itws);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  const Args a{static_cast<const uint64_t*>(x),
+               static_cast<const uint32_t*>(ak),
+               static_cast<const int32_t*>(kidx),
+               static_cast<const int32_t*>(ginv),
+               static_cast<uint64_t*>(out),
+               static_cast<const uint32_t*>(ftw),
+               static_cast<const uint32_t*>(ftws),
+               static_cast<const uint32_t*>(itw),
+               static_cast<const uint32_t*>(itws),
+               static_cast<unsigned char*>(ws),
+               B,
+               static_cast<cudaStream_t>(stream)};
+  const Layout L = parse_layout(layout, kNumBuf);
   switch (K.P) {
-    case 2: err = launch<2>(x64, a32, ki, gi, o64, f, fs, iv, is, K, B, st); break;
-    case 3: err = launch<3>(x64, a32, ki, gi, o64, f, fs, iv, is, K, B, st); break;
-    case 4: err = launch<4>(x64, a32, ki, gi, o64, f, fs, iv, is, K, B, st); break;
-    default: err = launch<5>(x64, a32, ki, gi, o64, f, fs, iv, is, K, B, st); break;
+    case 2: return int(launch<2>(a, K, L));
+    case 3: return int(launch<3>(a, K, L));
+    case 4: return int(launch<4>(a, K, L));
+    default: return int(launch<5>(a, K, L));
   }
-  return int(err);
 }
 
 const char* cuda_error_string(int err) {

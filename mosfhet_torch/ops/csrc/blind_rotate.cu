@@ -16,13 +16,23 @@
 //   5. Garner CRT to the exact value mod 2^64 with a centred top digit;
 //   6. acc += delta.
 //
+// At the 32-bit torus (TORUS32) the same body runs on u32 words: one limb
+// per word, the gadget offset and digits of 32 bits and Garner's Horner step
+// mod 2^32 (the TPU kernel's `nl == 1` branches, pbs_kernel.py:1142-1145 and
+// :1213-1214).  The NTT side is the same at both widths.
+//
 // Design.  A blind rotate is one call, so it is one launch: one thread
 // block per ciphertext runs the n steps as a loop (the TPU's sequential grid
-// axis).  The accumulator stays in shared memory for the whole rotation
-// (acc and rot: 2 x C x N u64; spec: C x P x N u32; one digit row's NTT
-// buffer: P x N u32 -- 136 KiB at N=2048, k=1, P=3, so one block per SM).
-// Every residue is kept canonical in [0, p) with Shoup products
-// (__umulhi), so the result is bit-identical to the plain PyTorch version.
+// axis).  Its buffers are acc and rot (C x N words), spec (C x P x N u32)
+// and one digit row's NTT buffer work (P x N u32): 136 KiB at TFHEpp-L2
+// (N=2048, k=1, P=3) and 80 KiB at its 32-bit form (P=2), all in shared
+// memory, one block of 1024 threads per SM.  Where they do not all fit
+// (N=4096 with 4 primes needs 320 KiB, sm_90 allows 227 KiB) the wrapper
+// places them by traffic: work, then spec, in shared memory; rot in a
+// global workspace; acc updated in place in the caller's tensor (192 KiB of
+// shared memory at SET_3; at N=8192 only the 128 KiB NTT row).  Every
+// residue is kept canonical in [0, p) with Shoup products (__umulhi), so
+// the result is bit-identical to the plain PyTorch version.
 //
 // What bounds it on this card: integer multiplies.  Per step and ciphertext
 // at TFHEpp-L2 it does (24 + 6) NTTs x 11,264 butterflies + 98,304 key
@@ -39,18 +49,18 @@
 namespace {
 
 constexpr int kThreads = 1024;
+enum { kWork, kSpec, kRot, kAcc, kNumBuf };  // buffers, as the wrapper lists
 
-template <int P>
+template <int P, typename W, bool S>
 __global__ void __launch_bounds__(kThreads, 1)
-blind_rotate_kernel(uint64_t* __restrict__ acc_g,
-                    const int32_t* __restrict__ a_g,
+blind_rotate_kernel(W* __restrict__ acc_g, const int32_t* __restrict__ a_g,
                     const uint32_t* __restrict__ keyv,
                     const uint32_t* __restrict__ keyvs,
                     const uint32_t* __restrict__ ftw,
                     const uint32_t* __restrict__ ftws,
                     const uint32_t* __restrict__ itw,
-                    const uint32_t* __restrict__ itws, const PbsConsts Kp,
-                    int n, int B) {
+                    const uint32_t* __restrict__ itws, unsigned char* ws,
+                    const PbsConsts Kp, const Layout L, int n, int B) {
   extern __shared__ __align__(16) unsigned char smem[];
   // The constants are indexed by a per-thread prime index: keep one copy in
   // shared memory, where that costs a broadcast load.
@@ -58,13 +68,15 @@ blind_rotate_kernel(uint64_t* __restrict__ acc_g,
   if (threadIdx.x == 0) K = Kp;
   __syncthreads();
   const int N = K.N, C = K.C, l = K.l, J = K.C * K.l, CN = K.C * K.N;
-  uint64_t* acc = reinterpret_cast<uint64_t*>(smem);   // [C][N]
-  uint64_t* rot = acc + CN;                            // [C][N]
-  uint32_t* spec = reinterpret_cast<uint32_t*>(rot + CN);  // [C][P][N]
-  uint32_t* work = spec + C * P * N;                   // [P][N]
+  const W offset = W(K.offset);
+  W* acc_b = acc_g + size_t(blockIdx.x) * CN;
+  W* acc = buffer<S, W>(L, kAcc, smem, ws, acc_b);  // [C][N]
+  W* rot = buffer<S, W>(L, kRot, smem, ws, nullptr);  // [C][N]
+  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][P][N]
+  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [P][N]
 
-  uint64_t* acc_b = acc_g + size_t(blockIdx.x) * CN;
-  for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
+  if (acc != acc_b)
+    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
   __syncthreads();
 
   const size_t step_stride = size_t(J) * C * P * N;
@@ -73,7 +85,7 @@ blind_rotate_kernel(uint64_t* __restrict__ acc_g,
     // 1. rot + offset, with rot = X^a acc - acc
     for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
       const int c = idx >> K.logN, k = idx & (N - 1);
-      rot[idx] = rotated_word(acc + c * N, k, a, N) - acc[idx] + K.offset;
+      rot[idx] = rotated_word(acc + c * N, k, a, N) - acc[idx] + offset;
     }
     for (int idx = threadIdx.x; idx < C * P * N; idx += blockDim.x)
       spec[idx] = 0;
@@ -109,61 +121,86 @@ blind_rotate_kernel(uint64_t* __restrict__ acc_g,
     // 5-6. Garner (with 1/N) and the carry-add into acc
     for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
       const int c = idx >> K.logN, k = idx & (N - 1);
-      acc[idx] += garner<P>(spec + c * P * N, k, K);
+      acc[idx] += garner<P, W>(spec + c * P * N, k, K);
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
+  if (acc != acc_b)
+    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
 }
 
-template <int P>
-cudaError_t launch(uint64_t* acc, const int32_t* a, const uint32_t* keyv,
-                   const uint32_t* keyvs, const uint32_t* ftw,
-                   const uint32_t* ftws, const uint32_t* itw,
-                   const uint32_t* itws, const PbsConsts& K, int n, int B,
-                   cudaStream_t stream) {
-  const size_t smem = size_t(2) * K.C * K.N * sizeof(uint64_t) +
-                      size_t(K.C * P + P) * K.N * sizeof(uint32_t);
+struct Args {
+  void* acc;
+  const int32_t* a;
+  const uint32_t *keyv, *keyvs, *ftw, *ftws, *itw, *itws;
+  unsigned char* ws;
+  int n, B;
+  cudaStream_t stream;
+};
+
+template <int P, typename W, bool S>
+cudaError_t launch(const Args& x, const PbsConsts& K, const Layout& L) {
   cudaError_t err = cudaFuncSetAttribute(
-      blind_rotate_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      blind_rotate_kernel<P, W, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
   if (err != cudaSuccess) return err;
-  blind_rotate_kernel<P><<<B, kThreads, smem, stream>>>(
-      acc, a, keyv, keyvs, ftw, ftws, itw, itws, K, n, B);
+  blind_rotate_kernel<P, W, S><<<x.B, kThreads, L.smem, x.stream>>>(
+      static_cast<W*>(x.acc), x.a, x.keyv, x.keyvs, x.ftw, x.ftws, x.itw,
+      x.itws, x.ws, K, L, x.n, x.B);
   return cudaGetLastError();
+}
+
+template <int P, typename W>
+cudaError_t launch_s(const Args& x, const PbsConsts& K, const Layout& L) {
+  return all_shared(L, kNumBuf) ? launch<P, W, true>(x, K, L)
+                                : launch<P, W, false>(x, K, L);
+}
+
+template <typename W>
+cudaError_t launch_w(const Args& x, const PbsConsts& K, const Layout& L) {
+  switch (K.P) {
+    case 2: return launch_s<2, W>(x, K, L);
+    case 3: return launch_s<3, W>(x, K, L);
+    case 4: return launch_s<4, W>(x, K, L);
+    default: return launch_s<5, W>(x, K, L);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// consts: the plan's int64 host array (layout in ntt_common.cuh).
-// acc [B, k+1, N] u64 is rotated in place; a [n, B] int32 in [0, 2N];
-// keyv/keyvs [n, (k+1)l, k+1, P, N] u32; twiddles [P, N] u32.
+// consts: the plan's int64 host array (layout in ntt_common.cuh), whose
+// gadget offset is of the word width; layout: the buffer placement (smem
+// bytes, workspace stride, then the offsets of work, spec, rot, acc); ws: the
+// workspace, B x stride bytes (null when the stride is 0).  acc [B, k+1, N]
+// u64 words (word_bits 64) or u32 words (word_bits 32) is rotated in place;
+// a [n, B] int32 in [0, 2N]; keyv/keyvs [n, (k+1)l, k+1, P, N] u32;
+// twiddles [P, N] u32.
 int blind_rotate_launch(void* acc, const void* a, const void* keyv,
                         const void* keyvs, const void* ftw, const void* ftws,
-                        const void* itw, const void* itws,
-                        const int64_t* consts, int B, int n, void* stream) {
+                        const void* itw, const void* itws, void* ws,
+                        const int64_t* consts, const int64_t* layout, int B,
+                        int n, int word_bits, void* stream) {
   PbsConsts K;
-  if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
+  if (!parse_consts(consts, K) || (word_bits != 32 && word_bits != 64))
+    return int(cudaErrorInvalidValue);
   if (B == 0) return int(cudaSuccess);
-  auto* acc64 = static_cast<uint64_t*>(acc);
-  auto* a32 = static_cast<const int32_t*>(a);
-  auto* kv = static_cast<const uint32_t*>(keyv);
-  auto* ks = static_cast<const uint32_t*>(keyvs);
-  auto* f = static_cast<const uint32_t*>(ftw);
-  auto* fs = static_cast<const uint32_t*>(ftws);
-  auto* iv = static_cast<const uint32_t*>(itw);
-  auto* is = static_cast<const uint32_t*>(itws);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (K.P) {
-    case 2: err = launch<2>(acc64, a32, kv, ks, f, fs, iv, is, K, n, B, st); break;
-    case 3: err = launch<3>(acc64, a32, kv, ks, f, fs, iv, is, K, n, B, st); break;
-    case 4: err = launch<4>(acc64, a32, kv, ks, f, fs, iv, is, K, n, B, st); break;
-    default: err = launch<5>(acc64, a32, kv, ks, f, fs, iv, is, K, n, B, st); break;
-  }
-  return int(err);
+  const Args x{acc,
+               static_cast<const int32_t*>(a),
+               static_cast<const uint32_t*>(keyv),
+               static_cast<const uint32_t*>(keyvs),
+               static_cast<const uint32_t*>(ftw),
+               static_cast<const uint32_t*>(ftws),
+               static_cast<const uint32_t*>(itw),
+               static_cast<const uint32_t*>(itws),
+               static_cast<unsigned char*>(ws),
+               n,
+               B,
+               static_cast<cudaStream_t>(stream)};
+  const Layout L = parse_layout(layout, kNumBuf);
+  return int(word_bits == 32 ? launch_w<uint32_t>(x, K, L)
+                             : launch_w<uint64_t>(x, K, L));
 }
 
 const char* cuda_error_string(int err) {

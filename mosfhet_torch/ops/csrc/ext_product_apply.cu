@@ -22,7 +22,10 @@
 // products are a loop inside the block, with the accumulator (C x N u64),
 // the spectra (C x P x N u32) and one digit row's P NTT rows in shared
 // memory (104 KiB at TFHEpp-L2), so one launch serves any G and any batch
-// (no padding to a tile).  Helpers are shared with K1 (ntt_common.cuh).
+// (no padding to a tile).  Where that does not fit (256 KiB at N=4096 with
+// 4 primes) the wrapper keeps the NTT rows and the spectra in shared memory
+// and the block updates acc in place in the caller's tensor.  Helpers are
+// shared with K1 (ntt_common.cuh).
 //
 // What bounds it on this card: integer multiplies.  Per product and
 // ciphertext at TFHEpp-L2: (24 + 6) NTTs x 11,264 butterflies (one Shoup
@@ -37,28 +40,30 @@
 namespace {
 
 constexpr int kThreads = 1024;
+enum { kWork, kSpec, kAcc, kNumBuf };  // buffers, as the wrapper lists them
 
-template <int P>
+template <int P, bool S>
 __global__ void __launch_bounds__(kThreads, 1)
 ext_product_apply_kernel(uint64_t* __restrict__ acc_g,
                          const uint32_t* __restrict__ sa,
                          const uint32_t* __restrict__ ftw,
                          const uint32_t* __restrict__ ftws,
                          const uint32_t* __restrict__ itw,
-                         const uint32_t* __restrict__ itws,
-                         const PbsConsts Kp, int B, int G, int per_row) {
+                         const uint32_t* __restrict__ itws, unsigned char* ws,
+                         const PbsConsts Kp, const Layout L, int B, int G,
+                         int per_row) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ PbsConsts K;
   if (threadIdx.x == 0) K = Kp;
   __syncthreads();
   const int N = K.N, C = K.C, l = K.l, J = K.C * K.l, CN = K.C * K.N;
-  uint64_t* acc = reinterpret_cast<uint64_t*>(smem);       // [C][N]
-  uint32_t* spec = reinterpret_cast<uint32_t*>(acc + CN);  // [C][P][N]
-  uint32_t* work = spec + C * P * N;                       // [P][N]
-
   const int b = blockIdx.x;
   uint64_t* acc_b = acc_g + size_t(b) * CN;
-  for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
+  uint64_t* acc = buffer<S, uint64_t>(L, kAcc, smem, ws, acc_b);  // [C][N]
+  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][P][N]
+  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [P][N]
+  if (acc != acc_b)
+    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
 
   const size_t key_size = size_t(J) * C * P * N;
   for (int g = 0; g < G; ++g) {
@@ -98,39 +103,57 @@ ext_product_apply_kernel(uint64_t* __restrict__ acc_g,
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
+  if (acc != acc_b)
+    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
+}
+
+template <int P, bool S>
+cudaError_t launch_s(uint64_t* acc, const uint32_t* sa, const uint32_t* ftw,
+                     const uint32_t* ftws, const uint32_t* itw,
+                     const uint32_t* itws, unsigned char* ws,
+                     const PbsConsts& K, const Layout& L, int B, int G,
+                     int per_row, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ext_product_apply_kernel<P, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
+  if (err != cudaSuccess) return err;
+  ext_product_apply_kernel<P, S><<<B, kThreads, L.smem, stream>>>(
+      acc, sa, ftw, ftws, itw, itws, ws, K, L, B, G, per_row);
+  return cudaGetLastError();
 }
 
 template <int P>
 cudaError_t launch(uint64_t* acc, const uint32_t* sa, const uint32_t* ftw,
                    const uint32_t* ftws, const uint32_t* itw,
-                   const uint32_t* itws, const PbsConsts& K, int B, int G,
+                   const uint32_t* itws, unsigned char* ws,
+                   const PbsConsts& K, const Layout& L, int B, int G,
                    int per_row, cudaStream_t stream) {
-  const size_t smem = size_t(K.C) * K.N * sizeof(uint64_t) +
-                      size_t(K.C * P + P) * K.N * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      ext_product_apply_kernel<P>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  ext_product_apply_kernel<P><<<B, kThreads, smem, stream>>>(
-      acc, sa, ftw, ftws, itw, itws, K, B, G, per_row);
-  return cudaGetLastError();
+  return all_shared(L, kNumBuf)
+             ? launch_s<P, true>(acc, sa, ftw, ftws, itw, itws, ws, K, L, B,
+                                 G, per_row, stream)
+             : launch_s<P, false>(acc, sa, ftw, ftws, itw, itws, ws, K, L, B,
+                                  G, per_row, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// consts: the plan's int64 host array (layout in ntt_common.cuh).
+// consts: the plan's int64 host array (layout in ntt_common.cuh); layout:
+// the buffer placement (smem bytes, workspace stride, offsets of work, spec,
+// acc); ws: the workspace, B x stride bytes (null when the stride is 0).
 // acc [B, k+1, N] u64 is replaced in place; sa [G, (k+1)l, k+1, P, N] u32
 // canonical residues, or [G, B, (k+1)l, k+1, P, N] when per_row != 0;
 // twiddles [P, N] u32.
 int ext_product_apply_launch(void* acc, const void* sa, const void* ftw,
                              const void* ftws, const void* itw,
-                             const void* itws, const int64_t* consts, int B,
-                             int G, int per_row, void* stream) {
+                             const void* itws, void* ws, const int64_t* consts,
+                             const int64_t* layout, int B, int G, int per_row,
+                             void* stream) {
   PbsConsts K;
   if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
+  const Layout L = parse_layout(layout, kNumBuf);
+  auto* w = static_cast<unsigned char*>(ws);
   if (B == 0 || G == 0) return int(cudaSuccess);
   auto* a64 = static_cast<uint64_t*>(acc);
   auto* s = static_cast<const uint32_t*>(sa);
@@ -141,10 +164,10 @@ int ext_product_apply_launch(void* acc, const void* sa, const void* ftw,
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (K.P) {
-    case 2: err = launch<2>(a64, s, f, fs, iv, is, K, B, G, per_row, st); break;
-    case 3: err = launch<3>(a64, s, f, fs, iv, is, K, B, G, per_row, st); break;
-    case 4: err = launch<4>(a64, s, f, fs, iv, is, K, B, G, per_row, st); break;
-    default: err = launch<5>(a64, s, f, fs, iv, is, K, B, G, per_row, st); break;
+    case 2: err = launch<2>(a64, s, f, fs, iv, is, w, K, L, B, G, per_row, st); break;
+    case 3: err = launch<3>(a64, s, f, fs, iv, is, w, K, L, B, G, per_row, st); break;
+    case 4: err = launch<4>(a64, s, f, fs, iv, is, w, K, L, B, G, per_row, st); break;
+    default: err = launch<5>(a64, s, f, fs, iv, is, w, K, L, B, G, per_row, st); break;
   }
   return int(err);
 }

@@ -23,6 +23,9 @@
 // switch decomposes and whose b it subtracts from; the key switch writes the
 // new accumulator.  Shared memory: acc 32 KiB + perm 32 KiB + spectra 48 KiB
 // + one digit row's NTTs 24 KiB = 136 KiB at TFHEpp-L2, one block per SM.
+// Where they do not all fit (320 KiB at N=4096 with 4 primes) the wrapper
+// keeps the NTT rows and the spectra in shared memory, perm in a global
+// workspace and acc in place in the caller's tensor.
 // The two plans are separate constant blocks: a key-switch plan may have
 // another prime count, and its gadget offset differs whenever t != l or
 // base_bit != Bg_bit.  Keyset entries are runtime data (per ciphertext and
@@ -41,8 +44,9 @@
 namespace {
 
 constexpr int kThreads = 1024;
+enum { kWork, kSpec, kPerm, kAcc, kNumBuf };  // buffers, as the wrapper lists
 
-template <int P, int PK>
+template <int P, int PK, bool S>
 __global__ void __launch_bounds__(kThreads, 1)
 ga_scan_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ gens,
                const uint32_t* __restrict__ sv,
@@ -56,8 +60,9 @@ ga_scan_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ gens,
                const uint32_t* __restrict__ kftw,
                const uint32_t* __restrict__ kftws,
                const uint32_t* __restrict__ kitw,
-               const uint32_t* __restrict__ kitws, const PbsConsts Kbp,
-               const PbsConsts Kkp, int n, int B) {
+               const uint32_t* __restrict__ kitws, unsigned char* ws,
+               const PbsConsts Kbp, const PbsConsts Kkp, const Layout L,
+               int n, int B) {
   constexpr int PM = P > PK ? P : PK;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ PbsConsts Kb, Kk;
@@ -67,14 +72,14 @@ ga_scan_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ gens,
   }
   __syncthreads();
   const int N = Kb.N, C = Kb.C, CN = Kb.C * Kb.N, J = Kb.C * Kb.l;
-  uint64_t* acc = reinterpret_cast<uint64_t*>(smem);         // [C][N]
-  uint64_t* perm = acc + CN;                                 // [C][N]
-  uint32_t* spec = reinterpret_cast<uint32_t*>(perm + CN);   // [C][PM][N]
-  uint32_t* work = spec + C * PM * N;                        // [PM][N]
-
   const int b = blockIdx.x;
   uint64_t* acc_b = acc_g + size_t(b) * CN;
-  for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
+  uint64_t* acc = buffer<S, uint64_t>(L, kAcc, smem, ws, acc_b);    // [C][N]
+  uint64_t* perm = buffer<S, uint64_t>(L, kPerm, smem, ws, nullptr);  // [C][N]
+  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][PM][N]
+  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [PM][N]
+  if (acc != acc_b)
+    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
   __syncthreads();
 
   const size_t step_stride = size_t(J) * C * P * N;
@@ -91,40 +96,51 @@ ga_scan_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ gens,
     keyswitch_entry<PK>(perm, acc, ak + kidx * entry, spec, work, Kk, kftw,
                         kftws, kitw, kitws);
   }
-  for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
+  if (acc != acc_b)
+    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
+}
+
+struct Args {
+  uint64_t* acc;
+  const int32_t* gens;
+  const uint32_t *sv, *svs, *ak;
+  const int32_t* inv2n;
+  const uint32_t* const* tw;
+  unsigned char* ws;
+  int n, B;
+  cudaStream_t stream;
+};
+
+template <int P, int PK, bool S>
+cudaError_t launch_s(const Args& x, const PbsConsts& Kb, const PbsConsts& Kk,
+                     const Layout& L) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ga_scan_kernel<P, PK, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(L.smem));
+  if (err != cudaSuccess) return err;
+  const uint32_t* const* tw = x.tw;
+  ga_scan_kernel<P, PK, S><<<x.B, kThreads, L.smem, x.stream>>>(
+      x.acc, x.gens, x.sv, x.svs, x.ak, x.inv2n, tw[0], tw[1], tw[2], tw[3],
+      tw[4], tw[5], tw[6], tw[7], x.ws, Kb, Kk, L, x.n, x.B);
+  return cudaGetLastError();
 }
 
 template <int P, int PK>
-cudaError_t launch_pk(uint64_t* acc, const int32_t* gens, const uint32_t* sv,
-                      const uint32_t* svs, const uint32_t* ak,
-                      const int32_t* inv2n, const uint32_t* const* tw,
-                      const PbsConsts& Kb, const PbsConsts& Kk, int n, int B,
-                      cudaStream_t stream) {
-  constexpr int PM = P > PK ? P : PK;
-  const size_t smem = size_t(2) * Kb.C * Kb.N * sizeof(uint64_t) +
-                      size_t(Kb.C * PM + PM) * Kb.N * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      ga_scan_kernel<P, PK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  ga_scan_kernel<P, PK><<<B, kThreads, smem, stream>>>(
-      acc, gens, sv, svs, ak, inv2n, tw[0], tw[1], tw[2], tw[3], tw[4],
-      tw[5], tw[6], tw[7], Kb, Kk, n, B);
-  return cudaGetLastError();
+cudaError_t launch_pk(const Args& x, const PbsConsts& Kb, const PbsConsts& Kk,
+                      const Layout& L) {
+  return all_shared(L, kNumBuf) ? launch_s<P, PK, true>(x, Kb, Kk, L)
+                                : launch_s<P, PK, false>(x, Kb, Kk, L);
 }
 
 // The key-switch plan's prime count, dispatched for one bootstrap-key count.
 template <int P>
-cudaError_t launch_p(int PK, uint64_t* acc, const int32_t* gens,
-                     const uint32_t* sv, const uint32_t* svs,
-                     const uint32_t* ak, const int32_t* inv2n,
-                     const uint32_t* const* tw, const PbsConsts& Kb,
-                     const PbsConsts& Kk, int n, int B, cudaStream_t st) {
-  switch (PK) {
-    case 2: return launch_pk<P, 2>(acc, gens, sv, svs, ak, inv2n, tw, Kb, Kk, n, B, st);
-    case 3: return launch_pk<P, 3>(acc, gens, sv, svs, ak, inv2n, tw, Kb, Kk, n, B, st);
-    case 4: return launch_pk<P, 4>(acc, gens, sv, svs, ak, inv2n, tw, Kb, Kk, n, B, st);
-    default: return launch_pk<P, 5>(acc, gens, sv, svs, ak, inv2n, tw, Kb, Kk, n, B, st);
+cudaError_t launch_p(const Args& x, const PbsConsts& Kb, const PbsConsts& Kk,
+                     const Layout& L) {
+  switch (Kk.P) {
+    case 2: return launch_pk<P, 2>(x, Kb, Kk, L);
+    case 3: return launch_pk<P, 3>(x, Kb, Kk, L);
+    case 4: return launch_pk<P, 4>(x, Kb, Kk, L);
+    default: return launch_pk<P, 5>(x, Kb, Kk, L);
   }
 }
 
@@ -133,16 +149,19 @@ cudaError_t launch_p(int PK, uint64_t* acc, const int32_t* gens,
 extern "C" {
 
 // consts / kconsts: the bootstrap-key plan's and the key-switch plan's int64
-// host arrays (layout in ntt_common.cuh).  acc [B, k+1, N] u64 is rotated in
-// place; gens [n, B] int32 odd, (g - 1) / 2 < G; sv/svs [n, (k+1)l, k+1, P,
-// N] u32; ak [G, k t, k+1, PK, N] u32; inv2n [N] int32; twiddles [P, N] and
-// [PK, N] u32.
+// host arrays (layout in ntt_common.cuh); layout: the buffer placement (smem
+// bytes, workspace stride, offsets of work, spec, perm, acc); ws: the
+// workspace, B x stride bytes (null when the stride is 0).  acc [B, k+1, N]
+// u64 is rotated in place; gens [n, B] int32 odd, (g - 1) / 2 < G; sv/svs
+// [n, (k+1)l, k+1, P, N] u32; ak [G, k t, k+1, PK, N] u32; inv2n [N] int32;
+// twiddles [P, N] and [PK, N] u32.
 int ga_scan_launch(void* acc, const void* gens, const void* sv,
                    const void* svs, const void* ak, const void* inv2n,
                    const void* ftw, const void* ftws, const void* itw,
                    const void* itws, const void* kftw, const void* kftws,
-                   const void* kitw, const void* kitws, const int64_t* consts,
-                   const int64_t* kconsts, int B, int n, void* stream) {
+                   const void* kitw, const void* kitws, void* ws,
+                   const int64_t* consts, const int64_t* kconsts,
+                   const int64_t* layout, int B, int n, void* stream) {
   PbsConsts Kb, Kk;
   if (!parse_consts(consts, Kb) || !parse_consts(kconsts, Kk) ||
       Kb.N != Kk.N || Kb.C != Kk.C)
@@ -153,21 +172,24 @@ int ga_scan_launch(void* acc, const void* gens, const void* sv,
       static_cast<const uint32_t*>(itw),  static_cast<const uint32_t*>(itws),
       static_cast<const uint32_t*>(kftw), static_cast<const uint32_t*>(kftws),
       static_cast<const uint32_t*>(kitw), static_cast<const uint32_t*>(kitws)};
-  auto* a64 = static_cast<uint64_t*>(acc);
-  auto* g32 = static_cast<const int32_t*>(gens);
-  auto* s = static_cast<const uint32_t*>(sv);
-  auto* ss = static_cast<const uint32_t*>(svs);
-  auto* k32 = static_cast<const uint32_t*>(ak);
-  auto* inv = static_cast<const int32_t*>(inv2n);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  const Args x{static_cast<uint64_t*>(acc),
+               static_cast<const int32_t*>(gens),
+               static_cast<const uint32_t*>(sv),
+               static_cast<const uint32_t*>(svs),
+               static_cast<const uint32_t*>(ak),
+               static_cast<const int32_t*>(inv2n),
+               tw,
+               static_cast<unsigned char*>(ws),
+               n,
+               B,
+               static_cast<cudaStream_t>(stream)};
+  const Layout L = parse_layout(layout, kNumBuf);
   switch (Kb.P) {
-    case 2: err = launch_p<2>(Kk.P, a64, g32, s, ss, k32, inv, tw, Kb, Kk, n, B, st); break;
-    case 3: err = launch_p<3>(Kk.P, a64, g32, s, ss, k32, inv, tw, Kb, Kk, n, B, st); break;
-    case 4: err = launch_p<4>(Kk.P, a64, g32, s, ss, k32, inv, tw, Kb, Kk, n, B, st); break;
-    default: err = launch_p<5>(Kk.P, a64, g32, s, ss, k32, inv, tw, Kb, Kk, n, B, st); break;
+    case 2: return int(launch_p<2>(x, Kb, Kk, L));
+    case 3: return int(launch_p<3>(x, Kb, Kk, L));
+    case 4: return int(launch_p<4>(x, Kb, Kk, L));
+    default: return int(launch_p<5>(x, Kb, Kk, L));
   }
-  return int(err);
 }
 
 const char* cuda_error_string(int err) {

@@ -1,13 +1,18 @@
 // Device helpers shared by the port's CUDA kernels (sm_90a): 32-bit modular
 // products, the negacyclic NTT on the plan's psi_rev tables, Garner CRT back
-// to exact u64 words, gadget digits and the negacyclic rotation.
+// to exact torus words, gadget digits, the negacyclic rotation, and where a
+// block's buffers live.
 //
 // Counterparts of the TPU package's kernel helpers (ops/pbs_kernel.py):
 // `_shoup_lazy` (108), `_barrett_lazy` (125), `_fwd_ntt` (150), `_inv_ntt`
 // (291), `_decompose_digit` (661), `_garner_limbs` (682),
-// `_negacyclic_rotate_limbs` (998) and `_limbs_to_resi` (1694).  Every
-// function here returns canonical residues in [0, p), so any kernel built
-// from them gives the same words as the plain PyTorch versions.
+// `_negacyclic_rotate_limbs` (998) and `_limbs_to_resi` (1694), and their
+// one-limb (TORUS32) forms `_garner_limb32` (725) and
+// `_negacyclic_rotate_limb32` (1099).  Torus words are the type W: uint64_t
+// at the 64-bit torus, uint32_t at the 32-bit one, and every word operation
+// wraps mod 2^(8 sizeof W).  Every function here returns canonical residues
+// in [0, p), so any kernel built from them gives the same words as the
+// plain PyTorch versions.
 //
 // Each kernel source includes this header and is compiled into its own
 // shared library, so everything here has internal linkage.
@@ -126,21 +131,22 @@ __device__ __forceinline__ uint32_t centred_residue(uint64_t x, int m,
 
 // Coefficient k of X^a * row (negacyclic, length N, a in [0, 2N]):
 // +-row[(k - a) mod N], negated when (k - a) mod 2N >= N; a == 2N is the
-// identity.
-__device__ __forceinline__ uint64_t rotated_word(const uint64_t* row, int k,
-                                                 int a, int N) {
+// identity.  row may be in shared or global memory.
+template <typename W>
+__device__ __forceinline__ W rotated_word(const W* row, int k, int a, int N) {
   const int m = (k - a) & (2 * N - 1);
-  const uint64_t v = row[m & (N - 1)];
-  return (m & N) ? 0 - v : v;
+  const W v = row[m & (N - 1)];
+  return (m & N) ? W(0) - v : v;
 }
 
 // Signed gadget digit d (0-based, most significant first) of the word x
-// with the rounded offset already added, as a residue mod p.
-__device__ __forceinline__ int gadget_digit(uint64_t x_plus_offset, int d,
+// with the rounded offset already added (the offset of the word's width).
+template <typename W>
+__device__ __forceinline__ int gadget_digit(W x_plus_offset, int d,
                                             const PbsConsts& K) {
-  const int shift = 64 - (d + 1) * K.Bg_bit;
+  const int shift = int(8 * sizeof(W)) - (d + 1) * K.Bg_bit;
   const int mask = (1 << K.Bg_bit) - 1, half = 1 << (K.Bg_bit - 1);
-  return int((x_plus_offset >> shift) & uint64_t(mask)) - half;
+  return int((x_plus_offset >> shift) & W(mask)) - half;
 }
 
 __device__ __forceinline__ uint32_t small_residue(int digit, uint32_t p) {
@@ -201,10 +207,12 @@ __device__ void inverse_ntt(uint32_t* x, int rows, const PbsConsts& K,
   }
 }
 
-// Unscaled inverse-NTT outputs of one coefficient -> exact value mod 2^64.
-template <int P>
-__device__ __forceinline__ uint64_t garner(const uint32_t* spec_c, int k,
-                                           const PbsConsts& K) {
+// Unscaled inverse-NTT outputs of one coefficient -> exact value mod 2^64,
+// or mod 2^32 for W = uint32_t (`_garner_limb32`: the same digits, the
+// Horner step wrapping mod 2^32).
+template <int P, typename W = uint64_t>
+__device__ __forceinline__ W garner(const uint32_t* spec_c, int k,
+                                    const PbsConsts& K) {
   uint32_t d[P];
 #pragma unroll
   for (int m = 0; m < P; ++m) {
@@ -221,10 +229,70 @@ __device__ __forceinline__ uint64_t garner(const uint32_t* spec_c, int k,
     d[m] = shoup(sub_mod(r, acc, p), K.cinv[m], K.cinvs[m], p);
   }
   const uint32_t top = d[P - 1], ptop = K.p[P - 1];
-  uint64_t v = top > ptop / 2 ? uint64_t(top) - ptop : uint64_t(top);
+  W v = top > ptop / 2 ? W(top) - W(ptop) : W(top);
 #pragma unroll
-  for (int m = P - 2; m >= 0; --m) v = v * K.p[m] + d[m];
+  for (int m = P - 2; m >= 0; --m) v = v * W(K.p[m]) + W(d[m]);
   return v;
 }
 
+// Where each of a block's buffers lives, as the wrapper placed it
+// (`ops/pbs_kernel._place`): buffer i is at byte off[i] of dynamic shared
+// memory when off[i] >= 0; it is the block's own slice of the caller's
+// tensor (the accumulator, updated in place) when off[i] == -1; and it is at
+// byte -off[i] - 2 of the block's slice of the global workspace (stride
+// bytes per block) otherwise.  Shared memory is filled in order of traffic,
+// up to the card's opt-in limit; a barrier orders a block's global writes
+// and reads as it does its shared ones, so the kernels' bodies are the same
+// wherever a buffer lives.  Host layout array: smem bytes, stride, off[].
+constexpr int kMaxBuf = 6;
+struct Layout {
+  int64_t smem, stride, off[kMaxBuf];
+};
+
+inline Layout parse_layout(const int64_t* layout, int nbuf) {
+  Layout L{};
+  L.smem = layout[0];
+  L.stride = layout[1];
+  for (int i = 0; i < nbuf && i < kMaxBuf; ++i) L.off[i] = layout[2 + i];
+  return L;
+}
+
+// Shared: every buffer is in shared memory (all_shared(L)), which the
+// compiler then knows, as it did before buffers could move.
+template <bool Shared, typename T>
+__device__ __forceinline__ T* buffer(const Layout& L, int i,
+                                     unsigned char* smem, unsigned char* ws,
+                                     T* home) {
+  const int64_t o = L.off[i];
+  if (Shared || o >= 0) return reinterpret_cast<T*>(smem + o);
+  if (o == -1) return home;
+  return reinterpret_cast<T*>(ws + size_t(blockIdx.x) * L.stride + (-o - 2));
+}
+
+inline bool all_shared(const Layout& L, int nbuf) {
+  for (int i = 0; i < nbuf; ++i)
+    if (L.off[i] < 0) return false;
+  return true;
+}
+
+// Static __shared__ bytes a kernel may declare besides its dynamic shared
+// memory (at most two PbsConsts).
+constexpr int kStaticSmem = 1024;
+static_assert(2 * sizeof(PbsConsts) <= kStaticSmem, "static shared memory");
+
 }  // namespace
+
+extern "C" {
+
+// The dynamic shared memory a block of these kernels may ask for on
+// `device`: the opt-in limit per block less kStaticSmem.
+int smem_budget(int device, int* bytes) {
+  int optin = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return int(err);
+  *bytes = optin - kStaticSmem;
+  return int(cudaSuccess);
+}
+
+}  // extern "C"

@@ -10,7 +10,10 @@
 // where ab [n_in][t][base-1][n_out+1] is the KS table (mask words, then b in
 // the last column).  Digit 0 adds nothing (the reference's `if aij != 0`,
 // `tlwe.c:289-303`); so does any digit outside [1, base), as in the TPU
-// kernel's select chain.  The caller forms (0, b) - out.
+// kernel's select chain.  The caller forms (0, b) - out.  At the 32-bit
+// torus (TORUS32) the table holds u32 words and the sum is mod 2^32: the
+// TPU kernel's one-plane form (`nl == 1`, pbs_kernel.py:2115); the same
+// body runs on the word type W.
 //
 // Design.  The TPU kernel streams the table through VMEM along a sequential
 // grid axis, carries the sum in scratch, picks each row with a (base-1)-way
@@ -42,17 +45,17 @@ namespace {
 constexpr int kThreads = 128;  // table columns per block
 constexpr int kTile = 4096;    // digits staged in shared memory per pass
 
+template <typename W>
 __global__ void __launch_bounds__(kThreads)
 tlwe_keyswitch_sum_kernel(const int32_t* __restrict__ dig,
-                          const uint64_t* __restrict__ ab,
-                          uint64_t* __restrict__ out, int n_rows, int base_m1,
-                          int width) {
+                          const W* __restrict__ ab, W* __restrict__ out,
+                          int n_rows, int base_m1, int width) {
   __shared__ int32_t sd[kTile];
   const int b = blockIdx.x;
   const int col = blockIdx.y * kThreads + threadIdx.x;
   const bool live = col < width;
   const int32_t* db = dig + size_t(b) * n_rows;
-  uint64_t acc = 0;
+  W acc = 0;
   for (int r0 = 0; r0 < n_rows; r0 += kTile) {
     const int nr = min(kTile, n_rows - r0);
     __syncthreads();  // the previous tile is consumed
@@ -60,7 +63,7 @@ tlwe_keyswitch_sum_kernel(const int32_t* __restrict__ dig,
     __syncthreads();
     if (live) {
       // row (r, v) of this tile starts at ((r0 + r) * base_m1 + v) * width
-      const uint64_t* tab = ab + size_t(r0) * base_m1 * width + col;
+      const W* tab = ab + size_t(r0) * base_m1 * width + col;
 #pragma unroll 8
       for (int r = 0; r < nr; ++r) {
         const unsigned v = unsigned(sd[r]) - 1u;  // digit 0 -> out of range
@@ -77,20 +80,27 @@ tlwe_keyswitch_sum_kernel(const int32_t* __restrict__ dig,
 extern "C" {
 
 // dig [B, n_rows] int32 (n_rows = n_in * t); ab [n_rows, base_m1, width]
-// u64; out [B, width] u64, fully written.  Returns the launch's
-// cudaGetLastError() code.
+// and out [B, width] (fully written) u64 words (word_bits 64) or u32 words
+// (word_bits 32).  Returns the launch's cudaGetLastError() code.
 int tlwe_keyswitch_sum_launch(const void* dig, const void* ab, void* out,
                               int B, int n_rows, int base_m1, int width,
-                              void* stream) {
-  if (B < 0 || n_rows < 0 || base_m1 < 1 || width < 0)
+                              int word_bits, void* stream) {
+  if (B < 0 || n_rows < 0 || base_m1 < 1 || width < 0 ||
+      (word_bits != 32 && word_bits != 64))
     return int(cudaErrorInvalidValue);
   if (B == 0 || width == 0) return int(cudaSuccess);
   const dim3 grid(unsigned(B), unsigned((width + kThreads - 1) / kThreads));
   if (grid.y > 65535) return int(cudaErrorInvalidValue);
-  tlwe_keyswitch_sum_kernel<<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(dig), static_cast<const uint64_t*>(ab),
-      static_cast<uint64_t*>(out), n_rows, base_m1, width);
+  const auto* d = static_cast<const int32_t*>(dig);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (word_bits == 32)
+    tlwe_keyswitch_sum_kernel<uint32_t><<<grid, kThreads, 0, st>>>(
+        d, static_cast<const uint32_t*>(ab), static_cast<uint32_t*>(out),
+        n_rows, base_m1, width);
+  else
+    tlwe_keyswitch_sum_kernel<uint64_t><<<grid, kThreads, 0, st>>>(
+        d, static_cast<const uint64_t*>(ab), static_cast<uint64_t*>(out),
+        n_rows, base_m1, width);
   return int(cudaGetLastError());
 }
 

@@ -34,6 +34,8 @@
 // halves, are the caller's).  K8a keeps rot (C x N u64), the spectra
 // (C x P x N u32) and one digit row's NTT buffer (P x N u32) in shared
 // memory, 104 KiB at N=2048, k=1, P=3; acc is read from device memory.
+// Where they do not all fit (256 KiB at N=4096 with 4 primes) the wrapper
+// moves rot, then the spectra, to a global workspace.
 // K8b keeps the C*P spectra, 48 KiB.  The partial and the sum go through
 // device memory: at TFHEpp-L2, batch 512, 25.2 MB per shard and step.
 //
@@ -50,8 +52,9 @@
 namespace {
 
 constexpr int kThreads = 1024;
+enum { kWork, kSpec, kRot, kNumBuf };  // K8a's buffers, as the wrapper lists
 
-template <int P>
+template <int P, bool S>
 __global__ void __launch_bounds__(kThreads, 1)
 partial_step_kernel(const uint64_t* __restrict__ acc_g,
                     const int32_t* __restrict__ a_g,
@@ -59,16 +62,16 @@ partial_step_kernel(const uint64_t* __restrict__ acc_g,
                     const uint32_t* __restrict__ keyvs,
                     const uint32_t* __restrict__ ftw,
                     const uint32_t* __restrict__ ftws,
-                    uint32_t* __restrict__ out_g, const PbsConsts Kp, int j0,
-                    int j_local) {
+                    uint32_t* __restrict__ out_g, unsigned char* ws,
+                    const PbsConsts Kp, const Layout L, int j0, int j_local) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ PbsConsts K;
   if (threadIdx.x == 0) K = Kp;
   __syncthreads();
   const int N = K.N, C = K.C, l = K.l, CN = K.C * K.N;
-  uint64_t* rot = reinterpret_cast<uint64_t*>(smem);       // [C][N]
-  uint32_t* spec = reinterpret_cast<uint32_t*>(rot + CN);  // [C][P][N]
-  uint32_t* work = spec + C * P * N;                       // [P][N]
+  uint64_t* rot = buffer<S, uint64_t>(L, kRot, smem, ws, nullptr);  // [C][N]
+  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][P][N]
+  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [P][N]
 
   const uint64_t* acc_b = acc_g + size_t(blockIdx.x) * CN;
   const int a = a_g[blockIdx.x];  // in [0, 2N]
@@ -142,21 +145,34 @@ finish_step_kernel(uint64_t* __restrict__ acc_g,
   }
 }
 
-template <int P>
-cudaError_t launch_partial(const uint64_t* acc, const int32_t* a,
-                           const uint32_t* keyv, const uint32_t* keyvs,
-                           const uint32_t* ftw, const uint32_t* ftws,
-                           uint32_t* out, const PbsConsts& K, int B, int j0,
-                           int j_local, cudaStream_t stream) {
-  const size_t smem = size_t(K.C) * K.N * sizeof(uint64_t) +
-                      size_t(K.C * P + P) * K.N * sizeof(uint32_t);
+struct PartialArgs {
+  const uint64_t* acc;
+  const int32_t* a;
+  const uint32_t *keyv, *keyvs, *ftw, *ftws;
+  uint32_t* out;
+  unsigned char* ws;
+  int B, j0, j_local;
+  cudaStream_t stream;
+};
+
+template <int P, bool S>
+cudaError_t launch_partial_s(const PartialArgs& x, const PbsConsts& K,
+                             const Layout& L) {
   cudaError_t err = cudaFuncSetAttribute(
-      partial_step_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      partial_step_kernel<P, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(L.smem));
   if (err != cudaSuccess) return err;
-  partial_step_kernel<P><<<B, kThreads, smem, stream>>>(
-      acc, a, keyv, keyvs, ftw, ftws, out, K, j0, j_local);
+  partial_step_kernel<P, S><<<x.B, kThreads, L.smem, x.stream>>>(
+      x.acc, x.a, x.keyv, x.keyvs, x.ftw, x.ftws, x.out, x.ws, K, L, x.j0,
+      x.j_local);
   return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_partial(const PartialArgs& x, const PbsConsts& K,
+                           const Layout& L) {
+  return all_shared(L, kNumBuf) ? launch_partial_s<P, true>(x, K, L)
+                                : launch_partial_s<P, false>(x, K, L);
 }
 
 template <int P>
@@ -178,35 +194,41 @@ cudaError_t launch_finish(uint64_t* acc, const uint32_t* parts,
 
 extern "C" {
 
-// consts: the plan's int64 host array (layout in ntt_common.cuh).
+// consts: the plan's int64 host array (layout in ntt_common.cuh); layout:
+// the buffer placement (smem bytes, workspace stride, offsets of work, spec,
+// rot); ws: the workspace, B x stride bytes (null when the stride is 0).
 // acc [B, k+1, N] u64 (read); a [B] int32 in [0, 2N]; keyv/keyvs
 // [j_local, k+1, P, N] u32, global key rows [j0, j0 + j_local); out
 // [B, k+1, P, N] u32 canonical residues.
 int partial_step_launch(const void* acc, const void* a, const void* keyv,
                         const void* keyvs, const void* ftw, const void* ftws,
-                        void* out, const int64_t* consts, int B, int j0,
-                        int j_local, void* stream) {
+                        void* out, void* ws, const int64_t* consts,
+                        const int64_t* layout, int B, int j0, int j_local,
+                        void* stream) {
   PbsConsts K;
   if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
   if (j0 < 0 || j_local < 1 || j0 + j_local > K.C * K.l)
     return int(cudaErrorInvalidValue);
   if (B == 0) return int(cudaSuccess);
-  auto* acc64 = static_cast<const uint64_t*>(acc);
-  auto* a32 = static_cast<const int32_t*>(a);
-  auto* kv = static_cast<const uint32_t*>(keyv);
-  auto* ks = static_cast<const uint32_t*>(keyvs);
-  auto* f = static_cast<const uint32_t*>(ftw);
-  auto* fs = static_cast<const uint32_t*>(ftws);
-  auto* o = static_cast<uint32_t*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  const PartialArgs x{static_cast<const uint64_t*>(acc),
+                      static_cast<const int32_t*>(a),
+                      static_cast<const uint32_t*>(keyv),
+                      static_cast<const uint32_t*>(keyvs),
+                      static_cast<const uint32_t*>(ftw),
+                      static_cast<const uint32_t*>(ftws),
+                      static_cast<uint32_t*>(out),
+                      static_cast<unsigned char*>(ws),
+                      B,
+                      j0,
+                      j_local,
+                      static_cast<cudaStream_t>(stream)};
+  const Layout L = parse_layout(layout, kNumBuf);
   switch (K.P) {
-    case 2: err = launch_partial<2>(acc64, a32, kv, ks, f, fs, o, K, B, j0, j_local, st); break;
-    case 3: err = launch_partial<3>(acc64, a32, kv, ks, f, fs, o, K, B, j0, j_local, st); break;
-    case 4: err = launch_partial<4>(acc64, a32, kv, ks, f, fs, o, K, B, j0, j_local, st); break;
-    default: err = launch_partial<5>(acc64, a32, kv, ks, f, fs, o, K, B, j0, j_local, st); break;
+    case 2: return int(launch_partial<2>(x, K, L));
+    case 3: return int(launch_partial<3>(x, K, L));
+    case 4: return int(launch_partial<4>(x, K, L));
+    default: return int(launch_partial<5>(x, K, L));
   }
-  return int(err);
 }
 
 // acc [B, k+1, N] u64, updated in place; parts [m, B, k+1, P, N] u32, each

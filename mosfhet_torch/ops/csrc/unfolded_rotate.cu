@@ -30,10 +30,15 @@
 // TRGSW of one group in NTT form is J*C*P*N u32 = 384 KiB at TFHEpp-L2, more
 // than a block's 227 KB of shared memory (the TPU held it in VMEM), so it is
 // streamed by row: each key row (j, c) is combined, reduced, transformed and
-// consumed before the next.  Shared memory: acc C*N u64, spec C*P*N u32, the
+// consumed before the next.  Buffers: acc C*N u64, spec C*P*N u32, the
 // digit spectra and one key row P*N u32 each, and the group's M exponents:
-// 129 KiB at TFHEpp-L2 whatever u is, so one block per SM.  Nothing is sized
-// by M beyond the M exponents.  Exponents may be 0 or 2N (the identity).
+// 129 KiB at TFHEpp-L2 whatever u is, all in shared memory, so one block per
+// SM.  Nothing is sized by M beyond the M exponents.  Exponents may be 0 or
+// 2N (the identity).  Where the buffers do not all fit (320 KiB + 4M at
+// N=4096 with 4 primes) the wrapper fills shared memory by traffic: the
+// exponents, the key row (J*C NTTs per group), the digit rows (J NTTs),
+// the spectra, acc; what is left over lives in a global workspace (the
+// spectra at SET_3) or, for acc, in the caller's tensor.
 //
 // What bounds it on this card: integer multiplies.  Per ciphertext and
 // group at TFHEpp-L2: 24 digit + 48 key + 6 inverse NTTs x 11,264 Shoup
@@ -49,8 +54,10 @@
 namespace {
 
 constexpr int kThreads = 1024;
+// buffers, as the wrapper lists them
+enum { kRots, kKey, kDig, kSpec, kAcc, kNumBuf };
 
-template <int P>
+template <int P, bool S>
 __global__ void __launch_bounds__(kThreads, 1)
 unfolded_rotate_kernel(uint64_t* __restrict__ acc_g,
                        const int32_t* __restrict__ rot_g,
@@ -58,22 +65,22 @@ unfolded_rotate_kernel(uint64_t* __restrict__ acc_g,
                        const uint32_t* __restrict__ ftw,
                        const uint32_t* __restrict__ ftws,
                        const uint32_t* __restrict__ itw,
-                       const uint32_t* __restrict__ itws, const PbsConsts Kp,
-                       int G, int M) {
+                       const uint32_t* __restrict__ itws, unsigned char* ws,
+                       const PbsConsts Kp, const Layout L, int G, int M) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ PbsConsts K;
   if (threadIdx.x == 0) K = Kp;
   __syncthreads();
   const int N = K.N, C = K.C, l = K.l, J = K.C * K.l, CN = K.C * K.N;
-  uint64_t* acc = reinterpret_cast<uint64_t*>(smem);       // [C][N]
-  uint32_t* spec = reinterpret_cast<uint32_t*>(acc + CN);  // [C][P][N]
-  uint32_t* dig = spec + C * P * N;                        // [P][N]
-  uint32_t* key = dig + P * N;                             // [P][N]
-  int32_t* rots = reinterpret_cast<int32_t*>(key + P * N);  // [M]
-
   const int b = blockIdx.x;
   uint64_t* acc_b = acc_g + size_t(b) * CN;
-  for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
+  uint64_t* acc = buffer<S, uint64_t>(L, kAcc, smem, ws, acc_b);  // [C][N]
+  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][P][N]
+  auto* dig = buffer<S, uint32_t>(L, kDig, smem, ws, nullptr);    // [P][N]
+  auto* key = buffer<S, uint32_t>(L, kKey, smem, ws, nullptr);    // [P][N]
+  auto* rots = buffer<S, int32_t>(L, kRots, smem, ws, nullptr);   // [M]
+  if (acc != acc_b)
+    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
 
   const size_t m_stride = size_t(J) * C * N;  // su [G][M][J][C][N]
   for (int g = 0; g < G; ++g) {
@@ -125,57 +132,75 @@ unfolded_rotate_kernel(uint64_t* __restrict__ acc_g,
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
+  if (acc != acc_b)
+    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
+}
+
+struct Args {
+  uint64_t* acc;
+  const int32_t* rot;
+  const uint64_t* su;
+  const uint32_t *ftw, *ftws, *itw, *itws;
+  unsigned char* ws;
+  int B, G, M;
+  cudaStream_t stream;
+};
+
+template <int P, bool S>
+cudaError_t launch_s(const Args& x, const PbsConsts& K, const Layout& L) {
+  cudaError_t err = cudaFuncSetAttribute(
+      unfolded_rotate_kernel<P, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
+  if (err != cudaSuccess) return err;
+  unfolded_rotate_kernel<P, S><<<x.B, kThreads, L.smem, x.stream>>>(
+      x.acc, x.rot, x.su, x.ftw, x.ftws, x.itw, x.itws, x.ws, K, L, x.G,
+      x.M);
+  return cudaGetLastError();
 }
 
 template <int P>
-cudaError_t launch(uint64_t* acc, const int32_t* rot, const uint64_t* su,
-                   const uint32_t* ftw, const uint32_t* ftws,
-                   const uint32_t* itw, const uint32_t* itws,
-                   const PbsConsts& K, int B, int G, int M,
-                   cudaStream_t stream) {
-  const size_t smem = size_t(K.C) * K.N * sizeof(uint64_t) +
-                      size_t(K.C * P + 2 * P) * K.N * sizeof(uint32_t) +
-                      size_t(M) * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      unfolded_rotate_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  unfolded_rotate_kernel<P><<<B, kThreads, smem, stream>>>(
-      acc, rot, su, ftw, ftws, itw, itws, K, G, M);
-  return cudaGetLastError();
+cudaError_t launch(const Args& x, const PbsConsts& K, const Layout& L) {
+  return all_shared(L, kNumBuf) ? launch_s<P, true>(x, K, L)
+                                : launch_s<P, false>(x, K, L);
 }
 
 }  // namespace
 
 extern "C" {
 
-// consts: the plan's int64 host array (layout in ntt_common.cuh).
-// acc [B, k+1, N] u64 is rotated in place; rot [B, G, M] int32 in [0, 2N];
-// su [G, M, (k+1)l, k+1, N] u64 key products; twiddles [P, N] u32.
+// consts: the plan's int64 host array (layout in ntt_common.cuh); layout:
+// the buffer placement (smem bytes, workspace stride, offsets of rots, key,
+// dig, spec, acc); ws: the workspace, B x stride bytes (null when the
+// stride is 0).  acc [B, k+1, N] u64 is rotated in place; rot [B, G, M]
+// int32 in [0, 2N]; su [G, M, (k+1)l, k+1, N] u64 key products; twiddles
+// [P, N] u32.
 int unfolded_rotate_launch(void* acc, const void* rot, const void* su,
                            const void* ftw, const void* ftws, const void* itw,
-                           const void* itws, const int64_t* consts, int B,
-                           int G, int M, void* stream) {
+                           const void* itws, void* ws, const int64_t* consts,
+                           const int64_t* layout, int B, int G, int M,
+                           void* stream) {
   PbsConsts K;
   if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
   if (B == 0 || G == 0) return int(cudaSuccess);
-  auto* a64 = static_cast<uint64_t*>(acc);
-  auto* r = static_cast<const int32_t*>(rot);
-  auto* s = static_cast<const uint64_t*>(su);
-  auto* f = static_cast<const uint32_t*>(ftw);
-  auto* fs = static_cast<const uint32_t*>(ftws);
-  auto* iv = static_cast<const uint32_t*>(itw);
-  auto* is = static_cast<const uint32_t*>(itws);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  const Args x{static_cast<uint64_t*>(acc),
+               static_cast<const int32_t*>(rot),
+               static_cast<const uint64_t*>(su),
+               static_cast<const uint32_t*>(ftw),
+               static_cast<const uint32_t*>(ftws),
+               static_cast<const uint32_t*>(itw),
+               static_cast<const uint32_t*>(itws),
+               static_cast<unsigned char*>(ws),
+               B,
+               G,
+               M,
+               static_cast<cudaStream_t>(stream)};
+  const Layout L = parse_layout(layout, kNumBuf);
   switch (K.P) {
-    case 2: err = launch<2>(a64, r, s, f, fs, iv, is, K, B, G, M, st); break;
-    case 3: err = launch<3>(a64, r, s, f, fs, iv, is, K, B, G, M, st); break;
-    case 4: err = launch<4>(a64, r, s, f, fs, iv, is, K, B, G, M, st); break;
-    default: err = launch<5>(a64, r, s, f, fs, iv, is, K, B, G, M, st); break;
+    case 2: return int(launch<2>(x, K, L));
+    case 3: return int(launch<3>(x, K, L));
+    case 4: return int(launch<4>(x, K, L));
+    default: return int(launch<5>(x, K, L));
   }
-  return int(err);
 }
 
 const char* cuda_error_string(int err) {

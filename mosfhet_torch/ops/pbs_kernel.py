@@ -11,7 +11,8 @@ PyTorch, only for CPU tensors.  The two give the same words.
 
    in ONE launch of ``csrc/blind_rotate.cu``.  Layouts (as the TPU
    package's kernel takes them):
-     acc0        [B, k+1, N]               int64 (u64 torus words)
+     acc0        [B, k+1, N]               int64 (u64 torus words) or int32
+                                           (u32 words, the 32-bit torus)
      a_int       [n, B]                    int32 rotation exponents in [0, 2N]
      keyv, keyvs [n, (k+1)l, k+1, P, N]    int32 holding u32 bits: the
                                            NTT-form bootstrap key and its
@@ -21,8 +22,14 @@ PyTorch, only for CPU tensors.  The two give the same words.
 
        out[b] = sum over (i, j) with d[b, i, j] != 0 of ab[i, j, d - 1]
      dig  [B, n_in, t]                 int32 digits in [0, base)
-     ab   [n_in, t, base-1, n_out+1]   int64: KS table, mask words then b
-     out  [B, n_out+1]                 int64, the subtrahend of (0, b)
+     ab   [n_in, t, base-1, n_out+1]   KS table, mask words then b: int64
+                                       (sum mod 2^64) or int32 (mod 2^32)
+     out  [B, n_out+1]                 the subtrahend of (0, b), ab's dtype
+
+   K1 and K2 take the word width from the dtype of their torus words: int64
+   runs the two-limb (64-bit) form, int32 the one-limb (32-bit) form, in the
+   same kernel source.  The other kernels are 64-bit only for now: their
+   wrappers raise NotImplementedError on int32 words.
 
 3. The external-product apply scan (``csrc/ext_product_apply.cu``): G
    replace-mode external products with runtime keys,
@@ -88,6 +95,20 @@ product, and reduce u64 words to the residues of their centred (signed)
 representatives, as ``ntt.to_resi_u64`` does: the plain versions use
 ``ntt.pointwise_mul_acc_generic`` and ``ntt.to_ntt_u64``, and both end in
 canonical residues, so the words agree.
+
+Where a block's buffers live (K1, K3, K4, K6, K7, K8a).  Each kernel runs
+one block per ciphertext over a handful of buffers: the digit row's NTT
+rows, the spectra, the accumulator and a rotation or permutation buffer.
+`_place` fills dynamic shared memory with them in order of traffic, up to
+the card's opt-in limit per block (read from the CUDA runtime); a buffer
+that does not fit lives in a global workspace the wrapper allocates (B
+slices, one per block), and the accumulator in the caller's tensor,
+updated in place.  Every shape of TFHEpp-L2, SET_1, SET_2 and UFHE_SET0
+keeps all of them in shared memory; N=4096 with 4 primes (SET_3) moves
+the u64 buffers out, N=8192 the spectra too.  The NTT rows must stay in
+shared memory: a shape whose NTT rows alone exceed the limit raises
+ValueError before any launch.  (K5's and K8b's blocks hold only NTT rows
+and fit at SET_3.)
 """
 
 from __future__ import annotations
@@ -100,7 +121,8 @@ import torch
 
 from .. import ntt as _ntt
 from .. import polynomial as _poly
-from ..torus import gadget_decompose, gadget_offset, to_i64
+from ..torus import (TORUS_BITS, gadget_decompose, gadget_offset, to_signed,
+                     word_bits, wrap)
 from . import _build
 
 U32_MASK = 0xFFFFFFFF
@@ -120,17 +142,22 @@ def i32_as_u32(x: torch.Tensor) -> torch.Tensor:
 
 
 class PBSKernelPlan:
-    """Tables and constants of one (N, primes, l, Bg_bit, k) configuration
-    on one device: the NTT tables as u32-in-int32 tensors [P, N], and the
-    primes, Garner constants and gadget offset as the int64 host array the
-    kernel's C entry reads."""
+    """Tables and constants of one (N, primes, l, Bg_bit, k, torus_bits)
+    configuration on one device: the NTT tables as u32-in-int32 tensors
+    [P, N], and the primes, Garner constants and gadget offset (of the
+    torus_bits width) as the int64 host array the kernel's C entry reads."""
 
-    def __init__(self, N: int, primes, l: int, Bg_bit: int, k: int, device):
+    def __init__(self, N: int, primes, l: int, Bg_bit: int, k: int, device,
+                 torus_bits: int = 64):
         primes = tuple(int(p) for p in primes)
         if not all(BARRETT_MIN_PRIME < p < (1 << 30) for p in primes):
             raise ValueError("the kernels need primes in (2^30 / 1.75, 2^30)")
+        if torus_bits not in (32, 64) or l * Bg_bit >= torus_bits:
+            raise ValueError(f"no {l} x {Bg_bit}-bit gadget on a "
+                             f"{torus_bits}-bit torus")
         self.N, self.primes, self.l, self.Bg_bit, self.k = \
             N, primes, l, Bg_bit, k
+        self.torus_bits = torus_bits
         self.P, self.C, self.J = len(primes), k + 1, (k + 1) * l
         self.ntt = _ntt.get_plan(N, primes, device)
         self.fwd_tw = u32_as_i32(self.ntt.psi_rev)
@@ -147,9 +174,10 @@ class PBSKernelPlan:
                 gw[m, j], gws[m, j] = w, ws
             if m:
                 cinv[m], cinvs[m] = self.ntt.garner_cinv[m]
-        self.offset = gadget_offset(Bg_bit, l, rounded=True)
+        self.offset = gadget_offset(Bg_bit, l, rounded=True, bits=torus_bits)
         self.host_consts = np.concatenate([
-            np.array([N, k, l, Bg_bit, P, to_i64(self.offset)], np.int64),
+            np.array([N, k, l, Bg_bit, P, to_signed(self.offset, 64)],
+                     np.int64),
             np.array(primes, np.int64),
             self.ntt.n_inv.cpu().numpy(), self.ntt.n_inv_shoup.cpu().numpy(),
             cinv, cinvs, gw.reshape(-1), gws.reshape(-1),
@@ -162,14 +190,17 @@ class PBSKernelPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def _get_kernel_plan(N, primes, l, Bg_bit, k, device: str) -> PBSKernelPlan:
-    return PBSKernelPlan(N, primes, l, Bg_bit, k, device)
+def _get_kernel_plan(N, primes, l, Bg_bit, k, device: str,
+                     torus_bits: int) -> PBSKernelPlan:
+    return PBSKernelPlan(N, primes, l, Bg_bit, k, device, torus_bits)
 
 
-def get_kernel_plan(N: int, primes, l: int, Bg_bit: int, k: int,
-                    device) -> PBSKernelPlan:
+def get_kernel_plan(N: int, primes, l: int, Bg_bit: int, k: int, device,
+                    torus_bits: int = TORUS_BITS) -> PBSKernelPlan:
+    """The cached plan; ``torus_bits`` (default: the module's width) must
+    match the words the kernel is given."""
     return _get_kernel_plan(N, tuple(primes), l, Bg_bit, k,
-                            str(torch.device(device)))
+                            str(torch.device(device)), torus_bits)
 
 
 # --- plain version -------------------------------------------------------------
@@ -192,13 +223,16 @@ def cmux_partial(acc, a, j0: int, keyv, keyvs, plan: _ntt.NTTPlan, l: int,
 
 def cmux_step(acc, keyv, keyvs, a, plan: _ntt.NTTPlan, l: int, Bg_bit: int):
     """acc += BK_i (x) (X^{a} * acc - acc), one CMUX (`bootstrap.c:113-118`).
-    acc [B, C, N] int64; a [B]; keyv/keyvs [J, C, P, N] int64 canonical."""
+    acc [B, C, N] int64 or int32 words; a [B]; keyv/keyvs [J, C, P, N]
+    int64 canonical."""
     return acc + _ntt.from_ntt_u64(
-        cmux_partial(acc, a, 0, keyv, keyvs, plan, l, Bg_bit), plan)
+        cmux_partial(acc, a, 0, keyv, keyvs, plan, l, Bg_bit), plan,
+        acc.dtype)
 
 
 def blind_rotate_scan_plain(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
-    """The n-step CMUX chain in int64 PyTorch, on any device."""
+    """The n-step CMUX chain in PyTorch, on any device, at the width of
+    acc0's words (int64: mod 2^64, int32: mod 2^32)."""
     blind_rotate_scan_plain.calls += 1
     acc = acc0
     for i in range(a_int.shape[0]):
@@ -256,29 +290,164 @@ def _check_plan(kp: PBSKernelPlan, dev):
     _check("plan tables", kp.fwd_tw, torch.int32, (kp.P, kp.N), dev)
 
 
+def _word_width(name: str, words, kp: PBSKernelPlan) -> int:
+    """The torus width of ``words`` (int64: 64, int32: 32), which must be
+    the plan's: the gadget offset in its constants is of that width."""
+    bits = word_bits(words)
+    if bits != kp.torus_bits:
+        raise ValueError(f"{name}: {words.dtype} words need a "
+                         f"{bits}-bit plan, got {kp.torus_bits}")
+    return bits
+
+
+def _u64_only(name: str, words):
+    """The kernels without a one-limb form refuse 32-bit torus words."""
+    if words.dtype == torch.int32:
+        raise NotImplementedError(
+            f"{name}: the 32-bit torus (int32 words) form of this kernel is "
+            "still to be ported")
+
+
+@functools.cache
+def _smem_budget(name: str, index: int) -> int:
+    """Dynamic shared memory one block of ``csrc/<name>.cu`` may ask for on
+    card ``index``: the opt-in limit per block less the kernels' static
+    shared data (the C entry `smem_budget`, ntt_common.cuh)."""
+    lib = _build.load(name)
+    lib.smem_budget.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.smem_budget.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = lib.smem_budget(index, ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"{name}: cudaDeviceGetAttribute failed ({err})")
+    return out.value
+
+
+IN_PLACE = "in place"     # a buffer that lives in the caller's tensor
+WORKSPACE = "workspace"   # a buffer that may live in the global workspace
+SHARED_ONLY = "shared"    # a buffer that must be in shared memory
+
+
+def _align(n: int, a: int = 16) -> int:
+    return -(-n // a) * a
+
+
+def _place(what: str, bufs, budget: int):
+    """The placement of a block's buffers.  ``bufs``: (nbytes, home, rank)
+    per buffer in the kernel's order (its enum), ``home`` one of
+    SHARED_ONLY, WORKSPACE, IN_PLACE; in order of rank (the buffer's
+    traffic, busiest first) each takes shared memory if it still fits, the
+    SHARED_ONLY one (a kernel's digit NTT rows) first of all.  Returns
+    (layout, stride): the int64 host array the kernel reads (shared bytes,
+    workspace stride, one offset per buffer: >= 0 shared, -1 in place,
+    -2 - o at workspace byte o) and the workspace bytes per block.  Raises
+    ValueError, naming the shape and its bytes, when a SHARED_ONLY buffer
+    does not fit."""
+    smem, stride, offs = 0, 0, [0] * len(bufs)
+    for i in sorted(range(len(bufs)),
+                    key=lambda i: (bufs[i][1] != SHARED_ONLY, bufs[i][2])):
+        nbytes, home, _ = bufs[i]
+        if smem + _align(nbytes) <= budget:
+            offs[i] = smem
+            smem += _align(nbytes)
+        elif home == SHARED_ONLY:
+            raise ValueError(
+                f"{what}: its NTT rows need {nbytes} B of shared memory "
+                f"beside {smem} B already placed; this card gives a block "
+                f"{budget} B")
+        elif home == IN_PLACE:
+            offs[i] = -1
+        else:
+            offs[i] = -2 - stride
+            stride += _align(nbytes, 256)
+    return np.array([smem, stride] + offs, np.int64), stride
+
+
+def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
+                   P_ks: int = 0):
+    """(nbytes, home, rank) of each of a block's buffers in ``kernel``
+    (the source's name), in the order of its enum.  rank orders them by
+    traffic: the digit rows' NTTs (work, dig) are the busiest, then the
+    spectra's multiply-accumulates and inverse NTTs, then the key row of
+    K4 (NTT'd J*C times per group, so it ranks above them there); the
+    accumulator and the rotation/permutation buffer, read and written once
+    or twice per step, come last.  M: K4's 2^u; P_ks: K7's key-switch
+    prime count."""
+    C, P, N = kp.C, kp.P, kp.N
+    row, spec, words = P * N * 4, C * P * N * 4, C * N * kp.torus_bits // 8
+    if kernel == "blind_rotate":       # work, spec, rot, acc
+        return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),
+                (words, WORKSPACE, 2), (words, IN_PLACE, 3)]
+    if kernel == "ext_product_apply":  # work, spec, acc
+        return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),
+                (words, IN_PLACE, 2)]
+    if kernel == "unfolded_rotate":    # rots, key, dig, spec, acc
+        return [(M * 4, WORKSPACE, 0), (row, WORKSPACE, 1),
+                (row, SHARED_ONLY, 2), (spec, WORKSPACE, 3),
+                (words, IN_PLACE, 4)]
+    if kernel == "ga_scan":            # work, spec, perm, acc
+        PM = max(P, P_ks)
+        return [(PM * N * 4, SHARED_ONLY, 0), (C * PM * N * 4, WORKSPACE, 1),
+                (words, WORKSPACE, 2), (words, IN_PLACE, 3)]
+    if kernel in ("tp_step", "auto_keyswitch"):  # K8a, K6: work, spec, rot
+        return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),
+                (words, WORKSPACE, 2)]
+    raise ValueError(f"no buffer table for {kernel}")
+
+
+def kernel_layout(kernel: str, kp: PBSKernelPlan, budget: int, M: int = 1,
+                  P_ks: int = 0):
+    """`_place` of ``kernel``'s buffers at ``kp``'s shape for a block that
+    may have ``budget`` bytes of dynamic shared memory."""
+    return _place(f"{kernel} at N={kp.N}, k={kp.k}, P={kp.P}, M={M}, "
+                  f"P_ks={P_ks}", kernel_buffers(kernel, kp, M, P_ks),
+                  budget)
+
+
+def _layout(kernel: str, kp: PBSKernelPlan, B: int, dev, **kw):
+    """The placement on card ``dev`` and its workspace for B blocks (None
+    when nothing lives there)."""
+    layout, stride = kernel_layout(kernel, kp,
+                                   _smem_budget(kernel, _index(dev)), **kw)
+    ws = None if stride == 0 else torch.empty(B * stride, dtype=torch.uint8,
+                                              device=dev)
+    return layout, ws
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
 def blind_rotate_scan(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
-    """The n-step CMUX chain.  CUDA tensors: one launch of the kernel, and an
+    """The n-step CMUX chain.  CUDA tensors: one launch of the kernel (its
+    one-limb form for int32 words, its two-limb form for int64), and an
     error raised if it does not build or launch.  CPU tensors: the plain
-    version.  Returns the new accumulator [B, C, N] int64."""
+    version.  Returns the new accumulator [B, C, N] of acc0's dtype."""
     dev = acc0.device
     if dev.type == "cpu":
         return blind_rotate_scan_plain(acc0, a_int, keyv, keyvs, kp)
     if dev.type != "cuda":
         raise ValueError(f"blind_rotate_scan runs on cuda or cpu, not {dev}")
+    bits = _word_width("blind_rotate_scan", acc0, kp)
     B, C, N = acc0.shape
     n = a_int.shape[0]
     key_shape = (n, kp.J, kp.C, kp.P, kp.N)
-    _check("acc0", acc0, torch.int64, (B, kp.C, kp.N), dev)
+    _check("acc0", acc0, acc0.dtype, (B, kp.C, kp.N), dev)
     _check("a_int", a_int, torch.int32, (n, B), dev)
     _check("keyv", keyv, torch.int32, key_shape, dev)
     _check("keyvs", keyvs, torch.int32, key_shape, dev)
     _check_plan(kp, dev)
+    layout, ws = _layout("blind_rotate", kp, B, dev)
     acc = acc0.clone()
-    _launch("blind_rotate", "blind_rotate_launch", 9, 2, dev,
+    _launch("blind_rotate", "blind_rotate_launch", 11, 3, dev,
             acc.data_ptr(), a_int.data_ptr(), keyv.data_ptr(),
             keyvs.data_ptr(), kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
-            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(),
-            kp.host_consts.ctypes.data, B, n)
+            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(), _ptr(ws),
+            kp.host_consts.ctypes.data, layout.ctypes.data, B, n, bits)
     blind_rotate_scan.launches += 1
     return acc
 
@@ -289,9 +458,11 @@ blind_rotate_scan.launches = 0
 # --- the key switch's select-sum -------------------------------------------
 
 def tlwe_keyswitch_sum_plain(dig, ab):
-    """The select-sum as a gather in int64 PyTorch, on any device, over n_in
-    in chunks that keep the [B, chunk, t, n_out+1] gather near 64 MB.  A
-    digit outside [1, base) selects nothing, as in the kernels."""
+    """The select-sum as a gather in PyTorch, on any device, over n_in in
+    chunks that keep the [B, chunk, t, n_out+1] gather near 64 MB.  A digit
+    outside [1, base) selects nothing, as in the kernels.  The sum is exact
+    in int64 and ends in ab's words: mod 2^64, or mod 2^32 for an int32
+    table."""
     tlwe_keyswitch_sum_plain.calls += 1
     B, n_in, t = dig.shape
     base_m1, width = ab.shape[2], ab.shape[3]
@@ -306,16 +477,17 @@ def tlwe_keyswitch_sum_plain(dig, ab):
         nz = (d > 0) & (d <= base_m1)
         g = rows[pos + (d - 1).clamp(0, base_m1 - 1)]        # [B, c, t, width]
         out += torch.where(nz[..., None], g, 0).sum((1, 2))
-    return out
+    return wrap(out, ab.dtype)
 
 
 tlwe_keyswitch_sum_plain.calls = 0
 
 
 def tlwe_keyswitch_sum(dig, ab):
-    """The select-sum.  CUDA tensors: one launch of the kernel, and an error
-    raised if it does not build or launch.  CPU tensors: the plain version.
-    Returns [B, n_out+1] int64."""
+    """The select-sum.  CUDA tensors: one launch of the kernel (its one-plane
+    form for an int32 table, mod 2^32), and an error raised if it does not
+    build or launch.  CPU tensors: the plain version.  Returns [B, n_out+1]
+    words of ab's dtype."""
     dev = ab.device
     if dev.type == "cpu":
         return tlwe_keyswitch_sum_plain(dig, ab)
@@ -327,13 +499,14 @@ def tlwe_keyswitch_sum(dig, ab):
     n_in, t, base_m1, width = ab.shape
     B = dig.shape[0]
     _check("dig", dig, torch.int32, (B, n_in, t), dev)
-    _check("ab", ab, torch.int64, (n_in, t, base_m1, width), dev)
-    out = torch.empty((B, width), dtype=torch.int64, device=dev)
+    bits = word_bits(ab)
+    _check("ab", ab, ab.dtype, (n_in, t, base_m1, width), dev)
+    out = torch.empty((B, width), dtype=ab.dtype, device=dev)
     if B == 0 or width == 0:
         return out
-    _launch("tlwe_keyswitch", "tlwe_keyswitch_sum_launch", 3, 4, dev,
+    _launch("tlwe_keyswitch", "tlwe_keyswitch_sum_launch", 3, 5, dev,
             dig.data_ptr(), ab.data_ptr(), out.data_ptr(), B, n_in * t,
-            base_m1, width)
+            base_m1, width, bits)
     tlwe_keyswitch_sum.launches += 1
     return out
 
@@ -353,7 +526,7 @@ def ext_product_replace(acc, key, plan: _ntt.NTTPlan, l: int, Bg_bit: int):
     spec = _ntt.to_ntt_small(digits, plan)                     # [B, J, P, N]
     acc_ntt = _ntt.pointwise_mul_acc_generic(spec.unsqueeze(2), key, plan,
                                              dim=1)            # [B, C, P, N]
-    return _ntt.from_ntt_u64(acc_ntt, plan)
+    return _ntt.from_ntt_u64(acc_ntt, plan, acc.dtype)
 
 
 def ext_product_apply_scan_plain(acc0, sa32, kp: PBSKernelPlan,
@@ -377,6 +550,7 @@ def ext_product_apply_scan(acc0, sa32, kp: PBSKernelPlan,
     """acc <- SA_g (x) acc for g = 0 .. G-1.  CUDA tensors: one launch of
     the kernel whatever G and B are, and an error raised if it does not
     build or launch.  CPU tensors: the plain version.  Returns [B, C, N]."""
+    _u64_only("ext_product_apply_scan", acc0)
     dev = acc0.device
     if dev.type == "cpu":
         return ext_product_apply_scan_plain(acc0, sa32, kp, per_row)
@@ -393,11 +567,12 @@ def ext_product_apply_scan(acc0, sa32, kp: PBSKernelPlan,
     acc = acc0.clone()
     if B == 0 or G == 0:
         return acc
-    _launch("ext_product_apply", "ext_product_apply_launch", 7, 3, dev,
+    layout, ws = _layout("ext_product_apply", kp, B, dev)
+    _launch("ext_product_apply", "ext_product_apply_launch", 9, 3, dev,
             acc.data_ptr(), sa32.data_ptr(), kp.fwd_tw.data_ptr(),
             kp.fwd_tws.data_ptr(), kp.inv_tw.data_ptr(),
-            kp.inv_tws.data_ptr(), kp.host_consts.ctypes.data, B, G,
-            int(per_row))
+            kp.inv_tws.data_ptr(), _ptr(ws), kp.host_consts.ctypes.data,
+            layout.ctypes.data, B, G, int(per_row))
     ext_product_apply_scan.launches += 1
     return acc
 
@@ -444,6 +619,7 @@ def unfolded_rotate(acc0, rot, su, kp: PBSKernelPlan):
     """The unfolded blind rotation.  CUDA tensors: one launch of the kernel
     for all G groups, and an error raised if it does not build or launch.
     CPU tensors: the plain version.  Returns [B, C, N]."""
+    _u64_only("unfolded_rotate", acc0)
     dev = acc0.device
     if dev.type == "cpu":
         return unfolded_rotate_plain(acc0, rot, su, kp)
@@ -455,11 +631,12 @@ def unfolded_rotate(acc0, rot, su, kp: PBSKernelPlan):
     acc = acc0.clone()
     if B == 0 or G == 0:
         return acc
-    _launch("unfolded_rotate", "unfolded_rotate_launch", 8, 3, dev,
+    layout, ws = _layout("unfolded_rotate", kp, B, dev, M=M)
+    _launch("unfolded_rotate", "unfolded_rotate_launch", 10, 3, dev,
             acc.data_ptr(), rot.data_ptr(), su.data_ptr(),
             kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
-            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(),
-            kp.host_consts.ctypes.data, B, G, M)
+            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(), _ptr(ws),
+            kp.host_consts.ctypes.data, layout.ctypes.data, B, G, M)
     unfolded_rotate.launches += 1
     return acc
 
@@ -485,6 +662,7 @@ def ubr_phase1_combine(su, rot, kp: PBSKernelPlan):
     """UBR phase 1.  CUDA tensors: one launch of the kernel for all (b, g),
     and an error raised if it does not build or launch.  CPU tensors: the
     plain version.  Returns [B, G, J, C, P, N] int32 (u32 residues)."""
+    _u64_only("ubr_phase1_combine", su)
     dev = su.device
     if dev.type == "cpu":
         return ubr_phase1_combine_plain(su, rot, kp)
@@ -523,7 +701,7 @@ def auto_keyswitch_rows(x, ak32, kidx, ginv, kp: PBSKernelPlan):
                              kp.ntt)                           # [B, kt, P, N]
     key = i32_as_u32(ak32[kidx.to(torch.int64)])              # [B, kt, C, P, N]
     acc = _ntt.pointwise_mul_acc_generic(spec.unsqueeze(2), key, kp.ntt, dim=1)
-    out = -_ntt.from_ntt_u64(acc, kp.ntt)
+    out = -_ntt.from_ntt_u64(acc, kp.ntt, x.dtype)
     out[:, k] += perm[:, k]
     return out
 
@@ -543,6 +721,7 @@ def auto_keyswitch_stream(x, ak32, kidx, ginv, kp: PBSKernelPlan):
     build or launch.  CPU tensors: the plain version.  ``kidx`` must lie
     in [0, G): the kernel reads the entries it names without a check (one
     on the device would cost a sync per call).  Returns [B, C, N] int64."""
+    _u64_only("auto_keyswitch_stream", x)
     dev = x.device
     if dev.type == "cpu":
         return auto_keyswitch_stream_plain(x, ak32, kidx, ginv, kp)
@@ -559,11 +738,12 @@ def auto_keyswitch_stream(x, ak32, kidx, ginv, kp: PBSKernelPlan):
     out = torch.empty_like(x)
     if B == 0:
         return out
-    _launch("auto_keyswitch", "auto_keyswitch_launch", 10, 1, dev,
+    layout, ws = _layout("auto_keyswitch", kp, B, dev)
+    _launch("auto_keyswitch", "auto_keyswitch_launch", 12, 1, dev,
             x.data_ptr(), ak32.data_ptr(), kidx.data_ptr(), ginv.data_ptr(),
             out.data_ptr(), kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
-            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(),
-            kp.host_consts.ctypes.data, B)
+            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(), _ptr(ws),
+            kp.host_consts.ctypes.data, layout.ctypes.data, B)
     auto_keyswitch_stream.launches += 1
     return out
 
@@ -599,6 +779,7 @@ def ga_scan_fused(acc0, gens, sv32, svs32, ak32, inv2n, kp: PBSKernelPlan,
     version.  ``gens`` must be odd in [1, 2 min(G, N)): (g - 1)/2 indexes
     the keyset and ``inv2n`` unchecked, as in `auto_keyswitch_stream`.
     Returns [B, C, N] int64."""
+    _u64_only("ga_scan_fused", acc0)
     dev = acc0.device
     if dev.type == "cpu":
         return ga_scan_fused_plain(acc0, gens, sv32, svs32, ak32, inv2n, kp,
@@ -621,15 +802,16 @@ def ga_scan_fused(acc0, gens, sv32, svs32, ak32, inv2n, kp: PBSKernelPlan,
     acc = acc0.clone()
     if B == 0 or n == 0:
         return acc
-    _launch("ga_scan", "ga_scan_launch", 16, 2, dev,
+    layout, ws = _layout("ga_scan", kp, B, dev, P_ks=kp_ks.P)
+    _launch("ga_scan", "ga_scan_launch", 18, 2, dev,
             acc.data_ptr(), gens.data_ptr(), sv32.data_ptr(),
             svs32.data_ptr(), ak32.data_ptr(), inv2n.data_ptr(),
             kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
             kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(),
             kp_ks.fwd_tw.data_ptr(), kp_ks.fwd_tws.data_ptr(),
-            kp_ks.inv_tw.data_ptr(), kp_ks.inv_tws.data_ptr(),
+            kp_ks.inv_tw.data_ptr(), kp_ks.inv_tws.data_ptr(), _ptr(ws),
             kp.host_consts.ctypes.data, kp_ks.host_consts.ctypes.data,
-            B, n)
+            layout.ctypes.data, B, n)
     ga_scan_fused.launches += 1
     return acc
 
@@ -658,6 +840,7 @@ def partial_step(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan, out=None):
     int32 when given (a slot of the buffer `finish_step` reads), and an
     error raised if it does not build or launch.  CPU tensors: the plain
     version.  Returns the partial."""
+    _u64_only("partial_step", acc)
     dev = acc.device
     if dev.type == "cpu":
         part = partial_step_plain(acc, a, j0, keyv, keyvs, kp)
@@ -680,10 +863,12 @@ def partial_step(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan, out=None):
     _check("out", out, torch.int32, (B, kp.C, kp.P, kp.N), dev)
     if B == 0:
         return out
-    _launch("tp_step", "partial_step_launch", 8, 3, dev,
+    layout, ws = _layout("tp_step", kp, B, dev)
+    _launch("tp_step", "partial_step_launch", 10, 3, dev,
             acc.data_ptr(), a.data_ptr(), keyv.data_ptr(), keyvs.data_ptr(),
             kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(), out.data_ptr(),
-            kp.host_consts.ctypes.data, B, j0, j_local)
+            _ptr(ws), kp.host_consts.ctypes.data, layout.ctypes.data, B, j0,
+            j_local)
     partial_step.launches += 1
     return out
 
@@ -697,7 +882,7 @@ def finish_step_plain(acc, parts, kp: PBSKernelPlan):
     and returned."""
     finish_step_plain.calls += 1
     s = torch.remainder(i32_as_u32(parts).sum(dim=0), kp.ntt.p[:, None])
-    return acc.add_(_ntt.from_ntt_u64(s, kp.ntt))
+    return acc.add_(_ntt.from_ntt_u64(s, kp.ntt, acc.dtype))
 
 
 finish_step_plain.calls = 0
@@ -709,6 +894,7 @@ def finish_step(acc, parts, kp: PBSKernelPlan):
     in place (the TPU kernel aliases acc to its output).  CUDA tensors: one
     launch of the kernel, and an error raised if it does not build or
     launch.  CPU tensors: the plain version.  Returns acc."""
+    _u64_only("finish_step", acc)
     dev = acc.device
     if dev.type == "cpu":
         return finish_step_plain(acc, parts, kp)

@@ -22,6 +22,11 @@ are not here.
 Each data shard's batch lives on the first device of its data row; with the
 key's rows sharded, every distinct device of the row holds a copy of the
 row's accumulators.  Results are gathered on the caller's device.
+
+At the 32-bit torus only the data axis runs (K1's one-limb form per data
+shard, model 1); the model axis needs K8a's and K8b's one-limb forms,
+still to be ported, and their wrappers raise NotImplementedError on int32
+words.
 """
 
 from __future__ import annotations

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from .torus import TORUS_BITS, TORUS_DTYPE, wrap
+
 
 def _bits32(generator: torch.Generator, shape, device) -> torch.Tensor:
     r = torch.randint(0, 1 << 32, tuple(shape), dtype=torch.int64,
@@ -22,20 +24,25 @@ def _bits32(generator: torch.Generator, shape, device) -> torch.Tensor:
 
 
 def uniform_torus(generator: torch.Generator, shape, device) -> torch.Tensor:
-    """Uniform u64 torus words (as int64) from two 32-bit draws."""
+    """Uniform torus words of the module's width: u64 (as int64) from two
+    32-bit draws, u32 (as int32) from one."""
     hi = _bits32(generator, shape, device)
+    if TORUS_BITS == 32:
+        return wrap(hi)
     lo = _bits32(generator, shape, device)
     return (hi << 32) | lo
 
 
 def normal_torus(generator: torch.Generator, sigma: float, shape,
                  device) -> torch.Tensor:
-    """round(N(0, sigma) * 2^64) mod 2^64, sampled in float32 like the
-    reference package (quantization sigma * 2^-24, far below sigma)."""
+    """round(N(0, sigma) * 2^bits) mod 2^bits at the module's width,
+    sampled in float32 like the reference package (quantization
+    sigma * 2^-24, far below sigma)."""
     e = torch.randn(tuple(shape), dtype=torch.float32, generator=generator,
                     device=generator.device).to(device)
-    scaled = e * torch.tensor(sigma * float(1 << 64), dtype=torch.float32)
-    return scaled.to(torch.int64)
+    scaled = e * torch.tensor(sigma * float(1 << TORUS_BITS),
+                              dtype=torch.float32)
+    return wrap(scaled.to(torch.int64), TORUS_DTYPE)
 
 
 def bounded_key_array(generator: torch.Generator, shape, bound: int,

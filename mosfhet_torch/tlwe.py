@@ -3,7 +3,9 @@
 Mirrors `src/tlwe.c`: keygen, (noiseless) encryption, phase, linear ops and
 the digit-decomposed key switch in its three forms (precomputed table,
 no-precomputation table, and the int8-product form of the latter).
-Ciphertexts are dataclasses of int64 tensors holding u64 words.
+Ciphertexts are dataclasses of torus-word tensors: int64 holding u64
+words, or int32 holding u32 words at the 32-bit torus (`torus.TORUS_BITS`).
+Sums of products are formed in int64 and wrapped to the word width.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from torch import nn
 from . import rng as _rng
 from ._device import default_device
 from .ops import pbs_kernel as _pk
-from .torus import TORUS_BITS, to_i64
+from .torus import TORUS_BITS, TORUS_DTYPE, to_signed, wrap
 
 
 @dataclasses.dataclass
@@ -58,21 +60,26 @@ def encrypt(m, skey: TLWEKey, generator: torch.Generator) -> TLWE:
     """b = m + sum_i s_i a_i + e (`tlwe.c:106-115`); ``m`` is a torus
     tensor of any batch shape on the key's device."""
     dev = skey.s.device
-    m = torch.as_tensor(m, dtype=torch.int64, device=dev)
+    m = wrap(torch.as_tensor(m, device=dev))
     a = _rng.uniform_torus(generator, m.shape + (skey.n,), dev)
     e = _rng.normal_torus(generator, skey.sigma, m.shape, dev)
-    return TLWE(a=a, b=m + (a * skey.s).sum(-1) + e)
+    return TLWE(a=a, b=m + _dot(a, skey.s) + e)
+
+
+def _dot(a, s):
+    """sum_i a_i s_i over the last axis, as words of a's width."""
+    return wrap((a * s).sum(-1), a.dtype)
 
 
 def noiseless_trivial(m, n: int) -> TLWE:
     """(0, m) (`tlwe.c:19-29`); ``m`` is a torus tensor."""
-    return TLWE(a=torch.zeros(m.shape + (n,), dtype=torch.int64,
+    return TLWE(a=torch.zeros(m.shape + (n,), dtype=m.dtype,
                               device=m.device), b=m)
 
 
 def phase(c: TLWE, skey: TLWEKey):
     """b - <s, a> (`tlwe.c:135-141`)."""
-    return c.b - (c.a * skey.s).sum(-1)
+    return c.b - _dot(c.a, skey.s)
 
 
 # --- linear algebra (`tlwe.c:143-191`) ------------------------------------
@@ -90,24 +97,26 @@ def neg(c: TLWE) -> TLWE:
 
 
 def scale(c: TLWE, w) -> TLWE:
-    w = torch.as_tensor(w, dtype=torch.int64, device=c.b.device)
+    w = wrap(torch.as_tensor(w, device=c.b.device), c.b.dtype)
     return TLWE(a=c.a * w[..., None], b=c.b * w)
 
 
 # --- key switching ---------------------------------------------------------
 
-def _ks_shifts(t: int, base_bit: int, device) -> torch.Tensor:
+def _ks_shifts(t: int, base_bit: int, device,
+               dtype: torch.dtype = TORUS_DTYPE) -> torch.Tensor:
     return torch.tensor([TORUS_BITS - (j + 1) * base_bit for j in range(t)],
-                        dtype=torch.int64, device=device)
+                        dtype=dtype, device=device)
 
 
 def _ks_digits(a, t: int, base_bit: int, offset: int = 0):
-    """The key switch's digits of ``a + offset`` [..., n_in] -> int64
-    [..., n_in, t] in [0, 2^base_bit): digit j holds bits
-    [64-(j+1)base_bit, 64-j base_bit).  The arithmetic shift needs no extra
-    mask: ``& mask`` keeps bits below the sign-extended ones."""
-    shifts = _ks_shifts(t, base_bit, a.device)
-    return ((a + to_i64(offset)).unsqueeze(-1) >> shifts) & ((1 << base_bit) - 1)
+    """The key switch's digits of ``a + offset`` [..., n_in] -> [..., n_in,
+    t] in [0, 2^base_bit), of a's dtype: digit j holds bits
+    [bits-(j+1)base_bit, bits-j base_bit).  The arithmetic shift needs no
+    extra mask: ``& mask`` keeps bits below the sign-extended ones."""
+    shifts = _ks_shifts(t, base_bit, a.device, a.dtype)
+    return (((a + to_signed(offset)).unsqueeze(-1) >> shifts)
+            & ((1 << base_bit) - 1))
 
 
 class TLWEKSKey(nn.Module):
@@ -116,8 +125,9 @@ class TLWEKSKey(nn.Module):
     (`tlwe_new_KS_key`, `tlwe.c:193-212`).
 
     Held once, as the kernel reads it: the buffer ``ab`` [n_in, t, base-1,
-    n_out+1] int64 holds each entry's mask words with its b as the last
-    column.  ``a`` and ``b`` are views of it."""
+    n_out+1] of torus words (int64, or int32 at the 32-bit torus) holds
+    each entry's mask words with its b as the last column.  ``a`` and ``b``
+    are views of it."""
 
     def __init__(self, ab: torch.Tensor, t: int, base_bit: int):
         super().__init__()
@@ -143,15 +153,15 @@ def new_ks_key(out_key: TLWEKey, in_key: TLWEKey, t: int, base_bit: int,
     n_in, n_out = in_key.n, out_key.n
     okey = TLWEKey(s=out_key.s.to(dev), sigma=out_key.sigma)
     s_in = in_key.s.to(dev)
-    ab = torch.empty((n_in, t, base_m1, n_out + 1), dtype=torch.int64,
+    ab = torch.empty((n_in, t, base_m1, n_out + 1), dtype=TORUS_DTYPE,
                      device=dev)
-    shifts = _ks_shifts(t, base_bit, dev)
+    shifts = _ks_shifts(t, base_bit, dev, torch.int64)
     vals = torch.arange(1, base_m1 + 1, dtype=torch.int64, device=dev)
     chunk = max(1, (64 << 20) // (t * base_m1 * n_out * 8))
     for i0 in range(0, n_in, chunk):
         s = s_in[i0:i0 + chunk]
         # m[i, j, v] = s_in[i] * (v+1) << shift_j
-        m = (s[:, None, None] * vals) << shifts[:, None]
+        m = wrap((s[:, None, None] * vals) << shifts[:, None])
         c = encrypt(m, okey, generator)
         ab[i0:i0 + chunk, ..., :n_out] = c.a
         ab[i0:i0 + chunk, ..., n_out] = c.b
@@ -195,7 +205,8 @@ def new_ks_key_no_precomp(out_key: TLWEKey, in_key: TLWEKey, t: int,
                           base_bit: int, generator: torch.Generator,
                           device=None) -> TLWEKSKeyM:
     dev = default_device(device)
-    m = in_key.s.to(dev)[:, None] << _ks_shifts(t, base_bit, dev)
+    m = wrap(in_key.s.to(dev)[:, None]
+             << _ks_shifts(t, base_bit, dev, torch.int64))
     c = encrypt(m, TLWEKey(s=out_key.s.to(dev), sigma=out_key.sigma),
                 generator)
     return TLWEKSKeyM(a=c.a, b=c.b, t=t, base_bit=base_bit)
@@ -214,14 +225,14 @@ def keyswitch_no_precomp(c: TLWE, ksk: TLWEKSKeyM) -> TLWE:
     (`tlwe_keyswitch_no_precomp`, `tlwe.c:305-320`), over n_in in chunks
     of 128 so the [batch, chunk, t, n_out] product stays bounded."""
     dig = _no_precomp_digits(c, ksk.t, ksk.base_bit)     # [..., n_in, t]
-    sb = (dig * ksk.b).sum((-2, -1))
+    sb = wrap((dig * ksk.b).sum((-2, -1)), c.b.dtype)
     sa = torch.zeros(c.b.shape + (ksk.a.shape[-1],), dtype=torch.int64,
                      device=c.b.device)
     chunk = 128
     for i0 in range(0, ksk.a.shape[0], chunk):
         d = dig[..., i0:i0 + chunk, :]
         sa += (d[..., None] * ksk.a[i0:i0 + chunk]).sum((-3, -2))
-    return TLWE(a=-sa, b=c.b - sb)
+    return TLWE(a=wrap(-sa, c.b.dtype), b=c.b - sb)
 
 
 @dataclasses.dataclass
@@ -230,9 +241,10 @@ class TLWEKSKeyPrepared:
     contraction is an exact int8 product: the no-precomputation switch is
     linear in the digits, a [batch, n_in*t] x [n_in*t, n_out+1] integer
     product, and with 4-bit limbs and digits < 2^7 every int32 sum is exact
-    (n_in*t * 127 * 15 < 2^31); a few shifts recombine the limbs mod 2^64."""
-    a_nib: torch.Tensor  # [16, n_in*t, n_out] int8
-    b_nib: torch.Tensor  # [16, n_in*t] int8
+    (n_in*t * 127 * 15 < 2^31); a few shifts recombine the limbs mod 2^bits
+    (16 limbs at the 64-bit torus, 8 at the 32-bit one)."""
+    a_nib: torch.Tensor  # [_LIMBS, n_in*t, n_out] int8
+    b_nib: torch.Tensor  # [_LIMBS, n_in*t] int8
     t: int
     base_bit: int
 
@@ -280,6 +292,7 @@ def keyswitch_mxu(c: TLWE, ksk: TLWEKSKeyPrepared) -> TLWE:
                      device=D.device)
     for limb in range(_LIMBS):
         sa += _int8_product(D, ksk.a_nib[limb]).to(torch.int64) << (4 * limb)
-    pb = _int8_product(D, ksk.b_nib.t())                         # [B, 16]
-    sb = (pb.to(torch.int64) << w).sum(-1)
-    return TLWE(a=-sa.reshape(batch + (-1,)), b=c.b - sb.reshape(batch))
+    pb = _int8_product(D, ksk.b_nib.t())                    # [B, _LIMBS]
+    sb = wrap((pb.to(torch.int64) << w).sum(-1), c.b.dtype)
+    return TLWE(a=wrap(-sa, c.b.dtype).reshape(batch + (-1,)),
+                b=c.b - sb.reshape(batch))

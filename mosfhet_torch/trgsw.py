@@ -17,7 +17,7 @@ import torch
 from . import ntt as _ntt
 from . import trlwe as _trlwe
 from .ops import pbs_kernel as _pk
-from .torus import TORUS_BITS, to_i64
+from .torus import TORUS_BITS, TORUS_DTYPE, to_signed, wrap
 from .trlwe import TRLWE, TRLWEKey, from_stacked
 
 
@@ -79,8 +79,8 @@ class TRGSWDFT:
 
 
 def _gadget_values(l: int, Bg_bit: int, device):
-    return torch.tensor([to_i64(1 << (TORUS_BITS - (i + 1) * Bg_bit))
-                         for i in range(l)], dtype=torch.int64, device=device)
+    return torch.tensor([to_signed(1 << (TORUS_BITS - (i + 1) * Bg_bit))
+                         for i in range(l)], dtype=TORUS_DTYPE, device=device)
 
 
 def _add_monomial_rows(rows, m, e, l, Bg_bit, k, N):
@@ -96,8 +96,8 @@ def _add_monomial_rows(rows, m, e, l, Bg_bit, k, N):
     c = torch.arange(k + 1, device=dev)
     sel = (r[:, None] == c[None, :]).to(torch.int64)               # [R, k+1]
     hh = h.repeat((1,) * (h.dim() - 1) + (k + 1,))                 # [..., R]
-    return rows + (sel[:, :, None] * hh[..., :, None, None]
-                   * onehot[..., None, None, :])
+    return rows + wrap(sel[:, :, None] * hh[..., :, None, None]
+                       * onehot[..., None, None, :], rows.dtype)
 
 
 def monomial_encrypt(m, e, key: TRGSWKey,
@@ -110,7 +110,7 @@ def monomial_encrypt(m, e, key: TRGSWKey,
     dev = key.trlwe_key.s.device
     m = torch.as_tensor(m, dtype=torch.int64, device=dev)
     e = torch.as_tensor(e, dtype=torch.int64, device=dev)
-    zeros = torch.zeros(m.shape + (R, N), dtype=torch.int64, device=dev)
+    zeros = torch.zeros(m.shape + (R, N), dtype=TORUS_DTYPE, device=dev)
     rows = _trlwe.encrypt(zeros, key.trlwe_key, generator).stacked()
     rows = _add_monomial_rows(rows, m, e, l, Bg_bit, k, N)
     return TRGSW(rows=rows, l=l, Bg_bit=Bg_bit)
@@ -129,7 +129,8 @@ def external_product(c: TRLWE, g: TRGSWDFT) -> TRLWE:
     On CUDA tensors one launch of the apply-scan kernel with G=1: one TRGSW
     [J, C, P, N] is broadcast over the batch, a batch of them [..., J, C, P,
     N] is taken one per row.  On CPU tensors its plain version.  ``g.vs`` is
-    not read."""
+    not read.  The 32-bit torus form (K3's one-limb form) is still to be
+    ported: int32 words raise NotImplementedError."""
     k, N = g.k, g.N
     kp = _pk.get_kernel_plan(N, g.primes, g.l, g.Bg_bit, k, g.v.device)
     st = c.stacked()

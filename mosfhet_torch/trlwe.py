@@ -2,7 +2,7 @@
 
 Mirrors `src/trlwe.c`: binary keygen, encryption, phase, per-batch X^a
 rotations, sample extraction and LUT packing.  Torus words are int64
-tensors holding u64 bits.
+tensors holding u64 bits, or int32 holding u32 bits at the 32-bit torus.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from . import polynomial as _poly
 from . import rng as _rng
 from ._device import default_device
 from .tlwe import TLWE, TLWEKey
-from .torus import gadget_decompose, int2torus
+from .torus import gadget_decompose, int2torus, wrap
 
 
 @dataclasses.dataclass
@@ -95,13 +95,13 @@ def encrypt(m, key: TRLWEKey, generator: torch.Generator) -> TRLWE:
     e = _rng.normal_torus(generator, key.sigma, batch + (N,), dev)
     b = _key_mul_accum(a, key) + e
     if m is not None:
-        b = b + m
+        b = b + wrap(m)
     return TRLWE(a=a, b=b)
 
 
 def noiseless_trivial(m, k: int, N: int) -> TRLWE:
     """(0, m) (`trlwe.c:261-280`); m: [..., N] torus."""
-    return TRLWE(a=torch.zeros(m.shape[:-1] + (k, N), dtype=torch.int64,
+    return TRLWE(a=torch.zeros(m.shape[:-1] + (k, N), dtype=m.dtype,
                                device=m.device), b=m)
 
 

@@ -3,8 +3,10 @@ external-product apply scan, unfolded rotation, UBR phase 1, automorphism
 key switch, GA rotation, the gadget-row split CMUX step) against their
 plain PyTorch versions, bit for bit, the int8 key switch through
 `torch._int_mm`, and the sharded bootstrap on a mesh of one card (and of
-every card, where there are several).  Needs a CUDA card: without one
-every test here skips.
+every card, where there are several); the one-limb (32-bit torus) forms
+of the blind rotation and the select-sum; and the kernels at N=4096 with 4
+primes (SET_3) and N=8192, whose buffers do not all fit shared memory.
+Needs a CUDA card: without one every test here skips.
 
 This file imports nothing but PyTorch, numpy and the port, so it runs on a
 machine that has no TPU-package dependencies:
@@ -21,13 +23,20 @@ from mosfhet_torch.bridge import to_tensor
 from mosfhet_torch.ops import pbs_kernel as tpk
 
 
-def random_rotation_inputs(N, k, l, Bg_bit, n, B, seed):
-    """Random accumulators, exponents in [0, 2N] with 0 and 2N present, and
-    random canonical key residues with their Shoup companions (u32)."""
+def random_rotation_inputs(N, k, l, Bg_bit, n, B, seed, primes=None,
+                           torus_bits=64):
+    """Random accumulators (u64 words, or u32 at torus_bits 32), exponents
+    in [0, 2N] with 0 and 2N present, and random canonical key residues
+    with their Shoup companions (u32).  primes: the 64-bit torus's for the
+    digits, unless given."""
     C, J = k + 1, (k + 1) * l
-    primes = ntt.primes_for_bound(ntt.external_product_bound(N, Bg_bit, l, k))
+    if primes is None:
+        primes = ntt.primes_for_bound(
+            ntt.external_product_bound(N, Bg_bit, l, k))
     rng = np.random.default_rng(seed)
-    acc0 = rng.integers(0, 1 << 64, size=(B, C, N), dtype=np.uint64)
+    acc0 = rng.integers(0, 1 << torus_bits, size=(B, C, N), dtype=np.uint64)
+    if torus_bits == 32:
+        acc0 = acc0.astype(np.uint32)
     a_int = rng.integers(0, 2 * N + 1, size=(n, B), dtype=np.int32)
     a_int[0, 0], a_int[-1, -1] = 0, 2 * N
     p = np.array(primes, np.uint64)[:, None]
@@ -64,6 +73,38 @@ def test_cuda_kernel_matches_plain(N, k, l, Bg_bit, n, B):
     assert torch.equal(got, want)
 
 
+# The 32-bit torus (TORUS32): `benchmarks/bench_torus32.py`'s L2_32 digits
+# and key switch, and its two primes (what ntt.primes_for_bound picks with
+# MOSFHET_TORUS_BITS=32).
+L2_32 = dict(N=2048, k=1, l=3, Bg_bit=7, t=6, base_bit=4, n=632)
+PRIMES_32 = ntt.MASTER_PRIMES[-2:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,k,l,Bg_bit,P,n,B", [
+    (2048, 1, 3, 7, 2, 3, 5),   # L2_32 widths, n cut to 3
+    (64, 1, 3, 7, 2, 4, 3),     # the TPU suite's P32
+    (1024, 2, 2, 10, 3, 2, 3),  # k=2, three primes
+])
+def test_cuda_kernel_matches_plain_torus32(N, k, l, Bg_bit, P, n, B):
+    """K1's one-limb form on u32 words (int32 tensors)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    primes, acc0, a_int, keyv, keyvs = random_rotation_inputs(
+        N, k, l, Bg_bit, n, B, seed=N + 32, primes=ntt.MASTER_PRIMES[-P:],
+        torus_bits=32)
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda", 32)
+    args = (to_tensor(acc0, "cuda"), torch.from_numpy(a_int).cuda(),
+            as_i32(keyv, "cuda"), as_i32(keyvs, "cuda"), kp)
+    assert args[0].dtype == torch.int32
+    launches = tpk.blind_rotate_scan.launches
+    got = tpk.blind_rotate_scan(*args)
+    torch.cuda.synchronize()
+    assert tpk.blind_rotate_scan.launches == launches + 1
+    want = tpk.blind_rotate_scan_plain(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
 def random_ks_inputs(B, n_in, t, base_m1, width, seed):
     """Random digits in [0, base) with 0 and base-1 present, and a random
     u64 KS table [n_in, t, base-1, width] (as int64)."""
@@ -93,6 +134,26 @@ def test_cuda_keyswitch_sum_matches_plain(B, n_in, t, base_m1, width):
     torch.cuda.synchronize()
     assert tpk.tlwe_keyswitch_sum.launches == launches + 1
     assert torch.equal(got, tpk.tlwe_keyswitch_sum_plain(d, tab))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_in,t,base_m1,width", [
+    (3, 2048, 6, 15, 633),     # L2_32 key-switch widths
+    (5, 64, 5, 15, 17),        # a ragged column block
+])
+def test_cuda_keyswitch_sum_matches_plain_torus32(B, n_in, t, base_m1, width):
+    """K2's one-plane form: an int32 table of u32 words, sums mod 2^32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dig, ab = random_ks_inputs(B, n_in, t, base_m1, width, seed=n_in + 32)
+    d = torch.from_numpy(dig).cuda()
+    tab = to_tensor(ab.astype(np.uint32), "cuda")
+    launches = tpk.tlwe_keyswitch_sum.launches
+    got = tpk.tlwe_keyswitch_sum(d, tab)
+    torch.cuda.synchronize()
+    assert tpk.tlwe_keyswitch_sum.launches == launches + 1
+    want = tpk.tlwe_keyswitch_sum_plain(d, tab)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -218,6 +279,7 @@ def random_ks_keyset(rng, N, k, t, base_bit, G):
     (256, 2, 3, 8, 5, 4),       # k=2
     (128, 1, 2, 10, 128, 3),    # the GA tests' widths, the whole keyset
     (2048, 1, 1, 23, 4, 3),     # SET_2 digits: four primes
+    (4096, 1, 1, 22, 4, 3),     # SET_3 widths: perm in the workspace
 ])
 def test_cuda_auto_keyswitch_matches_plain(N, k, t, base_bit, G, B):
     if not torch.cuda.is_available():
@@ -381,3 +443,133 @@ def test_cuda_pbs_on_mesh_across_cards(split):
     got = mesh.pbs_on_mesh(m, bk, 4)(tv, c)
     torch.cuda.synchronize()
     assert torch.equal(got.a, want.a) and torch.equal(got.b, want.b)
+
+
+# --- SET_3 (N=4096, 4 primes) and N=8192: buffers beyond shared memory ----
+
+SET3 = (4096, 1, 1, 22)        # params.SET_3's bootstrap digits: P = 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,n,B", [(4096, 2, 3), (8192, 2, 2)],
+                         ids=["set3", "n8192"])
+def test_cuda_kernel_matches_plain_beyond_shared_memory(N, n, B):
+    """K1 with its rotation buffer (and at N=8192 its spectra) in the global
+    workspace and acc updated in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, k, l, Bg_bit = SET3
+    primes, acc0, a_int, keyv, keyvs = random_rotation_inputs(
+        N, k, l, Bg_bit, n, B, seed=N + 3)
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    assert kp.P == 4
+    args = (to_tensor(acc0, "cuda"), torch.from_numpy(a_int).cuda(),
+            as_i32(keyv, "cuda"), as_i32(keyvs, "cuda"), kp)
+    launches = tpk.blind_rotate_scan.launches
+    got = tpk.blind_rotate_scan(*args)
+    torch.cuda.synchronize()
+    assert tpk.blind_rotate_scan.launches == launches + 1
+    assert torch.equal(got, tpk.blind_rotate_scan_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_row", [False, True],
+                         ids=["broadcast", "per_row"])
+def test_cuda_ext_product_apply_matches_plain_set3(per_row):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, k, l, Bg_bit = SET3
+    G, B, C, J = 2, 3, k + 1, (k + 1) * l
+    primes = ntt.primes_for_bound(ntt.external_product_bound(N, Bg_bit, l, k))
+    rng = np.random.default_rng(43 + per_row)
+    acc0 = rng.integers(0, 1 << 64, size=(B, C, N), dtype=np.uint64)
+    rows = (G, B) if per_row else (G,)
+    sa = random_residues(rng, rows + (J, C, len(primes), N), primes)
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    args = (to_tensor(acc0, "cuda"), as_i32(sa, "cuda"), kp, per_row)
+    launches = tpk.ext_product_apply_scan.launches
+    got = tpk.ext_product_apply_scan(*args)
+    torch.cuda.synchronize()
+    assert tpk.ext_product_apply_scan.launches == launches + 1
+    assert torch.equal(got, tpk.ext_product_apply_scan_plain(*args))
+
+
+@pytest.mark.gpu
+def test_cuda_unfolded_rotate_matches_plain_set3():
+    """u=2: the spectra in the workspace, the key row and acc shared."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    acc0, rot, su, kp = random_unfolded_inputs(*SET3, 2, 2, 3, seed=44)
+    launches = tpk.unfolded_rotate.launches
+    got = tpk.unfolded_rotate(acc0, rot, su, kp)
+    torch.cuda.synchronize()
+    assert tpk.unfolded_rotate.launches == launches + 1
+    assert torch.equal(got, tpk.unfolded_rotate_plain(acc0, rot, su, kp))
+
+
+@pytest.mark.gpu
+def test_cuda_ga_scan_matches_plain_set3():
+    """perm in the workspace, acc in place; a keyset of 8 entries (odd
+    generators below 16, 1 and 15 present)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from mosfhet_torch.bootstrap_ga import inverse_mod_2n_table
+    N, k, l, Bg_bit = SET3
+    n, B, G = 2, 3, 8
+    primes, acc0, _, sv, svs = random_rotation_inputs(N, k, l, Bg_bit, n, B,
+                                                      seed=45)
+    rng = np.random.default_rng(46)
+    ks_primes, ak = random_ks_keyset(rng, N, k, l, Bg_bit, G)
+    gens = rng.integers(0, G, size=(n, B), dtype=np.int32) * 2 + 1
+    gens[0, 0], gens[-1, -1] = 1, 2 * G - 1
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    kp_ks = tpk.get_kernel_plan(N, ks_primes, l, Bg_bit, k, "cuda")
+    args = (to_tensor(acc0, "cuda"), torch.from_numpy(gens).cuda(),
+            as_i32(sv, "cuda"), as_i32(svs, "cuda"), as_i32(ak, "cuda"),
+            torch.from_numpy(inverse_mod_2n_table(N)).cuda(), kp, kp_ks)
+    launches = tpk.ga_scan_fused.launches
+    got = tpk.ga_scan_fused(*args)
+    torch.cuda.synchronize()
+    assert tpk.ga_scan_fused.launches == launches + 1
+    assert torch.equal(got, tpk.ga_scan_fused_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("j0,j_local", [(0, 2), (1, 1)],
+                         ids=["m1", "m2_second"])
+def test_cuda_partial_step_matches_plain_set3(j0, j_local):
+    """K8a with its rotation buffer in the workspace."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, k, l, Bg_bit = SET3
+    B = 3
+    primes, acc0, a_int, keyv, keyvs = random_rotation_inputs(
+        N, k, l, Bg_bit, 1, B, seed=47 + j0)
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    args = (to_tensor(acc0, "cuda"), torch.from_numpy(a_int[0]).cuda(), j0,
+            as_i32(keyv[0, j0:j0 + j_local].copy(), "cuda"),
+            as_i32(keyvs[0, j0:j0 + j_local].copy(), "cuda"), kp)
+    launches = tpk.partial_step.launches
+    got = tpk.partial_step(*args)
+    torch.cuda.synchronize()
+    assert tpk.partial_step.launches == launches + 1
+    assert torch.equal(got, tpk.partial_step_plain(*args))
+
+
+@pytest.mark.gpu
+def test_cuda_unplaceable_shape_raises_before_launch():
+    """N=16384 with 4 primes: the NTT rows alone exceed a block's shared
+    memory, so the wrapper raises ValueError and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    N, k, l, Bg_bit = 16384, 1, 1, 22
+    primes, acc0, a_int, keyv, keyvs = random_rotation_inputs(
+        N, k, l, Bg_bit, 1, 1, seed=48)
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    assert kp.P == 4
+    launches = tpk.blind_rotate_scan.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tpk.blind_rotate_scan(to_tensor(acc0, "cuda"),
+                              torch.from_numpy(a_int).cuda(),
+                              as_i32(keyv, "cuda"), as_i32(keyvs, "cuda"), kp)
+    assert tpk.blind_rotate_scan.launches == launches

@@ -1,0 +1,341 @@
+"""The port at the 32-bit torus (TORUS32) against the TPU package, word for
+word, and PyTorch's int32 arithmetic that it rests on.
+
+The width is fixed at import (``MOSFHET_TORUS_BITS=32``, like the
+reference's ``-DTORUS32``), so the cases run in one child interpreter with
+that variable set, which imports both packages, runs every case on the same
+numpy-seeded inputs and writes one JSON result per case; each case is then
+one test here.  Sizes are the TPU package's TORUS32 suite's (`P32` of
+`tests/_torus32_suite.py`: n=16, N=64, k=1, l=3, Bg_bit=7; 2 primes).  The
+JAX side is jitted; its kernels run in Pallas interpret mode.  Every word
+must be identical: no tolerance.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+ROOT = Path(__file__).resolve().parents[1]
+CASES = ("gadget_decompose", "double2torus", "torus2int", "ntt_product",
+         "keyswitch", "k1_plain_vs_interpret", "k2_plain_vs_interpret",
+         "functional_bootstrap", "fdfb_this_work", "port_keygen_decrypts",
+         "unported_paths_raise")
+M32 = 1 << 32
+
+i32 = st.integers(-(1 << 31), (1 << 31) - 1)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.tuples(i32, i32), min_size=1, max_size=64))
+def test_int32_arithmetic_wraps_mod_2_32(pairs):
+    """CPU int32 ``+``, ``-``, ``*`` and negation are exact mod 2^32, and an
+    int64 -> int32 conversion keeps the low 32 bits: the port's u32 words
+    rest on both (`torus.wrap`)."""
+    a = torch.tensor([x for x, _ in pairs], dtype=torch.int32)
+    b = torch.tensor([y for _, y in pairs], dtype=torch.int32)
+
+    def u32(t):
+        return [v % M32 for v in t.tolist()]
+
+    ua, ub = u32(a), u32(b)
+    assert u32(a + b) == [(x + y) % M32 for x, y in zip(ua, ub)]
+    assert u32(a - b) == [(x - y) % M32 for x, y in zip(ua, ub)]
+    assert u32(a * b) == [(x * y) % M32 for x, y in zip(ua, ub)]
+    assert u32(-a) == [(-x) % M32 for x in ua]
+    wide = a.to(torch.int64) * b.to(torch.int64) + (1 << 40)
+    assert u32(wide.to(torch.int32)) == [(x * y + (1 << 40)) % M32
+                                         for x, y in zip(ua, ub)]
+
+
+@pytest.fixture(scope="module")
+def torus32_results(tmp_path_factory):
+    """Run every case once in a child interpreter at the 32-bit torus."""
+    out = tmp_path_factory.mktemp("torus32") / "results.json"
+    env = dict(os.environ, MOSFHET_TORUS_BITS="32", JAX_PLATFORMS="cpu")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "tests.test_torch_torus32", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    results = json.loads(out.read_text())
+    results["_seconds"] = time.perf_counter() - t0
+    return results
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_torus32_case(torus32_results, case):
+    res = torus32_results[case]
+    assert res["ok"], res["detail"]
+
+
+# --- the child: both packages at the 32-bit torus ---------------------------
+
+P32 = dict(n=16, N=64, k=1, l=3, Bg_bit=7, t=5, base_bit=4,
+           lwe_sigma=2.0**-20, rlwe_sigma=2.0**-25)
+
+
+def _child(out_path):
+    assert os.environ.get("MOSFHET_TORUS_BITS") == "32"
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+
+    from mosfhet_tpu import (bootstrap as jbs, ntt as jntt, params,
+                             polynomial as jpoly, rng as jrng, tlwe as jtlwe,
+                             torus as jtorus, trgsw as jtrgsw,
+                             trlwe as jtrlwe)
+    from mosfhet_tpu.ops import pbs_kernel as jpk
+    from mosfhet_torch import (bootstrap as tbs, bridge, ntt as tntt,
+                               rng as trng, tlwe as ttlwe, torus as ttorus,
+                               trgsw as ttrgsw, trlwe as ttrlwe)
+    from mosfhet_torch.ops import pbs_kernel as tpk
+
+    assert jtorus.TORUS_BITS == 32 and ttorus.TORUS_BITS == 32
+    CPU = "cpu"
+    p = params.TFHEParams(name="T32", **P32)
+    rs = np.random.default_rng(3232)
+    T = bridge.to_tensor
+
+    def same(got, want):
+        got = bridge.to_numpy(got) if isinstance(got, torch.Tensor) else got
+        want = np.asarray(want)
+        if got.shape != want.shape:
+            return f"shape {got.shape} != {want.shape}"
+        if got.dtype != want.dtype:
+            return f"dtype {got.dtype} != {want.dtype}"
+        bad = int((got != want).sum())
+        return f"{bad} of {got.size} words differ" if bad else ""
+
+    def words(shape):
+        return rs.integers(0, M32, shape, dtype=np.uint64).astype(np.uint32)
+
+    def case_gadget_decompose():
+        x = words((3, 5, p.N))
+        x[0, 0, :4] = [0, 1, M32 - 1, 1 << 31]
+        msgs = []
+        for rounded in (True, False):
+            want = jtorus.gadget_decompose(jnp.asarray(x), p.Bg_bit, p.l,
+                                           rounded)
+            got = ttorus.gadget_decompose(T(x, CPU), p.Bg_bit, p.l, rounded)
+            msgs.append(same(got.numpy(), want))
+        assert ttorus.gadget_offset(p.Bg_bit, p.l) == jtorus.gadget_offset(
+            p.Bg_bit, p.l)
+        return "; ".join(m for m in msgs if m)
+
+    def case_double2torus():
+        x = rs.uniform(-3.0, 3.0, 512)
+        x[:6] = [0.0, 0.5, -0.5, 0.25, 1.0 - 2.0**-40, -2.0**-40]
+        return same(ttorus.double2torus(torch.from_numpy(x)),
+                    jtorus.double2torus(jnp.asarray(x)))
+
+    def case_torus2int():
+        x = words(4096)
+        x[:3] = [0, M32 - 1, (1 << 31) - 1]
+        msgs = [same(ttorus.torus2int(T(x, CPU), s).numpy().astype(np.uint32),
+                     jtorus.torus2int(jnp.asarray(x), s))
+                for s in (1, 4, 7, 12, 31)]
+        return "; ".join(m for m in msgs if m)
+
+    def case_ntt_product():
+        bound = jntt.conv_bound(p.N, 1 << 8, 1)
+        primes = jntt.primes_for_bound(bound)
+        if primes != tntt.primes_for_bound(tntt.conv_bound(p.N, 1 << 8, 1)) \
+                or len(primes) != 2:
+            return f"primes {primes}"
+        jplan = jntt.get_plan(p.N, primes)
+        tplan = tntt.get_plan(p.N, primes, CPU)
+        a = words((4, p.N))
+        d = rs.integers(-256, 256, (4, p.N), dtype=np.int32)
+        want = jpoly.ntt_mul_small(jnp.asarray(d), jnp.asarray(a), jplan)
+        naive = jpoly.naive_negacyclic_mul(
+            jnp.asarray(d).astype(jnp.int64).astype(jnp.uint32),
+            jnp.asarray(a))
+        got = tntt.from_ntt_u64(
+            tntt.pointwise_mul(tntt.to_ntt_small(torch.from_numpy(d), tplan),
+                               tntt.to_ntt_u64(T(a, CPU), tplan), tplan),
+            tplan)
+        return same(got, want) or same(got, naive)
+
+    def ks_case(seed, n_out, n_in, batch):
+        kk = jax.random.split(jax.random.PRNGKey(seed), 4)
+        out_key = jtlwe.new_binary_key(kk[0], n_out, p.lwe_sigma)
+        in_key = jtlwe.new_binary_key(kk[1], n_in, p.lwe_sigma)
+        ksk = jax.jit(lambda k: jtlwe.new_ks_key(k, out_key, in_key, p.t,
+                                                 p.base_bit))(kk[2])
+        m = jtorus.double2torus(jnp.arange(batch) / 16.0)
+        c = jax.jit(jtlwe.encrypt)(m, in_key, kk[3])
+        return ksk, c
+
+    def case_keyswitch():
+        ksk, c = ks_case(11, p.n, p.k * p.N, 5)
+        want = jax.jit(lambda c_: jtlwe.keyswitch(c_, ksk, impl="jnp"))(c)
+        tksk = bridge.tlwe_ks_key_from_numpy(
+            np.asarray(ksk.a), np.asarray(ksk.b), p.t, p.base_bit, CPU)
+        if tksk.ab.dtype != torch.int32:
+            return f"table dtype {tksk.ab.dtype}"
+        got = ttlwe.keyswitch(
+            bridge.tlwe_from_numpy(np.asarray(c.a), np.asarray(c.b), CPU),
+            tksk)
+        return same(got.a, want.a) or same(got.b, want.b)
+
+    def case_k1_plain_vs_interpret():
+        N, k, l, Bg_bit, n, B = p.N, p.k, p.l, p.Bg_bit, 3, 32
+        C, J = k + 1, (k + 1) * l
+        primes = jntt.primes_for_bound(
+            jntt.external_product_bound(N, Bg_bit, l, k))
+        acc0 = words((B, C, N))
+        a_int = rs.integers(0, 2 * N + 1, (n, B), dtype=np.int32)
+        a_int[0, 0], a_int[-1, -1], a_int[1, 1] = 0, 2 * N, N
+        pr = np.array(primes, np.uint64)[:, None]
+        keyv = rs.integers(0, 1 << 62, (n, J, C, len(primes), N),
+                           dtype=np.uint64) % pr
+        keyvs = ((keyv << np.uint64(32)) // pr).astype(np.uint32)
+        keyv = keyv.astype(np.uint32)
+        jkp = jpk.get_kernel_plan(N, primes, l, Bg_bit, k, bt=32, mxu=False)
+        if jkp.nl != 1 or jkp.P != 2:
+            return f"TPU plan nl={jkp.nl}, P={jkp.P}"
+        want = jpk.blind_rotate_scan_fused(
+            jnp.asarray(acc0), jnp.asarray(a_int), jnp.asarray(keyv),
+            jnp.asarray(keyvs), jkp, interpret=True)
+        kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, CPU, 32)
+        got = tpk.blind_rotate_scan(T(acc0, CPU), torch.from_numpy(a_int),
+                                    T(keyv, CPU), T(keyvs, CPU), kp)
+        return same(got, want)
+
+    def case_k2_plain_vs_interpret():
+        B, n_in, t, base_m1, npad = 16, 32, 6, 15, 128
+        dig = rs.integers(0, base_m1 + 1, (B, n_in, t), dtype=np.int32)
+        dig[0, 0, 0], dig[-1, -1, -1] = 0, base_m1
+        ab = words((n_in, t, base_m1, npad))
+        want = jpk.tlwe_keyswitch_sum(jnp.asarray(dig), (jnp.asarray(ab),),
+                                      bt=8, chunk_i=16, interpret=True)
+        got = tpk.tlwe_keyswitch_sum(torch.from_numpy(dig), T(ab, CPU))
+        return same(got, want)
+
+    def jax_keys(seed):
+        kk = jax.random.split(jax.random.PRNGKey(seed), 6)
+        kt = jtlwe.new_binary_key(kk[0], p.n, p.lwe_sigma)
+        kr = jtrlwe.new_binary_key(kk[1], p.N, p.k, p.rlwe_sigma)
+        ko = jtrlwe.extract_tlwe_key(kr)
+        gk = jtrgsw.new_key(kr, p.l, p.Bg_bit)
+        bk = jax.jit(lambda rk: jbs.new_key(rk, gk, kt))(kk[2])
+        bk_t = bridge.bootstrap_key_from_numpy(
+            np.asarray(bk.v), np.asarray(bk.vs), bk.n, bk.k, bk.N, bk.l,
+            bk.Bg_bit, bk.primes, CPU)
+        return kk, kt, ko, bk, bk_t
+
+    def case_functional_bootstrap():
+        kk, kt, ko, bk, bk_t = jax_keys(21)
+        if len(bk.primes) != 2:
+            return f"primes {bk.primes}"
+        luts = jrng.uniform_torus(kk[3], (4,))
+        tv = jtrlwe.torus_packing(luts, p.k, p.N)
+        B = 8
+        c = jax.jit(jtlwe.encrypt)(
+            jtorus.double2torus(jnp.arange(B) % 4 / 8.0), kt, kk[4])
+        want = jax.jit(lambda c_: jbs.functional_bootstrap(tv, c_, bk, 4))(c)
+        got = tbs.functional_bootstrap(
+            ttrlwe.torus_packing(T(np.asarray(luts), CPU), p.k, p.N),
+            bridge.tlwe_from_numpy(np.asarray(c.a), np.asarray(c.b), CPU),
+            bk_t, 4)
+        return same(got.a, want.a) or same(got.b, want.b)
+
+    def case_fdfb_this_work():
+        kk, kt, ko, bk, bk_t = jax_keys(27)
+        tksk = jax.jit(lambda rk: jtlwe.new_ks_key(
+            rk, kt, ko, p.t, p.base_bit))(kk[5])
+        luts = jrng.uniform_torus(kk[3], (8,))
+        tv = jtrlwe.torus_packing_many_lut(luts, 4, 2, p.k, p.N)
+        c = jax.jit(jtlwe.encrypt)(
+            jtorus.int2torus(jnp.arange(8, dtype=jnp.uint32), 3), kt, kk[4])
+        want = jax.jit(lambda c_: jbs.fdfb_this_work(tv, c_, bk, tksk, 3))(c)
+        got = tbs.fdfb_this_work(
+            ttrlwe.torus_packing_many_lut(T(np.asarray(luts), CPU), 4, 2,
+                                          p.k, p.N),
+            bridge.tlwe_from_numpy(np.asarray(c.a), np.asarray(c.b), CPU),
+            bk_t, bridge.tlwe_ks_key_from_numpy(
+                np.asarray(tksk.a), np.asarray(tksk.b), p.t, p.base_bit,
+                CPU), 3)
+        return same(got.a, want.a) or same(got.b, want.b)
+
+    def case_port_keygen_decrypts():
+        """The port alone at 32 bits: its keygen, the PBS and the gate on
+        CPU tensors, each output within 2^26 of its LUT entry
+        (`benchmarks/bench_torus32.py`'s bound)."""
+        gen = torch.Generator().manual_seed(32)
+        kt = ttlwe.new_binary_key(p.n, p.lwe_sigma, gen, CPU)
+        kr = ttrlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, CPU)
+        ko = ttrlwe.extract_tlwe_key(kr)
+        bk = tbs.new_key(ttrgsw.new_key(kr, p.l, p.Bg_bit), kt, gen, CPU)
+        ksk = ttlwe.new_ks_key(kt, ko, p.t, p.base_bit, gen, CPU)
+        luts = trng.uniform_torus(gen, (8,), CPU)
+        if luts.dtype != torch.int32 or ksk.ab.dtype != torch.int32:
+            return f"words {luts.dtype}, table {ksk.ab.dtype}"
+        m = torch.arange(16) % 8
+        c = ttlwe.encrypt(ttorus.int2torus(m, 3), kt, gen)
+        errs = []
+        tv4 = ttrlwe.torus_packing(luts[:4], p.k, p.N)
+        c4 = ttlwe.encrypt(ttorus.double2torus((m % 4).double() / 8.0), kt,
+                           gen)
+        out = tbs.functional_bootstrap(tv4, c4, bk, 4)
+        errs.append(ttlwe.phase(out, ko) - luts[m % 4])
+        tv8 = ttrlwe.torus_packing_many_lut(luts, 4, 2, p.k, p.N)
+        out = tbs.fdfb_this_work(tv8, c, bk, ksk, 3)
+        errs.append(ttlwe.phase(out, ko) - luts[m])
+        worst = max(int(e.to(torch.int64).abs().max()) for e in errs)
+        return "" if worst < 1 << 26 else f"max error {worst} >= 2^26"
+
+    def case_unported_paths_raise():
+        """What has no 32-bit form yet raises instead of giving words:
+        unfolded and GA keys, the TRLWE key switch, the 64-bit-only
+        kernels."""
+        from mosfhet_torch import bootstrap_ga as tbga, keyswitch as tks
+        gen = torch.Generator().manual_seed(5)
+        kt = ttlwe.new_binary_key(p.n, p.lwe_sigma, gen, CPU)
+        kr = ttrlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, CPU)
+        gk = ttrgsw.new_key(kr, p.l, p.Bg_bit)
+        calls = {
+            "unfolded key": lambda: tbs.new_key(gk, kt, gen, CPU,
+                                                unfolding=2),
+            "GA key": lambda: tbga.new_key(gk, kt, gen, CPU),
+            "TRLWE KS key": lambda: tks.new_trlwe_ks_key(kr, kr, p.t,
+                                                         p.base_bit, gen,
+                                                         CPU),
+            "external product": lambda: ttrgsw.external_product(
+                ttrlwe.encrypt(None, kr, gen),
+                ttrgsw.to_dft(ttrgsw.monomial_encrypt(1, 0, gk, gen),
+                              gk.plan()))}
+        missing = []
+        for what, call in calls.items():
+            try:
+                call()
+                missing.append(what)
+            except NotImplementedError:
+                pass
+        return f"no NotImplementedError from {missing}" if missing else ""
+
+    results = {}
+    for name in CASES:
+        t0 = time.perf_counter()
+        try:
+            detail = locals()[f"case_{name}"]()
+        except Exception:  # a case that raises fails alone, with its trace
+            detail = traceback.format_exc()
+        results[name] = {"ok": not detail, "detail": detail,
+                         "seconds": time.perf_counter() - t0}
+    Path(out_path).write_text(json.dumps(results, indent=1))
+
+
+if __name__ == "__main__":
+    _child(sys.argv[1])
