@@ -107,6 +107,13 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               on the same 512 ciphertexts (1 K6 and 1 K7 launch per call,
               decrypt within 2^58), K6 held to its plain version on the
               path's inputs.
+19b. n8192    K8b at N=8192 with 4 primes (SET_3's digits), where its
+              C*P spectra exceed a block and it runs one pass per
+              component: pbs_on_mesh on a (1, 2) mesh of the card with a
+              random key cut to 8 steps on 64 random ciphertexts (16 K8a
+              and 8 K8b launches, words equal to K1's bootstrap); K8b timed
+              on the path's first step beside its bound and its plain
+              version, and held to it on 4 random partials (bit-exact).
  20. torus32  the 32-bit torus, in a child interpreter (this script with
               --torus32 and MOSFHET_TORUS_BITS=32): K1's and K2's one-limb
               forms against their plain versions on random inputs; then
@@ -117,10 +124,23 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               (1 K2 launch, within 2^27), fdfb_this_work at precision 3 (2
               K1 and 1 K2 launches per call, within 2^26); K1 and K2 timed on
               the path's own inputs beside their bounds and plain versions
-              (bit-exact).  The child's failure fails the script.
+              (bit-exact).  Then the one-limb K3, K4, K5, K8a and K8b on
+              their paths: the u=4 keygen (seconds, bytes) and PBS of the
+              same 512 ciphertexts (1 K4 launch per call, decrypt within
+              2^28); UBR at u=4 (one ciphertext, 256 LUTs: 1 K5 and 1 K3
+              launch, every LUT within 2^28); trgsw.external_product on 512
+              TRLWEs, broadcast and per row (1 K3 launch each, within
+              2^26); pbs_on_mesh on (1, 2), (1, 3) and (2, 2) meshes of the
+              card (J = 6 rows split over 2 or 3 shards; exact K8a and K8b
+              counts, words equal to the one-limb K1 path's); each kernel
+              timed on its path's own inputs beside its bound and its plain
+              version (bit-exact); unfolded_pbs_on_mesh at model 2 on 32
+              ciphertexts, equal to the K4 path's words.  The child's
+              failure fails the script.
  21. report   the pbs, gate, fdfb, unfolded, ubr, extprod, ga, trlweks,
-              mesh, set3 and torus32 lines, the card line, the kernels line,
-              and the result line last.
+              mesh, set3 and torus32 lines, the card line, the kernels line
+              (the one-limb forms as `<kernel>/torus32`, K8b at N=8192 as
+              `finish_step/n8192`), and the result line last.
 
 Imports nothing but PyTorch, numpy and the port.
 """
@@ -153,7 +173,7 @@ INT32_LANES_PER_SM = 64     # Hopper SM: 64 INT32 units (Hopper white paper)
 SHOUP_MULTIPLIES = 3        # one Shoup product: mulhi + two 32-bit multiplies
 BARRETT_MULTIPLIES = 4      # a runtime-key product: mul, two mulhi, mul
 CENTRED_SHOUP = 2           # a u64 word to one centred residue: two Shoup
-U64_ADD_OPS = 2             # a u64 add as INT32 operations
+U64_ADD_OPS = 2             # a u64 add as INT32 operations (a u32 add: 1)
 RUNTIME_KEY_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT "
                             "external product or an unfolded combine")
 KERNELS = ("blind_rotate_scan", "tlwe_keyswitch_sum", "ext_product_apply_scan",
@@ -177,6 +197,16 @@ DECRYPT_BOUND_32 = 2.0**26   # bench_torus32.py:45,54
 # ~2^-8.26 of the torus, ~2^23.7 in u32 words; 2^27 is ~10 sigma.
 KS_DECRYPT_BOUND_32 = 2.0**27
 TORUS32_TIMEOUT_S = 600
+# The unfolded bootstrap and UBR at L2_32 (u=4): summing 2^u key products
+# multiplies the per-group noise by ~2^(u/2) over n/u groups, ~2^26-2^27
+# expected; 2^28 is half the 2^29 slot spacing of a 4-slot LUT.
+UNFOLDED_BOUND_32 = 2.0**28
+# (data, model) meshes of the card at L2_32, whose J = 6 gadget rows split
+# over 2 or 3 model shards (not 4)
+MESH_SHAPES_32 = ((1, 2), (1, 3), (2, 2))
+# K8b at N=8192 with 4 primes (SET_3's digits): a random key cut to this
+# depth, this many random ciphertexts, on a (1, 2) mesh of the card
+N8192_DEPTH, N8192_BATCH = 8, 64
 # No PyTorch call computes the key-switch select-sum on int64 CUDA tensors.
 KS_LIBRARY_NOTE = ("none: torch.sparse.mm of the one-hot digits and the "
                    "table raises \"addmm_sparse_cuda\" not implemented for "
@@ -286,6 +316,17 @@ def butterflies(kp, rows):
     return rows * (kp.N // 2) * int(math.log2(kp.N))
 
 
+def word_bytes(kp):
+    """Bytes of one torus word at the plan's width (8 or 4)."""
+    return kp.torus_bits // 8
+
+
+def word_ops(kp):
+    """INT32 operations of a word add, and Shoup products of a word's
+    centred residue, at the plan's width: (2, 2) for u64, (1, 1) for u32."""
+    return (U64_ADD_OPS, CENTRED_SHOUP) if kp.torus_bits == 64 else (1, 1)
+
+
 def apply_scan_bound(kp, B, G, per_row, max_clock_mhz):
     """K3, per ciphertext and step: J*P digit and C*P inverse NTTs (one
     Shoup product per butterfly), J*C*P*N Barrett products, one Garner
@@ -294,32 +335,37 @@ def apply_scan_bound(kp, B, G, per_row, max_clock_mhz):
     shoup = butterflies(kp, J * P + C * P) + C * N
     ops = (SHOUP_MULTIPLIES * shoup + BARRETT_MULTIPLIES * J * C * P * N) \
         * B * G
-    nbytes = G * (B if per_row else 1) * J * C * P * N * 4 + 2 * B * C * N * 8
+    nbytes = (G * (B if per_row else 1) * J * C * P * N * 4
+              + 2 * B * C * N * word_bytes(kp))
     return ops_bytes_bound(ops, nbytes, max_clock_mhz)
 
 
 def unfolded_bound(kp, B, G, M, max_clock_mhz):
     """K4, per ciphertext and group: J*P digit, J*C*P key and C*P inverse
     NTTs, J*C*P*N centred reductions (two Shoup products each) and Barrett
-    products, J*C*N*M u64 rotate-adds, one Garner product per word; bytes:
+    products, J*C*N*M word rotate-adds, one Garner product per word; bytes:
     the key products read once, acc in and out, the exponents."""
     J, C, P, N = kp.J, kp.C, kp.P, kp.N
+    add_ops, centred = word_ops(kp)
     shoup = (butterflies(kp, J * P + J * C * P + C * P)
-             + CENTRED_SHOUP * J * C * P * N + C * N)
+             + centred * J * C * P * N + C * N)
     ops = (SHOUP_MULTIPLIES * shoup + BARRETT_MULTIPLIES * J * C * P * N
-           + U64_ADD_OPS * J * C * N * M) * B * G
-    nbytes = G * M * J * C * N * 8 + 2 * B * C * N * 8 + B * G * M * 4
+           + add_ops * J * C * N * M) * B * G
+    nbytes = ((G * M * J * C * N + 2 * B * C * N) * word_bytes(kp)
+              + B * G * M * 4)
     return ops_bytes_bound(ops, nbytes, max_clock_mhz)
 
 
 def ubr_phase1_bound(kp, B, G, M, max_clock_mhz):
     """K5, per ciphertext and group: J*C*P key NTTs, J*C*P*N centred
-    reductions, J*C*N*M u64 rotate-adds; bytes: the key products read once,
+    reductions, J*C*N*M word rotate-adds; bytes: the key products read once,
     the exponents, the u32 output."""
     J, C, P, N = kp.J, kp.C, kp.P, kp.N
-    shoup = butterflies(kp, J * C * P) + CENTRED_SHOUP * J * C * P * N
-    ops = (SHOUP_MULTIPLIES * shoup + U64_ADD_OPS * J * C * N * M) * B * G
-    nbytes = G * M * J * C * N * 8 + B * G * M * 4 + B * G * J * C * P * N * 4
+    add_ops, centred = word_ops(kp)
+    shoup = butterflies(kp, J * C * P) + centred * J * C * P * N
+    ops = (SHOUP_MULTIPLIES * shoup + add_ops * J * C * N * M) * B * G
+    nbytes = (G * M * J * C * N * word_bytes(kp) + B * G * M * 4
+              + B * G * J * C * P * N * 4)
     return ops_bytes_bound(ops, nbytes, max_clock_mhz)
 
 
@@ -390,8 +436,8 @@ def partial_step_bound(kp, B, j_local, max_clock_mhz):
     exponents, the key rows and their companions, the partial out."""
     C, P, N = kp.C, kp.P, kp.N
     shoup = butterflies(kp, j_local * P) + j_local * C * P * N
-    nbytes = (B * C * N * 8 + B * 4 + 2 * j_local * C * P * N * 4
-              + B * C * P * N * 4)
+    nbytes = (B * C * N * word_bytes(kp) + B * 4
+              + 2 * j_local * C * P * N * 4 + B * C * P * N * 4)
     out = ops_bytes_bound(SHOUP_MULTIPLIES * shoup * B, nbytes, max_clock_mhz)
     out["products_per_ciphertext"] = shoup
     return out
@@ -403,7 +449,7 @@ def finish_step_bound(kp, B, m, max_clock_mhz):
     out."""
     C, P, N = kp.C, kp.P, kp.N
     shoup = butterflies(kp, C * P) + C * N
-    nbytes = m * B * C * P * N * 4 + 2 * B * C * N * 8
+    nbytes = m * B * C * P * N * 4 + 2 * B * C * N * word_bytes(kp)
     out = ops_bytes_bound(SHOUP_MULTIPLIES * shoup * B, nbytes, max_clock_mhz)
     out["products_per_ciphertext"] = shoup
     return out
@@ -496,11 +542,14 @@ def sparse_select_sum(dig, ab):
             "torch.sparse.mm of the one-hot digits by the table rows")
 
 
-def placement(pk, kernel, kp, **kw):
+def placement(pk, kernel, kp, source=None, **kw):
     """Where ``kernel``'s buffers live at ``kp``'s shape on this card, as
-    the wrapper places them: S shared, W workspace, I in place."""
+    the wrapper places them: S shared, W workspace, I in place (for K8b's
+    second buffer: left out, one pass per component).  ``source``: the
+    kernel's csrc file, when it is not ``kernel``."""
     layout, stride = pk.kernel_layout(kernel, kp,
-                                      pk._smem_budget(kernel, 0), **kw)
+                                      pk._smem_budget(source or kernel, 0),
+                                      **kw)
     where = "".join("S" if o >= 0 else "I" if o == -1 else "W"
                     for o in layout[2:])
     return {"where": where, "smem_bytes": int(layout[0]),
@@ -713,6 +762,81 @@ def set3_phase(dev, max_clock):
     return report, k1_entry, runs
 
 
+def n8192_phase(dev, max_clock):
+    """Phase 19b: K8b at N=8192 with 4 primes (SET_3's digits, 64-bit
+    torus), whose C*P spectra (256 KiB) exceed a block: pbs_on_mesh on a
+    (1, 2) mesh of the card with a random key cut to N8192_DEPTH steps, on
+    N8192_BATCH random ciphertexts, word-equal to K1's bootstrap; then K8b
+    on that path's first step, and on 4 random partials, held to its plain
+    version.  Returns the K8b entry of the kernels line."""
+    from mosfhet_torch import bootstrap, ntt, trlwe
+    from mosfhet_torch.ops import pbs_kernel as pk
+    from mosfhet_torch.parallel import mesh as pmesh
+    from mosfhet_torch.tlwe import TLWE
+
+    N, k, l, Bg_bit, n, B = 8192, 1, 1, 22, N8192_DEPTH, N8192_BATCH
+    primes = ntt.primes_for_bound(ntt.external_product_bound(N, Bg_bit, l, k))
+    kp = pk.get_kernel_plan(N, primes, l, Bg_bit, k, dev)
+    if kp.P != 4:
+        fail(f"N=8192 plan has {kp.P} primes, want 4")
+    rs = np.random.default_rng(SEED + 8192)
+    C, J, P = kp.C, kp.J, kp.P
+    kv = random_residues_i32(rs, (n, J, C, P, N), primes, dev)
+    kvs = pk.u32_as_i32(torch.div(pk.i32_as_u32(kv) << 32, kp.ntt.p[:, None],
+                                  rounding_mode="floor"))
+    bk = bootstrap.BootstrapKey(kv, kvs, n, k, N, l, Bg_bit, primes)
+    c = TLWE(a=random_u64(rs, (B, n), dev), b=random_u64(rs, (B,), dev))
+    tv = trlwe.torus_packing(random_u64(rs, (4,), dev), k, N)
+    want = bootstrap.functional_bootstrap(tv, c, bk, 4)
+    run = pmesh.pbs_on_mesh(pmesh.make_mesh([dev] * 2, data=1, model=2),
+                            bk, 4)
+    zero_counts(pk)
+    got = run(tv, c)
+    torch.cuda.synchronize()
+    counts = read_counts(pk)
+    check_counts("N=8192 pbs_on_mesh (1 x 2)", counts,
+                 {"partial_step": 2 * n, "finish_step": n})
+    if not (torch.equal(got.a, want.a) and torch.equal(got.b, want.b)):
+        fail("N=8192 pbs_on_mesh (1 x 2) != K1's bootstrap")
+    acc_in, a_int, _ = bootstrap.blind_rotate_inputs(
+        bootstrap.rotate_test_vector(tv, c, bk, 4), c.a, bk)
+    parts = torch.empty((2, B, C, P, N), dtype=torch.int32, device=dev)
+    jl = J // 2
+    for sh in range(2):
+        pk.partial_step(acc_in, a_int[0].contiguous(), sh * jl,
+                        kv[0, sh * jl:(sh + 1) * jl].contiguous(),
+                        kvs[0, sh * jl:(sh + 1) * jl].contiguous(), kp,
+                        out=parts[sh])
+    acc_f = acc_in.clone()
+    k8b_ms, _ = cuda_ms(lambda: pk.finish_step(acc_f, parts, kp), TP_REPS)
+    acc_k = pk.finish_step(acc_in.clone(), parts, kp)
+    plain_ms, acc_p = cuda_ms(
+        lambda: pk.finish_step_plain(acc_in.clone(), parts, kp), 1)
+    same_or_fail("K8b at N=8192 on the path's inputs", acc_k, acc_p)
+    parts4 = random_residues_i32(rs, (4, B, C, P, N), primes, dev)
+    parts4[:, 0, 0, :, 0] = pk.u32_as_i32(kp.ntt.p - 1)
+    same_or_fail("K8b at N=8192 on 4 random partials",
+                 pk.finish_step(acc_in.clone(), parts4, kp),
+                 pk.finish_step_plain(acc_in.clone(), parts4, kp))
+    bound = finish_step_bound(kp, B, 2, max_clock)
+    where = placement(pk, "finish_step", kp, source="tp_step")
+    log(f"# N=8192 (P=4) pbs_on_mesh (1 x 2), n={n}, B={B}: {2 * n} K8a + "
+        f"{n} K8b launches, words equal to K1's; K8b placement {where}; K8b "
+        f"{k8b_ms:.4f} ms/launch on 2 partials (mean of {TP_REPS}), plain "
+        f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']}); bit-exact, and on 4 random partials")
+    return {
+        "name": "finish_step/n8192", "route": "cuda",
+        "source": "mosfhet_torch/ops/csrc/tp_step.cu",
+        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:1651",
+        "launches": counts["finish_step"],
+        "launches_by_path": {"mesh_1x2_n8192": counts["finish_step"]},
+        "max_abs_err": 0.0, "bit_exact": True, "ms": k8b_ms,
+        "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "library_ms": None,
+        "library_note": TP_LIBRARY_NOTE, "placement": where, "B": B}
+
+
 def torus32_phase():
     """Phase 20: run this script as a child at the 32-bit torus; relay its
     log; return its report (the last line of its output)."""
@@ -781,8 +905,8 @@ def torus32_main():
     key_tlwe = tlwe.new_binary_key(p.n, p.lwe_sigma, gen, dev)
     key_trlwe = trlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, dev)
     key_out = trlwe.extract_tlwe_key(key_trlwe)
-    bk = bootstrap.new_key(trgsw.new_key(key_trlwe, p.l, p.Bg_bit), key_tlwe,
-                           gen, dev)
+    gk = trgsw.new_key(key_trlwe, p.l, p.Bg_bit)
+    bk = bootstrap.new_key(gk, key_tlwe, gen, dev)
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
     key_bytes = (bk.v32.numel() + bk.vs32.numel()) * 4
@@ -905,6 +1029,9 @@ def torus32_main():
         f"{k2_ms:.3f} + glue {fdfb_ms - 2 * k1_ms - k2_ms:.3f} ms); decrypt "
         f"OK (max err 2^{math.log2(max(fdfb_err, 1.0)):.1f}); peak "
         f"{fdfb_peak / 2**30:.2f} GiB")
+    unfolded = torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe,
+                                key_trlwe, key_out, tv, luts, cs, slots)
+    mesh = torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded)
     print(json.dumps({
         "params": p.name, "batch": BATCH, "primes": list(primes),
         "keygen_s": keygen_s, "key_bytes": key_bytes,
@@ -919,11 +1046,321 @@ def torus32_main():
                  "decrypt_max_err_log2": math.log2(max(fdfb_err, 1.0)),
                  "glue_ms": fdfb_ms - 2 * k1_ms - k2_ms},
         "counts": {"pbs": pbs_counts, "gate": gate_counts,
-                   "fdfb": fdfb_counts},
+                   "fdfb": fdfb_counts, **unfolded.pop("counts"),
+                   **mesh.pop("counts")},
         "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
         "k2": {"ms": k2_ms, "plain_ms": k2_plain_ms, "bound": k2_bound,
-               "library_ms": library_ms, "library_note": library_note}}))
+               "library_ms": library_ms, "library_note": library_note},
+        "kernel_runs": {**unfolded.pop("kernel_runs"),
+                        **mesh.pop("kernel_runs")},
+        **unfolded, "mesh": mesh}))
     return 0
+
+
+def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
+                     key_out, tv, luts, cs, slots):
+    """Phase 20's unfolded paths at L2_32: the u=4 PBS (K4), UBR at u=4
+    (K5, then K3) and the external product (K3), each through its entry
+    point with exact launch counts and a decrypt check, and each kernel
+    held to its plain version on the path's own inputs.  Returns the
+    report, with the paths' counts and the kernels' runs."""
+    from mosfhet_torch import bootstrap, rng, tlwe, torus, trgsw, trlwe
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    runs, counts = {}, {}
+
+    def held(name, kernel_fn, plain_fn, bound, reps=REPS):
+        """The kernel (timed over reps) and its plain version (once) on the
+        same inputs, word for word; returns the kernel's output."""
+        k_ms, got = cuda_ms(kernel_fn, reps)
+        p_ms, want = cuda_ms(plain_fn, 1)
+        same_or_fail(f"{name} vs plain on the path's inputs", got, want)
+        runs[name] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": 0.0,
+                      "bound_ms": bound["bound_ms"],
+                      "bound_by": bound["bound_by"], "bound": bound}
+        return got
+
+    # the u=4 PBS on the PBS's LUT and ciphertexts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bk4 = bootstrap.new_key(gk, key_tlwe, gen, dev, unfolding=U_PBS)
+    torch.cuda.synchronize()
+    keygen4_s = time.perf_counter() - t0
+    su4_bytes = bk4.su.numel() * bk4.su.element_size()
+    if bk4.su.dtype != torch.int32:
+        fail(f"L2_32 unfolded key words are {bk4.su.dtype}")
+    kp4 = bk4.kernel_plan()
+    log(f"# L2_32 unfolded keygen (u={U_PBS}): {keygen4_s:.3f} s; key "
+        f"{tuple(bk4.su.shape)} u32 = {su4_bytes} B; K4 placement "
+        f"{placement(pk, 'unfolded_rotate', kp4, M=1 << U_PBS)}")
+    zero_counts(pk)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out4 = bootstrap.functional_bootstrap(tv, cs, bk4, 4)
+    torch.cuda.synchronize()
+    first4_s = time.perf_counter() - t0
+    ub_ms, out4b = cuda_ms(
+        lambda: bootstrap.functional_bootstrap(tv, cs, bk4, 4), REPS)
+    counts["unfolded"] = read_counts(pk)
+    ub_peak = torch.cuda.max_memory_allocated()
+    check_counts(f"L2_32 unfolded path over {1 + REPS} calls",
+                 counts["unfolded"], {"unfolded_rotate": 1 + REPS})
+    if out4.a.shape != (BATCH, p.k * p.N) or out4.a.dtype != torch.int32 \
+            or not (torch.equal(out4.a, out4b.a)
+                    and torch.equal(out4.b, out4b.b)):
+        fail("L2_32 unfolded PBS: wrong shape or dtype, or calls differ")
+    err4 = signed_max_abs(tlwe.phase(out4, key_out) - luts[slots])
+    log(f"# L2_32 unfolded decrypt: max error "
+        f"2^{math.log2(max(err4, 1.0)):.2f} (bound "
+        f"2^{math.log2(UNFOLDED_BOUND_32):.0f})")
+    if not err4 < UNFOLDED_BOUND_32:
+        fail(f"L2_32 unfolded decrypt: max error 2^{math.log2(err4):.2f}")
+    acc_in4, rot4, _ = bootstrap.unfolded_rotate_inputs(
+        bootstrap.rotate_test_vector(tv, cs, bk4, 4), cs.a, bk4)
+    G4, M4 = bk4.su.shape[0], bk4.su.shape[1]
+    acc_k4 = held("unfolded_rotate",
+                  lambda: pk.unfolded_rotate(acc_in4, rot4, bk4.su, kp4),
+                  lambda: pk.unfolded_rotate_plain(acc_in4, rot4, bk4.su, kp4),
+                  unfolded_bound(kp4, BATCH, G4, M4, max_clock))
+    ext4 = trlwe.extract_tlwe(trlwe.from_stacked(acc_k4), 0)
+    if not (torch.equal(ext4.a, out4.a) and torch.equal(ext4.b, out4.b)):
+        fail("L2_32 unfolded PBS output != extract of K4's rotation")
+    k4 = runs["unfolded_rotate"]
+    log(f"# L2_32 unfolded PBS (u={U_PBS}, G={G4}, M={M4}): first call "
+        f"{first4_s:.3f} s; warm {ub_ms:.3f} ms per batch of {BATCH} = "
+        f"{BATCH / ub_ms * 1e3:.2f} boot/s; peak {ub_peak / 2**30:.2f} GiB; "
+        f"K4 {k4['ms']:.3f} ms/launch, plain {k4['plain_ms']:.3f} ms, bound "
+        f"{k4['bound_ms']:.3f} ms ({k4['bound_by']}); bit-exact")
+    del acc_in4, rot4, acc_k4
+
+    # UBR at u=4: one ciphertext of m = 2/8, UBR_LUTS random 4-slot LUTs
+    c1 = tlwe.encrypt(torus.double2torus(2 / 8.0, dev), key_tlwe, gen)
+    lut_vals = rng.uniform_torus(gen, (UBR_LUTS, 4), dev)
+    tvs = trlwe.torus_packing(lut_vals, p.k, p.N)
+    zero_counts(pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sa = bootstrap.multivalue_bootstrap_UBR_phase1(c1, bk4)
+    torch.cuda.synchronize()
+    ph1_s = time.perf_counter() - t0
+    counts["ubr_phase1"] = read_counts(pk)
+    check_counts("L2_32 UBR phase 1", counts["ubr_phase1"],
+                 {"ubr_phase1_combine": 1})
+    zero_counts(pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_u = bootstrap.multivalue_bootstrap_UBR_phase2(tvs, c1, sa, bk4, 4)
+    torch.cuda.synchronize()
+    ph2_s = time.perf_counter() - t0
+    counts["ubr_phase2"] = read_counts(pk)
+    check_counts("L2_32 UBR phase 2", counts["ubr_phase2"],
+                 {"ext_product_apply_scan": 1})
+    if out_u.a.shape != (UBR_LUTS, p.k * p.N) or out_u.a.dtype != torch.int32:
+        fail(f"L2_32 UBR output {tuple(out_u.a.shape)} {out_u.a.dtype}")
+    ubr_err = signed_max_abs(tlwe.phase(out_u, key_out) - lut_vals[:, 2])
+    log(f"# L2_32 UBR decrypt: max error over {UBR_LUTS} LUTs "
+        f"2^{math.log2(max(ubr_err, 1.0)):.2f} (bound "
+        f"2^{math.log2(UNFOLDED_BOUND_32):.0f})")
+    if not ubr_err < UNFOLDED_BOUND_32:
+        fail(f"L2_32 UBR decrypt: max error 2^{math.log2(ubr_err):.2f}")
+    rot_u, _ = bootstrap.ubr_phase1_inputs(c1, bk4)
+    sa_k = held("ubr_phase1_combine",
+                lambda: pk.ubr_phase1_combine(bk4.su, rot_u, kp4),
+                lambda: pk.ubr_phase1_combine_plain(bk4.su, rot_u, kp4),
+                ubr_phase1_bound(kp4, 1, G4, M4, max_clock))
+    if not torch.equal(pk.i32_as_u32(sa_k[0]), sa.v):
+        fail("L2_32 UBR phase 1 output != K5's words")
+    acc_u, sa32, per_row, _ = bootstrap.ubr_phase2_inputs(tvs, c1, sa, bk4, 4)
+    acc_k3 = held("ext_product_apply_scan",
+                  lambda: pk.ext_product_apply_scan(acc_u, sa32, kp4, per_row),
+                  lambda: pk.ext_product_apply_scan_plain(acc_u, sa32, kp4,
+                                                          per_row),
+                  apply_scan_bound(kp4, UBR_LUTS, G4, per_row, max_clock))
+    ext_u = trlwe.extract_tlwe(trlwe.from_stacked(acc_k3), 0)
+    if not (torch.equal(ext_u.a, out_u.a) and torch.equal(ext_u.b, out_u.b)):
+        fail("L2_32 UBR phase 2 output != extract of K3's products")
+    k5, k3 = runs["ubr_phase1_combine"], runs["ext_product_apply_scan"]
+    log(f"# L2_32 UBR (u={U_PBS}, G={G4}, M={M4}): phase 1 first call "
+        f"{ph1_s * 1e3:.3f} ms, K5 {k5['ms']:.3f} ms/launch (plain "
+        f"{k5['plain_ms']:.3f}, bound {k5['bound_ms']:.4f} {k5['bound_by']});"
+        f" phase 2 of {UBR_LUTS} LUTs first call {ph2_s * 1e3:.3f} ms, K3 "
+        f"{k3['ms']:.3f} ms/launch = {k3['ms'] / UBR_LUTS:.4f} ms per LUT "
+        f"(plain {k3['plain_ms']:.3f}, bound {k3['bound_ms']:.4f} "
+        f"{k3['bound_by']}); bit-exact")
+    del sa, sa_k, sa32, acc_u, acc_k3, rot_u
+
+    # trgsw.external_product on BATCH TRLWEs: one TRGSW broadcast, one per
+    # row
+    m_ep = rng.uniform_torus(gen, (BATCH, p.N), dev)
+    c_ep = trlwe.encrypt(m_ep, key_trlwe, gen)
+    e_ep = (torch.arange(BATCH, device=dev) * 7) % (2 * p.N)
+    g_all = trgsw.to_dft(trgsw.monomial_encrypt(
+        torch.ones(BATCH, dtype=torch.int64, device=dev), e_ep, gk, gen),
+        gk.plan(), with_shoup=False)
+    g_one = trgsw.TRGSWDFT(v=g_all.v[5], vs=None, l=p.l, Bg_bit=p.Bg_bit,
+                           primes=g_all.primes)
+    ep = {}
+    for mode, g, e in (("broadcast", g_one, e_ep[5]),
+                       ("per_row", g_all, e_ep)):
+        zero_counts(pk)
+        out_ep = trgsw.external_product(c_ep, g)
+        torch.cuda.synchronize()
+        counts[f"extprod_{mode}"] = read_counts(pk)
+        check_counts(f"L2_32 external product ({mode})",
+                     counts[f"extprod_{mode}"], {"ext_product_apply_scan": 1})
+        zero_counts(pk)
+        with plain_kernels(pk):
+            plain_ep_ms, out_p = cuda_ms(
+                lambda: trgsw.external_product(c_ep, g), 1)
+        check_counts(f"plain L2_32 external product ({mode})",
+                     read_counts(pk), {"ext_product_apply_scan_plain": 1})
+        if out_ep.b.dtype != torch.int32 or not (
+                torch.equal(out_ep.a, out_p.a)
+                and torch.equal(out_ep.b, out_p.b)):
+            fail(f"L2_32 external product ({mode}) != plain")
+        want = trlwe.mul_by_xai(trlwe.noiseless_trivial(m_ep, p.k, p.N), e).b
+        ep_err = signed_max_abs(trlwe.phase(out_ep, key_trlwe) - want)
+        if not ep_err < DECRYPT_BOUND_32:
+            fail(f"L2_32 external product ({mode}) decrypt: max error "
+                 f"2^{math.log2(ep_err):.2f} >= 2^26")
+        ep_ms, _ = cuda_ms(lambda: trgsw.external_product(c_ep, g), REPS)
+        ep[mode] = {"ms": ep_ms, "plain_ms": plain_ep_ms,
+                    "launches": counts[f"extprod_{mode}"][
+                        "ext_product_apply_scan"],
+                    "decrypt_max_err_log2": math.log2(max(ep_err, 1.0)),
+                    "bound": apply_scan_bound(kp4, BATCH, 1,
+                                              mode == "per_row", max_clock)}
+        log(f"# L2_32 external_product ({mode}) on {BATCH} TRLWEs: "
+            f"{ep_ms:.3f} ms per call, plain {plain_ep_ms:.3f} ms, bound "
+            f"{ep[mode]['bound']['bound_ms']:.4f} ms; 1 K3 launch; bit-exact;"
+            f" decrypt OK (max err 2^{ep[mode]['decrypt_max_err_log2']:.2f})")
+    del g_all, g_one, c_ep, m_ep, out_ep, out_p
+    return {"counts": counts, "kernel_runs": runs, "bk4": bk4, "out4": out4,
+            "unfolded": {"unfolding": U_PBS, "keygen_s": keygen4_s,
+                         "key_bytes": su4_bytes, "first_call_s": first4_s,
+                         "warm_ms": ub_ms, "boot_per_s": BATCH / ub_ms * 1e3,
+                         "peak_bytes": ub_peak,
+                         "decrypt_max_err_log2": math.log2(max(err4, 1.0)),
+                         "glue_ms": ub_ms - k4["ms"]},
+            "ubr": {"unfolding": U_PBS, "luts": UBR_LUTS,
+                    "phase1_first_ms": ph1_s * 1e3, "phase1_ms": k5["ms"],
+                    "phase2_first_ms": ph2_s * 1e3, "phase2_ms": k3["ms"],
+                    "phase2_ms_per_lut": k3["ms"] / UBR_LUTS,
+                    "decrypt_max_err_log2": math.log2(max(ubr_err, 1.0))},
+            "extprod": ep}
+
+
+def torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded):
+    """Phase 20's sharded paths at L2_32: pbs_on_mesh on MESH_SHAPES_32
+    meshes of the card through the one-limb K8a and K8b (exact counts,
+    words equal to the one-limb K1 path's ``out``), K8a and K8b held to
+    their plain versions on the (1, 2) mesh's first step, then
+    unfolded_pbs_on_mesh at model 2 on MESH_CUT ciphertexts, equal to the
+    u=4 path's words.  Takes the u=4 key and output out of ``unfolded``."""
+    from mosfhet_torch import bootstrap, tlwe
+    from mosfhet_torch.ops import pbs_kernel as pk
+    from mosfhet_torch.parallel import mesh as pmesh
+
+    report, counts, runs = {}, {}, {}
+    for data, model in MESH_SHAPES_32:
+        name = f"mesh_{data}x{model}"
+        run = pmesh.pbs_on_mesh(pmesh.make_mesh([dev] * (data * model),
+                                                data=data, model=model),
+                                bk, 4)
+        zero_counts(pk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_m = run(tv, cs)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        mesh_ms, out_m2 = cuda_ms(lambda: run(tv, cs), REPS)
+        counts[name] = read_counts(pk)
+        calls = 1 + REPS
+        check_counts(f"L2_32 {name} over {calls} calls", counts[name],
+                     {"partial_step": calls * bk.n * data * model,
+                      "finish_step": calls * bk.n * data})
+        for o in (out_m, out_m2):
+            if not (torch.equal(o.a, out.a) and torch.equal(o.b, out.b)):
+                fail(f"L2_32 {name} output != the one-limb K1 path's")
+        report[name] = {"data": data, "model": model,
+                        "first_call_s": first_s, "warm_ms": mesh_ms,
+                        "boot_per_s": BATCH / mesh_ms * 1e3,
+                        "launches_per_call": {k: v // calls for k, v in
+                                              counts[name].items() if v}}
+        log(f"# L2_32 pbs_on_mesh ({data} x {model}): first call "
+            f"{first_s:.3f} s; warm {mesh_ms:.3f} ms per batch of {BATCH} = "
+            f"{BATCH / mesh_ms * 1e3:.2f} boot/s; words equal to the one-limb"
+            f" K1 path's; launches per call "
+            f"{report[name]['launches_per_call']}")
+        del run, out_m, out_m2
+    # K8a and K8b alone on the (1, 2) mesh's first step: the path's inputs
+    kp = bk.kernel_plan()
+    acc_in, a_int, _ = bootstrap.blind_rotate_inputs(
+        bootstrap.rotate_test_vector(tv, cs, bk, 4), cs.a, bk)
+    jl = kp.J // 2
+    tp_args = [(acc_in, a_int[0].contiguous(), s * jl,
+                bk.v32[0, s * jl:(s + 1) * jl].contiguous(),
+                bk.vs32[0, s * jl:(s + 1) * jl].contiguous(), kp)
+               for s in range(2)]
+    parts = torch.empty((2, BATCH, kp.C, kp.P, kp.N), dtype=torch.int32,
+                        device=dev)
+    pk.partial_step(*tp_args[1], out=parts[1])
+    k8a_bound = partial_step_bound(kp, BATCH, jl, max_clock)
+    k8a_ms, _ = cuda_ms(lambda: pk.partial_step(*tp_args[0], out=parts[0]),
+                        TP_REPS)
+    k8a_plain_ms, part_p = cuda_ms(
+        lambda: pk.partial_step_plain(*tp_args[0]), 1)
+    same_or_fail("K8a/torus32 on the path's inputs (shard 0)", parts[0],
+                 part_p)
+    same_or_fail("K8a/torus32 on the path's inputs (shard 1)", parts[1],
+                 pk.partial_step_plain(*tp_args[1]))
+    acc_f = acc_in.clone()
+    k8b_ms, _ = cuda_ms(lambda: pk.finish_step(acc_f, parts, kp), TP_REPS)
+    acc_k8 = pk.finish_step(acc_in.clone(), parts, kp)
+    k8b_plain_ms, acc_p8 = cuda_ms(
+        lambda: pk.finish_step_plain(acc_in.clone(), parts, kp), 1)
+    same_or_fail("K8b/torus32 on the path's inputs", acc_k8, acc_p8)
+    one_step = pk.blind_rotate_scan(acc_in, a_int[:1].contiguous(),
+                                    bk.v32[:1], bk.vs32[:1], kp)
+    same_or_fail("K8a x 2 + K8b vs one K1 step at L2_32", acc_k8, one_step)
+    k8b_bound = finish_step_bound(kp, BATCH, 2, max_clock)
+    for name, ms, plain_ms, bound in (
+            ("partial_step", k8a_ms, k8a_plain_ms, k8a_bound),
+            ("finish_step", k8b_ms, k8b_plain_ms, k8b_bound)):
+        runs[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": 0.0,
+                      "bound_ms": bound["bound_ms"],
+                      "bound_by": bound["bound_by"], "bound": bound}
+    log(f"# L2_32 partial_step (K8a) at B={BATCH}, {jl} key rows: kernel "
+        f"{k8a_ms:.4f} ms/launch (mean of {TP_REPS}), plain "
+        f"{k8a_plain_ms:.3f} ms, bound {k8a_bound['bound_ms']:.4f} ms "
+        f"({k8a_bound['bound_by']}); finish_step (K8b) on 2 partials: "
+        f"{k8b_ms:.4f} ms/launch, plain {k8b_plain_ms:.3f} ms, bound "
+        f"{k8b_bound['bound_ms']:.4f} ms ({k8b_bound['bound_by']}); "
+        f"bit-exact; 2 K8a + K8b = one K1 step, word for word")
+    del tp_args, parts, part_p, acc_f, acc_k8, acc_p8, one_step, acc_in
+    # the unfolded route at model 2 (plain PyTorch, no kernel launch)
+    bk4, out4 = unfolded.pop("bk4"), unfolded.pop("out4")
+    n_cut = min(MESH_CUT, BATCH)
+    c_cut = tlwe.TLWE(a=cs.a[:n_cut].contiguous(),
+                      b=cs.b[:n_cut].contiguous())
+    zero_counts(pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pmesh.unfolded_pbs_on_mesh(
+        pmesh.make_mesh([dev] * 2, data=1, model=2), bk4, 4,
+        model_axis="model")(tv, c_cut)
+    torch.cuda.synchronize()
+    route_s = time.perf_counter() - t0
+    check_counts("L2_32 unfolded_pbs_on_mesh (1 x 2)", read_counts(pk), {})
+    if not (torch.equal(got.a, out4.a[:n_cut])
+            and torch.equal(got.b, out4.b[:n_cut])):
+        fail("L2_32 unfolded_pbs_on_mesh (1 x 2) != the K4 path's words")
+    log(f"# L2_32 unfolded_pbs_on_mesh (1 x 2, plain PyTorch) on {n_cut} "
+        f"ciphertexts: {route_s:.3f} s; words equal to the K4 path's")
+    report["unfolded_route"] = {"s": route_s, "ciphertexts": n_cut}
+    report.update(counts=counts, kernel_runs=runs)
+    return report
 
 
 def main():
@@ -1674,6 +2111,9 @@ def main():
     # 19. SET_3, with buffers beyond shared memory
     set3, k1_set3, set3_runs = set3_phase(dev, max_clock)
 
+    # 19b. K8b at N=8192 with 4 primes, one pass per component
+    k8b_n8192 = n8192_phase(dev, max_clock)
+
     # 20. the 32-bit torus, in a child interpreter
     t32 = torus32_phase()
 
@@ -1786,6 +2226,7 @@ def main():
         if runs3:
             entry["set3"] = runs3
     kernels.append(k1_set3)
+    kernels.append(k8b_n8192)
     c32 = t32["counts"]
     kernels += [{
         "name": "blind_rotate_scan/torus32", "route": "cuda",
@@ -1812,6 +2253,29 @@ def main():
         "library_ms": t32["k2"]["library_ms"],
         "library_note": t32["k2"]["library_note"],
     }]
+    # the one-limb K3, K4, K5, K8a and K8b on their L2_32 paths
+    for name, source, line, note in (
+            ("ext_product_apply_scan", "ext_product_apply.cu", 1944,
+             RUNTIME_KEY_LIBRARY_NOTE),
+            ("unfolded_rotate", "unfolded_rotate.cu", 3123,
+             RUNTIME_KEY_LIBRARY_NOTE),
+            ("ubr_phase1_combine", "ubr_phase1.cu", 2881,
+             RUNTIME_KEY_LIBRARY_NOTE),
+            ("partial_step", "tp_step.cu", 1536, TP_LIBRARY_NOTE),
+            ("finish_step", "tp_step.cu", 1651, TP_LIBRARY_NOTE)):
+        r = t32["kernel_runs"][name]
+        by = {f"{path}32": c[name] for path, c in c32.items() if c[name]}
+        if not by:
+            fail(f"{name}/torus32 was launched no time on its paths")
+        kernels.append({
+            "name": f"{name}/torus32", "route": "cuda",
+            "source": f"mosfhet_torch/ops/csrc/{source}",
+            "replaces": f"mosfhet_tpu/ops/pbs_kernel.py:{line}",
+            "launches": sum(by.values()), "launches_by_path": by,
+            "max_abs_err": r["max_abs_err"], "bit_exact": True,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "library_note": note})
     log(json.dumps({"pbs": {
         "params": p.name, "batch": BATCH, "keygen_s": keygen_s,
         "first_call_s": first_s, "warm_ms": pbs_ms,
@@ -1868,7 +2332,7 @@ def main():
         "plain_routes": plain_routes}}))
     log(json.dumps({"set3": set3}))
     log(json.dumps({"torus32": {key: t32[key] for key in t32
-                                if key != "counts"}}))
+                                if key not in ("counts", "kernel_runs")}}))
     log(f"# whole script: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

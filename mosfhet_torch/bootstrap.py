@@ -6,11 +6,9 @@ bootstrap "this work" and the UBR multi-value bootstrap
 The reference's `if a_i == 0: continue` branch is dropped: X^0 - 1 = 0, so
 the dense CMUX adds exactly zero.
 
-At the 32-bit torus (``MOSFHET_TORUS_BITS=32``) the unfold=1 path runs:
-`new_key`, `functional_bootstrap`, `programmable_bootstrap` and
-`fdfb_this_work`, through K1's and K2's one-limb forms.  Unfolding and UBR
-at 32 bits (the one-limb K3, K4 and K5) are still to be ported: `new_key`
-with unfolding > 1 raises NotImplementedError there.
+At the 32-bit torus (``MOSFHET_TORUS_BITS=32``) every path here runs on
+int32 words holding u32 bits: `new_key` (unfolded too), the bootstraps,
+`fdfb_this_work` and UBR, through the one-limb forms of K1-K5.
 """
 
 from __future__ import annotations
@@ -44,8 +42,9 @@ class BootstrapKey(nn.Module):
     bits; ``v``/``vs`` give the int64 values.
 
     unfolding == u > 1: the time-domain TRGSWs of the key-bit products
-    (`bootstrap.c:23-48`), ``su`` int64 [n/u, 2^u, (k+1)l, k+1, N] holding
-    u64 words, the layout the unfolded kernels read."""
+    (`bootstrap.c:23-48`), ``su`` [n/u, 2^u, (k+1)l, k+1, N] torus words
+    (int64 holding u64 bits, or int32 holding u32 bits at the 32-bit
+    torus), the layout the unfolded kernels read."""
 
     def __init__(self, v32: torch.Tensor | None, vs32: torch.Tensor | None,
                  n: int, k: int, N: int, l: int, Bg_bit: int, primes,
@@ -77,7 +76,7 @@ class BootstrapKey(nn.Module):
         return (self.su if self.unfolding > 1 else self.v32).device
 
     def su_u64(self):
-        """The key products [n/u, 2^u, (k+1)l, k+1, N] as u64 words."""
+        """The key products [n/u, 2^u, (k+1)l, k+1, N] as torus words."""
         return self.su
 
     def kernel_plan(self) -> _pk.PBSKernelPlan:
@@ -104,7 +103,8 @@ def new_key(out_key: TRGSWKey, in_key: TLWEKey, generator: torch.Generator,
     unfolding 1: TRGSW(s_i) for every input-key coefficient, batched over
     the n keys.  unfolding u > 1: TRGSW of the 2^u key-bit products of each
     group of u coefficients, encrypted in chunks of ``KEYGEN_CHUNK`` straight
-    into the key buffer (n/u * 2^u TRGSWs: 5.3 GB at TFHEpp-L2, u=8).
+    into the key buffer (n/u * 2^u TRGSWs: 5.3 GB at TFHEpp-L2, u=8; 249 MB
+    at L2_32, u=4).
     Computed where the keys live, returned on ``device``."""
     dev = default_device(device)
     l, Bg_bit = out_key.l, out_key.Bg_bit
@@ -121,12 +121,9 @@ def new_key(out_key: TRGSWKey, in_key: TLWEKey, generator: torch.Generator,
         return bk.to(dev)
     if unfolding < 1 or n % unfolding:
         raise ValueError(f"unfolding {unfolding} must divide n = {n}")
-    if TORUS_BITS == 32:
-        raise NotImplementedError("unfolded keys at the 32-bit torus are "
-                                  "still to be ported")
     ms = _unfolded_messages(s, unfolding)
     R = (k + 1) * l
-    su = torch.empty((ms.shape[0], R, k + 1, N), dtype=torch.int64,
+    su = torch.empty((ms.shape[0], R, k + 1, N), dtype=TORUS_DTYPE,
                      device=plan.device)
     for i0 in range(0, ms.shape[0], KEYGEN_CHUNK):
         m = ms[i0:i0 + KEYGEN_CHUNK]
@@ -169,12 +166,12 @@ def _unfold_rotations(a, bk: BootstrapKey):
     rotation; the kernels also take 2N itself."""
     u, M = bk.unfolding, 1 << bk.unfolding
     a_grp = a.reshape(tuple(a.shape[:-1]) + (bk.n // u, 1, u))
-    bits = (torch.arange(M, device=a.device)[:, None]
-            >> torch.arange(u, device=a.device)) & 1           # [M, u]
+    bits = ((torch.arange(M, device=a.device)[:, None]
+             >> torch.arange(u, device=a.device)) & 1).to(a.dtype)  # [M, u]
     sums = (a_grp * bits).unbind(-1)                      # u x [..., G, M]
     total = sums[0]
     for t in sums[1:]:
-        total = total + t                                      # wraps mod 2^64
+        total = total + t                             # wraps mod 2^64 or 2^32
     return torus2int(total, int(math.log2(2 * bk.N))).to(torch.int32)
 
 
@@ -194,9 +191,9 @@ def unfolded_rotate_inputs(tv: TRLWE, a, bk: BootstrapKey):
 def blind_rotate_unfolded(tv: TRLWE, a, bk: BootstrapKey) -> TRLWE:
     """Unfolded blind rotation (`blind_rotate_unfolded`,
     `bootstrap.c:124-148`): per group of u mask coefficients, the 2^u key
-    TRGSWs rotated by X^{sum a} and summed mod 2^64, then one external
-    product.  On CUDA tensors one kernel launch for all groups, on CPU
-    tensors the plain version."""
+    TRGSWs rotated by X^{sum a} and summed mod 2^64 (2^32 at the 32-bit
+    torus), then one external product.  On CUDA tensors one kernel launch
+    for all groups, on CPU tensors the plain version."""
     if bk.unfolding == 1:
         raise ValueError("blind_rotate_unfolded needs an unfolded key")
     acc0, rot, batch = unfolded_rotate_inputs(tv, a, bk)

@@ -115,21 +115,28 @@ def unfolded_bootstrap_key_from_numpy(su_planes, n: int, k: int, N: int,
                                       unfolding: int,
                                       device=None) -> BootstrapKey:
     """An unfolded bootstrap key from the TPU package's u32 limb planes
-    [2, n/u, 2^u, (k+1)l, k+1, N] (plane 0 the low limb), joined into the
-    port's int64 [n/u, 2^u, (k+1)l, k+1, N] u64 words."""
+    [nl, n/u, 2^u, (k+1)l, k+1, N] (plane 0 the low limb): two planes join
+    into the port's int64 [n/u, 2^u, (k+1)l, k+1, N] u64 words, one plane
+    (the 32-bit torus) is its int32 u32 words."""
     planes = np.asarray(su_planes, dtype=np.uint32)
-    if planes.shape[0] != 2:
-        raise ValueError("the port holds 64-bit torus words: want 2 planes, "
+    if planes.shape[0] == 2:
+        su = planes[0].astype(np.uint64) | (planes[1].astype(np.uint64) << 32)
+    elif planes.shape[0] == 1:
+        su = planes[0]
+    else:
+        raise ValueError("want 1 (32-bit torus) or 2 (64-bit) limb planes, "
                          f"got {planes.shape[0]}")
-    su = planes[0].astype(np.uint64) | (planes[1].astype(np.uint64) << 32)
     return BootstrapKey(None, None, n, k, N, l, Bg_bit, primes,
                         su=to_tensor(su, "cpu"),
                         unfolding=unfolding).to(default_device(device))
 
 
 def unfolded_bootstrap_key_to_numpy(bk: BootstrapKey) -> np.ndarray:
-    """The key products as the TPU package's u32 limb planes."""
+    """The key products as the TPU package's u32 limb planes: two for u64
+    words, one for u32 words."""
     su = to_numpy(bk.su)
+    if su.dtype == np.uint32:
+        return su[None]
     return np.stack([(su & np.uint64(0xFFFFFFFF)).astype(np.uint32),
                      (su >> np.uint64(32)).astype(np.uint32)])
 

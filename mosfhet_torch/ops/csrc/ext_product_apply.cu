@@ -1,7 +1,9 @@
 // G replace-mode external products with runtime keys in one launch, for
 // NVIDIA Hopper (sm_90a):
 //
-//   acc <- SA_g (x) acc                 for g = 0 .. G-1, exactly mod 2^64
+//   acc <- SA_g (x) acc                 for g = 0 .. G-1,
+//
+// exactly mod 2^64 (mod 2^32 at the 32-bit torus).
 //
 // Replaces the TPU kernel `_apply_scan_fused` (the TPU package's
 // ops/pbs_kernel.py:1944, reached through `ext_product_apply_scan` :1858,
@@ -17,6 +19,12 @@
 //
 // Keys: [G, J, C, P, N] u32 broadcast over the batch, or [G, B, J, C, P, N]
 // with one key per ciphertext (per_row).
+//
+// At the 32-bit torus (TORUS32) the same body runs on u32 words (the word
+// type W): one limb, the 32-bit gadget offset cast to W once (a u64 offset
+// would widen the sum and shift the digits by 64 bits), and Garner's Horner
+// step mod 2^32 (the TPU kernel's `nl == 1` branches, pbs_kernel.py:1739-1744
+// and :1934-1935).  The NTT side is the same at both widths.
 //
 // Design.  One thread block per ciphertext, as K1 (blind_rotate.cu): the G
 // products are a loop inside the block, with the accumulator (C x N u64),
@@ -42,9 +50,9 @@ namespace {
 constexpr int kThreads = 1024;
 enum { kWork, kSpec, kAcc, kNumBuf };  // buffers, as the wrapper lists them
 
-template <int P, bool S>
+template <int P, typename W, bool S>
 __global__ void __launch_bounds__(kThreads, 1)
-ext_product_apply_kernel(uint64_t* __restrict__ acc_g,
+ext_product_apply_kernel(W* __restrict__ acc_g,
                          const uint32_t* __restrict__ sa,
                          const uint32_t* __restrict__ ftw,
                          const uint32_t* __restrict__ ftws,
@@ -57,9 +65,10 @@ ext_product_apply_kernel(uint64_t* __restrict__ acc_g,
   if (threadIdx.x == 0) K = Kp;
   __syncthreads();
   const int N = K.N, C = K.C, l = K.l, J = K.C * K.l, CN = K.C * K.N;
+  const W offset = W(K.offset);
   const int b = blockIdx.x;
-  uint64_t* acc_b = acc_g + size_t(b) * CN;
-  uint64_t* acc = buffer<S, uint64_t>(L, kAcc, smem, ws, acc_b);  // [C][N]
+  W* acc_b = acc_g + size_t(b) * CN;
+  W* acc = buffer<S, W>(L, kAcc, smem, ws, acc_b);                 // [C][N]
   auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][P][N]
   auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [P][N]
   if (acc != acc_b)
@@ -76,7 +85,7 @@ ext_product_apply_kernel(uint64_t* __restrict__ acc_g,
       // 1. digit row j = (component c_j, digit d) as residues mod each prime
       const int cj = j / l, d = j % l;
       for (int k = threadIdx.x; k < N; k += blockDim.x) {
-        const int digit = gadget_digit(acc[cj * N + k] + K.offset, d, K);
+        const int digit = gadget_digit<W>(acc[cj * N + k] + offset, d, K);
 #pragma unroll
         for (int pi = 0; pi < P; ++pi)
           work[pi * N + k] = small_residue(digit, K.p[pi]);
@@ -99,7 +108,7 @@ ext_product_apply_kernel(uint64_t* __restrict__ acc_g,
     inverse_ntt<P>(spec, C * P, K, itw, itws);
     for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
       const int c = idx >> K.logN, k = idx & (N - 1);
-      acc[idx] = garner<P>(spec + c * P * N, k, K);
+      acc[idx] = garner<P, W>(spec + c * P * N, k, K);
     }
     __syncthreads();
   }
@@ -107,69 +116,64 @@ ext_product_apply_kernel(uint64_t* __restrict__ acc_g,
     for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
 }
 
-template <int P, bool S>
-cudaError_t launch_s(uint64_t* acc, const uint32_t* sa, const uint32_t* ftw,
-                     const uint32_t* ftws, const uint32_t* itw,
-                     const uint32_t* itws, unsigned char* ws,
-                     const PbsConsts& K, const Layout& L, int B, int G,
-                     int per_row, cudaStream_t stream) {
+struct Args {
+  void* acc;
+  const uint32_t *sa, *ftw, *ftws, *itw, *itws;
+  unsigned char* ws;
+  int B, G, per_row;
+  cudaStream_t stream;
+};
+
+template <int P, typename W, bool S>
+cudaError_t launch_s(const Args& x, const PbsConsts& K, const Layout& L) {
   cudaError_t err = cudaFuncSetAttribute(
-      ext_product_apply_kernel<P, S>,
+      ext_product_apply_kernel<P, W, S>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
   if (err != cudaSuccess) return err;
-  ext_product_apply_kernel<P, S><<<B, kThreads, L.smem, stream>>>(
-      acc, sa, ftw, ftws, itw, itws, ws, K, L, B, G, per_row);
+  ext_product_apply_kernel<P, W, S><<<x.B, kThreads, L.smem, x.stream>>>(
+      static_cast<W*>(x.acc), x.sa, x.ftw, x.ftws, x.itw, x.itws, x.ws, K, L,
+      x.B, x.G, x.per_row);
   return cudaGetLastError();
-}
-
-template <int P>
-cudaError_t launch(uint64_t* acc, const uint32_t* sa, const uint32_t* ftw,
-                   const uint32_t* ftws, const uint32_t* itw,
-                   const uint32_t* itws, unsigned char* ws,
-                   const PbsConsts& K, const Layout& L, int B, int G,
-                   int per_row, cudaStream_t stream) {
-  return all_shared(L, kNumBuf)
-             ? launch_s<P, true>(acc, sa, ftw, ftws, itw, itws, ws, K, L, B,
-                                 G, per_row, stream)
-             : launch_s<P, false>(acc, sa, ftw, ftws, itw, itws, ws, K, L, B,
-                                  G, per_row, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// consts: the plan's int64 host array (layout in ntt_common.cuh); layout:
-// the buffer placement (smem bytes, workspace stride, offsets of work, spec,
-// acc); ws: the workspace, B x stride bytes (null when the stride is 0).
-// acc [B, k+1, N] u64 is replaced in place; sa [G, (k+1)l, k+1, P, N] u32
-// canonical residues, or [G, B, (k+1)l, k+1, P, N] when per_row != 0;
-// twiddles [P, N] u32.
+// consts: the plan's int64 host array (layout in ntt_common.cuh), whose
+// gadget offset is of the word width; layout: the buffer placement (smem
+// bytes, workspace stride, offsets of work, spec, acc); ws: the workspace,
+// B x stride bytes (null when the stride is 0).  acc [B, k+1, N] u64 words
+// (word_bits 64) or u32 words (word_bits 32) is replaced in place; sa
+// [G, (k+1)l, k+1, P, N] u32 canonical residues, or [G, B, (k+1)l, k+1, P,
+// N] when per_row != 0; twiddles [P, N] u32.
 int ext_product_apply_launch(void* acc, const void* sa, const void* ftw,
                              const void* ftws, const void* itw,
                              const void* itws, void* ws, const int64_t* consts,
                              const int64_t* layout, int B, int G, int per_row,
-                             void* stream) {
+                             int word_bits, void* stream) {
   PbsConsts K;
   if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
-  const Layout L = parse_layout(layout, kNumBuf);
-  auto* w = static_cast<unsigned char*>(ws);
   if (B == 0 || G == 0) return int(cudaSuccess);
-  auto* a64 = static_cast<uint64_t*>(acc);
-  auto* s = static_cast<const uint32_t*>(sa);
-  auto* f = static_cast<const uint32_t*>(ftw);
-  auto* fs = static_cast<const uint32_t*>(ftws);
-  auto* iv = static_cast<const uint32_t*>(itw);
-  auto* is = static_cast<const uint32_t*>(itws);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (K.P) {
-    case 2: err = launch<2>(a64, s, f, fs, iv, is, w, K, L, B, G, per_row, st); break;
-    case 3: err = launch<3>(a64, s, f, fs, iv, is, w, K, L, B, G, per_row, st); break;
-    case 4: err = launch<4>(a64, s, f, fs, iv, is, w, K, L, B, G, per_row, st); break;
-    default: err = launch<5>(a64, s, f, fs, iv, is, w, K, L, B, G, per_row, st); break;
-  }
-  return int(err);
+  const Args x{acc,
+               static_cast<const uint32_t*>(sa),
+               static_cast<const uint32_t*>(ftw),
+               static_cast<const uint32_t*>(ftws),
+               static_cast<const uint32_t*>(itw),
+               static_cast<const uint32_t*>(itws),
+               static_cast<unsigned char*>(ws),
+               B,
+               G,
+               per_row,
+               static_cast<cudaStream_t>(stream)};
+  const Layout L = parse_layout(layout, kNumBuf);
+  const bool shared = all_shared(L, kNumBuf);
+  return int(dispatch_pw(K.P, word_bits, [&](auto p, auto w) {
+    using W = decltype(w);
+    constexpr int P = decltype(p)::value;
+    return shared ? launch_s<P, W, true>(x, K, L)
+                  : launch_s<P, W, false>(x, K, L);
+  }));
 }
 
 const char* cuda_error_string(int err) {

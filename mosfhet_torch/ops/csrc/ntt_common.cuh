@@ -20,6 +20,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -127,6 +128,15 @@ __device__ __forceinline__ uint32_t centred_residue(uint64_t x, int m,
   const uint32_t t1 = shoup(hi, K.c32[m], K.c32s[m], p);
   const uint32_t s = add_mod(t0, t1, p);
   return (hi >> 31) ? sub_mod(s, K.c64m[m], p) : s;
+}
+
+// The same for a u32 word (the 32-bit torus): lo - [x >= 2^31] 2^32, the
+// int32 value of its bits (the TPU's `_limbs_to_resi` with hi None).
+__device__ __forceinline__ uint32_t centred_residue(uint32_t x, int m,
+                                                    const PbsConsts& K) {
+  const uint32_t p = K.p[m];
+  const uint32_t s = shoup(x, 1u, K.red1[m], p);
+  return (x >> 31) ? sub_mod(s, K.c32[m], p) : s;
 }
 
 // Coefficient k of X^a * row (negacyclic, length N, a in [0, 2N]):
@@ -273,6 +283,31 @@ inline bool all_shared(const Layout& L, int nbuf) {
   for (int i = 0; i < nbuf; ++i)
     if (L.off[i] < 0) return false;
   return true;
+}
+
+// Calls f(std::integral_constant<int, P>{}, W{}) for the plan's prime
+// count P and the words' type W: uint64_t (word_bits 64) with 2-5 primes,
+// uint32_t (word_bits 32) with 2 or 3 (the 32-bit torus's products need 2
+// primes at every registered width).  Only those (P, W) pairs are
+// instantiated; any other is refused (the wrappers check it first).
+template <typename F>
+cudaError_t dispatch_pw(int P, int word_bits, F&& f) {
+  using P2 = std::integral_constant<int, 2>;
+  using P3 = std::integral_constant<int, 3>;
+  if (word_bits == 32) {
+    switch (P) {
+      case 2: return f(P2{}, uint32_t{});
+      case 3: return f(P3{}, uint32_t{});
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (word_bits != 64) return cudaErrorInvalidValue;
+  switch (P) {
+    case 2: return f(P2{}, uint64_t{});
+    case 3: return f(P3{}, uint64_t{});
+    case 4: return f(std::integral_constant<int, 4>{}, uint64_t{});
+    default: return f(std::integral_constant<int, 5>{}, uint64_t{});
+  }
 }
 
 // Static __shared__ bytes a kernel may declare besides its dynamic shared

@@ -29,6 +29,12 @@
 // K8a is K1's steps 1-3 and K8b its steps 4-6, built from the same
 // ntt_common.cuh helpers, so a split step gives K1's words.
 //
+// At the 32-bit torus (TORUS32) both run on u32 words (the word type W):
+// K8a's rotation, offset (cast to W once) and digits of 32 bits, K8b's
+// Garner step and carry-add mod 2^32 (the TPU kernels' `nl == 1` branches,
+// pbs_kernel.py:1142-1145 and :1636-1637).  The partials are the same u32
+// residues at both widths.
+//
 // Design.  One thread block per ciphertext, as in K1; nothing carries over
 // between steps inside a kernel (the step loop, and the sum between the two
 // halves, are the caller's).  K8a keeps rot (C x N u64), the spectra
@@ -36,8 +42,12 @@
 // memory, 104 KiB at N=2048, k=1, P=3; acc is read from device memory.
 // Where they do not all fit (256 KiB at N=4096 with 4 primes) the wrapper
 // moves rot, then the spectra, to a global workspace.
-// K8b keeps the C*P spectra, 48 KiB.  The partial and the sum go through
-// device memory: at TFHEpp-L2, batch 512, 25.2 MB per shard and step.
+// K8b keeps the C*P spectra, 48 KiB, in shared memory; where they do not
+// fit (256 KiB at N=8192 with 4 primes) the wrapper places one component's
+// P rows (128 KiB there) and K8b runs its steps 4a-6 once per component, a
+// compile-time case beside the one-pass body every smaller shape keeps.
+// The partial and the sum go through device memory: at TFHEpp-L2, batch
+// 512, 25.2 MB per shard and step.
 //
 // What bounds them on this card.  K8a: integer multiplies, as K1 (at m = 2
 // per ciphertext 12 NTTs x 11,264 butterflies + 49,152 key products, each
@@ -53,10 +63,13 @@ namespace {
 
 constexpr int kThreads = 1024;
 enum { kWork, kSpec, kRot, kNumBuf };  // K8a's buffers, as the wrapper lists
+// K8b's: component 0's P spectra rows, then the other components' rows,
+// placed right after them when they fit (one pass), else left out
+enum { kRows0, kRowsRest, kNumFinishBuf };
 
-template <int P, bool S>
+template <int P, typename W, bool S>
 __global__ void __launch_bounds__(kThreads, 1)
-partial_step_kernel(const uint64_t* __restrict__ acc_g,
+partial_step_kernel(const W* __restrict__ acc_g,
                     const int32_t* __restrict__ a_g,
                     const uint32_t* __restrict__ keyv,
                     const uint32_t* __restrict__ keyvs,
@@ -69,16 +82,17 @@ partial_step_kernel(const uint64_t* __restrict__ acc_g,
   if (threadIdx.x == 0) K = Kp;
   __syncthreads();
   const int N = K.N, C = K.C, l = K.l, CN = K.C * K.N;
-  uint64_t* rot = buffer<S, uint64_t>(L, kRot, smem, ws, nullptr);  // [C][N]
+  const W offset = W(K.offset);
+  W* rot = buffer<S, W>(L, kRot, smem, ws, nullptr);              // [C][N]
   auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][P][N]
   auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [P][N]
 
-  const uint64_t* acc_b = acc_g + size_t(blockIdx.x) * CN;
+  const W* acc_b = acc_g + size_t(blockIdx.x) * CN;
   const int a = a_g[blockIdx.x];  // in [0, 2N]
   // 1. rot + offset, with rot = X^a acc - acc
   for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
     const int c = idx >> K.logN, k = idx & (N - 1);
-    rot[idx] = rotated_word(acc_b + c * N, k, a, N) - acc_b[idx] + K.offset;
+    rot[idx] = rotated_word<W>(acc_b + c * N, k, a, N) - acc_b[idx] + offset;
   }
   for (int idx = threadIdx.x; idx < C * P * N; idx += blockDim.x) spec[idx] = 0;
   __syncthreads();
@@ -87,7 +101,7 @@ partial_step_kernel(const uint64_t* __restrict__ acc_g,
     // 2. global digit row j = (component c_j, digit d), residues mod each p
     const int j = j0 + jj, cj = j / l, d = j % l;
     for (int k = threadIdx.x; k < N; k += blockDim.x) {
-      const int digit = gadget_digit(rot[cj * N + k], d, K);
+      const int digit = gadget_digit<W>(rot[cj * N + k], d, K);
 #pragma unroll
       for (int pi = 0; pi < P; ++pi)
         work[pi * N + k] = small_residue(digit, K.p[pi]);
@@ -111,9 +125,11 @@ partial_step_kernel(const uint64_t* __restrict__ acc_g,
     out_b[idx] = spec[idx];
 }
 
-template <int P>
+// OnePass: all C*P spectra rows in shared memory, steps 4a-6 once (every
+// shape up to N=4096 with 4 primes); else once per component, on P rows.
+template <int P, typename W, bool OnePass>
 __global__ void __launch_bounds__(kThreads, 1)
-finish_step_kernel(uint64_t* __restrict__ acc_g,
+finish_step_kernel(W* __restrict__ acc_g,
                    const uint32_t* __restrict__ parts_g,
                    const uint32_t* __restrict__ itw,
                    const uint32_t* __restrict__ itws, const PbsConsts Kp,
@@ -122,31 +138,38 @@ finish_step_kernel(uint64_t* __restrict__ acc_g,
   __shared__ PbsConsts K;
   if (threadIdx.x == 0) K = Kp;
   __syncthreads();
-  const int N = K.N, C = K.C, CN = K.C * K.N, CPN = K.C * P * K.N;
-  uint32_t* spec = reinterpret_cast<uint32_t*>(smem);  // [C][P][N]
-
-  // 4a. the sum of the m partials mod p, canonical after every add
+  const int N = K.N, C = K.C, CN = K.C * K.N, PN = P * K.N, CPN = C * PN;
+  const int cpp = OnePass ? C : 1;     // components per pass
+  const int passes = OnePass ? 1 : C;  // a compile-time 1: the old body
+  uint32_t* spec = reinterpret_cast<uint32_t*>(smem);  // [cpp][P][N]
   const size_t part_stride = size_t(B) * CPN;
   const uint32_t* parts_b = parts_g + size_t(blockIdx.x) * CPN;
-  for (int idx = threadIdx.x; idx < CPN; idx += blockDim.x) {
-    const uint32_t p = K.p[(idx >> K.logN) % P];
-    uint32_t s = parts_b[idx];
-    for (int j = 1; j < m; ++j) s = add_mod(s, parts_b[j * part_stride + idx], p);
-    spec[idx] = s;
-  }
-  __syncthreads();
-  // 4b. inverse NTTs of all C*P spectra
-  inverse_ntt<P>(spec, C * P, K, itw, itws);
-  // 5-6. Garner (with 1/N) and the carry-add into acc
-  uint64_t* acc_b = acc_g + size_t(blockIdx.x) * CN;
-  for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
-    const int c = idx >> K.logN, k = idx & (N - 1);
-    acc_b[idx] += garner<P>(spec + c * P * N, k, K);
+  W* acc_b = acc_g + size_t(blockIdx.x) * CN;
+
+  for (int pass = 0; pass < passes; ++pass) {
+    const int c0 = pass * cpp;
+    // 4a. the sum of the m partials mod p, canonical after every add
+    const uint32_t* pc = parts_b + size_t(c0) * PN;
+    for (int idx = threadIdx.x; idx < cpp * PN; idx += blockDim.x) {
+      const uint32_t p = K.p[(idx >> K.logN) % P];
+      uint32_t s = pc[idx];
+      for (int j = 1; j < m; ++j) s = add_mod(s, pc[j * part_stride + idx], p);
+      spec[idx] = s;
+    }
+    __syncthreads();
+    // 4b. inverse NTTs of the pass's spectra
+    inverse_ntt<P>(spec, cpp * P, K, itw, itws);
+    // 5-6. Garner (with 1/N) and the carry-add into acc
+    for (int idx = threadIdx.x; idx < cpp * N; idx += blockDim.x) {
+      const int c = idx >> K.logN, k = idx & (N - 1);
+      acc_b[c0 * N + idx] += garner<P, W>(spec + c * PN, k, K);
+    }
+    if (!OnePass) __syncthreads();  // the next pass rewrites spec
   }
 }
 
 struct PartialArgs {
-  const uint64_t* acc;
+  const void* acc;
   const int32_t* a;
   const uint32_t *keyv, *keyvs, *ftw, *ftws;
   uint32_t* out;
@@ -155,38 +178,35 @@ struct PartialArgs {
   cudaStream_t stream;
 };
 
-template <int P, bool S>
+template <int P, typename W, bool S>
 cudaError_t launch_partial_s(const PartialArgs& x, const PbsConsts& K,
                              const Layout& L) {
   cudaError_t err = cudaFuncSetAttribute(
-      partial_step_kernel<P, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(L.smem));
+      partial_step_kernel<P, W, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
   if (err != cudaSuccess) return err;
-  partial_step_kernel<P, S><<<x.B, kThreads, L.smem, x.stream>>>(
-      x.acc, x.a, x.keyv, x.keyvs, x.ftw, x.ftws, x.out, x.ws, K, L, x.j0,
-      x.j_local);
+  partial_step_kernel<P, W, S><<<x.B, kThreads, L.smem, x.stream>>>(
+      static_cast<const W*>(x.acc), x.a, x.keyv, x.keyvs, x.ftw, x.ftws,
+      x.out, x.ws, K, L, x.j0, x.j_local);
   return cudaGetLastError();
 }
 
-template <int P>
-cudaError_t launch_partial(const PartialArgs& x, const PbsConsts& K,
-                           const Layout& L) {
-  return all_shared(L, kNumBuf) ? launch_partial_s<P, true>(x, K, L)
-                                : launch_partial_s<P, false>(x, K, L);
-}
+struct FinishArgs {
+  void* acc;
+  const uint32_t *parts, *itw, *itws;
+  int B, m;
+  cudaStream_t stream;
+};
 
-template <int P>
-cudaError_t launch_finish(uint64_t* acc, const uint32_t* parts,
-                          const uint32_t* itw, const uint32_t* itws,
-                          const PbsConsts& K, int B, int m,
-                          cudaStream_t stream) {
-  const size_t smem = size_t(K.C) * P * K.N * sizeof(uint32_t);
+template <int P, typename W, bool OnePass>
+cudaError_t launch_finish(const FinishArgs& x, const PbsConsts& K,
+                          const Layout& L) {
   cudaError_t err = cudaFuncSetAttribute(
-      finish_step_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      finish_step_kernel<P, W, OnePass>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
   if (err != cudaSuccess) return err;
-  finish_step_kernel<P><<<B, kThreads, smem, stream>>>(acc, parts, itw, itws,
-                                                       K, m, B);
+  finish_step_kernel<P, W, OnePass><<<x.B, kThreads, L.smem, x.stream>>>(
+      static_cast<W*>(x.acc), x.parts, x.itw, x.itws, K, x.m, x.B);
   return cudaGetLastError();
 }
 
@@ -194,23 +214,24 @@ cudaError_t launch_finish(uint64_t* acc, const uint32_t* parts,
 
 extern "C" {
 
-// consts: the plan's int64 host array (layout in ntt_common.cuh); layout:
-// the buffer placement (smem bytes, workspace stride, offsets of work, spec,
-// rot); ws: the workspace, B x stride bytes (null when the stride is 0).
-// acc [B, k+1, N] u64 (read); a [B] int32 in [0, 2N]; keyv/keyvs
-// [j_local, k+1, P, N] u32, global key rows [j0, j0 + j_local); out
-// [B, k+1, P, N] u32 canonical residues.
+// consts: the plan's int64 host array (layout in ntt_common.cuh), whose
+// gadget offset is of the word width; layout: the buffer placement (smem
+// bytes, workspace stride, offsets of work, spec, rot); ws: the workspace,
+// B x stride bytes (null when the stride is 0).  acc [B, k+1, N] (read), u64
+// words (word_bits 64) or u32 words (word_bits 32); a [B] int32 in [0, 2N];
+// keyv/keyvs [j_local, k+1, P, N] u32, global key rows [j0, j0 + j_local);
+// out [B, k+1, P, N] u32 canonical residues.
 int partial_step_launch(const void* acc, const void* a, const void* keyv,
                         const void* keyvs, const void* ftw, const void* ftws,
                         void* out, void* ws, const int64_t* consts,
                         const int64_t* layout, int B, int j0, int j_local,
-                        void* stream) {
+                        int word_bits, void* stream) {
   PbsConsts K;
   if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
   if (j0 < 0 || j_local < 1 || j0 + j_local > K.C * K.l)
     return int(cudaErrorInvalidValue);
   if (B == 0) return int(cudaSuccess);
-  const PartialArgs x{static_cast<const uint64_t*>(acc),
+  const PartialArgs x{acc,
                       static_cast<const int32_t*>(a),
                       static_cast<const uint32_t*>(keyv),
                       static_cast<const uint32_t*>(keyvs),
@@ -223,36 +244,43 @@ int partial_step_launch(const void* acc, const void* a, const void* keyv,
                       j_local,
                       static_cast<cudaStream_t>(stream)};
   const Layout L = parse_layout(layout, kNumBuf);
-  switch (K.P) {
-    case 2: return int(launch_partial<2>(x, K, L));
-    case 3: return int(launch_partial<3>(x, K, L));
-    case 4: return int(launch_partial<4>(x, K, L));
-    default: return int(launch_partial<5>(x, K, L));
-  }
+  const bool shared = all_shared(L, kNumBuf);
+  return int(dispatch_pw(K.P, word_bits, [&](auto p, auto w) {
+    using W = decltype(w);
+    constexpr int P = decltype(p)::value;
+    return shared ? launch_partial_s<P, W, true>(x, K, L)
+                  : launch_partial_s<P, W, false>(x, K, L);
+  }));
 }
 
-// acc [B, k+1, N] u64, updated in place; parts [m, B, k+1, P, N] u32, each
-// partial canonical (< p).
+// layout: smem bytes, stride (0), the offsets of component 0's rows and of
+// the other components' rows (>= 0: right after them, one pass; else one
+// pass per component).  acc [B, k+1, N] u64 or u32 words (word_bits),
+// updated in place; parts [m, B, k+1, P, N] u32, each partial canonical
+// (< p).
 int finish_step_launch(void* acc, const void* parts, const void* itw,
-                       const void* itws, const int64_t* consts, int B, int m,
+                       const void* itws, const int64_t* consts,
+                       const int64_t* layout, int B, int m, int word_bits,
                        void* stream) {
   PbsConsts K;
   if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
   if (m < 1) return int(cudaErrorInvalidValue);
   if (B == 0) return int(cudaSuccess);
-  auto* acc64 = static_cast<uint64_t*>(acc);
-  auto* pt = static_cast<const uint32_t*>(parts);
-  auto* iv = static_cast<const uint32_t*>(itw);
-  auto* is = static_cast<const uint32_t*>(itws);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (K.P) {
-    case 2: err = launch_finish<2>(acc64, pt, iv, is, K, B, m, st); break;
-    case 3: err = launch_finish<3>(acc64, pt, iv, is, K, B, m, st); break;
-    case 4: err = launch_finish<4>(acc64, pt, iv, is, K, B, m, st); break;
-    default: err = launch_finish<5>(acc64, pt, iv, is, K, B, m, st); break;
-  }
-  return int(err);
+  const FinishArgs x{acc,
+                     static_cast<const uint32_t*>(parts),
+                     static_cast<const uint32_t*>(itw),
+                     static_cast<const uint32_t*>(itws),
+                     B,
+                     m,
+                     static_cast<cudaStream_t>(stream)};
+  const Layout L = parse_layout(layout, kNumFinishBuf);
+  const bool one_pass = L.off[kRowsRest] >= 0;
+  return int(dispatch_pw(K.P, word_bits, [&](auto p, auto w) {
+    using W = decltype(w);
+    constexpr int P = decltype(p)::value;
+    return one_pass ? launch_finish<P, W, true>(x, K, L)
+                    : launch_finish<P, W, false>(x, K, L);
+  }));
 }
 
 const char* cuda_error_string(int err) {

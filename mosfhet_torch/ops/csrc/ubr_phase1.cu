@@ -1,10 +1,11 @@
 // UBR phase 1 for NVIDIA Hopper (sm_90a): per ciphertext b and group g the
 // combined key TRGSW in NTT form,
 //
-//   out[b, g] = NTT(sum_m X^{rot[b,g,m]} SU[g,m])    summed mod 2^64,
+//   out[b, g] = NTT(sum_m X^{rot[b,g,m]} SU[g,m])
 //
-// the cache that UBR phase 2 applies to every LUT
-// (`multivalue_bootstrap_UBR_phase1`, the reference's bootstrap.c:151-175).
+// summed mod 2^64 (mod 2^32 at the 32-bit torus), the cache that UBR phase
+// 2 applies to every LUT (`multivalue_bootstrap_UBR_phase1`, the
+// reference's bootstrap.c:151-175).
 //
 // Replaces the TPU kernel `ubr_phase1_combine_v2` (the TPU package's
 // ops/pbs_kernel.py:2881, body `_make_phase1_v2_kernel`).  Per output row
@@ -18,6 +19,10 @@
 //   3. P forward negacyclic NTTs, written as u32 canonical residues into
 //      out [B, G, J, C, P, N], the layout the apply-scan kernel
 //      (ext_product_apply.cu) takes.
+//
+// At the 32-bit torus (TORUS32) the key products are u32 words (the word
+// type W), summed mod 2^32, and the residue is that of the sum's int32
+// value (the TPU kernel's `nl == 1` branch, pbs_kernel.py:2833-2836).
 //
 // Design.  One thread block per output row (b, g, j, c): B*G*J*C blocks
 // (1,264 at TFHEpp-L2, u=8, one ciphertext), so even one ciphertext fills
@@ -39,10 +44,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int P>
+template <int P, typename W>
 __global__ void __launch_bounds__(kThreads)
-ubr_phase1_kernel(const uint64_t* __restrict__ su,
-                  const int32_t* __restrict__ rot_g,
+ubr_phase1_kernel(const W* __restrict__ su, const int32_t* __restrict__ rot_g,
                   uint32_t* __restrict__ out,
                   const uint32_t* __restrict__ ftw,
                   const uint32_t* __restrict__ ftws, const PbsConsts Kp,
@@ -64,11 +68,11 @@ ubr_phase1_kernel(const uint64_t* __restrict__ su,
 
   // 1-2. combine the key row over m, centred residues
   const size_t m_stride = size_t(JC) * N;  // su [G][M][J][C][N]
-  const uint64_t* row = su + (size_t(g) * M * JC + jc) * N;
+  const W* row = su + (size_t(g) * M * JC + jc) * N;
   for (int k = threadIdx.x; k < N; k += blockDim.x) {
-    uint64_t x = 0;
+    W x = 0;
     for (int m = 0; m < M; ++m)
-      x += rotated_word(row + m * m_stride, k, rots[m], N);
+      x += rotated_word<W>(row + m * m_stride, k, rots[m], N);
 #pragma unroll
     for (int pi = 0; pi < P; ++pi)
       row_res[pi * N + k] = centred_residue(x, pi, K);
@@ -81,21 +85,21 @@ ubr_phase1_kernel(const uint64_t* __restrict__ su,
     out_row[idx] = row_res[idx];
 }
 
-template <int P>
-cudaError_t launch(const uint64_t* su, const int32_t* rot, uint32_t* out,
+template <int P, typename W>
+cudaError_t launch(const void* su, const int32_t* rot, uint32_t* out,
                    const uint32_t* ftw, const uint32_t* ftws,
                    const PbsConsts& K, int B, int G, int M,
                    cudaStream_t stream) {
   const size_t smem = size_t(P) * K.N * sizeof(uint32_t) +
                       size_t(M) * sizeof(int32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      ubr_phase1_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ubr_phase1_kernel<P, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)B * G * K.C * K.l * K.C;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  ubr_phase1_kernel<P><<<unsigned(blocks), kThreads, smem, stream>>>(
-      su, rot, out, ftw, ftws, K, G, M);
+  ubr_phase1_kernel<P, W><<<unsigned(blocks), kThreads, smem, stream>>>(
+      static_cast<const W*>(su), rot, out, ftw, ftws, K, G, M);
   return cudaGetLastError();
 }
 
@@ -104,29 +108,25 @@ cudaError_t launch(const uint64_t* su, const int32_t* rot, uint32_t* out,
 extern "C" {
 
 // consts: the plan's int64 host array (layout in ntt_common.cuh).
-// su [G, M, (k+1)l, k+1, N] u64 key products; rot [B, G, M] int32 in
-// [0, 2N]; out [B, G, (k+1)l, k+1, P, N] u32; twiddles [P, N] u32.
+// su [G, M, (k+1)l, k+1, N] key products, u64 words (word_bits 64) or u32
+// words (word_bits 32); rot [B, G, M] int32 in [0, 2N]; out [B, G, (k+1)l,
+// k+1, P, N] u32; twiddles [P, N] u32.
 int ubr_phase1_launch(const void* su, const void* rot, void* out,
                       const void* ftw, const void* ftws,
                       const int64_t* consts, int B, int G, int M,
-                      void* stream) {
+                      int word_bits, void* stream) {
   PbsConsts K;
   if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
   if (B == 0 || G == 0) return int(cudaSuccess);
-  auto* s = static_cast<const uint64_t*>(su);
   auto* r = static_cast<const int32_t*>(rot);
   auto* o = static_cast<uint32_t*>(out);
   auto* f = static_cast<const uint32_t*>(ftw);
   auto* fs = static_cast<const uint32_t*>(ftws);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (K.P) {
-    case 2: err = launch<2>(s, r, o, f, fs, K, B, G, M, st); break;
-    case 3: err = launch<3>(s, r, o, f, fs, K, B, G, M, st); break;
-    case 4: err = launch<4>(s, r, o, f, fs, K, B, G, M, st); break;
-    default: err = launch<5>(s, r, o, f, fs, K, B, G, M, st); break;
-  }
-  return int(err);
+  return int(dispatch_pw(K.P, word_bits, [&](auto p, auto w) {
+    return launch<decltype(p)::value, decltype(w)>(su, r, o, f, fs, K, B, G,
+                                                   M, st);
+  }));
 }
 
 const char* cuda_error_string(int err) {

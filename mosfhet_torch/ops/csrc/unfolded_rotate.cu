@@ -3,8 +3,9 @@
 //
 //   acc <- (sum_m X^{rot[b,g,m]} SU[g,m]) (x) acc     for g = 0 .. G-1
 //
-// exactly mod 2^64, with G = n/u groups of M = 2^u key-product TRGSWs
-// (`blind_rotate_unfolded`, the reference's bootstrap.c:124-148).
+// exactly mod 2^64 (mod 2^32 at the 32-bit torus), with G = n/u groups of
+// M = 2^u key-product TRGSWs (`blind_rotate_unfolded`, the reference's
+// bootstrap.c:124-148).
 //
 // Replaces the TPU kernel `unfolded_rotate` (the TPU package's
 // ops/pbs_kernel.py:3123, body `_make_unfolded_kernel`).  Per ciphertext
@@ -24,6 +25,14 @@
 //
 // The combine is never done in the NTT domain: a sum of 2^u spectra would
 // outgrow the CRT range that the primes were chosen for.
+//
+// At the 32-bit torus (TORUS32) the same body runs on u32 words (the word
+// type W): the key products and acc are u32, the M rotated words are summed
+// mod 2^32, the combined word's residue is that of its int32 value, the
+// gadget offset is the 32-bit one (cast to W once) and Garner's Horner step
+// wraps mod 2^32 (the TPU kernel's `nl == 1` branches, pbs_kernel.py:
+// 3044-3046 and :3113-3114).  The key row buffer holds residues (u32) at
+// both widths.
 //
 // Design.  One thread block per ciphertext, the G groups a loop inside it
 // (the TPU's sequential grid axes), as K1 (blind_rotate.cu).  The combined
@@ -57,11 +66,11 @@ constexpr int kThreads = 1024;
 // buffers, as the wrapper lists them
 enum { kRots, kKey, kDig, kSpec, kAcc, kNumBuf };
 
-template <int P, bool S>
+template <int P, typename W, bool S>
 __global__ void __launch_bounds__(kThreads, 1)
-unfolded_rotate_kernel(uint64_t* __restrict__ acc_g,
+unfolded_rotate_kernel(W* __restrict__ acc_g,
                        const int32_t* __restrict__ rot_g,
-                       const uint64_t* __restrict__ su,
+                       const W* __restrict__ su,
                        const uint32_t* __restrict__ ftw,
                        const uint32_t* __restrict__ ftws,
                        const uint32_t* __restrict__ itw,
@@ -72,9 +81,10 @@ unfolded_rotate_kernel(uint64_t* __restrict__ acc_g,
   if (threadIdx.x == 0) K = Kp;
   __syncthreads();
   const int N = K.N, C = K.C, l = K.l, J = K.C * K.l, CN = K.C * K.N;
+  const W offset = W(K.offset);
   const int b = blockIdx.x;
-  uint64_t* acc_b = acc_g + size_t(b) * CN;
-  uint64_t* acc = buffer<S, uint64_t>(L, kAcc, smem, ws, acc_b);  // [C][N]
+  W* acc_b = acc_g + size_t(b) * CN;
+  W* acc = buffer<S, W>(L, kAcc, smem, ws, acc_b);                 // [C][N]
   auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][P][N]
   auto* dig = buffer<S, uint32_t>(L, kDig, smem, ws, nullptr);    // [P][N]
   auto* key = buffer<S, uint32_t>(L, kKey, smem, ws, nullptr);    // [P][N]
@@ -88,13 +98,13 @@ unfolded_rotate_kernel(uint64_t* __restrict__ acc_g,
     for (int m = threadIdx.x; m < M; m += blockDim.x) rots[m] = rot_bg[m];
     for (int idx = threadIdx.x; idx < C * P * N; idx += blockDim.x)
       spec[idx] = 0;
-    const uint64_t* su_g = su + size_t(g) * M * m_stride;
+    const W* su_g = su + size_t(g) * M * m_stride;
     for (int j = 0; j < J; ++j) {
       // 1. digit row j = (component c_j, digit d), P forward NTTs
       const int cj = j / l, d = j % l;
       __syncthreads();
       for (int k = threadIdx.x; k < N; k += blockDim.x) {
-        const int digit = gadget_digit(acc[cj * N + k] + K.offset, d, K);
+        const int digit = gadget_digit<W>(acc[cj * N + k] + offset, d, K);
 #pragma unroll
         for (int pi = 0; pi < P; ++pi)
           dig[pi * N + k] = small_residue(digit, K.p[pi]);
@@ -102,13 +112,13 @@ unfolded_rotate_kernel(uint64_t* __restrict__ acc_g,
       __syncthreads();
       forward_ntt<P>(dig, P, K, ftw, ftws);
       for (int c = 0; c < C; ++c) {
-        // 2. key row (j, c): sum_m X^{rots[m]} SU[g, m, j, c] mod 2^64,
-        //    centred residues, P forward NTTs, then the product
-        const uint64_t* row = su_g + size_t(j * C + c) * N;
+        // 2. key row (j, c): sum_m X^{rots[m]} SU[g, m, j, c] mod 2^64 (or
+        //    2^32), centred residues, P forward NTTs, then the product
+        const W* row = su_g + size_t(j * C + c) * N;
         for (int k = threadIdx.x; k < N; k += blockDim.x) {
-          uint64_t x = 0;
+          W x = 0;
           for (int m = 0; m < M; ++m)
-            x += rotated_word(row + m * m_stride, k, rots[m], N);
+            x += rotated_word<W>(row + m * m_stride, k, rots[m], N);
 #pragma unroll
           for (int pi = 0; pi < P; ++pi)
             key[pi * N + k] = centred_residue(x, pi, K);
@@ -128,7 +138,7 @@ unfolded_rotate_kernel(uint64_t* __restrict__ acc_g,
     inverse_ntt<P>(spec, C * P, K, itw, itws);
     for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
       const int c = idx >> K.logN, k = idx & (N - 1);
-      acc[idx] = garner<P>(spec + c * P * N, k, K);
+      acc[idx] = garner<P, W>(spec + c * P * N, k, K);
     }
     __syncthreads();
   }
@@ -137,54 +147,49 @@ unfolded_rotate_kernel(uint64_t* __restrict__ acc_g,
 }
 
 struct Args {
-  uint64_t* acc;
+  void* acc;
   const int32_t* rot;
-  const uint64_t* su;
+  const void* su;
   const uint32_t *ftw, *ftws, *itw, *itws;
   unsigned char* ws;
   int B, G, M;
   cudaStream_t stream;
 };
 
-template <int P, bool S>
+template <int P, typename W, bool S>
 cudaError_t launch_s(const Args& x, const PbsConsts& K, const Layout& L) {
   cudaError_t err = cudaFuncSetAttribute(
-      unfolded_rotate_kernel<P, S>,
+      unfolded_rotate_kernel<P, W, S>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
   if (err != cudaSuccess) return err;
-  unfolded_rotate_kernel<P, S><<<x.B, kThreads, L.smem, x.stream>>>(
-      x.acc, x.rot, x.su, x.ftw, x.ftws, x.itw, x.itws, x.ws, K, L, x.G,
-      x.M);
+  unfolded_rotate_kernel<P, W, S><<<x.B, kThreads, L.smem, x.stream>>>(
+      static_cast<W*>(x.acc), x.rot, static_cast<const W*>(x.su), x.ftw,
+      x.ftws, x.itw, x.itws, x.ws, K, L, x.G, x.M);
   return cudaGetLastError();
-}
-
-template <int P>
-cudaError_t launch(const Args& x, const PbsConsts& K, const Layout& L) {
-  return all_shared(L, kNumBuf) ? launch_s<P, true>(x, K, L)
-                                : launch_s<P, false>(x, K, L);
 }
 
 }  // namespace
 
 extern "C" {
 
-// consts: the plan's int64 host array (layout in ntt_common.cuh); layout:
-// the buffer placement (smem bytes, workspace stride, offsets of rots, key,
-// dig, spec, acc); ws: the workspace, B x stride bytes (null when the
-// stride is 0).  acc [B, k+1, N] u64 is rotated in place; rot [B, G, M]
-// int32 in [0, 2N]; su [G, M, (k+1)l, k+1, N] u64 key products; twiddles
-// [P, N] u32.
+// consts: the plan's int64 host array (layout in ntt_common.cuh), whose
+// gadget offset is of the word width; layout: the buffer placement (smem
+// bytes, workspace stride, offsets of rots, key, dig, spec, acc); ws: the
+// workspace, B x stride bytes (null when the stride is 0).  acc [B, k+1, N]
+// is rotated in place; rot [B, G, M] int32 in [0, 2N]; su [G, M, (k+1)l,
+// k+1, N] key products; acc and su hold u64 words (word_bits 64) or u32
+// words (word_bits 32); twiddles [P, N] u32.
 int unfolded_rotate_launch(void* acc, const void* rot, const void* su,
                            const void* ftw, const void* ftws, const void* itw,
                            const void* itws, void* ws, const int64_t* consts,
                            const int64_t* layout, int B, int G, int M,
-                           void* stream) {
+                           int word_bits, void* stream) {
   PbsConsts K;
   if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
   if (B == 0 || G == 0) return int(cudaSuccess);
-  const Args x{static_cast<uint64_t*>(acc),
+  const Args x{acc,
                static_cast<const int32_t*>(rot),
-               static_cast<const uint64_t*>(su),
+               su,
                static_cast<const uint32_t*>(ftw),
                static_cast<const uint32_t*>(ftws),
                static_cast<const uint32_t*>(itw),
@@ -195,12 +200,13 @@ int unfolded_rotate_launch(void* acc, const void* rot, const void* su,
                M,
                static_cast<cudaStream_t>(stream)};
   const Layout L = parse_layout(layout, kNumBuf);
-  switch (K.P) {
-    case 2: return int(launch<2>(x, K, L));
-    case 3: return int(launch<3>(x, K, L));
-    case 4: return int(launch<4>(x, K, L));
-    default: return int(launch<5>(x, K, L));
-  }
+  const bool shared = all_shared(L, kNumBuf);
+  return int(dispatch_pw(K.P, word_bits, [&](auto p, auto w) {
+    using W = decltype(w);
+    constexpr int P = decltype(p)::value;
+    return shared ? launch_s<P, W, true>(x, K, L)
+                  : launch_s<P, W, false>(x, K, L);
+  }));
 }
 
 const char* cuda_error_string(int err) {

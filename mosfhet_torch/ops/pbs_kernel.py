@@ -26,27 +26,27 @@ PyTorch, only for CPU tensors.  The two give the same words.
                                        (sum mod 2^64) or int32 (mod 2^32)
      out  [B, n_out+1]                 the subtrahend of (0, b), ab's dtype
 
-   K1 and K2 take the word width from the dtype of their torus words: int64
-   runs the two-limb (64-bit) form, int32 the one-limb (32-bit) form, in the
-   same kernel source.  The other kernels are 64-bit only for now: their
+   K1-K5, K8a and K8b take the word width from the dtype of their torus
+   words: int64 runs the two-limb (64-bit) form, int32 the one-limb (32-bit)
+   form, in the same kernel source.  K6 and K7 are 64-bit only for now: their
    wrappers raise NotImplementedError on int32 words.
 
 3. The external-product apply scan (``csrc/ext_product_apply.cu``): G
    replace-mode external products with runtime keys,
 
        acc <- SA_g (x) acc                          for g = 0 .. G-1
-     acc0  [B, k+1, N]                    int64
+     acc0  [B, k+1, N]                    int64 or int32 words
      sa32  [G, (k+1)l, k+1, P, N]         int32 holding u32 canonical
            or [G, B, (k+1)l, k+1, P, N]   NTT residues (one key per row)
 
 4. The unfolded blind rotation (``csrc/unfolded_rotate.cu``): for each
-   group g the key products rotated and summed mod 2^64, then one
-   replace-mode external product,
+   group g the key products rotated and summed mod 2^64 (or 2^32), then
+   one replace-mode external product,
 
        acc <- (sum_m X^{rot[b,g,m]} SU[g,m]) (x) acc    for g = 0 .. G-1
-     acc0  [B, k+1, N]                    int64
+     acc0  [B, k+1, N]                    int64 or int32 words
      rot   [B, G, M]                      int32 exponents in [0, 2N]
-     su    [G, M, (k+1)l, k+1, N]         int64 (u64 words), M = 2^u
+     su    [G, M, (k+1)l, k+1, N]         acc0's dtype, M = 2^u
 
 5. UBR phase 1 (``csrc/ubr_phase1.cu``): the same combination per (b, g)
    in NTT form, without the product,
@@ -77,7 +77,7 @@ PyTorch, only for CPU tensors.  The two give the same words.
    [j0, j0 + j_local),
 
        part = sum_{j in rows} NTT(dec_j(X^{a} acc - acc)) * BK_i[j]
-     acc         [B, k+1, N]               int64 (read only)
+     acc         [B, k+1, N]               int64 or int32 words (read only)
      a           [B]                       int32, this step's exponents
      keyv, keyvs [j_local, k+1, P, N]      int32 with u32 bits: the rows
      part        [B, k+1, P, N]            int32 holding u32 canonical residues
@@ -91,12 +91,12 @@ PyTorch, only for CPU tensors.  The two give the same words.
    sum is exact for any m; the TPU's u32 psum needed m * max(p) < 2^32.
 
 The runtime-key kernels (3-7) multiply two residues with a 32-bit Barrett
-product, and reduce u64 words to the residues of their centred (signed)
-representatives, as ``ntt.to_resi_u64`` does: the plain versions use
+product, and reduce u64 (or u32) words to the residues of their centred
+(signed) representatives, as ``ntt.to_resi_u64`` does: the plain versions use
 ``ntt.pointwise_mul_acc_generic`` and ``ntt.to_ntt_u64``, and both end in
 canonical residues, so the words agree.
 
-Where a block's buffers live (K1, K3, K4, K6, K7, K8a).  Each kernel runs
+Where a block's buffers live (K1, K3, K4, K6, K7, K8a, K8b).  Each kernel runs
 one block per ciphertext over a handful of buffers: the digit row's NTT
 rows, the spectra, the accumulator and a rotation or permutation buffer.
 `_place` fills dynamic shared memory with them in order of traffic, up to
@@ -107,8 +107,10 @@ updated in place.  Every shape of TFHEpp-L2, SET_1, SET_2 and UFHE_SET0
 keeps all of them in shared memory; N=4096 with 4 primes (SET_3) moves
 the u64 buffers out, N=8192 the spectra too.  The NTT rows must stay in
 shared memory: a shape whose NTT rows alone exceed the limit raises
-ValueError before any launch.  (K5's and K8b's blocks hold only NTT rows
-and fit at SET_3.)
+ValueError before any launch.  K8b's block holds only NTT rows: all C*P
+spectra where they fit, else one component's P rows, and the kernel then
+runs once per component (N=8192 with 4 primes).  (K5's block holds one
+row's P NTT rows and fits at every registered shape.)
 """
 
 from __future__ import annotations
@@ -300,8 +302,17 @@ def _word_width(name: str, words, kp: PBSKernelPlan) -> int:
     return bits
 
 
+def _one_limb_primes(name: str, bits: int, kp: PBSKernelPlan):
+    """K3-K5, K8a and K8b's one-limb forms are built for 2 or 3 primes
+    (`dispatch_pw`, ntt_common.cuh; a 32-bit plan takes 2 at every
+    registered width): any other prime count raises before a launch."""
+    if bits == 32 and kp.P not in (2, 3):
+        raise ValueError(f"{name}: the one-limb form takes 2 or 3 primes, "
+                         f"not {kp.P}")
+
+
 def _u64_only(name: str, words):
-    """The kernels without a one-limb form refuse 32-bit torus words."""
+    """K6 and K7, without a one-limb form, refuse 32-bit torus words."""
     if words.dtype == torch.int32:
         raise NotImplementedError(
             f"{name}: the 32-bit torus (int32 words) form of this kernel is "
@@ -326,6 +337,7 @@ def _smem_budget(name: str, index: int) -> int:
 IN_PLACE = "in place"     # a buffer that lives in the caller's tensor
 WORKSPACE = "workspace"   # a buffer that may live in the global workspace
 SHARED_ONLY = "shared"    # a buffer that must be in shared memory
+PASSES = "passes"         # a buffer the kernel does without, in passes
 
 
 def _align(n: int, a: int = 16) -> int:
@@ -335,14 +347,14 @@ def _align(n: int, a: int = 16) -> int:
 def _place(what: str, bufs, budget: int):
     """The placement of a block's buffers.  ``bufs``: (nbytes, home, rank)
     per buffer in the kernel's order (its enum), ``home`` one of
-    SHARED_ONLY, WORKSPACE, IN_PLACE; in order of rank (the buffer's
-    traffic, busiest first) each takes shared memory if it still fits, the
-    SHARED_ONLY one (a kernel's digit NTT rows) first of all.  Returns
-    (layout, stride): the int64 host array the kernel reads (shared bytes,
-    workspace stride, one offset per buffer: >= 0 shared, -1 in place,
-    -2 - o at workspace byte o) and the workspace bytes per block.  Raises
-    ValueError, naming the shape and its bytes, when a SHARED_ONLY buffer
-    does not fit."""
+    SHARED_ONLY, WORKSPACE, IN_PLACE, PASSES; in order of rank (the
+    buffer's traffic, busiest first) each takes shared memory if it still
+    fits, the SHARED_ONLY ones (a kernel's digit NTT rows) first of all.
+    Returns (layout, stride): the int64 host array the kernel reads (shared
+    bytes, workspace stride, one offset per buffer: >= 0 shared, -1 in place
+    (or, for PASSES, left out), -2 - o at workspace byte o) and the
+    workspace bytes per block.  Raises ValueError, naming the shape and its
+    bytes, when a SHARED_ONLY buffer does not fit."""
     smem, stride, offs = 0, 0, [0] * len(bufs)
     for i in sorted(range(len(bufs)),
                     key=lambda i: (bufs[i][1] != SHARED_ONLY, bufs[i][2])):
@@ -355,7 +367,7 @@ def _place(what: str, bufs, budget: int):
                 f"{what}: its NTT rows need {nbytes} B of shared memory "
                 f"beside {smem} B already placed; this card gives a block "
                 f"{budget} B")
-        elif home == IN_PLACE:
+        elif home in (IN_PLACE, PASSES):
             offs[i] = -1
         else:
             offs[i] = -2 - stride
@@ -371,8 +383,10 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
     spectra's multiply-accumulates and inverse NTTs, then the key row of
     K4 (NTT'd J*C times per group, so it ranks above them there); the
     accumulator and the rotation/permutation buffer, read and written once
-    or twice per step, come last.  M: K4's 2^u; P_ks: K7's key-switch
-    prime count."""
+    or twice per step, come last.  K8b ("finish_step", in tp_step.cu) holds
+    component 0's P spectra rows and, right after them where they fit, the
+    other components' rows; left out, it runs once per component.  M: K4's
+    2^u; P_ks: K7's key-switch prime count."""
     C, P, N = kp.C, kp.P, kp.N
     row, spec, words = P * N * 4, C * P * N * 4, C * N * kp.torus_bits // 8
     if kernel == "blind_rotate":       # work, spec, rot, acc
@@ -392,23 +406,28 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
     if kernel in ("tp_step", "auto_keyswitch"):  # K8a, K6: work, spec, rot
         return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),
                 (words, WORKSPACE, 2)]
+    if kernel == "finish_step":        # K8b: rows of component 0, the rest
+        return [(row, SHARED_ONLY, 0), (spec - row, PASSES, 1)]
     raise ValueError(f"no buffer table for {kernel}")
 
 
+@functools.lru_cache(maxsize=None)
 def kernel_layout(kernel: str, kp: PBSKernelPlan, budget: int, M: int = 1,
                   P_ks: int = 0):
     """`_place` of ``kernel``'s buffers at ``kp``'s shape for a block that
-    may have ``budget`` bytes of dynamic shared memory."""
+    may have ``budget`` bytes of dynamic shared memory, once per shape (a
+    wrapper asks at every launch; the arrays are read only)."""
     return _place(f"{kernel} at N={kp.N}, k={kp.k}, P={kp.P}, M={M}, "
                   f"P_ks={P_ks}", kernel_buffers(kernel, kp, M, P_ks),
                   budget)
 
 
-def _layout(kernel: str, kp: PBSKernelPlan, B: int, dev, **kw):
+def _layout(kernel: str, kp: PBSKernelPlan, B: int, dev, source=None, **kw):
     """The placement on card ``dev`` and its workspace for B blocks (None
-    when nothing lives there)."""
-    layout, stride = kernel_layout(kernel, kp,
-                                   _smem_budget(kernel, _index(dev)), **kw)
+    when nothing lives there).  ``source``: the kernel's csrc file, when
+    it is not ``kernel``."""
+    budget = _smem_budget(source or kernel, _index(dev))
+    layout, stride = kernel_layout(kernel, kp, budget, **kw)
     ws = None if stride == 0 else torch.empty(B * stride, dtype=torch.uint8,
                                               device=dev)
     return layout, ws
@@ -518,9 +537,9 @@ tlwe_keyswitch_sum.launches = 0
 
 def ext_product_replace(acc, key, plan: _ntt.NTTPlan, l: int, Bg_bit: int):
     """key (x) acc in replace mode (`trgsw_mul_trlwe_DFT`,
-    `trgsw.c:385-423`): acc [B, C, N] int64; key [J, C, P, N] (one TRGSW for
-    the batch) or [B, J, C, P, N] (one per row), canonical int64 residues.
-    Returns [B, C, N]."""
+    `trgsw.c:385-423`): acc [B, C, N] int64 or int32 words; key [J, C, P,
+    N] (one TRGSW for the batch) or [B, J, C, P, N] (one per row), canonical
+    int64 residues.  Returns [B, C, N] of acc's dtype."""
     B, C, N = acc.shape
     digits = gadget_decompose(acc, Bg_bit, l).reshape(B, C * l, N)
     spec = _ntt.to_ntt_small(digits, plan)                     # [B, J, P, N]
@@ -532,8 +551,8 @@ def ext_product_replace(acc, key, plan: _ntt.NTTPlan, l: int, Bg_bit: int):
 def ext_product_apply_scan_plain(acc0, sa32, kp: PBSKernelPlan,
                                  per_row: bool = False):
     """The G replace-mode external products in int64 PyTorch, on any
-    device.  A per-row step key [B, J, C, P, N] and a broadcast one
-    [J, C, P, N] take the same code."""
+    device, at the width of acc0's words.  A per-row step key [B, J, C, P,
+    N] and a broadcast one [J, C, P, N] take the same code."""
     ext_product_apply_scan_plain.calls += 1
     acc = acc0
     for g in range(sa32.shape[0]):
@@ -548,19 +567,21 @@ ext_product_apply_scan_plain.calls = 0
 def ext_product_apply_scan(acc0, sa32, kp: PBSKernelPlan,
                            per_row: bool = False):
     """acc <- SA_g (x) acc for g = 0 .. G-1.  CUDA tensors: one launch of
-    the kernel whatever G and B are, and an error raised if it does not
-    build or launch.  CPU tensors: the plain version.  Returns [B, C, N]."""
-    _u64_only("ext_product_apply_scan", acc0)
+    the kernel whatever G and B are (its one-limb form for int32 words),
+    and an error raised if it does not build or launch.  CPU tensors: the
+    plain version.  Returns [B, C, N] of acc0's dtype."""
+    bits = _word_width("ext_product_apply_scan", acc0, kp)
     dev = acc0.device
     if dev.type == "cpu":
         return ext_product_apply_scan_plain(acc0, sa32, kp, per_row)
     if dev.type != "cuda":
         raise ValueError(f"ext_product_apply_scan runs on cuda or cpu, "
                          f"not {dev}")
+    _one_limb_primes("ext_product_apply_scan", bits, kp)
     B = acc0.shape[0]
     G = sa32.shape[0]
     row = (kp.J, kp.C, kp.P, kp.N)
-    _check("acc0", acc0, torch.int64, (B, kp.C, kp.N), dev)
+    _check("acc0", acc0, acc0.dtype, (B, kp.C, kp.N), dev)
     _check("sa32", sa32, torch.int32, (G, B) + row if per_row else (G,) + row,
            dev)
     _check_plan(kp, dev)
@@ -568,11 +589,11 @@ def ext_product_apply_scan(acc0, sa32, kp: PBSKernelPlan,
     if B == 0 or G == 0:
         return acc
     layout, ws = _layout("ext_product_apply", kp, B, dev)
-    _launch("ext_product_apply", "ext_product_apply_launch", 9, 3, dev,
+    _launch("ext_product_apply", "ext_product_apply_launch", 9, 4, dev,
             acc.data_ptr(), sa32.data_ptr(), kp.fwd_tw.data_ptr(),
             kp.fwd_tws.data_ptr(), kp.inv_tw.data_ptr(),
             kp.inv_tws.data_ptr(), _ptr(ws), kp.host_consts.ctypes.data,
-            layout.ctypes.data, B, G, int(per_row))
+            layout.ctypes.data, B, G, int(per_row), bits)
     ext_product_apply_scan.launches += 1
     return acc
 
@@ -583,8 +604,9 @@ ext_product_apply_scan.launches = 0
 # --- the unfolded blind rotation (K4) and UBR phase 1 (K5) -----------------
 
 def combine_rotated(su_g, rot_g):
-    """sum_m X^{rot_g[:, m]} * su_g[m] mod 2^64: su_g [M, J, C, N] int64,
-    rot_g [B, M] -> [B, J, C, N] (`bootstrap.c:128-146`)."""
+    """sum_m X^{rot_g[:, m]} * su_g[m] mod 2^64 (int64 words) or 2^32
+    (int32): su_g [M, J, C, N], rot_g [B, M] -> [B, J, C, N] of su_g's
+    dtype (`bootstrap.c:128-146`)."""
     comb = None
     for m in range(su_g.shape[0]):
         t = _poly.mul_by_xai(su_g[m], rot_g[:, m, None, None])
@@ -593,9 +615,10 @@ def combine_rotated(su_g, rot_g):
 
 
 def unfolded_rotate_plain(acc0, rot, su, kp: PBSKernelPlan):
-    """The unfolded blind rotation in int64 PyTorch, on any device: per
-    group, the combined TRGSW in NTT form, then a replace-mode external
-    product (`blind_rotate_unfolded`, `bootstrap.c:124-148`)."""
+    """The unfolded blind rotation in int64 PyTorch, on any device, at the
+    width of the words: per group, the combined TRGSW in NTT form, then a
+    replace-mode external product (`blind_rotate_unfolded`,
+    `bootstrap.c:124-148`)."""
     unfolded_rotate_plain.calls += 1
     acc = acc0
     for g in range(su.shape[0]):
@@ -607,36 +630,38 @@ def unfolded_rotate_plain(acc0, rot, su, kp: PBSKernelPlan):
 unfolded_rotate_plain.calls = 0
 
 
-def _check_unfolded(rot, su, kp: PBSKernelPlan, B: int, dev):
+def _check_unfolded(rot, su, kp: PBSKernelPlan, B: int, dev, dtype):
     G, M = su.shape[0], su.shape[1]
     _check("rot", rot, torch.int32, (B, G, M), dev)
-    _check("su", su, torch.int64, (G, M, kp.J, kp.C, kp.N), dev)
+    _check("su", su, dtype, (G, M, kp.J, kp.C, kp.N), dev)
     _check_plan(kp, dev)
     return G, M
 
 
 def unfolded_rotate(acc0, rot, su, kp: PBSKernelPlan):
     """The unfolded blind rotation.  CUDA tensors: one launch of the kernel
-    for all G groups, and an error raised if it does not build or launch.
-    CPU tensors: the plain version.  Returns [B, C, N]."""
-    _u64_only("unfolded_rotate", acc0)
+    for all G groups (its one-limb form for int32 words), and an error
+    raised if it does not build or launch.  CPU tensors: the plain version.
+    Returns [B, C, N] of acc0's dtype."""
+    bits = _word_width("unfolded_rotate", acc0, kp)
     dev = acc0.device
     if dev.type == "cpu":
         return unfolded_rotate_plain(acc0, rot, su, kp)
     if dev.type != "cuda":
         raise ValueError(f"unfolded_rotate runs on cuda or cpu, not {dev}")
+    _one_limb_primes("unfolded_rotate", bits, kp)
     B = acc0.shape[0]
-    _check("acc0", acc0, torch.int64, (B, kp.C, kp.N), dev)
-    G, M = _check_unfolded(rot, su, kp, B, dev)
+    _check("acc0", acc0, acc0.dtype, (B, kp.C, kp.N), dev)
+    G, M = _check_unfolded(rot, su, kp, B, dev, acc0.dtype)
     acc = acc0.clone()
     if B == 0 or G == 0:
         return acc
     layout, ws = _layout("unfolded_rotate", kp, B, dev, M=M)
-    _launch("unfolded_rotate", "unfolded_rotate_launch", 10, 3, dev,
+    _launch("unfolded_rotate", "unfolded_rotate_launch", 10, 4, dev,
             acc.data_ptr(), rot.data_ptr(), su.data_ptr(),
             kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
             kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(), _ptr(ws),
-            kp.host_consts.ctypes.data, layout.ctypes.data, B, G, M)
+            kp.host_consts.ctypes.data, layout.ctypes.data, B, G, M, bits)
     unfolded_rotate.launches += 1
     return acc
 
@@ -645,10 +670,10 @@ unfolded_rotate.launches = 0
 
 
 def ubr_phase1_combine_plain(su, rot, kp: PBSKernelPlan):
-    """UBR phase 1 in int64 PyTorch, on any device: per (b, g) the combined
-    TRGSW in NTT form (`multivalue_bootstrap_UBR_phase1`,
-    `bootstrap.c:151-175`).  Returns [B, G, J, C, P, N] int32 holding u32
-    canonical residues."""
+    """UBR phase 1 in int64 PyTorch, on any device, at the width of su's
+    words: per (b, g) the combined TRGSW in NTT form
+    (`multivalue_bootstrap_UBR_phase1`, `bootstrap.c:151-175`).  Returns
+    [B, G, J, C, P, N] int32 holding u32 canonical residues."""
     ubr_phase1_combine_plain.calls += 1
     out = [_ntt.to_ntt_u64(combine_rotated(su[g], rot[:, g]), kp.ntt)
            for g in range(su.shape[0])]
@@ -659,24 +684,27 @@ ubr_phase1_combine_plain.calls = 0
 
 
 def ubr_phase1_combine(su, rot, kp: PBSKernelPlan):
-    """UBR phase 1.  CUDA tensors: one launch of the kernel for all (b, g),
-    and an error raised if it does not build or launch.  CPU tensors: the
-    plain version.  Returns [B, G, J, C, P, N] int32 (u32 residues)."""
-    _u64_only("ubr_phase1_combine", su)
+    """UBR phase 1.  CUDA tensors: one launch of the kernel for all (b, g)
+    (its one-limb form for int32 key products), and an error raised if it
+    does not build or launch.  CPU tensors: the plain version.  Returns
+    [B, G, J, C, P, N] int32 (u32 residues)."""
+    bits = _word_width("ubr_phase1_combine", su, kp)
     dev = su.device
     if dev.type == "cpu":
         return ubr_phase1_combine_plain(su, rot, kp)
     if dev.type != "cuda":
         raise ValueError(f"ubr_phase1_combine runs on cuda or cpu, not {dev}")
+    _one_limb_primes("ubr_phase1_combine", bits, kp)
     B = rot.shape[0]
-    G, M = _check_unfolded(rot, su, kp, B, dev)
+    G, M = _check_unfolded(rot, su, kp, B, dev, su.dtype)
     out = torch.empty((B, G, kp.J, kp.C, kp.P, kp.N), dtype=torch.int32,
                       device=dev)
     if B == 0 or G == 0:
         return out
-    _launch("ubr_phase1", "ubr_phase1_launch", 6, 3, dev, su.data_ptr(),
+    _launch("ubr_phase1", "ubr_phase1_launch", 6, 4, dev, su.data_ptr(),
             rot.data_ptr(), out.data_ptr(), kp.fwd_tw.data_ptr(),
-            kp.fwd_tws.data_ptr(), kp.host_consts.ctypes.data, B, G, M)
+            kp.fwd_tws.data_ptr(), kp.host_consts.ctypes.data, B, G, M,
+            bits)
     ubr_phase1_combine.launches += 1
     return out
 
@@ -822,9 +850,9 @@ ga_scan_fused.launches = 0
 # --- the gadget-row split CMUX step (K8a, K8b) ------------------------------
 
 def partial_step_plain(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan):
-    """K8a in int64 PyTorch, on any device: `cmux_partial` over the global
-    key rows [j0, j0 + j_local).  Returns [B, C, P, N] int32 (u32
-    canonical residues)."""
+    """K8a in int64 PyTorch, on any device, at the width of acc's words:
+    `cmux_partial` over the global key rows [j0, j0 + j_local).  Returns
+    [B, C, P, N] int32 (u32 canonical residues)."""
     partial_step_plain.calls += 1
     return u32_as_i32(cmux_partial(acc, a, j0, i32_as_u32(keyv),
                                    i32_as_u32(keyvs), kp.ntt, kp.l,
@@ -836,23 +864,24 @@ partial_step_plain.calls = 0
 
 def partial_step(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan, out=None):
     """The partial of one CMUX step over key rows [j0, j0 + j_local).  CUDA
-    tensors: one launch of the kernel, written into ``out`` [B, C, P, N]
-    int32 when given (a slot of the buffer `finish_step` reads), and an
-    error raised if it does not build or launch.  CPU tensors: the plain
-    version.  Returns the partial."""
-    _u64_only("partial_step", acc)
+    tensors: one launch of the kernel (its one-limb form for int32 words),
+    written into ``out`` [B, C, P, N] int32 when given (a slot of the
+    buffer `finish_step` reads), and an error raised if it does not build
+    or launch.  CPU tensors: the plain version.  Returns the partial."""
+    bits = _word_width("partial_step", acc, kp)
     dev = acc.device
     if dev.type == "cpu":
         part = partial_step_plain(acc, a, j0, keyv, keyvs, kp)
         return part if out is None else out.copy_(part)
     if dev.type != "cuda":
         raise ValueError(f"partial_step runs on cuda or cpu, not {dev}")
+    _one_limb_primes("partial_step", bits, kp)
     B, j_local = acc.shape[0], keyv.shape[0]
     if not (0 <= j0 and 1 <= j_local and j0 + j_local <= kp.J):
         raise ValueError(f"key rows [{j0}, {j0 + j_local}) outside "
                          f"[0, {kp.J})")
     row = (j_local, kp.C, kp.P, kp.N)
-    _check("acc", acc, torch.int64, (B, kp.C, kp.N), dev)
+    _check("acc", acc, acc.dtype, (B, kp.C, kp.N), dev)
     _check("a", a, torch.int32, (B,), dev)
     _check("keyv", keyv, torch.int32, row, dev)
     _check("keyvs", keyvs, torch.int32, row, dev)
@@ -864,11 +893,11 @@ def partial_step(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan, out=None):
     if B == 0:
         return out
     layout, ws = _layout("tp_step", kp, B, dev)
-    _launch("tp_step", "partial_step_launch", 10, 3, dev,
+    _launch("tp_step", "partial_step_launch", 10, 4, dev,
             acc.data_ptr(), a.data_ptr(), keyv.data_ptr(), keyvs.data_ptr(),
             kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(), out.data_ptr(),
             _ptr(ws), kp.host_consts.ctypes.data, layout.ctypes.data, B, j0,
-            j_local)
+            j_local, bits)
     partial_step.launches += 1
     return out
 
@@ -877,9 +906,9 @@ partial_step.launches = 0
 
 
 def finish_step_plain(acc, parts, kp: PBSKernelPlan):
-    """K8b in int64 PyTorch, on any device: acc += INTT(sum of the m
-    partials mod p), the tail of `cmux_step`.  ``acc`` is updated in place
-    and returned."""
+    """K8b in int64 PyTorch, on any device, at the width of acc's words:
+    acc += INTT(sum of the m partials mod p), the tail of `cmux_step`.
+    ``acc`` is updated in place and returned."""
     finish_step_plain.calls += 1
     s = torch.remainder(i32_as_u32(parts).sum(dim=0), kp.ntt.p[:, None])
     return acc.add_(_ntt.from_ntt_u64(s, kp.ntt, acc.dtype))
@@ -892,25 +921,30 @@ def finish_step(acc, parts, kp: PBSKernelPlan):
     """The finish of one CMUX step on the partials ``parts`` [m, B, C, P, N]
     of all m shards: their sum mod p, inverse NTT, Garner, and acc += that,
     in place (the TPU kernel aliases acc to its output).  CUDA tensors: one
-    launch of the kernel, and an error raised if it does not build or
-    launch.  CPU tensors: the plain version.  Returns acc."""
-    _u64_only("finish_step", acc)
+    launch of the kernel (its one-limb form for int32 words; one pass per
+    component where the C*P spectra exceed shared memory), and an error
+    raised if it does not build or launch.  CPU tensors: the plain version.
+    Returns acc."""
+    bits = _word_width("finish_step", acc, kp)
     dev = acc.device
     if dev.type == "cpu":
         return finish_step_plain(acc, parts, kp)
     if dev.type != "cuda":
         raise ValueError(f"finish_step runs on cuda or cpu, not {dev}")
+    _one_limb_primes("finish_step", bits, kp)
     B, m = acc.shape[0], parts.shape[0]
-    _check("acc", acc, torch.int64, (B, kp.C, kp.N), dev)
+    _check("acc", acc, acc.dtype, (B, kp.C, kp.N), dev)
     _check("parts", parts, torch.int32, (m, B, kp.C, kp.P, kp.N), dev)
     _check_plan(kp, dev)
     if m < 1:
         raise ValueError("finish_step needs at least one partial")
+    layout, _ = _layout("finish_step", kp, B, dev, source="tp_step")
     if B == 0:
         return acc
-    _launch("tp_step", "finish_step_launch", 5, 2, dev,
+    _launch("tp_step", "finish_step_launch", 6, 3, dev,
             acc.data_ptr(), parts.data_ptr(), kp.inv_tw.data_ptr(),
-            kp.inv_tws.data_ptr(), kp.host_consts.ctypes.data, B, m)
+            kp.inv_tws.data_ptr(), kp.host_consts.ctypes.data,
+            layout.ctypes.data, B, m, bits)
     finish_step.launches += 1
     return acc
 

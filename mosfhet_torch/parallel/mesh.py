@@ -23,10 +23,9 @@ Each data shard's batch lives on the first device of its data row; with the
 key's rows sharded, every distinct device of the row holds a copy of the
 row's accumulators.  Results are gathered on the caller's device.
 
-At the 32-bit torus only the data axis runs (K1's one-limb form per data
-shard, model 1); the model axis needs K8a's and K8b's one-limb forms,
-still to be ported, and their wrappers raise NotImplementedError on int32
-words.
+At the 32-bit torus `pbs_on_mesh` and `unfolded_pbs_on_mesh` run on both
+axes, through the one-limb forms of K1, K4, K8a and K8b; `ga_pbs_on_mesh`
+raises NotImplementedError there (the GA key has no 32-bit form yet).
 """
 
 from __future__ import annotations
@@ -39,7 +38,7 @@ from .. import ntt as _ntt
 from .. import trlwe as _trlwe
 from ..ops import pbs_kernel as _pk
 from ..tlwe import TLWE
-from ..torus import gadget_decompose
+from ..torus import TORUS_BITS, gadget_decompose
 from ..trlwe import TRLWE, from_stacked
 
 
@@ -142,9 +141,10 @@ def _blind_rotate_tp(acc0, a_int, rows, keys, plans):
     p, which is exact for every m, and adds the step into the accumulators,
     once per distinct device of the row (once per data row on one card).
 
-    acc0 [B, C, N] int64; a_int [n, B] int32; rows: the data rows' devices
-    (model shards); keys {(s, device): (v32, vs32) [n, J/m, C, P, N]};
-    plans {device: kernel plan}.  Returns each data row's accumulators."""
+    acc0 [B, C, N] int64 or int32 words; a_int [n, B] int32; rows: the data
+    rows' devices (model shards); keys {(s, device): (v32, vs32) [n, J/m,
+    C, P, N]}; plans {device: kernel plan}.  Returns each data row's
+    accumulators."""
     Bs = acc0.shape[0] // len(rows)
     m = len(rows[0])
     jl = keys[0, rows[0][0]][0].shape[1]
@@ -229,11 +229,11 @@ def unfolded_pbs_on_mesh(mesh: Mesh, bk: _bs.BootstrapKey, torus_base: int,
     The batch is split over ``data_axis``.  With a model size of 1 each data
     shard is one unfolded-rotation launch (K4).  With m > 1 the key's 2^u
     products of each group are split over the model shards (m must divide
-    2^u): each shard rotates and sums its 2^u/m, the sums add mod 2^64 on
-    the data row's first device (exact, as the single-device combine), and
-    one replace-mode external product per group follows there.  That route
-    is plain PyTorch: the TPU package has no kernel on it (it runs jnp
-    there), so there is none to port."""
+    2^u): each shard rotates and sums its 2^u/m, the sums add mod 2^64 (or
+    2^32) on the data row's first device (exact, as the single-device
+    combine), and one replace-mode external product per group follows
+    there.  That route is plain PyTorch: the TPU package has no kernel on
+    it (it runs jnp there), so there is none to port."""
     if bk.unfolding == 1:
         raise ValueError("unfolded_pbs_on_mesh needs an unfolded key")
     rows = mesh.rows(data_axis, model_axis)
@@ -286,7 +286,11 @@ def ga_pbs_on_mesh(mesh: Mesh, bkg: _bga.GABootstrapKey, torus_base: int,
     first device).  Each shard's NTT-domain partial is summed mod p on the
     data row's first device, then the step goes on there.  That route is
     plain PyTorch: the TPU package has no kernel on it (it runs jnp there),
-    so there is none to port."""
+    so there is none to port.  Not at the 32-bit torus yet: raises
+    NotImplementedError there."""
+    if TORUS_BITS == 32:
+        raise NotImplementedError("the GA bootstrap at the 32-bit torus is "
+                                  "still to be ported")
     rows = mesh.rows(data_axis, model_axis)
     m = len(rows[0])
     k, N = bkg.k, bkg.N

@@ -17,7 +17,7 @@ import torch
 from . import ntt as _ntt
 from . import trlwe as _trlwe
 from .ops import pbs_kernel as _pk
-from .torus import TORUS_BITS, TORUS_DTYPE, to_signed, wrap
+from .torus import TORUS_BITS, TORUS_DTYPE, to_signed, word_bits, wrap
 from .trlwe import TRLWE, TRLWEKey, from_stacked
 
 
@@ -126,14 +126,15 @@ def external_product(c: TRLWE, g: TRGSWDFT) -> TRLWE:
     """TRGSW (x) TRLWE, the library's hot kernel (`trgsw_mul_trlwe_DFT`,
     `trgsw.c:385-423`), batched over the leading axes of both operands.
 
-    On CUDA tensors one launch of the apply-scan kernel with G=1: one TRGSW
-    [J, C, P, N] is broadcast over the batch, a batch of them [..., J, C, P,
-    N] is taken one per row.  On CPU tensors its plain version.  ``g.vs`` is
-    not read.  The 32-bit torus form (K3's one-limb form) is still to be
-    ported: int32 words raise NotImplementedError."""
+    On CUDA tensors one launch of the apply-scan kernel with G=1 (its
+    one-limb form for the int32 words of the 32-bit torus): one TRGSW [J, C,
+    P, N] is broadcast over the batch, a batch of them [..., J, C, P, N] is
+    taken one per row.  On CPU tensors its plain version.  ``g.vs`` is not
+    read."""
     k, N = g.k, g.N
-    kp = _pk.get_kernel_plan(N, g.primes, g.l, g.Bg_bit, k, g.v.device)
     st = c.stacked()
+    kp = _pk.get_kernel_plan(N, g.primes, g.l, g.Bg_bit, k, g.v.device,
+                             word_bits(st))
     per_row = g.v.dim() > 4
     batch = torch.broadcast_shapes(st.shape[:-2], g.v.shape[:-4])
     B = math.prod(batch)

@@ -4,8 +4,10 @@ key switch, GA rotation, the gadget-row split CMUX step) against their
 plain PyTorch versions, bit for bit, the int8 key switch through
 `torch._int_mm`, and the sharded bootstrap on a mesh of one card (and of
 every card, where there are several); the one-limb (32-bit torus) forms
-of the blind rotation and the select-sum; and the kernels at N=4096 with 4
-primes (SET_3) and N=8192, whose buffers do not all fit shared memory.
+of the blind rotation, the select-sum, the external-product apply scan,
+the unfolded rotation, UBR phase 1 and the split CMUX step; and the
+kernels at N=4096 with 4 primes (SET_3) and N=8192, whose buffers do not
+all fit shared memory.
 Needs a CUDA card: without one every test here skips.
 
 This file imports nothing but PyTorch, numpy and the port, so it runs on a
@@ -573,3 +575,138 @@ def test_cuda_unplaceable_shape_raises_before_launch():
                               torch.from_numpy(a_int).cuda(),
                               as_i32(keyv, "cuda"), as_i32(keyvs, "cuda"), kp)
     assert tpk.blind_rotate_scan.launches == launches
+
+
+# --- the one-limb (32-bit torus) forms of K3, K4, K5, K8a and K8b ----------
+
+L2_32_DIGITS = (2048, 1, 3, 7)     # L2_32's bootstrap digits: J = 6, P = 2
+
+
+def _words32(rng, *shape):
+    """Random u32 torus words as an int32 tensor on the card."""
+    return as_i32(rng.integers(0, 1 << 32, size=shape, dtype=np.uint64)
+                  .astype(np.uint32), "cuda")
+
+
+def _plan32():
+    N, k, l, Bg_bit = L2_32_DIGITS
+    return tpk.get_kernel_plan(N, PRIMES_32, l, Bg_bit, k, "cuda", 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_row", [False, True],
+                         ids=["broadcast", "per_row"])
+def test_cuda_ext_product_apply_matches_plain_torus32(per_row):
+    """K3's one-limb form at L2_32 widths, G=2, B=5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp = _plan32()
+    G, B = 2, 5
+    rng = np.random.default_rng(320 + per_row)
+    rows = (G, B) if per_row else (G,)
+    sa = random_residues(rng, rows + (kp.J, kp.C, kp.P, kp.N), PRIMES_32)
+    args = (_words32(rng, B, kp.C, kp.N), as_i32(sa, "cuda"), kp, per_row)
+    launches = tpk.ext_product_apply_scan.launches
+    got = tpk.ext_product_apply_scan(*args)
+    torch.cuda.synchronize()
+    assert tpk.ext_product_apply_scan.launches == launches + 1
+    want = tpk.ext_product_apply_scan_plain(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u,G,B", [(2, 2, 3), (4, 2, 3)])
+def test_cuda_unfolded_kernels_match_plain_torus32(u, G, B):
+    """K4 and K5's one-limb forms at L2_32 widths: u32 key products summed
+    mod 2^32, exponents 0, N and 2N present."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp = _plan32()
+    M = 1 << u
+    rng = np.random.default_rng(330 + u)
+    acc0 = _words32(rng, B, kp.C, kp.N)
+    su = _words32(rng, G, M, kp.J, kp.C, kp.N)
+    rot = torch.from_numpy(random_exponents(rng, B, G, M, kp.N)).cuda()
+    launches = (tpk.unfolded_rotate.launches, tpk.ubr_phase1_combine.launches)
+    got4 = tpk.unfolded_rotate(acc0, rot, su, kp)
+    got5 = tpk.ubr_phase1_combine(su, rot, kp)
+    torch.cuda.synchronize()
+    assert (tpk.unfolded_rotate.launches,
+            tpk.ubr_phase1_combine.launches) == (launches[0] + 1,
+                                                 launches[1] + 1)
+    assert got4.dtype == torch.int32
+    assert torch.equal(got4, tpk.unfolded_rotate_plain(acc0, rot, su, kp))
+    assert torch.equal(got5, tpk.ubr_phase1_combine_plain(su, rot, kp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("j0", [0, 3], ids=["first", "mid"])
+def test_cuda_partial_step_matches_plain_torus32(j0):
+    """K8a's one-limb form over rows [j0, j0 + 3) of L2_32's J = 6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, k, l, Bg_bit = L2_32_DIGITS
+    B, jl = 5, 3
+    _, acc0, a_int, keyv, keyvs = random_rotation_inputs(
+        N, k, l, Bg_bit, 1, B, seed=340 + j0, primes=PRIMES_32,
+        torus_bits=32)
+    kp = _plan32()
+    args = (to_tensor(acc0, "cuda"), torch.from_numpy(a_int[0]).cuda(), j0,
+            as_i32(keyv[0, j0:j0 + jl].copy(), "cuda"),
+            as_i32(keyvs[0, j0:j0 + jl].copy(), "cuda"), kp)
+    launches = tpk.partial_step.launches
+    got = tpk.partial_step(*args)
+    torch.cuda.synchronize()
+    assert tpk.partial_step.launches == launches + 1
+    assert torch.equal(got, tpk.partial_step_plain(*args))
+
+
+def _finish_case(kp, m, B, seed, torus_bits):
+    """Random accumulators of the width and m random partials with the
+    largest residues present, on the card."""
+    rng = np.random.default_rng(seed)
+    acc0 = rng.integers(0, 1 << torus_bits, size=(B, kp.C, kp.N),
+                        dtype=np.uint64)
+    acc0 = to_tensor(acc0.astype(np.uint32) if torus_bits == 32 else acc0,
+                     "cuda")
+    parts = random_residues(rng, (m, B, kp.C, kp.P, kp.N), kp.primes)
+    parts[:, 0, 0, :, 0] = np.array(kp.primes, np.uint32) - 1
+    return acc0, as_i32(parts, "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 4])
+def test_cuda_finish_step_matches_plain_torus32(m):
+    """K8b's one-limb form at L2_32 widths on the partials of m shards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp = _plan32()
+    acc0, parts = _finish_case(kp, m, 5, 350 + m, 32)
+    want = tpk.finish_step_plain(acc0.clone(), parts, kp)
+    acc = acc0.clone()
+    launches = tpk.finish_step.launches
+    got = tpk.finish_step(acc, parts, kp)
+    torch.cuda.synchronize()
+    assert tpk.finish_step.launches == launches + 1
+    assert got is acc and got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 4])
+def test_cuda_finish_step_matches_plain_n8192(m):
+    """K8b at N=8192 with 4 primes (64-bit torus): its 256 KiB of spectra
+    exceed a block, so it runs one pass per component on 128 KiB."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, k, l, Bg_bit = 8192, 1, 1, 22
+    primes = ntt.primes_for_bound(ntt.external_product_bound(N, Bg_bit, l, k))
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    assert kp.P == 4
+    acc0, parts = _finish_case(kp, m, 4, 360 + m, 64)
+    want = tpk.finish_step_plain(acc0.clone(), parts, kp)
+    acc = acc0.clone()
+    launches = tpk.finish_step.launches
+    got = tpk.finish_step(acc, parts, kp)
+    torch.cuda.synchronize()
+    assert tpk.finish_step.launches == launches + 1
+    assert got is acc and torch.equal(got, want)

@@ -70,12 +70,13 @@ ALL_SHARED = {"TFHEPP_L2": (2048, 4, 9, 64), "SET_1": (1024, 2, 8, 64),
 KERNELS = {"K1": ("blind_rotate", {}), "K3": ("ext_product_apply", {}),
            "K4": ("unfolded_rotate", {"M": 256}),
            "K6": ("auto_keyswitch", {}), "K7": ("ga_scan", {"P_ks": 3}),
-           "K8a": ("tp_step", {})}
+           "K8a": ("tp_step", {}), "K8b": ("finish_step", {})}
+ONE_LIMB = ("K1", "K3", "K4", "K8a", "K8b")   # the kernels with 32-bit forms
 
 
 @pytest.mark.parametrize("name,k_id", [
     (name, k_id) for name in sorted(ALL_SHARED) for k_id in KERNELS
-    if ALL_SHARED[name][3] == 64 or k_id == "K1"])   # K1 alone has 32 bits
+    if ALL_SHARED[name][3] == 64 or k_id in ONE_LIMB])
 def test_layout_keeps_every_buffer_shared_where_it_fits(name, k_id):
     """Every shape that fitted before buffers could move keeps them all in
     shared memory."""
@@ -96,7 +97,9 @@ def test_layout_keeps_every_buffer_shared_where_it_fits(name, k_id):
     ("unfolded_rotate", {"M": 4}, "SSSWS", 192),
     ("auto_keyswitch", {}, "SSW", 192),
     ("ga_scan", {"P_ks": 4}, "SSWI", 192),
-    ("tp_step", {}, "SSW", 192)], ids=["K1", "K3", "K4", "K6", "K7", "K8a"])
+    ("tp_step", {}, "SSW", 192),
+    ("finish_step", {}, "SS", 128)],
+    ids=["K1", "K3", "K4", "K6", "K7", "K8a", "K8b"])
 def test_layout_at_set3_moves_the_u64_buffers(kernel, kw, where, smem_kib):
     """N=4096 with 4 primes (SET_3; the GA key's key-switch plan there has 4
     primes too) asks for up to 320 KiB: the NTT rows and spectra stay in
@@ -127,23 +130,101 @@ def test_layout_that_cannot_be_placed_raises():
         tpk.kernel_layout("blind_rotate", kp, H100_BUDGET)
 
 
-@pytest.mark.parametrize("name", ["ext_product_apply_scan", "unfolded_rotate",
-                                  "ubr_phase1_combine",
-                                  "auto_keyswitch_stream", "ga_scan_fused",
-                                  "partial_step", "finish_step"])
+def test_k8b_layout_at_n8192_runs_one_component_per_pass():
+    """N=8192 with 4 primes: K8b's 256 KiB of spectra do not fit, so one
+    component's 128 KiB of rows is placed and the other components' rows
+    are left out (the kernel then makes a pass per component); nothing
+    lives in a workspace."""
+    kp = _plan(8192, 1, 22)
+    assert kp.P == 4
+    layout, stride = tpk.kernel_layout("finish_step", kp, H100_BUDGET)
+    assert _where(layout) == "SI" and layout[0] == 128 * 1024
+    assert stride == 0
+
+
+def test_k8b_layout_at_l2_keeps_one_pass_in_contiguous_rows():
+    """Where all C*P rows fit, the other components' rows follow component
+    0's directly, so one pass reads them as one [C][P][N] block."""
+    kp = _plan(2048, 4, 9)
+    layout, stride = tpk.kernel_layout("finish_step", kp, H100_BUDGET)
+    row = kp.P * kp.N * 4
+    assert list(layout) == [kp.C * row, 0, 0, row] and stride == 0
+
+
+def test_k8b_layout_that_cannot_be_placed_raises():
+    """At N=16384 with 4 primes even one component's rows need 256 KiB."""
+    kp = _plan(16384, 1, 22)
+    with pytest.raises(ValueError, match="262144 B"):
+        tpk.kernel_layout("finish_step", kp, H100_BUDGET)
+
+
+@pytest.mark.parametrize("name", ["auto_keyswitch_stream", "ga_scan_fused"])
 def test_kernels_without_a_32bit_form_refuse_int32_words(name):
-    """Only K1 and K2 have their one-limb (32-bit torus) form yet: the other
-    wrappers raise on int32 words instead of taking any route."""
+    """K6 and K7 have no one-limb (32-bit torus) form yet: their wrappers
+    raise on int32 words instead of taking any route."""
     w = torch.zeros((1, 2, 64), dtype=torch.int32)
-    args = {"ext_product_apply_scan": (w, None, None),
-            "unfolded_rotate": (w, None, None, None),
-            "ubr_phase1_combine": (w, None, None),
-            "auto_keyswitch_stream": (w, None, None, None, None),
-            "ga_scan_fused": (w, None, None, None, None, None, None, None),
-            "partial_step": (w, None, 0, None, None, None),
-            "finish_step": (w, None, None)}[name]
+    args = {"auto_keyswitch_stream": (w, None, None, None, None),
+            "ga_scan_fused": (w, None, None, None, None, None, None,
+                              None)}[name]
     with pytest.raises(NotImplementedError, match="32-bit torus"):
         getattr(tpk, name)(*args)
+
+
+def _one_limb_args(name, kp, rng):
+    """Small int32-word inputs of K3, K4, K5, K8a or K8b at ``kp``'s widths
+    (B=2, G=2, M=4), and the shape and dtype of what comes back."""
+    B, G, M, C, J, P, N = 2, 2, 4, kp.C, kp.J, kp.P, kp.N
+
+    def w32(*shape):
+        return torch.from_numpy(rng.integers(0, 1 << 32, shape,
+                                             dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32))
+
+    def res(*shape):
+        return torch.from_numpy((rng.integers(0, 1 << 62, shape,
+                                              dtype=np.uint64)
+                                 % np.array(kp.primes, np.uint64)[:, None])
+                                .astype(np.int64))
+
+    rot = torch.from_numpy(rng.integers(0, 2 * N + 1, (B, G, M),
+                                        dtype=np.int32))
+    a = torch.from_numpy(rng.integers(0, 2 * N + 1, B, dtype=np.int32))
+    kv = res(J // 2, C, P, N)
+    kvs = (kv << 32) // kp.ntt.p[:, None]
+    return {
+        "ext_product_apply_scan": (
+            (w32(B, C, N), tpk.u32_as_i32(res(G, J, C, P, N)), kp),
+            (B, C, N), torch.int32),
+        "unfolded_rotate": ((w32(B, C, N), rot, w32(G, M, J, C, N), kp),
+                            (B, C, N), torch.int32),
+        "ubr_phase1_combine": ((w32(G, M, J, C, N), rot, kp),
+                               (B, G, J, C, P, N), torch.int32),
+        "partial_step": ((w32(B, C, N), a, J // 2, tpk.u32_as_i32(kv),
+                          tpk.u32_as_i32(kvs), kp), (B, C, P, N),
+                         torch.int32),
+        "finish_step": ((w32(B, C, N), tpk.u32_as_i32(res(2, B, C, P, N)),
+                         kp), (B, C, N), torch.int32)}[name]
+
+
+@pytest.mark.parametrize("name", ["ext_product_apply_scan", "unfolded_rotate",
+                                  "ubr_phase1_combine", "partial_step",
+                                  "finish_step"])
+def test_one_limb_forms_take_int32_words(name):
+    """K3, K4, K5, K8a and K8b take the 32-bit torus's int32 words: on CPU
+    tensors the plain version runs (one call) and gives the shape and
+    dtype the kernel writes; a 64-bit plan, whose gadget offset is of the
+    wrong width, is refused before any route."""
+    kp = _plan(64, 3, 7, 32)
+    args, shape, dtype = _one_limb_args(name, kp, np.random.default_rng(7))
+    plain = getattr(tpk, name + "_plain")
+    calls = plain.calls
+    out = getattr(tpk, name)(*args)
+    assert plain.calls == calls + 1
+    assert tuple(out.shape) == shape and out.dtype == dtype
+    kp64 = _plan(64, 3, 7, 64)
+    with pytest.raises(ValueError, match="32-bit plan"):
+        getattr(tpk, name)(*(kp64 if x is kp else x for x in args))
+    assert plain.calls == calls + 1
 
 
 def test_kernel_plan_width_must_match_the_words():

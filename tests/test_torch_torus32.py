@@ -297,25 +297,19 @@ def _child(out_path):
         return "" if worst < 1 << 26 else f"max error {worst} >= 2^26"
 
     def case_unported_paths_raise():
-        """What has no 32-bit form yet raises instead of giving words:
-        unfolded and GA keys, the TRLWE key switch, the 64-bit-only
-        kernels."""
+        """What has no 32-bit form yet raises instead of giving words: the
+        GA key and the TRLWE key-switch key (the unfolded key and the
+        external product have theirs: `test_torch_torus32_unfolded.py`)."""
         from mosfhet_torch import bootstrap_ga as tbga, keyswitch as tks
         gen = torch.Generator().manual_seed(5)
         kt = ttlwe.new_binary_key(p.n, p.lwe_sigma, gen, CPU)
         kr = ttrlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, CPU)
         gk = ttrgsw.new_key(kr, p.l, p.Bg_bit)
         calls = {
-            "unfolded key": lambda: tbs.new_key(gk, kt, gen, CPU,
-                                                unfolding=2),
             "GA key": lambda: tbga.new_key(gk, kt, gen, CPU),
             "TRLWE KS key": lambda: tks.new_trlwe_ks_key(kr, kr, p.t,
                                                          p.base_bit, gen,
-                                                         CPU),
-            "external product": lambda: ttrgsw.external_product(
-                ttrlwe.encrypt(None, kr, gen),
-                ttrgsw.to_dft(ttrgsw.monomial_encrypt(1, 0, gk, gen),
-                              gk.plan()))}
+                                                         CPU)}
         missing = []
         for what, call in calls.items():
             try:
