@@ -68,6 +68,14 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               launch beside their bounds and their plain versions on the
               path's own inputs (bit-exact), and K7 once more with every
               generator 1 (its keyset reads all from one L2-resident entry).
+14b. steps    the per-step GA forms on phase 14's key and 512 ciphertexts:
+              bootstrap_ga.blind_rotate_ga_stepwise (n K1-delta and n+1 K6
+              launches per call) and blind_rotate_ga_gathered (n K1-delta
+              and n+1 K6-old launches, no K6), counts zeroed just before
+              each call and read just after, words equal to phase 14's K7
+              output; warm ms beside blind_rotate_ga's and K7's; K1-delta
+              and K6-old timed per launch on the path's first step beside
+              their bounds and their plain versions (bit-exact).
  15. trlweks  keyswitch.trlwe_keyswitch (from a second ring key) and
               keyswitch.eval_automorphism (a random odd generator, its key
               from new_automorphism_ks_keyset) on 512 TRLWEs: one K6 launch
@@ -135,12 +143,23 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               counts, words equal to the one-limb K1 path's); each kernel
               timed on its path's own inputs beside its bound and its plain
               version (bit-exact); unfolded_pbs_on_mesh at model 2 on 32
-              ciphertexts, equal to the K4 path's words.  The child's
-              failure fails the script.
- 21. report   the pbs, gate, fdfb, unfolded, ubr, extprod, ga, trlweks,
-              mesh, set3 and torus32 lines, the card line, the kernels line
-              (the one-limb forms as `<kernel>/torus32`, K8b at N=8192 as
-              `finish_step/n8192`), and the result line last.
+              ciphertexts, equal to the K4 path's words.  Then the GA
+              family through the one-limb K6 and K7: the GA keygen
+              (seconds, bytes, peak), functional_bootstrap_ga of the same
+              512 ciphertexts (1 K6 and 1 K7 launch per call, decrypt
+              within 2^27), K6 and K7 timed on the path's own inputs beside
+              their bounds and plain versions (bit-exact; K7's plain on all
+              512), trlwe_keyswitch and eval_automorphism on 512 TRLWEs (1
+              K6 launch each, within trlwe_ks_bound at 32 bits, 2^25), and
+              ga_pbs_on_mesh at (2, 1) (2 K6 + 2 K7 launches) and at (1, 2)
+              on 32 ciphertexts (the plain route), equal to the
+              bootstrap's words.  The child's failure fails the script.
+ 21. report   the pbs, gate, fdfb, unfolded, ubr, extprod, ga (with the
+              per-step forms), trlweks, mesh, set3 and torus32 lines, the
+              card line, the kernels line (the one-limb forms as
+              `<kernel>/torus32`, K8b at N=8192 as `finish_step/n8192`,
+              K1-delta as `cmux_delta`, K6-old as `auto_keyswitch`), and the
+              result line last.
 
 Imports nothing but PyTorch, numpy and the port.
 """
@@ -178,7 +197,8 @@ RUNTIME_KEY_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT "
                             "external product or an unfolded combine")
 KERNELS = ("blind_rotate_scan", "tlwe_keyswitch_sum", "ext_product_apply_scan",
            "unfolded_rotate", "ubr_phase1_combine", "auto_keyswitch_stream",
-           "ga_scan_fused", "partial_step", "finish_step")
+           "ga_scan_fused", "partial_step", "finish_step", "cmux_delta",
+           "auto_keyswitch")
 TP_LIBRARY_NOTE = ("none: no PyTorch call computes a partial external "
                    "product or an NTT-domain finish")
 # (data, model) meshes of the one card for pbs_on_mesh (phase 17)
@@ -187,6 +207,9 @@ TP_REPS = 20         # timed launches of K8a and K8b
 MESH_CUT = 32        # ciphertexts of the plain-PyTorch mesh routes (phase 18)
 GA_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT key switch "
                    "with per-row keys or a Galois permutation")
+STEP_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT external "
+                     "product")
+STEP_REPS = 2        # timed calls of the per-step GA forms (phase 14b)
 SET3_CUT = 64        # ciphertexts of the SET_3 K3, K4, K7, K8a checks
 SET3_GA_ENTRIES = 64  # keyset entries of the SET_3 K7 check
 # The 32-bit torus: benchmarks/bench_torus32.py's parameter set (L2_32)
@@ -201,6 +224,10 @@ TORUS32_TIMEOUT_S = 600
 # multiplies the per-group noise by ~2^(u/2) over n/u groups, ~2^26-2^27
 # expected; 2^28 is half the 2^29 slot spacing of a 4-slot LUT.
 UNFOLDED_BOUND_32 = 2.0**28
+# The GA bootstrap at L2_32: per-step key-switch and external-product noise
+# over 632 steps, sigma ~2^24 in u32 words expected; the TPU package's own
+# TORUS32 GA test bound (tests/_torus32_suite.py:408).
+GA_DECRYPT_BOUND_32 = 2.0**27
 # (data, model) meshes of the card at L2_32, whose J = 6 gadget rows split
 # over 2 or 3 model shards (not 4)
 MESH_SHAPES_32 = ((1, 2), (1, 3), (2, 2))
@@ -369,17 +396,19 @@ def ubr_phase1_bound(kp, B, G, M, max_clock_mhz):
     return ops_bytes_bound(ops, nbytes, max_clock_mhz)
 
 
-def trlwe_ks_bound(p, t, base_bit):
+def trlwe_ks_bound(p, t, base_bit, bits=64):
     """Decrypt bound of a TRLWE key switch with t digits of base_bit bits
-    under a binary ring key: per coefficient k t N products of a digit
-    (uniform, variance 2^(2 base_bit)/12) with a key row's noise (sigma
-    rlwe_sigma 2^64 in words), plus the k N/2 dropped remainders of the mask
-    words (uniform below 2^(64 - t base_bit)) times the key bits, plus the
-    input's own noise.  Returns 2^ceil(log2(64 sigma)): 2^40 at TFHEpp-L2
-    with t=4, base_bit=9 (sigma 2^33.7)."""
-    sig_w = p.rlwe_sigma * 2.0**64
+    under a binary ring key, on the bits-bit torus: per coefficient k t N
+    products of a digit (uniform, variance 2^(2 base_bit)/12) with a key
+    row's noise (sigma rlwe_sigma 2^bits in words), plus the k N/2 dropped
+    remainders of the mask words (uniform below 2^(bits - t base_bit)) times
+    the key bits, plus the input's own noise.  Returns
+    2^ceil(log2(64 sigma)): 2^40 at TFHEpp-L2 with t=4, base_bit=9 (sigma
+    2^33.7); 2^25 at L2_32 with t=3, base_bit=7 (sigma 2^18.6)."""
+    sig_w = p.rlwe_sigma * 2.0**bits
     var = (p.k * t * p.N * 2.0**(2 * base_bit) / 12 * sig_w**2
-           + p.k * p.N / 2 * 2.0**(2 * (64 - t * base_bit)) / 12 + sig_w**2)
+           + p.k * p.N / 2 * 2.0**(2 * (bits - t * base_bit)) / 12
+           + sig_w**2)
     return 2.0**math.ceil(math.log2(64 * math.sqrt(var)))
 
 
@@ -393,16 +422,43 @@ def distinct_entry_bytes(kidx, kp_ks):
     return int(torch.unique(kidx).numel()) * entry_bytes(kp_ks)
 
 
+def auto_ks_ops(kp_ks, B):
+    """INT32 operations of B key switches (K6, K6-old): per ciphertext Jk*P
+    digit and C*P inverse NTTs, Jk*C*P*N Barrett key products, one Garner
+    product per word."""
+    C, P, N = kp_ks.C, kp_ks.P, kp_ks.N
+    Jk = (C - 1) * kp_ks.l
+    shoup = butterflies(kp_ks, Jk * P + C * P) + C * N
+    return (SHOUP_MULTIPLIES * shoup + BARRETT_MULTIPLIES * Jk * C * P * N) * B
+
+
 def auto_ks_bound(kp_ks, B, kidx, max_clock_mhz):
     """K6: one key switch per ciphertext (a step's second half); bytes: the
     distinct keyset entries read once, the words in and out, kidx and
     ginv."""
-    C, P, N = kp_ks.C, kp_ks.P, kp_ks.N
-    Jk = (C - 1) * kp_ks.l
-    shoup = butterflies(kp_ks, Jk * P + C * P) + C * N
-    ops = (SHOUP_MULTIPLIES * shoup + BARRETT_MULTIPLIES * Jk * C * P * N) * B
-    nbytes = (distinct_entry_bytes(kidx, kp_ks) + 2 * B * C * N * 8 + B * 8)
-    return ops_bytes_bound(ops, nbytes, max_clock_mhz)
+    nbytes = (distinct_entry_bytes(kidx, kp_ks)
+              + 2 * B * kp_ks.C * kp_ks.N * word_bytes(kp_ks) + B * 8)
+    return ops_bytes_bound(auto_ks_ops(kp_ks, B), nbytes, max_clock_mhz)
+
+
+def auto_ks_gathered_bound(kp_ks, B, max_clock_mhz):
+    """K6-old: K6's operations; bytes: the B gathered keyset rows (one entry
+    per ciphertext, each an input read once), the words in and out."""
+    nbytes = (B * entry_bytes(kp_ks)
+              + 2 * B * kp_ks.C * kp_ks.N * word_bytes(kp_ks))
+    return ops_bytes_bound(auto_ks_ops(kp_ks, B), nbytes, max_clock_mhz)
+
+
+def cmux_delta_bound(kp, B, max_clock_mhz):
+    """K1-delta for B ciphertexts: per ciphertext J*P digit and C*P inverse
+    NTTs, J*C*P*N Shoup key products and one Garner product per word;
+    bytes: the TRGSW and its Shoup companions read once, the words in and
+    out."""
+    J, C, P, N = kp.J, kp.C, kp.P, kp.N
+    shoup = butterflies(kp, J * P + C * P) + J * C * P * N + C * N
+    nbytes = 2 * J * C * P * N * 4 + 2 * B * C * N * word_bytes(kp)
+    return ops_bytes_bound(SHOUP_MULTIPLIES * shoup * B, nbytes,
+                           max_clock_mhz)
 
 
 def ga_bound(kp, kp_ks, gens, max_clock_mhz):
@@ -423,7 +479,7 @@ def ga_bound(kp, kp_ks, gens, max_clock_mhz):
     kidx = (gens.to(torch.int64) - 1) >> 1
     nbytes = (2 * n * kp.J * kp.C * kp.P * kp.N * 4
               + distinct_entry_bytes(kidx, kp_ks)
-              + 2 * B * kp.C * kp.N * 8 + n * B * 4)
+              + 2 * B * kp.C * kp.N * word_bytes(kp) + n * B * 4)
     out = ops_bytes_bound(ops, nbytes, max_clock_mhz)
     out["gathered_bytes"] = n * B * entry_bytes(kp_ks)
     out["products_per_step"] = shoup + barrett
@@ -554,6 +610,80 @@ def placement(pk, kernel, kp, source=None, **kw):
                     for o in layout[2:])
     return {"where": where, "smem_bytes": int(layout[0]),
             "workspace_bytes_per_block": int(stride)}
+
+
+def ga_stepwise_phase(bkg, tv, cs, acc_k6, acc_k7, gens, k7_ms, max_clock):
+    """Phase 14b: the per-step GA forms on phase 14's GA key, LUT and
+    ciphertexts.  blind_rotate_ga_stepwise (n K1-delta and n+1 K6 launches)
+    and blind_rotate_ga_gathered (n K1-delta and n+1 K6-old launches, no
+    K6), counts zeroed just before each call and read just after, each
+    word-equal to phase 14's K7 output ``acc_k7`` and timed warm beside
+    blind_rotate_ga and K7 alone; then K1-delta and K6-old alone on the
+    path's first step (``acc_k6``: the rotation after psi_{w0}) beside their
+    bounds and their plain versions.  Returns (report, counts, runs)."""
+    from mosfhet_torch import bootstrap, bootstrap_ga
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    n = bkg.n
+    tv_r = bootstrap.rotate_test_vector(tv, cs, bkg, 4)
+    fused_ms, _ = cuda_ms(
+        lambda: bootstrap_ga.blind_rotate_ga(tv_r, cs.a, bkg), STEP_REPS)
+    report = {"blind_rotate_ga_ms": fused_ms, "k7_ms": k7_ms}
+    counts, runs = {}, {}
+    for form, want in (
+            ("stepwise", {"cmux_delta": n, "auto_keyswitch_stream": n + 1}),
+            ("gathered", {"cmux_delta": n, "auto_keyswitch": n + 1})):
+        fn = getattr(bootstrap_ga, f"blind_rotate_ga_{form}")
+        zero_counts(pk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(tv_r, cs.a, bkg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts[form] = read_counts(pk)
+        check_counts(f"GA {form} form", counts[form], want)
+        same_or_fail(f"GA {form} form vs phase 14's K7 output",
+                     out.stacked().reshape(acc_k7.shape), acc_k7)
+        warm_ms, _ = cuda_ms(lambda: fn(tv_r, cs.a, bkg), STEP_REPS)
+        report[form] = {"first_call_s": first_s, "warm_ms": warm_ms,
+                        "boot_per_s": BATCH / warm_ms * 1e3,
+                        "vs_blind_rotate_ga": warm_ms / fused_ms,
+                        "vs_k7": warm_ms / k7_ms, "launches_per_call": want}
+        log(f"# blind_rotate_ga_{form} at B={BATCH}, n={n}: first call "
+            f"{first_s:.3f} s; warm {warm_ms:.3f} ms (mean of {STEP_REPS}) "
+            f"= {BATCH / warm_ms * 1e3:.2f} rotations/s, "
+            f"{warm_ms / fused_ms:.4f} x blind_rotate_ga's {fused_ms:.3f} ms "
+            f"(K6 + K7), {warm_ms / k7_ms:.4f} x K7's {k7_ms:.3f} ms; "
+            f"launches {want}; words equal to K7's")
+    kp, kp_ks = bkg.kernel_plans()
+    t_k = hold(runs, "cmux_delta",
+               lambda: pk.cmux_delta(acc_k6, bkg.s_v32[0], bkg.s_vs32[0], kp),
+               lambda: pk.cmux_delta_plain(acc_k6, bkg.s_v32[0],
+                                           bkg.s_vs32[0], kp),
+               cmux_delta_bound(kp, BATCH, max_clock), reps=KS_REPS)
+    kidx = ((gens[0].to(torch.int64) - 1) >> 1)
+    perm = bootstrap_ga._permute_dyn(t_k, gens[0], bkg.inv2n,
+                                     bkg.N).contiguous()
+    rows = bkg.ak[kidx]
+    o_k = hold(runs, "auto_keyswitch",
+               lambda: pk.auto_keyswitch(perm, rows, kp_ks),
+               lambda: pk.auto_keyswitch_plain(perm, rows, kp_ks),
+               auto_ks_gathered_bound(kp_ks, BATCH, max_clock),
+               reps=KS_REPS)
+    same_or_fail("K6-old vs K6 on the path's first step", o_k,
+                 pk.auto_keyswitch_stream(
+                     t_k, bkg.ak, kidx.to(torch.int32),
+                     bkg.inv2n[kidx].contiguous(), kp_ks))
+    for name, what in (("cmux_delta", "K1-delta"), ("auto_keyswitch",
+                                                     "K6-old")):
+        r = runs[name]
+        log(f"# {name} ({what}) at B={BATCH} on the path's first step: "
+            f"kernel {r['ms']:.4f} ms/launch (mean of {KS_REPS}), plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {r['bound']['int32_ops']:.4g} int32 ops, "
+            f"{r['bound']['bytes']:.4g} B); bit-exact")
+    del tv_r, t_k, perm, rows, o_k
+    return report, counts, runs
 
 
 def set3_phase(dev, max_clock):
@@ -1032,6 +1162,8 @@ def torus32_main():
     unfolded = torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe,
                                 key_trlwe, key_out, tv, luts, cs, slots)
     mesh = torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded)
+    ga = torus32_ga(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe, key_out,
+                    tv, luts, cs, slots, out)
     print(json.dumps({
         "params": p.name, "batch": BATCH, "primes": list(primes),
         "keygen_s": keygen_s, "key_bytes": key_bytes,
@@ -1047,14 +1179,27 @@ def torus32_main():
                  "glue_ms": fdfb_ms - 2 * k1_ms - k2_ms},
         "counts": {"pbs": pbs_counts, "gate": gate_counts,
                    "fdfb": fdfb_counts, **unfolded.pop("counts"),
-                   **mesh.pop("counts")},
+                   **mesh.pop("counts"), **ga.pop("counts")},
         "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
         "k2": {"ms": k2_ms, "plain_ms": k2_plain_ms, "bound": k2_bound,
                "library_ms": library_ms, "library_note": library_note},
         "kernel_runs": {**unfolded.pop("kernel_runs"),
-                        **mesh.pop("kernel_runs")},
-        **unfolded, "mesh": mesh}))
+                        **mesh.pop("kernel_runs"), **ga.pop("kernel_runs")},
+        **unfolded, "mesh": mesh, **ga}))
     return 0
+
+
+def hold(runs, name, kernel_fn, plain_fn, bound, reps=REPS):
+    """The kernel (timed over reps) and its plain version (once) on the same
+    inputs, word for word, recorded in ``runs[name]``; returns the kernel's
+    output."""
+    k_ms, got = cuda_ms(kernel_fn, reps)
+    p_ms, want = cuda_ms(plain_fn, 1)
+    same_or_fail(f"{name} vs plain on the path's inputs", got, want)
+    runs[name] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": 0.0,
+                  "bound_ms": bound["bound_ms"],
+                  "bound_by": bound["bound_by"], "bound": bound}
+    return got
 
 
 def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
@@ -1069,16 +1214,8 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
 
     runs, counts = {}, {}
 
-    def held(name, kernel_fn, plain_fn, bound, reps=REPS):
-        """The kernel (timed over reps) and its plain version (once) on the
-        same inputs, word for word; returns the kernel's output."""
-        k_ms, got = cuda_ms(kernel_fn, reps)
-        p_ms, want = cuda_ms(plain_fn, 1)
-        same_or_fail(f"{name} vs plain on the path's inputs", got, want)
-        runs[name] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": 0.0,
-                      "bound_ms": bound["bound_ms"],
-                      "bound_by": bound["bound_by"], "bound": bound}
-        return got
+    def held(*args, **kw):
+        return hold(runs, *args, **kw)
 
     # the u=4 PBS on the PBS's LUT and ciphertexts
     torch.cuda.synchronize()
@@ -1361,6 +1498,186 @@ def torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded):
     report["unfolded_route"] = {"s": route_s, "ciphertexts": n_cut}
     report.update(counts=counts, kernel_runs=runs)
     return report
+
+
+def torus32_ga(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe, key_out,
+               tv, luts, cs, slots, out):
+    """Phase 20's GA family at L2_32 through the one-limb K6 and K7: the GA
+    keygen (seconds, bytes, peak), functional_bootstrap_ga of the PBS's 512
+    ciphertexts (1 K6 and 1 K7 launch per call, decrypt within 2^27), K6
+    and K7 held to their plain versions on the path's own inputs (K7's
+    plain on all 512), trlwe_keyswitch and eval_automorphism on 512 TRLWEs
+    (1 K6 launch each, within trlwe_ks_bound), ga_pbs_on_mesh at (2, 1)
+    (K6 + K7 per data shard) and at (1, 2) on MESH_CUT ciphertexts (the
+    plain route), both equal to the bootstrap's words.  Returns the
+    report, with the paths' counts and the kernels' runs."""
+    from mosfhet_torch import (bootstrap, bootstrap_ga, keyswitch,
+                               polynomial, rng, tlwe, trlwe)
+    from mosfhet_torch.ops import pbs_kernel as pk
+    from mosfhet_torch.parallel import mesh as pmesh
+
+    runs, counts = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bkg = bootstrap_ga.new_key(gk, key_tlwe, gen, dev)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    keygen_peak = torch.cuda.max_memory_allocated()
+    key_bytes = sum(t.numel() * t.element_size()
+                    for t in (bkg.s_v32, bkg.s_vs32, bkg.ak, bkg.inv2n))
+    kpg, kpg_ks = bkg.kernel_plans()
+    if kpg.torus_bits != 32 or kpg_ks.torus_bits != 32:
+        fail("L2_32 GA plans are not 32-bit")
+    log(f"# L2_32 GA keygen: {keygen_s:.3f} s; TRGSW "
+        f"{tuple(bkg.s_v32.shape)} u32 x2, keyset {tuple(bkg.ak.shape)} u32 "
+        f"(P_ks={kpg_ks.P}); {key_bytes} B in all; peak "
+        f"{keygen_peak / 2**30:.2f} GiB; placements K6 "
+        f"{placement(pk, 'auto_keyswitch', kpg_ks)}, K7 "
+        f"{placement(pk, 'ga_scan', kpg, P_ks=kpg_ks.P)}")
+    zero_counts(pk)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_g = bootstrap_ga.functional_bootstrap_ga(tv, cs, bkg, 4)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    ga_ms, out_g2 = cuda_ms(
+        lambda: bootstrap_ga.functional_bootstrap_ga(tv, cs, bkg, 4), REPS)
+    counts["ga"] = read_counts(pk)
+    ga_peak = torch.cuda.max_memory_allocated()
+    check_counts(f"L2_32 GA path over {1 + REPS} calls", counts["ga"],
+                 {"auto_keyswitch_stream": 1 + REPS,
+                  "ga_scan_fused": 1 + REPS})
+    if out_g.a.shape != (BATCH, p.k * p.N) or out_g.a.dtype != torch.int32 \
+            or not (torch.equal(out_g.a, out_g2.a)
+                    and torch.equal(out_g.b, out_g2.b)):
+        fail("L2_32 GA bootstrap: wrong shape or dtype, or calls differ")
+    ga_err = signed_max_abs(tlwe.phase(out_g, key_out) - luts[slots])
+    log(f"# L2_32 GA decrypt: max error 2^{math.log2(max(ga_err, 1.0)):.2f}"
+        f" (bound 2^{math.log2(GA_DECRYPT_BOUND_32):.0f})")
+    if not ga_err < GA_DECRYPT_BOUND_32:
+        fail(f"L2_32 GA decrypt: max error 2^{math.log2(ga_err):.2f}")
+    acc_g, kidx0, ginv0, gens, _ = bootstrap_ga.ga_rotate_inputs(
+        bootstrap.rotate_test_vector(tv, cs, bkg, 4), cs.a, bkg)
+    acc_k6 = hold(runs, "auto_keyswitch_stream",
+                  lambda: pk.auto_keyswitch_stream(acc_g, bkg.ak, kidx0,
+                                                   ginv0, kpg_ks),
+                  lambda: pk.auto_keyswitch_stream_plain(acc_g, bkg.ak,
+                                                         kidx0, ginv0,
+                                                         kpg_ks),
+                  auto_ks_bound(kpg_ks, BATCH, kidx0, max_clock),
+                  reps=KS_REPS)
+    ga_args = (gens, bkg.s_v32, bkg.s_vs32, bkg.ak, bkg.inv2n, kpg, kpg_ks)
+    acc_k7 = hold(runs, "ga_scan_fused",
+                  lambda: pk.ga_scan_fused(acc_k6, *ga_args),
+                  lambda: pk.ga_scan_fused_plain(acc_k6, *ga_args),
+                  ga_bound(kpg, kpg_ks, gens, max_clock))
+    ext_g = trlwe.extract_tlwe(trlwe.from_stacked(acc_k7), 0)
+    if not (torch.equal(ext_g.a, out_g.a) and torch.equal(ext_g.b, out_g.b)):
+        fail("L2_32 GA output != extract of K7's rotation")
+    k6, k7 = runs["auto_keyswitch_stream"], runs["ga_scan_fused"]
+    log(f"# L2_32 GA bootstrap: first call {first_s:.3f} s; warm "
+        f"{ga_ms:.3f} ms per batch of {BATCH} = {BATCH / ga_ms * 1e3:.2f} "
+        f"boot/s; peak {ga_peak / 2**30:.2f} GiB; K6 {k6['ms']:.4f} "
+        f"ms/launch (mean of {KS_REPS}), plain {k6['plain_ms']:.3f}, bound "
+        f"{k6['bound_ms']:.4f} ({k6['bound_by']}); K7 {k7['ms']:.3f} "
+        f"ms/launch, plain {k7['plain_ms']:.3f} on all {BATCH} ciphertexts, "
+        f"bound {k7['bound_ms']:.3f} ({k7['bound_by']}: "
+        f"{k7['bound']['int32_ops']:.4g} int32 ops); glue "
+        f"{ga_ms - k6['ms'] - k7['ms']:.3f} ms; bit-exact")
+    del acc_g, acc_k6, acc_k7, out_g2
+
+    # the TRLWE key switch and eval_automorphism on BATCH TRLWEs
+    key_in = trlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, dev)
+    ksk_r = keyswitch.new_trlwe_ks_key(key_trlwe, key_in, p.l, p.Bg_bit, gen,
+                                       dev)
+    gen_auto = 2 * p.N - 3
+    ksk_auto = keyswitch.new_automorphism_ks_keyset(
+        key_trlwe, [gen_auto], p.l, p.Bg_bit, gen, dev)[gen_auto]
+    m_ks = rng.uniform_torus(gen, (BATCH, p.N), dev)
+    rks_bound = trlwe_ks_bound(p, p.l, p.Bg_bit, 32)
+    ks = {}
+    for name, c_in, fn, want in (
+            ("trlwe_keyswitch", trlwe.encrypt(m_ks, key_in, gen),
+             lambda c: keyswitch.trlwe_keyswitch(c, ksk_r), m_ks),
+            ("eval_automorphism", trlwe.encrypt(m_ks, key_trlwe, gen),
+             lambda c: keyswitch.eval_automorphism(c, gen_auto, ksk_auto),
+             polynomial.permute(m_ks, gen_auto))):
+        zero_counts(pk)
+        out_ks = fn(c_in)
+        torch.cuda.synchronize()
+        counts[name] = read_counts(pk)
+        check_counts(f"L2_32 {name}", counts[name],
+                     {"auto_keyswitch_stream": 1})
+        zero_counts(pk)
+        with plain_kernels(pk):
+            plain_ks_ms, out_p = cuda_ms(lambda: fn(c_in), 1)
+        check_counts(f"plain L2_32 {name}", read_counts(pk),
+                     {"auto_keyswitch_stream_plain": 1})
+        if out_ks.b.dtype != torch.int32 or not (
+                torch.equal(out_ks.a, out_p.a)
+                and torch.equal(out_ks.b, out_p.b)):
+            fail(f"L2_32 {name} != plain")
+        ks_e = signed_max_abs(trlwe.phase(out_ks, key_trlwe) - want)
+        if not ks_e <= rks_bound:
+            fail(f"L2_32 {name} decrypt: max error 2^{math.log2(ks_e):.2f} "
+                 f"> 2^{math.log2(rks_bound):.0f}")
+        ks_ms, _ = cuda_ms(lambda: fn(c_in), REPS)
+        ks[name] = {"ms": ks_ms, "plain_ms": plain_ks_ms, "launches": 1,
+                    "decrypt_max_err_log2": math.log2(max(ks_e, 1.0)),
+                    "decrypt_bound_log2": math.log2(rks_bound)}
+        log(f"# L2_32 {name} on {BATCH} TRLWEs: {ks_ms:.3f} ms per call, "
+            f"plain {plain_ks_ms:.3f} ms; 1 K6 launch; bit-exact; decrypt OK "
+            f"(max err 2^{ks[name]['decrypt_max_err_log2']:.2f} against "
+            f"2^{math.log2(rks_bound):.0f})")
+    ks["eval_automorphism"]["gen"] = gen_auto
+    del ksk_r, ksk_auto, m_ks, out_ks, out_p
+
+    # ga_pbs_on_mesh: model 1 through K6 + K7, model 2 the plain route
+    mesh = {}
+    run = pmesh.ga_pbs_on_mesh(pmesh.make_mesh([dev] * 2, data=2, model=1),
+                               bkg, 4)
+    zero_counts(pk)
+    got = run(tv, cs)
+    torch.cuda.synchronize()
+    counts["ga_mesh_2x1"] = read_counts(pk)
+    check_counts("L2_32 ga_pbs_on_mesh (2 x 1)", counts["ga_mesh_2x1"],
+                 {"auto_keyswitch_stream": 2, "ga_scan_fused": 2})
+    if not (torch.equal(got.a, out_g.a) and torch.equal(got.b, out_g.b)):
+        fail("L2_32 ga_pbs_on_mesh (2 x 1) != the GA bootstrap's words")
+    mesh_ms, _ = cuda_ms(lambda: run(tv, cs), REPS)
+    mesh["2x1"] = {"warm_ms": mesh_ms, "boot_per_s": BATCH / mesh_ms * 1e3}
+    n_cut = min(MESH_CUT, BATCH)
+    c_cut = tlwe.TLWE(a=cs.a[:n_cut].contiguous(),
+                      b=cs.b[:n_cut].contiguous())
+    zero_counts(pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pmesh.ga_pbs_on_mesh(pmesh.make_mesh([dev] * 2, data=1, model=2),
+                               bkg, 4, model_axis="model")(tv, c_cut)
+    torch.cuda.synchronize()
+    route_s = time.perf_counter() - t0
+    check_counts("L2_32 ga_pbs_on_mesh (1 x 2)", read_counts(pk), {})
+    if not (torch.equal(got.a, out_g.a[:n_cut])
+            and torch.equal(got.b, out_g.b[:n_cut])):
+        fail("L2_32 ga_pbs_on_mesh (1 x 2) != the GA bootstrap's words")
+    mesh["1x2_plain"] = {"s": route_s, "ciphertexts": n_cut}
+    log(f"# L2_32 ga_pbs_on_mesh (2 x 1): 2 K6 + 2 K7 launches per call, "
+        f"warm {mesh_ms:.3f} ms per batch of {BATCH} = "
+        f"{BATCH / mesh_ms * 1e3:.2f} boot/s; (1 x 2, plain PyTorch) on "
+        f"{n_cut} ciphertexts: {route_s:.3f} s; words equal to the GA "
+        f"bootstrap's")
+    del bkg, run, got, out_g
+    return {"counts": counts, "kernel_runs": runs,
+            "ga": {"keygen_s": keygen_s, "key_bytes": key_bytes,
+                   "keygen_peak_bytes": keygen_peak, "P_ks": kpg_ks.P,
+                   "first_call_s": first_s, "warm_ms": ga_ms,
+                   "boot_per_s": BATCH / ga_ms * 1e3, "peak_bytes": ga_peak,
+                   "decrypt_max_err_log2": math.log2(max(ga_err, 1.0)),
+                   "decrypt_bound_log2": math.log2(GA_DECRYPT_BOUND_32),
+                   "glue_ms": ga_ms - k6["ms"] - k7["ms"], "mesh": mesh},
+            "trlweks": {"t": p.l, "base_bit": p.Bg_bit, **ks}}
 
 
 def main():
@@ -1915,6 +2232,10 @@ def main():
         f"once, {k7_bound['gathered_bytes']:.4g} B of keyset gathered); "
         f"bit-exact; every generator 1 (keyset entry 0 only): "
         f"{k7_entry0_ms:.3f} ms")
+
+    # 14b. the per-step GA forms (K1-delta, K6, K6-old) against K7's words
+    step_report, step_counts, step_runs = ga_stepwise_phase(
+        bkg, tv, cs, acc_k6, acc_k7, gens, k7_ms, max_clock)
     del acc_g, acc_k6, acc_p6, acc_k7, acc_p7
 
     # 15. the TRLWE key switch and eval_automorphism on 512 TRLWEs
@@ -2123,6 +2444,7 @@ def main():
              "ubr_phase2": ph2_counts, "ga": ga_counts}
     paths.update({name: {"auto_keyswitch_stream": c["launches"]}
                   for name, c in trlwe_ks.items()})
+    paths.update({f"ga_{form}": c for form, c in step_counts.items()})
     paths.update(mesh_counts)
     paths.update({f"extprod_{mode}": {"ext_product_apply_scan":
                                       ep[mode]["launches"]} for mode in ep})
@@ -2220,6 +2542,20 @@ def main():
         "bound_ms": k8b_bound["bound_ms"], "bound_by": k8b_bound["bound_by"],
         "library_ms": None, "library_note": TP_LIBRARY_NOTE,
     }]
+    for name, source, line, note in (
+            ("cmux_delta", "cmux_delta.cu", 895, STEP_LIBRARY_NOTE),
+            ("auto_keyswitch", "auto_keyswitch.cu", 2200, GA_LIBRARY_NOTE)):
+        r = step_runs[name]
+        by = {path: n for path, n in by_path(name).items() if n}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mosfhet_torch/ops/csrc/{source}",
+            "replaces": f"mosfhet_tpu/ops/pbs_kernel.py:{line}",
+            "launches": sum(by.values()), "launches_by_path": by,
+            "max_abs_err": r["max_abs_err"], "bit_exact": True,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "library_note": note})
     for entry in kernels:
         runs3 = {name: r for name, r in set3_runs.items()
                  if name.split("/")[0] == entry["name"]}
@@ -2253,7 +2589,7 @@ def main():
         "library_ms": t32["k2"]["library_ms"],
         "library_note": t32["k2"]["library_note"],
     }]
-    # the one-limb K3, K4, K5, K8a and K8b on their L2_32 paths
+    # the one-limb K3-K7, K8a and K8b on their L2_32 paths
     for name, source, line, note in (
             ("ext_product_apply_scan", "ext_product_apply.cu", 1944,
              RUNTIME_KEY_LIBRARY_NOTE),
@@ -2262,7 +2598,10 @@ def main():
             ("ubr_phase1_combine", "ubr_phase1.cu", 2881,
              RUNTIME_KEY_LIBRARY_NOTE),
             ("partial_step", "tp_step.cu", 1536, TP_LIBRARY_NOTE),
-            ("finish_step", "tp_step.cu", 1651, TP_LIBRARY_NOTE)):
+            ("finish_step", "tp_step.cu", 1651, TP_LIBRARY_NOTE),
+            ("auto_keyswitch_stream", "auto_keyswitch.cu", 2374,
+             GA_LIBRARY_NOTE),
+            ("ga_scan_fused", "ga_scan.cu", 2558, GA_LIBRARY_NOTE)):
         r = t32["kernel_runs"][name]
         by = {f"{path}32": c[name] for path, c in c32.items() if c[name]}
         if not by:
@@ -2322,7 +2661,7 @@ def main():
         "auto_ks_ms": k6_ms, "rotation_ms": k7_ms,
         "rotation_entry0_ms": k7_entry0_ms,
         "glue_ms": ga_ms - k6_ms - k7_ms, "auto_ks_bound": k6_bound,
-        "rotation_bound": k7_bound}}))
+        "rotation_bound": k7_bound, "per_step_forms": step_report}}))
     log(json.dumps({"trlweks": {"params": p.name, "batch": BATCH,
                                 "t": p.l, "base_bit": p.Bg_bit, **trlwe_ks}}))
     log(json.dumps({"mesh": {

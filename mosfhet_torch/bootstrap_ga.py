@@ -8,17 +8,23 @@ keyset entry that generator selects from the all-odd keyset.  On CUDA
 tensors the initial psi_{w0} is one launch of the automorphism key-switch
 kernel (K6, ``ops/csrc/auto_keyswitch.cu``) and the n steps one launch of
 the GA rotation kernel (K7, ``ops/csrc/ga_scan.cu``); on CPU tensors their
-plain versions.
+plain versions.  Both torus widths: under ``MOSFHET_TORUS_BITS=32`` the
+key holds the 32-bit keyset and K6 and K7 run their one-limb forms, with
+the words of the TPU package's jnp scan (its TPU kernels are 64-bit only).
+
+Two per-step forms give the same words with one launch per stage, as the
+TPU package's two-kernel forms do: `blind_rotate_ga_stepwise` (an external
+product launch, K1-delta ``ops/csrc/cmux_delta.cu``, then K6 per step) and
+`blind_rotate_ga_gathered` (K1-delta, then the permutation and the keyset
+gather in PyTorch and the gathered-key switch K6-old per step).  Both are
+64-bit only, as K1-delta is; `functional_bootstrap_ga` runs
+`blind_rotate_ga`.
 
 Parameter envelope (the reference's forced-all-odd variant,
 `bootstrap_ga.c:37`): rounding every mask coefficient to an odd multiple of
 1/2N biases the accumulated rotation by ~n/4 slots, so decryption needs
 roughly n < 2N / torus_base (n=632, N=2048, torus_base=4 at TFHEpp-L2).
 The words agree with the TPU package's outside it too.
-
-64-bit torus only: the GA bootstrap at the 32-bit torus (which the TPU
-package runs in jnp, with no kernel) is still to be ported, and `new_key`
-raises NotImplementedError under ``MOSFHET_TORUS_BITS=32``.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from ._device import default_device
 from .bootstrap import rotate_test_vector
 from .ops import pbs_kernel as _pk
 from .tlwe import TLWE, TLWEKey
-from .torus import TORUS_BITS, torus2int
+from .torus import torus2int
 from .trgsw import TRGSWKey
 from .trlwe import TRLWE, from_stacked
 
@@ -113,11 +119,9 @@ def new_key(out_key: TRGSWKey, in_key: TLWEKey, generator: torch.Generator,
     odd generator g, s(X^g) -> s, with the TRGSW decomposition reused as
     the key switch's (`bootstrap_ga.c:5-24` passes l and Bg_bit as t and
     base_bit).  The keyset is encrypted ``GA_KEYGEN_CHUNK`` generators at a
-    time straight into its buffer.  Computed where the keys live, returned
-    on ``device``."""
-    if TORUS_BITS == 32:
-        raise NotImplementedError("the GA bootstrap at the 32-bit torus is "
-                                  "still to be ported")
+    time straight into its buffer.  At the module's torus width (the gadget
+    values, the words and the key-switch plan's prime count follow it).
+    Computed where the keys live, returned on ``device``."""
     dev = default_device(device)
     tk = out_key.trlwe_key
     l, Bg_bit, k, N = out_key.l, out_key.Bg_bit, tk.k, tk.N
@@ -229,6 +233,56 @@ def blind_rotate_ga(tv: TRLWE, a, bk: GABootstrapKey) -> TRLWE:
     acc = _pk.auto_keyswitch_stream(acc0, bk.ak, kidx0, ginv0, kp_ks)
     acc = _pk.ga_scan_fused(acc, gens, bk.s_v32, bk.s_vs32, bk.ak, bk.inv2n,
                             kp, kp_ks)
+    return from_stacked(acc.reshape(batch + (bk.k + 1, bk.N)))
+
+
+def _step_generators(gens, bk: GABootstrapKey):
+    """Keyset indices (g - 1)/2 and generator inverses of the step
+    generators ``gens`` [n, B], both int32 [n, B] on the key's device."""
+    kidx = (gens.to(torch.int64) - 1) >> 1
+    return (kidx.to(torch.int32).contiguous(),
+            bk.inv2n.to(torch.int64)[kidx].to(torch.int32).contiguous())
+
+
+def blind_rotate_ga_stepwise(tv: TRLWE, a, bk: GABootstrapKey) -> TRLWE:
+    """`blind_rotate_ga` one stage per launch, the TPU package's two-kernel
+    form (`MOSFHET_GA_ONEKERNEL=0`): psi_{w0} by K6, then per step the
+    external product BK_i (x) acc by K1-delta and psi_{g_i} with its key
+    switch by K6 (which permutes as it loads).  On CUDA tensors n K1-delta
+    launches and n+1 K6 launches, on CPU tensors their plain versions; the
+    words are `blind_rotate_ga`'s.  64-bit torus only."""
+    _pk._u64_only("blind_rotate_ga_stepwise", tv.b)
+    acc, kidx0, ginv0, gens, batch = ga_rotate_inputs(tv, a, bk)
+    kp, kp_ks = bk.kernel_plans()
+    kidx, ginv = _step_generators(gens, bk)
+    acc = _pk.auto_keyswitch_stream(acc, bk.ak, kidx0, ginv0, kp_ks)
+    for i in range(gens.shape[0]):
+        t = _pk.cmux_delta(acc, bk.s_v32[i], bk.s_vs32[i], kp)
+        acc = _pk.auto_keyswitch_stream(t, bk.ak, kidx[i], ginv[i], kp_ks)
+    return from_stacked(acc.reshape(batch + (bk.k + 1, bk.N)))
+
+
+def blind_rotate_ga_gathered(tv: TRLWE, a, bk: GABootstrapKey) -> TRLWE:
+    """`blind_rotate_ga` with the keyset rows gathered per ciphertext before
+    each key switch, the TPU package's `MOSFHET_GA_STREAM=0` form: each key
+    switch (psi_{w0} and one per step) is the Galois permutation and the
+    gather ``bk.ak[(g - 1)/2]`` in PyTorch, then one K6-old launch; each
+    step puts the external product (K1-delta) in front.  On CUDA tensors n
+    K1-delta launches and n+1 K6-old launches, on CPU tensors their plain
+    versions; the words are `blind_rotate_ga`'s.  64-bit torus only."""
+    _pk._u64_only("blind_rotate_ga_gathered", tv.b)
+    acc, kidx0, ginv0, gens, batch = ga_rotate_inputs(tv, a, bk)
+    kp, kp_ks = bk.kernel_plans()
+    kidx, ginv = _step_generators(gens, bk)
+
+    def switch(x, k_idx, g_inv):
+        perm = _poly.permute_by_inverse(x, g_inv.to(torch.int64)[:, None])
+        return _pk.auto_keyswitch(perm, bk.ak[k_idx.to(torch.int64)], kp_ks)
+
+    acc = switch(acc, kidx0, ginv0)
+    for i in range(gens.shape[0]):
+        acc = switch(_pk.cmux_delta(acc, bk.s_v32[i], bk.s_vs32[i], kp),
+                     kidx[i], ginv[i])
     return from_stacked(acc.reshape(batch + (bk.k + 1, bk.N)))
 
 

@@ -9,9 +9,9 @@ CPU tensors: a key-switch key is a keyset of one entry, selected by index
 0 with no permutation; `eval_automorphism` passes the generator's inverse
 and the kernel permutes as it loads.
 
-64-bit torus only: the 32-bit form (K6's one-limb form) is still to be
-ported, and `new_trlwe_ks_key` raises NotImplementedError under
-``MOSFHET_TORUS_BITS=32``.
+Both torus widths: under ``MOSFHET_TORUS_BITS=32`` the keys encrypt the
+32-bit gadget values with the 32-bit key-switch plan, and the switches run
+K6's one-limb form on int32 words.
 """
 
 from __future__ import annotations
@@ -26,16 +26,15 @@ from . import polynomial as _poly
 from . import trlwe as _trlwe
 from ._device import default_device
 from .ops import pbs_kernel as _pk
-from .torus import TORUS_BITS
 from .trgsw import _gadget_values
 from .trlwe import TRLWE, TRLWEKey, from_stacked
 
 
 class TRLWEKSKey(nn.Module):
-    """NTT-form encryptions of s_in[i] 2^(64 - (j+1) base_bit) under the
-    output key (`trlwe_new_KS_key`): ``v32`` [k_in, t, k_out+1, P, N] int32
-    holding u32 canonical residues (the kernel multiplies runtime keys by
-    Barrett, so no Shoup companions are kept); ``v`` gives the int64
+    """NTT-form encryptions of s_in[i] 2^(TORUS_BITS - (j+1) base_bit) under
+    the output key (`trlwe_new_KS_key`): ``v32`` [k_in, t, k_out+1, P, N]
+    int32 holding u32 canonical residues (the kernel multiplies runtime keys
+    by Barrett, so no Shoup companions are kept); ``v`` gives the int64
     values."""
 
     def __init__(self, v32: torch.Tensor, t: int, base_bit: int, primes):
@@ -78,11 +77,8 @@ def _encrypt_batch_to_dft(ms, out_key: TRLWEKey, generator: torch.Generator,
 def new_trlwe_ks_key(out_key: TRLWEKey, in_key: TRLWEKey, t: int,
                      base_bit: int, generator: torch.Generator,
                      device=None) -> TRLWEKSKey:
-    """(`trlwe_new_KS_key`, `keyswitch.c:12-37`).  Computed where the keys
-    live, returned on ``device``."""
-    if TORUS_BITS == 32:
-        raise NotImplementedError("the TRLWE key switch at the 32-bit torus "
-                                  "is still to be ported")
+    """(`trlwe_new_KS_key`, `keyswitch.c:12-37`), at the module's torus
+    width.  Computed where the keys live, returned on ``device``."""
     dev = default_device(device)
     plan = _ks_plan(out_key.N, base_bit, t, in_key.k * t, out_key.s.device)
     ms = in_key.s[:, None, :] * _gadget_values(t, base_bit,

@@ -6,8 +6,11 @@
 // Counterparts of the TPU package's kernel helpers (ops/pbs_kernel.py):
 // `_galois_permute_limbs` (1077), `_ntt_mul_acc` / `_ntt_mul_acc_keyfn`
 // (739) and the key-switch tail of `_make_auto_ks_stream_kernel` (2256).
-// Everything ends in canonical residues or exact u64 words, so the kernels
-// give the plain PyTorch versions' words.
+// Everything ends in canonical residues or exact torus words, so the kernels
+// give the plain PyTorch versions' words.  Torus words are the type W:
+// uint64_t at the 64-bit torus, uint32_t at the 32-bit one (the TPU body's
+// `nl == 1` branches, pbs_kernel.py:2326 and :2355, with their Garner step
+// `_garner_limb32` :725); every word operation wraps mod 2^(8 sizeof W).
 
 #pragma once
 
@@ -15,33 +18,36 @@
 
 namespace {
 
-// dst[c][j] = +-src[c][(j ginv mod 2N) mod N], negated mod 2^64 when
-// (j ginv mod 2N) >= N: the automorphism X -> X^g of the C polynomials of
-// src, for an odd g with inverse ginv mod 2N (ginv = 1 copies).  2N divides
-// 2^32, so the 32-bit product wraps harmlessly.  src (global or shared) and
-// dst [C][N] must not overlap.  Block-wide; ends with a barrier.
-__device__ void galois_permute(const uint64_t* src, uint64_t* dst, int ginv,
+// dst[c][j] = +-src[c][(j ginv mod 2N) mod N], negated mod 2^(8 sizeof W)
+// when (j ginv mod 2N) >= N: the automorphism X -> X^g of the C polynomials
+// of src, for an odd g with inverse ginv mod 2N (ginv = 1 copies).  2N
+// divides 2^32, so the 32-bit product wraps harmlessly.  src (global or
+// shared) and dst [C][N] must not overlap.  Block-wide; ends with a barrier.
+template <typename W>
+__device__ void galois_permute(const W* src, W* dst, int ginv,
                                const PbsConsts& K) {
   const int N = K.N, CN = K.C * K.N;
   const unsigned mask = 2u * unsigned(N) - 1u;
   for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
     const int c = idx >> K.logN, j = idx & (N - 1);
     const unsigned ic = (unsigned(j) * unsigned(ginv)) & mask;
-    const uint64_t v = src[c * N + (ic & unsigned(N - 1))];
-    dst[idx] = (ic & unsigned(N)) ? 0 - v : v;
+    const W v = src[c * N + (ic & unsigned(N - 1))];
+    dst[idx] = (ic & unsigned(N)) ? W(0) - v : v;
   }
   __syncthreads();
 }
 
 // spec[c][p] = sum_{j < R} NTT(dec_{j % l}(src[j / l])) * key[j][c][p] for
-// the first R digit rows of src [.][N] u64 (shared memory) under plan K:
-// l = K.l digits of K.Bg_bit bits with the rounded offset.  key [R][C][PP][N]
+// the first R digit rows of src [.][N] W words (shared or global memory)
+// under plan K: l = K.l digits of K.Bg_bit bits with the rounded offset of
+// W's width, cast to W once (a u64 offset added to a u32 word would widen
+// the sum and shift the digits by 64 bits).  key [R][C][PP][N]
 // u32 canonical residues (global memory, coalesced along N), multiplied by
 // Shoup with the companions keys, or by Barrett when keys is null (runtime
 // keys).  One digit row's PP prime rows are transformed at a time in work
 // [PP][N]; spec [C][PP][N] is zeroed here.  Block-wide; ends with a barrier.
-template <int PP>
-__device__ void digit_mul_acc(const uint64_t* src, int R,
+template <int PP, typename W>
+__device__ void digit_mul_acc(const W* src, int R,
                               const uint32_t* __restrict__ key,
                               const uint32_t* __restrict__ keys,
                               uint32_t* spec, uint32_t* work,
@@ -49,12 +55,13 @@ __device__ void digit_mul_acc(const uint64_t* src, int R,
                               const uint32_t* __restrict__ tw,
                               const uint32_t* __restrict__ tws) {
   const int N = K.N, C = K.C, l = K.l;
+  const W offset = W(K.offset);
   for (int idx = threadIdx.x; idx < C * PP * N; idx += blockDim.x)
     spec[idx] = 0;
   for (int j = 0; j < R; ++j) {
     const int cj = j / l, d = j % l;
     for (int k = threadIdx.x; k < N; k += blockDim.x) {
-      const int digit = gadget_digit(src[cj * N + k] + K.offset, d, K);
+      const int digit = gadget_digit<W>(src[cj * N + k] + offset, d, K);
 #pragma unroll
       for (int pi = 0; pi < PP; ++pi)
         work[pi * N + k] = small_residue(digit, K.p[pi]);
@@ -77,31 +84,32 @@ __device__ void digit_mul_acc(const uint64_t* src, int R,
 }
 
 // The C*PP inverse NTTs of spec in place, then Garner (with 1/N) to exact
-// u64 words: out[c] = INTT(spec[c]) when perm is null (the external
-// product), else out = (0, .., 0, perm[C-1]) - INTT(spec) (the key switch).
-// out (shared or global) may be the digit source of the preceding
-// `digit_mul_acc` but not perm.  Block-wide; ends with a barrier.
-template <int PP>
-__device__ void inverse_to_words(uint32_t* spec, const uint64_t* perm,
-                                 uint64_t* out, const PbsConsts& K,
+// W words (mod 2^32 for u32: the Horner step wraps): out[c] = INTT(spec[c])
+// when perm is null (the external product), else out = (0, .., 0,
+// perm[C-1]) - INTT(spec) (the key switch).  out (shared or global) may be
+// the digit source of the preceding `digit_mul_acc` but not perm.
+// Block-wide; ends with a barrier.
+template <int PP, typename W>
+__device__ void inverse_to_words(uint32_t* spec, const W* perm, W* out,
+                                 const PbsConsts& K,
                                  const uint32_t* __restrict__ itw,
                                  const uint32_t* __restrict__ itws) {
   const int N = K.N, C = K.C, CN = K.C * K.N;
   inverse_ntt<PP>(spec, C * PP, K, itw, itws);
   for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
     const int c = idx >> K.logN, k = idx & (N - 1);
-    const uint64_t w = garner<PP>(spec + c * PP * N, k, K);
-    out[idx] = perm ? (c == C - 1 ? perm[idx] : 0) - w : w;
+    const W w = garner<PP, W>(spec + c * PP * N, k, K);
+    out[idx] = perm ? (c == C - 1 ? perm[idx] : W(0)) - w : w;
   }
   __syncthreads();
 }
 
-// The TRLWE key switch of perm = (a_0 .. a_{k-1}, b) [C][N] u64 (shared
+// The TRLWE key switch of perm = (a_0 .. a_{k-1}, b) [C][N] W words (shared
 // memory) against one keyset entry key [k t][C][PK][N] u32 (Barrett):
 // out = (0, b) - sum_{j < k t} dec_j(a) (x) key[j], with the key-switch
 // plan K (t = K.l).  Block-wide; ends with a barrier.
-template <int PK>
-__device__ void keyswitch_entry(const uint64_t* perm, uint64_t* out,
+template <int PK, typename W>
+__device__ void keyswitch_entry(const W* perm, W* out,
                                 const uint32_t* __restrict__ key,
                                 uint32_t* spec, uint32_t* work,
                                 const PbsConsts& K,
@@ -109,9 +117,29 @@ __device__ void keyswitch_entry(const uint64_t* perm, uint64_t* out,
                                 const uint32_t* __restrict__ ftws,
                                 const uint32_t* __restrict__ itw,
                                 const uint32_t* __restrict__ itws) {
-  digit_mul_acc<PK>(perm, (K.C - 1) * K.l, key, nullptr, spec, work, K, ftw,
-                    ftws);
-  inverse_to_words<PK>(spec, perm, out, K, itw, itws);
+  digit_mul_acc<PK, W>(perm, (K.C - 1) * K.l, key, nullptr, spec, work, K,
+                       ftw, ftws);
+  inverse_to_words<PK, W>(spec, perm, out, K, itw, itws);
+}
+
+// Calls f(std::integral_constant<int, PK>{}) for a key-switch plan's prime
+// count PK: 2-5 with u64 words, 2 or 3 with u32 words (as `dispatch_pw`
+// does for the words' own plan).  Any other count is refused.
+template <typename W, typename F>
+cudaError_t dispatch_pk(int PK, F&& f) {
+  switch (PK) {
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    default: break;
+  }
+  if constexpr (sizeof(W) == 8) {
+    switch (PK) {
+      case 4: return f(std::integral_constant<int, 4>{});
+      case 5: return f(std::integral_constant<int, 5>{});
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -26,10 +26,10 @@ PyTorch, only for CPU tensors.  The two give the same words.
                                        (sum mod 2^64) or int32 (mod 2^32)
      out  [B, n_out+1]                 the subtrahend of (0, b), ab's dtype
 
-   K1-K5, K8a and K8b take the word width from the dtype of their torus
-   words: int64 runs the two-limb (64-bit) form, int32 the one-limb (32-bit)
-   form, in the same kernel source.  K6 and K7 are 64-bit only for now: their
-   wrappers raise NotImplementedError on int32 words.
+   K1-K8b take the word width from the dtype of their torus words: int64
+   runs the two-limb (64-bit) form, int32 the one-limb (32-bit) form, in the
+   same kernel source.  K1-delta is 64-bit only, as the TPU kernel is: its
+   wrapper raises NotImplementedError on int32 words.
 
 3. The external-product apply scan (``csrc/ext_product_apply.cu``): G
    replace-mode external products with runtime keys,
@@ -59,9 +59,14 @@ PyTorch, only for CPU tensors.  The two give the same words.
    the TRLWE key switch against the keyset entry the row selects,
 
        out[b] = (0, b') - sum_j dec_j(a') (x) AK[kidx[b]],  (a', b') = psi_g(x[b])
-     x     [B, k+1, N]                     int64
+     x     [B, k+1, N]                     int64 or int32 words
      ak32  [G, k t, k+1, P, N]             int32 holding u32 canonical residues
      kidx  [B], ginv [B]                   int32 (ginv = 1: no permutation)
+
+   and its older form K6-old (``auto_keyswitch``, a second entry of the same
+   source), on an input already permuted and keys gathered per row,
+     perm      [B, k+1, N]                 int64 or int32 words
+     key_rows  [B, k t, k+1, P, N]         int32: row b's keyset entry
 
 7. The GA blind rotation (``csrc/ga_scan.cu``): n steps of an external
    product, a Galois permutation and an automorphism key switch,
@@ -70,6 +75,12 @@ PyTorch, only for CPU tensors.  The two give the same words.
      gens  [n, B]                          int32 odd generators g_i
      sv32, svs32 [n, (k+1)l, k+1, P, N]    int32: TRGSW(X^{s_i}) and Shoup
      inv2n [N]                             int32: g^-1 mod 2N at (g - 1)/2
+
+   Its first stage alone is K1-delta (``csrc/cmux_delta.cu``, ``cmux_delta``):
+   one replace-mode external product BK (x) x with one static TRGSW,
+     x, out      [B, k+1, N]               int64 (the 64-bit torus only)
+     keyv, keyvs [(k+1)l, k+1, P, N]       int32: the TRGSW and its Shoup
+                                           companions
 
 8. The gadget-row split of one CMUX step (``csrc/tp_step.cu``), for a
    bootstrap key whose J = (k+1)l rows are sharded over devices
@@ -96,7 +107,7 @@ product, and reduce u64 (or u32) words to the residues of their centred
 ``ntt.pointwise_mul_acc_generic`` and ``ntt.to_ntt_u64``, and both end in
 canonical residues, so the words agree.
 
-Where a block's buffers live (K1, K3, K4, K6, K7, K8a, K8b).  Each kernel runs
+Where a block's buffers live (K1, K1-delta, K3, K4, K6, K7, K8a, K8b).  Each kernel runs
 one block per ciphertext over a handful of buffers: the digit row's NTT
 rows, the spectra, the accumulator and a rotation or permutation buffer.
 `_place` fills dynamic shared memory with them in order of traffic, up to
@@ -303,20 +314,22 @@ def _word_width(name: str, words, kp: PBSKernelPlan) -> int:
 
 
 def _one_limb_primes(name: str, bits: int, kp: PBSKernelPlan):
-    """K3-K5, K8a and K8b's one-limb forms are built for 2 or 3 primes
-    (`dispatch_pw`, ntt_common.cuh; a 32-bit plan takes 2 at every
-    registered width): any other prime count raises before a launch."""
+    """K3-K8b's one-limb forms are built for 2 or 3 primes (`dispatch_pw`,
+    ntt_common.cuh; a 32-bit plan takes 2 at every registered width): any
+    other prime count raises before a launch."""
     if bits == 32 and kp.P not in (2, 3):
         raise ValueError(f"{name}: the one-limb form takes 2 or 3 primes, "
                          f"not {kp.P}")
 
 
 def _u64_only(name: str, words):
-    """K6 and K7, without a one-limb form, refuse 32-bit torus words."""
+    """K1-delta and the per-step GA forms built on it have no one-limb
+    form (nor does the TPU kernel, pbs_kernel.py:3204): they refuse 32-bit
+    torus words."""
     if words.dtype == torch.int32:
         raise NotImplementedError(
-            f"{name}: the 32-bit torus (int32 words) form of this kernel is "
-            "still to be ported")
+            f"{name}: 64-bit torus only; the 32-bit torus (int32 words) has "
+            "no form of this kernel")
 
 
 @functools.cache
@@ -406,6 +419,8 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
     if kernel in ("tp_step", "auto_keyswitch"):  # K8a, K6: work, spec, rot
         return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),
                 (words, WORKSPACE, 2)]
+    if kernel == "cmux_delta":         # K1-delta: work, spec
+        return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1)]
     if kernel == "finish_step":        # K8b: rows of component 0, the rest
         return [(row, SHARED_ONLY, 0), (spec - row, PASSES, 1)]
     raise ValueError(f"no buffer table for {kernel}")
@@ -712,30 +727,39 @@ def ubr_phase1_combine(su, rot, kp: PBSKernelPlan):
 ubr_phase1_combine.launches = 0
 
 
-# --- the automorphism key switch (K6) and the GA rotation (K7) -------------
+# --- the automorphism key switch (K6, K6-old) and the GA rotation (K7) -----
 
-def auto_keyswitch_rows(x, ak32, kidx, ginv, kp: PBSKernelPlan):
-    """K6's arithmetic in int64 PyTorch: per row, (a', b') = psi(x[b]) with
-    psi given by ginv[b], then (0, b') - sum_j dec_j(a') (x) ak32[kidx[b]]
-    under the key-switch plan ``kp`` (t = kp.l digits of kp.Bg_bit bits,
-    row c t + j the j-th digit of mask component c; `trlwe_keyswitch`,
-    `keyswitch.c:162-193`).  x [B, C, N] int64; ak32 [G, (C-1)t, C, P, N];
-    kidx, ginv [B]."""
-    perm = _poly.permute_by_inverse(x, ginv.to(torch.int64)[:, None])
+def _keyswitch_rows(perm, key, kp: PBSKernelPlan):
+    """(0, b) - sum_j dec_j(a) (x) key[b] per row of perm = (a, b), in int64
+    PyTorch at the width of perm's words, under the key-switch plan ``kp``
+    (t = kp.l digits of kp.Bg_bit bits, row c t + j the j-th digit of mask
+    component c; `trlwe_keyswitch`, `keyswitch.c:162-193`).  perm [B, C, N];
+    key [B, (C-1)t, C, P, N] canonical int64 residues."""
     B, C, N = perm.shape
     k = C - 1
     digits = gadget_decompose(perm[:, :k], kp.Bg_bit, kp.l)
     spec = _ntt.to_ntt_small(digits.reshape(B, k * kp.l, N),
                              kp.ntt)                           # [B, kt, P, N]
-    key = i32_as_u32(ak32[kidx.to(torch.int64)])              # [B, kt, C, P, N]
     acc = _ntt.pointwise_mul_acc_generic(spec.unsqueeze(2), key, kp.ntt, dim=1)
-    out = -_ntt.from_ntt_u64(acc, kp.ntt, x.dtype)
-    out[:, k] += perm[:, k]
-    return out
+    # in int64, then wrapped once: a u32 word negated or summed in int32
+    # would not be a wrap of the exact value in every case
+    out = -_ntt.garner_u64(_ntt.inverse_ntt(acc, kp.ntt), kp.ntt)
+    out[:, k] += perm[:, k].to(torch.int64)
+    return wrap(out, perm.dtype)
+
+
+def auto_keyswitch_rows(x, ak32, kidx, ginv, kp: PBSKernelPlan):
+    """K6's arithmetic in int64 PyTorch, at the width of x's words: per
+    row, (a', b') = psi(x[b]) with psi given by ginv[b], then the key switch
+    against keyset entry kidx[b] (`_keyswitch_rows`).  x [B, C, N] int64 or
+    int32; ak32 [G, (C-1)t, C, P, N]; kidx, ginv [B]."""
+    perm = _poly.permute_by_inverse(x, ginv.to(torch.int64)[:, None])
+    return _keyswitch_rows(perm, i32_as_u32(ak32[kidx.to(torch.int64)]), kp)
 
 
 def auto_keyswitch_stream_plain(x, ak32, kidx, ginv, kp: PBSKernelPlan):
-    """The automorphism key switch in int64 PyTorch, on any device."""
+    """The automorphism key switch in int64 PyTorch, on any device, at the
+    width of x's words."""
     auto_keyswitch_stream_plain.calls += 1
     return auto_keyswitch_rows(x, ak32, kidx, ginv, kp)
 
@@ -745,19 +769,21 @@ auto_keyswitch_stream_plain.calls = 0
 
 def auto_keyswitch_stream(x, ak32, kidx, ginv, kp: PBSKernelPlan):
     """The automorphism key switch (TRLWE key switch when ginv is 1).  CUDA
-    tensors: one launch of the kernel, and an error raised if it does not
-    build or launch.  CPU tensors: the plain version.  ``kidx`` must lie
-    in [0, G): the kernel reads the entries it names without a check (one
-    on the device would cost a sync per call).  Returns [B, C, N] int64."""
-    _u64_only("auto_keyswitch_stream", x)
+    tensors: one launch of the kernel (its one-limb form for int32 words),
+    and an error raised if it does not build or launch.  CPU tensors: the
+    plain version.  ``kidx`` must lie in [0, G): the kernel reads the
+    entries it names without a check (one on the device would cost a sync
+    per call).  Returns [B, C, N] of x's dtype."""
+    bits = _word_width("auto_keyswitch_stream", x, kp)
     dev = x.device
     if dev.type == "cpu":
         return auto_keyswitch_stream_plain(x, ak32, kidx, ginv, kp)
     if dev.type != "cuda":
         raise ValueError(f"auto_keyswitch_stream runs on cuda or cpu, "
                          f"not {dev}")
+    _one_limb_primes("auto_keyswitch_stream", bits, kp)
     B, G = x.shape[0], ak32.shape[0]
-    _check("x", x, torch.int64, (B, kp.C, kp.N), dev)
+    _check("x", x, x.dtype, (B, kp.C, kp.N), dev)
     _check("ak32", ak32, torch.int32,
            (G, (kp.C - 1) * kp.l, kp.C, kp.P, kp.N), dev)
     _check("kidx", kidx, torch.int32, (B,), dev)
@@ -767,11 +793,11 @@ def auto_keyswitch_stream(x, ak32, kidx, ginv, kp: PBSKernelPlan):
     if B == 0:
         return out
     layout, ws = _layout("auto_keyswitch", kp, B, dev)
-    _launch("auto_keyswitch", "auto_keyswitch_launch", 12, 1, dev,
+    _launch("auto_keyswitch", "auto_keyswitch_launch", 12, 2, dev,
             x.data_ptr(), ak32.data_ptr(), kidx.data_ptr(), ginv.data_ptr(),
             out.data_ptr(), kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
             kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(), _ptr(ws),
-            kp.host_consts.ctypes.data, layout.ctypes.data, B)
+            kp.host_consts.ctypes.data, layout.ctypes.data, B, bits)
     auto_keyswitch_stream.launches += 1
     return out
 
@@ -779,13 +805,112 @@ def auto_keyswitch_stream(x, ak32, kidx, ginv, kp: PBSKernelPlan):
 auto_keyswitch_stream.launches = 0
 
 
+def auto_keyswitch_plain(perm, key_rows, kp: PBSKernelPlan):
+    """K6-old in int64 PyTorch, on any device, at the width of perm's words:
+    the key switch of each (already permuted) row against its own gathered
+    keyset entry."""
+    auto_keyswitch_plain.calls += 1
+    return _keyswitch_rows(perm, i32_as_u32(key_rows), kp)
+
+
+auto_keyswitch_plain.calls = 0
+
+
+def auto_keyswitch(perm, key_rows, kp: PBSKernelPlan):
+    """The automorphism key switch with per-row gathered keys (K6-old, the
+    TPU package's `auto_keyswitch`): perm [B, C, N] already permuted,
+    key_rows [B, (C-1)t, C, P, N] int32 (u32 residues), row b's keyset
+    entry.  CUDA tensors: one launch of the kernel (its one-limb form for
+    int32 words), and an error raised if it does not build or launch.  CPU
+    tensors: the plain version.  Returns [B, C, N] of perm's dtype."""
+    bits = _word_width("auto_keyswitch", perm, kp)
+    dev = perm.device
+    if dev.type == "cpu":
+        return auto_keyswitch_plain(perm, key_rows, kp)
+    if dev.type != "cuda":
+        raise ValueError(f"auto_keyswitch runs on cuda or cpu, not {dev}")
+    _one_limb_primes("auto_keyswitch", bits, kp)
+    B = perm.shape[0]
+    _check("perm", perm, perm.dtype, (B, kp.C, kp.N), dev)
+    _check("key_rows", key_rows, torch.int32,
+           (B, (kp.C - 1) * kp.l, kp.C, kp.P, kp.N), dev)
+    _check_plan(kp, dev)
+    out = torch.empty_like(perm)
+    if B == 0:
+        return out
+    layout, ws = _layout("auto_keyswitch", kp, B, dev)
+    _launch("auto_keyswitch", "auto_keyswitch_rows_launch", 10, 2, dev,
+            perm.data_ptr(), key_rows.data_ptr(), out.data_ptr(),
+            kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
+            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(), _ptr(ws),
+            kp.host_consts.ctypes.data, layout.ctypes.data, B, bits)
+    auto_keyswitch.launches += 1
+    return out
+
+
+auto_keyswitch.launches = 0
+
+
+def cmux_delta_plain(x, keyv, keyvs, kp: PBSKernelPlan):
+    """K1-delta in int64 PyTorch, on any device: the replace-mode external
+    product of the one TRGSW (keyv, Shoup companions keyvs; [J, C, P, N]
+    int32) with each row of x [B, C, N]."""
+    cmux_delta_plain.calls += 1
+    B, C, N = x.shape
+    digits = gadget_decompose(x, kp.Bg_bit, kp.l).reshape(B, C * kp.l, N)
+    spec = _ntt.to_ntt_small(digits, kp.ntt)                   # [B, J, P, N]
+    acc = _ntt.pointwise_mul_acc_key(spec.unsqueeze(2), i32_as_u32(keyv),
+                                     i32_as_u32(keyvs), kp.ntt, dim=1)
+    return _ntt.from_ntt_u64(acc, kp.ntt, x.dtype)
+
+
+cmux_delta_plain.calls = 0
+
+
+def cmux_delta(x, keyv, keyvs, kp: PBSKernelPlan):
+    """BK (x) x, one external product with a static TRGSW over a batch (the
+    TPU package's `cmux_delta`): the GA step's first half.  64-bit torus
+    only (int32 words raise NotImplementedError, as the TPU kernel asserts
+    two limbs).  CUDA tensors: one launch of the kernel, and an error
+    raised if it does not build or launch.  CPU tensors: the plain
+    version.  Returns [B, C, N] int64."""
+    _u64_only("cmux_delta", x)
+    _word_width("cmux_delta", x, kp)
+    dev = x.device
+    if dev.type == "cpu":
+        return cmux_delta_plain(x, keyv, keyvs, kp)
+    if dev.type != "cuda":
+        raise ValueError(f"cmux_delta runs on cuda or cpu, not {dev}")
+    B = x.shape[0]
+    row = (kp.J, kp.C, kp.P, kp.N)
+    _check("x", x, torch.int64, (B, kp.C, kp.N), dev)
+    _check("keyv", keyv, torch.int32, row, dev)
+    _check("keyvs", keyvs, torch.int32, row, dev)
+    _check_plan(kp, dev)
+    out = torch.empty_like(x)
+    if B == 0:
+        return out
+    layout, ws = _layout("cmux_delta", kp, B, dev)
+    _launch("cmux_delta", "cmux_delta_launch", 11, 1, dev,
+            x.data_ptr(), keyv.data_ptr(), keyvs.data_ptr(), out.data_ptr(),
+            kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
+            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(), _ptr(ws),
+            kp.host_consts.ctypes.data, layout.ctypes.data, B)
+    cmux_delta.launches += 1
+    return out
+
+
+cmux_delta.launches = 0
+
+
 def ga_scan_fused_plain(acc0, gens, sv32, svs32, ak32, inv2n,
                         kp: PBSKernelPlan, kp_ks: PBSKernelPlan):
-    """The GA rotation in int64 PyTorch, on any device: per step the
-    replace-mode external product with TRGSW(X^{s_i}), then the Galois
-    permutation and automorphism key switch of ``gens[i]``
-    (`blind_rotate_ga`, `bootstrap_ga.c:39-60`).  The Shoup companions
-    ``svs32`` are not read: the product ends canonical either way."""
+    """The GA rotation in int64 PyTorch, on any device, at the width of
+    acc0's words: per step the replace-mode external product with
+    TRGSW(X^{s_i}), then the Galois permutation and automorphism key switch
+    of ``gens[i]`` (`blind_rotate_ga`, `bootstrap_ga.c:39-60`).  The Shoup
+    companions ``svs32`` are not read: the product ends canonical either
+    way."""
     ga_scan_fused_plain.calls += 1
     acc = acc0
     inv = inv2n.to(torch.int64)
@@ -802,12 +927,14 @@ ga_scan_fused_plain.calls = 0
 
 def ga_scan_fused(acc0, gens, sv32, svs32, ak32, inv2n, kp: PBSKernelPlan,
                   kp_ks: PBSKernelPlan):
-    """The whole GA rotation.  CUDA tensors: one launch of the kernel, and an
-    error raised if it does not build or launch.  CPU tensors: the plain
+    """The whole GA rotation.  CUDA tensors: one launch of the kernel (its
+    one-limb form for int32 words; both plans must be of their width), and
+    an error raised if it does not build or launch.  CPU tensors: the plain
     version.  ``gens`` must be odd in [1, 2 min(G, N)): (g - 1)/2 indexes
     the keyset and ``inv2n`` unchecked, as in `auto_keyswitch_stream`.
-    Returns [B, C, N] int64."""
-    _u64_only("ga_scan_fused", acc0)
+    Returns [B, C, N] of acc0's dtype."""
+    bits = _word_width("ga_scan_fused", acc0, kp)
+    _word_width("ga_scan_fused", acc0, kp_ks)
     dev = acc0.device
     if dev.type == "cpu":
         return ga_scan_fused_plain(acc0, gens, sv32, svs32, ak32, inv2n, kp,
@@ -816,9 +943,11 @@ def ga_scan_fused(acc0, gens, sv32, svs32, ak32, inv2n, kp: PBSKernelPlan,
         raise ValueError(f"ga_scan_fused runs on cuda or cpu, not {dev}")
     if (kp_ks.N, kp_ks.C) != (kp.N, kp.C):
         raise ValueError("the two plans must share N and k")
+    _one_limb_primes("ga_scan_fused", bits, kp)
+    _one_limb_primes("ga_scan_fused", bits, kp_ks)
     B, n, G = acc0.shape[0], gens.shape[0], ak32.shape[0]
     key_shape = (n, kp.J, kp.C, kp.P, kp.N)
-    _check("acc0", acc0, torch.int64, (B, kp.C, kp.N), dev)
+    _check("acc0", acc0, acc0.dtype, (B, kp.C, kp.N), dev)
     _check("gens", gens, torch.int32, (n, B), dev)
     _check("sv32", sv32, torch.int32, key_shape, dev)
     _check("svs32", svs32, torch.int32, key_shape, dev)
@@ -831,7 +960,7 @@ def ga_scan_fused(acc0, gens, sv32, svs32, ak32, inv2n, kp: PBSKernelPlan,
     if B == 0 or n == 0:
         return acc
     layout, ws = _layout("ga_scan", kp, B, dev, P_ks=kp_ks.P)
-    _launch("ga_scan", "ga_scan_launch", 18, 2, dev,
+    _launch("ga_scan", "ga_scan_launch", 18, 3, dev,
             acc.data_ptr(), gens.data_ptr(), sv32.data_ptr(),
             svs32.data_ptr(), ak32.data_ptr(), inv2n.data_ptr(),
             kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
@@ -839,7 +968,7 @@ def ga_scan_fused(acc0, gens, sv32, svs32, ak32, inv2n, kp: PBSKernelPlan,
             kp_ks.fwd_tw.data_ptr(), kp_ks.fwd_tws.data_ptr(),
             kp_ks.inv_tw.data_ptr(), kp_ks.inv_tws.data_ptr(), _ptr(ws),
             kp.host_consts.ctypes.data, kp_ks.host_consts.ctypes.data,
-            layout.ctypes.data, B, n)
+            layout.ctypes.data, B, n, bits)
     ga_scan_fused.launches += 1
     return acc
 

@@ -23,9 +23,8 @@ Each data shard's batch lives on the first device of its data row; with the
 key's rows sharded, every distinct device of the row holds a copy of the
 row's accumulators.  Results are gathered on the caller's device.
 
-At the 32-bit torus `pbs_on_mesh` and `unfolded_pbs_on_mesh` run on both
-axes, through the one-limb forms of K1, K4, K8a and K8b; `ga_pbs_on_mesh`
-raises NotImplementedError there (the GA key has no 32-bit form yet).
+At the 32-bit torus all three run on both axes, through the one-limb forms
+of K1, K4, K6, K7, K8a and K8b.
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ from .. import ntt as _ntt
 from .. import trlwe as _trlwe
 from ..ops import pbs_kernel as _pk
 from ..tlwe import TLWE
-from ..torus import TORUS_BITS, gadget_decompose
+from ..torus import gadget_decompose
 from ..trlwe import TRLWE, from_stacked
 
 
@@ -286,11 +285,8 @@ def ga_pbs_on_mesh(mesh: Mesh, bkg: _bga.GABootstrapKey, torus_base: int,
     first device).  Each shard's NTT-domain partial is summed mod p on the
     data row's first device, then the step goes on there.  That route is
     plain PyTorch: the TPU package has no kernel on it (it runs jnp there),
-    so there is none to port.  Not at the 32-bit torus yet: raises
-    NotImplementedError there."""
-    if TORUS_BITS == 32:
-        raise NotImplementedError("the GA bootstrap at the 32-bit torus is "
-                                  "still to be ported")
+    so there is none to port.  Both torus widths: at the 32-bit one a model
+    size of 1 runs K6 and K7 in their one-limb forms."""
     rows = mesh.rows(data_axis, model_axis)
     m = len(rows[0])
     k, N = bkg.k, bkg.N

@@ -5,9 +5,11 @@ plain PyTorch versions, bit for bit, the int8 key switch through
 `torch._int_mm`, and the sharded bootstrap on a mesh of one card (and of
 every card, where there are several); the one-limb (32-bit torus) forms
 of the blind rotation, the select-sum, the external-product apply scan,
-the unfolded rotation, UBR phase 1 and the split CMUX step; and the
-kernels at N=4096 with 4 primes (SET_3) and N=8192, whose buffers do not
-all fit shared memory.
+the unfolded rotation, UBR phase 1, the split CMUX step, the automorphism
+key switch and the GA rotation; the GA step's external product alone
+(K1-delta) and the key switch on gathered keys (K6-old); and the kernels
+at N=4096 with 4 primes (SET_3) and N=8192, whose buffers do not all fit
+shared memory.
 Needs a CUDA card: without one every test here skips.
 
 This file imports nothing but PyTorch, numpy and the port, so it runs on a
@@ -710,3 +712,133 @@ def test_cuda_finish_step_matches_plain_n8192(m):
     torch.cuda.synchronize()
     assert tpk.finish_step.launches == launches + 1
     assert got is acc and torch.equal(got, want)
+
+
+# --- K6 and K7 one-limb; K1-delta and K6-old --------------------------------
+
+# L2_32's GA key switch: t = l = 3 digits of base_bit = Bg_bit = 7 bits,
+# whose k t^2 budget at the 32-bit torus takes the same 2 primes
+L2_32_KS = (2048, 1, 3, 7)
+
+
+def _ks_plan32():
+    N, k, t, base_bit = L2_32_KS
+    return tpk.get_kernel_plan(N, PRIMES_32, t, base_bit, k, "cuda", 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ginv_mode", ["one", "minus_one", "random"])
+def test_cuda_auto_keyswitch_matches_plain_torus32(ginv_mode):
+    """K6's one-limb form at L2_32 widths on the whole 2048-entry keyset
+    (kidx 0 and G-1 present): ginv 1 (a TRLWE key switch), 2N-1, or random
+    per row; words 0x80000000 (negated to themselves) present."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp = _ks_plan32()
+    N, G, B = kp.N, kp.N, 6
+    rng = np.random.default_rng(370 + len(ginv_mode))
+    ak = random_residues(rng, (G, kp.l, kp.C, kp.P, N), PRIMES_32)
+    x = _words32(rng, B, kp.C, N)
+    x[0, 0, :4] = torch.tensor([-(1 << 31), 0, -1, 1], dtype=torch.int32)
+    kidx = rng.integers(0, G, size=B, dtype=np.int32)
+    kidx[0], kidx[-1] = 0, G - 1
+    ginv = {"one": np.ones(B, np.int32),
+            "minus_one": np.full(B, 2 * N - 1, np.int32),
+            "random": rng.integers(0, N, size=B, dtype=np.int32) * 2 + 1}[
+        ginv_mode]
+    args = (x, as_i32(ak, "cuda"), torch.from_numpy(kidx).cuda(),
+            torch.from_numpy(ginv).cuda(), kp)
+    launches = tpk.auto_keyswitch_stream.launches
+    got = tpk.auto_keyswitch_stream(*args)
+    torch.cuda.synchronize()
+    assert tpk.auto_keyswitch_stream.launches == launches + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tpk.auto_keyswitch_stream_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gen_mode", ["one", "minus_one", "random"])
+def test_cuda_ga_scan_matches_plain_torus32(gen_mode):
+    """K7's one-limb form at L2_32 widths (P = 2 for the product and the
+    key switch), n cut to 3, B=4, the whole keyset; every generator 1,
+    every 2N-1, or random with both present."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from mosfhet_torch.bootstrap_ga import inverse_mod_2n_table
+    N, k, l, Bg_bit = L2_32_DIGITS
+    n, B = 3, 4
+    _, acc0, _, sv, svs = random_rotation_inputs(
+        N, k, l, Bg_bit, n, B, seed=380 + len(gen_mode), primes=PRIMES_32,
+        torus_bits=32)
+    kp, kp_ks = _plan32(), _ks_plan32()
+    rng = np.random.default_rng(390 + len(gen_mode))
+    ak = random_residues(rng, (N, kp_ks.l, kp.C, kp_ks.P, N), PRIMES_32)
+    gens = {"one": np.ones((n, B), np.int32),
+            "minus_one": np.full((n, B), 2 * N - 1, np.int32),
+            "random": rng.integers(0, N, size=(n, B), dtype=np.int32) * 2
+            + 1}[gen_mode]
+    if gen_mode == "random":
+        gens[0, 0], gens[-1, -1] = 1, 2 * N - 1
+    args = (to_tensor(acc0, "cuda"), torch.from_numpy(gens).cuda(),
+            as_i32(sv, "cuda"), as_i32(svs, "cuda"), as_i32(ak, "cuda"),
+            torch.from_numpy(inverse_mod_2n_table(N)).cuda(), kp, kp_ks)
+    launches = tpk.ga_scan_fused.launches
+    got = tpk.ga_scan_fused(*args)
+    torch.cuda.synchronize()
+    assert tpk.ga_scan_fused.launches == launches + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tpk.ga_scan_fused_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,l,Bg_bit,B", [
+    (2048, 4, 9, 5),      # TFHEpp-L2 widths
+    (4096, 1, 22, 3),     # SET_3 widths: 4 primes
+    (8192, 1, 22, 2),     # 4 primes at N=8192: the spectra in the workspace
+])
+def test_cuda_cmux_delta_matches_plain(N, l, Bg_bit, B):
+    """K1-delta: one TRGSW and its Shoup companions over B random rows,
+    words with a carry from the offset into the high half present."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    k = 1
+    primes, acc0, _, keyv, keyvs = random_rotation_inputs(
+        N, k, l, Bg_bit, 1, B, seed=400 + N)
+    acc0[0, 0, :3] = [(1 << 64) - 1, 1 << 63, 0xFFFFFFFF]
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    args = (to_tensor(acc0, "cuda"), as_i32(keyv[0], "cuda"),
+            as_i32(keyvs[0], "cuda"), kp)
+    launches = tpk.cmux_delta.launches
+    got = tpk.cmux_delta(*args)
+    torch.cuda.synchronize()
+    assert tpk.cmux_delta.launches == launches + 1
+    assert torch.equal(got, tpk.cmux_delta_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("torus_bits", [64, 32])
+def test_cuda_auto_keyswitch_gathered_matches_plain(torus_bits):
+    """K6-old at L2 (t=4, base_bit=9) or L2_32 (t=3, base_bit=7) widths:
+    B=5 permuted rows, one random keyset entry each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(410 + torus_bits)
+    B = 5
+    if torus_bits == 32:
+        kp = _ks_plan32()
+        perm = _words32(rng, B, kp.C, kp.N)
+    else:
+        N, k, t, base_bit = 2048, 1, 4, 9
+        primes, _ = random_ks_keyset(rng, N, k, t, base_bit, 1)
+        kp = tpk.get_kernel_plan(N, primes, t, base_bit, k, "cuda")
+        perm = to_tensor(rng.integers(0, 1 << 64, size=(B, k + 1, N),
+                                      dtype=np.uint64), "cuda")
+    rows = random_residues(rng, (B, (kp.C - 1) * kp.l, kp.C, kp.P, kp.N),
+                           kp.primes)
+    args = (perm, as_i32(rows, "cuda"), kp)
+    launches = tpk.auto_keyswitch.launches
+    got = tpk.auto_keyswitch(*args)
+    torch.cuda.synchronize()
+    assert tpk.auto_keyswitch.launches == launches + 1
+    assert got.dtype == perm.dtype
+    assert torch.equal(got, tpk.auto_keyswitch_plain(*args))

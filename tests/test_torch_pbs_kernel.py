@@ -158,21 +158,28 @@ def test_k8b_layout_that_cannot_be_placed_raises():
         tpk.kernel_layout("finish_step", kp, H100_BUDGET)
 
 
-@pytest.mark.parametrize("name", ["auto_keyswitch_stream", "ga_scan_fused"])
+@pytest.mark.parametrize("name", ["auto_keyswitch_stream", "ga_scan_fused",
+                                  "cmux_delta"])
 def test_kernels_without_a_32bit_form_refuse_int32_words(name):
-    """K6 and K7 have no one-limb (32-bit torus) form yet: their wrappers
-    raise on int32 words instead of taking any route."""
+    """K1-delta has no one-limb (32-bit torus) form, as the TPU kernel has
+    none: `cmux_delta` raises NotImplementedError on int32 words instead of
+    taking any route.  K6 and K7 have theirs: on int32 words they check the
+    plan's width (a 64-bit plan is refused with ValueError), never raising
+    NotImplementedError."""
     w = torch.zeros((1, 2, 64), dtype=torch.int32)
-    args = {"auto_keyswitch_stream": (w, None, None, None, None),
-            "ga_scan_fused": (w, None, None, None, None, None, None,
-                              None)}[name]
-    with pytest.raises(NotImplementedError, match="32-bit torus"):
+    kp64 = _plan(64, 3, 7, 64)
+    args = {"auto_keyswitch_stream": (w, None, None, None, kp64),
+            "ga_scan_fused": (w, None, None, None, None, None, kp64, kp64),
+            "cmux_delta": (w, None, None, kp64)}[name]
+    want = NotImplementedError if name == "cmux_delta" else ValueError
+    with pytest.raises(want, match="32-bit"):
         getattr(tpk, name)(*args)
 
 
 def _one_limb_args(name, kp, rng):
-    """Small int32-word inputs of K3, K4, K5, K8a or K8b at ``kp``'s widths
-    (B=2, G=2, M=4), and the shape and dtype of what comes back."""
+    """Small int32-word inputs of K3-K7, K6-old, K8a or K8b at ``kp``'s
+    widths (B=2, G=2, M=4, n=2; K6 and K7 use ``kp`` as their key-switch
+    plan too), and the shape and dtype of what comes back."""
     B, G, M, C, J, P, N = 2, 2, 4, kp.C, kp.J, kp.P, kp.N
 
     def w32(*shape):
@@ -191,7 +198,20 @@ def _one_limb_args(name, kp, rng):
     a = torch.from_numpy(rng.integers(0, 2 * N + 1, B, dtype=np.int32))
     kv = res(J // 2, C, P, N)
     kvs = (kv << 32) // kp.ntt.p[:, None]
+    Jk = (C - 1) * kp.l
+    sv = res(2, J, C, P, N)
+    odd = torch.tensor([1, 2 * G - 1], dtype=torch.int32)
+    ga_inputs = (w32(B, C, N), odd.repeat(2, 1), tpk.u32_as_i32(sv),
+                 tpk.u32_as_i32((sv << 32) // kp.ntt.p[:, None]),
+                 tpk.u32_as_i32(res(G, Jk, C, P, N)),
+                 torch.arange(N, dtype=torch.int32) * 2 + 1, kp, kp)
     return {
+        "auto_keyswitch_stream": (
+            (w32(B, C, N), tpk.u32_as_i32(res(G, Jk, C, P, N)), odd // G,
+             odd, kp), (B, C, N), torch.int32),
+        "auto_keyswitch": ((w32(B, C, N), tpk.u32_as_i32(res(B, Jk, C, P, N)),
+                            kp), (B, C, N), torch.int32),
+        "ga_scan_fused": (ga_inputs, (B, C, N), torch.int32),
         "ext_product_apply_scan": (
             (w32(B, C, N), tpk.u32_as_i32(res(G, J, C, P, N)), kp),
             (B, C, N), torch.int32),
@@ -208,9 +228,10 @@ def _one_limb_args(name, kp, rng):
 
 @pytest.mark.parametrize("name", ["ext_product_apply_scan", "unfolded_rotate",
                                   "ubr_phase1_combine", "partial_step",
-                                  "finish_step"])
+                                  "finish_step", "auto_keyswitch_stream",
+                                  "auto_keyswitch", "ga_scan_fused"])
 def test_one_limb_forms_take_int32_words(name):
-    """K3, K4, K5, K8a and K8b take the 32-bit torus's int32 words: on CPU
+    """K3-K7, K6-old, K8a and K8b take the 32-bit torus's int32 words: on CPU
     tensors the plain version runs (one call) and gives the shape and
     dtype the kernel writes; a 64-bit plan, whose gadget offset is of the
     wrong width, is refused before any route."""

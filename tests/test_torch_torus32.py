@@ -297,19 +297,31 @@ def _child(out_path):
         return "" if worst < 1 << 26 else f"max error {worst} >= 2^26"
 
     def case_unported_paths_raise():
-        """What has no 32-bit form yet raises instead of giving words: the
-        GA key and the TRLWE key-switch key (the unfolded key and the
-        external product have theirs: `test_torch_torus32_unfolded.py`)."""
+        """What has no 32-bit form raises instead of giving words: K1-delta
+        (`cmux_delta`) and the per-step GA forms built on it, 64-bit only as
+        the TPU kernel is.  The GA key and the TRLWE key-switch key, which
+        raised here before they were ported, now give int32 words (their
+        paths: `test_torch_torus32_ga.py`)."""
         from mosfhet_torch import bootstrap_ga as tbga, keyswitch as tks
         gen = torch.Generator().manual_seed(5)
         kt = ttlwe.new_binary_key(p.n, p.lwe_sigma, gen, CPU)
         kr = ttrlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, CPU)
-        gk = ttrgsw.new_key(kr, p.l, p.Bg_bit)
+        bkg = tbga.new_key(ttrgsw.new_key(kr, p.l, p.Bg_bit), kt, gen, CPU)
+        ksk = tks.new_trlwe_ks_key(kr, kr, p.t, p.base_bit, gen, CPU)
+        if bkg.ak.dtype != torch.int32 or ksk.v32.dtype != torch.int32:
+            return f"keys {bkg.ak.dtype}, {ksk.v32.dtype}"
+        tv = ttrlwe.noiseless_trivial(trng.uniform_torus(gen, (p.N,), CPU),
+                                      p.k, p.N)
+        mask = trng.uniform_torus(gen, (2, p.n), CPU)
+        kp = bkg.kernel_plans()[0]
         calls = {
-            "GA key": lambda: tbga.new_key(gk, kt, gen, CPU),
-            "TRLWE KS key": lambda: tks.new_trlwe_ks_key(kr, kr, p.t,
-                                                         p.base_bit, gen,
-                                                         CPU)}
+            "cmux_delta": lambda: tpk.cmux_delta(
+                tv.stacked()[None].contiguous(), bkg.s_v32[0],
+                bkg.s_vs32[0], kp),
+            "blind_rotate_ga_stepwise": lambda: tbga.blind_rotate_ga_stepwise(
+                tv, mask, bkg),
+            "blind_rotate_ga_gathered": lambda: tbga.blind_rotate_ga_gathered(
+                tv, mask, bkg)}
         missing = []
         for what, call in calls.items():
             try:
