@@ -21,6 +21,15 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               version, and no key switch ran.
   5. compare  the kernel and the plain version on the main path's own
               rotation inputs (all 512 ciphertexts): bit-exact, both timed.
+ 4b. steps    (run after 5, whose K1 output it is held to)
+              bootstrap.blind_rotate_stepwise on phase 4's key, LUT and 512
+              ciphertexts: counts zeroed just before the call and read just
+              after (exactly n = 632 K1-step launches, no K1), words equal to
+              phase 5's K1 output; warm ms beside blind_rotate's; K1-step
+              timed per launch on the path's first step beside its bound and
+              its plain version on that step (bit-exact); n K1-step launches
+              and K1 on one wave of the ciphertexts (132, one block per SM),
+              word-equal and timed.
   6. ks       the key-switch kernel against its plain version at full
               TFHEpp-L2 key-switch widths (n_in=2048, t=8, base 16,
               n_out=632) on random digits (0 and 15 present) and a random
@@ -38,9 +47,11 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               ciphertexts gives the same words.
   9. k345     the external-product apply-scan kernel (K3, broadcast and
               per-row keys, G=2, B=5), the unfolded-rotation kernel (K4) and
-              the UBR phase-1 kernel (K5) (u = 2, 4, 8 with G = 2, 2, 1 and
-              B=3, exponents 0, N and 2N present) against their plain
-              versions at full TFHEpp-L2 widths on random inputs: bit-exact.
+              the UBR phase-1 kernels K5 and K5-v1 (u = 2, 4, 8 with G = 2,
+              2, 1 and B=3, exponents 0, N and 2N present), the one-step
+              kernels K1-step (B=5, exponents 0, N and 2N present) and
+              K3-step (both key modes) against their plain versions at full
+              TFHEpp-L2 widths on random inputs: bit-exact.
  10. unfolded TFHEPP_L2 with unfolding u=4: the port's keygen (timed, key
               bytes printed), then bootstrap.functional_bootstrap on phase
               4's LUT and 512 ciphertexts: exactly 1 K4 launch per call and
@@ -52,6 +63,16 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               launch, phase 2 is 1 K3 launch; every LUT within 2^58 of its
               slot 2; both kernels timed beside their bounds and their plain
               versions on the same inputs (bit-exact); peak device memory.
+11b. ubrsteps phase 11's ciphertext, LUTs and cache through
+              bootstrap.multivalue_bootstrap_UBR_phase1_v1 (1 K5-v1 launch,
+              words equal to K5's) and
+              bootstrap.multivalue_bootstrap_UBR_phase2_stepwise (G = 79
+              K3-step launches, words equal to phase 2's), counts zeroed
+              just before each call and read just after; K5-v1 timed beside
+              K5 and held to its plain version on the path's inputs, the
+              step form warm beside the fused phase 2 (ms per LUT for each),
+              K3-step per launch on the first group beside its bound and its
+              plain version (bit-exact).
  12. extprod  trgsw.external_product at L2 on 512 TRLWEs, with one TRGSW
               broadcast and with one TRGSW per row: 1 K3 launch each,
               bit-exact against the plain version, decrypt within 2^58.
@@ -108,9 +129,11 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               depth: exactly 1 K1 launch per call, decrypt within 2^58; K1
               timed beside its bound and its plain version on the path's
               own inputs (bit-exact); then K3 (both key modes), K4 (u=2), K7
-              (a 64-entry keyset) and K8a (rows [0, 2) and [1, 2)) at SET_3
-              widths with cut depth on 64 random ciphertexts, each timed
-              beside its bound and held to its plain version (bit-exact);
+              (a 64-entry keyset), K8a (rows [0, 2) and [1, 2)), K1-step
+              and K3-step (both key modes; their placements printed) at
+              SET_3 widths with cut depth on 64 random ciphertexts, each
+              timed beside its bound and held to its plain version
+              (bit-exact);
               then the GA keygen and bootstrap_ga.functional_bootstrap_ga
               on the same 512 ciphertexts (1 K6 and 1 K7 launch per call,
               decrypt within 2^58), K6 held to its plain version on the
@@ -132,11 +155,15 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               (1 K2 launch, within 2^27), fdfb_this_work at precision 3 (2
               K1 and 1 K2 launches per call, within 2^26); K1 and K2 timed on
               the path's own inputs beside their bounds and plain versions
-              (bit-exact).  Then the one-limb K3, K4, K5, K8a and K8b on
+              (bit-exact); blind_rotate_stepwise on the PBS's inputs (632
+              one-limb K1-step launches, words equal to its K1), timed as in
+              phase 4b.  Then the one-limb K3, K4, K5, K8a and K8b on
               their paths: the u=4 keygen (seconds, bytes) and PBS of the
               same 512 ciphertexts (1 K4 launch per call, decrypt within
               2^28); UBR at u=4 (one ciphertext, 256 LUTs: 1 K5 and 1 K3
-              launch, every LUT within 2^28); trgsw.external_product on 512
+              launch, every LUT within 2^28), then its phase 1 v1 and phase
+              2 step form as in phase 11b (1 one-limb K5-v1 and G = 158
+              K3-step launches); trgsw.external_product on 512
               TRLWEs, broadcast and per row (1 K3 launch each, within
               2^26); pbs_on_mesh on (1, 2), (1, 3) and (2, 2) meshes of the
               card (J = 6 rows split over 2 or 3 shards; exact K8a and K8b
@@ -154,12 +181,13 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               ga_pbs_on_mesh at (2, 1) (2 K6 + 2 K7 launches) and at (1, 2)
               on 32 ciphertexts (the plain route), equal to the
               bootstrap's words.  The child's failure fails the script.
- 21. report   the pbs, gate, fdfb, unfolded, ubr, extprod, ga (with the
-              per-step forms), trlweks, mesh, set3 and torus32 lines, the
-              card line, the kernels line (the one-limb forms as
+ 21. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
+              ga (with the per-step forms), trlweks, mesh, set3 and torus32
+              lines, the card line, the kernels line (the one-limb forms as
               `<kernel>/torus32`, K8b at N=8192 as `finish_step/n8192`,
-              K1-delta as `cmux_delta`, K6-old as `auto_keyswitch`), and the
-              result line last.
+              K1-delta as `cmux_delta`, K6-old as `auto_keyswitch`, K1-step
+              as `pbs_step`, K3-step as `ext_product_apply_step`, K5-v1 as
+              `ubr_phase1_combine_v1`), and the result line last.
 
 Imports nothing but PyTorch, numpy and the port.
 """
@@ -198,7 +226,8 @@ RUNTIME_KEY_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT "
 KERNELS = ("blind_rotate_scan", "tlwe_keyswitch_sum", "ext_product_apply_scan",
            "unfolded_rotate", "ubr_phase1_combine", "auto_keyswitch_stream",
            "ga_scan_fused", "partial_step", "finish_step", "cmux_delta",
-           "auto_keyswitch")
+           "auto_keyswitch", "pbs_step", "ext_product_apply_step",
+           "ubr_phase1_combine_v1")
 TP_LIBRARY_NOTE = ("none: no PyTorch call computes a partial external "
                    "product or an NTT-domain finish")
 # (data, model) meshes of the one card for pbs_on_mesh (phase 17)
@@ -209,7 +238,16 @@ GA_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT key switch "
                    "with per-row keys or a Galois permutation")
 STEP_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT external "
                      "product")
-STEP_REPS = 2        # timed calls of the per-step GA forms (phase 14b)
+STEP_REPS = 2        # timed calls of the per-step forms (phases 4b, 11b, 14b)
+# the one-step kernels and K5-v1 (phases 4b, 9, 11b, 19, 20): each entry's
+# TPU kernel line and library note
+STEP_KERNELS = {
+    "pbs_step": ("blind_rotate.cu", 1253, "none: no PyTorch call computes "
+                 "an exact NTT CMUX step"),
+    "ext_product_apply_step": ("ext_product_apply.cu", 1802,
+                               STEP_LIBRARY_NOTE),
+    "ubr_phase1_combine_v1": ("ubr_phase1.cu", 2744, "none: no PyTorch call "
+                              "computes an exact unfolded combine")}
 SET3_CUT = 64        # ciphertexts of the SET_3 K3, K4, K7, K8a checks
 SET3_GA_ENTRIES = 64  # keyset entries of the SET_3 K7 check
 # The 32-bit torus: benchmarks/bench_torus32.py's parameter set (L2_32)
@@ -686,6 +724,210 @@ def ga_stepwise_phase(bkg, tv, cs, acc_k6, acc_k7, gens, k7_ms, max_clock):
     return report, counts, runs
 
 
+def hold_in_place(runs, name, kernel_fn, plain_fn, acc, bound, reps):
+    """A kernel that updates its accumulator in place (timed over reps on a
+    scratch copy of ``acc``) and its plain version (once, on another copy),
+    word for word, recorded in ``runs[name]``; returns the kernel's
+    output on ``acc``'s words."""
+    scratch = acc.clone()
+    k_ms, _ = cuda_ms(lambda: kernel_fn(scratch), reps)
+    got = kernel_fn(acc.clone())
+    p_ms, want = cuda_ms(lambda: plain_fn(acc.clone()), 1)
+    same_or_fail(f"{name} vs plain", got, want)
+    runs[name] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": 0.0,
+                  "bound_ms": bound["bound_ms"],
+                  "bound_by": bound["bound_by"], "bound": bound}
+    return got
+
+
+def step_bound_ms(kp, B, max_clock):
+    """K1-step: K1's bound over one step (one step's key rows and Shoup
+    companions read once, acc in and out, the exponents)."""
+    return rotation_bound_ms(kp, 1, B, 2 * kp.J * kp.C * kp.P * kp.N * 4,
+                             max_clock)
+
+
+def rotation_steps_phase(bk, tv, cs, acc_k, k1_ms, max_clock):
+    """Phase 4b (and its L2_32 counterpart in phase 20): the per-step
+    rotation on a path's key, LUT and ciphertexts.  blind_rotate_stepwise,
+    counts zeroed just before the call and read just after (n K1-step
+    launches and nothing else), word-equal to the path's K1 output
+    ``acc_k`` and timed warm beside blind_rotate; then K1-step alone on the
+    path's first step beside its bound and its plain version (bit-exact);
+    and both forms on one wave of the path's ciphertexts (one block per
+    SM), which tells the fused loop's cost from the waves'.  Returns
+    (report, counts, runs)."""
+    from mosfhet_torch import bootstrap
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    n, B = bk.n, acc_k.shape[0]
+    tv_r = bootstrap.rotate_test_vector(tv, cs, bk, 4)
+    zero_counts(pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = bootstrap.blind_rotate_stepwise(tv_r, cs.a, bk)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts(pk)
+    check_counts("blind_rotate_stepwise", counts, {"pbs_step": n})
+    same_or_fail("blind_rotate_stepwise vs the path's K1 output",
+                 out.stacked().reshape(acc_k.shape), acc_k)
+    fused_ms, _ = cuda_ms(lambda: bootstrap.blind_rotate(tv_r, cs.a, bk),
+                          STEP_REPS)
+    warm_ms, _ = cuda_ms(
+        lambda: bootstrap.blind_rotate_stepwise(tv_r, cs.a, bk), STEP_REPS)
+    acc_in, a_int, _ = bootstrap.blind_rotate_inputs(tv_r, cs.a, bk)
+    kp = bk.kernel_plan()
+    runs = {}
+    hold_in_place(runs, "pbs_step",
+                  lambda acc: pk.pbs_step(acc, a_int[0], bk.v32[0],
+                                          bk.vs32[0], kp),
+                  lambda acc: pk.pbs_step_plain(acc, a_int[0], bk.v32[0],
+                                                bk.vs32[0], kp),
+                  acc_in, step_bound_ms(kp, B, max_clock), KS_REPS)
+    r = runs["pbs_step"]
+    wave = min(B, torch.cuda.get_device_properties(0).multi_processor_count)
+    acc_w, a_w = acc_in[:wave].contiguous(), a_int[:, :wave].contiguous()
+
+    def steps_w():
+        acc = acc_w.clone()
+        for i in range(n):
+            pk.pbs_step(acc, a_w[i], bk.v32[i], bk.vs32[i], kp)
+        return acc
+
+    wave_k1_ms, acc_f = cuda_ms(
+        lambda: pk.blind_rotate_scan(acc_w, a_w, bk.v32, bk.vs32, kp),
+        STEP_REPS)
+    wave_steps_ms, acc_s = cuda_ms(steps_w, STEP_REPS)
+    same_or_fail("one wave: K1-step x n vs K1", acc_s, acc_f)
+    report = {"batch": B, "n": n, "first_call_s": first_s,
+              "warm_ms": warm_ms, "blind_rotate_ms": fused_ms,
+              "vs_blind_rotate": warm_ms / fused_ms, "k1_ms": k1_ms,
+              "vs_k1": warm_ms / k1_ms, "launches_per_call": {"pbs_step": n},
+              "k1_step_ms_x_n": r["ms"] * n,
+              "one_wave": {"batch": wave, "k1_ms": wave_k1_ms,
+                           "k1_step_x_n_ms": wave_steps_ms,
+                           "steps_vs_k1": wave_steps_ms / wave_k1_ms}}
+    log(f"# blind_rotate_stepwise at B={B}, n={n}: first call {first_s:.3f} "
+        f"s; warm {warm_ms:.3f} ms (mean of {STEP_REPS}) = "
+        f"{B / warm_ms * 1e3:.2f} rotations/s, {warm_ms / fused_ms:.4f} x "
+        f"blind_rotate's {fused_ms:.3f} ms, {warm_ms / k1_ms:.4f} x K1's "
+        f"{k1_ms:.3f} ms; {n} K1-step launches; words equal to K1's; "
+        f"K1-step {r['ms']:.4f} ms/launch on the first step (mean of "
+        f"{KS_REPS}), plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}); bit-exact; one wave "
+        f"(B={wave}): {n} K1-step launches {wave_steps_ms:.3f} ms, K1 "
+        f"{wave_k1_ms:.3f} ms ({wave_steps_ms / wave_k1_ms:.4f} x)")
+    del tv_r, out, acc_in, a_int, acc_w, a_w, acc_f, acc_s
+    return report, counts, runs
+
+
+def ubr_steps_phase(bk, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock):
+    """Phase 11b (and its L2_32 counterpart in phase 20): UBR phase 1
+    through K5-v1 and phase 2 one cached group per launch (K3-step) on a
+    UBR path's key, ciphertext, LUTs, cache ``sa`` and output ``out_u``.
+    Counts zeroed just before each call and read just after: 1 K5-v1
+    launch, n/u K3-step launches, nothing else; words equal to K5's cache
+    and the fused phase 2's; K5-v1 timed on the path's inputs beside K5
+    and its plain version, the step form warm beside the fused phase 2,
+    K3-step alone on the first group beside its plain version.  Returns
+    (report, counts, runs)."""
+    from mosfhet_torch import bootstrap
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    kp = bk.kernel_plan()
+    G, M = bk.su.shape[0], bk.su.shape[1]
+    luts = tvs.b.shape[0]
+    counts, runs = {}, {}
+    zero_counts(pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sa_v1 = bootstrap.multivalue_bootstrap_UBR_phase1_v1(c1, bk)
+    torch.cuda.synchronize()
+    v1_first_s = time.perf_counter() - t0
+    counts["ubr_phase1_v1"] = read_counts(pk)
+    check_counts("UBR phase 1 v1", counts["ubr_phase1_v1"],
+                 {"ubr_phase1_combine_v1": 1})
+    same_or_fail("UBR phase 1 v1 vs K5's cache", sa_v1.v, sa.v)
+    zero_counts(pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_s = bootstrap.multivalue_bootstrap_UBR_phase2_stepwise(tvs, c1, sa,
+                                                               bk, 4)
+    torch.cuda.synchronize()
+    step_first_s = time.perf_counter() - t0
+    counts["ubr_phase2_steps"] = read_counts(pk)
+    check_counts("UBR phase 2 step form", counts["ubr_phase2_steps"],
+                 {"ext_product_apply_step": G})
+    same_or_fail("UBR phase 2 step form vs phase 2 (a)", out_s.a, out_u.a)
+    same_or_fail("UBR phase 2 step form vs phase 2 (b)", out_s.b, out_u.b)
+    rot, _ = bootstrap.ubr_phase1_inputs(c1, bk)
+    hold(runs, "ubr_phase1_combine_v1",
+         lambda: pk.ubr_phase1_combine_v1(bk.su, rot, kp),
+         lambda: pk.ubr_phase1_combine_v1_plain(bk.su, rot, kp),
+         ubr_phase1_bound(kp, 1, G, M, max_clock))
+    fused_ms, _ = cuda_ms(lambda: bootstrap.multivalue_bootstrap_UBR_phase2(
+        tvs, c1, sa, bk, 4), STEP_REPS)
+    warm_ms, _ = cuda_ms(
+        lambda: bootstrap.multivalue_bootstrap_UBR_phase2_stepwise(
+            tvs, c1, sa, bk, 4), STEP_REPS)
+    acc_u, sa32, per_row, _ = bootstrap.ubr_phase2_inputs(tvs, c1, sa, bk, 4)
+    hold_in_place(runs, "ext_product_apply_step",
+                  lambda acc: pk.ext_product_apply_step(acc, sa32[0], kp,
+                                                        per_row),
+                  lambda acc: pk.ext_product_apply_step_plain(
+                      acc, sa32[0], kp, per_row),
+                  acc_u, apply_scan_bound(kp, luts, 1, per_row, max_clock),
+                  KS_REPS)
+    v1, k3s = runs["ubr_phase1_combine_v1"], runs["ext_product_apply_step"]
+    report = {"unfolding": bk.unfolding, "luts": luts,
+              "phase1_v1_first_ms": v1_first_s * 1e3,
+              "phase1_v1_ms": v1["ms"], "phase1_k5_ms": k5_ms,
+              "phase1_v1_vs_k5": v1["ms"] / k5_ms,
+              "phase2_steps_first_ms": step_first_s * 1e3,
+              "phase2_steps_ms": warm_ms, "phase2_fused_ms": fused_ms,
+              "phase2_k3_ms": k3_ms,
+              "phase2_steps_vs_fused": warm_ms / fused_ms,
+              "phase2_steps_ms_per_lut": warm_ms / luts,
+              "phase2_fused_ms_per_lut": fused_ms / luts,
+              "k3_step_ms_x_g": k3s["ms"] * G}
+    log(f"# UBR v1 and step forms (u={bk.unfolding}, G={G}, M={M}): phase 1 "
+        f"v1 first call {v1_first_s * 1e3:.3f} ms, K5-v1 {v1['ms']:.3f} "
+        f"ms/launch = {v1['ms'] / k5_ms:.3f} x K5's {k5_ms:.3f} (plain "
+        f"{v1['plain_ms']:.3f}, bound {v1['bound_ms']:.4f} {v1['bound_by']}); "
+        f"phase 2 step form of {luts} LUTs first call "
+        f"{step_first_s * 1e3:.3f} ms, warm {warm_ms:.3f} ms = "
+        f"{warm_ms / luts:.4f} ms per LUT, {warm_ms / fused_ms:.4f} x the "
+        f"fused phase 2's {fused_ms:.3f} ms ({fused_ms / luts:.4f} per LUT; "
+        f"K3 {k3_ms:.3f}); K3-step {k3s['ms']:.4f} ms/launch on the first "
+        f"group (plain {k3s['plain_ms']:.3f}, bound {k3s['bound_ms']:.4f} "
+        f"{k3s['bound_by']}); words equal to K5's and phase 2's; bit-exact")
+    del sa_v1, out_s, acc_u, sa32, rot
+    return report, counts, runs
+
+
+def step_entries(runs, by_path, tag=""):
+    """The kernels-line entries of K1-step, K3-step and K5-v1: their runs
+    on the paths' inputs and their launches by path (``tag`` names the
+    torus width: "" or "/torus32")."""
+    entries = []
+    for name, (source, line, note) in STEP_KERNELS.items():
+        r, by = runs[name], {path: n for path, n in by_path(name).items()
+                             if n}
+        if not by:
+            fail(f"{name}{tag} was launched no time on its paths")
+        entries.append({
+            "name": name + tag, "route": "cuda",
+            "source": f"mosfhet_torch/ops/csrc/{source}",
+            "replaces": f"mosfhet_tpu/ops/pbs_kernel.py:{line}",
+            "launches": sum(by.values()), "launches_by_path": by,
+            "max_abs_err": r["max_abs_err"], "bit_exact": True,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "library_note": note})
+    return entries
+
+
 def set3_phase(dev, max_clock):
     """Phase 19: SET_3, whose shapes put buffers of K1, K3, K4, K7 and K8a
     in a global workspace.  Returns its report and the kernels' entries."""
@@ -825,7 +1067,40 @@ def set3_phase(dev, max_clock):
         + "; ".join(f"{name} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
                     f"bound {r['bound_ms']:.4f} {r['bound_by']})"
                     for name, r in runs.items()) + "; bit-exact")
-    del acc_r, kv, kvs
+    # K1-step and K3-step: rot in the workspace, acc in the caller's tensor
+    a_np = rs.integers(0, 2 * N + 1, B, dtype=np.int32)
+    a_np[:3] = [0, N, 2 * N]
+    a_s = torch.from_numpy(a_np).to(dev)
+    hold_in_place(runs, "pbs_step",
+                  lambda acc: pk.pbs_step(acc, a_s, kv, kvs, kp),
+                  lambda acc: pk.pbs_step_plain(acc, a_s, kv, kvs, kp),
+                  acc_r, step_bound_ms(kp, B, max_clock), REPS)
+    for per_row in (False, True):
+        key_s = random_residues_i32(
+            rs, ((B,) if per_row else ()) + (J, C, P, N), kp.primes, dev)
+        hold_in_place(runs, "ext_product_apply_step"
+                      + ("/per_row" if per_row else ""),
+                      lambda acc: pk.ext_product_apply_step(acc, key_s, kp,
+                                                            per_row),
+                      lambda acc: pk.ext_product_apply_step_plain(
+                          acc, key_s, kp, per_row),
+                      acc_r, apply_scan_bound(kp, B, 1, per_row, max_clock),
+                      REPS)
+    for name in ("pbs_step", "ext_product_apply_step",
+                 "ext_product_apply_step/per_row"):
+        runs[name]["B"] = B
+    where["pbs_step"] = placement(pk, "pbs_step", kp, source="blind_rotate")
+    where["ext_product_apply_step"] = placement(
+        pk, "ext_product_apply_step", kp, source="ext_product_apply")
+    log(f"# SET_3 K1-step and K3-step at B={B}: placements "
+        f"{where['pbs_step']}, {where['ext_product_apply_step']}; "
+        + "; ".join(f"{name} {runs[name]['ms']:.4f} ms (plain "
+                    f"{runs[name]['plain_ms']:.3f}, bound "
+                    f"{runs[name]['bound_ms']:.4f} {runs[name]['bound_by']})"
+                    for name in ("pbs_step", "ext_product_apply_step",
+                                 "ext_product_apply_step/per_row"))
+        + "; bit-exact")
+    del acc_r, kv, kvs, key_s
 
     # the GA bootstrap at SET_3: K6 (perm in the workspace), then K7
     torch.cuda.synchronize()
@@ -1092,6 +1367,8 @@ def torus32_main():
         f"{k1_plain_ms:.3f} ms, bound {k1_bound['bound_ms']:.3f} ms "
         f"({k1_bound['bound_by']}: {k1_bound['multiplies']:.4g} int32 "
         f"multiplies); bit-exact")
+    steps, steps_counts, steps_runs = rotation_steps_phase(
+        bk, tv, cs, acc_k, k1_ms, max_clock)
     del acc_in, a_int, acc_k, acc_p
 
     # the gate's key switch, then fdfb_this_work
@@ -1178,13 +1455,16 @@ def torus32_main():
                  "decrypt_max_err_log2": math.log2(max(fdfb_err, 1.0)),
                  "glue_ms": fdfb_ms - 2 * k1_ms - k2_ms},
         "counts": {"pbs": pbs_counts, "gate": gate_counts,
-                   "fdfb": fdfb_counts, **unfolded.pop("counts"),
-                   **mesh.pop("counts"), **ga.pop("counts")},
+                   "fdfb": fdfb_counts, "steps": steps_counts,
+                   **unfolded.pop("counts"), **mesh.pop("counts"),
+                   **ga.pop("counts")},
+        "steps": steps,
         "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
         "k2": {"ms": k2_ms, "plain_ms": k2_plain_ms, "bound": k2_bound,
                "library_ms": library_ms, "library_note": library_note},
         "kernel_runs": {**unfolded.pop("kernel_runs"),
-                        **mesh.pop("kernel_runs"), **ga.pop("kernel_runs")},
+                        **mesh.pop("kernel_runs"), **ga.pop("kernel_runs"),
+                        **steps_runs},
         **unfolded, "mesh": mesh, **ga}))
     return 0
 
@@ -1325,6 +1605,10 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
         f"{k3['ms']:.3f} ms/launch = {k3['ms'] / UBR_LUTS:.4f} ms per LUT "
         f"(plain {k3['plain_ms']:.3f}, bound {k3['bound_ms']:.4f} "
         f"{k3['bound_by']}); bit-exact")
+    ubr_steps, ubr_counts, ubr_runs = ubr_steps_phase(
+        bk4, c1, tvs, sa, out_u, k5["ms"], k3["ms"], max_clock)
+    counts.update(ubr_counts)
+    runs.update(ubr_runs)
     del sa, sa_k, sa32, acc_u, acc_k3, rot_u
 
     # trgsw.external_product on BATCH TRLWEs: one TRGSW broadcast, one per
@@ -1385,7 +1669,7 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
                     "phase2_first_ms": ph2_s * 1e3, "phase2_ms": k3["ms"],
                     "phase2_ms_per_lut": k3["ms"] / UBR_LUTS,
                     "decrypt_max_err_log2": math.log2(max(ubr_err, 1.0))},
-            "extprod": ep}
+            "ubr_steps": ubr_steps, "extprod": ep}
 
 
 def torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded):
@@ -1807,6 +2091,11 @@ def main():
         f"{bound['int32_per_s']:.4g}/s, {bound['bytes']:.4g} B at "
         f"{HBM_BYTES_PER_S:.3g} B/s); bit-exact")
 
+    # 4b. the per-step rotation (K1-step) on phase 4's key, LUT and
+    #     ciphertexts, held to phase 5's K1 output
+    steps, steps_counts, steps_runs = rotation_steps_phase(
+        bk, tv, cs, acc_k, kernel_ms, max_clock)
+
     # 6. the key-switch kernel vs plain at full L2 widths, random inputs
     n_in, n_out, base_m1 = p.k * p.N, p.n, (1 << p.base_bit) - 1
     b_short = 4
@@ -1936,9 +2225,32 @@ def main():
         torch.cuda.synchronize()
         same_or_fail(f"K5 (u={u}) vs plain at L2 widths", got,
                      pk.ubr_phase1_combine_plain(su_r, rot_r, kp))
-    del acc_r, su_r, rot_r, sa_r, got
-    log("# K3 (broadcast and per-row, G=2, B=5), K4 and K5 (u=2, 4, 8; "
-        "exponents 0, N, 2N) vs plain at L2 widths: bit-exact")
+        got = pk.ubr_phase1_combine_v1(su_r, rot_r, kp)
+        torch.cuda.synchronize()
+        same_or_fail(f"K5-v1 (u={u}) vs plain at L2 widths", got,
+                     pk.ubr_phase1_combine_v1_plain(su_r, rot_r, kp))
+    # the one-step kernels: K1-step on phase 3's first key rows, K3-step
+    B_r = 5
+    acc_r = random_u64(rs, (B_r, C, N), dev)
+    a_np = rs.integers(0, 2 * N + 1, B_r, dtype=np.int32)
+    a_np[:3] = [0, N, 2 * N]
+    a_r = torch.from_numpy(a_np).to(dev)
+    got = pk.pbs_step(acc_r.clone(), a_r, kv32[0], kvs32[0], kp)
+    torch.cuda.synchronize()
+    same_or_fail("K1-step vs plain at L2 widths", got,
+                 pk.pbs_step_plain(acc_r.clone(), a_r, kv32[0], kvs32[0], kp))
+    for per_row in (False, True):
+        key_r = random_residues_i32(
+            rs, ((B_r,) if per_row else ()) + (J, C, P, N), primes, dev)
+        got = pk.ext_product_apply_step(acc_r.clone(), key_r, kp, per_row)
+        torch.cuda.synchronize()
+        same_or_fail(f"K3-step (per_row={per_row}) vs plain at L2 widths",
+                     got, pk.ext_product_apply_step_plain(acc_r.clone(), key_r,
+                                                          kp, per_row))
+    del acc_r, su_r, rot_r, sa_r, got, key_r
+    log("# K3 (broadcast and per-row, G=2, B=5), K4, K5 and K5-v1 (u=2, 4, "
+        "8; exponents 0, N, 2N), K1-step (B=5; exponents 0, N, 2N) and "
+        "K3-step (broadcast and per-row) vs plain at L2 widths: bit-exact")
 
     # 10. the unfolded PBS at u=4 on phase 4's LUT and ciphertexts
     torch.cuda.synchronize()
@@ -2071,6 +2383,11 @@ def main():
         f"bound {k3_bound['bound_ms']:.3f} ms {k3_bound['bound_by']}); "
         f"bit-exact; decrypt OK (max err 2^{math.log2(max(ubr_err, 1.0)):.1f}"
         f"); peak {ubr_peak / 2**30:.2f} GiB")
+
+    # 11b. UBR phase 1 through K5-v1, phase 2 one cached group per launch
+    #      (K3-step), on phase 11's key, ciphertext, LUTs and cache
+    ubr_steps, ubr_steps_counts, ubr_steps_runs = ubr_steps_phase(
+        bk8, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock)
     del bk8, sa, sa_k, sa_p, sa32, acc_u, acc_k3, acc_p3, rot8
 
     # 12. trgsw.external_product at L2 on 512 TRLWEs, both modes
@@ -2448,6 +2765,7 @@ def main():
     paths.update(mesh_counts)
     paths.update({f"extprod_{mode}": {"ext_product_apply_scan":
                                       ep[mode]["launches"]} for mode in ep})
+    paths.update({"steps": steps_counts, **ubr_steps_counts})
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}
@@ -2556,6 +2874,7 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "library_note": note})
+    kernels += step_entries({**steps_runs, **ubr_steps_runs}, by_path)
     for entry in kernels:
         runs3 = {name: r for name, r in set3_runs.items()
                  if name.split("/")[0] == entry["name"]}
@@ -2615,6 +2934,10 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "library_note": note})
+    kernels += step_entries(
+        t32["kernel_runs"],
+        lambda name: {f"{path}32": c[name] for path, c in c32.items()},
+        "/torus32")
     log(json.dumps({"pbs": {
         "params": p.name, "batch": BATCH, "keygen_s": keygen_s,
         "first_call_s": first_s, "warm_ms": pbs_ms,
@@ -2650,6 +2973,8 @@ def main():
         "phase2_ms_per_lut": k3_ms / UBR_LUTS,
         "decrypt_max_err_log2": math.log2(max(ubr_err, 1.0)),
         "phase1_bound": k5_bound, "phase2_bound": k3_bound}}))
+    log(json.dumps({"steps": {"params": p.name, "rotation": steps,
+                              "ubr": ubr_steps}}))
     log(json.dumps({"extprod": {"params": p.name, "batch": BATCH, **ep}}))
     log(json.dumps({"ga": {
         "params": p.name, "batch": BATCH, "torus_base": 4,

@@ -9,6 +9,12 @@ the dense CMUX adds exactly zero.
 At the 32-bit torus (``MOSFHET_TORUS_BITS=32``) every path here runs on
 int32 words holding u32 bits: `new_key` (unfolded too), the bootstraps,
 `fdfb_this_work` and UBR, through the one-limb forms of K1-K5.
+
+Three entry points reach the TPU package's superseded kernel forms, each a
+function beside the fused path and giving its words:
+`blind_rotate_stepwise` (one launch of K1-step per CMUX step),
+`multivalue_bootstrap_UBR_phase2_stepwise` (one launch of K3-step per
+cached group) and `multivalue_bootstrap_UBR_phase1_v1` (K5-v1).
 """
 
 from __future__ import annotations
@@ -159,6 +165,23 @@ def blind_rotate(tv: TRLWE, a, bk: BootstrapKey) -> TRLWE:
     return from_stacked(acc.reshape(batch + (bk.k + 1, bk.N)))
 
 
+def blind_rotate_stepwise(tv: TRLWE, a, bk: BootstrapKey) -> TRLWE:
+    """`blind_rotate` one CMUX step per launch (K1-step), the accumulator
+    through device memory between steps: the TPU package's per-step
+    `blind_rotate_scan`, `lax.scan` of `_pbs_step_tiles`.  The same words
+    as `blind_rotate`; n launches on CUDA tensors, n plain calls on CPU
+    tensors."""
+    if bk.unfolding != 1:
+        raise ValueError("blind_rotate_stepwise needs a key without "
+                         "unfolding")
+    acc0, a_int, batch = blind_rotate_inputs(tv, a, bk)
+    kp = bk.kernel_plan()
+    acc = acc0.clone()                  # updated in place, step by step
+    for i in range(bk.n):
+        _pk.pbs_step(acc, a_int[i], bk.v32[i], bk.vs32[i], kp)
+    return from_stacked(acc.reshape(batch + (bk.k + 1, bk.N)))
+
+
 def _unfold_rotations(a, bk: BootstrapKey):
     """Per group and mask combination, round((sum_{i in m} a[g u + i]) 2N)
     (`bootstrap.c:128-136`): int32 [..., n/u, 2^u] in [0, 2N), as the TPU
@@ -275,15 +298,26 @@ def ubr_phase1_inputs(c: TLWE, bk: BootstrapKey):
     return rot.contiguous(), batch
 
 
+def _phase1_cache(c: TLWE, bk: BootstrapKey, combine) -> TRGSWDFT:
+    rot, batch = ubr_phase1_inputs(c, bk)
+    v32 = combine(bk.su, rot, bk.kernel_plan())
+    return TRGSWDFT(v=_pk.i32_as_u32(v32).reshape(batch + v32.shape[1:]),
+                    vs=None, l=bk.l, Bg_bit=bk.Bg_bit, primes=bk.primes)
+
+
 def multivalue_bootstrap_UBR_phase1(c: TLWE, bk: BootstrapKey) -> TRGSWDFT:
     """Cache the per-group combined TRGSWs of ciphertext(s) ``c`` for reuse
     across LUTs (`multivalue_bootstrap_UBR_phase1`).  Returns an NTT-form
     TRGSW [..., n/u, (k+1)l, k+1, P, N] without Shoup companions.  On CUDA
     tensors one kernel launch, on CPU tensors the plain version."""
-    rot, batch = ubr_phase1_inputs(c, bk)
-    v32 = _pk.ubr_phase1_combine(bk.su, rot, bk.kernel_plan())
-    return TRGSWDFT(v=_pk.i32_as_u32(v32).reshape(batch + v32.shape[1:]),
-                    vs=None, l=bk.l, Bg_bit=bk.Bg_bit, primes=bk.primes)
+    return _phase1_cache(c, bk, _pk.ubr_phase1_combine)
+
+
+def multivalue_bootstrap_UBR_phase1_v1(c: TLWE, bk: BootstrapKey) -> TRGSWDFT:
+    """`multivalue_bootstrap_UBR_phase1` through K5-v1, the TPU package's
+    first phase-1 kernel design (`ubr_phase1_combine`): the same cache.  On
+    CUDA tensors one launch, on CPU tensors its plain version."""
+    return _phase1_cache(c, bk, _pk.ubr_phase1_combine_v1)
 
 
 def ubr_phase2_inputs(tv: TRLWE, c: TLWE, sa: TRGSWDFT, bk: BootstrapKey,
@@ -323,3 +357,20 @@ def multivalue_bootstrap_UBR_phase2(tv: TRLWE, c: TLWE, sa: TRGSWDFT,
     out = _pk.ext_product_apply_scan(acc0, sa32, bk.kernel_plan(), per_row)
     return _trlwe.extract_tlwe(
         from_stacked(out.reshape(batch + (bk.k + 1, bk.N))), 0)
+
+
+def multivalue_bootstrap_UBR_phase2_stepwise(tv: TRLWE, c: TLWE,
+                                             sa: TRGSWDFT, bk: BootstrapKey,
+                                             torus_base: int) -> TLWE:
+    """`multivalue_bootstrap_UBR_phase2` one cached group per launch
+    (K3-step), the accumulators through device memory between them: the
+    TPU package's per-step `ext_product_apply_scan`.  The same words for
+    both cache forms (one ciphertext's, broadcast; one per row); n/u
+    launches on CUDA tensors, n/u plain calls on CPU tensors."""
+    acc0, sa32, per_row, batch = ubr_phase2_inputs(tv, c, sa, bk, torus_base)
+    kp = bk.kernel_plan()
+    acc = acc0.clone()                  # updated in place, group by group
+    for g in range(sa32.shape[0]):
+        _pk.ext_product_apply_step(acc, sa32[g], kp, per_row)
+    return _trlwe.extract_tlwe(
+        from_stacked(acc.reshape(batch + (bk.k + 1, bk.N))), 0)

@@ -42,6 +42,16 @@
 // broadcast key (384 KiB per g) is read by every block, and blocks of a
 // wave share it through the 50 MB L2.  Like K1, its NTT stages are
 // block-wide barriers with a few butterflies per thread in between.
+//
+// K3-step (`ext_product_apply_step_kernel`, entry
+// `ext_product_apply_step_launch`) is one product per launch with the same
+// device body: the TPU kernel `_apply_step_tiles` (pbs_kernel.py:1802, the
+// per-step `ext_product_apply_scan` at :1858).  acc is read from and
+// written back to the caller's tensor, in place as the TPU kernel aliases
+// it; the key is [J, C, P, N] broadcast or [B, J, C, P, N] per row (the
+// TPU's per-row tile [nb, J, C, P, BT, N] without its sublane axis).  In
+// place is safe: the digits of every row are read before the inverse NTTs'
+// barriers, and each thread then writes only its own words.
 
 #include "ntt_common.cuh"
 
@@ -50,6 +60,92 @@ namespace {
 constexpr int kThreads = 1024;
 enum { kWork, kSpec, kAcc, kNumBuf };  // buffers, as the wrapper lists them
 
+// acc <- key (x) acc, block-wide, one ciphertext: acc [C][N] words, spec
+// [C][P][N] and work [P][N] u32 wherever they were placed; key [J][C][P][N]
+// u32 canonical residues.  Starts after acc was written (no barrier needed
+// before it: the spectra are cleared, then a barrier) and ends with a
+// barrier.
+template <int P, typename W>
+__device__ __forceinline__ void replace_product(
+    W* acc, uint32_t* spec, uint32_t* work, const uint32_t* __restrict__ key,
+    const uint32_t* __restrict__ ftw, const uint32_t* __restrict__ ftws,
+    const uint32_t* __restrict__ itw, const uint32_t* __restrict__ itws,
+    const PbsConsts& K) {
+  const int N = K.N, C = K.C, l = K.l, J = K.C * K.l, CN = K.C * K.N;
+  const W offset = W(K.offset);
+  for (int idx = threadIdx.x; idx < C * P * N; idx += blockDim.x)
+    spec[idx] = 0;
+  __syncthreads();
+  for (int j = 0; j < J; ++j) {
+    // 1. digit row j = (component c_j, digit d) as residues mod each prime
+    const int cj = j / l, d = j % l;
+    for (int k = threadIdx.x; k < N; k += blockDim.x) {
+      const int digit = gadget_digit<W>(acc[cj * N + k] + offset, d, K);
+#pragma unroll
+      for (int pi = 0; pi < P; ++pi)
+        work[pi * N + k] = small_residue(digit, K.p[pi]);
+    }
+    __syncthreads();
+    // 2. forward NTTs, then spec[c][p] += NTT(digit row) * key[j][c][p]
+    forward_ntt<P>(work, P, K, ftw, ftws);
+    for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x) {
+      const int pi = idx >> K.logN, k = idx & (N - 1);
+      const uint32_t p = K.p[pi], mup = K.mup[pi], x = work[idx];
+      for (int c = 0; c < C; ++c) {
+        const size_t ko = (size_t(j * C + c) * P + pi) * N + k;
+        uint32_t* sp = spec + (c * P + pi) * N + k;
+        *sp = add_mod(*sp, barrett(x, key[ko], p, mup), p);
+      }
+    }
+    __syncthreads();
+  }
+  // 3. inverse NTTs, Garner (with 1/N) replacing acc
+  inverse_ntt<P>(spec, C * P, K, itw, itws);
+  for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
+    const int c = idx >> K.logN, k = idx & (N - 1);
+    acc[idx] = garner<P, W>(spec + c * P * N, k, K);
+  }
+  __syncthreads();
+}
+
+// A block's G products (K3), or with Step its one product (K3-step, G = 1,
+// the key [J][C][P][N] or, per row, [B][J][C][P][N]).
+template <int P, typename W, bool S, bool Step>
+__device__ __forceinline__ void apply_block(
+    W* __restrict__ acc_g, const uint32_t* __restrict__ sa,
+    const uint32_t* __restrict__ ftw, const uint32_t* __restrict__ ftws,
+    const uint32_t* __restrict__ itw, const uint32_t* __restrict__ itws,
+    unsigned char* ws, const PbsConsts& Kp, const Layout& L, int B, int G,
+    int per_row) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ PbsConsts K;
+  if (threadIdx.x == 0) K = Kp;
+  __syncthreads();
+  const int N = K.N, C = K.C, J = K.C * K.l, CN = K.C * K.N;
+  const int b = blockIdx.x;
+  W* acc_b = acc_g + size_t(b) * CN;
+  W* acc = buffer<S, W>(L, kAcc, smem, ws, acc_b);                 // [C][N]
+  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][P][N]
+  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [P][N]
+  if (acc != acc_b)
+    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
+
+  const size_t key_size = size_t(J) * C * P * N;
+  if (Step) {
+    replace_product<P, W>(acc, spec, work, sa + (per_row ? b : 0) * key_size,
+                          ftw, ftws, itw, itws, K);
+  } else {
+    for (int g = 0; g < G; ++g)
+      replace_product<P, W>(
+          acc, spec, work,
+          sa + (per_row ? size_t(g) * B + b : size_t(g)) * key_size, ftw,
+          ftws, itw, itws, K);
+  }
+  if (acc != acc_b)
+    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
+}
+
+// K3: the G products, one block per ciphertext.
 template <int P, typename W, bool S>
 __global__ void __launch_bounds__(kThreads, 1)
 ext_product_apply_kernel(W* __restrict__ acc_g,
@@ -60,60 +156,23 @@ ext_product_apply_kernel(W* __restrict__ acc_g,
                          const uint32_t* __restrict__ itws, unsigned char* ws,
                          const PbsConsts Kp, const Layout L, int B, int G,
                          int per_row) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ PbsConsts K;
-  if (threadIdx.x == 0) K = Kp;
-  __syncthreads();
-  const int N = K.N, C = K.C, l = K.l, J = K.C * K.l, CN = K.C * K.N;
-  const W offset = W(K.offset);
-  const int b = blockIdx.x;
-  W* acc_b = acc_g + size_t(b) * CN;
-  W* acc = buffer<S, W>(L, kAcc, smem, ws, acc_b);                 // [C][N]
-  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][P][N]
-  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [P][N]
-  if (acc != acc_b)
-    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
+  apply_block<P, W, S, false>(acc_g, sa, ftw, ftws, itw, itws, ws, Kp, L, B,
+                              G, per_row);
+}
 
-  const size_t key_size = size_t(J) * C * P * N;
-  for (int g = 0; g < G; ++g) {
-    const uint32_t* key =
-        sa + (per_row ? size_t(g) * B + b : size_t(g)) * key_size;
-    for (int idx = threadIdx.x; idx < C * P * N; idx += blockDim.x)
-      spec[idx] = 0;
-    __syncthreads();
-    for (int j = 0; j < J; ++j) {
-      // 1. digit row j = (component c_j, digit d) as residues mod each prime
-      const int cj = j / l, d = j % l;
-      for (int k = threadIdx.x; k < N; k += blockDim.x) {
-        const int digit = gadget_digit<W>(acc[cj * N + k] + offset, d, K);
-#pragma unroll
-        for (int pi = 0; pi < P; ++pi)
-          work[pi * N + k] = small_residue(digit, K.p[pi]);
-      }
-      __syncthreads();
-      // 2. forward NTTs, then spec[c][p] += NTT(digit row) * SA_g[j][c][p]
-      forward_ntt<P>(work, P, K, ftw, ftws);
-      for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x) {
-        const int pi = idx >> K.logN, k = idx & (N - 1);
-        const uint32_t p = K.p[pi], mup = K.mup[pi], x = work[idx];
-        for (int c = 0; c < C; ++c) {
-          const size_t ko = (size_t(j * C + c) * P + pi) * N + k;
-          uint32_t* sp = spec + (c * P + pi) * N + k;
-          *sp = add_mod(*sp, barrett(x, key[ko], p, mup), p);
-        }
-      }
-      __syncthreads();
-    }
-    // 3. inverse NTTs, Garner (with 1/N) replacing acc
-    inverse_ntt<P>(spec, C * P, K, itw, itws);
-    for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
-      const int c = idx >> K.logN, k = idx & (N - 1);
-      acc[idx] = garner<P, W>(spec + c * P * N, k, K);
-    }
-    __syncthreads();
-  }
-  if (acc != acc_b)
-    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
+// K3-step: one product per launch, one block per ciphertext.
+template <int P, typename W, bool S>
+__global__ void __launch_bounds__(kThreads, 1)
+ext_product_apply_step_kernel(W* __restrict__ acc_g,
+                              const uint32_t* __restrict__ sa,
+                              const uint32_t* __restrict__ ftw,
+                              const uint32_t* __restrict__ ftws,
+                              const uint32_t* __restrict__ itw,
+                              const uint32_t* __restrict__ itws,
+                              unsigned char* ws, const PbsConsts Kp,
+                              const Layout L, int B, int G, int per_row) {
+  apply_block<P, W, S, true>(acc_g, sa, ftw, ftws, itw, itws, ws, Kp, L, B,
+                             1, per_row);
 }
 
 struct Args {
@@ -124,34 +183,24 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int P, typename W, bool S>
+template <int P, typename W, bool S, bool Step>
 cudaError_t launch_s(const Args& x, const PbsConsts& K, const Layout& L) {
+  auto* kernel = Step ? ext_product_apply_step_kernel<P, W, S>
+                      : ext_product_apply_kernel<P, W, S>;
   cudaError_t err = cudaFuncSetAttribute(
-      ext_product_apply_kernel<P, W, S>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
   if (err != cudaSuccess) return err;
-  ext_product_apply_kernel<P, W, S><<<x.B, kThreads, L.smem, x.stream>>>(
+  kernel<<<x.B, kThreads, L.smem, x.stream>>>(
       static_cast<W*>(x.acc), x.sa, x.ftw, x.ftws, x.itw, x.itws, x.ws, K, L,
       x.B, x.G, x.per_row);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// consts: the plan's int64 host array (layout in ntt_common.cuh), whose
-// gadget offset is of the word width; layout: the buffer placement (smem
-// bytes, workspace stride, offsets of work, spec, acc); ws: the workspace,
-// B x stride bytes (null when the stride is 0).  acc [B, k+1, N] u64 words
-// (word_bits 64) or u32 words (word_bits 32) is replaced in place; sa
-// [G, (k+1)l, k+1, P, N] u32 canonical residues, or [G, B, (k+1)l, k+1, P,
-// N] when per_row != 0; twiddles [P, N] u32.
-int ext_product_apply_launch(void* acc, const void* sa, const void* ftw,
-                             const void* ftws, const void* itw,
-                             const void* itws, void* ws, const int64_t* consts,
-                             const int64_t* layout, int B, int G, int per_row,
-                             int word_bits, void* stream) {
+template <bool Step>
+int launch_entry(void* acc, const void* sa, const void* ftw, const void* ftws,
+                 const void* itw, const void* itws, void* ws,
+                 const int64_t* consts, const int64_t* layout, int B, int G,
+                 int per_row, int word_bits, void* stream) {
   PbsConsts K;
   if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
   if (B == 0 || G == 0) return int(cudaSuccess);
@@ -171,9 +220,41 @@ int ext_product_apply_launch(void* acc, const void* sa, const void* ftw,
   return int(dispatch_pw(K.P, word_bits, [&](auto p, auto w) {
     using W = decltype(w);
     constexpr int P = decltype(p)::value;
-    return shared ? launch_s<P, W, true>(x, K, L)
-                  : launch_s<P, W, false>(x, K, L);
+    return shared ? launch_s<P, W, true, Step>(x, K, L)
+                  : launch_s<P, W, false, Step>(x, K, L);
   }));
+}
+
+}  // namespace
+
+extern "C" {
+
+// consts: the plan's int64 host array (layout in ntt_common.cuh), whose
+// gadget offset is of the word width; layout: the buffer placement (smem
+// bytes, workspace stride, offsets of work, spec, acc); ws: the workspace,
+// B x stride bytes (null when the stride is 0).  acc [B, k+1, N] u64 words
+// (word_bits 64) or u32 words (word_bits 32) is replaced in place; sa
+// [G, (k+1)l, k+1, P, N] u32 canonical residues, or [G, B, (k+1)l, k+1, P,
+// N] when per_row != 0; twiddles [P, N] u32.
+int ext_product_apply_launch(void* acc, const void* sa, const void* ftw,
+                             const void* ftws, const void* itw,
+                             const void* itws, void* ws, const int64_t* consts,
+                             const int64_t* layout, int B, int G, int per_row,
+                             int word_bits, void* stream) {
+  return launch_entry<false>(acc, sa, ftw, ftws, itw, itws, ws, consts,
+                             layout, B, G, per_row, word_bits, stream);
+}
+
+// K3-step: one product, acc <- SA (x) acc in place; sa [(k+1)l, k+1, P, N]
+// u32, or [B, (k+1)l, k+1, P, N] when per_row != 0; the rest as above.
+int ext_product_apply_step_launch(void* acc, const void* sa, const void* ftw,
+                                  const void* ftws, const void* itw,
+                                  const void* itws, void* ws,
+                                  const int64_t* consts,
+                                  const int64_t* layout, int B, int per_row,
+                                  int word_bits, void* stream) {
+  return launch_entry<true>(acc, sa, ftw, ftws, itw, itws, ws, consts,
+                            layout, B, 1, per_row, word_bits, stream);
 }
 
 const char* cuda_error_string(int err) {

@@ -18,6 +18,10 @@ PyTorch, only for CPU tensors.  The two give the same words.
                                            NTT-form bootstrap key and its
                                            Shoup companions (can exceed 2^31)
 
+   K1-step (``pbs_step``, a second entry of the same source) is one of the
+   n steps per launch, acc updated in place: a [B], keyv/keyvs [(k+1)l,
+   k+1, P, N], the step's rows.
+
 2. The TLWE key switch's select-sum (``csrc/tlwe_keyswitch.cu``):
 
        out[b] = sum over (i, j) with d[b, i, j] != 0 of ab[i, j, d - 1]
@@ -39,6 +43,10 @@ PyTorch, only for CPU tensors.  The two give the same words.
      sa32  [G, (k+1)l, k+1, P, N]         int32 holding u32 canonical
            or [G, B, (k+1)l, k+1, P, N]   NTT residues (one key per row)
 
+   K3-step (``ext_product_apply_step``, a second entry of the same source)
+   is one of the G products per launch, acc updated in place, with one
+   step's key [(k+1)l, k+1, P, N] or [B, (k+1)l, k+1, P, N].
+
 4. The unfolded blind rotation (``csrc/unfolded_rotate.cu``): for each
    group g the key products rotated and summed mod 2^64 (or 2^32), then
    one replace-mode external product,
@@ -53,6 +61,11 @@ PyTorch, only for CPU tensors.  The two give the same words.
 
        out[b, g] = NTT(sum_m X^{rot[b,g,m]} SU[g,m])
      out   [B, G, (k+1)l, k+1, P, N]      int32 holding u32 canonical residues
+
+   K5-v1 (``ubr_phase1_combine_v1``, a second kernel of the same source)
+   computes the same words in the TPU package's first design: one block
+   per (b, g) holding the combination of all (k+1)l (k+1) rows across the
+   2^u products, the reduction and the NTTs once at the end.
 
 6. The automorphism key switch (``csrc/auto_keyswitch.cu``): per row the
    Galois permutation psi_g (X -> X^g, given by ginv = g^-1 mod 2N), then
@@ -398,16 +411,18 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
     accumulator and the rotation/permutation buffer, read and written once
     or twice per step, come last.  K8b ("finish_step", in tp_step.cu) holds
     component 0's P spectra rows and, right after them where they fit, the
-    other components' rows; left out, it runs once per component.  M: K4's
-    2^u; P_ks: K7's key-switch prime count."""
+    other components' rows; left out, it runs once per component.  The
+    one-step kernels "pbs_step" (K1-step) and "ext_product_apply_step"
+    (K3-step) hold K1's and K3's buffers.  M: K4's 2^u; P_ks: K7's
+    key-switch prime count."""
     C, P, N = kp.C, kp.P, kp.N
     row, spec, words = P * N * 4, C * P * N * 4, C * N * kp.torus_bits // 8
-    if kernel == "blind_rotate":       # work, spec, rot, acc
+    if kernel in ("blind_rotate", "pbs_step"):     # work, spec, rot, acc
         return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),
                 (words, WORKSPACE, 2), (words, IN_PLACE, 3)]
-    if kernel == "ext_product_apply":  # work, spec, acc
-        return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),
-                (words, IN_PLACE, 2)]
+    if kernel in ("ext_product_apply", "ext_product_apply_step"):
+        return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),  # work, spec,
+                (words, IN_PLACE, 2)]                         # acc
     if kernel == "unfolded_rotate":    # rots, key, dig, spec, acc
         return [(M * 4, WORKSPACE, 0), (row, WORKSPACE, 1),
                 (row, SHARED_ONLY, 2), (spec, WORKSPACE, 3),
@@ -487,6 +502,52 @@ def blind_rotate_scan(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
 
 
 blind_rotate_scan.launches = 0
+
+
+def pbs_step_plain(acc, a, keyv, keyvs, kp: PBSKernelPlan):
+    """K1-step in int64 PyTorch, on any device, at the width of acc's
+    words: one CMUX step, ``acc`` updated in place and returned."""
+    pbs_step_plain.calls += 1
+    return acc.copy_(cmux_step(acc, i32_as_u32(keyv), i32_as_u32(keyvs), a,
+                               kp.ntt, kp.l, kp.Bg_bit))
+
+
+pbs_step_plain.calls = 0
+
+
+def pbs_step(acc, a, keyv, keyvs, kp: PBSKernelPlan):
+    """One CMUX step, acc += BK_i (x) (X^{a} acc - acc), in place (the TPU
+    kernel `_pbs_step_tiles` aliases acc to its output): acc [B, C, N]
+    int64 or int32 words, a [B] int32 in [0, 2N], keyv/keyvs [J, C, P, N]
+    int32, the step's key rows.  CUDA tensors: one launch of the kernel
+    (its one-limb form for int32 words), and an error raised if it does
+    not build or launch.  CPU tensors: the plain version.  Returns acc."""
+    bits = _word_width("pbs_step", acc, kp)
+    dev = acc.device
+    if dev.type == "cpu":
+        return pbs_step_plain(acc, a, keyv, keyvs, kp)
+    if dev.type != "cuda":
+        raise ValueError(f"pbs_step runs on cuda or cpu, not {dev}")
+    B = acc.shape[0]
+    row = (kp.J, kp.C, kp.P, kp.N)
+    _check("acc", acc, acc.dtype, (B, kp.C, kp.N), dev)
+    _check("a", a, torch.int32, (B,), dev)
+    _check("keyv", keyv, torch.int32, row, dev)
+    _check("keyvs", keyvs, torch.int32, row, dev)
+    _check_plan(kp, dev)
+    if B == 0:
+        return acc
+    layout, ws = _layout("pbs_step", kp, B, dev, source="blind_rotate")
+    _launch("blind_rotate", "pbs_step_launch", 11, 2, dev,
+            acc.data_ptr(), a.data_ptr(), keyv.data_ptr(), keyvs.data_ptr(),
+            kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
+            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(), _ptr(ws),
+            kp.host_consts.ctypes.data, layout.ctypes.data, B, bits)
+    pbs_step.launches += 1
+    return acc
+
+
+pbs_step.launches = 0
 
 
 # --- the key switch's select-sum -------------------------------------------
@@ -616,6 +677,57 @@ def ext_product_apply_scan(acc0, sa32, kp: PBSKernelPlan,
 ext_product_apply_scan.launches = 0
 
 
+def ext_product_apply_step_plain(acc, key32, kp: PBSKernelPlan,
+                                 per_row: bool = False):
+    """K3-step in int64 PyTorch, on any device, at the width of acc's
+    words: one replace-mode external product, ``acc`` updated in place and
+    returned.  A per-row key [B, J, C, P, N] and a broadcast one [J, C, P,
+    N] take the same code."""
+    ext_product_apply_step_plain.calls += 1
+    return acc.copy_(ext_product_replace(acc, i32_as_u32(key32), kp.ntt,
+                                         kp.l, kp.Bg_bit))
+
+
+ext_product_apply_step_plain.calls = 0
+
+
+def ext_product_apply_step(acc, key32, kp: PBSKernelPlan,
+                           per_row: bool = False):
+    """acc <- SA (x) acc, one product, in place (the TPU kernel
+    `_apply_step_tiles` aliases acc to its output): key32 [J, C, P, N]
+    int32 broadcast over the batch, or [B, J, C, P, N] with per_row.  CUDA
+    tensors: one launch of the kernel (its one-limb form for int32 words),
+    and an error raised if it does not build or launch.  CPU tensors: the
+    plain version.  Returns acc."""
+    bits = _word_width("ext_product_apply_step", acc, kp)
+    dev = acc.device
+    if dev.type == "cpu":
+        return ext_product_apply_step_plain(acc, key32, kp, per_row)
+    if dev.type != "cuda":
+        raise ValueError(f"ext_product_apply_step runs on cuda or cpu, "
+                         f"not {dev}")
+    _one_limb_primes("ext_product_apply_step", bits, kp)
+    B = acc.shape[0]
+    row = (kp.J, kp.C, kp.P, kp.N)
+    _check("acc", acc, acc.dtype, (B, kp.C, kp.N), dev)
+    _check("key32", key32, torch.int32, (B,) + row if per_row else row, dev)
+    _check_plan(kp, dev)
+    if B == 0:
+        return acc
+    layout, ws = _layout("ext_product_apply_step", kp, B, dev,
+                         source="ext_product_apply")
+    _launch("ext_product_apply", "ext_product_apply_step_launch", 9, 3, dev,
+            acc.data_ptr(), key32.data_ptr(), kp.fwd_tw.data_ptr(),
+            kp.fwd_tws.data_ptr(), kp.inv_tw.data_ptr(),
+            kp.inv_tws.data_ptr(), _ptr(ws), kp.host_consts.ctypes.data,
+            layout.ctypes.data, B, int(per_row), bits)
+    ext_product_apply_step.launches += 1
+    return acc
+
+
+ext_product_apply_step.launches = 0
+
+
 # --- the unfolded blind rotation (K4) and UBR phase 1 (K5) -----------------
 
 def combine_rotated(su_g, rot_g):
@@ -684,15 +796,20 @@ def unfolded_rotate(acc0, rot, su, kp: PBSKernelPlan):
 unfolded_rotate.launches = 0
 
 
-def ubr_phase1_combine_plain(su, rot, kp: PBSKernelPlan):
-    """UBR phase 1 in int64 PyTorch, on any device, at the width of su's
-    words: per (b, g) the combined TRGSW in NTT form
-    (`multivalue_bootstrap_UBR_phase1`, `bootstrap.c:151-175`).  Returns
-    [B, G, J, C, P, N] int32 holding u32 canonical residues."""
-    ubr_phase1_combine_plain.calls += 1
+def _combined_ntt(su, rot, kp: PBSKernelPlan):
+    """Per (b, g) the combined TRGSW in NTT form
+    (`multivalue_bootstrap_UBR_phase1`, `bootstrap.c:151-175`): [B, G, J,
+    C, P, N] int32 holding u32 canonical residues."""
     out = [_ntt.to_ntt_u64(combine_rotated(su[g], rot[:, g]), kp.ntt)
            for g in range(su.shape[0])]
     return u32_as_i32(torch.stack(out, dim=1))
+
+
+def ubr_phase1_combine_plain(su, rot, kp: PBSKernelPlan):
+    """UBR phase 1 in int64 PyTorch, on any device, at the width of su's
+    words (`_combined_ntt`)."""
+    ubr_phase1_combine_plain.calls += 1
+    return _combined_ntt(su, rot, kp)
 
 
 ubr_phase1_combine_plain.calls = 0
@@ -725,6 +842,53 @@ def ubr_phase1_combine(su, rot, kp: PBSKernelPlan):
 
 
 ubr_phase1_combine.launches = 0
+
+# K5-v1's threads own N / 1024 columns each, at most 8 (`launch_v1`).
+V1_MAX_N = 8192
+
+
+def ubr_phase1_combine_v1_plain(su, rot, kp: PBSKernelPlan):
+    """K5-v1 in int64 PyTorch, on any device: K5's function
+    (`_combined_ntt`), the same words."""
+    ubr_phase1_combine_v1_plain.calls += 1
+    return _combined_ntt(su, rot, kp)
+
+
+ubr_phase1_combine_v1_plain.calls = 0
+
+
+def ubr_phase1_combine_v1(su, rot, kp: PBSKernelPlan):
+    """UBR phase 1 in the v1 design (one block per (b, g) holding all
+    rows of the combination; N <= 8192).  CUDA tensors: one launch of the
+    kernel (its one-limb form for int32 key products), and an error raised
+    if it does not build or launch.  CPU tensors: the plain version.
+    Returns [B, G, J, C, P, N] int32 (u32 residues), K5's words."""
+    bits = _word_width("ubr_phase1_combine_v1", su, kp)
+    dev = su.device
+    if dev.type == "cpu":
+        return ubr_phase1_combine_v1_plain(su, rot, kp)
+    if dev.type != "cuda":
+        raise ValueError(f"ubr_phase1_combine_v1 runs on cuda or cpu, "
+                         f"not {dev}")
+    _one_limb_primes("ubr_phase1_combine_v1", bits, kp)
+    if kp.N > V1_MAX_N:
+        raise ValueError(f"ubr_phase1_combine_v1 takes N <= {V1_MAX_N}, "
+                         f"not {kp.N}")
+    B = rot.shape[0]
+    G, M = _check_unfolded(rot, su, kp, B, dev, su.dtype)
+    out = torch.empty((B, G, kp.J, kp.C, kp.P, kp.N), dtype=torch.int32,
+                      device=dev)
+    if B == 0 or G == 0:
+        return out
+    _launch("ubr_phase1", "ubr_phase1_v1_launch", 6, 4, dev, su.data_ptr(),
+            rot.data_ptr(), out.data_ptr(), kp.fwd_tw.data_ptr(),
+            kp.fwd_tws.data_ptr(), kp.host_consts.ctypes.data, B, G, M,
+            bits)
+    ubr_phase1_combine_v1.launches += 1
+    return out
+
+
+ubr_phase1_combine_v1.launches = 0
 
 
 # --- the automorphism key switch (K6, K6-old) and the GA rotation (K7) -----

@@ -7,9 +7,11 @@ every card, where there are several); the one-limb (32-bit torus) forms
 of the blind rotation, the select-sum, the external-product apply scan,
 the unfolded rotation, UBR phase 1, the split CMUX step, the automorphism
 key switch and the GA rotation; the GA step's external product alone
-(K1-delta) and the key switch on gathered keys (K6-old); and the kernels
-at N=4096 with 4 primes (SET_3) and N=8192, whose buffers do not all fit
-shared memory.
+(K1-delta) and the key switch on gathered keys (K6-old); the one-step
+kernels K1-step and K3-step and the v1 UBR phase 1 (K5-v1) at both
+widths, and their entry points' launch counts; and the kernels at N=4096
+with 4 primes (SET_3) and N=8192, whose buffers do not all fit shared
+memory.
 Needs a CUDA card: without one every test here skips.
 
 This file imports nothing but PyTorch, numpy and the port, so it runs on a
@@ -842,3 +844,163 @@ def test_cuda_auto_keyswitch_gathered_matches_plain(torus_bits):
     assert tpk.auto_keyswitch.launches == launches + 1
     assert got.dtype == perm.dtype
     assert torch.equal(got, tpk.auto_keyswitch_plain(*args))
+
+
+# --- the one-step kernels K1-step, K3-step and the v1 phase 1 K5-v1 ---------
+
+# (N, k, l, Bg_bit, B, torus bits): TFHEpp-L2; SET_3, whose buffers leave
+# shared memory (acc stays in the caller's tensor); L2_32, the one-limb form
+STEP_CASES = [(2048, 1, 4, 9, 5, 64), (4096, 1, 1, 22, 3, 64),
+              (2048, 1, 3, 7, 5, 32)]
+STEP_IDS = ["l2", "set3", "l2_32"]
+
+
+def _step_plan(N, k, l, Bg_bit, torus_bits):
+    primes = PRIMES_32 if torus_bits == 32 else ntt.primes_for_bound(
+        ntt.external_product_bound(N, Bg_bit, l, k))
+    return tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda", torus_bits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,k,l,Bg_bit,B,torus_bits", STEP_CASES,
+                         ids=STEP_IDS)
+def test_cuda_pbs_step_matches_plain(N, k, l, Bg_bit, B, torus_bits):
+    """K1-step: one CMUX step in place, exponents 0, N and 2N present; the
+    plain version's words, and K1's over that one step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp = _step_plan(N, k, l, Bg_bit, torus_bits)
+    _, acc0, a_int, keyv, keyvs = random_rotation_inputs(
+        N, k, l, Bg_bit, 1, B, seed=500 + N + torus_bits, primes=kp.primes,
+        torus_bits=torus_bits)
+    a_int[0, :3] = [0, N, 2 * N]
+    acc = to_tensor(acc0, "cuda")
+    a = torch.from_numpy(a_int[0]).cuda()
+    kv, ks = as_i32(keyv[0], "cuda"), as_i32(keyvs[0], "cuda")
+    launches = tpk.pbs_step.launches
+    got = acc.clone()
+    assert tpk.pbs_step(got, a, kv, ks, kp) is got
+    torch.cuda.synchronize()
+    assert tpk.pbs_step.launches == launches + 1
+    assert torch.equal(got, tpk.pbs_step_plain(acc.clone(), a, kv, ks, kp))
+    assert torch.equal(got, tpk.blind_rotate_scan(acc, a[None], kv[None],
+                                                  ks[None], kp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,k,l,Bg_bit,B,torus_bits", STEP_CASES,
+                         ids=STEP_IDS)
+@pytest.mark.parametrize("per_row", [False, True],
+                         ids=["broadcast", "per_row"])
+def test_cuda_ext_product_apply_step_matches_plain(N, k, l, Bg_bit, B,
+                                                   torus_bits, per_row):
+    """K3-step: one replace-mode product in place; the plain version's
+    words, and K3's with G = 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp = _step_plan(N, k, l, Bg_bit, torus_bits)
+    rng = np.random.default_rng(510 + N + torus_bits + per_row)
+    acc = (_words32(rng, B, kp.C, N) if torus_bits == 32 else to_tensor(
+        rng.integers(0, 1 << 64, size=(B, kp.C, N), dtype=np.uint64), "cuda"))
+    key = as_i32(random_residues(
+        rng, ((B,) if per_row else ()) + (kp.J, kp.C, kp.P, N), kp.primes),
+        "cuda")
+    launches = tpk.ext_product_apply_step.launches
+    got = acc.clone()
+    assert tpk.ext_product_apply_step(got, key, kp, per_row) is got
+    torch.cuda.synchronize()
+    assert tpk.ext_product_apply_step.launches == launches + 1
+    assert torch.equal(got, tpk.ext_product_apply_step_plain(
+        acc.clone(), key, kp, per_row))
+    assert torch.equal(got, tpk.ext_product_apply_scan(acc, key[None], kp,
+                                                       per_row))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,k,l,Bg_bit,u,G,B", UNFOLDED_CASES + [
+    (4096, 1, 1, 22, 2, 3, 2)])      # SET_3 widths: 4 primes, 4 columns
+def test_cuda_ubr_phase1_v1_matches_plain(N, k, l, Bg_bit, u, G, B):
+    """K5-v1 on u64 key products: the plain version's words and K5's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, rot, su, kp = random_unfolded_inputs(N, k, l, Bg_bit, u, G, B,
+                                            seed=N + u + 2)
+    launches = tpk.ubr_phase1_combine_v1.launches
+    got = tpk.ubr_phase1_combine_v1(su, rot, kp)
+    torch.cuda.synchronize()
+    assert tpk.ubr_phase1_combine_v1.launches == launches + 1
+    assert torch.equal(got, tpk.ubr_phase1_combine_v1_plain(su, rot, kp))
+    assert torch.equal(got, tpk.ubr_phase1_combine(su, rot, kp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u,G,B", [(2, 3, 2), (4, 2, 3)])
+def test_cuda_ubr_phase1_v1_matches_plain_torus32(u, G, B):
+    """K5-v1's one-limb form at L2_32 widths: u32 key products summed mod
+    2^32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp = _plan32()
+    M = 1 << u
+    rng = np.random.default_rng(520 + u)
+    su = _words32(rng, G, M, kp.J, kp.C, kp.N)
+    rot = torch.from_numpy(random_exponents(rng, B, G, M, kp.N)).cuda()
+    launches = tpk.ubr_phase1_combine_v1.launches
+    got = tpk.ubr_phase1_combine_v1(su, rot, kp)
+    torch.cuda.synchronize()
+    assert tpk.ubr_phase1_combine_v1.launches == launches + 1
+    assert torch.equal(got, tpk.ubr_phase1_combine_v1_plain(su, rot, kp))
+
+
+def _launched(wrappers, call):
+    """call()'s result (after a sync) and the launches it added to each
+    wrapper."""
+    before = [w.launches for w in wrappers]
+    out = call()
+    torch.cuda.synchronize()
+    return out, tuple(w.launches - b for w, b in zip(wrappers, before))
+
+
+@pytest.mark.gpu
+def test_cuda_step_entry_points_launch_their_kernels():
+    """At L2 widths, cut depth: `blind_rotate_stepwise` is n K1-step
+    launches and no K1, `multivalue_bootstrap_UBR_phase1_v1` one K5-v1
+    launch and no K5, `multivalue_bootstrap_UBR_phase2_stepwise` n/u
+    K3-step launches and no K3, each giving its fused form's words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from mosfhet_torch import bootstrap, trlwe
+    from mosfhet_torch.tlwe import TLWE
+    n, B, u = 6, 4, 2
+    bk, tv, c = _mesh_case(n, B, seed=530)
+    got, counts = _launched((tpk.pbs_step, tpk.blind_rotate_scan),
+                            lambda: bootstrap.blind_rotate_stepwise(tv, c.a,
+                                                                    bk))
+    assert counts == (n, 0)
+    want = bootstrap.blind_rotate(tv, c.a, bk)
+    assert torch.equal(got.a, want.a) and torch.equal(got.b, want.b)
+
+    N, k, l, Bg_bit = L2_SPLIT
+    _, _, su, kp = random_unfolded_inputs(N, k, l, Bg_bit, u, n // u, 1,
+                                          seed=531)
+    bku = bootstrap.BootstrapKey(None, None, n, k, N, l, Bg_bit, kp.primes,
+                                 su=su, unfolding=u)
+    sa, counts = _launched(
+        (tpk.ubr_phase1_combine_v1, tpk.ubr_phase1_combine),
+        lambda: bootstrap.multivalue_bootstrap_UBR_phase1_v1(c, bku))
+    assert counts == (1, 0)
+    assert torch.equal(sa.v, bootstrap.multivalue_bootstrap_UBR_phase1(
+        c, bku).v)
+    one = TLWE(a=c.a[0], b=c.b[0])
+    sa1 = bootstrap.multivalue_bootstrap_UBR_phase1(one, bku)
+    tvs = trlwe.from_stacked(tv.stacked().expand(3, k + 1, N).contiguous())
+    # one ciphertext's cache broadcast over 3 LUTs; one cache per row
+    for ct, luts, cache in ((one, tvs, sa1), (c, tv, sa)):
+        got, counts = _launched(
+            (tpk.ext_product_apply_step, tpk.ext_product_apply_scan),
+            lambda: bootstrap.multivalue_bootstrap_UBR_phase2_stepwise(
+                luts, ct, cache, bku, 4))
+        assert counts == (n // u, 0)
+        want = bootstrap.multivalue_bootstrap_UBR_phase2(luts, ct, cache, bku,
+                                                         4)
+        assert torch.equal(got.a, want.a) and torch.equal(got.b, want.b)

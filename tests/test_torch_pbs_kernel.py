@@ -70,8 +70,11 @@ ALL_SHARED = {"TFHEPP_L2": (2048, 4, 9, 64), "SET_1": (1024, 2, 8, 64),
 KERNELS = {"K1": ("blind_rotate", {}), "K3": ("ext_product_apply", {}),
            "K4": ("unfolded_rotate", {"M": 256}),
            "K6": ("auto_keyswitch", {}), "K7": ("ga_scan", {"P_ks": 3}),
-           "K8a": ("tp_step", {}), "K8b": ("finish_step", {})}
-ONE_LIMB = ("K1", "K3", "K4", "K8a", "K8b")   # the kernels with 32-bit forms
+           "K8a": ("tp_step", {}), "K8b": ("finish_step", {}),
+           "K1-step": ("pbs_step", {}),
+           "K3-step": ("ext_product_apply_step", {})}
+# the kernels with 32-bit forms
+ONE_LIMB = ("K1", "K3", "K4", "K8a", "K8b", "K1-step", "K3-step")
 
 
 @pytest.mark.parametrize("name,k_id", [
@@ -85,9 +88,9 @@ def test_layout_keeps_every_buffer_shared_where_it_fits(name, k_id):
     kp = _plan(N, l, Bg_bit, bits)
     layout, stride = tpk.kernel_layout(kernel, kp, H100_BUDGET, **kw)
     assert stride == 0 and set(_where(layout)) == {"S"}
-    if name == "TFHEPP_L2" and kernel == "blind_rotate":
+    if name == "TFHEPP_L2" and kernel in ("blind_rotate", "pbs_step"):
         assert layout[0] == 136 * 1024          # PERF.md's 136 KiB
-    if name == "L2_32" and kernel == "blind_rotate":
+    if name == "L2_32" and kernel in ("blind_rotate", "pbs_step"):
         assert layout[0] == 80 * 1024
 
 
@@ -98,13 +101,16 @@ def test_layout_keeps_every_buffer_shared_where_it_fits(name, k_id):
     ("auto_keyswitch", {}, "SSW", 192),
     ("ga_scan", {"P_ks": 4}, "SSWI", 192),
     ("tp_step", {}, "SSW", 192),
-    ("finish_step", {}, "SS", 128)],
-    ids=["K1", "K3", "K4", "K6", "K7", "K8a", "K8b"])
+    ("finish_step", {}, "SS", 128),
+    ("pbs_step", {}, "SSWI", 192),
+    ("ext_product_apply_step", {}, "SSI", 192)],
+    ids=["K1", "K3", "K4", "K6", "K7", "K8a", "K8b", "K1-step", "K3-step"])
 def test_layout_at_set3_moves_the_u64_buffers(kernel, kw, where, smem_kib):
     """N=4096 with 4 primes (SET_3; the GA key's key-switch plan there has 4
     primes too) asks for up to 320 KiB: the NTT rows and spectra stay in
     shared memory, the u64 buffers leave it (K4: the spectra leave, the key
-    row and acc stay)."""
+    row and acc stay).  K1-step and K3-step place K1's and K3's buffers:
+    acc then stays in the caller's tensor between their launches."""
     kp = _plan(4096, 1, 22)
     assert kp.P == 4
     layout, stride = tpk.kernel_layout(kernel, kp, H100_BUDGET, **kw)
@@ -177,9 +183,10 @@ def test_kernels_without_a_32bit_form_refuse_int32_words(name):
 
 
 def _one_limb_args(name, kp, rng):
-    """Small int32-word inputs of K3-K7, K6-old, K8a or K8b at ``kp``'s
-    widths (B=2, G=2, M=4, n=2; K6 and K7 use ``kp`` as their key-switch
-    plan too), and the shape and dtype of what comes back."""
+    """Small int32-word inputs of K3-K7, K6-old, K8a, K8b, K1-step, K3-step
+    or K5-v1 at ``kp``'s widths (B=2, G=2, M=4, n=2; K6 and K7 use ``kp``
+    as their key-switch plan too), and the shape and dtype of what comes
+    back."""
     B, G, M, C, J, P, N = 2, 2, 4, kp.C, kp.J, kp.P, kp.N
 
     def w32(*shape):
@@ -205,7 +212,15 @@ def _one_limb_args(name, kp, rng):
                  tpk.u32_as_i32((sv << 32) // kp.ntt.p[:, None]),
                  tpk.u32_as_i32(res(G, Jk, C, P, N)),
                  torch.arange(N, dtype=torch.int32) * 2 + 1, kp, kp)
+    kr = res(J, C, P, N)                     # one step's key rows
     return {
+        "pbs_step": ((w32(B, C, N), a, tpk.u32_as_i32(kr),
+                      tpk.u32_as_i32((kr << 32) // kp.ntt.p[:, None]), kp),
+                     (B, C, N), torch.int32),
+        "ext_product_apply_step": ((w32(B, C, N), tpk.u32_as_i32(kr), kp),
+                                   (B, C, N), torch.int32),
+        "ubr_phase1_combine_v1": ((w32(G, M, J, C, N), rot, kp),
+                                  (B, G, J, C, P, N), torch.int32),
         "auto_keyswitch_stream": (
             (w32(B, C, N), tpk.u32_as_i32(res(G, Jk, C, P, N)), odd // G,
              odd, kp), (B, C, N), torch.int32),
@@ -229,9 +244,12 @@ def _one_limb_args(name, kp, rng):
 @pytest.mark.parametrize("name", ["ext_product_apply_scan", "unfolded_rotate",
                                   "ubr_phase1_combine", "partial_step",
                                   "finish_step", "auto_keyswitch_stream",
-                                  "auto_keyswitch", "ga_scan_fused"])
+                                  "auto_keyswitch", "ga_scan_fused",
+                                  "pbs_step", "ext_product_apply_step",
+                                  "ubr_phase1_combine_v1"])
 def test_one_limb_forms_take_int32_words(name):
-    """K3-K7, K6-old, K8a and K8b take the 32-bit torus's int32 words: on CPU
+    """K3-K7, K6-old, K8a, K8b, K1-step, K3-step and K5-v1 take the 32-bit
+    torus's int32 words: on CPU
     tensors the plain version runs (one call) and gives the shape and
     dtype the kernel writes; a 64-bit plan, whose gadget offset is of the
     wrong width, is refused before any route."""

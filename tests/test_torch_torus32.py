@@ -28,7 +28,8 @@ ROOT = Path(__file__).resolve().parents[1]
 CASES = ("gadget_decompose", "double2torus", "torus2int", "ntt_product",
          "keyswitch", "k1_plain_vs_interpret", "k2_plain_vs_interpret",
          "functional_bootstrap", "fdfb_this_work", "port_keygen_decrypts",
-         "unported_paths_raise")
+         "unported_paths_raise", "k1_step_plain_vs_interpret",
+         "blind_rotate_stepwise")
 M32 = 1 << 32
 
 i32 = st.integers(-(1 << 31), (1 << 31) - 1)
@@ -330,6 +331,61 @@ def _child(out_path):
             except NotImplementedError:
                 pass
         return f"no NotImplementedError from {missing}" if missing else ""
+
+    def case_k1_step_plain_vs_interpret():
+        """K1-step's one-limb plain version against the TPU's one-step
+        kernel `_pbs_step_tiles` (its `nl == 1` branch) in interpret mode,
+        exponents 0, N and 2N present; acc updated in place."""
+        N, k, l, Bg_bit, B = p.N, p.k, p.l, p.Bg_bit, 8
+        C, J = k + 1, (k + 1) * l
+        primes = jntt.primes_for_bound(
+            jntt.external_product_bound(N, Bg_bit, l, k))
+        acc0 = words((B, C, N))
+        a = rs.integers(0, 2 * N + 1, B, dtype=np.int32)
+        a[:3] = [0, N, 2 * N]
+        pr = np.array(primes, np.uint64)[:, None]
+        keyv = rs.integers(0, 1 << 62, (J, C, len(primes), N),
+                           dtype=np.uint64) % pr
+        keyvs = ((keyv << np.uint64(32)) // pr).astype(np.uint32)
+        keyv = keyv.astype(np.uint32)
+        jkp = jpk.get_kernel_plan(N, primes, l, Bg_bit, k, bt=B, mxu=False,
+                                  rot_ntt=False)
+        if jkp.nl != 1:
+            return f"TPU plan nl={jkp.nl}"
+        want = jpk.merge_limbs(jpk._pbs_step_tiles(
+            jpk.split_limbs(jnp.asarray(acc0), jkp),
+            jnp.asarray(a).reshape(1, B, 1), jnp.asarray(keyv),
+            jnp.asarray(keyvs), jkp, interpret=True))
+        kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, CPU, 32)
+        acc = T(acc0, CPU)
+        calls = tpk.pbs_step_plain.calls
+        got = tpk.pbs_step(acc, torch.from_numpy(a), T(keyv, CPU),
+                           T(keyvs, CPU), kp)
+        if tpk.pbs_step_plain.calls != calls + 1 or got is not acc:
+            return "K1-step did not take its plain version in place"
+        return same(got, want)
+
+    def case_blind_rotate_stepwise():
+        """`blind_rotate_stepwise` on the TPU package's P32 key: n K1-step
+        calls (plain here), the jnp rotation's words and `blind_rotate`'s."""
+        kk, kt, ko, bk, bk_t = jax_keys(29)
+        B = 4
+        a, b = words((B, p.k, p.N)), words((B, p.N))
+        mask = words((B, p.n))
+        mask[0, :2] = [0, M32 - 1]
+        want = jax.jit(lambda tv, m: jbs.blind_rotate(tv, m, bk,
+                                                      impl="jnp"))(
+            jtrlwe.TRLWE(a=jnp.asarray(a), b=jnp.asarray(b)),
+            jnp.asarray(mask))
+        tv = bridge.trlwe_from_numpy(a, b, CPU)
+        calls = tpk.pbs_step_plain.calls
+        got = tbs.blind_rotate_stepwise(tv, T(mask, CPU), bk_t)
+        if tpk.pbs_step_plain.calls != calls + p.n:
+            return f"{tpk.pbs_step_plain.calls - calls} K1-step calls"
+        fused = tbs.blind_rotate(tv, T(mask, CPU), bk_t)
+        if not (torch.equal(got.a, fused.a) and torch.equal(got.b, fused.b)):
+            return "blind_rotate_stepwise != blind_rotate"
+        return same(got.a, want.a) or same(got.b, want.b)
 
     results = {}
     for name in CASES:

@@ -9,9 +9,10 @@ mesh), which imports both packages, runs the cases on numpy-seeded inputs
 and writes one JSON result per case; each case is one test here.  Sizes
 are the TPU package's TORUS32 suite's (`tests/_torus32_suite.py`): `T32K`
 (n=8, N=128, k=1, l=2, Bg_bit=8) and `P32` (n=16, N=64, l=3, Bg_bit=7); 2
-primes.  The TPU kernels K3, K4, K5, K8a and K8b run in Pallas interpret
-mode against the port's plain versions; the paths against the TPU
-package's jnp routes.  Every word must be identical: no tolerance.  The
+primes.  The TPU kernels K3, K4, K5, K8a and K8b, and the superseded
+K3-step (`_apply_step_tiles`) and K5-v1 (`ubr_phase1_combine`), run in
+Pallas interpret mode against the port's plain versions; the paths
+against the TPU package's jnp routes.  Every word must be identical: no tolerance.  The
 CUDA kernels meet the same plain versions in `test_torch_gpu.py`.
 """
 
@@ -38,7 +39,10 @@ CASES = ("k3_broadcast_plain_vs_interpret", "k3_per_row_plain_vs_interpret",
          "k8b_plain_vs_interpret_2_partials",
          "k8b_plain_vs_interpret_4_partials", "pbs_on_mesh_1x2",
          "pbs_on_mesh_1x4", "pbs_on_mesh_2x2",
-         "unfolded_pbs_on_mesh_model2")
+         "unfolded_pbs_on_mesh_model2", "k3_step_broadcast_plain_vs_interpret",
+         "k3_step_per_row_plain_vs_interpret", "k5_v1_plain_vs_interpret",
+         "ubr_phase1_v1", "ubr_phase2_stepwise_broadcast",
+         "ubr_phase2_stepwise_per_row")
 M32 = 1 << 32
 
 
@@ -502,6 +506,96 @@ def _child(out_path):
             tv_t, c_t)
         single = tbs.functional_bootstrap(tv_t, c_t, bk_t, 4)
         return same_ct(got, want) or same_ct(got, single)
+
+    def k3_step_case(per_row):
+        """K3-step's one-limb plain version against the TPU's one-product
+        kernel `_apply_step_tiles` in interpret mode, two batch tiles."""
+        primes, jkp, kp = plans(pk)
+        B, C, J, P = 2 * BT, pk.k + 1, (pk.k + 1) * pk.l, len(primes)
+        acc0 = words((B, C, pk.N))
+        key = residues(((B,) if per_row else ()) + (J, C, P, pk.N),
+                       primes).astype(np.uint32)
+        key_j = (key.reshape(2, BT, J, C, P, pk.N)
+                 .transpose(0, 2, 3, 4, 1, 5) if per_row else key)
+        want = jpk.merge_limbs(jpk._apply_step_tiles(
+            jpk.split_limbs(jnp.asarray(acc0), jkp), jnp.asarray(key_j), jkp,
+            per_row, interpret=True))
+        acc = T(acc0, CPU)
+        calls = tpk.ext_product_apply_step_plain.calls
+        got = tpk.ext_product_apply_step(acc, T(key, CPU), kp, per_row)
+        if tpk.ext_product_apply_step_plain.calls != calls + 1 \
+                or got is not acc:
+            return "K3-step did not take its plain version in place"
+        return same(got, want)
+
+    def case_k3_step_broadcast_plain_vs_interpret():
+        return k3_step_case(False)
+
+    def case_k3_step_per_row_plain_vs_interpret():
+        return k3_step_case(True)
+
+    def case_k5_v1_plain_vs_interpret():
+        """K5-v1's one-limb plain version against the TPU's v1 phase-1
+        kernel `ubr_phase1_combine` on one limb plane, G = 3 groups padded
+        to its tile of 8 and cut back by `merge_phase1_out`."""
+        primes, jkp, kp = plans(pk)
+        B, G, M, C, J = 2, 3, 4, pk.k + 1, (pk.k + 1) * pk.l
+        su = words((G, M, J, C, pk.N))
+        rot = exponents(B, G, M, pk.N)
+        want = jpk.merge_phase1_out(jpk.ubr_phase1_combine(
+            jpk.tile_su_planes(jnp.asarray(su.reshape(1, G, M, J * C, pk.N)),
+                               jkp),
+            jpk.tile_rot(jnp.asarray(rot), jkp, G), jkp, interpret=True), G)
+        got = tpk.ubr_phase1_combine_v1(T(su, CPU), torch.from_numpy(rot),
+                                        kp)
+        return same(got.numpy().view(np.uint32), want)
+
+    def case_ubr_phase1_v1():
+        """`multivalue_bootstrap_UBR_phase1_v1` on `case_ubr_phase1`'s
+        ciphertext: one K5-v1 call (plain here), its cache."""
+        kk, kt, kr, bk, bk_t = jax_keys(pk, 2, 31)
+        if not ubr_state:
+            return "phase 1 failed"
+        calls = tpk.ubr_phase1_combine_v1_plain.calls
+        sa = tbs.multivalue_bootstrap_UBR_phase1_v1(ubr_state["tc"], bk_t)
+        if tpk.ubr_phase1_combine_v1_plain.calls != calls + 1:
+            return "phase 1 v1 did not take the plain K5-v1"
+        return same(sa.v, ubr_state["sa"].v)
+
+    def phase2_stepwise_case(per_row):
+        """`multivalue_bootstrap_UBR_phase2_stepwise` with one
+        ciphertext's cache over two LUTs, or one cache per ciphertext for
+        two: n/u K3-step calls (plain here), the words of the port's
+        phase 2 and the TPU package's jnp phase 2."""
+        kk, kt, kr, bk, bk_t = jax_keys(pk, 2, 31)
+        B = 2
+        ca, cb = words((B, pk.n)), words((B,))
+        if not per_row:
+            ca, cb = ca[0], cb[0]
+        tc = bridge.tlwe_from_numpy(ca, cb, CPU)
+        a, b = words((B, pk.k, pk.N)), words((B, pk.N))
+        ttv = bridge.trlwe_from_numpy(a, b, CPU)
+        sa = tbs.multivalue_bootstrap_UBR_phase1(tc, bk_t)
+        calls = tpk.ext_product_apply_step_plain.calls
+        got = tbs.multivalue_bootstrap_UBR_phase2_stepwise(ttv, tc, sa,
+                                                           bk_t, 4)
+        if tpk.ext_product_apply_step_plain.calls != \
+                calls + bk_t.su.shape[0]:
+            return "phase 2 step form did not take n/u plain K3-steps"
+        fused = tbs.multivalue_bootstrap_UBR_phase2(ttv, tc, sa, bk_t, 4)
+        want = jax.jit(lambda tv_, c_, v_: jbs.multivalue_bootstrap_UBR_phase2(
+            tv_, c_, jtrgsw.TRGSWDFT(v=v_, vs=None, l=bk.l, Bg_bit=bk.Bg_bit,
+                                     primes=bk.primes), bk, 4, impl="jnp"))(
+            jtrlwe.TRLWE(a=jnp.asarray(a), b=jnp.asarray(b)),
+            jtlwe.TLWE(a=jnp.asarray(ca), b=jnp.asarray(cb)),
+            jnp.asarray(sa.v.numpy().astype(np.uint64)))
+        return same_ct(got, fused) or same_ct(got, want)
+
+    def case_ubr_phase2_stepwise_broadcast():
+        return phase2_stepwise_case(False)
+
+    def case_ubr_phase2_stepwise_per_row():
+        return phase2_stepwise_case(True)
 
     results = {}
     for name in CASES:
