@@ -9,7 +9,9 @@ toolkit:
 Phases; any failure ends the script with a non-zero exit and no result line:
 
   1. card     CUDA present; the card's name and power limit (nvidia-smi).
-  2. build    every kernel under mosfhet_torch/ops/csrc/ with nvcc, sm_90a.
+  2. build    every kernel under mosfhet_torch/ops/csrc/ with nvcc, sm_90a;
+              the registers and spills (ptxas -v) of every instance of K1
+              and K1-step.
   3. kernel   the blind-rotate kernel against its plain PyTorch version at
               full TFHEpp-L2 width on random inputs, a short rotation, with
               exponents 0 and 2N present: bit-exact.
@@ -20,7 +22,10 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               rotation must have gone through the kernel, never the plain
               version, and no key switch ran.
   5. compare  the kernel and the plain version on the main path's own
-              rotation inputs (all 512 ciphertexts): bit-exact, both timed.
+              rotation inputs (all 512 ciphertexts): bit-exact, both timed;
+              K1's and K1-step's resident blocks per SM (the CUDA
+              occupancy query) and K1's wave curve, ms per ciphertext at
+              B = 132, 264, 396, 512, 528 of the path's ciphertexts.
  4b. steps    (run after 5, whose K1 output it is held to)
               bootstrap.blind_rotate_stepwise on phase 4's key, LUT and 512
               ciphertexts: counts zeroed just before the call and read just
@@ -28,8 +33,9 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               phase 5's K1 output; warm ms beside blind_rotate's; K1-step
               timed per launch on the path's first step beside its bound and
               its plain version on that step (bit-exact); n K1-step launches
-              and K1 on one wave of the ciphertexts (132, one block per SM),
-              word-equal and timed.
+              and K1 on one wave of the ciphertexts (as many as the card
+              keeps resident: 264 at L2, two blocks per SM), word-equal and
+              timed.
   6. ks       the key-switch kernel against its plain version at full
               TFHEpp-L2 key-switch widths (n_in=2048, t=8, base 16,
               n_out=632) on random digits (0 and 15 present) and a random
@@ -155,12 +161,13 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               (1 K2 launch, within 2^27), fdfb_this_work at precision 3 (2
               K1 and 1 K2 launches per call, within 2^26); K1 and K2 timed on
               the path's own inputs beside their bounds and plain versions
-              (bit-exact); blind_rotate_stepwise on the PBS's inputs (632
-              one-limb K1-step launches, words equal to its K1), timed as in
-              phase 4b.  Then the one-limb K3, K4, K5, K8a and K8b on
-              their paths: the u=4 keygen (seconds, bytes) and PBS of the
-              same 512 ciphertexts (1 K4 launch per call, decrypt within
-              2^28); UBR at u=4 (one ciphertext, 256 LUTs: 1 K5 and 1 K3
+              (bit-exact), with K1's residency and wave curve as in phase 5;
+              blind_rotate_stepwise on the PBS's inputs (632 one-limb
+              K1-step launches, words equal to its K1), timed as in phase
+              4b (one wave: 396, three blocks per SM).  Then the one-limb
+              K3, K4, K5, K8a and K8b on their paths: the u=4 keygen
+              (seconds, bytes) and PBS of the same 512 ciphertexts (1 K4
+              launch per call, decrypt within 2^28); UBR at u=4 (one ciphertext, 256 LUTs: 1 K5 and 1 K3
               launch, every LUT within 2^28), then its phase 1 v1 and phase
               2 step form as in phase 11b (1 one-limb K5-v1 and G = 158
               K3-step launches); trgsw.external_product on 512
@@ -196,6 +203,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -239,6 +247,9 @@ GA_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT key switch "
 STEP_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT external "
                      "product")
 STEP_REPS = 2        # timed calls of the per-step forms (phases 4b, 11b, 14b)
+# K1's wave curve (phases 5, 20): one, two, three and four ciphertexts per
+# SM of an H100's 132, and the main path's batch
+WAVE_BATCHES = (132, 264, 396, 512, 528)
 # the one-step kernels and K5-v1 (phases 4b, 9, 11b, 19, 20): each entry's
 # TPU kernel line and library note
 STEP_KERNELS = {
@@ -747,6 +758,75 @@ def step_bound_ms(kp, B, max_clock):
                              max_clock)
 
 
+def k1_ptxas(text):
+    """ptxas's registers and spills of every instance of K1's and K1-step's
+    kernels in blind_rotate.cu's build log (nvcc -Xptxas -v)."""
+    out, cur = [], None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(blind_rotate_kernel|pbs_step_kernel)ILi(\d)E"
+                          r"([mj])Lb([01])ELi(\d+)E", line)
+            cur = None if m is None else {
+                "entry": "K1" if m[1] == "blind_rotate_kernel" else "K1-step",
+                "P": int(m[2]), "words": "u64" if m[3] == "m" else "u32",
+                "all_shared": m[4] == "1", "log_n": int(m[5]) or None}
+        elif cur is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            cur["spill_store_bytes"], cur["spill_load_bytes"] = \
+                int(m[1]), int(m[2])
+        elif cur is not None and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line)[1])
+            out.append(cur)
+            cur = None
+    if not out:
+        fail("no K1 instance in blind_rotate.cu's ptxas output")
+    return out
+
+
+def k1_residency(pk, kp, bits):
+    """K1's and K1-step's resident blocks per SM on this card at ``kp``'s
+    shape (the CUDA occupancy query), threads per block, and the
+    ciphertexts the card holds at once (one wave)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, step in (("K1", False), ("K1-step", True)):
+        blocks, threads = pk.rotation_residency(kp, bits, step)
+        if blocks < 1:
+            fail(f"{name}: no block fits an SM at N={kp.N}, P={kp.P}")
+        out[name] = {"blocks_per_sm": blocks, "threads_per_block": threads,
+                     "resident_ciphertexts": blocks * sms}
+    return out
+
+
+def k1_wave_curve(pk, kp, acc_in, a_int, kv, kvs, resident):
+    """K1 on the first B of a path's ciphertexts (the first ones again past
+    the batch) for B in WAVE_BATCHES: ms and ms per ciphertext."""
+    curve = []
+    for B in WAVE_BATCHES:
+        idx = torch.arange(B, device=acc_in.device) % acc_in.shape[0]
+        acc_b = acc_in[idx].contiguous()
+        a_b = a_int[:, idx].contiguous()
+        ms, _ = cuda_ms(lambda: pk.blind_rotate_scan(acc_b, a_b, kv, kvs, kp),
+                        STEP_REPS)
+        curve.append({"batch": B, "ms": ms, "ms_per_ciphertext": ms / B,
+                      "waves": -(-B // resident)})
+    del acc_b, a_b
+    return curve
+
+
+def log_wave_curve(tag, residency, curve):
+    r = residency["K1"]
+    log(f"# {tag} K1 residency: {r['blocks_per_sm']} blocks of "
+        f"{r['threads_per_block']} threads per SM ({r['resident_ciphertexts']} "
+        f"ciphertexts at once; K1-step "
+        f"{residency['K1-step']['blocks_per_sm']}); wave curve: "
+        + ", ".join(f"B={c['batch']} {c['ms']:.3f} ms "
+                    f"({c['ms_per_ciphertext']:.4f}/ct, {c['waves']} waves)"
+                    for c in curve))
+
+
 def rotation_steps_phase(bk, tv, cs, acc_k, k1_ms, max_clock):
     """Phase 4b (and its L2_32 counterpart in phase 20): the per-step
     rotation on a path's key, LUT and ciphertexts.  blind_rotate_stepwise,
@@ -754,9 +834,9 @@ def rotation_steps_phase(bk, tv, cs, acc_k, k1_ms, max_clock):
     launches and nothing else), word-equal to the path's K1 output
     ``acc_k`` and timed warm beside blind_rotate; then K1-step alone on the
     path's first step beside its bound and its plain version (bit-exact);
-    and both forms on one wave of the path's ciphertexts (one block per
-    SM), which tells the fused loop's cost from the waves'.  Returns
-    (report, counts, runs)."""
+    and both forms on one wave of the path's ciphertexts (as many as the
+    card keeps resident at once), which tells the fused loop's cost from
+    the waves'.  Returns (report, counts, runs)."""
     from mosfhet_torch import bootstrap
     from mosfhet_torch.ops import pbs_kernel as pk
 
@@ -786,7 +866,8 @@ def rotation_steps_phase(bk, tv, cs, acc_k, k1_ms, max_clock):
                                                 bk.vs32[0], kp),
                   acc_in, step_bound_ms(kp, B, max_clock), KS_REPS)
     r = runs["pbs_step"]
-    wave = min(B, torch.cuda.get_device_properties(0).multi_processor_count)
+    resident = k1_residency(pk, kp, kp.torus_bits)["K1"]
+    wave = min(B, resident["resident_ciphertexts"])
     acc_w, a_w = acc_in[:wave].contiguous(), a_int[:, :wave].contiguous()
 
     def steps_w():
@@ -805,7 +886,9 @@ def rotation_steps_phase(bk, tv, cs, acc_k, k1_ms, max_clock):
               "vs_blind_rotate": warm_ms / fused_ms, "k1_ms": k1_ms,
               "vs_k1": warm_ms / k1_ms, "launches_per_call": {"pbs_step": n},
               "k1_step_ms_x_n": r["ms"] * n,
-              "one_wave": {"batch": wave, "k1_ms": wave_k1_ms,
+              "one_wave": {"batch": wave,
+                           "blocks_per_sm": resident["blocks_per_sm"],
+                           "k1_ms": wave_k1_ms,
                            "k1_step_x_n_ms": wave_steps_ms,
                            "steps_vs_k1": wave_steps_ms / wave_k1_ms}}
     log(f"# blind_rotate_stepwise at B={B}, n={n}: first call {first_s:.3f} "
@@ -1367,6 +1450,10 @@ def torus32_main():
         f"{k1_plain_ms:.3f} ms, bound {k1_bound['bound_ms']:.3f} ms "
         f"({k1_bound['bound_by']}: {k1_bound['multiplies']:.4g} int32 "
         f"multiplies); bit-exact")
+    k1_res = k1_residency(pk, kp, 32)
+    k1_curve = k1_wave_curve(pk, kp, acc_in, a_int, bk.v32, bk.vs32,
+                             k1_res["K1"]["resident_ciphertexts"])
+    log_wave_curve("L2_32", k1_res, k1_curve)
     steps, steps_counts, steps_runs = rotation_steps_phase(
         bk, tv, cs, acc_k, k1_ms, max_clock)
     del acc_in, a_int, acc_k, acc_p
@@ -1459,7 +1546,8 @@ def torus32_main():
                    **unfolded.pop("counts"), **mesh.pop("counts"),
                    **ga.pop("counts")},
         "steps": steps,
-        "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
+        "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound,
+               "residency": k1_res, "wave_curve": k1_curve},
         "k2": {"ms": k2_ms, "plain_ms": k2_plain_ms, "bound": k2_bound,
                "library_ms": library_ms, "library_note": library_note},
         "kernel_runs": {**unfolded.pop("kernel_runs"),
@@ -1987,6 +2075,13 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"#   {name}: {line.strip()}")
+    k1_build = k1_ptxas(_build.build_log["blind_rotate"])
+    for e in k1_build:
+        log(f"# K1 build: {e['entry']} P={e['P']} {e['words']} "
+            f"{'all shared' if e['all_shared'] else 'placed'}"
+            f"{', N=2^' + str(e['log_n']) if e['log_n'] else ''}: "
+            f"{e['registers']} registers, {e['spill_store_bytes']} B spill "
+            f"stores, {e['spill_load_bytes']} B spill loads")
 
     # 3. kernel vs plain at full width on random inputs
     p = params.TFHEPP_L2
@@ -2090,6 +2185,10 @@ def main():
         f"({bound['bound_by']}: {bound['multiplies']:.4g} int32 multiplies at "
         f"{bound['int32_per_s']:.4g}/s, {bound['bytes']:.4g} B at "
         f"{HBM_BYTES_PER_S:.3g} B/s); bit-exact")
+    k1_res = k1_residency(pk, bkp, 64)
+    k1_curve = k1_wave_curve(pk, bkp, acc_in, a_int, bk.v32, bk.vs32,
+                             k1_res["K1"]["resident_ciphertexts"])
+    log_wave_curve("L2", k1_res, k1_curve)
 
     # 4b. the per-step rotation (K1-step) on phase 4's key, LUT and
     #     ciphertexts, held to phase 5's K1 output
@@ -2779,6 +2878,7 @@ def main():
         "max_abs_err": max_abs_err, "bit_exact": True,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": None,
+        "resident_blocks_per_sm": k1_res["K1"]["blocks_per_sm"],
     }, {
         "name": "tlwe_keyswitch_sum", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/tlwe_keyswitch.cu",
@@ -2894,6 +2994,8 @@ def main():
         "plain_ms": t32["k1"]["plain_ms"],
         "bound_ms": t32["k1"]["bound"]["bound_ms"],
         "bound_by": t32["k1"]["bound"]["bound_by"], "library_ms": None,
+        "resident_blocks_per_sm":
+            t32["k1"]["residency"]["K1"]["blocks_per_sm"],
     }, {
         "name": "tlwe_keyswitch_sum/torus32", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/tlwe_keyswitch.cu",
@@ -2944,7 +3046,8 @@ def main():
         "boot_per_s": BATCH / pbs_ms * 1e3, "peak_bytes": peak,
         "decrypt_max_err_log2": math.log2(max(err, 1.0)),
         "build_s": build_s, "plain_first2_ms": plain2_ms,
-        "bound": bound}}))
+        "bound": bound, "k1_ms": kernel_ms, "k1_residency": k1_res,
+        "k1_wave_curve": k1_curve, "k1_build": k1_build}}))
     log(json.dumps({"gate": {
         "ks_keygen_s": ks_keygen_s, "ks_key_bytes": ks_key_bytes,
         "decrypt_max_err_log2": math.log2(max(ks_err, 1.0)),

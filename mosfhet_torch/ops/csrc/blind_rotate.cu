@@ -7,11 +7,12 @@
 //
 //   acc += BK_i (x) ((X^{a_i} - 1) * acc)
 //
-//   1. rot = X^{a_i} * acc - acc, a negacyclic rotation of u64 words;
+//   1. rot = X^{a_i} * acc - acc, a negacyclic rotation of u64 words, read
+//      straight from acc wherever a digit needs it (no rotation buffer);
 //   2. signed gadget digits of rot + offset, l per component (J = (k+1) l);
 //   3. per digit row and prime: forward negacyclic NTT (Longa-Naehrig,
 //      bit-reversed output: the bootstrap key is stored in that order) and
-//      a Shoup multiply-accumulate against BK_i[j][c][p] into spec[c][p];
+//      a multiply-accumulate against BK_i[j][c][p] into spec[c][p];
 //   4. inverse NTTs of the C*P spectra (1/N folded into the next step);
 //   5. Garner CRT to the exact value mod 2^64 with a centred top digit;
 //   6. acc += delta.
@@ -21,198 +22,508 @@
 // mod 2^32 (the TPU kernel's `nl == 1` branches, pbs_kernel.py:1142-1145 and
 // :1213-1214).  The NTT side is the same at both widths.
 //
-// Design.  A blind rotate is one call, so it is one launch: one thread
-// block per ciphertext runs the n steps as a loop (the TPU's sequential grid
-// axis).  Its buffers are acc and rot (C x N words), spec (C x P x N u32)
-// and one digit row's NTT buffer work (P x N u32): 136 KiB at TFHEpp-L2
-// (N=2048, k=1, P=3) and 80 KiB at its 32-bit form (P=2), all in shared
-// memory, one block of 1024 threads per SM.  Where they do not all fit
-// (N=4096 with 4 primes needs 320 KiB, sm_90 allows 227 KiB) the wrapper
-// places them by traffic: work, then spec, in shared memory; rot in a
-// global workspace; acc updated in place in the caller's tensor (192 KiB of
-// shared memory at SET_3; at N=8192 only the 128 KiB NTT row).  Every
-// residue is kept canonical in [0, p) with Shoup products (__umulhi), so
-// the result is bit-identical to the plain PyTorch version.
-//
-// What bounds it on this card: integer multiplies.  Per step and ciphertext
+// What bounds it on this card: integer operations.  Per step and ciphertext
 // at TFHEpp-L2 it does (24 + 6) NTTs x 11,264 butterflies + 98,304 key
 // products + 4,096 Garner reconstructions, each one Shoup product of three
-// 32-bit multiplies, against 64 INT32 lanes per SM.  Bytes are far below
-// that: the u32 key and its Shoup companions, 786 KiB per step, are read by
-// every block (blocks of one wave share them through the 50 MB L2).  This
-// first version does not reuse a key row across ciphertexts inside a block
-// (the TPU's batch tile), and its NTT stages synchronise the whole block
-// each time: both are later work.
+// 32-bit multiplies, against 64 INT32 lanes per SM.  Every block reads the
+// step's key from the 50 MB L2: the MAC takes Barrett products of the key's
+// residues alone (`mac_product`), 393 KiB per step at TFHEpp-L2, and never
+// reads their Shoup companions, which would double that traffic.
+//
+// Design.  A blind rotate is one call, so it is one launch: one block per
+// ciphertext runs the n steps as a loop (the TPU's sequential grid axis).
+// The block is split into groups of T = N/16 threads, one group per prime
+// (NG = min(P, 1024/T) groups; a group takes primes g, g + NG, ...).  A
+// thread owns 16 coefficients of its group's row in registers and runs up
+// to four radix-2 stages on them between exchanges (`Sched`): a 2,048-point
+// row takes three passes and two exchanges through the group's slice of
+// `work`, one synchronised by a named barrier of the group's threads
+// (`bar.sync 1+g, T`), the other inside each warp (`__syncwarp`).  After the
+// forward NTT a thread holds 16 consecutive bit-reversed positions; it
+// multiplies them by the key (16-byte loads) and accumulates into its own
+// slots of spec, so a group needs no barrier for the MAC and the groups
+// none between them until Garner.  The inverse NTT starts from those same
+// slots (bit-reversed input) and ends in natural order, which Garner reads
+// across the primes after one block barrier: two block barriers per step.
+//
+// Residues are lazy (Harvey butterflies): the forward NTT keeps them in
+// [0, 4p), the MAC and the inverse NTT in [0, 2p) (p < 2^30, so no sum
+// passes 2^32); Garner's first Shoup product ends canonical, so the words
+// are those of the plain PyTorch version.  Twiddles come from the plan's
+// tables in 1-8 word vector loads: a pass's first stages read one shared
+// word per warp, its last ones 8 consecutive words per thread.
+//
+// Buffers of a block: acc [C][N] words, spec [C][P][SR] u32 and work
+// [NG][SR] u32, SR = N + N/16 from N = 256 (one pad word per 16 keeps the
+// exchanges and the MAC's slots free of bank conflicts; SR = N below):
+// 108.5 KiB at TFHEpp-L2 (N=2048, k=1, P=3; two blocks per SM) and 67 KiB
+// at its 32-bit form (P=2; three per SM).  Where they do not all fit, the
+// wrapper places them by traffic: work always in shared memory, then spec,
+// then acc; spec in a global workspace, acc updated in place in the
+// caller's tensor (SET_3: acc in place; N=8192: spec in the workspace).
+// N from 16 to 16384.
 //
 // K1-step (`pbs_step_kernel`, entry `pbs_step_launch`) is the same step body
 // run once per launch: the TPU kernel `_pbs_step_tiles` (pbs_kernel.py:1253,
 // the per-step `blind_rotate_scan` at :1335).  acc comes from and goes back
 // to the caller's tensor, updated in place as the TPU kernel aliases it
-// (`input_output_aliases={0: 0}`).  In place is safe: step 1 reads the
-// whole row of acc into rot before the first barrier, and acc is written
-// only in step 6, one word per thread, after the inverse NTTs' barriers.
-// Its bound is K1's over n plus acc's round trip through HBM (2 x 16 MiB
-// at TFHEpp-L2, B=512), which K1 keeps on chip across the n steps.
+// (`input_output_aliases={0: 0}`).  In place is safe: the forward phase
+// only reads acc, and acc is written only after the block barrier that
+// ends every group's inverse NTTs.
 
 #include "ntt_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-enum { kWork, kSpec, kRot, kAcc, kNumBuf };  // buffers, as the wrapper lists
+constexpr int kMaxThreads = 1024;
+constexpr int kQ = 4;            // radix-2 stages per pass
+constexpr int kR = 1 << kQ;      // coefficients a thread owns
+enum { kWork, kSpec, kAcc, kNumBuf };  // buffers, as the wrapper lists
 
-// One CMUX step of one ciphertext (steps 1-6 above), block-wide: acc and
-// rot [C][N] words, spec [C][P][N] and work [P][N] u32 wherever they were
-// placed; kv, ks the step's key rows [J][C][P][N].  Starts after a barrier
-// and ends with one.
-template <int P, typename W>
-__device__ __forceinline__ void cmux_step(
-    W* acc, W* rot, uint32_t* spec, uint32_t* work, int a,
-    const uint32_t* __restrict__ kv, const uint32_t* __restrict__ ks,
-    const uint32_t* __restrict__ ftw, const uint32_t* __restrict__ ftws,
-    const uint32_t* __restrict__ itw, const uint32_t* __restrict__ itws,
-    const PbsConsts& K) {
-  const int N = K.N, C = K.C, l = K.l, J = K.C * K.l, CN = K.C * K.N;
-  const W offset = W(K.offset);
-  // 1. rot + offset, with rot = X^a acc - acc
-  for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
-    const int c = idx >> K.logN, k = idx & (N - 1);
-    rot[idx] = rotated_word(acc + c * N, k, a, N) - acc[idx] + offset;
-  }
-  for (int idx = threadIdx.x; idx < C * P * N; idx += blockDim.x)
-    spec[idx] = 0;
-  __syncthreads();
+// The schedule of one row: T = N / kR threads per group, NG groups, the
+// row stride SR, np passes.  Pass e (0 = lowest bits) owns the window of kQ
+// bits [w, w + kQ) of the position and runs the stages on its bits
+// [lo, hi]: e < np-1 has w = lo = e kQ; the top pass has w = logN - kQ and
+// lo = (np-1) kQ, hi = logN - 1.  Thread t's coefficient v sits at
+//   pos = (t mod 2^w) | v << w | (t >> w) << (w + kQ),
+// in row slot pos + (pos >> kQ) where N >= 256 (one pad word after every
+// kR keeps the exchanges and the MAC's slots free of bank conflicts; then
+// every window has w = 0 or w >= kQ), and in slot pos below.
+struct Sched {
+  int logN, logT, T, NG, SR, np;
+  bool pad;
+};
 
-  for (int j = 0; j < J; ++j) {
-    // 2. digit row j = (component c_j, digit d) as residues mod each prime
-    const int cj = j / l, d = j % l;
-    for (int k = threadIdx.x; k < N; k += blockDim.x) {
-      const int digit = gadget_digit(rot[cj * N + k], d, K);
-#pragma unroll
-      for (int pi = 0; pi < P; ++pi)
-        work[pi * N + k] = small_residue(digit, K.p[pi]);
-    }
+__host__ __device__ inline bool make_sched(int logN, int P, Sched& s) {
+  if (logN < kQ || logN > 14) return false;
+  s.logN = logN;
+  s.logT = logN - kQ;
+  s.T = 1 << s.logT;
+  s.NG = P < kMaxThreads / s.T ? P : kMaxThreads / s.T;
+  s.pad = logN >= 2 * kQ;
+  s.SR = (1 << logN) + (s.pad ? 1 << s.logT : 0);
+  s.np = (logN + kQ - 1) / kQ;
+  return true;
+}
+
+__device__ __forceinline__ int window(const Sched& s, int e) {
+  return e == s.np - 1 ? s.logN - kQ : e * kQ;
+}
+
+// Thread t's slots at window w: coefficient v in slot first + v * stride.
+struct Slots {
+  int first, stride;
+};
+
+__device__ __forceinline__ Slots slots(const Sched& s, int t, int w) {
+  const int pos = (t & ((1 << w) - 1)) | ((t >> w) << (w + kQ));
+  if (!s.pad) return {pos, 1 << w};
+  return {pos + (pos >> kQ), (1 << w) + (w >= kQ ? 1 << (w - kQ) : 0)};
+}
+
+// Synchronise the threads of group g: a named barrier of its T threads,
+// or the whole block where T < 32 (every group then runs the same steps).
+__device__ __forceinline__ void group_sync(int g, int T) {
+  if (T >= 32)
+    asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(T) : "memory");
+  else
     __syncthreads();
-    // 3. forward NTTs, then spec[c][p] += NTT(digit row) * BK_i[j][c][p]
-    forward_ntt<P>(work, P, K, ftw, ftws);
-    for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x) {
-      const int pi = idx >> K.logN, k = idx & (N - 1);
-      const uint32_t p = K.p[pi], x = work[idx];
-      for (int c = 0; c < C; ++c) {
-        const size_t ko = (size_t(j * C + c) * P + pi) * N + k;
-        uint32_t* sp = spec + (c * P + pi) * N + k;
-        *sp = add_mod(*sp, shoup(x, kv[ko], ks[ko], p), p);
+}
+
+// The exchange between windows 1 and 0 stays inside each warp when T >= 32:
+// both windows cover position bits 0-8 with a warp's 32 x 16 coefficients.
+__device__ __forceinline__ void warp_sync(int T) {
+  if (T >= 32)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// NS consecutive twiddles and their Shoup companions from tw[i], i a
+// multiple of NS (so the vector load is aligned: rows are N >= 16 words).
+template <int NS>
+__device__ __forceinline__ void load_tw(const uint32_t* __restrict__ tw,
+                                        const uint32_t* __restrict__ tws,
+                                        int i, uint32_t (&w)[NS],
+                                        uint32_t (&ws)[NS]) {
+  if constexpr (NS == 1) {
+    w[0] = __ldg(tw + i);
+    ws[0] = __ldg(tws + i);
+  } else if constexpr (NS == 2) {
+    const uint2 a = __ldg(reinterpret_cast<const uint2*>(tw + i));
+    const uint2 b = __ldg(reinterpret_cast<const uint2*>(tws + i));
+    w[0] = a.x, w[1] = a.y, ws[0] = b.x, ws[1] = b.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < NS / 4; ++q) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(tw + i) + q);
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(tws + i) + q);
+      w[4 * q] = a.x, w[4 * q + 1] = a.y, w[4 * q + 2] = a.z,
+      w[4 * q + 3] = a.w;
+      ws[4 * q] = b.x, ws[4 * q + 1] = b.y, ws[4 * q + 2] = b.z,
+      ws[4 * q + 3] = b.w;
+    }
+  }
+}
+
+// x in [0, 4p) -> [0, 2p)
+__device__ __forceinline__ uint32_t lazy2(uint32_t x, uint32_t p2) {
+  return min(x, x - p2);
+}
+
+// x * k mod p in [0, 2p) for a forward-NTT output x < 4p and a key residue
+// k < p, by `barrett` (ntt_common.cuh) without the key's Shoup companion:
+// z = x k < 2^62, t = floor(z / 2^30) < 2^32 and q = floor(t floor(2^62/p)
+// / 2^32) is at most 3 below floor(z / p) (the 2^30 / p < 1.75 of t's floor
+// and t / 2^32 < 1 of the constant's), so z - q p < 4p < 2^32; one lazy
+// reduction.  Five 32-bit operations more than a Shoup product, and half
+// the key's bytes.
+__device__ __forceinline__ uint32_t mac_product(uint32_t x, uint32_t k,
+                                                uint32_t p, uint32_t mup) {
+  const uint32_t zlo = x * k, zhi = __umulhi(x, k);
+  const uint32_t t = (zhi << 2) | (zlo >> 30);
+  const uint32_t q = t + __umulhi(t, mup);
+  return lazy2(zlo - q * p, 2 * p);
+}
+
+// One stage on value bit I of a thread's kR coefficients, pass window w,
+// position bit b = w + I: pairs (v, v | 2^I), twiddle index
+// 2^(logN-1-b) + (pos >> (b+1)) = 2^(logN-1-b) + (t >> w) 2^(kQ-1-I)
+// + (v >> (I+1)).  Forward: Cooley-Tukey, [0, 4p) -> [0, 4p); inverse:
+// Gentleman-Sande, [0, 2p) -> [0, 2p).
+template <int I, bool Fwd>
+__device__ __forceinline__ void stage(uint32_t (&x)[kR], int t, int w,
+                                      int logN,
+                                      const uint32_t* __restrict__ tw,
+                                      const uint32_t* __restrict__ tws,
+                                      uint32_t p) {
+  constexpr int NS = 1 << (kQ - 1 - I);
+  const int b = w + I;
+  uint32_t W[NS], Ws[NS];
+  load_tw<NS>(tw, tws, (1 << (logN - 1 - b)) + ((t >> w) << (kQ - 1 - I)), W,
+              Ws);
+  const uint32_t p2 = 2 * p;
+#pragma unroll
+  for (int u = 0; u < NS; ++u)
+#pragma unroll
+    for (int z = 0; z < (1 << I); ++z) {
+      uint32_t& X = x[(u << (I + 1)) | z];
+      uint32_t& Y = x[(u << (I + 1)) | z | (1 << I)];
+      if (Fwd) {
+        const uint32_t a = lazy2(X, p2);
+        const uint32_t m = shoup_lazy(Y, W[u], Ws[u], p);
+        X = a + m;
+        Y = a - m + p2;
+      } else {
+        const uint32_t d = X - Y + p2;
+        X = lazy2(X + Y, p2);
+        Y = shoup_lazy(d, W[u], Ws[u], p);
       }
     }
-    __syncthreads();
+}
+
+// The stages of pass e whose position bits lie in [lo, hi], in the
+// transform's order: top bit first forward, bottom bit first inverse.
+template <bool Fwd>
+__device__ __forceinline__ void run_pass(uint32_t (&x)[kR], const Sched& s,
+                                         int e, int t,
+                                         const uint32_t* __restrict__ tw,
+                                         const uint32_t* __restrict__ tws,
+                                         uint32_t p) {
+  const int w = window(s, e), lo = e * kQ,
+            hi = e == s.np - 1 ? s.logN - 1 : e * kQ + kQ - 1;
+  // bit I of the window is staged when w + I lies in [lo, hi]
+#define MOSFHET_STAGE(I) \
+  if (w + I >= lo && w + I <= hi) stage<I, Fwd>(x, t, w, s.logN, tw, tws, p);
+  if (Fwd) {
+    MOSFHET_STAGE(3) MOSFHET_STAGE(2) MOSFHET_STAGE(1) MOSFHET_STAGE(0)
+  } else {
+    MOSFHET_STAGE(0) MOSFHET_STAGE(1) MOSFHET_STAGE(2) MOSFHET_STAGE(3)
   }
-  // 4. inverse NTTs of all C*P spectra
-  inverse_ntt<P>(spec, C * P, K, itw, itws);
+#undef MOSFHET_STAGE
+  static_assert(kQ == 4, "run_pass unrolls four stages");
+}
+
+// Move a thread's coefficients from pass window `from` to `to` through its
+// group's row `buf`.  The thread writes only slots it read at the last
+// exchange (or, first in a transform, after `pre` synchronises the group),
+// so `local` (windows 1 and 0) needs only the warp's synchronisation.
+__device__ __forceinline__ void exchange(uint32_t (&x)[kR], uint32_t* buf,
+                                         const Sched& s, int t, int from,
+                                         int to, bool pre, bool local,
+                                         int g) {
+  if (pre) group_sync(g, s.T);
+  const Slots a = slots(s, t, from), b = slots(s, t, to);
+#pragma unroll
+  for (int v = 0; v < kR; ++v) buf[a.first + v * a.stride] = x[v];
+  if (local)
+    warp_sync(s.T);
+  else
+    group_sync(g, s.T);
+#pragma unroll
+  for (int v = 0; v < kR; ++v) x[v] = buf[b.first + v * b.stride];
+}
+
+// Forward negacyclic NTT of one row held as x at the top window's
+// positions (values < 4p); ends at window 0 (bit-reversed positions
+// 16 t .. 16 t + 15), values in [0, 4p).
+__device__ __forceinline__ void forward_row(uint32_t (&x)[kR], uint32_t* buf,
+                                            const Sched& s, int t, int g,
+                                            const uint32_t* __restrict__ tw,
+                                            const uint32_t* __restrict__ tws,
+                                            uint32_t p) {
+  for (int e = s.np - 1; e >= 0; --e) {
+    run_pass<true>(x, s, e, t, tw, tws, p);
+    if (e > 0)
+      exchange(x, buf, s, t, window(s, e), window(s, e - 1), e == s.np - 1,
+               e == 1, g);
+  }
+}
+
+// Inverse (unscaled) of `forward_row`: x at window 0 in [0, 2p) -> x at the
+// top window, natural order, in [0, 2p).
+__device__ __forceinline__ void inverse_row(uint32_t (&x)[kR], uint32_t* buf,
+                                            const Sched& s, int t, int g,
+                                            const uint32_t* __restrict__ tw,
+                                            const uint32_t* __restrict__ tws,
+                                            uint32_t p) {
+  for (int e = 0; e < s.np; ++e) {
+    run_pass<false>(x, s, e, t, tw, tws, p);
+    if (e < s.np - 1)
+      exchange(x, buf, s, t, window(s, e), window(s, e + 1), e == 0, e == 0,
+               g);
+  }
+}
+
+// `garner` (ntt_common.cuh) on rows `stride` words apart.
+template <int P, typename W>
+__device__ __forceinline__ W garner_rows(const uint32_t* spec_c, int stride,
+                                         int k, const PbsConsts& K) {
+  uint32_t d[P];
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    const uint32_t p = K.p[m];
+    const uint32_t r = shoup(spec_c[m * stride + k], K.ninv[m], K.ninvs[m], p);
+    if (m == 0) {
+      d[0] = r;
+      continue;
+    }
+    uint32_t acc = d[0];
+#pragma unroll
+    for (int j = 1; j < m; ++j)
+      acc = add_mod(acc, shoup(d[j], K.gw[m][j], K.gws[m][j], p), p);
+    d[m] = shoup(sub_mod(r, acc, p), K.cinv[m], K.cinvs[m], p);
+  }
+  const uint32_t top = d[P - 1], ptop = K.p[P - 1];
+  W v = top > ptop / 2 ? W(top) - W(ptop) : W(top);
+#pragma unroll
+  for (int m = P - 2; m >= 0; --m) v = v * W(K.p[m]) + W(d[m]);
+  return v;
+}
+
+// One CMUX step of one ciphertext (steps 1-6 above): acc [C][N] words,
+// spec [C][P][SR] and work [NG][SR] u32 wherever they were placed; kv the
+// step's key rows [J][C][P][N].  Fixed: the shape of the 80-register
+// instances (N = 2^LogN, C = 2; see kBlockThreads), whose MAC has both
+// components' key words in flight; else one component's at a time.
+// Starts after a block barrier and ends with one.
+template <int P, typename W, bool Fixed>
+__device__ __forceinline__ void cmux_step(
+    W* acc, uint32_t* spec, uint32_t* work, int a,
+    const uint32_t* __restrict__ kv, const uint32_t* __restrict__ ftw,
+    const uint32_t* __restrict__ ftws, const uint32_t* __restrict__ itw,
+    const uint32_t* __restrict__ itws, const PbsConsts& K, const Sched& s) {
+  constexpr int H = Fixed ? 2 : 1;
+  const int N = 1 << s.logN, C = Fixed ? 2 : K.C, l = K.l, J = C * l;
+  const int g = threadIdx.x >> s.logT, t = threadIdx.x & (s.T - 1);
+  const W offset = W(K.offset);
+  uint32_t* buf = work + g * s.SR;
+  const int slot0 = slots(s, t, 0).first;  // window 0: slot0 + v
+  uint32_t x[kR];
+  for (int pi = g; pi < P; pi += s.NG) {
+    const uint32_t p = K.p[pi], p2 = 2 * p, mup = K.mup[pi];
+    const uint32_t *fw = ftw + pi * N, *fws = ftws + pi * N;
+    // 2-3. digit rows through the forward NTT, then the MAC into this
+    //      thread's window-0 slots of spec[c][pi]
+    for (int j = 0; j < J; ++j) {
+      const int cj = j / l, d = j % l;
+      const W* row = acc + cj * N;
+#pragma unroll
+      for (int v = 0; v < kR; ++v) {
+        const int k = t | (v << s.logT);
+        const W word = rotated_word(row, k, a, N) - row[k] + offset;
+        x[v] = small_residue(gadget_digit(word, d, K), p);
+      }
+      forward_row(x, buf, s, t, g, fw, fws, p);
+      // H components' key words in flight at once (16 H registers)
+      for (int c0 = 0; c0 < C; c0 += H) {
+        uint4 kw[H][kR / 4];
+#pragma unroll
+        for (int u = 0; u < H; ++u) {
+          const uint4* kv4 = reinterpret_cast<const uint4*>(
+              kv + (size_t(j * C + c0 + u) * P + pi) * N + (t << kQ));
+#pragma unroll
+          for (int q = 0; q < kR / 4; ++q) kw[u][q] = __ldg(kv4 + q);
+        }
+#pragma unroll
+        for (int u = 0; u < H; ++u) {
+          uint32_t* sp = spec + ((c0 + u) * P + pi) * s.SR + slot0;
+#pragma unroll
+          for (int q = 0; q < kR / 4; ++q) {
+            const uint4 k4 = kw[u][q];
+            const uint32_t m[4] = {mac_product(x[4 * q], k4.x, p, mup),
+                                   mac_product(x[4 * q + 1], k4.y, p, mup),
+                                   mac_product(x[4 * q + 2], k4.z, p, mup),
+                                   mac_product(x[4 * q + 3], k4.w, p, mup)};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sp[4 * q + e] = j == 0 ? m[e] : lazy2(sp[4 * q + e] + m[e], p2);
+          }
+        }
+      }
+    }
+    // 4. inverse NTTs of spec[c][pi], from this thread's slots to natural
+    //    order in the same row (every slot is read before the exchanges'
+    //    group barrier, every output written after it)
+    const uint32_t *iw = itw + pi * N, *iws = itws + pi * N;
+    for (int c = 0; c < C; ++c) {
+      uint32_t* row = spec + (c * P + pi) * s.SR;
+#pragma unroll
+      for (int v = 0; v < kR; ++v) x[v] = row[slot0 + v];
+      inverse_row(x, buf, s, t, g, iw, iws, p);
+#pragma unroll
+      for (int v = 0; v < kR; ++v) row[t | (v << s.logT)] = x[v];
+    }
+  }
+  __syncthreads();
   // 5-6. Garner (with 1/N) and the carry-add into acc
-  for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
-    const int c = idx >> K.logN, k = idx & (N - 1);
-    acc[idx] += garner<P, W>(spec + c * P * N, k, K);
+  for (int idx = threadIdx.x; idx < C * N; idx += blockDim.x) {
+    const int c = idx >> s.logN, k = idx & (N - 1);
+    acc[idx] += garner_rows<P, W>(spec + c * P * s.SR, s.SR, k, K);
   }
   __syncthreads();
 }
 
 // A block's rotation of its ciphertext: n steps with a_g [n][B] exponents
-// and keyv/keyvs [n][J][C][P][N] (K1), or with Step one step with a_g [B]
-// and keyv/keyvs [J][C][P][N] (K1-step).  acc is loaded into its buffer
+// and keyv [n][J][C][P][N] (K1), or with Step one step with a_g [B] and
+// keyv [J][C][P][N] (K1-step).  acc is loaded into its buffer
 // and stored back where that is not the caller's tensor itself.
-template <int P, typename W, bool S, bool Step>
+template <int P, typename W, bool S, bool Step, int LogN>
 __device__ __forceinline__ void rotate_block(
     W* __restrict__ acc_g, const int32_t* __restrict__ a_g,
-    const uint32_t* __restrict__ keyv, const uint32_t* __restrict__ keyvs,
-    const uint32_t* __restrict__ ftw, const uint32_t* __restrict__ ftws,
-    const uint32_t* __restrict__ itw, const uint32_t* __restrict__ itws,
-    unsigned char* ws, const PbsConsts& Kp, const Layout& L, int n, int B) {
+    const uint32_t* __restrict__ keyv, const uint32_t* __restrict__ ftw,
+    const uint32_t* __restrict__ ftws, const uint32_t* __restrict__ itw,
+    const uint32_t* __restrict__ itws, unsigned char* ws,
+    const PbsConsts& Kp, const Layout& L, int n, int B) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // The constants are indexed by a per-thread prime index: keep one copy in
+  // The constants are indexed by a per-group prime index: keep one copy in
   // shared memory, where that costs a broadcast load.
   __shared__ PbsConsts K;
   if (threadIdx.x == 0) K = Kp;
   __syncthreads();
-  const int N = K.N, C = K.C, J = K.C * K.l, CN = K.C * K.N;
+  Sched s;  // compile-time where LogN is
+  make_sched(LogN ? LogN : K.logN, P, s);
+  const int N = 1 << s.logN, C = K.C, J = K.C * K.l, CN = C * N;
   W* acc_b = acc_g + size_t(blockIdx.x) * CN;
   W* acc = buffer<S, W>(L, kAcc, smem, ws, acc_b);  // [C][N]
-  W* rot = buffer<S, W>(L, kRot, smem, ws, nullptr);  // [C][N]
-  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][P][N]
-  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [P][N]
+  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][P][SR]
+  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [NG][SR]
 
   if (acc != acc_b)
     for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
   __syncthreads();
 
   if (Step) {
-    cmux_step<P, W>(acc, rot, spec, work, a_g[blockIdx.x], keyv, keyvs, ftw,
-                    ftws, itw, itws, K);
+    cmux_step<P, W, LogN != 0>(acc, spec, work, a_g[blockIdx.x], keyv, ftw,
+                               ftws, itw, itws, K, s);
   } else {
     const size_t step_stride = size_t(J) * C * P * N;
-    for (int s = 0; s < n; ++s)  // a in [0, 2N]
-      cmux_step<P, W>(acc, rot, spec, work, a_g[size_t(s) * B + blockIdx.x],
-                      keyv + s * step_stride, keyvs + s * step_stride, ftw,
-                      ftws, itw, itws, K);
+    for (int i = 0; i < n; ++i)  // a in [0, 2N]
+      cmux_step<P, W, LogN != 0>(acc, spec, work,
+                                 a_g[size_t(i) * B + blockIdx.x],
+                                 keyv + i * step_stride, ftw, ftws, itw, itws,
+                                 K, s);
   }
   if (acc != acc_b)
     for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
 }
 
+// Launch bounds: a block of at most 384 threads (TFHEpp-L2's and L2_32's
+// shape: N = 2048, k = 1, 2 or 3 primes, all in shared memory) may take 80
+// registers and still keep two or three blocks per SM; any other shape, up
+// to 1,024 threads, 64.  LogN: the row length's log, a compile-time
+// constant in the first case (every index of the schedule folds, and k = 1
+// with it), 0 (read from the plan) in the other.
+template <int LogN>
+constexpr int kBlockThreads = LogN ? 384 : kMaxThreads;
+template <int LogN>
+constexpr int kMinBlocks = LogN ? 2 : 1;
+constexpr int kFixedLogN = 11;
+
 // K1: the whole rotation, one block per ciphertext.
-template <int P, typename W, bool S>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int P, typename W, bool S, int LogN>
+__global__ void __launch_bounds__(kBlockThreads<LogN>, kMinBlocks<LogN>)
 blind_rotate_kernel(W* __restrict__ acc_g, const int32_t* __restrict__ a_g,
                     const uint32_t* __restrict__ keyv,
-                    const uint32_t* __restrict__ keyvs,
                     const uint32_t* __restrict__ ftw,
                     const uint32_t* __restrict__ ftws,
                     const uint32_t* __restrict__ itw,
                     const uint32_t* __restrict__ itws, unsigned char* ws,
                     const PbsConsts Kp, const Layout L, int n, int B) {
-  rotate_block<P, W, S, false>(acc_g, a_g, keyv, keyvs, ftw, ftws, itw, itws,
-                               ws, Kp, L, n, B);
+  rotate_block<P, W, S, false, LogN>(acc_g, a_g, keyv, ftw, ftws, itw, itws,
+                                     ws, Kp, L, n, B);
 }
 
 // K1-step: one step per launch, one block per ciphertext.
-template <int P, typename W, bool S>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int P, typename W, bool S, int LogN>
+__global__ void __launch_bounds__(kBlockThreads<LogN>, kMinBlocks<LogN>)
 pbs_step_kernel(W* __restrict__ acc_g, const int32_t* __restrict__ a_g,
                 const uint32_t* __restrict__ keyv,
-                const uint32_t* __restrict__ keyvs,
                 const uint32_t* __restrict__ ftw,
                 const uint32_t* __restrict__ ftws,
                 const uint32_t* __restrict__ itw,
                 const uint32_t* __restrict__ itws, unsigned char* ws,
                 const PbsConsts Kp, const Layout L, int n, int B) {
-  rotate_block<P, W, S, true>(acc_g, a_g, keyv, keyvs, ftw, ftws, itw, itws,
-                              ws, Kp, L, 1, B);
+  rotate_block<P, W, S, true, LogN>(acc_g, a_g, keyv, ftw, ftws, itw, itws,
+                                    ws, Kp, L, 1, B);
 }
 
 struct Args {
   void* acc;
   const int32_t* a;
-  const uint32_t *keyv, *keyvs, *ftw, *ftws, *itw, *itws;
+  const uint32_t *keyv, *ftw, *ftws, *itw, *itws;
   unsigned char* ws;
   int n, B;
   cudaStream_t stream;
+  int* blocks_per_sm;  // non-null: report the residency, launch nothing
 };
 
-template <int P, typename W, bool S, bool Step>
+template <int P, typename W, bool S, bool Step, int LogN>
 cudaError_t launch(const Args& x, const PbsConsts& K, const Layout& L) {
-  auto* kernel = Step ? pbs_step_kernel<P, W, S> : blind_rotate_kernel<P, W, S>;
+  auto* kernel = Step ? pbs_step_kernel<P, W, S, LogN>
+                      : blind_rotate_kernel<P, W, S, LogN>;
+  Sched s;
+  if (!make_sched(K.logN, P, s)) return cudaErrorInvalidValue;
+  const int threads = s.NG * s.T;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
   if (err != cudaSuccess) return err;
-  kernel<<<x.B, kThreads, L.smem, x.stream>>>(
-      static_cast<W*>(x.acc), x.a, x.keyv, x.keyvs, x.ftw, x.ftws, x.itw,
-      x.itws, x.ws, K, L, x.n, x.B);
+  if (x.blocks_per_sm)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        x.blocks_per_sm, kernel, threads, size_t(L.smem));
+  kernel<<<x.B, threads, L.smem, x.stream>>>(
+      static_cast<W*>(x.acc), x.a, x.keyv, x.ftw, x.ftws, x.itw, x.itws, x.ws,
+      K, L, x.n, x.B);
   return cudaGetLastError();
 }
 
 template <int P, typename W, bool Step>
 cudaError_t launch_s(const Args& x, const PbsConsts& K, const Layout& L) {
-  return all_shared(L, kNumBuf) ? launch<P, W, true, Step>(x, K, L)
-                                : launch<P, W, false, Step>(x, K, L);
+  if (!all_shared(L, kNumBuf)) return launch<P, W, false, Step, 0>(x, K, L);
+  if constexpr (P <= 3)
+    if (K.logN == kFixedLogN && K.C == 2)
+      return launch<P, W, true, Step, kFixedLogN>(x, K, L);
+  return launch<P, W, true, Step, 0>(x, K, L);
 }
 
 template <typename W, bool Step>
@@ -226,19 +537,19 @@ cudaError_t launch_w(const Args& x, const PbsConsts& K, const Layout& L) {
 }
 
 template <bool Step>
-int launch_entry(void* acc, const void* a, const void* keyv,
-                 const void* keyvs, const void* ftw, const void* ftws,
-                 const void* itw, const void* itws, void* ws,
+int launch_entry(void* acc, const void* a, const void* keyv, const void* ftw,
+                 const void* ftws, const void* itw, const void* itws, void* ws,
                  const int64_t* consts, const int64_t* layout, int B, int n,
-                 int word_bits, void* stream) {
+                 int word_bits, void* stream, int* blocks_per_sm = nullptr) {
   PbsConsts K;
-  if (!parse_consts(consts, K) || (word_bits != 32 && word_bits != 64))
+  Sched s;
+  if (!parse_consts(consts, K) || !make_sched(K.logN, K.P, s) ||
+      (word_bits != 32 && word_bits != 64))
     return int(cudaErrorInvalidValue);
-  if (B == 0) return int(cudaSuccess);
+  if (B == 0 && !blocks_per_sm) return int(cudaSuccess);
   const Args x{acc,
                static_cast<const int32_t*>(a),
                static_cast<const uint32_t*>(keyv),
-               static_cast<const uint32_t*>(keyvs),
                static_cast<const uint32_t*>(ftw),
                static_cast<const uint32_t*>(ftws),
                static_cast<const uint32_t*>(itw),
@@ -246,7 +557,8 @@ int launch_entry(void* acc, const void* a, const void* keyv,
                static_cast<unsigned char*>(ws),
                n,
                B,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream),
+               blocks_per_sm};
   const Layout L = parse_layout(layout, kNumBuf);
   return int(word_bits == 32 ? launch_w<uint32_t, Step>(x, K, L)
                              : launch_w<uint64_t, Step>(x, K, L));
@@ -258,30 +570,50 @@ extern "C" {
 
 // consts: the plan's int64 host array (layout in ntt_common.cuh), whose
 // gadget offset is of the word width; layout: the buffer placement (smem
-// bytes, workspace stride, then the offsets of work, spec, rot, acc); ws: the
+// bytes, workspace stride, then the offsets of work, spec, acc); ws: the
 // workspace, B x stride bytes (null when the stride is 0).  acc [B, k+1, N]
 // u64 words (word_bits 64) or u32 words (word_bits 32) is rotated in place;
-// a [n, B] int32 in [0, 2N]; keyv/keyvs [n, (k+1)l, k+1, P, N] u32;
-// twiddles [P, N] u32.
+// a [n, B] int32 in [0, 2N]; keyv [n, (k+1)l, k+1, P, N] u32 (16-byte
+// aligned); keyvs, the key's Shoup companions, is not read (the MAC's
+// Barrett products need only the residues); twiddles [P, N] u32.
 int blind_rotate_launch(void* acc, const void* a, const void* keyv,
                         const void* keyvs, const void* ftw, const void* ftws,
                         const void* itw, const void* itws, void* ws,
                         const int64_t* consts, const int64_t* layout, int B,
                         int n, int word_bits, void* stream) {
-  return launch_entry<false>(acc, a, keyv, keyvs, ftw, ftws, itw, itws, ws,
-                             consts, layout, B, n, word_bits, stream);
+  return launch_entry<false>(acc, a, keyv, ftw, ftws, itw, itws, ws, consts,
+                             layout, B, n, word_bits, stream);
 }
 
 // K1-step: one CMUX step of acc [B, k+1, N] (updated in place) with the
-// step's exponents a [B] int32 in [0, 2N] and key rows keyv/keyvs
-// [(k+1)l, k+1, P, N] u32; the rest as above.
+// step's exponents a [B] int32 in [0, 2N] and key rows keyv [(k+1)l, k+1,
+// P, N] u32; the rest as above.
 int pbs_step_launch(void* acc, const void* a, const void* keyv,
                     const void* keyvs, const void* ftw, const void* ftws,
                     const void* itw, const void* itws, void* ws,
                     const int64_t* consts, const int64_t* layout, int B,
                     int word_bits, void* stream) {
-  return launch_entry<true>(acc, a, keyv, keyvs, ftw, ftws, itw, itws, ws,
-                            consts, layout, B, 1, word_bits, stream);
+  return launch_entry<true>(acc, a, keyv, ftw, ftws, itw, itws, ws, consts,
+                            layout, B, 1, word_bits, stream);
+}
+
+// The blocks of K1 (step 0) or K1-step (step 1) resident on one SM at the
+// plan's shape, placement and word width (cudaOccupancyMaxActiveBlocks-
+// PerMultiprocessor on the current device), and the threads of a block.
+int blind_rotate_residency(const int64_t* consts, const int64_t* layout,
+                           int word_bits, int step, int* blocks,
+                           int* threads) {
+  PbsConsts K;
+  Sched s;
+  if (!parse_consts(consts, K) || !make_sched(K.logN, K.P, s))
+    return int(cudaErrorInvalidValue);
+  *threads = s.NG * s.T;
+  return step ? launch_entry<true>(nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, nullptr, nullptr, nullptr, consts,
+                                   layout, 0, 1, word_bits, nullptr, blocks)
+              : launch_entry<false>(nullptr, nullptr, nullptr, nullptr,
+                                    nullptr, nullptr, nullptr, nullptr, consts,
+                                    layout, 0, 1, word_bits, nullptr, blocks);
 }
 
 const char* cuda_error_string(int err) {

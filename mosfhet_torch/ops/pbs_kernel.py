@@ -134,7 +134,12 @@ shared memory: a shape whose NTT rows alone exceed the limit raises
 ValueError before any launch.  K8b's block holds only NTT rows: all C*P
 spectra where they fit, else one component's P rows, and the kernel then
 runs once per component (N=8192 with 4 primes).  (K5's block holds one
-row's P NTT rows and fits at every registered shape.)
+row's P NTT rows and fits at every registered shape.)  K1 and K1-step hold
+no rotation buffer and one exchange row per group of N/16 threads
+(`rotation_schedule`) instead of the P NTT rows: 108.5 KiB at TFHEpp-L2
+(two blocks per SM), 67 KiB at L2_32 (three); SET_3 keeps its spectra in
+shared memory and acc in place, N=8192 its spectra in the workspace.  N
+above 16384 raises ValueError (a block of N/16 threads).
 """
 
 from __future__ import annotations
@@ -401,15 +406,38 @@ def _place(what: str, bufs, budget: int):
     return np.array([smem, stride] + offs, np.int64), stride
 
 
+ROTATION_VALUES = 16     # coefficients a K1 thread owns (kR, blind_rotate.cu)
+ROTATION_MAX_THREADS = 1024
+
+
+def rotation_schedule(N: int, P: int) -> dict:
+    """K1's and K1-step's block at (N, P), as `make_sched` in
+    ``csrc/blind_rotate.cu`` computes it: groups of N/16 threads, one per
+    prime while P groups fit 1,024 threads (else a group takes several
+    primes in turn), each with one exchange row of ``row_stride`` u32 words
+    (N + N/16 from N = 256: a pad word after every 16).  N must be a power
+    of two in [16, 16384]; anything else raises ValueError."""
+    if N & (N - 1) or not 16 <= N <= 16384:
+        raise ValueError(f"blind_rotate: N={N} is not a power of two in "
+                         f"[16, 16384] (N/16 threads per prime, at most "
+                         f"{ROTATION_MAX_THREADS} in a block)")
+    T = N // ROTATION_VALUES
+    groups = min(P, ROTATION_MAX_THREADS // T)
+    return {"threads_per_group": T, "groups": groups,
+            "row_stride": N + (T if N >= 256 else 0)}
+
+
 def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
                    P_ks: int = 0):
     """(nbytes, home, rank) of each of a block's buffers in ``kernel``
-    (the source's name), in the order of its enum.  rank orders them by
-    traffic: the digit rows' NTTs (work, dig) are the busiest, then the
-    spectra's multiply-accumulates and inverse NTTs, then the key row of
-    K4 (NTT'd J*C times per group, so it ranks above them there); the
-    accumulator and the rotation/permutation buffer, read and written once
-    or twice per step, come last.  K8b ("finish_step", in tp_step.cu) holds
+    (the source's name), in the order of its enum.  K1 and K1-step
+    ("blind_rotate", "pbs_step") hold one exchange row per group of their
+    schedule (`rotation_schedule`), the spectra and the accumulator.  rank
+    orders them by traffic: the digit rows' NTTs (work, dig) are the
+    busiest, then the spectra's multiply-accumulates and inverse NTTs, then
+    the key row of K4 (NTT'd J*C times per group, so it ranks above them
+    there); the accumulator and the rotation/permutation buffer, read and
+    written once or twice per step, come last.  K8b ("finish_step", in tp_step.cu) holds
     component 0's P spectra rows and, right after them where they fit, the
     other components' rows; left out, it runs once per component.  The
     one-step kernels "pbs_step" (K1-step) and "ext_product_apply_step"
@@ -417,9 +445,11 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
     key-switch prime count."""
     C, P, N = kp.C, kp.P, kp.N
     row, spec, words = P * N * 4, C * P * N * 4, C * N * kp.torus_bits // 8
-    if kernel in ("blind_rotate", "pbs_step"):     # work, spec, rot, acc
-        return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),
-                (words, WORKSPACE, 2), (words, IN_PLACE, 3)]
+    if kernel in ("blind_rotate", "pbs_step"):     # work, spec, acc
+        sc = rotation_schedule(N, P)
+        return [(sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
+                (C * P * sc["row_stride"] * 4, WORKSPACE, 1),
+                (words, IN_PLACE, 2)]
     if kernel in ("ext_product_apply", "ext_product_apply_step"):
         return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),  # work, spec,
                 (words, IN_PLACE, 2)]                         # acc
@@ -463,6 +493,40 @@ def _layout(kernel: str, kp: PBSKernelPlan, B: int, dev, source=None, **kw):
     return layout, ws
 
 
+def _check_aligned(name, t):
+    """K1's and K1-step's key rows are read 16 bytes at a time (their Shoup
+    companions are not read: the kernel's MAC takes Barrett products)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads it in 16-byte vectors; "
+                         f"its data pointer is not 16-byte aligned")
+
+
+def rotation_residency(kp: PBSKernelPlan, bits: int, step: bool = False,
+                       dev=None) -> tuple[int, int]:
+    """(blocks resident on one SM, threads per block) of K1, or K1-step
+    with ``step``, on card ``dev`` at ``kp``'s shape, its placement and the
+    word width ``bits``: the CUDA runtime's
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the C entry
+    `blind_rotate_residency`."""
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    layout, _ = kernel_layout("pbs_step" if step else "blind_rotate", kp,
+                              _smem_budget("blind_rotate", _index(dev)))
+    lib = _kernel_lib("blind_rotate", "blind_rotate_launch", 11, 3)
+    fn = lib.blind_rotate_residency
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = fn(kp.host_consts.ctypes.data, layout.ctypes.data, bits,
+                 int(step), ctypes.byref(blocks), ctypes.byref(threads))
+    if err:
+        raise RuntimeError("blind_rotate residency query failed: "
+                           + lib.cuda_error_string(err).decode())
+    return blocks.value, threads.value
+
+
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
@@ -489,6 +553,7 @@ def blind_rotate_scan(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
     _check("a_int", a_int, torch.int32, (n, B), dev)
     _check("keyv", keyv, torch.int32, key_shape, dev)
     _check("keyvs", keyvs, torch.int32, key_shape, dev)
+    _check_aligned("keyv", keyv)
     _check_plan(kp, dev)
     layout, ws = _layout("blind_rotate", kp, B, dev)
     acc = acc0.clone()
@@ -534,6 +599,7 @@ def pbs_step(acc, a, keyv, keyvs, kp: PBSKernelPlan):
     _check("a", a, torch.int32, (B,), dev)
     _check("keyv", keyv, torch.int32, row, dev)
     _check("keyvs", keyvs, torch.int32, row, dev)
+    _check_aligned("keyv", keyv)
     _check_plan(kp, dev)
     if B == 0:
         return acc

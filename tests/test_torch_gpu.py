@@ -460,8 +460,8 @@ SET3 = (4096, 1, 1, 22)        # params.SET_3's bootstrap digits: P = 4
 @pytest.mark.parametrize("N,n,B", [(4096, 2, 3), (8192, 2, 2)],
                          ids=["set3", "n8192"])
 def test_cuda_kernel_matches_plain_beyond_shared_memory(N, n, B):
-    """K1 with its rotation buffer (and at N=8192 its spectra) in the global
-    workspace and acc updated in place."""
+    """K1 with acc updated in place (SET_3) or its spectra in the global
+    workspace (N=8192)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     _, k, l, Bg_bit = SET3
@@ -564,20 +564,112 @@ def test_cuda_partial_step_matches_plain_set3(j0, j_local):
 
 @pytest.mark.gpu
 def test_cuda_unplaceable_shape_raises_before_launch():
-    """N=16384 with 4 primes: the NTT rows alone exceed a block's shared
-    memory, so the wrapper raises ValueError and launches nothing."""
+    """N=32768 with 4 primes: a row's N/16 threads exceed a block (K1 takes
+    N up to 16384), so the wrapper raises ValueError and launches
+    nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    N, k, l, Bg_bit = 16384, 1, 1, 22
+    N, k, l, Bg_bit = 32768, 1, 1, 22
     primes, acc0, a_int, keyv, keyvs = random_rotation_inputs(
         N, k, l, Bg_bit, 1, 1, seed=48)
     kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
     assert kp.P == 4
     launches = tpk.blind_rotate_scan.launches
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="16384"):
         tpk.blind_rotate_scan(to_tensor(acc0, "cuda"),
                               torch.from_numpy(a_int).cuda(),
                               as_i32(keyv, "cuda"), as_i32(keyvs, "cuda"), kp)
+    assert tpk.blind_rotate_scan.launches == launches
+
+
+# --- K1 and K1-step on batches ragged against their residency -------------
+
+# (N, l, Bg_bit, torus bits): TFHEpp-L2 (two blocks per SM, 264 on the
+# card), L2_32 (three per SM, 396); SET_3 (one per SM, acc in place) and
+# N=8192 (spectra in the workspace) with SET_3's digits
+ROTATION_WIDTHS = {"l2": (2048, 4, 9, 64), "l2_32": (2048, 3, 7, 32),
+                   "set3": (4096, 1, 22, 64), "n8192": (8192, 1, 22, 64)}
+
+
+def _rotation_case(name, B, n, seed):
+    N, l, Bg_bit, bits = ROTATION_WIDTHS[name]
+    primes = PRIMES_32 if bits == 32 else None
+    primes, acc0, a_int, keyv, keyvs = random_rotation_inputs(
+        N, 1, l, Bg_bit, n, B, seed, primes=primes, torus_bits=bits)
+    a_int[0, :3] = [0, N, 2 * N][:B]
+    a_int[-1, -3:] = [N, 0, 2 * N][-B:]
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, 1, "cuda", bits)
+    return kp, (to_tensor(acc0, "cuda"), torch.from_numpy(a_int).cuda(),
+                as_i32(keyv, "cuda"), as_i32(keyvs, "cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 131, 133, 263, 265, 512, 513])
+@pytest.mark.parametrize("name", ["l2", "l2_32"])
+def test_cuda_rotation_ragged_batches_match_plain(name, B):
+    """K1 over two steps and K1-step over each, exponents 0, N and 2N
+    present, on batches around the card's resident blocks (132 SMs), the
+    plain versions' words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, (acc, a, kv, ks) = _rotation_case(name, B, 2, seed=600 + B)
+    launches = (tpk.blind_rotate_scan.launches, tpk.pbs_step.launches)
+    got = tpk.blind_rotate_scan(acc, a, kv, ks, kp)
+    steps = acc.clone()
+    for i in range(2):
+        tpk.pbs_step(steps, a[i], kv[i], ks[i], kp)
+    torch.cuda.synchronize()
+    assert (tpk.blind_rotate_scan.launches - launches[0],
+            tpk.pbs_step.launches - launches[1]) == (1, 2)
+    want = tpk.blind_rotate_scan_plain(acc, a, kv, ks, kp)
+    assert got.dtype == acc.dtype and torch.equal(got, want)
+    assert torch.equal(steps, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B", [("set3", 133), ("n8192", 5)])
+def test_cuda_rotation_beyond_shared_memory_matches_plain(name, B):
+    """K1 and K1-step at SET_3 (one block per SM, acc in place) and N=8192
+    (spectra in the workspace), depth cut to two steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, (acc, a, kv, ks) = _rotation_case(name, B, 2, seed=610 + B)
+    got = tpk.blind_rotate_scan(acc, a, kv, ks, kp)
+    steps = acc.clone()
+    for i in range(2):
+        tpk.pbs_step(steps, a[i], kv[i], ks[i], kp)
+    torch.cuda.synchronize()
+    want = tpk.blind_rotate_scan_plain(acc, a, kv, ks, kp)
+    assert torch.equal(got, want) and torch.equal(steps, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(ROTATION_WIDTHS))
+def test_cuda_rotation_residency(name):
+    """The blocks the card keeps resident per SM: two at L2, three at
+    L2_32, one at SET_3 and N=8192 (1,024 threads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, _ = _rotation_case(name, 1, 1, seed=620)
+    want = {"l2": (2, 384), "l2_32": (3, 256), "set3": (1, 1024),
+            "n8192": (1, 1024)}[name]
+    for step in (False, True):
+        assert tpk.rotation_residency(kp, kp.torus_bits, step) == want
+
+
+@pytest.mark.gpu
+def test_cuda_rotation_refuses_a_misaligned_key():
+    """K1 reads key rows 16 bytes at a time: a key view that starts off a
+    16-byte boundary raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, (acc, a, kv, ks) = _rotation_case("l2", 2, 1, seed=630)
+    shifted = torch.empty(kv.numel() + 1, dtype=torch.int32,
+                          device="cuda")[1:].view(kv.shape)
+    shifted.copy_(kv)
+    launches = tpk.blind_rotate_scan.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tpk.blind_rotate_scan(acc, a, shifted, ks, kp)
     assert tpk.blind_rotate_scan.launches == launches
 
 

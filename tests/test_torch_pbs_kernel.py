@@ -89,28 +89,30 @@ def test_layout_keeps_every_buffer_shared_where_it_fits(name, k_id):
     layout, stride = tpk.kernel_layout(kernel, kp, H100_BUDGET, **kw)
     assert stride == 0 and set(_where(layout)) == {"S"}
     if name == "TFHEPP_L2" and kernel in ("blind_rotate", "pbs_step"):
-        assert layout[0] == 136 * 1024          # PERF.md's 136 KiB
+        assert layout[0] == 111104    # 108.5 KiB: two blocks per SM
     if name == "L2_32" and kernel in ("blind_rotate", "pbs_step"):
-        assert layout[0] == 80 * 1024
+        assert layout[0] == 68608     # 67 KiB: three blocks per SM
 
 
 @pytest.mark.parametrize("kernel,kw,where,smem_kib", [
-    ("blind_rotate", {}, "SSWI", 192),
+    ("blind_rotate", {}, "SSI", 204),
     ("ext_product_apply", {}, "SSI", 192),
     ("unfolded_rotate", {"M": 4}, "SSSWS", 192),
     ("auto_keyswitch", {}, "SSW", 192),
     ("ga_scan", {"P_ks": 4}, "SSWI", 192),
     ("tp_step", {}, "SSW", 192),
     ("finish_step", {}, "SS", 128),
-    ("pbs_step", {}, "SSWI", 192),
+    ("pbs_step", {}, "SSI", 204),
     ("ext_product_apply_step", {}, "SSI", 192)],
     ids=["K1", "K3", "K4", "K6", "K7", "K8a", "K8b", "K1-step", "K3-step"])
 def test_layout_at_set3_moves_the_u64_buffers(kernel, kw, where, smem_kib):
     """N=4096 with 4 primes (SET_3; the GA key's key-switch plan there has 4
     primes too) asks for up to 320 KiB: the NTT rows and spectra stay in
     shared memory, the u64 buffers leave it (K4: the spectra leave, the key
-    row and acc stay).  K1-step and K3-step place K1's and K3's buffers:
-    acc then stays in the caller's tensor between their launches."""
+    row and acc stay; K1, with no rotation buffer, keeps its four exchange
+    rows and spectra and updates acc in place).  K1-step and K3-step place
+    K1's and K3's buffers: acc then stays in the caller's tensor between
+    their launches."""
     kp = _plan(4096, 1, 22)
     assert kp.P == 4
     layout, stride = tpk.kernel_layout(kernel, kp, H100_BUDGET, **kw)
@@ -123,16 +125,20 @@ def test_layout_at_set3_moves_the_u64_buffers(kernel, kw, where, smem_kib):
 
 
 def test_layout_at_n8192_keeps_only_the_ntt_rows():
+    """K1 at N=8192 with 4 primes: two groups of 512 threads, their two
+    exchange rows (68 KiB) and acc (128 KiB) in shared memory, the 272 KiB
+    of spectra in the workspace."""
     kp = _plan(8192, 1, 22)
     layout, stride = tpk.kernel_layout("blind_rotate", kp, H100_BUDGET)
-    assert _where(layout) == "SWWI" and layout[0] == 128 * 1024
-    assert stride == (256 + 128) * 1024
+    assert _where(layout) == "SWS" and layout[0] == (68 + 128) * 1024
+    assert stride == 272 * 1024
 
 
 def test_layout_that_cannot_be_placed_raises():
-    """At N=16384 with 4 primes the NTT rows alone need 256 KiB."""
-    kp = _plan(16384, 1, 22)
-    with pytest.raises(ValueError, match="262144 B"):
+    """At N=32768 a row's N/16 threads exceed a block: K1 takes N up to
+    16384 (one group of 1,024 threads taking the primes in turn)."""
+    kp = _plan(32768, 1, 22)
+    with pytest.raises(ValueError, match="16384"):
         tpk.kernel_layout("blind_rotate", kp, H100_BUDGET)
 
 
