@@ -10,8 +10,8 @@ Phases; any failure ends the script with a non-zero exit and no result line:
 
   1. card     CUDA present; the card's name and power limit (nvidia-smi).
   2. build    every kernel under mosfhet_torch/ops/csrc/ with nvcc, sm_90a;
-              the registers and spills (ptxas -v) of every instance of K1
-              and K1-step.
+              the registers and spills (ptxas -v) of every instance of K1,
+              K1-step and K7.
   3. kernel   the blind-rotate kernel against its plain PyTorch version at
               full TFHEpp-L2 width on random inputs, a short rotation, with
               exponents 0 and 2N present: bit-exact.
@@ -94,7 +94,9 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               call and nothing else, decrypt within 2^58; K6 and K7 timed per
               launch beside their bounds and their plain versions on the
               path's own inputs (bit-exact), and K7 once more with every
-              generator 1 (its keyset reads all from one L2-resident entry).
+              generator 1 (its keyset reads all from one L2-resident entry);
+              K7's resident blocks per SM and its wave curve, as K1's in
+              phase 5.
 14b. steps    the per-step GA forms on phase 14's key and 512 ciphertexts:
               bootstrap_ga.blind_rotate_ga_stepwise (n K1-delta and n+1 K6
               launches per call) and blind_rotate_ga_gathered (n K1-delta
@@ -143,7 +145,7 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               then the GA keygen and bootstrap_ga.functional_bootstrap_ga
               on the same 512 ciphertexts (1 K6 and 1 K7 launch per call,
               decrypt within 2^58), K6 held to its plain version on the
-              path's inputs.
+              path's inputs, K7's resident blocks per SM.
 19b. n8192    K8b at N=8192 with 4 primes (SET_3's digits), where its
               C*P spectra exceed a block and it runs one pass per
               component: pbs_on_mesh on a (1, 2) mesh of the card with a
@@ -183,7 +185,8 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               512 ciphertexts (1 K6 and 1 K7 launch per call, decrypt
               within 2^27), K6 and K7 timed on the path's own inputs beside
               their bounds and plain versions (bit-exact; K7's plain on all
-              512), trlwe_keyswitch and eval_automorphism on 512 TRLWEs (1
+              512), K7's residency and wave curve as in phase 14,
+              trlwe_keyswitch and eval_automorphism on 512 TRLWEs (1
               K6 launch each, within trlwe_ks_bound at 32 bits, 2^25), and
               ga_pbs_on_mesh at (2, 1) (2 K6 + 2 K7 launches) and at (1, 2)
               on 32 ciphertexts (the plain route), equal to the
@@ -758,18 +761,14 @@ def step_bound_ms(kp, B, max_clock):
                              max_clock)
 
 
-def k1_ptxas(text):
-    """ptxas's registers and spills of every instance of K1's and K1-step's
-    kernels in blind_rotate.cu's build log (nvcc -Xptxas -v)."""
+def ptxas_instances(text, match, what):
+    """ptxas's registers and spills of every kernel instance in a source's
+    build log (nvcc -Xptxas -v) that ``match`` (a mangled entry name's
+    line -> dict, or None for another kernel) describes."""
     out, cur = [], None
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(blind_rotate_kernel|pbs_step_kernel)ILi(\d)E"
-                          r"([mj])Lb([01])ELi(\d+)E", line)
-            cur = None if m is None else {
-                "entry": "K1" if m[1] == "blind_rotate_kernel" else "K1-step",
-                "P": int(m[2]), "words": "u64" if m[3] == "m" else "u32",
-                "all_shared": m[4] == "1", "log_n": int(m[5]) or None}
+            cur = match(line)
         elif cur is not None and "spill stores" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -781,47 +780,89 @@ def k1_ptxas(text):
             out.append(cur)
             cur = None
     if not out:
-        fail("no K1 instance in blind_rotate.cu's ptxas output")
+        fail(f"no {what} instance in the ptxas output")
     return out
+
+
+def k1_ptxas(text):
+    """Every instance of K1's and K1-step's kernels in blind_rotate.cu."""
+    def match(line):
+        m = re.search(r"(blind_rotate_kernel|pbs_step_kernel)ILi(\d)E"
+                      r"([mj])Lb([01])ELi(\d+)E", line)
+        return None if m is None else {
+            "entry": "K1" if m[1] == "blind_rotate_kernel" else "K1-step",
+            "P": int(m[2]), "words": "u64" if m[3] == "m" else "u32",
+            "all_shared": m[4] == "1", "log_n": int(m[5]) or None}
+    return ptxas_instances(text, match, "K1")
+
+
+def k7_ptxas(text):
+    """Every instance of K7's kernel in ga_scan.cu."""
+    def match(line):
+        m = re.search(r"ga_scan_kernelILi(\d)ELi(\d)E([mj])Lb([01])ELi(\d+)E",
+                      line)
+        return None if m is None else {
+            "entry": "K7", "P": int(m[1]), "P_ks": int(m[2]),
+            "words": "u64" if m[3] == "m" else "u32",
+            "all_shared": m[4] == "1", "log_n": int(m[5]) or None}
+    return ptxas_instances(text, match, "K7")
+
+
+def log_build(entries):
+    for e in entries:
+        log(f"# {e['entry'].split('-')[0]} build: {e['entry']} P={e['P']}"
+            f"{' P_ks=' + str(e['P_ks']) if 'P_ks' in e else ''} "
+            f"{e['words']} {'all shared' if e['all_shared'] else 'placed'}"
+            f"{', N=2^' + str(e['log_n']) if e['log_n'] else ''}: "
+            f"{e['registers']} registers, {e['spill_store_bytes']} B spill "
+            f"stores, {e['spill_load_bytes']} B spill loads")
+
+
+def residency(blocks, threads, what):
+    """One kernel's resident blocks per SM on this card, its threads per
+    block and the ciphertexts the card holds at once (one wave)."""
+    if blocks < 1:
+        fail(f"{what}: no block fits an SM")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"blocks_per_sm": blocks, "threads_per_block": threads,
+            "resident_ciphertexts": blocks * sms}
 
 
 def k1_residency(pk, kp, bits):
-    """K1's and K1-step's resident blocks per SM on this card at ``kp``'s
-    shape (the CUDA occupancy query), threads per block, and the
-    ciphertexts the card holds at once (one wave)."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    out = {}
-    for name, step in (("K1", False), ("K1-step", True)):
-        blocks, threads = pk.rotation_residency(kp, bits, step)
-        if blocks < 1:
-            fail(f"{name}: no block fits an SM at N={kp.N}, P={kp.P}")
-        out[name] = {"blocks_per_sm": blocks, "threads_per_block": threads,
-                     "resident_ciphertexts": blocks * sms}
-    return out
+    """K1's and K1-step's residency at ``kp``'s shape (the CUDA occupancy
+    query)."""
+    return {name: residency(*pk.rotation_residency(kp, bits, step),
+                            f"{name} at N={kp.N}, P={kp.P}")
+            for name, step in (("K1", False), ("K1-step", True))}
 
 
-def k1_wave_curve(pk, kp, acc_in, a_int, kv, kvs, resident):
-    """K1 on the first B of a path's ciphertexts (the first ones again past
-    the batch) for B in WAVE_BATCHES: ms and ms per ciphertext."""
+def k7_residency(pk, kp, kp_ks, bits):
+    """K7's residency at the two plans' shape (the CUDA occupancy query)."""
+    return residency(*pk.ga_scan_residency(kp, kp_ks, bits),
+                     f"K7 at N={kp.N}, P={kp.P}, P_ks={kp_ks.P}")
+
+
+def wave_curve(run, acc_in, per_ct, resident):
+    """run(acc, per_ct) on the first B of a path's ciphertexts (the first
+    ones again past the batch) for B in WAVE_BATCHES: ms and ms per
+    ciphertext.  per_ct [., batch]: the per-ciphertext exponents or
+    generators of every step."""
     curve = []
     for B in WAVE_BATCHES:
         idx = torch.arange(B, device=acc_in.device) % acc_in.shape[0]
         acc_b = acc_in[idx].contiguous()
-        a_b = a_int[:, idx].contiguous()
-        ms, _ = cuda_ms(lambda: pk.blind_rotate_scan(acc_b, a_b, kv, kvs, kp),
-                        STEP_REPS)
+        x_b = per_ct[:, idx].contiguous()
+        ms, _ = cuda_ms(lambda: run(acc_b, x_b), STEP_REPS)
         curve.append({"batch": B, "ms": ms, "ms_per_ciphertext": ms / B,
                       "waves": -(-B // resident)})
-    del acc_b, a_b
+    del acc_b, x_b
     return curve
 
 
-def log_wave_curve(tag, residency, curve):
-    r = residency["K1"]
-    log(f"# {tag} K1 residency: {r['blocks_per_sm']} blocks of "
+def log_wave_curve(tag, name, r, curve, note=""):
+    log(f"# {tag} {name} residency: {r['blocks_per_sm']} blocks of "
         f"{r['threads_per_block']} threads per SM ({r['resident_ciphertexts']} "
-        f"ciphertexts at once; K1-step "
-        f"{residency['K1-step']['blocks_per_sm']}); wave curve: "
+        f"ciphertexts at once{note}); wave curve: "
         + ", ".join(f"B={c['batch']} {c['ms']:.3f} ms "
                     f"({c['ms_per_ciphertext']:.4f}/ct, {c['waves']} waves)"
                     for c in curve))
@@ -1218,6 +1259,10 @@ def set3_phase(dev, max_clock):
                                                 kpg_ks),
          auto_ks_bound(kpg_ks, BATCH, kidx0, max_clock), reps=KS_REPS)
     where["auto_keyswitch"] = placement(pk, "auto_keyswitch", kpg_ks)
+    k7_res = k7_residency(pk, kpg, kpg_ks, 64)
+    log(f"# SET_3 K7 residency: {k7_res['blocks_per_sm']} blocks of "
+        f"{k7_res['threads_per_block']} threads per SM, placement "
+        f"{placement(pk, 'ga_scan', kpg, P_ks=kpg_ks.P)}")
     log(f"# SET_3 GA bootstrap (P_ks={kpg_ks.P}): keygen {ga_keygen_s:.3f} "
         f"s, {ga_key_bytes} B; warm {ga_ms:.3f} ms per batch of {BATCH} = "
         f"{BATCH / ga_ms * 1e3:.2f} boot/s; decrypt OK (max err "
@@ -1236,7 +1281,7 @@ def set3_phase(dev, max_clock):
               "ga": {"keygen_s": ga_keygen_s, "key_bytes": ga_key_bytes,
                      "warm_ms": ga_ms, "boot_per_s": BATCH / ga_ms * 1e3,
                      "decrypt_max_err_log2": math.log2(max(ga_err, 1.0)),
-                     "counts": ga_counts}}
+                     "counts": ga_counts, "k7_residency": k7_res}}
     k1_entry = {
         "name": "blind_rotate_scan/set3", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/blind_rotate.cu",
@@ -1451,9 +1496,11 @@ def torus32_main():
         f"({k1_bound['bound_by']}: {k1_bound['multiplies']:.4g} int32 "
         f"multiplies); bit-exact")
     k1_res = k1_residency(pk, kp, 32)
-    k1_curve = k1_wave_curve(pk, kp, acc_in, a_int, bk.v32, bk.vs32,
-                             k1_res["K1"]["resident_ciphertexts"])
-    log_wave_curve("L2_32", k1_res, k1_curve)
+    k1_curve = wave_curve(
+        lambda acc, a: pk.blind_rotate_scan(acc, a, bk.v32, bk.vs32, kp),
+        acc_in, a_int, k1_res["K1"]["resident_ciphertexts"])
+    log_wave_curve("L2_32", "K1", k1_res["K1"], k1_curve,
+                   f"; K1-step {k1_res['K1-step']['blocks_per_sm']}")
     steps, steps_counts, steps_runs = rotation_steps_phase(
         bk, tv, cs, acc_k, k1_ms, max_clock)
     del acc_in, a_int, acc_k, acc_p
@@ -1958,6 +2005,11 @@ def torus32_ga(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe, key_out,
         f"bound {k7['bound_ms']:.3f} ({k7['bound_by']}: "
         f"{k7['bound']['int32_ops']:.4g} int32 ops); glue "
         f"{ga_ms - k6['ms'] - k7['ms']:.3f} ms; bit-exact")
+    k7_res = k7_residency(pk, kpg, kpg_ks, 32)
+    k7_curve = wave_curve(
+        lambda acc, g: pk.ga_scan_fused(acc, g, *ga_args[1:]), acc_k6, gens,
+        k7_res["resident_ciphertexts"])
+    log_wave_curve("L2_32", "K7", k7_res, k7_curve)
     del acc_g, acc_k6, acc_k7, out_g2
 
     # the TRLWE key switch and eval_automorphism on BATCH TRLWEs
@@ -2048,7 +2100,8 @@ def torus32_ga(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe, key_out,
                    "boot_per_s": BATCH / ga_ms * 1e3, "peak_bytes": ga_peak,
                    "decrypt_max_err_log2": math.log2(max(ga_err, 1.0)),
                    "decrypt_bound_log2": math.log2(GA_DECRYPT_BOUND_32),
-                   "glue_ms": ga_ms - k6["ms"] - k7["ms"], "mesh": mesh},
+                   "glue_ms": ga_ms - k6["ms"] - k7["ms"], "mesh": mesh,
+                   "k7_residency": k7_res, "k7_wave_curve": k7_curve},
             "trlweks": {"t": p.l, "base_bit": p.Bg_bit, **ks}}
 
 
@@ -2076,12 +2129,8 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"#   {name}: {line.strip()}")
     k1_build = k1_ptxas(_build.build_log["blind_rotate"])
-    for e in k1_build:
-        log(f"# K1 build: {e['entry']} P={e['P']} {e['words']} "
-            f"{'all shared' if e['all_shared'] else 'placed'}"
-            f"{', N=2^' + str(e['log_n']) if e['log_n'] else ''}: "
-            f"{e['registers']} registers, {e['spill_store_bytes']} B spill "
-            f"stores, {e['spill_load_bytes']} B spill loads")
+    k7_build = k7_ptxas(_build.build_log["ga_scan"])
+    log_build(k1_build + k7_build)
 
     # 3. kernel vs plain at full width on random inputs
     p = params.TFHEPP_L2
@@ -2186,9 +2235,11 @@ def main():
         f"{bound['int32_per_s']:.4g}/s, {bound['bytes']:.4g} B at "
         f"{HBM_BYTES_PER_S:.3g} B/s); bit-exact")
     k1_res = k1_residency(pk, bkp, 64)
-    k1_curve = k1_wave_curve(pk, bkp, acc_in, a_int, bk.v32, bk.vs32,
-                             k1_res["K1"]["resident_ciphertexts"])
-    log_wave_curve("L2", k1_res, k1_curve)
+    k1_curve = wave_curve(
+        lambda acc, a: pk.blind_rotate_scan(acc, a, bk.v32, bk.vs32, bkp),
+        acc_in, a_int, k1_res["K1"]["resident_ciphertexts"])
+    log_wave_curve("L2", "K1", k1_res["K1"], k1_curve,
+                   f"; K1-step {k1_res['K1-step']['blocks_per_sm']}")
 
     # 4b. the per-step rotation (K1-step) on phase 4's key, LUT and
     #     ciphertexts, held to phase 5's K1 output
@@ -2648,6 +2699,11 @@ def main():
         f"once, {k7_bound['gathered_bytes']:.4g} B of keyset gathered); "
         f"bit-exact; every generator 1 (keyset entry 0 only): "
         f"{k7_entry0_ms:.3f} ms")
+    k7_res = k7_residency(pk, kpg, kpg_ks, 64)
+    k7_curve = wave_curve(
+        lambda acc, g: pk.ga_scan_fused(acc, g, *ga_args[1:]), acc_k6, gens,
+        k7_res["resident_ciphertexts"])
+    log_wave_curve("L2", "K7", k7_res, k7_curve)
 
     # 14b. the per-step GA forms (K1-delta, K6, K6-old) against K7's words
     step_report, step_counts, step_runs = ga_stepwise_phase(
@@ -2939,6 +2995,7 @@ def main():
         "ms": k7_ms, "plain_ms": k7_plain_ms,
         "bound_ms": k7_bound["bound_ms"], "bound_by": k7_bound["bound_by"],
         "library_ms": None, "library_note": GA_LIBRARY_NOTE,
+        "resident_blocks_per_sm": k7_res["blocks_per_sm"],
     }, {
         "name": "partial_step", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/tp_step.cu",
@@ -3036,6 +3093,9 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "library_note": note})
+        if name == "ga_scan_fused":
+            kernels[-1]["resident_blocks_per_sm"] = \
+                t32["ga"]["k7_residency"]["blocks_per_sm"]
     kernels += step_entries(
         t32["kernel_runs"],
         lambda name: {f"{path}32": c[name] for path, c in c32.items()},
@@ -3089,7 +3149,9 @@ def main():
         "auto_ks_ms": k6_ms, "rotation_ms": k7_ms,
         "rotation_entry0_ms": k7_entry0_ms,
         "glue_ms": ga_ms - k6_ms - k7_ms, "auto_ks_bound": k6_bound,
-        "rotation_bound": k7_bound, "per_step_forms": step_report}}))
+        "rotation_bound": k7_bound, "k7_residency": k7_res,
+        "k7_wave_curve": k7_curve, "k7_build": k7_build,
+        "per_step_forms": step_report}}))
     log(json.dumps({"trlweks": {"params": p.name, "batch": BATCH,
                                 "t": p.l, "base_bit": p.Bg_bit, **trlwe_ks}}))
     log(json.dumps({"mesh": {

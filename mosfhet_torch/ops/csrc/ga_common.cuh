@@ -1,7 +1,9 @@
-// Device code shared by the automorphism key switch (K6, auto_keyswitch.cu)
-// and the GA blind rotation (K7, ga_scan.cu), for NVIDIA Hopper (sm_90a):
-// the Galois permutation, the digit-row NTT multiply-accumulate and the
-// TRLWE key switch against one keyset entry.
+// Device code of the automorphism key switch (K6, auto_keyswitch.cu) and
+// the GA step's external product (K1-delta, cmux_delta.cu), for NVIDIA
+// Hopper (sm_90a): the Galois permutation, the digit-row NTT
+// multiply-accumulate and the TRLWE key switch against one keyset entry.
+// The GA blind rotation (K7, ga_scan.cu) runs on K1's schedule
+// (rotate_sched.cuh) and takes only `dispatch_pk` from here.
 //
 // Counterparts of the TPU package's kernel helpers (ops/pbs_kernel.py):
 // `_galois_permute_limbs` (1077), `_ntt_mul_acc` / `_ntt_mul_acc_keyfn`

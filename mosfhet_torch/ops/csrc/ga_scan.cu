@@ -4,12 +4,11 @@
 // with g = gens[i][b] odd, exactly mod 2^64 (mod 2^32 at the 32-bit torus):
 //
 //   1. t = BK_i (x) acc, the replace-mode external product with
-//      TRGSW(X^{s_i}) (l digits of Bg_bit bits, Shoup keys, plan Kb);
+//      TRGSW(X^{s_i}) (l digits of Bg_bit bits, plan Kb);
 //   2. (a', b') = psi_g(t), the automorphism X -> X^g, through
 //      ginv = inv2n[(g - 1) / 2];
 //   3. acc = (0, b') - sum_j dec_j(a') (x) AK[(g - 1) / 2][j], the key
-//      switch back to the ring key (t digits of base_bit bits, Barrett
-//      keys, plan Kk).
+//      switch back to the ring key (t digits of base_bit bits, plan Kk).
 //
 // Replaces the TPU kernel `ga_scan_fused` (the TPU package's
 // ops/pbs_kernel.py:2558, body `_make_ga_scan_kernel` :2452).  The caller
@@ -19,46 +18,173 @@
 // At the 32-bit torus (TORUS32) the same body runs on u32 words (the word
 // type W): both stages' digits take their plan's 32-bit offset, cast to W
 // once, the permutation negates mod 2^32 and Garner's Horner step wraps mod
-// 2^32, as in the one-limb K3 (ext_product_apply.cu) and K6.  The TPU
-// kernel has no such form (it asserts two limbs, pbs_kernel.py:2570; the
-// TPU package runs the 32-bit GA rotation as a jnp scan); this one gives
-// that scan's words.
+// 2^32.  The TPU kernel has no such form (it asserts two limbs,
+// pbs_kernel.py:2570; the TPU package runs the 32-bit GA rotation as a jnp
+// scan); this one gives that scan's words.
 //
-// Design.  As K1 (blind_rotate.cu): one block of 1024 threads per
-// ciphertext runs the n steps as a loop, the accumulator held in shared
-// memory for the whole rotation.  The permutation is a gather, so it cannot
-// run in place: it writes a second C x N buffer (perm), which the key
-// switch decomposes and whose b it subtracts from; the key switch writes the
-// new accumulator.  Shared memory: acc 32 KiB + perm 32 KiB + spectra 48 KiB
-// + one digit row's NTTs 24 KiB = 136 KiB at TFHEpp-L2, one block per SM.
-// Where they do not all fit (320 KiB at N=4096 with 4 primes) the wrapper
-// keeps the NTT rows and the spectra in shared memory, perm in a global
-// workspace and acc in place in the caller's tensor.
-// The two plans are separate constant blocks: a key-switch plan may have
-// another prime count, and its gadget offset differs whenever t != l or
-// base_bit != Bg_bit.  Keyset entries are runtime data (per ciphertext and
-// step), read straight from global memory, coalesced along N.
+// What bounds it on this card: integer operations.  Per step and ciphertext
+// at TFHEpp-L2: (24 + 6 + 12 + 6) NTTs x 11,264 butterflies, 98,304 + 49,152
+// key products and 2 x 4,096 Garner reconstructions, 1.6 times K1's step.
+// Bytes: the 497 MB TRGSW key is shared by a wave's blocks through the 50 MB
+// L2, but each block gathers its own 192 KiB keyset entry per step (63.6 GB
+// over 632 steps and 512 ciphertexts, from a 403 MB keyset that L2 cannot
+// hold), about half the operations' time at HBM's rate.
 //
-// What bounds it on this card: integer multiplies.  Per step and ciphertext
-// at TFHEpp-L2: (24 + 6 + 12 + 6) NTTs x 11,264 butterflies, 98,304 Shoup
-// and 49,152 Barrett key products and 2 x 4,096 Garner words, 1.58 times
-// K1's step.  Bytes: the 497 MB TRGSW key is shared by a wave's blocks
-// through the 50 MB L2, but each block gathers its own 192 KiB keyset entry
-// per step (63.6 GB over 632 steps and 512 ciphertexts, from a 403 MB
-// keyset that L2 cannot hold), still below the operations at HBM's rate.
+// Design.  K1's schedule (rotate_sched.cuh): one block per ciphertext runs
+// the n steps as a loop; the block is split into groups of T = N/16 threads,
+// one group per prime of the larger plan (PM = max(P, PK) primes; NG =
+// min(PM, 1024/T) groups), each thread owning 16 coefficients of its
+// group's row through the NTT passes, the MAC into its own window-0 slots of
+// spec, and the inverse from those slots to natural order.  Both external
+// products of a step run that way, each on its own plan (twiddles, primes;
+// a group with no prime of a plan waits at the next block barrier):
+//   - stage 1 reads its digits straight from acc and, after a block
+//     barrier, Garner *replaces* acc with t (K1 adds);
+//   - stage 2 has no buffer: stage 3's digits read a'[c][k] =
+//     +-t[c][(k ginv mod 2N) mod N] from acc, as K1 reads X^a acc;
+//   - stage 3's Garner writes acc = (0, b') - INTT(.), b' = psi_g(t)[C-1].
+//     A thread's b' words are read from acc into registers before the block
+//     barrier that precedes Garner, since other threads overwrite acc after
+//     it: every read of t precedes every write of the new acc.
+// Four block barriers per step (one before and one after each Garner).
+// Both MACs take Barrett products of key residues alone (`mac_product`):
+// the TRGSW's Shoup companions svs are not read, which halves its L2
+// traffic.  A keyset entry is runtime data gathered per ciphertext from HBM,
+// so a thread asks L2 for a digit row's key words before the row's forward
+// passes, which hide their latency.
+//
+// Buffers of a block, as K1's: acc [C][N] words, spec [C][PM][SR] u32 and
+// work [NG][SR] u32 (SR = N + N/16 from N = 256): 108.5 KiB at TFHEpp-L2
+// (N=2048, k=1, P=PK=3; two blocks per SM) and 67 KiB at its 32-bit form
+// (P=PK=2; three per SM).  Where they do not all fit, the wrapper places
+// them by traffic: work in shared memory, then spec, then acc; spec in a
+// global workspace, acc updated in place in the caller's tensor (SET_3: acc
+// in place).  The two plans are separate constant blocks: a key-switch plan
+// may have another prime count, and its gadget offset differs whenever
+// t != l or base_bit != Bg_bit.  N from 16 to 16384.
 
 #include "ga_common.cuh"
+#include "rotate_sched.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-enum { kWork, kSpec, kPerm, kAcc, kNumBuf };  // buffers, as the wrapper lists
+enum { kWork, kSpec, kAcc, kNumBuf };  // buffers, as the wrapper lists them
 
-template <int P, int PK, typename W, bool S>
-__global__ void __launch_bounds__(kThreads, 1)
+// Coefficient k of psi_g(row), the automorphism X -> X^g of a negacyclic row
+// of length N given by ginv = g^-1 mod 2N: +-row[(k ginv mod 2N) mod N],
+// negated when (k ginv mod 2N) >= N (`galois_permute`, ga_common.cuh, one
+// word at a time).  row may be in shared or global memory.
+template <typename W>
+__device__ __forceinline__ W permuted_word(const W* row, int k, int ginv,
+                                           int N) {
+  const unsigned ic = (unsigned(k) * unsigned(ginv)) & (2u * unsigned(N) - 1u);
+  const W v = row[ic & unsigned(N - 1)];
+  return (ic & unsigned(N)) ? W(0) - v : v;
+}
+
+__device__ __forceinline__ void prefetch_l2(const uint32_t* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// The spectra of one external product on K1's schedule, for this thread's
+// group: per prime pi of plan K (PP primes; group g takes g, g + NG, ...),
+// the R digit rows j (component j / K.l, digit j % K.l) of the words
+// word(c, k) through the forward NTT and the MAC against key rows
+// [R][C][PP][N] (16-byte aligned) into the thread's window-0 slots of
+// spec[c][pi] (rows SR words apart, components PM rows apart; replaced at
+// j = 0), then the inverse NTTs of spec[c][pi] to natural order in the same
+// rows.  Prefetch: ask L2 for a row's key words before its forward passes.
+// Fixed: the 80-register shape (C = 2), whose MAC has both components' key
+// words in flight.  Below a warp per group every exchange synchronises the
+// whole block and every group has one prime of PM: a group with none of
+// this plan's then runs the same passes on prime 0 without loading a key or
+// storing, so that every thread reaches the same barriers.
+template <int PP, int PM, typename W, bool Fixed, bool Prefetch,
+          typename Word>
+__device__ __forceinline__ void product_spectra(
+    Word word, int R, const uint32_t* __restrict__ key, uint32_t* spec,
+    uint32_t* work, const uint32_t* __restrict__ ftw,
+    const uint32_t* __restrict__ ftws, const uint32_t* __restrict__ itw,
+    const uint32_t* __restrict__ itws, const PbsConsts& K, const Sched& s) {
+  constexpr int H = Fixed ? 2 : 1;
+  const int N = 1 << s.logN, C = Fixed ? 2 : K.C, l = K.l;
+  const int g = threadIdx.x >> s.logT, t = threadIdx.x & (s.T - 1);
+  const W offset = W(K.offset);
+  uint32_t* buf = work + g * s.SR;
+  const int slot0 = slots(s, t, 0).first;  // window 0: slot0 + v
+  uint32_t x[kR];
+  for (int pi = g; pi < PP || (s.T < 32 && pi == g); pi += s.NG) {
+    const bool live = pi < PP;
+    const int pr = live ? pi : 0;
+    const uint32_t p = K.p[pr], p2 = 2 * p, mup = K.mup[pr];
+    const uint32_t *fw = ftw + pr * N, *fws = ftws + pr * N;
+    for (int j = 0; j < R; ++j) {
+      const int cj = j / l, d = j % l;
+      const uint32_t* kj = key + (size_t(j * C) * PP + pr) * N + (t << kQ);
+      if (Prefetch && live)
+        for (int c = 0; c < C; ++c) {
+          prefetch_l2(kj + size_t(c) * PP * N);
+          prefetch_l2(kj + size_t(c) * PP * N + kR / 2);
+        }
+#pragma unroll
+      for (int v = 0; v < kR; ++v) {
+        const W w = word(cj, t | (v << s.logT)) + offset;
+        x[v] = small_residue(gadget_digit(w, d, K), p);
+      }
+      forward_row(x, buf, s, t, g, fw, fws, p);
+      if (!live) continue;
+      for (int c0 = 0; c0 < C; c0 += H) {
+        uint4 kw[H][kR / 4];
+#pragma unroll
+        for (int u = 0; u < H; ++u) {
+          const uint4* k4 = reinterpret_cast<const uint4*>(
+              kj + size_t(c0 + u) * PP * N);
+#pragma unroll
+          for (int q = 0; q < kR / 4; ++q) kw[u][q] = __ldg(k4 + q);
+        }
+#pragma unroll
+        for (int u = 0; u < H; ++u) {
+          uint32_t* sp = spec + ((c0 + u) * PM + pi) * s.SR + slot0;
+#pragma unroll
+          for (int q = 0; q < kR / 4; ++q) {
+            const uint4 k4 = kw[u][q];
+            const uint32_t m[4] = {mac_product(x[4 * q], k4.x, p, mup),
+                                   mac_product(x[4 * q + 1], k4.y, p, mup),
+                                   mac_product(x[4 * q + 2], k4.z, p, mup),
+                                   mac_product(x[4 * q + 3], k4.w, p, mup)};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sp[4 * q + e] = j == 0 ? m[e] : lazy2(sp[4 * q + e] + m[e], p2);
+          }
+        }
+      }
+    }
+    // the inverse NTTs from this thread's slots to natural order in the
+    // same row (every slot is read before the exchanges' group barrier,
+    // every output written after it)
+    const uint32_t *iw = itw + pr * N, *iws = itws + pr * N;
+    for (int c = 0; c < C; ++c) {
+      uint32_t* row = spec + (c * PM + pr) * s.SR;
+      if (live) {
+#pragma unroll
+        for (int v = 0; v < kR; ++v) x[v] = row[slot0 + v];
+      }
+      inverse_row(x, buf, s, t, g, iw, iws, p);
+      if (live) {
+#pragma unroll
+        for (int v = 0; v < kR; ++v) row[t | (v << s.logT)] = x[v];
+      }
+    }
+  }
+}
+
+// K7: the whole GA rotation, one block per ciphertext.  LogN != 0: the
+// compile-time shape of K1's 80-register instances (N = 2^LogN, k = 1, P
+// and PK at most 3, all in shared memory).
+template <int P, int PK, typename W, bool S, int LogN>
+__global__ void __launch_bounds__(kBlockThreads<LogN>, kMinBlocks<LogN>)
 ga_scan_kernel(W* __restrict__ acc_g, const int32_t* __restrict__ gens,
                const uint32_t* __restrict__ sv,
-               const uint32_t* __restrict__ svs,
                const uint32_t* __restrict__ ak,
                const int32_t* __restrict__ inv2n,
                const uint32_t* __restrict__ ftw,
@@ -72,6 +198,7 @@ ga_scan_kernel(W* __restrict__ acc_g, const int32_t* __restrict__ gens,
                const PbsConsts Kbp, const PbsConsts Kkp, const Layout L,
                int n, int B) {
   constexpr int PM = P > PK ? P : PK;
+  constexpr bool Fixed = LogN != 0;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ PbsConsts Kb, Kk;
   if (threadIdx.x == 0) {
@@ -79,59 +206,137 @@ ga_scan_kernel(W* __restrict__ acc_g, const int32_t* __restrict__ gens,
     Kk = Kkp;
   }
   __syncthreads();
-  const int N = Kb.N, C = Kb.C, CN = Kb.C * Kb.N, J = Kb.C * Kb.l;
-  const int b = blockIdx.x;
-  W* acc_b = acc_g + size_t(b) * CN;
-  W* acc = buffer<S, W>(L, kAcc, smem, ws, acc_b);                  // [C][N]
-  W* perm = buffer<S, W>(L, kPerm, smem, ws, nullptr);              // [C][N]
-  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][PM][N]
-  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [PM][N]
+  Sched s;  // compile-time where LogN is
+  make_sched(LogN ? LogN : Kb.logN, PM, s);
+  const int N = 1 << s.logN, C = Fixed ? 2 : Kb.C, CN = C * N;
+  const int J = C * Kb.l, JK = (C - 1) * Kk.l;
+  // Garner's positions of a thread: k = threadIdx.x + r threads, r < keep
+  // (threads >= T = N / kR, so keep <= kR)
+  const int threads = s.NG * s.T, keep = (N + threads - 1) / threads;
+  W* acc_b = acc_g + size_t(blockIdx.x) * CN;
+  W* acc = buffer<S, W>(L, kAcc, smem, ws, acc_b);                // [C][N]
+  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][PM][SR]
+  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [NG][SR]
   if (acc != acc_b)
-    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
+    for (int i = threadIdx.x; i < CN; i += threads) acc[i] = acc_b[i];
   __syncthreads();
 
   const size_t step_stride = size_t(J) * C * P * N;
-  const size_t entry = size_t(C - 1) * Kk.l * C * PK * N;
-  for (int s = 0; s < n; ++s) {
-    const int kidx = (gens[size_t(s) * B + b] - 1) >> 1;
-    // 1. t = BK_s (x) acc, replacing acc
-    digit_mul_acc<P, W>(acc, J, sv + s * step_stride, svs + s * step_stride,
-                        spec, work, Kb, ftw, ftws);
-    inverse_to_words<P, W>(spec, nullptr, acc, Kb, itw, itws);
-    // 2. perm = psi_g(t)
-    galois_permute<W>(acc, perm, inv2n[kidx], Kb);
-    // 3. acc = (0, b') - KS(a') with keyset entry (g - 1) / 2
-    keyswitch_entry<PK, W>(perm, acc, ak + kidx * entry, spec, work, Kk,
-                           kftw, kftws, kitw, kitws);
+  const size_t entry = size_t(JK) * C * PK * N;
+  for (int i = 0; i < n; ++i) {
+    const int kidx = (gens[size_t(i) * B + blockIdx.x] - 1) >> 1;
+    const int ginv = inv2n[kidx];
+    // 1. t = BK_i (x) acc, replacing acc after every group's inverse NTTs
+    product_spectra<P, PM, W, Fixed, false>(
+        [&](int c, int k) { return acc[c * N + k]; }, J,
+        sv + i * step_stride, spec, work, ftw, ftws, itw, itws, Kb, s);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < CN; idx += threads)
+      acc[idx] = garner_rows<P, W>(spec + (idx >> s.logN) * PM * s.SR, s.SR,
+                                   idx & (N - 1), Kb);
+    __syncthreads();
+    // 2-3. (a', b') = psi_g(t) read through ginv; the key switch's spectra
+    //      against keyset entry (g - 1) / 2
+    product_spectra<PK, PM, W, Fixed, true>(
+        [&](int c, int k) { return permuted_word(acc + c * N, k, ginv, N); },
+        JK, ak + kidx * entry, spec, work, kftw, kftws, kitw, kitws, Kk, s);
+    // b' of this thread's Garner positions, read before the barrier after
+    // which Garner overwrites acc
+    W bp[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int k = threadIdx.x + r * threads;
+      if (r < keep && k < N)
+        bp[r] = permuted_word(acc + (C - 1) * N, k, ginv, N);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int k = threadIdx.x + r * threads;
+      if (r < keep && k < N)
+        for (int c = 0; c < C; ++c) {
+          const W w = garner_rows<PK, W>(spec + c * PM * s.SR, s.SR, k, Kk);
+          acc[c * N + k] = (c == C - 1 ? bp[r] : W(0)) - w;
+        }
+    }
+    __syncthreads();
   }
   if (acc != acc_b)
-    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
+    for (int i = threadIdx.x; i < CN; i += threads) acc_b[i] = acc[i];
 }
 
 struct Args {
   void* acc;
   const int32_t* gens;
-  const uint32_t *sv, *svs, *ak;
+  const uint32_t *sv, *ak;
   const int32_t* inv2n;
   const uint32_t* const* tw;
   unsigned char* ws;
   int n, B;
   cudaStream_t stream;
+  int* blocks_per_sm;  // non-null: report the residency, launch nothing
 };
 
-template <int P, int PK, typename W, bool S>
+template <int P, int PK, typename W, bool S, int LogN>
+cudaError_t launch(const Args& x, const PbsConsts& Kb, const PbsConsts& Kk,
+                   const Layout& L) {
+  auto* kernel = ga_scan_kernel<P, PK, W, S, LogN>;
+  Sched s;
+  if (!make_sched(Kb.logN, P > PK ? P : PK, s)) return cudaErrorInvalidValue;
+  const int threads = s.NG * s.T;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
+  if (err != cudaSuccess) return err;
+  if (x.blocks_per_sm)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        x.blocks_per_sm, kernel, threads, size_t(L.smem));
+  const uint32_t* const* tw = x.tw;
+  kernel<<<x.B, threads, L.smem, x.stream>>>(
+      static_cast<W*>(x.acc), x.gens, x.sv, x.ak, x.inv2n, tw[0], tw[1],
+      tw[2], tw[3], tw[4], tw[5], tw[6], tw[7], x.ws, Kb, Kk, L, x.n, x.B);
+  return cudaGetLastError();
+}
+
+template <int P, int PK, typename W>
 cudaError_t launch_s(const Args& x, const PbsConsts& Kb, const PbsConsts& Kk,
                      const Layout& L) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ga_scan_kernel<P, PK, W, S>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
-  if (err != cudaSuccess) return err;
-  const uint32_t* const* tw = x.tw;
-  ga_scan_kernel<P, PK, W, S><<<x.B, kThreads, L.smem, x.stream>>>(
-      static_cast<W*>(x.acc), x.gens, x.sv, x.svs, x.ak, x.inv2n, tw[0],
-      tw[1], tw[2], tw[3], tw[4], tw[5], tw[6], tw[7], x.ws, Kb, Kk, L, x.n,
-      x.B);
-  return cudaGetLastError();
+  if (!all_shared(L, kNumBuf)) return launch<P, PK, W, false, 0>(x, Kb, Kk, L);
+  if constexpr (P <= 3 && PK <= 3)
+    if (Kb.logN == kFixedLogN && Kb.C == 2)
+      return launch<P, PK, W, true, kFixedLogN>(x, Kb, Kk, L);
+  return launch<P, PK, W, true, 0>(x, Kb, Kk, L);
+}
+
+int launch_entry(void* acc, const void* gens, const void* sv, const void* ak,
+                 const void* inv2n, const uint32_t* const* tw, void* ws,
+                 const int64_t* consts, const int64_t* kconsts,
+                 const int64_t* layout, int B, int n, int word_bits,
+                 void* stream, int* blocks_per_sm = nullptr) {
+  PbsConsts Kb, Kk;
+  Sched s;
+  if (!parse_consts(consts, Kb) || !parse_consts(kconsts, Kk) ||
+      Kb.N != Kk.N || Kb.C != Kk.C || !make_sched(Kb.logN, Kb.P, s))
+    return int(cudaErrorInvalidValue);
+  if ((B == 0 || n == 0) && !blocks_per_sm) return int(cudaSuccess);
+  const Args x{acc,
+               static_cast<const int32_t*>(gens),
+               static_cast<const uint32_t*>(sv),
+               static_cast<const uint32_t*>(ak),
+               static_cast<const int32_t*>(inv2n),
+               tw,
+               static_cast<unsigned char*>(ws),
+               n,
+               B,
+               static_cast<cudaStream_t>(stream),
+               blocks_per_sm};
+  const Layout L = parse_layout(layout, kNumBuf);
+  return int(dispatch_pw(Kb.P, word_bits, [&](auto p, auto w) {
+    using W = decltype(w);
+    constexpr int P = decltype(p)::value;
+    return dispatch_pk<W>(Kk.P, [&](auto pk) {
+      return launch_s<P, decltype(pk)::value, W>(x, Kb, Kk, L);
+    });
+  }));
 }
 
 }  // namespace
@@ -140,12 +345,14 @@ extern "C" {
 
 // consts / kconsts: the bootstrap-key plan's and the key-switch plan's int64
 // host arrays (layout in ntt_common.cuh); layout: the buffer placement (smem
-// bytes, workspace stride, offsets of work, spec, perm, acc); ws: the
-// workspace, B x stride bytes (null when the stride is 0).  acc [B, k+1, N]
-// u64 words (word_bits 64) or u32 words (word_bits 32, both plans' gadget
-// offsets of that width) is rotated in place; gens [n, B] int32 odd,
-// (g - 1) / 2 < G; sv/svs [n, (k+1)l, k+1, P, N] u32; ak [G, k t, k+1,
-// PK, N] u32; inv2n [N] int32; twiddles [P, N] and [PK, N] u32.
+// bytes, workspace stride, offsets of work, spec, acc); ws: the workspace,
+// B x stride bytes (null when the stride is 0).  acc [B, k+1, N] u64 words
+// (word_bits 64) or u32 words (word_bits 32, both plans' gadget offsets of
+// that width) is rotated in place; gens [n, B] int32 odd, (g - 1) / 2 < G;
+// sv [n, (k+1)l, k+1, P, N] u32 and ak [G, k t, k+1, PK, N] u32, both
+// 16-byte aligned; svs, the TRGSW's Shoup companions, is not read (the
+// MAC's Barrett products need only the residues); inv2n [N] int32;
+// twiddles [P, N] and [PK, N] u32.
 int ga_scan_launch(void* acc, const void* gens, const void* sv,
                    const void* svs, const void* ak, const void* inv2n,
                    const void* ftw, const void* ftws, const void* itw,
@@ -154,38 +361,31 @@ int ga_scan_launch(void* acc, const void* gens, const void* sv,
                    const int64_t* consts, const int64_t* kconsts,
                    const int64_t* layout, int B, int n, int word_bits,
                    void* stream) {
-  PbsConsts Kb, Kk;
-  if (!parse_consts(consts, Kb) || !parse_consts(kconsts, Kk) ||
-      Kb.N != Kk.N || Kb.C != Kk.C)
-    return int(cudaErrorInvalidValue);
-  if (B == 0 || n == 0) return int(cudaSuccess);
   const uint32_t* tw[8] = {
       static_cast<const uint32_t*>(ftw),  static_cast<const uint32_t*>(ftws),
       static_cast<const uint32_t*>(itw),  static_cast<const uint32_t*>(itws),
       static_cast<const uint32_t*>(kftw), static_cast<const uint32_t*>(kftws),
       static_cast<const uint32_t*>(kitw), static_cast<const uint32_t*>(kitws)};
-  const Args x{acc,
-               static_cast<const int32_t*>(gens),
-               static_cast<const uint32_t*>(sv),
-               static_cast<const uint32_t*>(svs),
-               static_cast<const uint32_t*>(ak),
-               static_cast<const int32_t*>(inv2n),
-               tw,
-               static_cast<unsigned char*>(ws),
-               n,
-               B,
-               static_cast<cudaStream_t>(stream)};
-  const Layout L = parse_layout(layout, kNumBuf);
-  const bool shared = all_shared(L, kNumBuf);
-  return int(dispatch_pw(Kb.P, word_bits, [&](auto p, auto w) {
-    using W = decltype(w);
-    constexpr int P = decltype(p)::value;
-    return dispatch_pk<W>(Kk.P, [&](auto pk) {
-      constexpr int PK = decltype(pk)::value;
-      return shared ? launch_s<P, PK, W, true>(x, Kb, Kk, L)
-                    : launch_s<P, PK, W, false>(x, Kb, Kk, L);
-    });
-  }));
+  return launch_entry(acc, gens, sv, ak, inv2n, tw, ws, consts, kconsts,
+                      layout, B, n, word_bits, stream);
+}
+
+// The blocks of K7 resident on one SM at the two plans' shape, the
+// placement and the word width (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// on the current device), and the threads of a block.
+int ga_scan_residency(const int64_t* consts, const int64_t* kconsts,
+                      const int64_t* layout, int word_bits, int* blocks,
+                      int* threads) {
+  PbsConsts Kb, Kk;
+  Sched s;
+  if (!parse_consts(consts, Kb) || !parse_consts(kconsts, Kk) ||
+      !make_sched(Kb.logN, Kb.P > Kk.P ? Kb.P : Kk.P, s))
+    return int(cudaErrorInvalidValue);
+  *threads = s.NG * s.T;
+  const uint32_t* tw[8] = {};
+  return launch_entry(nullptr, nullptr, nullptr, nullptr, nullptr, tw,
+                      nullptr, consts, kconsts, layout, 0, 1, word_bits,
+                      nullptr, blocks);
 }
 
 const char* cuda_error_string(int err) {

@@ -432,7 +432,8 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
     """(nbytes, home, rank) of each of a block's buffers in ``kernel``
     (the source's name), in the order of its enum.  K1 and K1-step
     ("blind_rotate", "pbs_step") hold one exchange row per group of their
-    schedule (`rotation_schedule`), the spectra and the accumulator.  rank
+    schedule (`rotation_schedule`), the spectra and the accumulator; so
+    does K7 ("ga_scan"), on the schedule of its larger plan's primes.  rank
     orders them by traffic: the digit rows' NTTs (work, dig) are the
     busiest, then the spectra's multiply-accumulates and inverse NTTs, then
     the key row of K4 (NTT'd J*C times per group, so it ranks above them
@@ -457,10 +458,12 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
         return [(M * 4, WORKSPACE, 0), (row, WORKSPACE, 1),
                 (row, SHARED_ONLY, 2), (spec, WORKSPACE, 3),
                 (words, IN_PLACE, 4)]
-    if kernel == "ga_scan":            # work, spec, perm, acc
+    if kernel == "ga_scan":            # work, spec, acc
         PM = max(P, P_ks)
-        return [(PM * N * 4, SHARED_ONLY, 0), (C * PM * N * 4, WORKSPACE, 1),
-                (words, WORKSPACE, 2), (words, IN_PLACE, 3)]
+        sc = rotation_schedule(N, PM)
+        return [(sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
+                (C * PM * sc["row_stride"] * 4, WORKSPACE, 1),
+                (words, IN_PLACE, 2)]
     if kernel in ("tp_step", "auto_keyswitch"):  # K8a, K6: work, spec, rot
         return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),
                 (words, WORKSPACE, 2)]
@@ -494,37 +497,62 @@ def _layout(kernel: str, kp: PBSKernelPlan, B: int, dev, source=None, **kw):
 
 
 def _check_aligned(name, t):
-    """K1's and K1-step's key rows are read 16 bytes at a time (their Shoup
-    companions are not read: the kernel's MAC takes Barrett products)."""
+    """K1's, K1-step's and K7's key rows are read 16 bytes at a time (their
+    Shoup companions are not read: the kernels' MACs take Barrett
+    products)."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel reads it in 16-byte vectors; "
                          f"its data pointer is not 16-byte aligned")
+
+
+def _residency(name: str, entry: str, n_ptr: int, n_int: int, query: str,
+               dev, ptrs, ints) -> tuple[int, int]:
+    """(blocks resident on one SM, threads per block) from the C entry
+    ``query`` of ``csrc/<name>.cu`` (pointers, ints, then the two outputs),
+    which asks the CUDA runtime's
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on card ``dev``."""
+    lib = _kernel_lib(name, entry, n_ptr, n_int)
+    fn = getattr(lib, query)
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(
+        ints) + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, *ints, ctypes.byref(blocks), ctypes.byref(threads))
+    if err:
+        raise RuntimeError(f"{name} residency query failed: "
+                           + lib.cuda_error_string(err).decode())
+    return blocks.value, threads.value
 
 
 def rotation_residency(kp: PBSKernelPlan, bits: int, step: bool = False,
                        dev=None) -> tuple[int, int]:
     """(blocks resident on one SM, threads per block) of K1, or K1-step
     with ``step``, on card ``dev`` at ``kp``'s shape, its placement and the
-    word width ``bits``: the CUDA runtime's
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the C entry
-    `blind_rotate_residency`."""
+    word width ``bits`` (the C entry `blind_rotate_residency`)."""
     dev = torch.device("cuda") if dev is None else torch.device(dev)
     layout, _ = kernel_layout("pbs_step" if step else "blind_rotate", kp,
                               _smem_budget("blind_rotate", _index(dev)))
-    lib = _kernel_lib("blind_rotate", "blind_rotate_launch", 11, 3)
-    fn = lib.blind_rotate_residency
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        err = fn(kp.host_consts.ctypes.data, layout.ctypes.data, bits,
-                 int(step), ctypes.byref(blocks), ctypes.byref(threads))
-    if err:
-        raise RuntimeError("blind_rotate residency query failed: "
-                           + lib.cuda_error_string(err).decode())
-    return blocks.value, threads.value
+    return _residency("blind_rotate", "blind_rotate_launch", 11, 3,
+                      "blind_rotate_residency", dev,
+                      [kp.host_consts.ctypes.data, layout.ctypes.data],
+                      [bits, int(step)])
+
+
+def ga_scan_residency(kp: PBSKernelPlan, kp_ks: PBSKernelPlan, bits: int,
+                      dev=None) -> tuple[int, int]:
+    """(blocks resident on one SM, threads per block) of K7 on card ``dev``
+    at the two plans' shape, its placement and the word width ``bits``
+    (the C entry `ga_scan_residency`)."""
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    layout, _ = kernel_layout("ga_scan", kp,
+                              _smem_budget("ga_scan", _index(dev)),
+                              P_ks=kp_ks.P)
+    return _residency("ga_scan", "ga_scan_launch", 18, 3,
+                      "ga_scan_residency", dev,
+                      [kp.host_consts.ctypes.data,
+                       kp_ks.host_consts.ctypes.data, layout.ctypes.data],
+                      [bits])
 
 
 def _ptr(t) -> int | None:
@@ -1161,8 +1189,10 @@ def ga_scan_fused(acc0, gens, sv32, svs32, ak32, inv2n, kp: PBSKernelPlan,
     one-limb form for int32 words; both plans must be of their width), and
     an error raised if it does not build or launch.  CPU tensors: the plain
     version.  ``gens`` must be odd in [1, 2 min(G, N)): (g - 1)/2 indexes
-    the keyset and ``inv2n`` unchecked, as in `auto_keyswitch_stream`.
-    Returns [B, C, N] of acc0's dtype."""
+    the keyset and ``inv2n`` unchecked, as in `auto_keyswitch_stream`.  The
+    kernel reads ``sv32`` and ``ak32`` 16 bytes at a time (a view off that
+    alignment raises ValueError) and never ``svs32``.  Returns [B, C, N] of
+    acc0's dtype."""
     bits = _word_width("ga_scan_fused", acc0, kp)
     _word_width("ga_scan_fused", acc0, kp_ks)
     dev = acc0.device
@@ -1184,6 +1214,8 @@ def ga_scan_fused(acc0, gens, sv32, svs32, ak32, inv2n, kp: PBSKernelPlan,
     _check("ak32", ak32, torch.int32,
            (G, (kp.C - 1) * kp_ks.l, kp.C, kp_ks.P, kp.N), dev)
     _check("inv2n", inv2n, torch.int32, (kp.N,), dev)
+    _check_aligned("sv32", sv32)
+    _check_aligned("ak32", ak32)
     _check_plan(kp, dev)
     _check_plan(kp_ks, dev)
     acc = acc0.clone()

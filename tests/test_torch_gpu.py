@@ -938,6 +938,90 @@ def test_cuda_auto_keyswitch_gathered_matches_plain(torus_bits):
     assert torch.equal(got, tpk.auto_keyswitch_plain(*args))
 
 
+# --- K7 on K1's schedule: generators at their extremes, ragged batches ----
+
+# (N, l, Bg_bit, torus bits) of the GA key at TFHEpp-L2 (two blocks per SM,
+# 264 on the card) and at L2_32 (three per SM, 396); the key switch takes
+# the bootstrap's digits (t = l, base_bit = Bg_bit)
+GA_WIDTHS = {"l2": (2048, 4, 9, 64), "l2_32": (2048, 3, 7, 32)}
+
+
+def _ga_case(name, B, n, gen_mode, seed):
+    """K7's plans and arguments at GA_WIDTHS[name] on the whole keyset:
+    generators all 1, all 2N-1, or random with both present."""
+    from mosfhet_torch.bootstrap_ga import inverse_mod_2n_table
+    N, l, Bg_bit, bits = GA_WIDTHS[name]
+    primes, acc0, _, sv, svs = random_rotation_inputs(
+        N, 1, l, Bg_bit, n, B, seed, primes=PRIMES_32 if bits == 32 else None,
+        torus_bits=bits)
+    rng = np.random.default_rng(seed + 1)
+    if bits == 32:
+        ks_primes = PRIMES_32
+        ak = random_residues(rng, (N, l, 2, len(ks_primes), N), ks_primes)
+    else:
+        ks_primes, ak = random_ks_keyset(rng, N, 1, l, Bg_bit, N)
+    gens = {"one": np.ones((n, B), np.int32),
+            "minus_one": np.full((n, B), 2 * N - 1, np.int32),
+            "random": rng.integers(0, N, size=(n, B), dtype=np.int32) * 2
+            + 1}[gen_mode]
+    if gen_mode == "random":
+        gens[0, 0], gens[-1, -1] = 1, 2 * N - 1
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, 1, "cuda", bits)
+    kp_ks = tpk.get_kernel_plan(N, ks_primes, l, Bg_bit, 1, "cuda", bits)
+    return kp, kp_ks, (to_tensor(acc0, "cuda"), torch.from_numpy(gens).cuda(),
+                       as_i32(sv, "cuda"), as_i32(svs, "cuda"),
+                       as_i32(ak, "cuda"),
+                       torch.from_numpy(inverse_mod_2n_table(N)).cuda(), kp,
+                       kp_ks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gen_mode", ["one", "minus_one"])
+def test_cuda_ga_scan_matches_plain_at_extreme_generators(gen_mode):
+    """K7 at TFHEpp-L2 widths, n cut to 2, B=5: every generator 1 (psi the
+    identity, keyset entry 0) or every 2N-1 (every coefficient negated,
+    entry N-1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, _, args = _ga_case("l2", 5, 2, gen_mode, seed=700 + len(gen_mode))
+    launches = tpk.ga_scan_fused.launches
+    got = tpk.ga_scan_fused(*args)
+    torch.cuda.synchronize()
+    assert tpk.ga_scan_fused.launches == launches + 1
+    assert torch.equal(got, tpk.ga_scan_fused_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 263])
+@pytest.mark.parametrize("name", sorted(GA_WIDTHS))
+def test_cuda_ga_scan_ragged_batches_match_plain(name, B):
+    """K7 over two steps on one ciphertext and on 263 (a partial last wave
+    at two and at three blocks per SM), random generators with 1 and 2N-1
+    present: the plain version's words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, _, args = _ga_case(name, B, 2, "random", seed=710 + B)
+    got = tpk.ga_scan_fused(*args)
+    torch.cuda.synchronize()
+    want = tpk.ga_scan_fused_plain(*args)
+    assert got.dtype == args[0].dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(GA_WIDTHS))
+def test_cuda_ga_scan_residency(name):
+    """The blocks of K7 the card keeps resident per SM: two of 384 threads
+    at L2, three of 256 at L2_32, as K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, l, Bg_bit, bits = GA_WIDTHS[name]
+    primes = PRIMES_32 if bits == 32 else ntt.primes_for_bound(
+        ntt.external_product_bound(N, Bg_bit, l, 1))
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, 1, "cuda", bits)
+    want = {"l2": (2, 384), "l2_32": (3, 256)}[name]
+    assert tpk.ga_scan_residency(kp, kp, bits) == want
+
+
 # --- the one-step kernels K1-step, K3-step and the v1 phase 1 K5-v1 ---------
 
 # (N, k, l, Bg_bit, B, torus bits): TFHEpp-L2; SET_3, whose buffers leave

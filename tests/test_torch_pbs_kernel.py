@@ -74,7 +74,7 @@ KERNELS = {"K1": ("blind_rotate", {}), "K3": ("ext_product_apply", {}),
            "K1-step": ("pbs_step", {}),
            "K3-step": ("ext_product_apply_step", {})}
 # the kernels with 32-bit forms
-ONE_LIMB = ("K1", "K3", "K4", "K8a", "K8b", "K1-step", "K3-step")
+ONE_LIMB = ("K1", "K3", "K4", "K6", "K7", "K8a", "K8b", "K1-step", "K3-step")
 
 
 @pytest.mark.parametrize("name,k_id", [
@@ -85,12 +85,15 @@ def test_layout_keeps_every_buffer_shared_where_it_fits(name, k_id):
     shared memory."""
     N, l, Bg_bit, bits = ALL_SHARED[name]
     kernel, kw = KERNELS[k_id]
+    if kernel == "ga_scan" and bits == 32:
+        kw = {"P_ks": 2}              # L2_32's GA key switch: 2 primes
     kp = _plan(N, l, Bg_bit, bits)
     layout, stride = tpk.kernel_layout(kernel, kp, H100_BUDGET, **kw)
     assert stride == 0 and set(_where(layout)) == {"S"}
-    if name == "TFHEPP_L2" and kernel in ("blind_rotate", "pbs_step"):
+    if name == "TFHEPP_L2" and kernel in ("blind_rotate", "pbs_step",
+                                          "ga_scan"):
         assert layout[0] == 111104    # 108.5 KiB: two blocks per SM
-    if name == "L2_32" and kernel in ("blind_rotate", "pbs_step"):
+    if name == "L2_32" and kernel in ("blind_rotate", "pbs_step", "ga_scan"):
         assert layout[0] == 68608     # 67 KiB: three blocks per SM
 
 
@@ -99,7 +102,7 @@ def test_layout_keeps_every_buffer_shared_where_it_fits(name, k_id):
     ("ext_product_apply", {}, "SSI", 192),
     ("unfolded_rotate", {"M": 4}, "SSSWS", 192),
     ("auto_keyswitch", {}, "SSW", 192),
-    ("ga_scan", {"P_ks": 4}, "SSWI", 192),
+    ("ga_scan", {"P_ks": 4}, "SSI", 204),
     ("tp_step", {}, "SSW", 192),
     ("finish_step", {}, "SS", 128),
     ("pbs_step", {}, "SSI", 204),
@@ -109,8 +112,9 @@ def test_layout_at_set3_moves_the_u64_buffers(kernel, kw, where, smem_kib):
     """N=4096 with 4 primes (SET_3; the GA key's key-switch plan there has 4
     primes too) asks for up to 320 KiB: the NTT rows and spectra stay in
     shared memory, the u64 buffers leave it (K4: the spectra leave, the key
-    row and acc stay; K1, with no rotation buffer, keeps its four exchange
-    rows and spectra and updates acc in place).  K1-step and K3-step place
+    row and acc stay; K1, with no rotation buffer, and K7, with no
+    permutation buffer, keep their four exchange rows and spectra and
+    update acc in place).  K1-step and K3-step place
     K1's and K3's buffers: acc then stays in the caller's tensor between
     their launches."""
     kp = _plan(4096, 1, 22)
