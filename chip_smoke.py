@@ -11,7 +11,7 @@ Phases; any failure ends the script with a non-zero exit and no result line:
   1. card     CUDA present; the card's name and power limit (nvidia-smi).
   2. build    every kernel under mosfhet_torch/ops/csrc/ with nvcc, sm_90a;
               the registers and spills (ptxas -v) of every instance of K1,
-              K1-step and K7.
+              K1-step, K7, K8a and K8b.
   3. kernel   the blind-rotate kernel against its plain PyTorch version at
               full TFHEpp-L2 width on random inputs, a short rotation, with
               exponents 0 and 2N present: bit-exact.
@@ -123,8 +123,14 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               (data K1 launches with model 1) and nothing else; words equal
               to phase 4's, decrypt within 2^58; first-call and warm ms,
               boot/s, peak memory.  K8a and K8b timed per launch on the
-              path's own inputs (the (1, 2) mesh's first step) beside their
-              bounds and their plain versions (bit-exact).
+              path's own inputs (the (1, 2) mesh's first step; launches
+              queued behind a wait kernel, so the host's time per launch
+              leaves no gap) beside their bounds and their plain versions
+              (bit-exact); K8a's and K8b's
+              resident blocks per SM; for each mesh with model > 1, K8a and
+              K8b timed at its first step's shapes, on the card and on the
+              host (microseconds per wrapper call), and its device share
+              (the kernels' ms times launches over the warm call's ms).
  18. meshplain unfolded_pbs_on_mesh with the u=4 key and ga_pbs_on_mesh with
               the GA key, model 2, on the first 32 ciphertexts: words equal
               to phase 10's (K4) and phase 14's (K7) outputs for them; these
@@ -141,7 +147,7 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               and K3-step (both key modes; their placements printed) at
               SET_3 widths with cut depth on 64 random ciphertexts, each
               timed beside its bound and held to its plain version
-              (bit-exact);
+              (bit-exact); K8a's and K8b's resident blocks per SM;
               then the GA keygen and bootstrap_ga.functional_bootstrap_ga
               on the same 512 ciphertexts (1 K6 and 1 K7 launch per call,
               decrypt within 2^58), K6 held to its plain version on the
@@ -152,7 +158,8 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               random key cut to 8 steps on 64 random ciphertexts (16 K8a
               and 8 K8b launches, words equal to K1's bootstrap); K8b timed
               on the path's first step beside its bound and its plain
-              version, and held to it on 4 random partials (bit-exact).
+              version, and held to it on 4 random partials (bit-exact);
+              K8a's and K8b's resident blocks per SM.
  20. torus32  the 32-bit torus, in a child interpreter (this script with
               --torus32 and MOSFHET_TORUS_BITS=32): K1's and K2's one-limb
               forms against their plain versions on random inputs; then
@@ -176,11 +183,12 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               TRLWEs, broadcast and per row (1 K3 launch each, within
               2^26); pbs_on_mesh on (1, 2), (1, 3) and (2, 2) meshes of the
               card (J = 6 rows split over 2 or 3 shards; exact K8a and K8b
-              counts, words equal to the one-limb K1 path's); each kernel
-              timed on its path's own inputs beside its bound and its plain
-              version (bit-exact); unfolded_pbs_on_mesh at model 2 on 32
-              ciphertexts, equal to the K4 path's words.  Then the GA
-              family through the one-limb K6 and K7: the GA keygen
+              counts, words equal to the one-limb K1 path's; K8a's and
+              K8b's residency, device shares and host time as in phase 17);
+              each kernel timed on its path's own inputs beside its bound
+              and its plain version (bit-exact); unfolded_pbs_on_mesh at
+              model 2 on 32 ciphertexts, equal to the K4 path's words.
+              Then the GA family through the one-limb K6 and K7: the GA keygen
               (seconds, bytes, peak), functional_bootstrap_ga of the same
               512 ciphertexts (1 K6 and 1 K7 launch per call, decrypt
               within 2^27), K6 and K7 timed on the path's own inputs beside
@@ -244,6 +252,8 @@ TP_LIBRARY_NOTE = ("none: no PyTorch call computes a partial external "
 # (data, model) meshes of the one card for pbs_on_mesh (phase 17)
 MESH_SHAPES = ((1, 2), (1, 4), (2, 2), (2, 1))
 TP_REPS = 20         # timed launches of K8a and K8b
+QUEUE_WAIT_CYCLES = 20_000_000   # ~10 ms at 1980 MHz: longer than the host
+                                 # takes to enqueue TP_REPS launches
 MESH_CUT = 32        # ciphertexts of the plain-PyTorch mesh routes (phase 18)
 GA_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT key switch "
                    "with per-row keys or a Galois permutation")
@@ -317,6 +327,24 @@ def cuda_ms(fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def queued_ms(fn, reps):
+    """Mean milliseconds per call on the card with every launch queued
+    before the first runs: a wait kernel of QUEUE_WAIT_CYCLES holds the
+    stream while the host enqueues the reps calls, so the host's time per
+    launch (tens of microseconds, near a K8a or K8b launch's device time)
+    leaves no gap between them.  Returns the last result too."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_WAIT_CYCLES)
     start.record()
     for _ in range(reps):
         out = fn()
@@ -540,12 +568,13 @@ def ga_bound(kp, kp_ks, gens, max_clock_mhz):
 
 def partial_step_bound(kp, B, j_local, max_clock_mhz):
     """K8a for B ciphertexts over j_local key rows: per ciphertext j_local*P
-    digit NTTs and j_local*C*P*N Shoup key products; bytes: acc in, the
-    exponents, the key rows and their companions, the partial out."""
+    digit NTTs and j_local*C*P*N key products (counted as Shoup products,
+    as K1's bound counts them); bytes: acc in, the exponents, the key rows'
+    residues (the Shoup companions are not needed), the partial out."""
     C, P, N = kp.C, kp.P, kp.N
     shoup = butterflies(kp, j_local * P) + j_local * C * P * N
     nbytes = (B * C * N * word_bytes(kp) + B * 4
-              + 2 * j_local * C * P * N * 4 + B * C * P * N * 4)
+              + j_local * C * P * N * 4 + B * C * P * N * 4)
     out = ops_bytes_bound(SHOUP_MULTIPLIES * shoup * B, nbytes, max_clock_mhz)
     out["products_per_ciphertext"] = shoup
     return out
@@ -808,9 +837,23 @@ def k7_ptxas(text):
     return ptxas_instances(text, match, "K7")
 
 
+def k8_ptxas(text):
+    """Every instance of K8a's and K8b's kernels in tp_step.cu (K8b's flag:
+    one pass over all C*P rows in shared memory)."""
+    def match(line):
+        m = re.search(r"(partial_step_kernel|finish_step_kernel)ILi(\d)E"
+                      r"([mj])Lb([01])ELi(\d+)E", line)
+        return None if m is None else {
+            "entry": "K8a" if m[1] == "partial_step_kernel" else "K8b",
+            "P": int(m[2]), "words": "u64" if m[3] == "m" else "u32",
+            "all_shared": m[4] == "1", "log_n": int(m[5]) or None}
+    return ptxas_instances(text, match, "K8")
+
+
 def log_build(entries):
     for e in entries:
-        log(f"# {e['entry'].split('-')[0]} build: {e['entry']} P={e['P']}"
+        tag = re.match(r"K\d+", e["entry"])[0]     # K1-step: K1
+        log(f"# {tag} build: {e['entry']} P={e['P']}"
             f"{' P_ks=' + str(e['P_ks']) if 'P_ks' in e else ''} "
             f"{e['words']} {'all shared' if e['all_shared'] else 'placed'}"
             f"{', N=2^' + str(e['log_n']) if e['log_n'] else ''}: "
@@ -840,6 +883,75 @@ def k7_residency(pk, kp, kp_ks, bits):
     """K7's residency at the two plans' shape (the CUDA occupancy query)."""
     return residency(*pk.ga_scan_residency(kp, kp_ks, bits),
                      f"K7 at N={kp.N}, P={kp.P}, P_ks={kp_ks.P}")
+
+
+def k8_residency(pk, kp, bits, tag):
+    """K8a's and K8b's residency at ``kp``'s shape (the CUDA occupancy
+    query), logged under ``tag``."""
+    r = {name: residency(*pk.tp_step_residency(kp, bits, kernel),
+                         f"{name} at N={kp.N}, P={kp.P}")
+         for name, kernel in (("K8a", "partial_step"),
+                              ("K8b", "finish_step"))}
+    log(f"# {tag} K8 residency: " + "; ".join(
+        f"{name} {x['blocks_per_sm']} blocks of {x['threads_per_block']} "
+        f"threads per SM ({x['resident_ciphertexts']} ciphertexts at once)"
+        for name, x in r.items()))
+    return r
+
+
+def host_us(fn, reps):
+    """Host microseconds per call of ``fn``, a wrapper that only enqueues a
+    launch: from the first call to the last one's return, the card's queue
+    empty at the start."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def sharded_share(pk, bk, kp, acc_in, a_int, data, model, warm_ms):
+    """A (data, model) mesh's sharded path at its first step's shapes (one
+    data row's ciphertexts, J/model key rows per shard, model partials):
+    K8a and K8b timed on the card (`queued_ms`) and on the host (`host_us`)
+    and the path's device share, n data (model K8a + K8b) ms over the warm
+    call's ms.  The rest of the warm call is the card waiting for the host
+    or for the glue."""
+    Bs, jl = acc_in.shape[0] // data, kp.J // model
+    acc, a = acc_in[:Bs].contiguous(), a_int[0, :Bs].contiguous()
+    shards = [(acc, a, s * jl, bk.v32[0, s * jl:(s + 1) * jl].contiguous(),
+               bk.vs32[0, s * jl:(s + 1) * jl].contiguous(), kp)
+              for s in range(model)]
+    parts = torch.empty((model, Bs, kp.C, kp.P, kp.N), dtype=torch.int32,
+                        device=acc.device)
+    for s, args in enumerate(shards):
+        pk.partial_step(*args, out=parts[s])
+    acc_f = acc.clone()
+    out = {"ciphertexts": Bs, "key_rows": jl}
+    for name, fn in (
+            ("k8a", lambda: pk.partial_step(*shards[0], out=parts[0])),
+            ("k8b", lambda: pk.finish_step(acc_f, parts, kp))):
+        out[name + "_ms"], _ = queued_ms(fn, TP_REPS)
+        out[name + "_host_us"] = host_us(fn, TP_REPS)
+    step_ms = model * out["k8a_ms"] + out["k8b_ms"]
+    out["device_ms"] = bk.n * data * step_ms
+    out["device_share"] = out["device_ms"] / warm_ms
+    out["host_us_per_step"] = data * (model * out["k8a_host_us"]
+                                      + out["k8b_host_us"])
+    out["device_us_per_step"] = data * step_ms * 1e3
+    return out
+
+
+def log_share(tag, name, r):
+    log(f"# {tag} {name} device share: K8a {r['k8a_ms']:.4f} ms and K8b "
+        f"{r['k8b_ms']:.4f} ms at B={r['ciphertexts']}, {r['key_rows']} key "
+        f"rows; kernels {r['device_ms']:.3f} ms of the warm call = "
+        f"{100 * r['device_share']:.1f}%; host {r['k8a_host_us']:.1f} us per "
+        f"K8a and {r['k8b_host_us']:.1f} us per K8b launch, "
+        f"{r['host_us_per_step']:.1f} us of wrappers per step against "
+        f"{r['device_us_per_step']:.1f} us of kernels")
 
 
 def wave_curve(run, acc_in, per_ct, resident):
@@ -1186,6 +1298,7 @@ def set3_phase(dev, max_clock):
              lambda: pk.partial_step_plain(acc_r, a_r, j0, rows_v, rows_s,
                                            kp),
              partial_step_bound(kp, B, j_local, max_clock))
+    k8_res = k8_residency(pk, kp, 64, "SET_3")
     log("# SET_3 K3 (broadcast, per row; G=2), K4 (u=2, G=2), K7 (n=4, "
         f"{G7} keyset entries, P_ks={kp_ks.P}) and K8a at B={B}: "
         + "; ".join(f"{name} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
@@ -1281,7 +1394,8 @@ def set3_phase(dev, max_clock):
               "ga": {"keygen_s": ga_keygen_s, "key_bytes": ga_key_bytes,
                      "warm_ms": ga_ms, "boot_per_s": BATCH / ga_ms * 1e3,
                      "decrypt_max_err_log2": math.log2(max(ga_err, 1.0)),
-                     "counts": ga_counts, "k7_residency": k7_res}}
+                     "counts": ga_counts, "k7_residency": k7_res},
+              "k8_residency": k8_res}
     k1_entry = {
         "name": "blind_rotate_scan/set3", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/blind_rotate.cu",
@@ -1341,7 +1455,8 @@ def n8192_phase(dev, max_clock):
                         kvs[0, sh * jl:(sh + 1) * jl].contiguous(), kp,
                         out=parts[sh])
     acc_f = acc_in.clone()
-    k8b_ms, _ = cuda_ms(lambda: pk.finish_step(acc_f, parts, kp), TP_REPS)
+    k8b_ms, _ = queued_ms(lambda: pk.finish_step(acc_f, parts, kp),
+                          TP_REPS)
     acc_k = pk.finish_step(acc_in.clone(), parts, kp)
     plain_ms, acc_p = cuda_ms(
         lambda: pk.finish_step_plain(acc_in.clone(), parts, kp), 1)
@@ -1353,6 +1468,7 @@ def n8192_phase(dev, max_clock):
                  pk.finish_step_plain(acc_in.clone(), parts4, kp))
     bound = finish_step_bound(kp, B, 2, max_clock)
     where = placement(pk, "finish_step", kp, source="tp_step")
+    k8_res = k8_residency(pk, kp, 64, "N=8192")
     log(f"# N=8192 (P=4) pbs_on_mesh (1 x 2), n={n}, B={B}: {2 * n} K8a + "
         f"{n} K8b launches, words equal to K1's; K8b placement {where}; K8b "
         f"{k8b_ms:.4f} ms/launch on 2 partials (mean of {TP_REPS}), plain "
@@ -1367,7 +1483,8 @@ def n8192_phase(dev, max_clock):
         "max_abs_err": 0.0, "bit_exact": True, "ms": k8b_ms,
         "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": None,
-        "library_note": TP_LIBRARY_NOTE, "placement": where, "B": B}
+        "library_note": TP_LIBRARY_NOTE, "placement": where, "B": B,
+        "k8_residency": k8_res}
 
 
 def torus32_phase():
@@ -1863,8 +1980,8 @@ def torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded):
                         device=dev)
     pk.partial_step(*tp_args[1], out=parts[1])
     k8a_bound = partial_step_bound(kp, BATCH, jl, max_clock)
-    k8a_ms, _ = cuda_ms(lambda: pk.partial_step(*tp_args[0], out=parts[0]),
-                        TP_REPS)
+    k8a_ms, _ = queued_ms(
+        lambda: pk.partial_step(*tp_args[0], out=parts[0]), TP_REPS)
     k8a_plain_ms, part_p = cuda_ms(
         lambda: pk.partial_step_plain(*tp_args[0]), 1)
     same_or_fail("K8a/torus32 on the path's inputs (shard 0)", parts[0],
@@ -1872,7 +1989,8 @@ def torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded):
     same_or_fail("K8a/torus32 on the path's inputs (shard 1)", parts[1],
                  pk.partial_step_plain(*tp_args[1]))
     acc_f = acc_in.clone()
-    k8b_ms, _ = cuda_ms(lambda: pk.finish_step(acc_f, parts, kp), TP_REPS)
+    k8b_ms, _ = queued_ms(lambda: pk.finish_step(acc_f, parts, kp),
+                          TP_REPS)
     acc_k8 = pk.finish_step(acc_in.clone(), parts, kp)
     k8b_plain_ms, acc_p8 = cuda_ms(
         lambda: pk.finish_step_plain(acc_in.clone(), parts, kp), 1)
@@ -1894,7 +2012,13 @@ def torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded):
         f"{k8b_ms:.4f} ms/launch, plain {k8b_plain_ms:.3f} ms, bound "
         f"{k8b_bound['bound_ms']:.4f} ms ({k8b_bound['bound_by']}); "
         f"bit-exact; 2 K8a + K8b = one K1 step, word for word")
-    del tp_args, parts, part_p, acc_f, acc_k8, acc_p8, one_step, acc_in
+    del tp_args, parts, part_p, acc_f, acc_k8, acc_p8, one_step
+    for name, r in report.items():      # every mesh here has model > 1
+        r["sharded"] = sharded_share(pk, bk, kp, acc_in, a_int, r["data"],
+                                     r["model"], r["warm_ms"])
+        log_share("L2_32", name, r["sharded"])
+    report["k8_residency"] = k8_residency(pk, kp, 32, "L2_32")
+    del acc_in
     # the unfolded route at model 2 (plain PyTorch, no kernel launch)
     bk4, out4 = unfolded.pop("bk4"), unfolded.pop("out4")
     n_cut = min(MESH_CUT, BATCH)
@@ -2130,7 +2254,8 @@ def main():
                 log(f"#   {name}: {line.strip()}")
     k1_build = k1_ptxas(_build.build_log["blind_rotate"])
     k7_build = k7_ptxas(_build.build_log["ga_scan"])
-    log_build(k1_build + k7_build)
+    k8_build = k8_ptxas(_build.build_log["tp_step"])
+    log_build(k1_build + k7_build + k8_build)
 
     # 3. kernel vs plain at full width on random inputs
     p = params.TFHEPP_L2
@@ -2840,8 +2965,8 @@ def main():
                 bk.vs32[0, s * jl2:(s + 1) * jl2].contiguous(), bkp)
                for s in range(2)]
     parts_k = torch.empty((2, BATCH, C, P, N), dtype=torch.int32, device=dev)
-    k8a_ms, _ = cuda_ms(lambda: pk.partial_step(*tp_args[0],
-                                                out=parts_k[0]), TP_REPS)
+    k8a_ms, _ = queued_ms(lambda: pk.partial_step(*tp_args[0],
+                                                  out=parts_k[0]), TP_REPS)
     pk.partial_step(*tp_args[1], out=parts_k[1])
     k8a_plain_ms, part_p = cuda_ms(lambda: pk.partial_step_plain(
         *tp_args[0]), 1)
@@ -2852,7 +2977,8 @@ def main():
     if k8a_err != 0.0:
         fail("K8a != plain on the path's inputs (shard 0)")
     acc_f = acc_in.clone()
-    k8b_ms, _ = cuda_ms(lambda: pk.finish_step(acc_f, parts_k, bkp), TP_REPS)
+    k8b_ms, _ = queued_ms(lambda: pk.finish_step(acc_f, parts_k, bkp),
+                          TP_REPS)
     acc_k8 = pk.finish_step(acc_in.clone(), parts_k, bkp)
     k8b_plain_ms, acc_p8 = cuda_ms(
         lambda: pk.finish_step_plain(acc_in.clone(), parts_k, bkp), 1)
@@ -2874,6 +3000,14 @@ def main():
         f"{k8b_bound['int32_ops']:.4g} int32 ops, {k8b_bound['bytes']:.4g} "
         f"B); bit-exact; 2 K8a + K8b = one K1 step, word for word")
     del tp_args, parts_k, part_p, acc_f, acc_k8, acc_p8, one_step
+    # K8a's and K8b's residency, each sharded path's device share and the
+    # wrappers' host time
+    k8_res = k8_residency(pk, bkp, 64, "L2")
+    for name, r in mesh_runs.items():
+        if r["model"] > 1:
+            r["sharded"] = sharded_share(pk, bk, bkp, acc_in, a_int,
+                                         r["data"], r["model"], r["warm_ms"])
+            log_share("L2", name, r["sharded"])
 
     # 18. the plain-PyTorch mesh routes (model 2) on the first ciphertexts
     n_cut = min(MESH_CUT, BATCH)
@@ -3158,6 +3292,7 @@ def main():
         "params": p.name, "batch": BATCH,
         "boot_per_s_k1": BATCH / pbs_ms * 1e3,
         **mesh_runs, "k8a_bound": k8a_bound, "k8b_bound": k8b_bound,
+        "k8_residency": k8_res, "k8_build": k8_build,
         "plain_routes": plain_routes}}))
     log(json.dumps({"set3": set3}))
     log(json.dumps({"torus32": {key: t32[key] for key in t32

@@ -1,10 +1,12 @@
 // K1's block schedule (blind_rotate.cu), shared with the GA rotation K7
-// (ga_scan.cu): a block of groups of T = N/16 threads, one group per prime,
-// each thread owning 16 coefficients of its group's row and running up to
-// four radix-2 stages on them between exchanges through the group's
-// exchange row; lazy Harvey residues ([0, 4p) forward, [0, 2p) in the MAC
-// and the inverse); the MAC's Barrett product on a key residue alone; and
-// Garner on rows a stride apart.  How K1 and K7 use it is in their sources.
+// (ga_scan.cu) and the split CMUX step K8a/K8b (tp_step.cu): a block of
+// groups of T = N/16 threads, one group per prime, each thread owning 16
+// coefficients of its group's row and running up to four radix-2 stages on
+// them between exchanges through the group's exchange row; lazy Harvey
+// residues ([0, 4p) forward, [0, 2p) in the MAC and the inverse); the MAC's
+// Barrett product on a key residue alone; Garner on rows a stride apart;
+// and the choice of a shape's instance and its launch.  How K1, K7 and
+// K8a/K8b use it is in their sources.
 //
 // Each kernel source that includes this header is compiled into its own
 // shared library, so everything here has internal linkage.
@@ -271,5 +273,34 @@ constexpr int kBlockThreads = LogN ? 384 : kMaxThreads;
 template <int LogN>
 constexpr int kMinBlocks = LogN ? 2 : 1;
 constexpr int kFixedLogN = 11;
+
+// Calls f(std::integral_constant<int, LogN>{}) with the LogN of the
+// instance that takes the plan's shape: kFixedLogN where N = 2048, k = 1
+// and the block's groups cover at most 3 primes (P), else 0.
+template <int P, typename F>
+cudaError_t with_log_n(const PbsConsts& K, F&& f) {
+  if constexpr (P <= 3)
+    if (K.logN == kFixedLogN && K.C == 2)
+      return f(std::integral_constant<int, kFixedLogN>{});
+  return f(std::integral_constant<int, 0>{});
+}
+
+// Launches kernel on B blocks of the schedule's threads with L.smem bytes
+// of dynamic shared memory, or, given blocks_per_sm, reports how many of
+// its blocks are resident on one SM instead.
+template <typename Kernel, typename... A>
+cudaError_t launch_sched(Kernel kernel, const Sched& s, const Layout& L,
+                         int B, cudaStream_t stream, int* blocks_per_sm,
+                         A... args) {
+  const int threads = s.NG * s.T;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
+  if (err != cudaSuccess) return err;
+  if (blocks_per_sm)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, threads, size_t(L.smem));
+  kernel<<<B, threads, L.smem, stream>>>(args...);
+  return cudaGetLastError();
+}
 
 }  // namespace

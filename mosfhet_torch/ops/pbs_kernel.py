@@ -131,15 +131,18 @@ updated in place.  Every shape of TFHEpp-L2, SET_1, SET_2 and UFHE_SET0
 keeps all of them in shared memory; N=4096 with 4 primes (SET_3) moves
 the u64 buffers out, N=8192 the spectra too.  The NTT rows must stay in
 shared memory: a shape whose NTT rows alone exceed the limit raises
-ValueError before any launch.  K8b's block holds only NTT rows: all C*P
-spectra where they fit, else one component's P rows, and the kernel then
-runs once per component (N=8192 with 4 primes).  (K5's block holds one
-row's P NTT rows and fits at every registered shape.)  K1 and K1-step hold
-no rotation buffer and one exchange row per group of N/16 threads
+ValueError before any launch.  (K5's block holds one row's P NTT rows
+and fits at every registered shape.)  K1 and K1-step hold no rotation
+buffer and one exchange row per group of N/16 threads
 (`rotation_schedule`) instead of the P NTT rows: 108.5 KiB at TFHEpp-L2
 (two blocks per SM), 67 KiB at L2_32 (three); SET_3 keeps its spectra in
 shared memory and acc in place, N=8192 its spectra in the workspace.  N
-above 16384 raises ValueError (a block of N/16 threads).
+above 16384 raises ValueError (a block of N/16 threads).  K8a and K8b
+(redesigned on K1's schedule) hold the same exchange rows.  K8a adds its
+groups' MAC slots and reads acc from the caller's tensor: 76.5 KiB at
+TFHEpp-L2, all in shared memory at every registered shape.  K8b adds the
+C*P spectra rows where they fit, else one component's P rows, and then
+runs once per component (N=8192 with 4 primes).
 """
 
 from __future__ import annotations
@@ -438,12 +441,15 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
     busiest, then the spectra's multiply-accumulates and inverse NTTs, then
     the key row of K4 (NTT'd J*C times per group, so it ranks above them
     there); the accumulator and the rotation/permutation buffer, read and
-    written once or twice per step, come last.  K8b ("finish_step", in tp_step.cu) holds
-    component 0's P spectra rows and, right after them where they fit, the
-    other components' rows; left out, it runs once per component.  The
-    one-step kernels "pbs_step" (K1-step) and "ext_product_apply_step"
-    (K3-step) hold K1's and K3's buffers.  M: K4's 2^u; P_ks: K7's
-    key-switch prime count."""
+    written once or twice per step, come last.  K8a ("tp_step") holds
+    its schedule's exchange rows and each group's MAC slots, one row per
+    component (a group keeps only the prime it is on); acc is read from
+    the caller's tensor.  K8b ("finish_step", in tp_step.cu) holds the
+    exchange rows, component 0's P spectra rows and, right after them
+    where they fit, the other components' rows; left out, it runs once per
+    component.  The one-step kernels "pbs_step" (K1-step) and
+    "ext_product_apply_step" (K3-step) hold K1's and K3's buffers.  M:
+    K4's 2^u; P_ks: K7's key-switch prime count."""
     C, P, N = kp.C, kp.P, kp.N
     row, spec, words = P * N * 4, C * P * N * 4, C * N * kp.torus_bits // 8
     if kernel in ("blind_rotate", "pbs_step"):     # work, spec, acc
@@ -464,13 +470,19 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
         return [(sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
                 (C * PM * sc["row_stride"] * 4, WORKSPACE, 1),
                 (words, IN_PLACE, 2)]
-    if kernel in ("tp_step", "auto_keyswitch"):  # K8a, K6: work, spec, rot
+    if kernel == "tp_step":            # K8a: work, its MAC slots
+        sc = rotation_schedule(N, P)
+        return [(sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
+                (sc["groups"] * C * sc["row_stride"] * 4, WORKSPACE, 1)]
+    if kernel == "auto_keyswitch":     # K6: work, spec, rot
         return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),
                 (words, WORKSPACE, 2)]
     if kernel == "cmux_delta":         # K1-delta: work, spec
         return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1)]
-    if kernel == "finish_step":        # K8b: rows of component 0, the rest
-        return [(row, SHARED_ONLY, 0), (spec - row, PASSES, 1)]
+    if kernel == "finish_step":        # K8b: work, component 0's rows, the
+        sc = rotation_schedule(N, P)   # rest
+        return [(sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
+                (row, SHARED_ONLY, 1), (spec - row, PASSES, 2)]
     raise ValueError(f"no buffer table for {kernel}")
 
 
@@ -497,9 +509,9 @@ def _layout(kernel: str, kp: PBSKernelPlan, B: int, dev, source=None, **kw):
 
 
 def _check_aligned(name, t):
-    """K1's, K1-step's and K7's key rows are read 16 bytes at a time (their
-    Shoup companions are not read: the kernels' MACs take Barrett
-    products)."""
+    """K1's, K1-step's, K7's and K8a's key rows, K8a's partial and K8b's
+    partials are read or written 16 bytes at a time (the keys' Shoup
+    companions are not read: the kernels' MACs take Barrett products)."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel reads it in 16-byte vectors; "
                          f"its data pointer is not 16-byte aligned")
@@ -553,6 +565,22 @@ def ga_scan_residency(kp: PBSKernelPlan, kp_ks: PBSKernelPlan, bits: int,
                       [kp.host_consts.ctypes.data,
                        kp_ks.host_consts.ctypes.data, layout.ctypes.data],
                       [bits])
+
+
+def tp_step_residency(kp: PBSKernelPlan, bits: int, kernel: str,
+                      dev=None) -> tuple[int, int]:
+    """(blocks resident on one SM, threads per block) of K8a (``kernel``
+    "partial_step") or K8b ("finish_step") on card ``dev`` at ``kp``'s
+    shape, its placement and the word width ``bits`` (the C entry
+    `tp_step_residency`)."""
+    finish = {"partial_step": 0, "finish_step": 1}[kernel]
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    layout, _ = kernel_layout("finish_step" if finish else "tp_step", kp,
+                              _smem_budget("tp_step", _index(dev)))
+    return _residency("tp_step", "partial_step_launch", 10, 4,
+                      "tp_step_residency", dev,
+                      [kp.host_consts.ctypes.data, layout.ctypes.data],
+                      [bits, finish])
 
 
 def _ptr(t) -> int | None:
@@ -1281,6 +1309,8 @@ def partial_step(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan, out=None):
         out = torch.empty((B, kp.C, kp.P, kp.N), dtype=torch.int32,
                           device=dev)
     _check("out", out, torch.int32, (B, kp.C, kp.P, kp.N), dev)
+    _check_aligned("keyv", keyv)
+    _check_aligned("out", out)
     if B == 0:
         return out
     layout, ws = _layout("tp_step", kp, B, dev)
@@ -1326,6 +1356,7 @@ def finish_step(acc, parts, kp: PBSKernelPlan):
     B, m = acc.shape[0], parts.shape[0]
     _check("acc", acc, acc.dtype, (B, kp.C, kp.N), dev)
     _check("parts", parts, torch.int32, (m, B, kp.C, kp.P, kp.N), dev)
+    _check_aligned("parts", parts)
     _check_plan(kp, dev)
     if m < 1:
         raise ValueError("finish_step needs at least one partial")

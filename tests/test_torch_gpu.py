@@ -1180,3 +1180,108 @@ def test_cuda_step_entry_points_launch_their_kernels():
         want = bootstrap.multivalue_bootstrap_UBR_phase2(luts, ct, cache, bku,
                                                          4)
         assert torch.equal(got.a, want.a) and torch.equal(got.b, want.b)
+
+
+# --- K8a and K8b on K1's schedule, at every placement ------------------------
+
+def _tp_parts(kp, m, B, seed):
+    """m random partials [m, B, C, P, N] with every prime's top residue
+    p - 1 at one word of each (the sum reaches m (p - 1)), on the card."""
+    rng = np.random.default_rng(seed)
+    parts = random_residues(rng, (m, B, kp.C, kp.P, kp.N), kp.primes)
+    parts[:, 0, 0, :, 0] = np.array(kp.primes, np.uint32) - 1
+    return as_i32(parts, "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", sorted(ROTATION_WIDTHS))
+def test_cuda_tp_step_matches_plain_at_every_placement(name, m):
+    """K8a over the first and the last of m shards' key rows (J // m rows
+    each, at least one) and K8b on m partials, exponents 0, N and 2N
+    present, at L2, L2_32, SET_3 and N=8192 (K8b one pass per component
+    there): the plain versions' words, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    B = 2 if name == "n8192" else 5
+    kp, (acc, a, kv, ks) = _rotation_case(name, B, 1, seed=900 + m)
+    jl = max(1, kp.J // m)
+    for j0 in (0, kp.J - jl):
+        args = (acc, a[0], j0, kv[0, j0:j0 + jl], ks[0, j0:j0 + jl], kp)
+        got, counts = _launched((tpk.partial_step,),
+                                lambda: tpk.partial_step(*args))
+        assert counts == (1,)
+        assert torch.equal(got, tpk.partial_step_plain(*args))
+    parts = _tp_parts(kp, m, B, seed=910 + m)
+    want = tpk.finish_step_plain(acc.clone(), parts, kp)
+    got = acc.clone()
+    out, counts = _launched((tpk.finish_step,),
+                            lambda: tpk.finish_step(got, parts, kp))
+    assert counts == (1,) and out is got and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["l2", "l2_32"])
+def test_cuda_split_step_matches_k1_step(name):
+    """Two K8a over the halves of the key rows and one K8b on their
+    partials: one K1-step's words, exponents 0, N and 2N present."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    B = 7
+    kp, (acc, a, kv, ks) = _rotation_case(name, B, 1, seed=920)
+    half = kp.J // 2
+    parts = torch.empty((2, B, kp.C, kp.P, kp.N), dtype=torch.int32,
+                        device="cuda")
+    for sh in range(2):
+        rows = slice(sh * half, (sh + 1) * half)
+        tpk.partial_step(acc, a[0], sh * half, kv[0, rows], ks[0, rows], kp,
+                         out=parts[sh])
+    got = tpk.finish_step(acc.clone(), parts, kp)
+    want = tpk.pbs_step(acc.clone(), a[0], kv[0], ks[0], kp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(ROTATION_WIDTHS))
+def test_cuda_tp_step_residency(name):
+    """The blocks of K8a and K8b the card keeps resident per SM, and their
+    threads, as K1's: two of 384 threads at L2, three of 256 at L2_32, one
+    of 1,024 at SET_3 and N=8192."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, _ = _rotation_case(name, 1, 1, seed=930)
+    want = {"l2": {"partial_step": (2, 384), "finish_step": (2, 384)},
+            "l2_32": {"partial_step": (3, 256), "finish_step": (3, 256)},
+            "set3": {"partial_step": (1, 1024), "finish_step": (1, 1024)},
+            "n8192": {"partial_step": (1, 1024),
+                      "finish_step": (1, 1024)}}[name]
+    for kernel, blocks_threads in want.items():
+        assert tpk.tp_step_residency(kp, kp.torus_bits,
+                                     kernel) == blocks_threads
+
+
+@pytest.mark.gpu
+def test_cuda_tp_step_refuses_misaligned_vectors():
+    """K8a reads its key rows and writes its partial, K8b reads the
+    partials, 16 bytes at a time: a view off a 16-byte boundary raises
+    before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, (acc, a, kv, ks) = _rotation_case("l2", 2, 1, seed=940)
+
+    def shifted(t):
+        s = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        return s[1:].view(t.shape).copy_(t)
+
+    out = torch.empty((2, kp.C, kp.P, kp.N), dtype=torch.int32, device="cuda")
+    parts = _tp_parts(kp, 2, 2, seed=941)
+    launches = (tpk.partial_step.launches, tpk.finish_step.launches)
+    for call in (lambda: tpk.partial_step(acc, a[0], 0, shifted(kv[0]),
+                                          ks[0], kp),
+                 lambda: tpk.partial_step(acc, a[0], 0, kv[0], ks[0], kp,
+                                          out=shifted(out)),
+                 lambda: tpk.finish_step(acc.clone(), shifted(parts), kp)):
+        with pytest.raises(ValueError, match="16-byte"):
+            call()
+    assert (tpk.partial_step.launches, tpk.finish_step.launches) == launches

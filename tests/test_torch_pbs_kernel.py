@@ -103,8 +103,8 @@ def test_layout_keeps_every_buffer_shared_where_it_fits(name, k_id):
     ("unfolded_rotate", {"M": 4}, "SSSWS", 192),
     ("auto_keyswitch", {}, "SSW", 192),
     ("ga_scan", {"P_ks": 4}, "SSI", 204),
-    ("tp_step", {}, "SSW", 192),
-    ("finish_step", {}, "SS", 128),
+    ("tp_step", {}, "SS", 204),
+    ("finish_step", {}, "SSS", 196),
     ("pbs_step", {}, "SSI", 204),
     ("ext_product_apply_step", {}, "SSI", 192)],
     ids=["K1", "K3", "K4", "K6", "K7", "K8a", "K8b", "K1-step", "K3-step"])
@@ -114,9 +114,11 @@ def test_layout_at_set3_moves_the_u64_buffers(kernel, kw, where, smem_kib):
     shared memory, the u64 buffers leave it (K4: the spectra leave, the key
     row and acc stay; K1, with no rotation buffer, and K7, with no
     permutation buffer, keep their four exchange rows and spectra and
-    update acc in place).  K1-step and K3-step place
-    K1's and K3's buffers: acc then stays in the caller's tensor between
-    their launches."""
+    update acc in place).  K8a (four exchange rows and its groups' MAC
+    slots, acc read from the caller's tensor) and K8b (four exchange rows
+    and all 8 spectra rows) keep everything in shared memory.  K1-step and
+    K3-step place K1's and K3's buffers: acc then stays in the caller's
+    tensor between their launches."""
     kp = _plan(4096, 1, 22)
     assert kp.P == 4
     layout, stride = tpk.kernel_layout(kernel, kp, H100_BUDGET, **kw)
@@ -147,28 +149,31 @@ def test_layout_that_cannot_be_placed_raises():
 
 
 def test_k8b_layout_at_n8192_runs_one_component_per_pass():
-    """N=8192 with 4 primes: K8b's 256 KiB of spectra do not fit, so one
-    component's 128 KiB of rows is placed and the other components' rows
-    are left out (the kernel then makes a pass per component); nothing
-    lives in a workspace."""
+    """N=8192 with 4 primes: K8b's 256 KiB of spectra do not fit beside its
+    two exchange rows (68 KiB), so one component's 128 KiB of rows is
+    placed and the other components' rows are left out (the kernel then
+    makes a pass per component); nothing lives in a workspace."""
     kp = _plan(8192, 1, 22)
     assert kp.P == 4
     layout, stride = tpk.kernel_layout("finish_step", kp, H100_BUDGET)
-    assert _where(layout) == "SI" and layout[0] == 128 * 1024
+    assert _where(layout) == "SSI" and layout[0] == (68 + 128) * 1024
     assert stride == 0
 
 
 def test_k8b_layout_at_l2_keeps_one_pass_in_contiguous_rows():
     """Where all C*P rows fit, the other components' rows follow component
-    0's directly, so one pass reads them as one [C][P][N] block."""
+    0's directly, so one pass reads them as one [C][P][N] block; the three
+    exchange rows of K1's schedule (N + N/16 words each) come first."""
     kp = _plan(2048, 4, 9)
     layout, stride = tpk.kernel_layout("finish_step", kp, H100_BUDGET)
-    row = kp.P * kp.N * 4
-    assert list(layout) == [kp.C * row, 0, 0, row] and stride == 0
+    row, work = kp.P * kp.N * 4, 3 * (2048 + 128) * 4
+    assert list(layout) == [work + kp.C * row, 0, 0, work, work + row]
+    assert stride == 0
 
 
 def test_k8b_layout_that_cannot_be_placed_raises():
-    """At N=16384 with 4 primes even one component's rows need 256 KiB."""
+    """At N=16384 with 4 primes even one component's rows need 256 KiB
+    (beside one exchange row of 68 KiB)."""
     kp = _plan(16384, 1, 22)
     with pytest.raises(ValueError, match="262144 B"):
         tpk.kernel_layout("finish_step", kp, H100_BUDGET)
