@@ -850,6 +850,19 @@ def k8_ptxas(text):
     return ptxas_instances(text, match, "K8")
 
 
+def sched_ptxas(text, kernel, tag):
+    """Every instance of K3's scan kernel (``kernel`` ext_product_apply,
+    not K3-step's) or K4's (unfolded_rotate), logged as ``tag``."""
+    def match(line):
+        m = re.search(kernel + r"_kernelILi(\d)E([mj])Lb([01])ELi(\d+)E",
+                      line)
+        return None if m is None else {
+            "entry": tag, "P": int(m[1]),
+            "words": "u64" if m[2] == "m" else "u32",
+            "all_shared": m[3] == "1", "log_n": int(m[4]) or None}
+    return ptxas_instances(text, match, tag)
+
+
 def log_build(entries):
     for e in entries:
         tag = re.match(r"K\d+", e["entry"])[0]     # K1-step: K1
@@ -883,6 +896,39 @@ def k7_residency(pk, kp, kp_ks, bits):
     """K7's residency at the two plans' shape (the CUDA occupancy query)."""
     return residency(*pk.ga_scan_residency(kp, kp_ks, bits),
                      f"K7 at N={kp.N}, P={kp.P}, P_ks={kp_ks.P}")
+
+
+def k3_k4_residency(pk, kp, bits, M, tag):
+    """K3's and K4's residency at ``kp``'s shape (K4 with M = 2^u
+    exponents; the CUDA occupancy query), logged under ``tag``."""
+    r = {"K3": residency(*pk.ext_product_apply_residency(kp, bits),
+                         f"K3 at N={kp.N}, P={kp.P}"),
+         "K4": residency(*pk.unfolded_rotate_residency(kp, bits, M),
+                         f"K4 at N={kp.N}, P={kp.P}, M={M}")}
+    log(f"# {tag} K3/K4 residency: " + "; ".join(
+        f"{name} {x['blocks_per_sm']} blocks of {x['threads_per_block']} "
+        f"threads per SM ({x['resident_ciphertexts']} ciphertexts at once)"
+        for name, x in r.items()))
+    return r
+
+
+def k3_alone_ms(pk, c, g, kp, per_row):
+    """K3 alone on `trgsw.external_product`'s inputs (the stacked TRLWEs
+    and the TRGSW's residues as int32, as that entry point builds them):
+    ms per launch, the entry point's glue left out."""
+    x = c.stacked().contiguous()
+    rows = (1, x.shape[0]) if per_row else (1,)
+    sa = pk.u32_as_i32(g.v).reshape(rows + tuple(g.v.shape[-4:])).contiguous()
+    return cuda_ms(lambda: pk.ext_product_apply_scan(x, sa, kp, per_row),
+                   REPS)[0]
+
+
+def unfolded_l2_traffic(kp, B, G, M, k4_ms):
+    """The key-product words K4's blocks read through L2 in one call
+    (every block reads every word of every group once: B G M J C N words)
+    and the rate they imply at K4's time."""
+    nbytes = B * G * M * kp.J * kp.C * kp.N * word_bytes(kp)
+    return {"l2_bytes": nbytes, "l2_bytes_per_s": nbytes / (k4_ms * 1e-3)}
 
 
 def k8_residency(pk, kp, bits, tag):
@@ -1299,6 +1345,7 @@ def set3_phase(dev, max_clock):
                                            kp),
              partial_step_bound(kp, B, j_local, max_clock))
     k8_res = k8_residency(pk, kp, 64, "SET_3")
+    k34_res = k3_k4_residency(pk, kp, 64, M4, "SET_3")
     log("# SET_3 K3 (broadcast, per row; G=2), K4 (u=2, G=2), K7 (n=4, "
         f"{G7} keyset entries, P_ks={kp_ks.P}) and K8a at B={B}: "
         + "; ".join(f"{name} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
@@ -1395,7 +1442,7 @@ def set3_phase(dev, max_clock):
                      "warm_ms": ga_ms, "boot_per_s": BATCH / ga_ms * 1e3,
                      "decrypt_max_err_log2": math.log2(max(ga_err, 1.0)),
                      "counts": ga_counts, "k7_residency": k7_res},
-              "k8_residency": k8_res}
+              "k8_residency": k8_res, "k3_k4_residency": k34_res}
     k1_entry = {
         "name": "blind_rotate_scan/set3", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/blind_rotate.cu",
@@ -1796,11 +1843,15 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
     if not (torch.equal(ext4.a, out4.a) and torch.equal(ext4.b, out4.b)):
         fail("L2_32 unfolded PBS output != extract of K4's rotation")
     k4 = runs["unfolded_rotate"]
+    k34_res = k3_k4_residency(pk, kp4, 32, M4, "L2_32")
+    k4_l2 = unfolded_l2_traffic(kp4, BATCH, G4, M4, k4["ms"])
     log(f"# L2_32 unfolded PBS (u={U_PBS}, G={G4}, M={M4}): first call "
         f"{first4_s:.3f} s; warm {ub_ms:.3f} ms per batch of {BATCH} = "
         f"{BATCH / ub_ms * 1e3:.2f} boot/s; peak {ub_peak / 2**30:.2f} GiB; "
         f"K4 {k4['ms']:.3f} ms/launch, plain {k4['plain_ms']:.3f} ms, bound "
-        f"{k4['bound_ms']:.3f} ms ({k4['bound_by']}); bit-exact")
+        f"{k4['bound_ms']:.3f} ms ({k4['bound_by']}); bit-exact; key "
+        f"products read through L2 {k4_l2['l2_bytes']:.4g} B = "
+        f"{k4_l2['l2_bytes_per_s'] / 1e12:.3f} TB/s at K4's time")
     del acc_in4, rot4, acc_k4
 
     # UBR at u=4: one ciphertext of m = 2/8, UBR_LUTS random 4-slot LUTs
@@ -1899,13 +1950,15 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
                  f"2^{math.log2(ep_err):.2f} >= 2^26")
         ep_ms, _ = cuda_ms(lambda: trgsw.external_product(c_ep, g), REPS)
         ep[mode] = {"ms": ep_ms, "plain_ms": plain_ep_ms,
+                    "k3_ms": k3_alone_ms(pk, c_ep, g, kp4, mode == "per_row"),
                     "launches": counts[f"extprod_{mode}"][
                         "ext_product_apply_scan"],
                     "decrypt_max_err_log2": math.log2(max(ep_err, 1.0)),
                     "bound": apply_scan_bound(kp4, BATCH, 1,
                                               mode == "per_row", max_clock)}
         log(f"# L2_32 external_product ({mode}) on {BATCH} TRLWEs: "
-            f"{ep_ms:.3f} ms per call, plain {plain_ep_ms:.3f} ms, bound "
+            f"{ep_ms:.3f} ms per call (K3 alone {ep[mode]['k3_ms']:.4f} ms), "
+            f"plain {plain_ep_ms:.3f} ms, bound "
             f"{ep[mode]['bound']['bound_ms']:.4f} ms; 1 K3 launch; bit-exact;"
             f" decrypt OK (max err 2^{ep[mode]['decrypt_max_err_log2']:.2f})")
     del g_all, g_one, c_ep, m_ep, out_ep, out_p
@@ -1915,7 +1968,9 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
                          "warm_ms": ub_ms, "boot_per_s": BATCH / ub_ms * 1e3,
                          "peak_bytes": ub_peak,
                          "decrypt_max_err_log2": math.log2(max(err4, 1.0)),
-                         "glue_ms": ub_ms - k4["ms"]},
+                         "glue_ms": ub_ms - k4["ms"],
+                         "k3_k4_residency": k34_res,
+                         "k4_l2_traffic": k4_l2},
             "ubr": {"unfolding": U_PBS, "luts": UBR_LUTS,
                     "phase1_first_ms": ph1_s * 1e3, "phase1_ms": k5["ms"],
                     "phase2_first_ms": ph2_s * 1e3, "phase2_ms": k3["ms"],
@@ -2255,7 +2310,11 @@ def main():
     k1_build = k1_ptxas(_build.build_log["blind_rotate"])
     k7_build = k7_ptxas(_build.build_log["ga_scan"])
     k8_build = k8_ptxas(_build.build_log["tp_step"])
-    log_build(k1_build + k7_build + k8_build)
+    k3_build = sched_ptxas(_build.build_log["ext_product_apply"],
+                           "ext_product_apply", "K3")
+    k4_build = sched_ptxas(_build.build_log["unfolded_rotate"],
+                           "unfolded_rotate", "K4")
+    log_build(k1_build + k7_build + k8_build + k3_build + k4_build)
 
     # 3. kernel vs plain at full width on random inputs
     p = params.TFHEPP_L2
@@ -2573,6 +2632,8 @@ def main():
         fail("unfolded path output != extract of K4's rotation")
     G4, M4 = bk4.su.shape[0], bk4.su.shape[1]
     k4_bound = unfolded_bound(kp4, BATCH, G4, M4, max_clock)
+    k34_res = k3_k4_residency(pk, kp4, 64, M4, "L2")
+    k4_l2 = unfolded_l2_traffic(kp4, BATCH, G4, M4, k4_ms)
     log(f"# unfolded PBS (u={U_PBS}): first call {first4_s:.3f} s; warm "
         f"{ub_ms:.3f} ms per batch of {BATCH} = {BATCH / ub_ms * 1e3:.2f} "
         f"boot/s (u=1: {BATCH / pbs_ms * 1e3:.2f}); decrypt OK (max err "
@@ -2581,7 +2642,9 @@ def main():
         f"{k4_ms:.3f} ms/launch, plain {k4_plain_ms:.3f} ms on the same "
         f"inputs, bound {k4_bound['bound_ms']:.3f} ms ({k4_bound['bound_by']}"
         f": {k4_bound['int32_ops']:.4g} int32 ops, {k4_bound['bytes']:.4g} "
-        f"B); bit-exact")
+        f"B); bit-exact; key products read through L2 "
+        f"{k4_l2['l2_bytes']:.4g} B = {k4_l2['l2_bytes_per_s'] / 1e12:.3f} "
+        f"TB/s at K4's time")
     del acc_in4, rot4, acc_k4, acc_p4          # bk4 and out4: phase 18
 
     # 11. UBR at u=8: one ciphertext, 256 LUTs
@@ -2699,12 +2762,14 @@ def main():
                  f"2^{math.log2(ep_err):.1f} > 2^58")
         ep_ms, _ = cuda_ms(lambda: trgsw.external_product(c_ep, g), REPS)
         ep[mode] = {"ms": ep_ms, "plain_ms": plain_ep_ms,
+                    "k3_ms": k3_alone_ms(pk, c_ep, g, kp, mode == "per_row"),
                     "launches": counts["ext_product_apply_scan"],
                     "decrypt_max_err_log2": math.log2(max(ep_err, 1.0)),
                     "bound": apply_scan_bound(kp, BATCH, 1,
                                               mode == "per_row", max_clock)}
         log(f"# external_product ({mode}) on {BATCH} TRLWEs: {ep_ms:.3f} ms "
-            f"per call, plain {plain_ep_ms:.3f} ms, bound "
+            f"per call (K3 alone {ep[mode]['k3_ms']:.4f} ms), plain "
+            f"{plain_ep_ms:.3f} ms, bound "
             f"{ep[mode]['bound']['bound_ms']:.3f} ms; 1 K3 launch; "
             f"bit-exact; decrypt OK (max err "
             f"2^{ep[mode]['decrypt_max_err_log2']:.1f})")
@@ -3089,6 +3154,7 @@ def main():
         "ms": k3_ms, "plain_ms": k3_plain_ms,
         "bound_ms": k3_bound["bound_ms"], "bound_by": k3_bound["bound_by"],
         "library_ms": None, "library_note": RUNTIME_KEY_LIBRARY_NOTE,
+        "resident_blocks_per_sm": k34_res["K3"]["blocks_per_sm"],
     }, {
         "name": "unfolded_rotate", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/unfolded_rotate.cu",
@@ -3099,6 +3165,7 @@ def main():
         "ms": k4_ms, "plain_ms": k4_plain_ms,
         "bound_ms": k4_bound["bound_ms"], "bound_by": k4_bound["bound_by"],
         "library_ms": None, "library_note": RUNTIME_KEY_LIBRARY_NOTE,
+        "resident_blocks_per_sm": k34_res["K4"]["blocks_per_sm"],
     }, {
         "name": "ubr_phase1_combine", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/ubr_phase1.cu",
@@ -3230,6 +3297,10 @@ def main():
         if name == "ga_scan_fused":
             kernels[-1]["resident_blocks_per_sm"] = \
                 t32["ga"]["k7_residency"]["blocks_per_sm"]
+        if name in ("ext_product_apply_scan", "unfolded_rotate"):
+            kernels[-1]["resident_blocks_per_sm"] = t32["unfolded"][
+                "k3_k4_residency"]["K3" if name[0] == "e" else "K4"][
+                "blocks_per_sm"]
     kernels += step_entries(
         t32["kernel_runs"],
         lambda name: {f"{path}32": c[name] for path, c in c32.items()},
@@ -3260,7 +3331,9 @@ def main():
         "boot_per_s": BATCH / ub_ms * 1e3,
         "boot_per_s_unfold1": BATCH / pbs_ms * 1e3, "peak_bytes": ub_peak,
         "decrypt_max_err_log2": math.log2(max(err4, 1.0)),
-        "rotation_ms": k4_ms, "glue_ms": ub_ms - k4_ms, "bound": k4_bound}}))
+        "rotation_ms": k4_ms, "glue_ms": ub_ms - k4_ms, "bound": k4_bound,
+        "k4_residency": k34_res["K4"], "k4_l2_traffic": k4_l2,
+        "k4_build": k4_build}}))
     log(json.dumps({"ubr": {
         "params": p.name, "unfolding": U_UBR, "luts": UBR_LUTS,
         "keygen_s": keygen8_s, "key_bytes": su8_bytes,
@@ -3269,7 +3342,8 @@ def main():
         "phase2_first_ms": ph2_s * 1e3, "phase2_ms": k3_ms,
         "phase2_ms_per_lut": k3_ms / UBR_LUTS,
         "decrypt_max_err_log2": math.log2(max(ubr_err, 1.0)),
-        "phase1_bound": k5_bound, "phase2_bound": k3_bound}}))
+        "phase1_bound": k5_bound, "phase2_bound": k3_bound,
+        "k3_residency": k34_res["K3"], "k3_build": k3_build}}))
     log(json.dumps({"steps": {"params": p.name, "rotation": steps,
                               "ubr": ubr_steps}}))
     log(json.dumps({"extprod": {"params": p.name, "batch": BATCH, **ep}}))

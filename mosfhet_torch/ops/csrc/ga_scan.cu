@@ -36,10 +36,12 @@
 // min(PM, 1024/T) groups), each thread owning 16 coefficients of its
 // group's row through the NTT passes, the MAC into its own window-0 slots of
 // spec, and the inverse from those slots to natural order.  Both external
-// products of a step run that way, each on its own plan (twiddles, primes;
-// a group with no prime of a plan waits at the next block barrier):
+// products of a step run that way (`product_spectra`, rotate_sched.cuh),
+// each on its own plan (twiddles, primes; a group with no prime of a plan
+// waits at the next block barrier):
 //   - stage 1 reads its digits straight from acc and, after a block
-//     barrier, Garner *replaces* acc with t (K1 adds);
+//     barrier, Garner *replaces* acc with t (K1 adds; `replace_acc`, whose
+//     body, with stage 1's, is K3's, ext_product_apply.cu);
 //   - stage 2 has no buffer: stage 3's digits read a'[c][k] =
 //     +-t[c][(k ginv mod 2N) mod N] from acc, as K1 reads X^a acc;
 //   - stage 3's Garner writes acc = (0, b') - INTT(.), b' = psi_g(t)[C-1].
@@ -80,102 +82,6 @@ __device__ __forceinline__ W permuted_word(const W* row, int k, int ginv,
   const unsigned ic = (unsigned(k) * unsigned(ginv)) & (2u * unsigned(N) - 1u);
   const W v = row[ic & unsigned(N - 1)];
   return (ic & unsigned(N)) ? W(0) - v : v;
-}
-
-__device__ __forceinline__ void prefetch_l2(const uint32_t* p) {
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
-}
-
-// The spectra of one external product on K1's schedule, for this thread's
-// group: per prime pi of plan K (PP primes; group g takes g, g + NG, ...),
-// the R digit rows j (component j / K.l, digit j % K.l) of the words
-// word(c, k) through the forward NTT and the MAC against key rows
-// [R][C][PP][N] (16-byte aligned) into the thread's window-0 slots of
-// spec[c][pi] (rows SR words apart, components PM rows apart; replaced at
-// j = 0), then the inverse NTTs of spec[c][pi] to natural order in the same
-// rows.  Prefetch: ask L2 for a row's key words before its forward passes.
-// Fixed: the 80-register shape (C = 2), whose MAC has both components' key
-// words in flight.  Below a warp per group every exchange synchronises the
-// whole block and every group has one prime of PM: a group with none of
-// this plan's then runs the same passes on prime 0 without loading a key or
-// storing, so that every thread reaches the same barriers.
-template <int PP, int PM, typename W, bool Fixed, bool Prefetch,
-          typename Word>
-__device__ __forceinline__ void product_spectra(
-    Word word, int R, const uint32_t* __restrict__ key, uint32_t* spec,
-    uint32_t* work, const uint32_t* __restrict__ ftw,
-    const uint32_t* __restrict__ ftws, const uint32_t* __restrict__ itw,
-    const uint32_t* __restrict__ itws, const PbsConsts& K, const Sched& s) {
-  constexpr int H = Fixed ? 2 : 1;
-  const int N = 1 << s.logN, C = Fixed ? 2 : K.C, l = K.l;
-  const int g = threadIdx.x >> s.logT, t = threadIdx.x & (s.T - 1);
-  const W offset = W(K.offset);
-  uint32_t* buf = work + g * s.SR;
-  const int slot0 = slots(s, t, 0).first;  // window 0: slot0 + v
-  uint32_t x[kR];
-  for (int pi = g; pi < PP || (s.T < 32 && pi == g); pi += s.NG) {
-    const bool live = pi < PP;
-    const int pr = live ? pi : 0;
-    const uint32_t p = K.p[pr], p2 = 2 * p, mup = K.mup[pr];
-    const uint32_t *fw = ftw + pr * N, *fws = ftws + pr * N;
-    for (int j = 0; j < R; ++j) {
-      const int cj = j / l, d = j % l;
-      const uint32_t* kj = key + (size_t(j * C) * PP + pr) * N + (t << kQ);
-      if (Prefetch && live)
-        for (int c = 0; c < C; ++c) {
-          prefetch_l2(kj + size_t(c) * PP * N);
-          prefetch_l2(kj + size_t(c) * PP * N + kR / 2);
-        }
-#pragma unroll
-      for (int v = 0; v < kR; ++v) {
-        const W w = word(cj, t | (v << s.logT)) + offset;
-        x[v] = small_residue(gadget_digit(w, d, K), p);
-      }
-      forward_row(x, buf, s, t, g, fw, fws, p);
-      if (!live) continue;
-      for (int c0 = 0; c0 < C; c0 += H) {
-        uint4 kw[H][kR / 4];
-#pragma unroll
-        for (int u = 0; u < H; ++u) {
-          const uint4* k4 = reinterpret_cast<const uint4*>(
-              kj + size_t(c0 + u) * PP * N);
-#pragma unroll
-          for (int q = 0; q < kR / 4; ++q) kw[u][q] = __ldg(k4 + q);
-        }
-#pragma unroll
-        for (int u = 0; u < H; ++u) {
-          uint32_t* sp = spec + ((c0 + u) * PM + pi) * s.SR + slot0;
-#pragma unroll
-          for (int q = 0; q < kR / 4; ++q) {
-            const uint4 k4 = kw[u][q];
-            const uint32_t m[4] = {mac_product(x[4 * q], k4.x, p, mup),
-                                   mac_product(x[4 * q + 1], k4.y, p, mup),
-                                   mac_product(x[4 * q + 2], k4.z, p, mup),
-                                   mac_product(x[4 * q + 3], k4.w, p, mup)};
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              sp[4 * q + e] = j == 0 ? m[e] : lazy2(sp[4 * q + e] + m[e], p2);
-          }
-        }
-      }
-    }
-    // the inverse NTTs from this thread's slots to natural order in the
-    // same row (every slot is read before the exchanges' group barrier,
-    // every output written after it)
-    const uint32_t *iw = itw + pr * N, *iws = itws + pr * N;
-    for (int c = 0; c < C; ++c) {
-      uint32_t* row = spec + (c * PM + pr) * s.SR;
-      if (live) {
-#pragma unroll
-        for (int v = 0; v < kR; ++v) x[v] = row[slot0 + v];
-      }
-      inverse_row(x, buf, s, t, g, iw, iws, p);
-      if (live) {
-#pragma unroll
-        for (int v = 0; v < kR; ++v) row[t | (v << s.logT)] = x[v];
-      }
-    }
-  }
 }
 
 // K7: the whole GA rotation, one block per ciphertext.  LogN != 0: the
@@ -230,11 +136,7 @@ ga_scan_kernel(W* __restrict__ acc_g, const int32_t* __restrict__ gens,
     product_spectra<P, PM, W, Fixed, false>(
         [&](int c, int k) { return acc[c * N + k]; }, J,
         sv + i * step_stride, spec, work, ftw, ftws, itw, itws, Kb, s);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < CN; idx += threads)
-      acc[idx] = garner_rows<P, W>(spec + (idx >> s.logN) * PM * s.SR, s.SR,
-                                   idx & (N - 1), Kb);
-    __syncthreads();
+    replace_acc<P, PM, W>(acc, spec, N, CN, threads, Kb, s);
     // 2-3. (a', b') = psi_g(t) read through ginv; the key switch's spectra
     //      against keyset entry (g - 1) / 2
     product_spectra<PK, PM, W, Fixed, true>(
@@ -279,32 +181,22 @@ struct Args {
 
 template <int P, int PK, typename W, bool S, int LogN>
 cudaError_t launch(const Args& x, const PbsConsts& Kb, const PbsConsts& Kk,
-                   const Layout& L) {
-  auto* kernel = ga_scan_kernel<P, PK, W, S, LogN>;
-  Sched s;
-  if (!make_sched(Kb.logN, P > PK ? P : PK, s)) return cudaErrorInvalidValue;
-  const int threads = s.NG * s.T;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
-  if (err != cudaSuccess) return err;
-  if (x.blocks_per_sm)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        x.blocks_per_sm, kernel, threads, size_t(L.smem));
+                   const Layout& L, const Sched& s) {
   const uint32_t* const* tw = x.tw;
-  kernel<<<x.B, threads, L.smem, x.stream>>>(
-      static_cast<W*>(x.acc), x.gens, x.sv, x.ak, x.inv2n, tw[0], tw[1],
-      tw[2], tw[3], tw[4], tw[5], tw[6], tw[7], x.ws, Kb, Kk, L, x.n, x.B);
-  return cudaGetLastError();
+  return launch_sched(ga_scan_kernel<P, PK, W, S, LogN>, s, L, x.B, x.stream,
+                      x.blocks_per_sm, static_cast<W*>(x.acc), x.gens, x.sv,
+                      x.ak, x.inv2n, tw[0], tw[1], tw[2], tw[3], tw[4], tw[5],
+                      tw[6], tw[7], x.ws, Kb, Kk, L, x.n, x.B);
 }
 
 template <int P, int PK, typename W>
 cudaError_t launch_s(const Args& x, const PbsConsts& Kb, const PbsConsts& Kk,
-                     const Layout& L) {
-  if (!all_shared(L, kNumBuf)) return launch<P, PK, W, false, 0>(x, Kb, Kk, L);
-  if constexpr (P <= 3 && PK <= 3)
-    if (Kb.logN == kFixedLogN && Kb.C == 2)
-      return launch<P, PK, W, true, kFixedLogN>(x, Kb, Kk, L);
-  return launch<P, PK, W, true, 0>(x, Kb, Kk, L);
+                     const Layout& L, const Sched& s) {
+  return with_log_n<(P > PK ? P : PK)>(Kb, [&](auto n) {
+    if (!all_shared(L, kNumBuf))
+      return launch<P, PK, W, false, 0>(x, Kb, Kk, L, s);
+    return launch<P, PK, W, true, decltype(n)::value>(x, Kb, Kk, L, s);
+  });
 }
 
 int launch_entry(void* acc, const void* gens, const void* sv, const void* ak,
@@ -315,7 +207,8 @@ int launch_entry(void* acc, const void* gens, const void* sv, const void* ak,
   PbsConsts Kb, Kk;
   Sched s;
   if (!parse_consts(consts, Kb) || !parse_consts(kconsts, Kk) ||
-      Kb.N != Kk.N || Kb.C != Kk.C || !make_sched(Kb.logN, Kb.P, s))
+      Kb.N != Kk.N || Kb.C != Kk.C ||
+      !make_sched(Kb.logN, Kb.P > Kk.P ? Kb.P : Kk.P, s))
     return int(cudaErrorInvalidValue);
   if ((B == 0 || n == 0) && !blocks_per_sm) return int(cudaSuccess);
   const Args x{acc,
@@ -334,7 +227,7 @@ int launch_entry(void* acc, const void* gens, const void* sv, const void* ak,
     using W = decltype(w);
     constexpr int P = decltype(p)::value;
     return dispatch_pk<W>(Kk.P, [&](auto pk) {
-      return launch_s<P, decltype(pk)::value, W>(x, Kb, Kk, L);
+      return launch_s<P, decltype(pk)::value, W>(x, Kb, Kk, L, s);
     });
   }));
 }

@@ -1,12 +1,15 @@
 // K1's block schedule (blind_rotate.cu), shared with the GA rotation K7
-// (ga_scan.cu) and the split CMUX step K8a/K8b (tp_step.cu): a block of
-// groups of T = N/16 threads, one group per prime, each thread owning 16
-// coefficients of its group's row and running up to four radix-2 stages on
-// them between exchanges through the group's exchange row; lazy Harvey
-// residues ([0, 4p) forward, [0, 2p) in the MAC and the inverse); the MAC's
-// Barrett product on a key residue alone; Garner on rows a stride apart;
-// and the choice of a shape's instance and its launch.  How K1, K7 and
-// K8a/K8b use it is in their sources.
+// (ga_scan.cu), the split CMUX step K8a/K8b (tp_step.cu), the external-product
+// scan K3 (ext_product_apply.cu) and the unfolded rotation K4
+// (unfolded_rotate.cu): a block of groups of T = N/16 threads, one group per
+// prime, each thread owning 16 coefficients of its group's row and running
+// up to four radix-2 stages on them between exchanges through the group's
+// exchange row; lazy Harvey residues ([0, 4p) forward, [0, 2p) in the MAC
+// and the inverse); the MAC's Barrett product on a key residue alone;
+// Garner on rows a stride apart; the replace-mode external product's
+// spectra (K7's stage 1 and K3) and the Garner that replaces acc with them;
+// and the choice of a shape's instance and its launch.  How each kernel
+// uses it is in its source.
 //
 // Each kernel source that includes this header is compiled into its own
 // shared library, so everything here has internal linkage.
@@ -260,6 +263,121 @@ __device__ __forceinline__ W garner_rows(const uint32_t* spec_c, int stride,
 #pragma unroll
   for (int m = P - 2; m >= 0; --m) v = v * W(K.p[m]) + W(d[m]);
   return v;
+}
+
+__device__ __forceinline__ void prefetch_l2(const uint32_t* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// The spectra of one external product on K1's schedule, for this thread's
+// group: per prime pi of plan K (PP primes; group g takes g, g + NG, ...),
+// the R digit rows j (component j / K.l, digit j % K.l) of the words
+// word(c, k) through the forward NTT and the MAC against key rows
+// [R][C][PP][N] (16-byte aligned) into the thread's window-0 slots of
+// spec[c][pi] (rows SR words apart, components PM rows apart; replaced at
+// j = 0), then the inverse NTTs of spec[c][pi] to natural order in the same
+// rows.  Prefetch: ask L2 for a row's key words `ahead` words on (0: the
+// row itself) before its forward passes.  Fixed: the 80-register shape
+// (C = 2), whose MAC has both components' key words in flight.  Below a
+// warp per group every exchange synchronises the whole block and every
+// group has one prime of PM: a group with none of this plan's then runs the
+// same passes on prime 0 without loading a key or storing, so that every
+// thread reaches the same barriers.
+template <int PP, int PM, typename W, bool Fixed, bool Prefetch,
+          typename Word>
+__device__ __forceinline__ void product_spectra(
+    Word word, int R, const uint32_t* __restrict__ key, uint32_t* spec,
+    uint32_t* work, const uint32_t* __restrict__ ftw,
+    const uint32_t* __restrict__ ftws, const uint32_t* __restrict__ itw,
+    const uint32_t* __restrict__ itws, const PbsConsts& K, const Sched& s,
+    size_t ahead = 0) {
+  constexpr int H = Fixed ? 2 : 1;
+  const int N = 1 << s.logN, C = Fixed ? 2 : K.C, l = K.l;
+  const int g = threadIdx.x >> s.logT, t = threadIdx.x & (s.T - 1);
+  const W offset = W(K.offset);
+  uint32_t* buf = work + g * s.SR;
+  const int slot0 = slots(s, t, 0).first;  // window 0: slot0 + v
+  uint32_t x[kR];
+  for (int pi = g; pi < PP || (s.T < 32 && pi == g); pi += s.NG) {
+    const bool live = pi < PP;
+    const int pr = live ? pi : 0;
+    const uint32_t p = K.p[pr], p2 = 2 * p, mup = K.mup[pr];
+    const uint32_t *fw = ftw + pr * N, *fws = ftws + pr * N;
+    for (int j = 0; j < R; ++j) {
+      const int cj = j / l, d = j % l;
+      const uint32_t* kj = key + (size_t(j * C) * PP + pr) * N + (t << kQ);
+      if (Prefetch && live)
+        for (int c = 0; c < C; ++c) {
+          prefetch_l2(kj + ahead + size_t(c) * PP * N);
+          prefetch_l2(kj + ahead + size_t(c) * PP * N + kR / 2);
+        }
+#pragma unroll
+      for (int v = 0; v < kR; ++v) {
+        const W w = word(cj, t | (v << s.logT)) + offset;
+        x[v] = small_residue(gadget_digit(w, d, K), p);
+      }
+      forward_row(x, buf, s, t, g, fw, fws, p);
+      if (!live) continue;
+      for (int c0 = 0; c0 < C; c0 += H) {
+        uint4 kw[H][kR / 4];
+#pragma unroll
+        for (int u = 0; u < H; ++u) {
+          const uint4* k4 = reinterpret_cast<const uint4*>(
+              kj + size_t(c0 + u) * PP * N);
+#pragma unroll
+          for (int q = 0; q < kR / 4; ++q) kw[u][q] = __ldg(k4 + q);
+        }
+#pragma unroll
+        for (int u = 0; u < H; ++u) {
+          uint32_t* sp = spec + ((c0 + u) * PM + pi) * s.SR + slot0;
+#pragma unroll
+          for (int q = 0; q < kR / 4; ++q) {
+            const uint4 k4 = kw[u][q];
+            const uint32_t m[4] = {mac_product(x[4 * q], k4.x, p, mup),
+                                   mac_product(x[4 * q + 1], k4.y, p, mup),
+                                   mac_product(x[4 * q + 2], k4.z, p, mup),
+                                   mac_product(x[4 * q + 3], k4.w, p, mup)};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sp[4 * q + e] = j == 0 ? m[e] : lazy2(sp[4 * q + e] + m[e], p2);
+          }
+        }
+      }
+    }
+    // the inverse NTTs from this thread's slots to natural order in the
+    // same row (every slot is read before the exchanges' group barrier,
+    // every output written after it)
+    const uint32_t *iw = itw + pr * N, *iws = itws + pr * N;
+    for (int c = 0; c < C; ++c) {
+      uint32_t* row = spec + (c * PM + pr) * s.SR;
+      if (live) {
+#pragma unroll
+        for (int v = 0; v < kR; ++v) x[v] = row[slot0 + v];
+      }
+      inverse_row(x, buf, s, t, g, iw, iws, p);
+      if (live) {
+#pragma unroll
+        for (int v = 0; v < kR; ++v) row[t | (v << s.logT)] = x[v];
+      }
+    }
+  }
+}
+
+// acc [C][N] <- Garner of the natural-order spectra rows spec[c][0 .. P)
+// (SR words apart, components PM rows apart), between two block barriers:
+// the first waits for every group's inverse NTTs, the second for every
+// word of acc before anything reads it again.  N, CN = C N and the block's
+// threads as the kernel holds them.
+template <int P, int PM, typename W>
+__device__ __forceinline__ void replace_acc(W* acc, const uint32_t* spec,
+                                            int N, int CN, int threads,
+                                            const PbsConsts& K,
+                                            const Sched& s) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < CN; idx += threads)
+    acc[idx] = garner_rows<P, W>(spec + (idx >> s.logN) * PM * s.SR, s.SR,
+                                 idx & (N - 1), K);
+  __syncthreads();
 }
 
 // Launch bounds: a block of at most 384 threads (TFHEpp-L2's and L2_32's

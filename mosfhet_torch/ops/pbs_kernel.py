@@ -132,12 +132,13 @@ keeps all of them in shared memory; N=4096 with 4 primes (SET_3) moves
 the u64 buffers out, N=8192 the spectra too.  The NTT rows must stay in
 shared memory: a shape whose NTT rows alone exceed the limit raises
 ValueError before any launch.  (K5's block holds one row's P NTT rows
-and fits at every registered shape.)  K1 and K1-step hold no rotation
-buffer and one exchange row per group of N/16 threads
+and fits at every registered shape.)  K1, K1-step, K3 and K4 hold no
+rotation buffer and one exchange row per group of N/16 threads
 (`rotation_schedule`) instead of the P NTT rows: 108.5 KiB at TFHEpp-L2
-(two blocks per SM), 67 KiB at L2_32 (three); SET_3 keeps its spectra in
-shared memory and acc in place, N=8192 its spectra in the workspace.  N
-above 16384 raises ValueError (a block of N/16 threads).  K8a and K8b
+(two blocks per SM; K4 adds its group's 2^u exponents), 67 KiB at L2_32
+(three); SET_3 keeps their spectra in shared memory and acc in place,
+N=8192 their spectra in the workspace.  N above 16384 raises ValueError
+(a block of N/16 threads).  K8a and K8b
 (redesigned on K1's schedule) hold the same exchange rows.  K8a adds its
 groups' MAC slots and reads acc from the caller's tensor: 76.5 KiB at
 TFHEpp-L2, all in shared memory at every registered shape.  K8b adds the
@@ -433,37 +434,41 @@ def rotation_schedule(N: int, P: int) -> dict:
 def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
                    P_ks: int = 0):
     """(nbytes, home, rank) of each of a block's buffers in ``kernel``
-    (the source's name), in the order of its enum.  K1 and K1-step
-    ("blind_rotate", "pbs_step") hold one exchange row per group of their
-    schedule (`rotation_schedule`), the spectra and the accumulator; so
-    does K7 ("ga_scan"), on the schedule of its larger plan's primes.  rank
-    orders them by traffic: the digit rows' NTTs (work, dig) are the
-    busiest, then the spectra's multiply-accumulates and inverse NTTs, then
-    the key row of K4 (NTT'd J*C times per group, so it ranks above them
-    there); the accumulator and the rotation/permutation buffer, read and
-    written once or twice per step, come last.  K8a ("tp_step") holds
+    (the source's name), in the order of its enum.  K1, K1-step and K3
+    ("blind_rotate", "pbs_step", "ext_product_apply") hold one exchange row
+    per group of their schedule (`rotation_schedule`), the spectra and the
+    accumulator; so does K7 ("ga_scan"), on the schedule of its larger
+    plan's primes, and K4 ("unfolded_rotate"), whose exchange rows also
+    carry the combined key rows, after its group's M exponents.  rank
+    orders them by traffic: the NTTs' rows (work) are the busiest, then
+    the spectra's multiply-accumulates and inverse NTTs; the accumulator
+    and the exponents or rotation/permutation buffer, read and written
+    once or twice per step, come last.  K8a ("tp_step") holds
     its schedule's exchange rows and each group's MAC slots, one row per
     component (a group keeps only the prime it is on); acc is read from
     the caller's tensor.  K8b ("finish_step", in tp_step.cu) holds the
     exchange rows, component 0's P spectra rows and, right after them
     where they fit, the other components' rows; left out, it runs once per
-    component.  The one-step kernels "pbs_step" (K1-step) and
-    "ext_product_apply_step" (K3-step) hold K1's and K3's buffers.  M:
-    K4's 2^u; P_ks: K7's key-switch prime count."""
+    component.  The one-step kernel "pbs_step" (K1-step) holds K1's
+    buffers; "ext_product_apply_step" (K3-step, the first design) the
+    digit row's P NTT rows, the spectra and the accumulator.  M: K4's 2^u;
+    P_ks: K7's key-switch prime count."""
     C, P, N = kp.C, kp.P, kp.N
     row, spec, words = P * N * 4, C * P * N * 4, C * N * kp.torus_bits // 8
-    if kernel in ("blind_rotate", "pbs_step"):     # work, spec, acc
-        sc = rotation_schedule(N, P)
+    if kernel in ("blind_rotate", "pbs_step", "ext_product_apply"):
+        sc = rotation_schedule(N, P)               # work, spec, acc
         return [(sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
                 (C * P * sc["row_stride"] * 4, WORKSPACE, 1),
                 (words, IN_PLACE, 2)]
-    if kernel in ("ext_product_apply", "ext_product_apply_step"):
+    if kernel == "ext_product_apply_step":
         return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),  # work, spec,
                 (words, IN_PLACE, 2)]                         # acc
-    if kernel == "unfolded_rotate":    # rots, key, dig, spec, acc
-        return [(M * 4, WORKSPACE, 0), (row, WORKSPACE, 1),
-                (row, SHARED_ONLY, 2), (spec, WORKSPACE, 3),
-                (words, IN_PLACE, 4)]
+    if kernel == "unfolded_rotate":    # rots, work, spec, acc
+        sc = rotation_schedule(N, P)
+        return [(M * 4, WORKSPACE, 0),
+                (sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
+                (C * P * sc["row_stride"] * 4, WORKSPACE, 1),
+                (words, IN_PLACE, 2)]
     if kernel == "ga_scan":            # work, spec, acc
         PM = max(P, P_ks)
         sc = rotation_schedule(N, PM)
@@ -509,8 +514,8 @@ def _layout(kernel: str, kp: PBSKernelPlan, B: int, dev, source=None, **kw):
 
 
 def _check_aligned(name, t):
-    """K1's, K1-step's, K7's and K8a's key rows, K8a's partial and K8b's
-    partials are read or written 16 bytes at a time (the keys' Shoup
+    """K1's, K1-step's, K3's, K7's and K8a's key rows, K8a's partial and
+    K8b's partials are read or written 16 bytes at a time (the keys' Shoup
     companions are not read: the kernels' MACs take Barrett products)."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel reads it in 16-byte vectors; "
@@ -581,6 +586,35 @@ def tp_step_residency(kp: PBSKernelPlan, bits: int, kernel: str,
                       "tp_step_residency", dev,
                       [kp.host_consts.ctypes.data, layout.ctypes.data],
                       [bits, finish])
+
+
+def ext_product_apply_residency(kp: PBSKernelPlan, bits: int,
+                                dev=None) -> tuple[int, int]:
+    """(blocks resident on one SM, threads per block) of K3 on card ``dev``
+    at ``kp``'s shape, its placement and the word width ``bits`` (the C
+    entry `ext_product_apply_residency`)."""
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    layout, _ = kernel_layout("ext_product_apply", kp,
+                              _smem_budget("ext_product_apply", _index(dev)))
+    return _residency("ext_product_apply", "ext_product_apply_launch", 9, 4,
+                      "ext_product_apply_residency", dev,
+                      [kp.host_consts.ctypes.data, layout.ctypes.data],
+                      [bits])
+
+
+def unfolded_rotate_residency(kp: PBSKernelPlan, bits: int, M: int,
+                              dev=None) -> tuple[int, int]:
+    """(blocks resident on one SM, threads per block) of K4 on card ``dev``
+    at ``kp``'s shape, its placement for M = 2^u exponents and the word
+    width ``bits`` (the C entry `unfolded_rotate_residency`)."""
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    layout, _ = kernel_layout("unfolded_rotate", kp,
+                              _smem_budget("unfolded_rotate", _index(dev)),
+                              M=M)
+    return _residency("unfolded_rotate", "unfolded_rotate_launch", 10, 4,
+                      "unfolded_rotate_residency", dev,
+                      [kp.host_consts.ctypes.data, layout.ctypes.data],
+                      [bits])
 
 
 def _ptr(t) -> int | None:
@@ -782,6 +816,7 @@ def ext_product_apply_scan(acc0, sa32, kp: PBSKernelPlan,
     _check("acc0", acc0, acc0.dtype, (B, kp.C, kp.N), dev)
     _check("sa32", sa32, torch.int32, (G, B) + row if per_row else (G,) + row,
            dev)
+    _check_aligned("sa32", sa32)
     _check_plan(kp, dev)
     acc = acc0.clone()
     if B == 0 or G == 0:

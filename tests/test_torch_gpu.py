@@ -1285,3 +1285,141 @@ def test_cuda_tp_step_refuses_misaligned_vectors():
         with pytest.raises(ValueError, match="16-byte"):
             call()
     assert (tpk.partial_step.launches, tpk.finish_step.launches) == launches
+
+
+# --- K3 and K4 on K1's schedule ---------------------------------------------
+
+def _apply_case(name, B, G, per_row, seed):
+    """K3's plan and arguments at ROTATION_WIDTHS[name]: random words of
+    the width, G random keys (broadcast or one per row)."""
+    N, l, Bg_bit, bits = ROTATION_WIDTHS[name]
+    primes = PRIMES_32 if bits == 32 else ntt.primes_for_bound(
+        ntt.external_product_bound(N, Bg_bit, l, 1))
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, 1, "cuda", bits)
+    rng = np.random.default_rng(seed)
+    acc = rng.integers(0, 1 << bits, size=(B, kp.C, N), dtype=np.uint64)
+    rows = (G, B) if per_row else (G,)
+    sa = random_residues(rng, rows + (kp.J, kp.C, kp.P, N), primes)
+    # a word at p - 1 of every prime
+    sa[(0,) * len(rows) + (0, 0, slice(None), 0)] = np.array(primes) - 1
+    words = as_i32(acc.astype(np.uint32), "cuda") if bits == 32 else \
+        to_tensor(acc, "cuda")
+    return kp, (words, as_i32(sa, "cuda"), kp, per_row)
+
+
+def _unfolded_case(name, B, G, u, seed):
+    """K4's plan and arguments at ROTATION_WIDTHS[name]: random words and
+    key products of the width, exponents 0, N and 2N present."""
+    N, l, Bg_bit, bits = ROTATION_WIDTHS[name]
+    primes = PRIMES_32 if bits == 32 else ntt.primes_for_bound(
+        ntt.external_product_bound(N, Bg_bit, l, 1))
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, 1, "cuda", bits)
+    rng = np.random.default_rng(seed)
+    M = 1 << u
+
+    def words(*shape):
+        w = rng.integers(0, 1 << bits, size=shape, dtype=np.uint64)
+        return as_i32(w.astype(np.uint32), "cuda") if bits == 32 else \
+            to_tensor(w, "cuda")
+
+    acc = words(B, kp.C, N)
+    su = words(G, M, kp.J, kp.C, N)
+    rot = torch.from_numpy(random_exponents(rng, B, G, M, N)).cuda()
+    return kp, (acc, rot, su, kp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 131, 133, 265])
+@pytest.mark.parametrize("name", ["l2", "l2_32"])
+@pytest.mark.parametrize("per_row", [False, True],
+                         ids=["broadcast", "per_row"])
+def test_cuda_ext_product_apply_ragged_batches_match_plain(name, B, per_row):
+    """K3 over G=3 products on batches around the card's resident blocks
+    (two of 384 threads per SM at L2, three of 256 at L2_32), one launch,
+    the plain version's words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, args = _apply_case(name, B, 3, per_row, seed=1000 + B + per_row)
+    launches = tpk.ext_product_apply_scan.launches
+    got = tpk.ext_product_apply_scan(*args)
+    torch.cuda.synchronize()
+    assert tpk.ext_product_apply_scan.launches == launches + 1
+    want = tpk.ext_product_apply_scan_plain(*args)
+    assert got.dtype == args[0].dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 131, 133, 265])
+@pytest.mark.parametrize("name", ["l2", "l2_32"])
+def test_cuda_unfolded_rotate_ragged_batches_match_plain(name, B):
+    """K4 at u=4 over G=2 groups on batches around the card's resident
+    blocks, exponents 0, N and 2N present, one launch, the plain version's
+    words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, args = _unfolded_case(name, B, 2, 4, seed=1100 + B)
+    launches = tpk.unfolded_rotate.launches
+    got = tpk.unfolded_rotate(*args)
+    torch.cuda.synchronize()
+    assert tpk.unfolded_rotate.launches == launches + 1
+    want = tpk.unfolded_rotate_plain(*args)
+    assert got.dtype == args[0].dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B", [("set3", 133), ("n8192", 5)])
+@pytest.mark.parametrize("per_row", [False, True],
+                         ids=["broadcast", "per_row"])
+def test_cuda_ext_product_apply_beyond_shared_memory(name, B, per_row):
+    """K3 at SET_3 (1,024 threads, acc in place) and N=8192 (spectra in the
+    workspace), G=2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, args = _apply_case(name, B, 2, per_row, seed=1200 + B + per_row)
+    got = tpk.ext_product_apply_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tpk.ext_product_apply_scan_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,u", [("set3", 133, 1), ("set3", 133, 2),
+                                      ("set3", 133, 4), ("n8192", 3, 2)])
+def test_cuda_unfolded_rotate_beyond_shared_memory(name, B, u):
+    """K4 at SET_3 (1,024 threads, one block per SM, acc in place) and
+    N=8192 (two groups of 512 threads take the 4 primes in two rounds, the
+    spectra in the workspace), G=2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, args = _unfolded_case(name, B, 2, u, seed=1300 + u + B)
+    got = tpk.unfolded_rotate(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tpk.unfolded_rotate_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["l2", "l2_32", "set3"])
+def test_cuda_apply_and_unfolded_residency(name):
+    """K3's and K4's blocks per SM and threads, as K1's: two of 384 at L2,
+    three of 256 at L2_32 (u=4: 16 exponents beside K1's buffers), one of
+    1,024 at SET_3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, _ = _apply_case(name, 1, 1, False, seed=1400)
+    want = {"l2": (2, 384), "l2_32": (3, 256), "set3": (1, 1024)}[name]
+    assert tpk.ext_product_apply_residency(kp, kp.torus_bits) == want
+    assert tpk.unfolded_rotate_residency(kp, kp.torus_bits, 16) == want
+
+
+@pytest.mark.gpu
+def test_cuda_ext_product_apply_refuses_a_misaligned_key():
+    """K3 reads its keys 16 bytes at a time: a view that starts off a
+    16-byte boundary raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, (acc, sa, _, _) = _apply_case("l2", 2, 1, False, seed=1500)
+    shifted = torch.empty(sa.numel() + 1, dtype=torch.int32,
+                          device="cuda")[1:].view(sa.shape).copy_(sa)
+    launches = tpk.ext_product_apply_scan.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tpk.ext_product_apply_scan(acc, shifted, kp)
+    assert tpk.ext_product_apply_scan.launches == launches
