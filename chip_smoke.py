@@ -11,7 +11,7 @@ Phases; any failure ends the script with a non-zero exit and no result line:
   1. card     CUDA present; the card's name and power limit (nvidia-smi).
   2. build    every kernel under mosfhet_torch/ops/csrc/ with nvcc, sm_90a;
               the registers and spills (ptxas -v) of every instance of K1,
-              K1-step, K7, K8a and K8b.
+              K1-step, K3, K4, K7, K8a, K8b, K1-delta and K6.
   3. kernel   the blind-rotate kernel against its plain PyTorch version at
               full TFHEpp-L2 width on random inputs, a short rotation, with
               exponents 0 and 2N present: bit-exact.
@@ -96,15 +96,19 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               path's own inputs (bit-exact), and K7 once more with every
               generator 1 (its keyset reads all from one L2-resident entry);
               K7's resident blocks per SM and its wave curve, as K1's in
-              phase 5.
+              phase 5, and K6's resident blocks per SM.
 14b. steps    the per-step GA forms on phase 14's key and 512 ciphertexts:
               bootstrap_ga.blind_rotate_ga_stepwise (n K1-delta and n+1 K6
               launches per call) and blind_rotate_ga_gathered (n K1-delta
               and n+1 K6-old launches, no K6), counts zeroed just before
               each call and read just after, words equal to phase 14's K7
-              output; warm ms beside blind_rotate_ga's and K7's; K1-delta
-              and K6-old timed per launch on the path's first step beside
-              their bounds and their plain versions (bit-exact).
+              output; warm ms beside blind_rotate_ga's and K7's; K1-delta,
+              K6 and K6-old timed per launch on the path's first step beside
+              their bounds and their plain versions (bit-exact); K1-delta's
+              resident blocks per SM; the three timed again with their
+              launches queued and on the host (us per wrapper call), and
+              each form's device share (its kernels' queued ms times
+              launches over the warm call's ms).
  15. trlweks  keyswitch.trlwe_keyswitch (from a second ring key) and
               keyswitch.eval_automorphism (a random odd generator, its key
               from new_automorphism_ks_keyset) on 512 TRLWEs: one K6 launch
@@ -151,7 +155,7 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               then the GA keygen and bootstrap_ga.functional_bootstrap_ga
               on the same 512 ciphertexts (1 K6 and 1 K7 launch per call,
               decrypt within 2^58), K6 held to its plain version on the
-              path's inputs, K7's resident blocks per SM.
+              path's inputs, K6's and K7's resident blocks per SM.
 19b. n8192    K8b at N=8192 with 4 primes (SET_3's digits), where its
               C*P spectra exceed a block and it runs one pass per
               component: pbs_on_mesh on a (1, 2) mesh of the card with a
@@ -193,7 +197,8 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               512 ciphertexts (1 K6 and 1 K7 launch per call, decrypt
               within 2^27), K6 and K7 timed on the path's own inputs beside
               their bounds and plain versions (bit-exact; K7's plain on all
-              512), K7's residency and wave curve as in phase 14,
+              512), K7's residency and wave curve as in phase 14, K6's
+              residency,
               trlwe_keyswitch and eval_automorphism on 512 TRLWEs (1
               K6 launch each, within trlwe_ks_bound at 32 bits, 2^25), and
               ga_pbs_on_mesh at (2, 1) (2 K6 + 2 K7 launches) and at (1, 2)
@@ -251,7 +256,7 @@ TP_LIBRARY_NOTE = ("none: no PyTorch call computes a partial external "
                    "product or an NTT-domain finish")
 # (data, model) meshes of the one card for pbs_on_mesh (phase 17)
 MESH_SHAPES = ((1, 2), (1, 4), (2, 2), (2, 1))
-TP_REPS = 20         # timed launches of K8a and K8b
+TP_REPS = 20         # timed launches of K8a, K8b and (queued) phase 14b's
 QUEUE_WAIT_CYCLES = 20_000_000   # ~10 ms at 1980 MHz: longer than the host
                                  # takes to enqueue TP_REPS launches
 MESH_CUT = 32        # ciphertexts of the plain-PyTorch mesh routes (phase 18)
@@ -531,12 +536,13 @@ def auto_ks_gathered_bound(kp_ks, B, max_clock_mhz):
 
 def cmux_delta_bound(kp, B, max_clock_mhz):
     """K1-delta for B ciphertexts: per ciphertext J*P digit and C*P inverse
-    NTTs, J*C*P*N Shoup key products and one Garner product per word;
-    bytes: the TRGSW and its Shoup companions read once, the words in and
-    out."""
+    NTTs, J*C*P*N key products (counted as Shoup products: the function is
+    given the key's Shoup companions, as K1's bound counts them) and one
+    Garner product per word; bytes: the TRGSW's residues read once (the
+    companions are not needed to move), the words in and out."""
     J, C, P, N = kp.J, kp.C, kp.P, kp.N
     shoup = butterflies(kp, J * P + C * P) + J * C * P * N + C * N
-    nbytes = 2 * J * C * P * N * 4 + 2 * B * C * N * word_bytes(kp)
+    nbytes = J * C * P * N * 4 + 2 * B * C * N * word_bytes(kp)
     return ops_bytes_bound(SHOUP_MULTIPLIES * shoup * B, nbytes,
                            max_clock_mhz)
 
@@ -701,7 +707,11 @@ def ga_stepwise_phase(bkg, tv, cs, acc_k6, acc_k7, gens, k7_ms, max_clock):
     word-equal to phase 14's K7 output ``acc_k7`` and timed warm beside
     blind_rotate_ga and K7 alone; then K1-delta and K6-old alone on the
     path's first step (``acc_k6``: the rotation after psi_{w0}) beside their
-    bounds and their plain versions.  Returns (report, counts, runs)."""
+    bounds and their plain versions, and K6 on that step's product; then
+    the three timed again with their launches queued (`queued_ms`) and on
+    the host (microseconds per wrapper call), and each form's device share,
+    its kernels' queued ms per launch times its launches per call over the
+    warm call's ms.  Returns (report, counts, runs)."""
     from mosfhet_torch import bootstrap, bootstrap_ga
     from mosfhet_torch.ops import pbs_kernel as pk
 
@@ -737,33 +747,68 @@ def ga_stepwise_phase(bkg, tv, cs, acc_k6, acc_k7, gens, k7_ms, max_clock):
             f"(K6 + K7), {warm_ms / k7_ms:.4f} x K7's {k7_ms:.3f} ms; "
             f"launches {want}; words equal to K7's")
     kp, kp_ks = bkg.kernel_plans()
-    t_k = hold(runs, "cmux_delta",
-               lambda: pk.cmux_delta(acc_k6, bkg.s_v32[0], bkg.s_vs32[0], kp),
+    fns = {"cmux_delta": lambda: pk.cmux_delta(acc_k6, bkg.s_v32[0],
+                                                bkg.s_vs32[0], kp)}
+    t_k = hold(runs, "cmux_delta", fns["cmux_delta"],
                lambda: pk.cmux_delta_plain(acc_k6, bkg.s_v32[0],
                                            bkg.s_vs32[0], kp),
                cmux_delta_bound(kp, BATCH, max_clock), reps=KS_REPS)
     kidx = ((gens[0].to(torch.int64) - 1) >> 1)
+    kidx32, ginv = kidx.to(torch.int32), bkg.inv2n[kidx].contiguous()
+    fns["auto_keyswitch_stream"] = lambda: pk.auto_keyswitch_stream(
+        t_k, bkg.ak, kidx32, ginv, kp_ks)
+    o_6 = hold(runs, "auto_keyswitch_stream", fns["auto_keyswitch_stream"],
+               lambda: pk.auto_keyswitch_stream_plain(t_k, bkg.ak, kidx32,
+                                                      ginv, kp_ks),
+               auto_ks_bound(kp_ks, BATCH, kidx, max_clock), reps=KS_REPS)
     perm = bootstrap_ga._permute_dyn(t_k, gens[0], bkg.inv2n,
                                      bkg.N).contiguous()
     rows = bkg.ak[kidx]
-    o_k = hold(runs, "auto_keyswitch",
-               lambda: pk.auto_keyswitch(perm, rows, kp_ks),
+    fns["auto_keyswitch"] = lambda: pk.auto_keyswitch(perm, rows, kp_ks)
+    o_k = hold(runs, "auto_keyswitch", fns["auto_keyswitch"],
                lambda: pk.auto_keyswitch_plain(perm, rows, kp_ks),
                auto_ks_gathered_bound(kp_ks, BATCH, max_clock),
                reps=KS_REPS)
-    same_or_fail("K6-old vs K6 on the path's first step", o_k,
-                 pk.auto_keyswitch_stream(
-                     t_k, bkg.ak, kidx.to(torch.int32),
-                     bkg.inv2n[kidx].contiguous(), kp_ks))
-    for name, what in (("cmux_delta", "K1-delta"), ("auto_keyswitch",
-                                                     "K6-old")):
+    same_or_fail("K6-old vs K6 on the path's first step", o_k, o_6)
+    for name, fn in fns.items():
+        runs[name]["queued_ms"], _ = queued_ms(fn, TP_REPS)
+        runs[name]["host_us"] = host_us(fn, TP_REPS)
+    for name, what in (("cmux_delta", "K1-delta"),
+                       ("auto_keyswitch_stream", "K6"),
+                       ("auto_keyswitch", "K6-old")):
         r = runs[name]
         log(f"# {name} ({what}) at B={BATCH} on the path's first step: "
             f"kernel {r['ms']:.4f} ms/launch (mean of {KS_REPS}), plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}: {r['bound']['int32_ops']:.4g} int32 ops, "
-            f"{r['bound']['bytes']:.4g} B); bit-exact")
-    del tv_r, t_k, perm, rows, o_k
+            f"{r['bound']['bytes']:.4g} B; "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of it); bit-exact; "
+            f"launches queued {r['queued_ms']:.4f} ms (mean of {TP_REPS}); "
+            f"host {r['host_us']:.1f} us per wrapper call")
+    for form in ("stepwise", "gathered"):
+        f = report[form]
+        f["device_ms"] = sum(runs[name]["queued_ms"] * launches
+                             for name, launches
+                             in f["launches_per_call"].items())
+        f["device_share"] = f["device_ms"] / f["warm_ms"]
+        f["host_ms"] = sum(runs[name]["host_us"] * launches * 1e-3
+                           for name, launches
+                           in f["launches_per_call"].items())
+        log(f"# blind_rotate_ga_{form} device share (an estimate from "
+            f"each kernel's first-step time): "
+            + " + ".join(f"{launches} x {runs[name]['queued_ms']:.4f} ms "
+                         f"{name}"
+                         for name, launches in f["launches_per_call"].items())
+            + f" = {f['device_ms']:.3f} ms of the warm call's "
+            f"{f['warm_ms']:.3f} ms = {100 * f['device_share']:.1f}%; "
+            f"wrappers {f['host_ms']:.3f} ms on the host")
+    report["k1_delta_residency"] = residency(
+        *pk.cmux_delta_residency(kp), f"K1-delta at N={kp.N}, P={kp.P}")
+    r = report["k1_delta_residency"]
+    log(f"# L2 K1-delta residency: {r['blocks_per_sm']} blocks of "
+        f"{r['threads_per_block']} threads per SM "
+        f"({r['resident_ciphertexts']} ciphertexts at once)")
+    del tv_r, t_k, perm, rows, o_k, o_6
     return report, counts, runs
 
 
@@ -852,20 +897,23 @@ def k8_ptxas(text):
 
 def sched_ptxas(text, kernel, tag):
     """Every instance of K3's scan kernel (``kernel`` ext_product_apply,
-    not K3-step's) or K4's (unfolded_rotate), logged as ``tag``."""
+    not K3-step's), K4's (unfolded_rotate), K1-delta's (cmux_delta, u64
+    words only: no word type among its template arguments) or K6's
+    (auto_keyswitch, not K6-old's), logged as ``tag``."""
     def match(line):
-        m = re.search(kernel + r"_kernelILi(\d)E([mj])Lb([01])ELi(\d+)E",
+        m = re.search(kernel + r"_kernelILi(\d)E([mj]?)Lb([01])ELi(\d+)E",
                       line)
         return None if m is None else {
             "entry": tag, "P": int(m[1]),
-            "words": "u64" if m[2] == "m" else "u32",
+            "words": "u32" if m[2] == "j" else "u64",
             "all_shared": m[3] == "1", "log_n": int(m[4]) or None}
     return ptxas_instances(text, match, tag)
 
 
 def log_build(entries):
     for e in entries:
-        tag = re.match(r"K\d+", e["entry"])[0]     # K1-step: K1
+        # K1-step: K1, K8a: K8; K1-delta keeps its own tag
+        tag = re.match(r"K\d+(-delta)?", e["entry"])[0]
         log(f"# {tag} build: {e['entry']} P={e['P']}"
             f"{' P_ks=' + str(e['P_ks']) if 'P_ks' in e else ''} "
             f"{e['words']} {'all shared' if e['all_shared'] else 'placed'}"
@@ -896,6 +944,18 @@ def k7_residency(pk, kp, kp_ks, bits):
     """K7's residency at the two plans' shape (the CUDA occupancy query)."""
     return residency(*pk.ga_scan_residency(kp, kp_ks, bits),
                      f"K7 at N={kp.N}, P={kp.P}, P_ks={kp_ks.P}")
+
+
+def k6_residency(pk, kp_ks, bits, tag):
+    """K6's residency at the key-switch plan's shape (the CUDA occupancy
+    query), logged under ``tag``."""
+    r = residency(*pk.auto_keyswitch_residency(kp_ks, bits),
+                  f"K6 at N={kp_ks.N}, P={kp_ks.P}")
+    log(f"# {tag} K6 residency: {r['blocks_per_sm']} blocks of "
+        f"{r['threads_per_block']} threads per SM "
+        f"({r['resident_ciphertexts']} ciphertexts at once), placement "
+        f"{placement(pk, 'auto_keyswitch_stream', kp_ks, 'auto_keyswitch')}")
+    return r
 
 
 def k3_k4_residency(pk, kp, bits, M, tag):
@@ -1418,7 +1478,9 @@ def set3_phase(dev, max_clock):
          lambda: pk.auto_keyswitch_stream_plain(acc_g, bkg.ak, kidx0, ginv0,
                                                 kpg_ks),
          auto_ks_bound(kpg_ks, BATCH, kidx0, max_clock), reps=KS_REPS)
-    where["auto_keyswitch"] = placement(pk, "auto_keyswitch", kpg_ks)
+    where["auto_keyswitch"] = placement(pk, "auto_keyswitch_stream", kpg_ks,
+                                        "auto_keyswitch")
+    k6_res = k6_residency(pk, kpg_ks, 64, "SET_3")
     k7_res = k7_residency(pk, kpg, kpg_ks, 64)
     log(f"# SET_3 K7 residency: {k7_res['blocks_per_sm']} blocks of "
         f"{k7_res['threads_per_block']} threads per SM, placement "
@@ -1441,7 +1503,8 @@ def set3_phase(dev, max_clock):
               "ga": {"keygen_s": ga_keygen_s, "key_bytes": ga_key_bytes,
                      "warm_ms": ga_ms, "boot_per_s": BATCH / ga_ms * 1e3,
                      "decrypt_max_err_log2": math.log2(max(ga_err, 1.0)),
-                     "counts": ga_counts, "k7_residency": k7_res},
+                     "counts": ga_counts, "k6_residency": k6_res,
+                     "k7_residency": k7_res},
               "k8_residency": k8_res, "k3_k4_residency": k34_res}
     k1_entry = {
         "name": "blind_rotate_scan/set3", "route": "cuda",
@@ -2131,7 +2194,8 @@ def torus32_ga(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe, key_out,
         f"{tuple(bkg.s_v32.shape)} u32 x2, keyset {tuple(bkg.ak.shape)} u32 "
         f"(P_ks={kpg_ks.P}); {key_bytes} B in all; peak "
         f"{keygen_peak / 2**30:.2f} GiB; placements K6 "
-        f"{placement(pk, 'auto_keyswitch', kpg_ks)}, K7 "
+        f"{placement(pk, 'auto_keyswitch_stream', kpg_ks, 'auto_keyswitch')}"
+        f", K7 "
         f"{placement(pk, 'ga_scan', kpg, P_ks=kpg_ks.P)}")
     zero_counts(pk)
     torch.cuda.reset_peak_memory_stats()
@@ -2189,6 +2253,7 @@ def torus32_ga(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe, key_out,
         lambda acc, g: pk.ga_scan_fused(acc, g, *ga_args[1:]), acc_k6, gens,
         k7_res["resident_ciphertexts"])
     log_wave_curve("L2_32", "K7", k7_res, k7_curve)
+    k6_res = k6_residency(pk, kpg_ks, 32, "L2_32")
     del acc_g, acc_k6, acc_k7, out_g2
 
     # the TRLWE key switch and eval_automorphism on BATCH TRLWEs
@@ -2280,7 +2345,8 @@ def torus32_ga(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe, key_out,
                    "decrypt_max_err_log2": math.log2(max(ga_err, 1.0)),
                    "decrypt_bound_log2": math.log2(GA_DECRYPT_BOUND_32),
                    "glue_ms": ga_ms - k6["ms"] - k7["ms"], "mesh": mesh,
-                   "k7_residency": k7_res, "k7_wave_curve": k7_curve},
+                   "k6_residency": k6_res, "k7_residency": k7_res,
+                   "k7_wave_curve": k7_curve},
             "trlweks": {"t": p.l, "base_bit": p.Bg_bit, **ks}}
 
 
@@ -2314,7 +2380,12 @@ def main():
                            "ext_product_apply", "K3")
     k4_build = sched_ptxas(_build.build_log["unfolded_rotate"],
                            "unfolded_rotate", "K4")
-    log_build(k1_build + k7_build + k8_build + k3_build + k4_build)
+    k1d_build = sched_ptxas(_build.build_log["cmux_delta"], "cmux_delta",
+                            "K1-delta")
+    k6_build = sched_ptxas(_build.build_log["auto_keyswitch"],
+                           "auto_keyswitch", "K6")
+    log_build(k1_build + k7_build + k8_build + k3_build + k4_build
+              + k1d_build + k6_build)
 
     # 3. kernel vs plain at full width on random inputs
     p = params.TFHEPP_L2
@@ -2894,6 +2965,7 @@ def main():
         lambda acc, g: pk.ga_scan_fused(acc, g, *ga_args[1:]), acc_k6, gens,
         k7_res["resident_ciphertexts"])
     log_wave_curve("L2", "K7", k7_res, k7_curve)
+    k6_res = k6_residency(pk, kpg_ks, 64, "L2")
 
     # 14b. the per-step GA forms (K1-delta, K6, K6-old) against K7's words
     step_report, step_counts, step_runs = ga_stepwise_phase(
@@ -3186,6 +3258,8 @@ def main():
         "ms": k6_ms, "plain_ms": k6_plain_ms,
         "bound_ms": k6_bound["bound_ms"], "bound_by": k6_bound["bound_by"],
         "library_ms": None, "library_note": GA_LIBRARY_NOTE,
+        "resident_blocks_per_sm": k6_res["blocks_per_sm"],
+        "stepwise_first_step": step_runs["auto_keyswitch_stream"],
     }, {
         "name": "ga_scan_fused", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/ga_scan.cu",
@@ -3232,6 +3306,8 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "library_note": note})
+    kernels[-2]["resident_blocks_per_sm"] = \
+        step_report["k1_delta_residency"]["blocks_per_sm"]
     kernels += step_entries({**steps_runs, **ubr_steps_runs}, by_path)
     for entry in kernels:
         runs3 = {name: r for name, r in set3_runs.items()
@@ -3294,9 +3370,10 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "library_note": note})
-        if name == "ga_scan_fused":
-            kernels[-1]["resident_blocks_per_sm"] = \
-                t32["ga"]["k7_residency"]["blocks_per_sm"]
+        if name in ("ga_scan_fused", "auto_keyswitch_stream"):
+            kernels[-1]["resident_blocks_per_sm"] = t32["ga"][
+                "k7_residency" if name[0] == "g" else "k6_residency"][
+                "blocks_per_sm"]
         if name in ("ext_product_apply_scan", "unfolded_rotate"):
             kernels[-1]["resident_blocks_per_sm"] = t32["unfolded"][
                 "k3_k4_residency"]["K3" if name[0] == "e" else "K4"][
@@ -3359,6 +3436,8 @@ def main():
         "glue_ms": ga_ms - k6_ms - k7_ms, "auto_ks_bound": k6_bound,
         "rotation_bound": k7_bound, "k7_residency": k7_res,
         "k7_wave_curve": k7_curve, "k7_build": k7_build,
+        "k6_residency": k6_res, "k6_build": k6_build,
+        "k1_delta_build": k1d_build,
         "per_step_forms": step_report}}))
     log(json.dumps({"trlweks": {"params": p.name, "batch": BATCH,
                                 "t": p.l, "base_bit": p.Bg_bit, **trlwe_ks}}))

@@ -26,37 +26,55 @@
 // `nl == 1` branches, pbs_kernel.py:2154/2180 and :2326/2355, through
 // `_garner_limb32` :725).  The NTT side is the same at both widths.
 //
-// Design.  One block of 1024 threads per ciphertext: the block gathers the
-// permuted words from global memory into shared memory (perm, C x N W),
-// decomposes the k mask components into k t digit rows, and for each row
-// runs P forward NTTs and a Barrett multiply-accumulate against the row's
-// keyset entry (runtime residues, no Shoup companions), read straight from
-// global memory and coalesced along N; then C x P inverse NTTs and Garner
-// write (0, b') - sum to global memory.  Shared memory: perm 32 KiB,
-// spectra 48 KiB, one digit row's NTTs 24 KiB at TFHEpp-L2.  Where they do
-// not all fit (256 KiB at N=4096 with a 4-prime key-switch plan, the GA
-// key's at SET_3) the wrapper moves perm to a global workspace.  The code
-// is `ga_common.cuh`'s, which K7 runs once per step; K6-old copies its
-// input into perm unpermuted and runs the same body.
+// Design of K6: K1's schedule (rotate_sched.cuh), K7's stages 2-3
+// (ga_scan.cu) once per launch.  One block per ciphertext, split into
+// groups of T = N/16 threads, one group per prime of the key-switch plan
+// (NG = min(P, 1024/T) groups).  The block loads x[b] coalesced into acc
+// [C][N]; there is no permutation buffer: the key switch's digits read
+// a'[c][k] = +-x[c][(k ginv mod 2N) mod N] from acc (`permuted_word`).  Per
+// digit row each thread runs the forward passes on its 16 digits and a
+// Barrett multiply-accumulate against keyset entry kidx[b] (runtime
+// residues, 16-byte loads, each row's key words asked of L2 before its
+// forward passes, which hide their latency) into its own slots of spec;
+// then the inverse NTTs to natural order (`product_spectra`), one block
+// barrier, and Garner writing out[b] = (0, b') - INTT(.), b' = psi_g(x)[C-1]
+// read from acc.  out is distinct from x, so nothing overwrites acc and no
+// barrier follows.
 //
 // What bounds it on this card: bytes, at the GA path's B=512.  Each
 // ciphertext reads its own 192 KiB keyset entry (distinct entries for
 // random generators, ~450 of 2048 at B=512) and 32 KiB in and out, against
-// 18 NTTs x 11,264 butterflies + 49,152 Barrett products of work.  Its time
-// is set by neither: like K1, each block is a chain of block-wide barriers
-// (one per NTT stage), and B=512 takes four waves of 132 blocks.
+// 18 NTTs x 11,264 butterflies + 49,152 Barrett products of work.
+//
+// Buffers of a block, as K7's with one plan: acc [C][N] words, spec
+// [C][P][SR] u32 and work [NG][SR] u32 (SR = N + N/16 from N = 256):
+// 108.5 KiB at TFHEpp-L2 (N=2048, k=1, P=3; two blocks of 384 threads per
+// SM) and 67 KiB at its 32-bit form (P=2; three of 256).  Where they do not
+// all fit, the wrapper places them by traffic: work in shared memory, then
+// spec, then acc; spec in a global workspace, acc left out, the block then
+// reading x in place (SET_3's 4-prime key-switch plan: x in place).
+//
+// K6-old keeps the first design (ga_common.cuh): one block of 1024 threads
+// per ciphertext copies its input into shared memory (perm, C x N W), and
+// for each digit row runs P block-wide forward NTTs (one barrier per
+// stage) and a Barrett multiply-accumulate against the row's keyset entry,
+// then C x P inverse NTTs and Garner.  Shared memory: perm 32 KiB, spectra
+// 48 KiB, one digit row's NTTs 24 KiB at TFHEpp-L2; where they do not all
+// fit the wrapper moves perm to a global workspace.
 
 #include "ga_common.cuh"
+#include "rotate_sched.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-enum { kWork, kSpec, kPerm, kNumBuf };  // buffers, as the wrapper lists them
+enum { kWork, kSpec, kAcc, kNumBuf };  // K6's buffers, as the wrapper lists
+enum { kOldWork, kOldSpec, kOldPerm, kOldNumBuf };  // K6-old's
 
-// Gathered: K6-old (key rows per ciphertext, input already permuted);
-// otherwise K6 (keyset entry kidx[b], permutation by ginv[b]).
-template <int PK, typename W, bool S, bool Gathered>
-__global__ void __launch_bounds__(kThreads, 1)
+// K6, one block per ciphertext.  ak [G][k t][C][PK][N] u32 residues,
+// 16-byte aligned.  LogN != 0: the compile-time shape of K1's 80-register
+// instances (N = 2^LogN, k = 1, PK at most 3, all in shared memory).
+template <int PK, typename W, bool S, int LogN>
+__global__ void __launch_bounds__(kBlockThreads<LogN>, kMinBlocks<LogN>)
 auto_keyswitch_kernel(const W* __restrict__ x_g,
                       const uint32_t* __restrict__ ak,
                       const int32_t* __restrict__ kidx,
@@ -67,27 +85,69 @@ auto_keyswitch_kernel(const W* __restrict__ x_g,
                       const uint32_t* __restrict__ itw,
                       const uint32_t* __restrict__ itws, unsigned char* ws,
                       const PbsConsts Kp, const Layout L) {
+  constexpr bool Fixed = LogN != 0;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ PbsConsts K;
+  if (threadIdx.x == 0) K = Kp;
+  __syncthreads();
+  Sched s;  // compile-time where LogN is
+  make_sched(LogN ? LogN : K.logN, PK, s);
+  const int N = 1 << s.logN, C = Fixed ? 2 : K.C, CN = C * N;
+  const int JK = (C - 1) * K.l, threads = s.NG * s.T;
+  // x is only read: where acc is left out of shared memory it is x itself
+  W* x_b = const_cast<W*>(x_g) + size_t(blockIdx.x) * CN;
+  W* acc = buffer<S, W>(L, kAcc, smem, ws, x_b);                  // [C][N]
+  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][PK][SR]
+  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [NG][SR]
+  if (acc != x_b)
+    for (int i = threadIdx.x; i < CN; i += threads) acc[i] = x_b[i];
+  __syncthreads();
+
+  const int gi = ginv[blockIdx.x];
+  const size_t entry = size_t(JK) * C * PK * N;
+  product_spectra<PK, PK, W, Fixed, true>(
+      [&](int c, int k) { return permuted_word(acc + c * N, k, gi, N); }, JK,
+      ak + kidx[blockIdx.x] * entry, spec, work, ftw, ftws, itw, itws, K, s);
+  __syncthreads();
+  W* out = out_g + size_t(blockIdx.x) * CN;
+  for (int idx = threadIdx.x; idx < CN; idx += threads) {
+    const int c = idx >> s.logN, k = idx & (N - 1);
+    const W w = garner_rows<PK, W>(spec + c * PK * s.SR, s.SR, k, K);
+    const W b = c == C - 1 ? permuted_word(acc + c * N, k, gi, N) : W(0);
+    out[idx] = b - w;
+  }
+}
+
+// K6-old: key_rows [B][k t][C][PK][N] (ciphertext b's keyset entry), the
+// input already permuted.
+template <int PK, typename W, bool S>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+auto_keyswitch_rows_kernel(const W* __restrict__ x_g,
+                           const uint32_t* __restrict__ key_rows,
+                           W* __restrict__ out_g,
+                           const uint32_t* __restrict__ ftw,
+                           const uint32_t* __restrict__ ftws,
+                           const uint32_t* __restrict__ itw,
+                           const uint32_t* __restrict__ itws,
+                           unsigned char* ws, const PbsConsts Kp,
+                           const Layout L) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ PbsConsts K;
   if (threadIdx.x == 0) K = Kp;
   __syncthreads();
   const int CN = K.C * K.N;
-  W* perm = buffer<S, W>(L, kPerm, smem, ws, nullptr);            // [C][N]
-  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][PK][N]
-  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [PK][N]
+  // perm [C][N], spec [C][PK][N], work [PK][N]
+  W* perm = buffer<S, W>(L, kOldPerm, smem, ws, nullptr);
+  auto* spec = buffer<S, uint32_t>(L, kOldSpec, smem, ws, nullptr);
+  auto* work = buffer<S, uint32_t>(L, kOldWork, smem, ws, nullptr);
 
   const int b = blockIdx.x;
   const size_t entry = size_t(K.C - 1) * K.l * K.C * PK * K.N;
   const W* x = x_g + size_t(b) * CN;
-  if constexpr (Gathered) {
-    for (int i = threadIdx.x; i < CN; i += blockDim.x) perm[i] = x[i];
-    __syncthreads();
-  } else {
-    galois_permute<W>(x, perm, ginv[b], K);
-  }
-  const uint32_t* key = Gathered ? ak + b * entry : ak + kidx[b] * entry;
-  keyswitch_entry<PK, W>(perm, out_g + size_t(b) * CN, key, spec, work, K,
-                         ftw, ftws, itw, itws);
+  for (int i = threadIdx.x; i < CN; i += blockDim.x) perm[i] = x[i];
+  __syncthreads();
+  keyswitch_entry<PK, W>(perm, out_g + size_t(b) * CN, key_rows + b * entry,
+                         spec, work, K, ftw, ftws, itw, itws);
 }
 
 struct Args {
@@ -99,34 +159,58 @@ struct Args {
   unsigned char* ws;
   int B;
   cudaStream_t stream;
+  int* blocks_per_sm;  // non-null: report K6's residency, launch nothing
 };
 
-template <int PK, typename W, bool S, bool Gathered>
-cudaError_t launch_s(const Args& x, const PbsConsts& K, const Layout& L) {
+template <int PK, typename W, bool S, int LogN>
+cudaError_t launch(const Args& x, const PbsConsts& K, const Layout& L,
+                   const Sched& s) {
+  return launch_sched(auto_keyswitch_kernel<PK, W, S, LogN>, s, L, x.B,
+                      x.stream, x.blocks_per_sm, static_cast<const W*>(x.x),
+                      x.ak, x.kidx, x.ginv, static_cast<W*>(x.out), x.ftw,
+                      x.ftws, x.itw, x.itws, x.ws, K, L);
+}
+
+template <int PK, typename W>
+cudaError_t launch_s(const Args& x, const PbsConsts& K, const Layout& L,
+                     const Sched& s) {
+  if (!all_shared(L, kNumBuf)) return launch<PK, W, false, 0>(x, K, L, s);
+  return with_log_n<PK>(K, [&](auto n) {
+    return launch<PK, W, true, decltype(n)::value>(x, K, L, s);
+  });
+}
+
+template <int PK, typename W, bool S>
+cudaError_t launch_rows(const Args& x, const PbsConsts& K, const Layout& L) {
+  auto* kernel = auto_keyswitch_rows_kernel<PK, W, S>;
   cudaError_t err = cudaFuncSetAttribute(
-      auto_keyswitch_kernel<PK, W, S, Gathered>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
   if (err != cudaSuccess) return err;
-  auto_keyswitch_kernel<PK, W, S, Gathered>
-      <<<x.B, kThreads, L.smem, x.stream>>>(
-          static_cast<const W*>(x.x), x.ak, x.kidx, x.ginv,
-          static_cast<W*>(x.out), x.ftw, x.ftws, x.itw, x.itws, x.ws, K, L);
+  kernel<<<x.B, kMaxThreads, L.smem, x.stream>>>(
+      static_cast<const W*>(x.x), x.ak, static_cast<W*>(x.out), x.ftw,
+      x.ftws, x.itw, x.itws, x.ws, K, L);
   return cudaGetLastError();
 }
 
+// Gathered: K6-old; otherwise K6.
 template <bool Gathered>
-int launch(const Args& a, const int64_t* consts, const int64_t* layout,
-           int word_bits) {
+int launch_entry(const Args& a, const int64_t* consts, const int64_t* layout,
+                 int word_bits) {
   PbsConsts K;
-  if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
-  if (a.B == 0) return int(cudaSuccess);
-  const Layout L = parse_layout(layout, kNumBuf);
-  const bool shared = all_shared(L, kNumBuf);
+  Sched s;
+  if (!parse_consts(consts, K) || (!Gathered && !make_sched(K.logN, K.P, s)))
+    return int(cudaErrorInvalidValue);
+  if (a.B == 0 && !a.blocks_per_sm) return int(cudaSuccess);
+  const int nbuf = Gathered ? int(kOldNumBuf) : int(kNumBuf);
+  const Layout L = parse_layout(layout, nbuf);
   return int(dispatch_pw(K.P, word_bits, [&](auto p, auto w) {
     using W = decltype(w);
     constexpr int PK = decltype(p)::value;
-    return shared ? launch_s<PK, W, true, Gathered>(a, K, L)
-                  : launch_s<PK, W, false, Gathered>(a, K, L);
+    if constexpr (Gathered)
+      return all_shared(L, kOldNumBuf) ? launch_rows<PK, W, true>(a, K, L)
+                                       : launch_rows<PK, W, false>(a, K, L);
+    else
+      return launch_s<PK, W>(a, K, L, s);
   }));
 }
 
@@ -137,10 +221,11 @@ extern "C" {
 // consts: the key-switch plan's int64 host array (layout in ntt_common.cuh;
 // its l and Bg_bit are the key switch's t and base_bit, its gadget offset of
 // the word width); layout: the buffer placement (smem bytes, workspace
-// stride, offsets of work, spec, perm); ws: the workspace, B x stride bytes
+// stride, offsets of work, spec, acc); ws: the workspace, B x stride bytes
 // (null when the stride is 0).  x, out [B, k+1, N] u64 words (word_bits 64)
-// or u32 words (word_bits 32); ak [G, k t, k+1, P, N] u32; kidx [B] int32 in
-// [0, G); ginv [B] int32 odd; twiddles [P, N] u32.
+// or u32 words (word_bits 32), distinct; ak [G, k t, k+1, P, N] u32,
+// 16-byte aligned; kidx [B] int32 in [0, G); ginv [B] int32 odd; twiddles
+// [P, N] u32.
 int auto_keyswitch_launch(const void* x, const void* ak, const void* kidx,
                           const void* ginv, void* out, const void* ftw,
                           const void* ftws, const void* itw, const void* itws,
@@ -158,13 +243,14 @@ int auto_keyswitch_launch(const void* x, const void* ak, const void* kidx,
                static_cast<const uint32_t*>(itws),
                static_cast<unsigned char*>(ws),
                B,
-               static_cast<cudaStream_t>(stream)};
-  return launch<false>(a, consts, layout, word_bits);
+               static_cast<cudaStream_t>(stream),
+               nullptr};
+  return launch_entry<false>(a, consts, layout, word_bits);
 }
 
 // K6-old: as `auto_keyswitch_launch` with perm (already permuted) in place
 // of x, key_rows [B, k t, k+1, P, N] u32 (ciphertext b's keyset entry) in
-// place of ak, and no kidx or ginv.
+// place of ak, and no kidx or ginv; layout: offsets of work, spec, perm.
 int auto_keyswitch_rows_launch(const void* perm, const void* key_rows,
                                void* out, const void* ftw, const void* ftws,
                                const void* itw, const void* itws, void* ws,
@@ -181,8 +267,24 @@ int auto_keyswitch_rows_launch(const void* perm, const void* key_rows,
                static_cast<const uint32_t*>(itws),
                static_cast<unsigned char*>(ws),
                B,
-               static_cast<cudaStream_t>(stream)};
-  return launch<true>(a, consts, layout, word_bits);
+               static_cast<cudaStream_t>(stream),
+               nullptr};
+  return launch_entry<true>(a, consts, layout, word_bits);
+}
+
+// The blocks of K6 resident on one SM at the key-switch plan's shape, the
+// placement and the word width (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// on the current device), and the threads of a block.
+int auto_keyswitch_residency(const int64_t* consts, const int64_t* layout,
+                             int word_bits, int* blocks, int* threads) {
+  PbsConsts K;
+  Sched s;
+  if (!parse_consts(consts, K) || !make_sched(K.logN, K.P, s))
+    return int(cudaErrorInvalidValue);
+  *threads = s.NG * s.T;
+  Args a{};
+  a.blocks_per_sm = blocks;
+  return launch_entry<false>(a, consts, layout, word_bits);
 }
 
 const char* cuda_error_string(int err) {

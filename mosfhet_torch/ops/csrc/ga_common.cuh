@@ -1,17 +1,18 @@
-// Device code of the automorphism key switch (K6, auto_keyswitch.cu) and
-// the GA step's external product (K1-delta, cmux_delta.cu), for NVIDIA
-// Hopper (sm_90a): the Galois permutation, the digit-row NTT
-// multiply-accumulate and the TRLWE key switch against one keyset entry.
-// The GA blind rotation (K7, ga_scan.cu) runs on K1's schedule
-// (rotate_sched.cuh) and takes only `dispatch_pk` from here.
+// Device code of the automorphism key switch on gathered keys (K6-old,
+// the second entry of auto_keyswitch.cu), for NVIDIA Hopper (sm_90a): the
+// digit-row NTT multiply-accumulate and the TRLWE key switch against one
+// keyset entry, on the block-wide NTTs of ntt_common.cuh.  K6 itself,
+// K1-delta (cmux_delta.cu) and the GA blind rotation (K7, ga_scan.cu) run
+// on K1's schedule (rotate_sched.cuh); K7 takes only `dispatch_pk` from
+// here.
 //
 // Counterparts of the TPU package's kernel helpers (ops/pbs_kernel.py):
-// `_galois_permute_limbs` (1077), `_ntt_mul_acc` / `_ntt_mul_acc_keyfn`
-// (739) and the key-switch tail of `_make_auto_ks_stream_kernel` (2256).
+// `_ntt_mul_acc_keyfn` (739) and the key-switch tail of
+// `_make_auto_ks_kernel` (2134).
 // Everything ends in canonical residues or exact torus words, so the kernels
 // give the plain PyTorch versions' words.  Torus words are the type W:
 // uint64_t at the 64-bit torus, uint32_t at the 32-bit one (the TPU body's
-// `nl == 1` branches, pbs_kernel.py:2326 and :2355, with their Garner step
+// `nl == 1` branches, pbs_kernel.py:2154 and :2180, with their Garner step
 // `_garner_limb32` :725); every word operation wraps mod 2^(8 sizeof W).
 
 #pragma once
@@ -20,38 +21,18 @@
 
 namespace {
 
-// dst[c][j] = +-src[c][(j ginv mod 2N) mod N], negated mod 2^(8 sizeof W)
-// when (j ginv mod 2N) >= N: the automorphism X -> X^g of the C polynomials
-// of src, for an odd g with inverse ginv mod 2N (ginv = 1 copies).  2N
-// divides 2^32, so the 32-bit product wraps harmlessly.  src (global or
-// shared) and dst [C][N] must not overlap.  Block-wide; ends with a barrier.
-template <typename W>
-__device__ void galois_permute(const W* src, W* dst, int ginv,
-                               const PbsConsts& K) {
-  const int N = K.N, CN = K.C * K.N;
-  const unsigned mask = 2u * unsigned(N) - 1u;
-  for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
-    const int c = idx >> K.logN, j = idx & (N - 1);
-    const unsigned ic = (unsigned(j) * unsigned(ginv)) & mask;
-    const W v = src[c * N + (ic & unsigned(N - 1))];
-    dst[idx] = (ic & unsigned(N)) ? W(0) - v : v;
-  }
-  __syncthreads();
-}
-
 // spec[c][p] = sum_{j < R} NTT(dec_{j % l}(src[j / l])) * key[j][c][p] for
 // the first R digit rows of src [.][N] W words (shared or global memory)
 // under plan K: l = K.l digits of K.Bg_bit bits with the rounded offset of
 // W's width, cast to W once (a u64 offset added to a u32 word would widen
-// the sum and shift the digits by 64 bits).  key [R][C][PP][N]
-// u32 canonical residues (global memory, coalesced along N), multiplied by
-// Shoup with the companions keys, or by Barrett when keys is null (runtime
-// keys).  One digit row's PP prime rows are transformed at a time in work
-// [PP][N]; spec [C][PP][N] is zeroed here.  Block-wide; ends with a barrier.
+// the sum and shift the digits by 64 bits).  key [R][C][PP][N] u32
+// canonical residues (runtime keys: global memory, coalesced along N),
+// multiplied by Barrett.  One digit row's PP prime rows are transformed at
+// a time in work [PP][N]; spec [C][PP][N] is zeroed here.  Block-wide; ends
+// with a barrier.
 template <int PP, typename W>
 __device__ void digit_mul_acc(const W* src, int R,
                               const uint32_t* __restrict__ key,
-                              const uint32_t* __restrict__ keys,
                               uint32_t* spec, uint32_t* work,
                               const PbsConsts& K,
                               const uint32_t* __restrict__ tw,
@@ -75,8 +56,7 @@ __device__ void digit_mul_acc(const W* src, int R,
       const uint32_t p = K.p[pi], x = work[idx];
       for (int c = 0; c < C; ++c) {
         const size_t ko = (size_t(j * C + c) * PP + pi) * N + k;
-        const uint32_t prod = keys ? shoup(x, key[ko], keys[ko], p)
-                                   : barrett(x, key[ko], p, K.mup[pi]);
+        const uint32_t prod = barrett(x, key[ko], p, K.mup[pi]);
         uint32_t* sp = spec + (c * PP + pi) * N + k;
         *sp = add_mod(*sp, prod, p);
       }
@@ -86,11 +66,9 @@ __device__ void digit_mul_acc(const W* src, int R,
 }
 
 // The C*PP inverse NTTs of spec in place, then Garner (with 1/N) to exact
-// W words (mod 2^32 for u32: the Horner step wraps): out[c] = INTT(spec[c])
-// when perm is null (the external product), else out = (0, .., 0,
-// perm[C-1]) - INTT(spec) (the key switch).  out (shared or global) may be
-// the digit source of the preceding `digit_mul_acc` but not perm.
-// Block-wide; ends with a barrier.
+// W words (mod 2^32 for u32: the Horner step wraps): out = (0, .., 0,
+// perm[C-1]) - INTT(spec), the key switch's words.  out (global) does not
+// overlap perm.  Block-wide; ends with a barrier.
 template <int PP, typename W>
 __device__ void inverse_to_words(uint32_t* spec, const W* perm, W* out,
                                  const PbsConsts& K,
@@ -101,7 +79,7 @@ __device__ void inverse_to_words(uint32_t* spec, const W* perm, W* out,
   for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
     const int c = idx >> K.logN, k = idx & (N - 1);
     const W w = garner<PP, W>(spec + c * PP * N, k, K);
-    out[idx] = perm ? (c == C - 1 ? perm[idx] : W(0)) - w : w;
+    out[idx] = (c == C - 1 ? perm[idx] : W(0)) - w;
   }
   __syncthreads();
 }
@@ -119,8 +97,8 @@ __device__ void keyswitch_entry(const W* perm, W* out,
                                 const uint32_t* __restrict__ ftws,
                                 const uint32_t* __restrict__ itw,
                                 const uint32_t* __restrict__ itws) {
-  digit_mul_acc<PK, W>(perm, (K.C - 1) * K.l, key, nullptr, spec, work, K,
-                       ftw, ftws);
+  digit_mul_acc<PK, W>(perm, (K.C - 1) * K.l, key, spec, work, K, ftw,
+                       ftws);
   inverse_to_words<PK, W>(spec, perm, out, K, itw, itws);
 }
 

@@ -72,18 +72,6 @@ namespace {
 
 enum { kWork, kSpec, kAcc, kNumBuf };  // buffers, as the wrapper lists them
 
-// Coefficient k of psi_g(row), the automorphism X -> X^g of a negacyclic row
-// of length N given by ginv = g^-1 mod 2N: +-row[(k ginv mod 2N) mod N],
-// negated when (k ginv mod 2N) >= N (`galois_permute`, ga_common.cuh, one
-// word at a time).  row may be in shared or global memory.
-template <typename W>
-__device__ __forceinline__ W permuted_word(const W* row, int k, int ginv,
-                                           int N) {
-  const unsigned ic = (unsigned(k) * unsigned(ginv)) & (2u * unsigned(N) - 1u);
-  const W v = row[ic & unsigned(N - 1)];
-  return (ic & unsigned(N)) ? W(0) - v : v;
-}
-
 // K7: the whole GA rotation, one block per ciphertext.  LogN != 0: the
 // compile-time shape of K1's 80-register instances (N = 2^LogN, k = 1, P
 // and PK at most 3, all in shared memory).

@@ -1,15 +1,17 @@
 // K1's block schedule (blind_rotate.cu), shared with the GA rotation K7
 // (ga_scan.cu), the split CMUX step K8a/K8b (tp_step.cu), the external-product
-// scan K3 (ext_product_apply.cu) and the unfolded rotation K4
-// (unfolded_rotate.cu): a block of groups of T = N/16 threads, one group per
-// prime, each thread owning 16 coefficients of its group's row and running
-// up to four radix-2 stages on them between exchanges through the group's
-// exchange row; lazy Harvey residues ([0, 4p) forward, [0, 2p) in the MAC
-// and the inverse); the MAC's Barrett product on a key residue alone;
-// Garner on rows a stride apart; the replace-mode external product's
-// spectra (K7's stage 1 and K3) and the Garner that replaces acc with them;
-// and the choice of a shape's instance and its launch.  How each kernel
-// uses it is in its source.
+// scan K3 (ext_product_apply.cu), the unfolded rotation K4
+// (unfolded_rotate.cu), the GA step's external product K1-delta
+// (cmux_delta.cu) and the automorphism key switch K6 (auto_keyswitch.cu):
+// a block of groups of T = N/16 threads, one group per prime, each thread
+// owning 16 coefficients of its group's row and running up to four radix-2
+// stages on them between exchanges through the group's exchange row; lazy
+// Harvey residues ([0, 4p) forward, [0, 2p) in the MAC and the inverse);
+// the MAC's Barrett product on a key residue alone; Garner on rows a stride
+// apart; an external product's spectra (K7's stages 1 and 3, K3, K1-delta,
+// K6) and the Garner that replaces acc with them; the Galois permutation
+// read one word at a time; and the choice of a shape's instance and its
+// launch.  How each kernel uses it is in its source.
 //
 // Each kernel source that includes this header is compiled into its own
 // shared library, so everything here has internal linkage.
@@ -263,6 +265,19 @@ __device__ __forceinline__ W garner_rows(const uint32_t* spec_c, int stride,
 #pragma unroll
   for (int m = P - 2; m >= 0; --m) v = v * W(K.p[m]) + W(d[m]);
   return v;
+}
+
+// Coefficient k of psi_g(row), the automorphism X -> X^g of a negacyclic row
+// of length N given by ginv = g^-1 mod 2N: +-row[(k ginv mod 2N) mod N],
+// negated mod 2^(8 sizeof W) when (k ginv mod 2N) >= N (2N divides 2^32, so
+// the 32-bit product wraps harmlessly).  row may be in shared or global
+// memory.
+template <typename W>
+__device__ __forceinline__ W permuted_word(const W* row, int k, int ginv,
+                                           int N) {
+  const unsigned ic = (unsigned(k) * unsigned(ginv)) & (2u * unsigned(N) - 1u);
+  const W v = row[ic & unsigned(N - 1)];
+  return (ic & unsigned(N)) ? W(0) - v : v;
 }
 
 __device__ __forceinline__ void prefetch_l2(const uint32_t* p) {

@@ -93,7 +93,7 @@ PyTorch, only for CPU tensors.  The two give the same words.
    one replace-mode external product BK (x) x with one static TRGSW,
      x, out      [B, k+1, N]               int64 (the 64-bit torus only)
      keyv, keyvs [(k+1)l, k+1, P, N]       int32: the TRGSW and its Shoup
-                                           companions
+                                           companions (checked, not read)
 
 8. The gadget-row split of one CMUX step (``csrc/tp_step.cu``), for a
    bootstrap key whose J = (k+1)l rows are sharded over devices
@@ -120,30 +120,32 @@ product, and reduce u64 (or u32) words to the residues of their centred
 ``ntt.pointwise_mul_acc_generic`` and ``ntt.to_ntt_u64``, and both end in
 canonical residues, so the words agree.
 
-Where a block's buffers live (K1, K1-delta, K3, K4, K6, K7, K8a, K8b).  Each kernel runs
-one block per ciphertext over a handful of buffers: the digit row's NTT
-rows, the spectra, the accumulator and a rotation or permutation buffer.
-`_place` fills dynamic shared memory with them in order of traffic, up to
-the card's opt-in limit per block (read from the CUDA runtime); a buffer
-that does not fit lives in a global workspace the wrapper allocates (B
-slices, one per block), and the accumulator in the caller's tensor,
-updated in place.  Every shape of TFHEpp-L2, SET_1, SET_2 and UFHE_SET0
-keeps all of them in shared memory; N=4096 with 4 primes (SET_3) moves
-the u64 buffers out, N=8192 the spectra too.  The NTT rows must stay in
-shared memory: a shape whose NTT rows alone exceed the limit raises
-ValueError before any launch.  (K5's block holds one row's P NTT rows
-and fits at every registered shape.)  K1, K1-step, K3 and K4 hold no
+Where a block's buffers live (K1, K1-delta, K3, K4, K6, K6-old, K7, K8a,
+K8b).  Each kernel runs one block per ciphertext over a handful of buffers:
+the digit row's NTT rows, the spectra, the accumulator and a rotation or
+permutation buffer.  `_place` fills dynamic shared memory with them in
+order of traffic, up to the card's opt-in limit per block (read from the
+CUDA runtime); a buffer that does not fit lives in a global workspace the
+wrapper allocates (B slices, one per block), and the accumulator in the
+caller's tensor, updated in place.  Every shape of TFHEpp-L2, SET_1, SET_2
+and UFHE_SET0 keeps all of them in shared memory; N=4096 with 4 primes
+(SET_3) moves the u64 buffers out, N=8192 the spectra too.  The NTT rows
+must stay in shared memory: a shape whose NTT rows alone exceed the limit
+raises ValueError before any launch.  (K5's block holds one row's P NTT
+rows and fits at every registered shape.)  K1, K1-step, K3 and K4 hold no
 rotation buffer and one exchange row per group of N/16 threads
 (`rotation_schedule`) instead of the P NTT rows: 108.5 KiB at TFHEpp-L2
 (two blocks per SM; K4 adds its group's 2^u exponents), 67 KiB at L2_32
 (three); SET_3 keeps their spectra in shared memory and acc in place,
-N=8192 their spectra in the workspace.  N above 16384 raises ValueError
-(a block of N/16 threads).  K8a and K8b
-(redesigned on K1's schedule) hold the same exchange rows.  K8a adds its
-groups' MAC slots and reads acc from the caller's tensor: 76.5 KiB at
-TFHEpp-L2, all in shared memory at every registered shape.  K8b adds the
-C*P spectra rows where they fit, else one component's P rows, and then
-runs once per component (N=8192 with 4 primes).
+N=8192 their spectra in the workspace.  N above 16384 raises ValueError (a
+block of N/16 threads).  K1-delta and K6 hold K3's buffers (K6 on its
+key-switch plan's primes): where acc leaves shared memory they read their
+input in place.  K8a and K8b (redesigned on K1's schedule) hold the same
+exchange rows.  K8a adds its groups' MAC slots and reads acc from the
+caller's tensor: 76.5 KiB at TFHEpp-L2, all in shared memory at every
+registered shape.  K8b adds the C*P spectra rows where they fit, else one
+component's P rows, and then runs once per component (N=8192 with 4
+primes).
 """
 
 from __future__ import annotations
@@ -439,23 +441,27 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
     per group of their schedule (`rotation_schedule`), the spectra and the
     accumulator; so does K7 ("ga_scan"), on the schedule of its larger
     plan's primes, and K4 ("unfolded_rotate"), whose exchange rows also
-    carry the combined key rows, after its group's M exponents.  rank
-    orders them by traffic: the NTTs' rows (work) are the busiest, then
-    the spectra's multiply-accumulates and inverse NTTs; the accumulator
-    and the exponents or rotation/permutation buffer, read and written
-    once or twice per step, come last.  K8a ("tp_step") holds
-    its schedule's exchange rows and each group's MAC slots, one row per
-    component (a group keeps only the prime it is on); acc is read from
-    the caller's tensor.  K8b ("finish_step", in tp_step.cu) holds the
+    carry the combined key rows, after its group's M exponents.  K1-delta
+    ("cmux_delta") and K6 ("auto_keyswitch_stream", on its key-switch plan
+    ``kp``) hold K3's: their acc holds the input, which they read in place
+    where it does not fit.  rank orders them by traffic: the NTTs' rows
+    (work) are the busiest, then the spectra's multiply-accumulates and
+    inverse NTTs; the accumulator and the exponents or rotation/permutation
+    buffer, read and written once or twice per step, come last.  K8a
+    ("tp_step") holds its schedule's exchange rows and each group's MAC
+    slots, one row per component (a group keeps only the prime it is on);
+    acc is read from the caller's tensor.  K8b ("finish_step", in tp_step.cu) holds the
     exchange rows, component 0's P spectra rows and, right after them
     where they fit, the other components' rows; left out, it runs once per
     component.  The one-step kernel "pbs_step" (K1-step) holds K1's
     buffers; "ext_product_apply_step" (K3-step, the first design) the
-    digit row's P NTT rows, the spectra and the accumulator.  M: K4's 2^u;
-    P_ks: K7's key-switch prime count."""
+    digit row's P NTT rows, the spectra and the accumulator, and
+    "auto_keyswitch" (K6-old, the first design) the same with its
+    permuted input.  M: K4's 2^u; P_ks: K7's key-switch prime count."""
     C, P, N = kp.C, kp.P, kp.N
     row, spec, words = P * N * 4, C * P * N * 4, C * N * kp.torus_bits // 8
-    if kernel in ("blind_rotate", "pbs_step", "ext_product_apply"):
+    if kernel in ("blind_rotate", "pbs_step", "ext_product_apply",
+                  "cmux_delta", "auto_keyswitch_stream"):
         sc = rotation_schedule(N, P)               # work, spec, acc
         return [(sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
                 (C * P * sc["row_stride"] * 4, WORKSPACE, 1),
@@ -479,11 +485,9 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
         sc = rotation_schedule(N, P)
         return [(sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
                 (sc["groups"] * C * sc["row_stride"] * 4, WORKSPACE, 1)]
-    if kernel == "auto_keyswitch":     # K6: work, spec, rot
+    if kernel == "auto_keyswitch":     # K6-old: work, spec, perm
         return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),
                 (words, WORKSPACE, 2)]
-    if kernel == "cmux_delta":         # K1-delta: work, spec
-        return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1)]
     if kernel == "finish_step":        # K8b: work, component 0's rows, the
         sc = rotation_schedule(N, P)   # rest
         return [(sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
@@ -514,9 +518,10 @@ def _layout(kernel: str, kp: PBSKernelPlan, B: int, dev, source=None, **kw):
 
 
 def _check_aligned(name, t):
-    """K1's, K1-step's, K3's, K7's and K8a's key rows, K8a's partial and
-    K8b's partials are read or written 16 bytes at a time (the keys' Shoup
-    companions are not read: the kernels' MACs take Barrett products)."""
+    """K1's, K1-step's, K1-delta's, K3's, K6's, K7's and K8a's key rows,
+    K8a's partial and K8b's partials are read or written 16 bytes at a
+    time (the keys' Shoup companions are not read: the kernels' MACs take
+    Barrett products)."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel reads it in 16-byte vectors; "
                          f"its data pointer is not 16-byte aligned")
@@ -598,6 +603,32 @@ def ext_product_apply_residency(kp: PBSKernelPlan, bits: int,
                               _smem_budget("ext_product_apply", _index(dev)))
     return _residency("ext_product_apply", "ext_product_apply_launch", 9, 4,
                       "ext_product_apply_residency", dev,
+                      [kp.host_consts.ctypes.data, layout.ctypes.data],
+                      [bits])
+
+
+def cmux_delta_residency(kp: PBSKernelPlan, dev=None) -> tuple[int, int]:
+    """(blocks resident on one SM, threads per block) of K1-delta on card
+    ``dev`` at ``kp``'s shape and its placement (the C entry
+    `cmux_delta_residency`; u64 words only)."""
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    layout, _ = kernel_layout("cmux_delta", kp,
+                              _smem_budget("cmux_delta", _index(dev)))
+    return _residency("cmux_delta", "cmux_delta_launch", 11, 1,
+                      "cmux_delta_residency", dev,
+                      [kp.host_consts.ctypes.data, layout.ctypes.data], [])
+
+
+def auto_keyswitch_residency(kp: PBSKernelPlan, bits: int,
+                             dev=None) -> tuple[int, int]:
+    """(blocks resident on one SM, threads per block) of K6 on card ``dev``
+    at the key-switch plan ``kp``'s shape, its placement and the word width
+    ``bits`` (the C entry `auto_keyswitch_residency`)."""
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    layout, _ = kernel_layout("auto_keyswitch_stream", kp,
+                              _smem_budget("auto_keyswitch", _index(dev)))
+    return _residency("auto_keyswitch", "auto_keyswitch_launch", 12, 2,
+                      "auto_keyswitch_residency", dev,
                       [kp.host_consts.ctypes.data, layout.ctypes.data],
                       [bits])
 
@@ -1094,7 +1125,8 @@ def auto_keyswitch_stream(x, ak32, kidx, ginv, kp: PBSKernelPlan):
     and an error raised if it does not build or launch.  CPU tensors: the
     plain version.  ``kidx`` must lie in [0, G): the kernel reads the
     entries it names without a check (one on the device would cost a sync
-    per call).  Returns [B, C, N] of x's dtype."""
+    per call).  The kernel reads ``ak32`` 16 bytes at a time: a view off
+    that alignment raises ValueError.  Returns [B, C, N] of x's dtype."""
     bits = _word_width("auto_keyswitch_stream", x, kp)
     dev = x.device
     if dev.type == "cpu":
@@ -1109,11 +1141,13 @@ def auto_keyswitch_stream(x, ak32, kidx, ginv, kp: PBSKernelPlan):
            (G, (kp.C - 1) * kp.l, kp.C, kp.P, kp.N), dev)
     _check("kidx", kidx, torch.int32, (B,), dev)
     _check("ginv", ginv, torch.int32, (B,), dev)
+    _check_aligned("ak32", ak32)
     _check_plan(kp, dev)
     out = torch.empty_like(x)
     if B == 0:
         return out
-    layout, ws = _layout("auto_keyswitch", kp, B, dev)
+    layout, ws = _layout("auto_keyswitch_stream", kp, B, dev,
+                         source="auto_keyswitch")
     _launch("auto_keyswitch", "auto_keyswitch_launch", 12, 2, dev,
             x.data_ptr(), ak32.data_ptr(), kidx.data_ptr(), ginv.data_ptr(),
             out.data_ptr(), kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
@@ -1194,7 +1228,9 @@ def cmux_delta(x, keyv, keyvs, kp: PBSKernelPlan):
     only (int32 words raise NotImplementedError, as the TPU kernel asserts
     two limbs).  CUDA tensors: one launch of the kernel, and an error
     raised if it does not build or launch.  CPU tensors: the plain
-    version.  Returns [B, C, N] int64."""
+    version.  The kernel reads ``keyv`` 16 bytes at a time (a view off that
+    alignment raises ValueError) and never ``keyvs``.  Returns [B, C, N]
+    int64."""
     _u64_only("cmux_delta", x)
     _word_width("cmux_delta", x, kp)
     dev = x.device
@@ -1207,6 +1243,7 @@ def cmux_delta(x, keyv, keyvs, kp: PBSKernelPlan):
     _check("x", x, torch.int64, (B, kp.C, kp.N), dev)
     _check("keyv", keyv, torch.int32, row, dev)
     _check("keyvs", keyvs, torch.int32, row, dev)
+    _check_aligned("keyv", keyv)
     _check_plan(kp, dev)
     out = torch.empty_like(x)
     if B == 0:

@@ -9,9 +9,10 @@ the unfolded rotation, UBR phase 1, the split CMUX step, the automorphism
 key switch and the GA rotation; the GA step's external product alone
 (K1-delta) and the key switch on gathered keys (K6-old); the one-step
 kernels K1-step and K3-step and the v1 UBR phase 1 (K5-v1) at both
-widths, and their entry points' launch counts; and the kernels at N=4096
-with 4 primes (SET_3) and N=8192, whose buffers do not all fit shared
-memory.
+widths, and their entry points' launch counts (the per-step GA forms'
+among them); the kernels at N=4096 with 4 primes (SET_3) and N=8192,
+whose buffers do not all fit shared memory; and, for the kernels on K1's
+schedule, ragged batches, residency and misaligned keys.
 Needs a CUDA card: without one every test here skips.
 
 This file imports nothing but PyTorch, numpy and the port, so it runs on a
@@ -279,31 +280,52 @@ def random_ks_keyset(rng, N, k, t, base_bit, G):
                                    primes)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("N,k,t,base_bit,G,B", [
-    (2048, 1, 4, 9, 16, 6),     # TFHEpp-L2 widths, a cut keyset
-    (256, 2, 3, 8, 5, 4),       # k=2
-    (128, 1, 2, 10, 128, 3),    # the GA tests' widths, the whole keyset
-    (2048, 1, 1, 23, 4, 3),     # SET_2 digits: four primes
-    (4096, 1, 1, 22, 4, 3),     # SET_3 widths: perm in the workspace
-])
-def test_cuda_auto_keyswitch_matches_plain(N, k, t, base_bit, G, B):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    rng = np.random.default_rng(N + G)
-    primes, ak = random_ks_keyset(rng, N, k, t, base_bit, G)
-    x = rng.integers(0, 1 << 64, size=(B, k + 1, N), dtype=np.uint64)
+def auto_ks_args(N, k, t, base_bit, G, B, bits, seed):
+    """K6's arguments: random words of the width (u32 words as int32 at
+    bits 32), a random keyset of G entries under the key-switch plan's
+    primes (L2_32's two at bits 32), kidx 0 and G-1 present, ginv random
+    with 1 and 2N-1 present; the plan last."""
+    rng = np.random.default_rng(seed)
+    if bits == 32:
+        primes = PRIMES_32
+        ak = random_residues(rng, (G, k * t, k + 1, len(primes), N), primes)
+    else:
+        primes, ak = random_ks_keyset(rng, N, k, t, base_bit, G)
+    x = rng.integers(0, 1 << bits, size=(B, k + 1, N), dtype=np.uint64)
     kidx = rng.integers(0, G, size=B, dtype=np.int32)
     kidx[0], kidx[-1] = 0, G - 1
     ginv = (rng.integers(0, N, size=B, dtype=np.int32) * 2 + 1)
-    ginv[0], ginv[1] = 1, 2 * N - 1
-    kp = tpk.get_kernel_plan(N, primes, t, base_bit, k, "cuda")
-    args = (to_tensor(x, "cuda"), as_i32(ak, "cuda"),
-            torch.from_numpy(kidx).cuda(), torch.from_numpy(ginv).cuda(), kp)
+    ginv[:2] = [1, 2 * N - 1][:B]
+    kp = tpk.get_kernel_plan(N, primes, t, base_bit, k, "cuda", bits)
+    words = (as_i32(x.astype(np.uint32), "cuda") if bits == 32
+             else to_tensor(x, "cuda"))
+    return (words, as_i32(ak, "cuda"), torch.from_numpy(kidx).cuda(),
+            torch.from_numpy(ginv).cuda(), kp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,k,t,base_bit,G,B,bits", [
+    (2048, 1, 4, 9, 16, 6, 64),     # TFHEpp-L2 widths, a cut keyset
+    (256, 2, 3, 8, 5, 4, 64),       # k=2
+    (128, 1, 2, 10, 128, 3, 64),    # the GA tests' widths, the whole keyset
+    (2048, 1, 1, 23, 4, 3, 64),     # SET_2 digits: four primes
+    (4096, 1, 1, 22, 4, 3, 64),     # SET_3 widths: x read in place
+    (4096, 1, 1, 22, 64, 133, 64),  # SET_3, four primes, B past one wave
+    # ragged batches around the resident blocks (264 at L2, 396 at L2_32)
+    (2048, 1, 4, 9, 64, 1, 64), (2048, 1, 4, 9, 64, 263, 64),
+    (2048, 1, 4, 9, 64, 265, 64), (2048, 1, 4, 9, 64, 529, 64),
+    (2048, 1, 3, 7, 64, 1, 32), (2048, 1, 3, 7, 64, 263, 32),
+    (2048, 1, 3, 7, 64, 265, 32), (2048, 1, 3, 7, 64, 529, 32),
+])
+def test_cuda_auto_keyswitch_matches_plain(N, k, t, base_bit, G, B, bits):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    args = auto_ks_args(N, k, t, base_bit, G, B, bits, seed=N + G)
     launches = tpk.auto_keyswitch_stream.launches
     got = tpk.auto_keyswitch_stream(*args)
     torch.cuda.synchronize()
     assert tpk.auto_keyswitch_stream.launches == launches + 1
+    assert got.dtype == args[0].dtype
     assert torch.equal(got, tpk.auto_keyswitch_stream_plain(*args))
 
 
@@ -884,24 +906,31 @@ def test_cuda_ga_scan_matches_plain_torus32(gen_mode):
     assert torch.equal(got, tpk.ga_scan_fused_plain(*args))
 
 
+def cmux_delta_args(N, l, Bg_bit, B, seed):
+    """K1-delta's arguments (64-bit): one random TRGSW and its Shoup
+    companions over B random rows, words with a carry from the offset into
+    the high half present; the plan last."""
+    primes, acc0, _, keyv, keyvs = random_rotation_inputs(
+        N, 1, l, Bg_bit, 1, B, seed)
+    acc0[0, 0, :3] = [(1 << 64) - 1, 1 << 63, 0xFFFFFFFF]
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, 1, "cuda")
+    return (to_tensor(acc0, "cuda"), as_i32(keyv[0], "cuda"),
+            as_i32(keyvs[0], "cuda"), kp)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("N,l,Bg_bit,B", [
     (2048, 4, 9, 5),      # TFHEpp-L2 widths
     (4096, 1, 22, 3),     # SET_3 widths: 4 primes
     (8192, 1, 22, 2),     # 4 primes at N=8192: the spectra in the workspace
+    # ragged batches around the resident blocks (two of 384 per SM: 264)
+    (2048, 4, 9, 1), (2048, 4, 9, 263), (2048, 4, 9, 265), (2048, 4, 9, 529),
 ])
 def test_cuda_cmux_delta_matches_plain(N, l, Bg_bit, B):
-    """K1-delta: one TRGSW and its Shoup companions over B random rows,
-    words with a carry from the offset into the high half present."""
+    """K1-delta against its plain version, one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    k = 1
-    primes, acc0, _, keyv, keyvs = random_rotation_inputs(
-        N, k, l, Bg_bit, 1, B, seed=400 + N)
-    acc0[0, 0, :3] = [(1 << 64) - 1, 1 << 63, 0xFFFFFFFF]
-    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
-    args = (to_tensor(acc0, "cuda"), as_i32(keyv[0], "cuda"),
-            as_i32(keyvs[0], "cuda"), kp)
+    args = cmux_delta_args(N, l, Bg_bit, B, seed=400 + N)
     launches = tpk.cmux_delta.launches
     got = tpk.cmux_delta(*args)
     torch.cuda.synchronize()
@@ -1423,3 +1452,85 @@ def test_cuda_ext_product_apply_refuses_a_misaligned_key():
     with pytest.raises(ValueError, match="16-byte"):
         tpk.ext_product_apply_scan(acc, shifted, kp)
     assert tpk.ext_product_apply_scan.launches == launches
+
+
+# --- K1-delta and K6 on K1's schedule ---------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["l2", "l2_32", "set3"])
+def test_cuda_cmux_delta_and_auto_keyswitch_residency(name):
+    """K1-delta's and K6's blocks per SM and threads, as K3's: two of 384
+    at L2, three of 256 at L2_32 (K6; K1-delta is 64-bit only), one of
+    1,024 at SET_3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    want = {"l2": (2, 384), "l2_32": (3, 256), "set3": (1, 1024)}[name]
+    N, l, Bg_bit, bits = ROTATION_WIDTHS[name]
+    kp = auto_ks_args(N, 1, l, Bg_bit, 1, 1, bits, seed=1800)[-1]
+    assert tpk.auto_keyswitch_residency(kp, bits) == want
+    if bits == 64:
+        kp = cmux_delta_args(N, l, Bg_bit, 1, seed=1801)[-1]
+        assert tpk.cmux_delta_residency(kp) == want
+
+
+@pytest.mark.gpu
+def test_cuda_cmux_delta_and_auto_keyswitch_refuse_misaligned_keys():
+    """K1-delta and K6 read their keys 16 bytes at a time: a view that
+    starts off a 16-byte boundary raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, dtype=torch.int32,
+                           device="cuda")[1:].view(t.shape).copy_(t)
+    x, keyv, keyvs, kp = cmux_delta_args(2048, 4, 9, 2, seed=1900)
+    w, ak, kidx, ginv, kp_ks = auto_ks_args(2048, 1, 4, 9, 64, 2, 64,
+                                            seed=1901)
+    launches = (tpk.cmux_delta.launches, tpk.auto_keyswitch_stream.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        tpk.cmux_delta(x, shifted(keyv), keyvs, kp)
+    with pytest.raises(ValueError, match="16-byte"):
+        tpk.auto_keyswitch_stream(w, shifted(ak), kidx, ginv, kp_ks)
+    assert (tpk.cmux_delta.launches,
+            tpk.auto_keyswitch_stream.launches) == launches
+
+
+@pytest.mark.gpu
+def test_cuda_ga_step_forms_match_k7():
+    """At TFHEpp-L2 widths with a random GA key cut to n=3 steps (the whole
+    2048-entry keyset) and 5 ciphertexts: `blind_rotate_ga_stepwise` is n
+    K1-delta and n+1 K6 launches, `blind_rotate_ga_gathered` n K1-delta
+    and n+1 K6-old launches, each giving `blind_rotate_ga`'s words (one K6
+    and one K7 launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from mosfhet_torch import bootstrap_ga, trlwe
+    N, k, l, Bg_bit = L2_SPLIT
+    n, B = 3, 5
+    primes, acc0, _, sv, svs = random_rotation_inputs(N, k, l, Bg_bit, n, B,
+                                                      seed=2000)
+    ks_primes = ntt.primes_for_bound(ntt.conv_bound(N, 1 << (Bg_bit - 1),
+                                                    k * l * l))
+    gen = torch.Generator(device="cuda").manual_seed(2001)
+    pr = torch.tensor(ks_primes, dtype=torch.int64, device="cuda")[:, None]
+    ak = tpk.u32_as_i32(torch.randint(
+        0, 1 << 62, (N, k * l, k + 1, len(ks_primes), N), generator=gen,
+        device="cuda") % pr)
+    bk = bootstrap_ga.GABootstrapKey(
+        as_i32(sv, "cuda"), as_i32(svs, "cuda"), ak,
+        torch.from_numpy(bootstrap_ga.inverse_mod_2n_table(N)).cuda(), n, k,
+        N, l, Bg_bit, l, Bg_bit, primes, ks_primes)
+    tv = trlwe.from_stacked(to_tensor(acc0, "cuda"))
+    rng = np.random.default_rng(2002)
+    a = to_tensor(rng.integers(0, 1 << 64, size=(B, n), dtype=np.uint64),
+                  "cuda")
+    want, counts = _launched((tpk.auto_keyswitch_stream, tpk.ga_scan_fused),
+                             lambda: bootstrap_ga.blind_rotate_ga(tv, a, bk))
+    assert counts == (1, 1)
+    for form, old in (("stepwise", 0), ("gathered", n + 1)):
+        got, counts = _launched(
+            (tpk.cmux_delta, tpk.auto_keyswitch_stream, tpk.auto_keyswitch),
+            lambda: getattr(bootstrap_ga, f"blind_rotate_ga_{form}")(tv, a,
+                                                                     bk))
+        assert counts == (n, n + 1 - old, old)
+        assert torch.equal(got.a, want.a) and torch.equal(got.b, want.b)

@@ -69,12 +69,18 @@ ALL_SHARED = {"TFHEPP_L2": (2048, 4, 9, 64), "SET_1": (1024, 2, 8, 64),
 
 KERNELS = {"K1": ("blind_rotate", {}), "K3": ("ext_product_apply", {}),
            "K4": ("unfolded_rotate", {"M": 256}),
-           "K6": ("auto_keyswitch", {}), "K7": ("ga_scan", {"P_ks": 3}),
+           "K6": ("auto_keyswitch_stream", {}), "K7": ("ga_scan", {"P_ks": 3}),
            "K8a": ("tp_step", {}), "K8b": ("finish_step", {}),
            "K1-step": ("pbs_step", {}),
-           "K3-step": ("ext_product_apply_step", {})}
+           "K3-step": ("ext_product_apply_step", {}),
+           "K1-delta": ("cmux_delta", {}), "K6-old": ("auto_keyswitch", {})}
 # the kernels with 32-bit forms
-ONE_LIMB = ("K1", "K3", "K4", "K6", "K7", "K8a", "K8b", "K1-step", "K3-step")
+ONE_LIMB = ("K1", "K3", "K4", "K6", "K7", "K8a", "K8b", "K1-step", "K3-step",
+            "K6-old")
+# K3's buffer table: K1's exchange rows, spectra and acc (K1-delta and K6
+# read their input in place where acc does not fit)
+K1_TABLE = ("blind_rotate", "pbs_step", "ga_scan", "ext_product_apply",
+            "unfolded_rotate", "cmux_delta", "auto_keyswitch_stream")
 
 
 @pytest.mark.parametrize("name,k_id", [
@@ -92,12 +98,9 @@ def test_layout_keeps_every_buffer_shared_where_it_fits(name, k_id):
     assert stride == 0 and set(_where(layout)) == {"S"}
     # K4 adds its M = 256 exponents (1 KiB) to K1's buffers
     extra = 1024 if kernel == "unfolded_rotate" else 0
-    if name == "TFHEPP_L2" and kernel in ("blind_rotate", "pbs_step",
-                                          "ga_scan", "ext_product_apply",
-                                          "unfolded_rotate"):
+    if name == "TFHEPP_L2" and kernel in K1_TABLE:
         assert layout[0] == 111104 + extra    # 108.5 KiB: two blocks per SM
-    if name == "L2_32" and kernel in ("blind_rotate", "pbs_step", "ga_scan",
-                                      "ext_product_apply", "unfolded_rotate"):
+    if name == "L2_32" and kernel in K1_TABLE:
         assert layout[0] == 68608 + extra     # 67 KiB: three blocks per SM
 
 
@@ -105,20 +108,25 @@ def test_layout_keeps_every_buffer_shared_where_it_fits(name, k_id):
     ("blind_rotate", {}, "SSI", 204),
     ("ext_product_apply", {}, "SSI", 204),
     ("unfolded_rotate", {"M": 4}, "SSSI", 204),
-    ("auto_keyswitch", {}, "SSW", 192),
+    ("auto_keyswitch_stream", {}, "SSI", 204),
     ("ga_scan", {"P_ks": 4}, "SSI", 204),
     ("tp_step", {}, "SS", 204),
     ("finish_step", {}, "SSS", 196),
     ("pbs_step", {}, "SSI", 204),
-    ("ext_product_apply_step", {}, "SSI", 192)],
-    ids=["K1", "K3", "K4", "K6", "K7", "K8a", "K8b", "K1-step", "K3-step"])
+    ("ext_product_apply_step", {}, "SSI", 192),
+    ("cmux_delta", {}, "SSI", 204),
+    ("auto_keyswitch", {}, "SSW", 192)],
+    ids=["K1", "K3", "K4", "K6", "K7", "K8a", "K8b", "K1-step", "K3-step",
+         "K1-delta", "K6-old"])
 def test_layout_at_set3_moves_the_u64_buffers(kernel, kw, where, smem_kib):
     """N=4096 with 4 primes (SET_3; the GA key's key-switch plan there has 4
     primes too) asks for up to 320 KiB: the NTT rows and spectra stay in
     shared memory, the u64 buffers leave it (K1 and K3, with no rotation
     buffer, K4, whose exchange rows carry its combined key rows, and K7,
     with no permutation buffer, keep their four exchange rows and spectra
-    and update acc in place).  K8a (four exchange rows and its groups' MAC
+    and update acc in place; K1-delta and K6 keep K3's and read their
+    input in place; K6-old, the first design, moves its permuted input to
+    the workspace).  K8a (four exchange rows and its groups' MAC
     slots, acc read from the caller's tensor) and K8b (four exchange rows
     and all 8 spectra rows) keep everything in shared memory.  K1-step
     places K1's buffers, K3-step (the first design) its P NTT rows and
