@@ -11,7 +11,8 @@ Phases; any failure ends the script with a non-zero exit and no result line:
   1. card     CUDA present; the card's name and power limit (nvidia-smi).
   2. build    every kernel under mosfhet_torch/ops/csrc/ with nvcc, sm_90a;
               the registers and spills (ptxas -v) of every instance of K1,
-              K1-step, K3, K4, K7, K8a, K8b, K1-delta and K6.
+              K1-step, K3, K4, K7, K8a, K8b, K1-delta, K6 and K6-old (K6's
+              gathered instances; K3-step launches K3's).
   3. kernel   the blind-rotate kernel against its plain PyTorch version at
               full TFHEpp-L2 width on random inputs, a short rotation, with
               exponents 0 and 2N present: bit-exact.
@@ -78,7 +79,8 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               K5 and held to its plain version on the path's inputs, the
               step form warm beside the fused phase 2 (ms per LUT for each),
               K3-step per launch on the first group beside its bound and its
-              plain version (bit-exact).
+              plain version (bit-exact); K3-step's placement and resident
+              blocks per SM (K3's kernel at G = 1).
  12. extprod  trgsw.external_product at L2 on 512 TRLWEs, with one TRGSW
               broadcast and with one TRGSW per row: 1 K3 launch each,
               bit-exact against the plain version, decrypt within 2^58.
@@ -105,7 +107,8 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               output; warm ms beside blind_rotate_ga's and K7's; K1-delta,
               K6 and K6-old timed per launch on the path's first step beside
               their bounds and their plain versions (bit-exact); K1-delta's
-              resident blocks per SM; the three timed again with their
+              resident blocks per SM, K6-old's (K6's kernel) and its
+              placement; the three timed again with their
               launches queued and on the host (us per wrapper call), and
               each form's device share (its kernels' queued ms times
               launches over the warm call's ms).
@@ -155,7 +158,9 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               then the GA keygen and bootstrap_ga.functional_bootstrap_ga
               on the same 512 ciphertexts (1 K6 and 1 K7 launch per call,
               decrypt within 2^58), K6 held to its plain version on the
-              path's inputs, K6's and K7's resident blocks per SM.
+              path's inputs, and K6-old on those inputs permuted and their
+              keyset entries gathered (its plain version's and K6's words;
+              placement printed), K6's and K7's resident blocks per SM.
 19b. n8192    K8b at N=8192 with 4 primes (SET_3's digits), where its
               C*P spectra exceed a block and it runs one pass per
               component: pbs_on_mesh on a (1, 2) mesh of the card with a
@@ -808,6 +813,16 @@ def ga_stepwise_phase(bkg, tv, cs, acc_k6, acc_k7, gens, k7_ms, max_clock):
     log(f"# L2 K1-delta residency: {r['blocks_per_sm']} blocks of "
         f"{r['threads_per_block']} threads per SM "
         f"({r['resident_ciphertexts']} ciphertexts at once)")
+    runs["auto_keyswitch"]["placement"] = placement(
+        pk, "auto_keyswitch_stream", kp_ks, "auto_keyswitch")
+    r = residency(*pk.auto_keyswitch_residency(kp_ks, 64, gathered=True),
+                  f"K6-old at N={kp_ks.N}, P={kp_ks.P}")
+    runs["auto_keyswitch"]["resident_blocks_per_sm"] = r["blocks_per_sm"]
+    log(f"# L2 K6-old residency (K6's gathered instances): "
+        f"{r['blocks_per_sm']} blocks "
+        f"of {r['threads_per_block']} threads per SM "
+        f"({r['resident_ciphertexts']} ciphertexts at once), placement "
+        f"{runs['auto_keyswitch']['placement']}")
     del tv_r, t_k, perm, rows, o_k, o_6
     return report, counts, runs
 
@@ -896,15 +911,16 @@ def k8_ptxas(text):
 
 
 def sched_ptxas(text, kernel, tag):
-    """Every instance of K3's scan kernel (``kernel`` ext_product_apply,
-    not K3-step's), K4's (unfolded_rotate), K1-delta's (cmux_delta, u64
-    words only: no word type among its template arguments) or K6's
-    (auto_keyswitch, not K6-old's), logged as ``tag``."""
+    """Every instance of K3's kernel (``kernel`` ext_product_apply, which
+    K3-step launches too), K4's (unfolded_rotate), K1-delta's (cmux_delta,
+    u64 words only: no word type among its template arguments) or K6's
+    (auto_keyswitch), logged as ``tag``; K6's gathered instances, which
+    K6-old launches (a last template argument true), as ``tag``-old."""
     def match(line):
-        m = re.search(kernel + r"_kernelILi(\d)E([mj]?)Lb([01])ELi(\d+)E",
-                      line)
+        m = re.search(kernel + r"_kernelILi(\d)E([mj]?)Lb([01])ELi(\d+)E"
+                      r"(?:Lb([01])E)?E", line)
         return None if m is None else {
-            "entry": tag, "P": int(m[1]),
+            "entry": tag + ("-old" if m[5] == "1" else ""), "P": int(m[1]),
             "words": "u32" if m[2] == "j" else "u64",
             "all_shared": m[3] == "1", "log_n": int(m[4]) or None}
     return ptxas_instances(text, match, tag)
@@ -912,8 +928,8 @@ def sched_ptxas(text, kernel, tag):
 
 def log_build(entries):
     for e in entries:
-        # K1-step: K1, K8a: K8; K1-delta keeps its own tag
-        tag = re.match(r"K\d+(-delta)?", e["entry"])[0]
+        # K1-step: K1, K8a: K8; K1-delta and K6-old keep their own tags
+        tag = re.match(r"K\d+(-delta|-old)?", e["entry"])[0]
         log(f"# {tag} build: {e['entry']} P={e['P']}"
             f"{' P_ks=' + str(e['P_ks']) if 'P_ks' in e else ''} "
             f"{e['words']} {'all shared' if e['all_shared'] else 'placed'}"
@@ -1222,6 +1238,14 @@ def ubr_steps_phase(bk, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock):
                   acc_u, apply_scan_bound(kp, luts, 1, per_row, max_clock),
                   KS_REPS)
     v1, k3s = runs["ubr_phase1_combine_v1"], runs["ext_product_apply_step"]
+    k3s["placement"] = placement(pk, "ext_product_apply", kp)
+    r = residency(*pk.ext_product_apply_residency(kp, kp.torus_bits),
+                  f"K3-step at N={kp.N}, P={kp.P}")
+    k3s["resident_blocks_per_sm"] = r["blocks_per_sm"]
+    log(f"# K3-step residency (K3's kernel, {kp.torus_bits}-bit words): "
+        f"{r['blocks_per_sm']} blocks of {r['threads_per_block']} threads "
+        f"per SM ({r['resident_ciphertexts']} ciphertexts at once), "
+        f"placement {k3s['placement']}")
     report = {"unfolding": bk.unfolding, "luts": luts,
               "phase1_v1_first_ms": v1_first_s * 1e3,
               "phase1_v1_ms": v1["ms"], "phase1_k5_ms": k5_ms,
@@ -1267,14 +1291,17 @@ def step_entries(runs, by_path, tag=""):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "library_note": note})
+        entries[-1].update({key: r[key] for key in
+                            ("placement", "resident_blocks_per_sm")
+                            if key in r})
     return entries
 
 
 def set3_phase(dev, max_clock):
     """Phase 19: SET_3, whose shapes put buffers of K1, K3, K4, K7 and K8a
     in a global workspace.  Returns its report and the kernels' entries."""
-    from mosfhet_torch import bootstrap, bootstrap_ga, ntt, params, rng, \
-        tlwe, torus, trgsw, trlwe
+    from mosfhet_torch import bootstrap, bootstrap_ga, ntt, params, \
+        polynomial, rng, tlwe, torus, trgsw, trlwe
     from mosfhet_torch.bootstrap_ga import inverse_mod_2n_table
     from mosfhet_torch.ops import pbs_kernel as pk
 
@@ -1434,8 +1461,7 @@ def set3_phase(dev, max_clock):
                  "ext_product_apply_step/per_row"):
         runs[name]["B"] = B
     where["pbs_step"] = placement(pk, "pbs_step", kp, source="blind_rotate")
-    where["ext_product_apply_step"] = placement(
-        pk, "ext_product_apply_step", kp, source="ext_product_apply")
+    where["ext_product_apply_step"] = placement(pk, "ext_product_apply", kp)
     log(f"# SET_3 K1-step and K3-step at B={B}: placements "
         f"{where['pbs_step']}, {where['ext_product_apply_step']}; "
         + "; ".join(f"{name} {runs[name]['ms']:.4f} ms (plain "
@@ -1480,6 +1506,33 @@ def set3_phase(dev, max_clock):
          auto_ks_bound(kpg_ks, BATCH, kidx0, max_clock), reps=KS_REPS)
     where["auto_keyswitch"] = placement(pk, "auto_keyswitch_stream", kpg_ks,
                                         "auto_keyswitch")
+    # K6-old (K6's kernel, entry b, ginv 1) on that key switch's rows
+    # permuted and their keyset entries gathered: x read in place
+    perm = polynomial.permute_by_inverse(
+        acc_g, ginv0.to(torch.int64)[:, None]).contiguous()
+    rows = bkg.ak[kidx0.to(torch.int64)]
+    # one untimed launch first: the runtime loads a kernel instance at its
+    # first launch, and no SET_3 path has launched this one yet
+    pk.auto_keyswitch(perm, rows, kpg_ks)
+    held("auto_keyswitch/ga_path",
+         lambda: pk.auto_keyswitch(perm, rows, kpg_ks),
+         lambda: pk.auto_keyswitch_plain(perm, rows, kpg_ks),
+         auto_ks_gathered_bound(kpg_ks, BATCH, max_clock), reps=KS_REPS)
+    # K6's own instances on the gathered rows (entry b, ginv 1): the same
+    # words and data, so the two times differ by the instance alone
+    iota = torch.arange(B, dtype=torch.int32, device=dev)
+    k6_rows_ms, o_6 = cuda_ms(lambda: pk.auto_keyswitch_stream(
+        perm, rows, iota, torch.ones_like(iota), kpg_ks), KS_REPS)
+    runs["auto_keyswitch/ga_path"]["k6_on_the_rows_ms"] = k6_rows_ms
+    same_or_fail("SET_3 K6-old vs K6 on the gathered rows",
+                 pk.auto_keyswitch(perm, rows, kpg_ks), o_6)
+    same_or_fail("SET_3 K6-old vs K6 on the GA path's inputs", o_6,
+                 pk.auto_keyswitch_stream(acc_g, bkg.ak, kidx0, ginv0,
+                                          kpg_ks))
+    del perm, rows, iota, o_6
+    runs["auto_keyswitch/ga_path"]["resident_blocks_per_sm"] = residency(
+        *pk.auto_keyswitch_residency(kpg_ks, 64, gathered=True),
+        f"K6-old at N={kpg_ks.N}, P={kpg_ks.P}")["blocks_per_sm"]
     k6_res = k6_residency(pk, kpg_ks, 64, "SET_3")
     k7_res = k7_residency(pk, kpg, kpg_ks, 64)
     log(f"# SET_3 K7 residency: {k7_res['blocks_per_sm']} blocks of "
@@ -1491,7 +1544,14 @@ def set3_phase(dev, max_clock):
         f"2^{math.log2(max(ga_err, 1.0)):.1f}); K6 "
         f"{runs['auto_keyswitch_stream/ga_path']['ms']:.3f} ms/launch "
         f"(plain {runs['auto_keyswitch_stream/ga_path']['plain_ms']:.3f}), "
-        f"placement {where['auto_keyswitch']}; bit-exact")
+        f"placement {where['auto_keyswitch']}; K6-old "
+        f"{runs['auto_keyswitch/ga_path']['ms']:.4f} ms/launch (plain "
+        f"{runs['auto_keyswitch/ga_path']['plain_ms']:.3f}, bound "
+        f"{runs['auto_keyswitch/ga_path']['bound_ms']:.4f} "
+        f"{runs['auto_keyswitch/ga_path']['bound_by']}), the same placement, "
+        f"{runs['auto_keyswitch/ga_path']['resident_blocks_per_sm']} blocks "
+        f"per SM, K6's words (K6 on the gathered rows {k6_rows_ms:.4f} "
+        f"ms/launch); bit-exact")
     del bkg, acc_g, out_g, out_g2
     report = {"params": p.name, "batch": BATCH, "P": kp.P,
               "keygen_s": keygen_s, "key_bytes": key_bytes,
@@ -3308,6 +3368,9 @@ def main():
             "library_ms": None, "library_note": note})
     kernels[-2]["resident_blocks_per_sm"] = \
         step_report["k1_delta_residency"]["blocks_per_sm"]
+    kernels[-1]["resident_blocks_per_sm"] = \
+        step_runs["auto_keyswitch"]["resident_blocks_per_sm"]
+    kernels[-1]["placement"] = step_runs["auto_keyswitch"]["placement"]
     kernels += step_entries({**steps_runs, **ubr_steps_runs}, by_path)
     for entry in kernels:
         runs3 = {name: r for name, r in set3_runs.items()

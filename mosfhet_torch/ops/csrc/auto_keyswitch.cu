@@ -13,14 +13,17 @@
 // `keyswitch.trlwe_keyswitch` (one keyset entry, ginv 1) and
 // `keyswitch.eval_automorphism` (ginv = gen^-1).
 //
-// A second entry (K6-old) replaces the TPU kernel `auto_keyswitch`
+// Its second entry (K6-old) replaces the TPU kernel `auto_keyswitch`
 // (ops/pbs_kernel.py:2200, body `_make_auto_ks_kernel` :2134): the input is
 // already permuted and each ciphertext's keyset entry was gathered for it
-// beforehand, key_rows [B, k t, k+1, P, N], so the key of block b is
-// key_rows + b * entry and nothing is permuted.  It is
+// beforehand, key_rows [B, k t, k+1, P, N].  That is K6 with ginv = 1 (the
+// identity: k * 1 mod 2N = k < N, no sign) and the entry index b, so the
+// entry launches the same kernel in its Gathered instances, whose block b
+// reads its key at key_rows + b * entry and takes ginv 1 at compile time
+// (K6's own instances, and their registers, stay as they were).  It is
 // `bootstrap_ga.blind_rotate_ga_gathered`'s key switch.
 //
-// At the 32-bit torus (TORUS32) both run on u32 words (the word type W):
+// At the 32-bit torus (TORUS32) it runs on u32 words (the word type W):
 // the permutation negates mod 2^32, the key switch's gadget offset is cast
 // to W once, and Garner's Horner step wraps mod 2^32 (the TPU bodies'
 // `nl == 1` branches, pbs_kernel.py:2154/2180 and :2326/2355, through
@@ -44,7 +47,8 @@
 // What bounds it on this card: bytes, at the GA path's B=512.  Each
 // ciphertext reads its own 192 KiB keyset entry (distinct entries for
 // random generators, ~450 of 2048 at B=512) and 32 KiB in and out, against
-// 18 NTTs x 11,264 butterflies + 49,152 Barrett products of work.
+// 18 NTTs x 11,264 butterflies + 49,152 Barrett products of work.  K6-old
+// reads B distinct entries, one gathered row per ciphertext.
 //
 // Buffers of a block, as K7's with one plan: acc [C][N] words, spec
 // [C][P][SR] u32 and work [NG][SR] u32 (SR = N + N/16 from N = 256):
@@ -53,27 +57,19 @@
 // all fit, the wrapper places them by traffic: work in shared memory, then
 // spec, then acc; spec in a global workspace, acc left out, the block then
 // reading x in place (SET_3's 4-prime key-switch plan: x in place).
-//
-// K6-old keeps the first design (ga_common.cuh): one block of 1024 threads
-// per ciphertext copies its input into shared memory (perm, C x N W), and
-// for each digit row runs P block-wide forward NTTs (one barrier per
-// stage) and a Barrett multiply-accumulate against the row's keyset entry,
-// then C x P inverse NTTs and Garner.  Shared memory: perm 32 KiB, spectra
-// 48 KiB, one digit row's NTTs 24 KiB at TFHEpp-L2; where they do not all
-// fit the wrapper moves perm to a global workspace.
 
-#include "ga_common.cuh"
 #include "rotate_sched.cuh"
 
 namespace {
 
-enum { kWork, kSpec, kAcc, kNumBuf };  // K6's buffers, as the wrapper lists
-enum { kOldWork, kOldSpec, kOldPerm, kOldNumBuf };  // K6-old's
+enum { kWork, kSpec, kAcc, kNumBuf };  // buffers, as the wrapper lists them
 
 // K6, one block per ciphertext.  ak [G][k t][C][PK][N] u32 residues,
 // 16-byte aligned.  LogN != 0: the compile-time shape of K1's 80-register
 // instances (N = 2^LogN, k = 1, PK at most 3, all in shared memory).
-template <int PK, typename W, bool S, int LogN>
+// Gathered (K6-old): ak holds one entry per ciphertext, block b reads
+// entry b with ginv 1; kidx and ginv are not read.
+template <int PK, typename W, bool S, int LogN, bool Gathered>
 __global__ void __launch_bounds__(kBlockThreads<LogN>, kMinBlocks<LogN>)
 auto_keyswitch_kernel(const W* __restrict__ x_g,
                       const uint32_t* __restrict__ ak,
@@ -103,11 +99,12 @@ auto_keyswitch_kernel(const W* __restrict__ x_g,
     for (int i = threadIdx.x; i < CN; i += threads) acc[i] = x_b[i];
   __syncthreads();
 
-  const int gi = ginv[blockIdx.x];
+  const int gi = Gathered ? 1 : ginv[blockIdx.x];
   const size_t entry = size_t(JK) * C * PK * N;
   product_spectra<PK, PK, W, Fixed, true>(
       [&](int c, int k) { return permuted_word(acc + c * N, k, gi, N); }, JK,
-      ak + kidx[blockIdx.x] * entry, spec, work, ftw, ftws, itw, itws, K, s);
+      ak + (Gathered ? int(blockIdx.x) : kidx[blockIdx.x]) * entry, spec,
+      work, ftw, ftws, itw, itws, K, s);
   __syncthreads();
   W* out = out_g + size_t(blockIdx.x) * CN;
   for (int idx = threadIdx.x; idx < CN; idx += threads) {
@@ -116,38 +113,6 @@ auto_keyswitch_kernel(const W* __restrict__ x_g,
     const W b = c == C - 1 ? permuted_word(acc + c * N, k, gi, N) : W(0);
     out[idx] = b - w;
   }
-}
-
-// K6-old: key_rows [B][k t][C][PK][N] (ciphertext b's keyset entry), the
-// input already permuted.
-template <int PK, typename W, bool S>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-auto_keyswitch_rows_kernel(const W* __restrict__ x_g,
-                           const uint32_t* __restrict__ key_rows,
-                           W* __restrict__ out_g,
-                           const uint32_t* __restrict__ ftw,
-                           const uint32_t* __restrict__ ftws,
-                           const uint32_t* __restrict__ itw,
-                           const uint32_t* __restrict__ itws,
-                           unsigned char* ws, const PbsConsts Kp,
-                           const Layout L) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ PbsConsts K;
-  if (threadIdx.x == 0) K = Kp;
-  __syncthreads();
-  const int CN = K.C * K.N;
-  // perm [C][N], spec [C][PK][N], work [PK][N]
-  W* perm = buffer<S, W>(L, kOldPerm, smem, ws, nullptr);
-  auto* spec = buffer<S, uint32_t>(L, kOldSpec, smem, ws, nullptr);
-  auto* work = buffer<S, uint32_t>(L, kOldWork, smem, ws, nullptr);
-
-  const int b = blockIdx.x;
-  const size_t entry = size_t(K.C - 1) * K.l * K.C * PK * K.N;
-  const W* x = x_g + size_t(b) * CN;
-  for (int i = threadIdx.x; i < CN; i += blockDim.x) perm[i] = x[i];
-  __syncthreads();
-  keyswitch_entry<PK, W>(perm, out_g + size_t(b) * CN, key_rows + b * entry,
-                         spec, work, K, ftw, ftws, itw, itws);
 }
 
 struct Args {
@@ -159,58 +124,40 @@ struct Args {
   unsigned char* ws;
   int B;
   cudaStream_t stream;
-  int* blocks_per_sm;  // non-null: report K6's residency, launch nothing
+  int* blocks_per_sm;  // non-null: report the residency, launch nothing
 };
 
-template <int PK, typename W, bool S, int LogN>
+template <int PK, typename W, bool S, int LogN, bool Gathered>
 cudaError_t launch(const Args& x, const PbsConsts& K, const Layout& L,
                    const Sched& s) {
-  return launch_sched(auto_keyswitch_kernel<PK, W, S, LogN>, s, L, x.B,
-                      x.stream, x.blocks_per_sm, static_cast<const W*>(x.x),
-                      x.ak, x.kidx, x.ginv, static_cast<W*>(x.out), x.ftw,
-                      x.ftws, x.itw, x.itws, x.ws, K, L);
+  return launch_sched(auto_keyswitch_kernel<PK, W, S, LogN, Gathered>, s, L,
+                      x.B, x.stream, x.blocks_per_sm,
+                      static_cast<const W*>(x.x), x.ak, x.kidx, x.ginv,
+                      static_cast<W*>(x.out), x.ftw, x.ftws, x.itw, x.itws,
+                      x.ws, K, L);
 }
 
-template <int PK, typename W>
+template <int PK, typename W, bool Gathered>
 cudaError_t launch_s(const Args& x, const PbsConsts& K, const Layout& L,
                      const Sched& s) {
-  if (!all_shared(L, kNumBuf)) return launch<PK, W, false, 0>(x, K, L, s);
+  if (!all_shared(L, kNumBuf))
+    return launch<PK, W, false, 0, Gathered>(x, K, L, s);
   return with_log_n<PK>(K, [&](auto n) {
-    return launch<PK, W, true, decltype(n)::value>(x, K, L, s);
+    return launch<PK, W, true, decltype(n)::value, Gathered>(x, K, L, s);
   });
 }
 
-template <int PK, typename W, bool S>
-cudaError_t launch_rows(const Args& x, const PbsConsts& K, const Layout& L) {
-  auto* kernel = auto_keyswitch_rows_kernel<PK, W, S>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<x.B, kMaxThreads, L.smem, x.stream>>>(
-      static_cast<const W*>(x.x), x.ak, static_cast<W*>(x.out), x.ftw,
-      x.ftws, x.itw, x.itws, x.ws, K, L);
-  return cudaGetLastError();
-}
-
-// Gathered: K6-old; otherwise K6.
 template <bool Gathered>
 int launch_entry(const Args& a, const int64_t* consts, const int64_t* layout,
                  int word_bits) {
   PbsConsts K;
   Sched s;
-  if (!parse_consts(consts, K) || (!Gathered && !make_sched(K.logN, K.P, s)))
+  if (!parse_consts(consts, K) || !make_sched(K.logN, K.P, s))
     return int(cudaErrorInvalidValue);
   if (a.B == 0 && !a.blocks_per_sm) return int(cudaSuccess);
-  const int nbuf = Gathered ? int(kOldNumBuf) : int(kNumBuf);
-  const Layout L = parse_layout(layout, nbuf);
+  const Layout L = parse_layout(layout, kNumBuf);
   return int(dispatch_pw(K.P, word_bits, [&](auto p, auto w) {
-    using W = decltype(w);
-    constexpr int PK = decltype(p)::value;
-    if constexpr (Gathered)
-      return all_shared(L, kOldNumBuf) ? launch_rows<PK, W, true>(a, K, L)
-                                       : launch_rows<PK, W, false>(a, K, L);
-    else
-      return launch_s<PK, W>(a, K, L, s);
+    return launch_s<decltype(p)::value, decltype(w), Gathered>(a, K, L, s);
   }));
 }
 
@@ -248,9 +195,10 @@ int auto_keyswitch_launch(const void* x, const void* ak, const void* kidx,
   return launch_entry<false>(a, consts, layout, word_bits);
 }
 
-// K6-old: as `auto_keyswitch_launch` with perm (already permuted) in place
-// of x, key_rows [B, k t, k+1, P, N] u32 (ciphertext b's keyset entry) in
-// place of ak, and no kidx or ginv; layout: offsets of work, spec, perm.
+// K6-old: `auto_keyswitch_launch` with perm (already permuted) in place of
+// x, key_rows [B, k t, k+1, P, N] u32 (ciphertext b's keyset entry, 16-byte
+// aligned) in place of ak, entry b for block b and ginv 1 (the Gathered
+// instances).
 int auto_keyswitch_rows_launch(const void* perm, const void* key_rows,
                                void* out, const void* ftw, const void* ftws,
                                const void* itw, const void* itws, void* ws,
@@ -272,11 +220,13 @@ int auto_keyswitch_rows_launch(const void* perm, const void* key_rows,
   return launch_entry<true>(a, consts, layout, word_bits);
 }
 
-// The blocks of K6 resident on one SM at the key-switch plan's shape, the
-// placement and the word width (cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// on the current device), and the threads of a block.
+// The blocks of K6 (gathered != 0: K6-old) resident on one SM at the
+// key-switch plan's shape, the placement and the word width
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device),
+// and the threads of a block.
 int auto_keyswitch_residency(const int64_t* consts, const int64_t* layout,
-                             int word_bits, int* blocks, int* threads) {
+                             int word_bits, int gathered, int* blocks,
+                             int* threads) {
   PbsConsts K;
   Sched s;
   if (!parse_consts(consts, K) || !make_sched(K.logN, K.P, s))
@@ -284,7 +234,8 @@ int auto_keyswitch_residency(const int64_t* consts, const int64_t* layout,
   *threads = s.NG * s.T;
   Args a{};
   a.blocks_per_sm = blocks;
-  return launch_entry<false>(a, consts, layout, word_bits);
+  return gathered ? launch_entry<true>(a, consts, layout, word_bits)
+                  : launch_entry<false>(a, consts, layout, word_bits);
 }
 
 const char* cuda_error_string(int err) {

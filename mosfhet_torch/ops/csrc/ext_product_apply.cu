@@ -59,73 +59,19 @@
 // (SET_3: acc in place; N=8192: spec in the workspace).  N from 16 to
 // 16384.
 //
-// K3-step (`ext_product_apply_step_kernel`, entry
-// `ext_product_apply_step_launch`) is one product per launch in the first
-// design (`replace_product`: one block of 1,024 threads, the block-wide
-// `forward_ntt`/`inverse_ntt` of ntt_common.cuh, the NTT rows [P][N], the
-// spectra [C][P][N] and acc: 104 KiB at TFHEpp-L2, one block per SM): the
-// TPU kernel `_apply_step_tiles` (pbs_kernel.py:1802, the per-step
-// `ext_product_apply_scan` at :1858).  acc is read from and
-// written back to the caller's tensor, in place as the TPU kernel aliases
-// it; the key is [J, C, P, N] broadcast or [B, J, C, P, N] per row (the
-// TPU's per-row tile [nb, J, C, P, BT, N] without its sublane axis).  In
-// place is safe: the digits of every row are read before the inverse NTTs'
-// barriers, and each thread then writes only its own words.
+// K3-step (entry `ext_product_apply_step_launch`) is one product per launch
+// of the same kernel at G = 1: the TPU kernel `_apply_step_tiles`
+// (pbs_kernel.py:1802, the per-step `ext_product_apply_scan` at :1858).
+// acc is replaced in the caller's tensor, as the TPU kernel aliases it;
+// the key is [J, C, P, N] broadcast or [B, J, C, P, N] per row (the TPU's
+// per-row tile [nb, J, C, P, BT, N] without its sublane axis), K3's layout
+// with G = 1.
 
 #include "rotate_sched.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
 enum { kWork, kSpec, kAcc, kNumBuf };  // buffers, as the wrapper lists them
-
-// K3-step's product: acc <- key (x) acc, block-wide, one ciphertext: acc
-// [C][N] words, spec [C][P][N] and work [P][N] u32 wherever they were
-// placed; key [J][C][P][N] u32 canonical residues.  Starts after acc was
-// written (no barrier needed before it: the spectra are cleared, then a
-// barrier) and ends with a barrier.
-template <int P, typename W>
-__device__ __forceinline__ void replace_product(
-    W* acc, uint32_t* spec, uint32_t* work, const uint32_t* __restrict__ key,
-    const uint32_t* __restrict__ ftw, const uint32_t* __restrict__ ftws,
-    const uint32_t* __restrict__ itw, const uint32_t* __restrict__ itws,
-    const PbsConsts& K) {
-  const int N = K.N, C = K.C, l = K.l, J = K.C * K.l, CN = K.C * K.N;
-  const W offset = W(K.offset);
-  for (int idx = threadIdx.x; idx < C * P * N; idx += blockDim.x)
-    spec[idx] = 0;
-  __syncthreads();
-  for (int j = 0; j < J; ++j) {
-    // 1. digit row j = (component c_j, digit d) as residues mod each prime
-    const int cj = j / l, d = j % l;
-    for (int k = threadIdx.x; k < N; k += blockDim.x) {
-      const int digit = gadget_digit<W>(acc[cj * N + k] + offset, d, K);
-#pragma unroll
-      for (int pi = 0; pi < P; ++pi)
-        work[pi * N + k] = small_residue(digit, K.p[pi]);
-    }
-    __syncthreads();
-    // 2. forward NTTs, then spec[c][p] += NTT(digit row) * key[j][c][p]
-    forward_ntt<P>(work, P, K, ftw, ftws);
-    for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x) {
-      const int pi = idx >> K.logN, k = idx & (N - 1);
-      const uint32_t p = K.p[pi], mup = K.mup[pi], x = work[idx];
-      for (int c = 0; c < C; ++c) {
-        const size_t ko = (size_t(j * C + c) * P + pi) * N + k;
-        uint32_t* sp = spec + (c * P + pi) * N + k;
-        *sp = add_mod(*sp, barrett(x, key[ko], p, mup), p);
-      }
-    }
-    __syncthreads();
-  }
-  // 3. inverse NTTs, Garner (with 1/N) replacing acc
-  inverse_ntt<P>(spec, C * P, K, itw, itws);
-  for (int idx = threadIdx.x; idx < CN; idx += blockDim.x) {
-    const int c = idx >> K.logN, k = idx & (N - 1);
-    acc[idx] = garner<P, W>(spec + c * P * N, k, K);
-  }
-  __syncthreads();
-}
 
 // K3: the G products, one block per ciphertext.  sa [G][J][C][P][N] or,
 // per row, [G][B][J][C][P][N] u32 residues, 16-byte aligned.  LogN != 0:
@@ -171,37 +117,6 @@ ext_product_apply_kernel(W* __restrict__ acc_g,
     for (int i = threadIdx.x; i < CN; i += threads) acc_b[i] = acc[i];
 }
 
-// K3-step: one product per launch, one block per ciphertext; acc, key
-// [J][C][P][N] or, per row, [B][J][C][P][N].
-template <int P, typename W, bool S>
-__global__ void __launch_bounds__(kThreads, 1)
-ext_product_apply_step_kernel(W* __restrict__ acc_g,
-                              const uint32_t* __restrict__ sa,
-                              const uint32_t* __restrict__ ftw,
-                              const uint32_t* __restrict__ ftws,
-                              const uint32_t* __restrict__ itw,
-                              const uint32_t* __restrict__ itws,
-                              unsigned char* ws, const PbsConsts Kp,
-                              const Layout L, int B, int G, int per_row) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ PbsConsts K;
-  if (threadIdx.x == 0) K = Kp;
-  __syncthreads();
-  const int N = K.N, C = K.C, J = K.C * K.l, CN = K.C * K.N;
-  const int b = blockIdx.x;
-  W* acc_b = acc_g + size_t(b) * CN;
-  W* acc = buffer<S, W>(L, kAcc, smem, ws, acc_b);                 // [C][N]
-  auto* spec = buffer<S, uint32_t>(L, kSpec, smem, ws, nullptr);  // [C][P][N]
-  auto* work = buffer<S, uint32_t>(L, kWork, smem, ws, nullptr);  // [P][N]
-  if (acc != acc_b)
-    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc[i] = acc_b[i];
-  const size_t key_size = size_t(J) * C * P * N;
-  replace_product<P, W>(acc, spec, work, sa + (per_row ? b : 0) * key_size,
-                        ftw, ftws, itw, itws, K);
-  if (acc != acc_b)
-    for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
-}
-
 struct Args {
   void* acc;
   const uint32_t *sa, *ftw, *ftws, *itw, *itws;
@@ -229,19 +144,6 @@ cudaError_t launch_scan_s(const Args& x, const PbsConsts& K, const Layout& L,
   });
 }
 
-template <int P, typename W, bool S>
-cudaError_t launch_step(const Args& x, const PbsConsts& K, const Layout& L) {
-  auto* kernel = ext_product_apply_step_kernel<P, W, S>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<x.B, kThreads, L.smem, x.stream>>>(
-      static_cast<W*>(x.acc), x.sa, x.ftw, x.ftws, x.itw, x.itws, x.ws, K, L,
-      x.B, 1, x.per_row);
-  return cudaGetLastError();
-}
-
-template <bool Step>
 int launch_entry(void* acc, const void* sa, const void* ftw, const void* ftws,
                  const void* itw, const void* itws, void* ws,
                  const int64_t* consts, const int64_t* layout, int B, int G,
@@ -249,7 +151,7 @@ int launch_entry(void* acc, const void* sa, const void* ftw, const void* ftws,
                  int* blocks_per_sm = nullptr) {
   PbsConsts K;
   Sched s;
-  if (!parse_consts(consts, K) || (!Step && !make_sched(K.logN, K.P, s)))
+  if (!parse_consts(consts, K) || !make_sched(K.logN, K.P, s))
     return int(cudaErrorInvalidValue);
   if ((B == 0 || G == 0) && !blocks_per_sm) return int(cudaSuccess);
   const Args x{acc,
@@ -265,15 +167,8 @@ int launch_entry(void* acc, const void* sa, const void* ftw, const void* ftws,
                static_cast<cudaStream_t>(stream),
                blocks_per_sm};
   const Layout L = parse_layout(layout, kNumBuf);
-  const bool shared = all_shared(L, kNumBuf);
   return int(dispatch_pw(K.P, word_bits, [&](auto p, auto w) {
-    using W = decltype(w);
-    constexpr int P = decltype(p)::value;
-    if constexpr (Step)
-      return shared ? launch_step<P, W, true>(x, K, L)
-                    : launch_step<P, W, false>(x, K, L);
-    else
-      return launch_scan_s<P, W>(x, K, L, s);
+    return launch_scan_s<decltype(p)::value, decltype(w)>(x, K, L, s);
   }));
 }
 
@@ -293,25 +188,27 @@ int ext_product_apply_launch(void* acc, const void* sa, const void* ftw,
                              const void* itws, void* ws, const int64_t* consts,
                              const int64_t* layout, int B, int G, int per_row,
                              int word_bits, void* stream) {
-  return launch_entry<false>(acc, sa, ftw, ftws, itw, itws, ws, consts,
-                             layout, B, G, per_row, word_bits, stream);
+  return launch_entry(acc, sa, ftw, ftws, itw, itws, ws, consts, layout, B,
+                      G, per_row, word_bits, stream);
 }
 
-// K3-step: one product, acc <- SA (x) acc in place; sa [(k+1)l, k+1, P, N]
-// u32, or [B, (k+1)l, k+1, P, N] when per_row != 0; the rest as above.
+// K3-step: one product, acc <- SA (x) acc in place, the scan at G = 1; sa
+// [(k+1)l, k+1, P, N] u32, or [B, (k+1)l, k+1, P, N] when per_row != 0,
+// 16-byte aligned; the rest as above.
 int ext_product_apply_step_launch(void* acc, const void* sa, const void* ftw,
                                   const void* ftws, const void* itw,
                                   const void* itws, void* ws,
                                   const int64_t* consts,
                                   const int64_t* layout, int B, int per_row,
                                   int word_bits, void* stream) {
-  return launch_entry<true>(acc, sa, ftw, ftws, itw, itws, ws, consts,
-                            layout, B, 1, per_row, word_bits, stream);
+  return launch_entry(acc, sa, ftw, ftws, itw, itws, ws, consts, layout, B,
+                      1, per_row, word_bits, stream);
 }
 
-// The blocks of K3 resident on one SM at the plan's shape, the placement
-// and the word width (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the
-// current device), and the threads of a block.
+// The blocks of K3 (and K3-step) resident on one SM at the plan's shape,
+// the placement and the word width
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device), and
+// the threads of a block.
 int ext_product_apply_residency(const int64_t* consts, const int64_t* layout,
                                 int word_bits, int* blocks, int* threads) {
   PbsConsts K;
@@ -319,9 +216,9 @@ int ext_product_apply_residency(const int64_t* consts, const int64_t* layout,
   if (!parse_consts(consts, K) || !make_sched(K.logN, K.P, s))
     return int(cudaErrorInvalidValue);
   *threads = s.NG * s.T;
-  return launch_entry<false>(nullptr, nullptr, nullptr, nullptr, nullptr,
-                             nullptr, nullptr, consts, layout, 0, 1, 0,
-                             word_bits, nullptr, blocks);
+  return launch_entry(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, consts, layout, 0, 1, 0, word_bits, nullptr,
+                      blocks);
 }
 
 const char* cuda_error_string(int err) {

@@ -65,12 +65,31 @@
 // may have another prime count, and its gadget offset differs whenever
 // t != l or base_bit != Bg_bit.  N from 16 to 16384.
 
-#include "ga_common.cuh"
 #include "rotate_sched.cuh"
 
 namespace {
 
 enum { kWork, kSpec, kAcc, kNumBuf };  // buffers, as the wrapper lists them
+
+// Calls f(std::integral_constant<int, PK>{}) for a key-switch plan's prime
+// count PK: 2-5 with u64 words, 2 or 3 with u32 words (as `dispatch_pw`
+// does for the words' own plan).  Any other count is refused.
+template <typename W, typename F>
+cudaError_t dispatch_pk(int PK, F&& f) {
+  switch (PK) {
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    default: break;
+  }
+  if constexpr (sizeof(W) == 8) {
+    switch (PK) {
+      case 4: return f(std::integral_constant<int, 4>{});
+      case 5: return f(std::integral_constant<int, 5>{});
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
+}
 
 // K7: the whole GA rotation, one block per ciphertext.  LogN != 0: the
 // compile-time shape of K1's 80-register instances (N = 2^LogN, k = 1, P

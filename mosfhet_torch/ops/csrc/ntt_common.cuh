@@ -1,13 +1,13 @@
 // Device helpers shared by the port's CUDA kernels (sm_90a): 32-bit modular
-// products, the negacyclic NTT on the plan's psi_rev tables, Garner CRT back
-// to exact torus words, gadget digits, the negacyclic rotation, and where a
-// block's buffers live.
+// products, the block-wide negacyclic NTT on the plan's psi_rev tables (UBR
+// phase 1's), gadget digits, the negacyclic rotation, and where a block's
+// buffers live.  The other kernels' NTTs and Garner run on K1's schedule
+// (rotate_sched.cuh).
 //
 // Counterparts of the TPU package's kernel helpers (ops/pbs_kernel.py):
-// `_shoup_lazy` (108), `_barrett_lazy` (125), `_fwd_ntt` (150), `_inv_ntt`
-// (291), `_decompose_digit` (661), `_garner_limbs` (682),
-// `_negacyclic_rotate_limbs` (998) and `_limbs_to_resi` (1694), and their
-// one-limb (TORUS32) forms `_garner_limb32` (725) and
+// `_shoup_lazy` (108), `_barrett_lazy` (125), `_fwd_ntt` (150),
+// `_decompose_digit` (661), `_negacyclic_rotate_limbs` (998) and
+// `_limbs_to_resi` (1694), and the one-limb (TORUS32) form
 // `_negacyclic_rotate_limb32` (1099).  Torus words are the type W: uint64_t
 // at the 64-bit torus, uint32_t at the 32-bit one, and every word operation
 // wraps mod 2^(8 sizeof W).  Every function here returns canonical residues
@@ -190,59 +190,6 @@ __device__ void forward_ntt(uint32_t* x, int rows, const PbsConsts& K,
     }
     __syncthreads();
   }
-}
-
-// Inverse (Gentleman-Sande) of `forward_ntt` without the 1/N scaling.
-template <int P>
-__device__ void inverse_ntt(uint32_t* x, int rows, const PbsConsts& K,
-                            const uint32_t* __restrict__ tw,
-                            const uint32_t* __restrict__ tws) {
-  const int N = K.N, lh = K.logN - 1;
-  const int total = rows << lh;
-  for (int lt = 0, h = N >> 1; h >= 1; ++lt, h >>= 1) {
-    const int t = 1 << lt;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int r = idx >> lh, b = idx & ((1 << lh) - 1);
-      const int pi = r % P;
-      const uint32_t p = K.p[pi];
-      const int i = b >> lt, j = b & (t - 1);
-      uint32_t* row = x + r * N;
-      const int u = (i << (lt + 1)) + j;
-      const uint32_t S = tw[pi * N + h + i], Ss = tws[pi * N + h + i];
-      const uint32_t U = row[u], V = row[u + t];
-      row[u] = add_mod(U, V, p);
-      row[u + t] = shoup(sub_mod(U, V, p), S, Ss, p);
-    }
-    __syncthreads();
-  }
-}
-
-// Unscaled inverse-NTT outputs of one coefficient -> exact value mod 2^64,
-// or mod 2^32 for W = uint32_t (`_garner_limb32`: the same digits, the
-// Horner step wrapping mod 2^32).
-template <int P, typename W = uint64_t>
-__device__ __forceinline__ W garner(const uint32_t* spec_c, int k,
-                                    const PbsConsts& K) {
-  uint32_t d[P];
-#pragma unroll
-  for (int m = 0; m < P; ++m) {
-    const uint32_t p = K.p[m];
-    const uint32_t r = shoup(spec_c[m * K.N + k], K.ninv[m], K.ninvs[m], p);
-    if (m == 0) {
-      d[0] = r;
-      continue;
-    }
-    uint32_t acc = d[0];  // d[0] < p_0 < p_m
-#pragma unroll
-    for (int j = 1; j < m; ++j)
-      acc = add_mod(acc, shoup(d[j], K.gw[m][j], K.gws[m][j], p), p);
-    d[m] = shoup(sub_mod(r, acc, p), K.cinv[m], K.cinvs[m], p);
-  }
-  const uint32_t top = d[P - 1], ptop = K.p[P - 1];
-  W v = top > ptop / 2 ? W(top) - W(ptop) : W(top);
-#pragma unroll
-  for (int m = P - 2; m >= 0; --m) v = v * W(K.p[m]) + W(d[m]);
-  return v;
 }
 
 // Where each of a block's buffers lives, as the wrapper placed it

@@ -241,7 +241,10 @@ __device__ __forceinline__ void inverse_row(uint32_t (&x)[kR], uint32_t* buf,
   }
 }
 
-// `garner` (ntt_common.cuh) on rows `stride` words apart.
+// Unscaled inverse-NTT outputs of one coefficient, rows `stride` words
+// apart -> exact value mod 2^64, or mod 2^32 for W = uint32_t (the TPU's
+// `_garner_limbs`, pbs_kernel.py:682, and `_garner_limb32` :725: the same
+// digits, the Horner step wrapping mod 2^32).
 template <int P, typename W>
 __device__ __forceinline__ W garner_rows(const uint32_t* spec_c, int stride,
                                          int k, const PbsConsts& K) {

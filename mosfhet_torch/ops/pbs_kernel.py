@@ -45,7 +45,8 @@ PyTorch, only for CPU tensors.  The two give the same words.
 
    K3-step (``ext_product_apply_step``, a second entry of the same source)
    is one of the G products per launch, acc updated in place, with one
-   step's key [(k+1)l, k+1, P, N] or [B, (k+1)l, k+1, P, N].
+   step's key [(k+1)l, k+1, P, N] or [B, (k+1)l, k+1, P, N]: the same
+   kernel at G = 1.
 
 4. The unfolded blind rotation (``csrc/unfolded_rotate.cu``): for each
    group g the key products rotated and summed mod 2^64 (or 2^32), then
@@ -77,7 +78,8 @@ PyTorch, only for CPU tensors.  The two give the same words.
      kidx  [B], ginv [B]                   int32 (ginv = 1: no permutation)
 
    and its older form K6-old (``auto_keyswitch``, a second entry of the same
-   source), on an input already permuted and keys gathered per row,
+   source), on an input already permuted and keys gathered per row: the
+   same kernel, in instances that take ginv 1 and keyset entry b for row b,
      perm      [B, k+1, N]                 int64 or int32 words
      key_rows  [B, k t, k+1, P, N]         int32: row b's keyset entry
 
@@ -140,7 +142,8 @@ rotation buffer and one exchange row per group of N/16 threads
 N=8192 their spectra in the workspace.  N above 16384 raises ValueError (a
 block of N/16 threads).  K1-delta and K6 hold K3's buffers (K6 on its
 key-switch plan's primes): where acc leaves shared memory they read their
-input in place.  K8a and K8b (redesigned on K1's schedule) hold the same
+input in place.  K3-step and K6-old are K3's and K6's kernels and hold
+theirs.  K8a and K8b (redesigned on K1's schedule) hold the same
 exchange rows.  K8a adds its groups' MAC slots and reads acc from the
 caller's tensor: 76.5 KiB at TFHEpp-L2, all in shared memory at every
 registered shape.  K8b adds the C*P spectra rows where they fit, else one
@@ -454,10 +457,8 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
     exchange rows, component 0's P spectra rows and, right after them
     where they fit, the other components' rows; left out, it runs once per
     component.  The one-step kernel "pbs_step" (K1-step) holds K1's
-    buffers; "ext_product_apply_step" (K3-step, the first design) the
-    digit row's P NTT rows, the spectra and the accumulator, and
-    "auto_keyswitch" (K6-old, the first design) the same with its
-    permuted input.  M: K4's 2^u; P_ks: K7's key-switch prime count."""
+    buffers; K3-step and K6-old launch K3's and K6's kernels and take
+    their tables.  M: K4's 2^u; P_ks: K7's key-switch prime count."""
     C, P, N = kp.C, kp.P, kp.N
     row, spec, words = P * N * 4, C * P * N * 4, C * N * kp.torus_bits // 8
     if kernel in ("blind_rotate", "pbs_step", "ext_product_apply",
@@ -466,9 +467,6 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
         return [(sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
                 (C * P * sc["row_stride"] * 4, WORKSPACE, 1),
                 (words, IN_PLACE, 2)]
-    if kernel == "ext_product_apply_step":
-        return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),  # work, spec,
-                (words, IN_PLACE, 2)]                         # acc
     if kernel == "unfolded_rotate":    # rots, work, spec, acc
         sc = rotation_schedule(N, P)
         return [(M * 4, WORKSPACE, 0),
@@ -485,9 +483,6 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
         sc = rotation_schedule(N, P)
         return [(sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
                 (sc["groups"] * C * sc["row_stride"] * 4, WORKSPACE, 1)]
-    if kernel == "auto_keyswitch":     # K6-old: work, spec, perm
-        return [(row, SHARED_ONLY, 0), (spec, WORKSPACE, 1),
-                (words, WORKSPACE, 2)]
     if kernel == "finish_step":        # K8b: work, component 0's rows, the
         sc = rotation_schedule(N, P)   # rest
         return [(sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
@@ -518,10 +513,10 @@ def _layout(kernel: str, kp: PBSKernelPlan, B: int, dev, source=None, **kw):
 
 
 def _check_aligned(name, t):
-    """K1's, K1-step's, K1-delta's, K3's, K6's, K7's and K8a's key rows,
-    K8a's partial and K8b's partials are read or written 16 bytes at a
-    time (the keys' Shoup companions are not read: the kernels' MACs take
-    Barrett products)."""
+    """K1's, K1-step's, K1-delta's, K3's, K3-step's, K6's, K6-old's, K7's
+    and K8a's key rows, K8a's partial and K8b's partials are read or
+    written 16 bytes at a time (the keys' Shoup companions are not read:
+    the kernels' MACs take Barrett products)."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel reads it in 16-byte vectors; "
                          f"its data pointer is not 16-byte aligned")
@@ -595,9 +590,9 @@ def tp_step_residency(kp: PBSKernelPlan, bits: int, kernel: str,
 
 def ext_product_apply_residency(kp: PBSKernelPlan, bits: int,
                                 dev=None) -> tuple[int, int]:
-    """(blocks resident on one SM, threads per block) of K3 on card ``dev``
-    at ``kp``'s shape, its placement and the word width ``bits`` (the C
-    entry `ext_product_apply_residency`)."""
+    """(blocks resident on one SM, threads per block) of K3, and so of
+    K3-step, on card ``dev`` at ``kp``'s shape, its placement and the word
+    width ``bits`` (the C entry `ext_product_apply_residency`)."""
     dev = torch.device("cuda") if dev is None else torch.device(dev)
     layout, _ = kernel_layout("ext_product_apply", kp,
                               _smem_budget("ext_product_apply", _index(dev)))
@@ -620,17 +615,19 @@ def cmux_delta_residency(kp: PBSKernelPlan, dev=None) -> tuple[int, int]:
 
 
 def auto_keyswitch_residency(kp: PBSKernelPlan, bits: int,
-                             dev=None) -> tuple[int, int]:
-    """(blocks resident on one SM, threads per block) of K6 on card ``dev``
-    at the key-switch plan ``kp``'s shape, its placement and the word width
-    ``bits`` (the C entry `auto_keyswitch_residency`)."""
+                             dev=None, gathered: bool = False
+                             ) -> tuple[int, int]:
+    """(blocks resident on one SM, threads per block) of K6, or of K6-old
+    (K6's kernel in its gathered instances) with ``gathered``, on card
+    ``dev`` at the key-switch plan ``kp``'s shape, its placement and the
+    word width ``bits`` (the C entry `auto_keyswitch_residency`)."""
     dev = torch.device("cuda") if dev is None else torch.device(dev)
     layout, _ = kernel_layout("auto_keyswitch_stream", kp,
                               _smem_budget("auto_keyswitch", _index(dev)))
     return _residency("auto_keyswitch", "auto_keyswitch_launch", 12, 2,
                       "auto_keyswitch_residency", dev,
                       [kp.host_consts.ctypes.data, layout.ctypes.data],
-                      [bits])
+                      [bits, int(gathered)])
 
 
 def unfolded_rotate_residency(kp: PBSKernelPlan, bits: int, M: int,
@@ -884,9 +881,10 @@ def ext_product_apply_step(acc, key32, kp: PBSKernelPlan,
     """acc <- SA (x) acc, one product, in place (the TPU kernel
     `_apply_step_tiles` aliases acc to its output): key32 [J, C, P, N]
     int32 broadcast over the batch, or [B, J, C, P, N] with per_row.  CUDA
-    tensors: one launch of the kernel (its one-limb form for int32 words),
-    and an error raised if it does not build or launch.  CPU tensors: the
-    plain version.  Returns acc."""
+    tensors: one launch of K3's kernel at G = 1 (its one-limb form for
+    int32 words), and an error raised if it does not build or launch; the
+    kernel reads ``key32`` 16 bytes at a time, so a view off that alignment
+    raises ValueError.  CPU tensors: the plain version.  Returns acc."""
     bits = _word_width("ext_product_apply_step", acc, kp)
     dev = acc.device
     if dev.type == "cpu":
@@ -899,11 +897,11 @@ def ext_product_apply_step(acc, key32, kp: PBSKernelPlan,
     row = (kp.J, kp.C, kp.P, kp.N)
     _check("acc", acc, acc.dtype, (B, kp.C, kp.N), dev)
     _check("key32", key32, torch.int32, (B,) + row if per_row else row, dev)
+    _check_aligned("key32", key32)
     _check_plan(kp, dev)
     if B == 0:
         return acc
-    layout, ws = _layout("ext_product_apply_step", kp, B, dev,
-                         source="ext_product_apply")
+    layout, ws = _layout("ext_product_apply", kp, B, dev)
     _launch("ext_product_apply", "ext_product_apply_step_launch", 9, 3, dev,
             acc.data_ptr(), key32.data_ptr(), kp.fwd_tw.data_ptr(),
             kp.fwd_tws.data_ptr(), kp.inv_tw.data_ptr(),
@@ -1175,9 +1173,12 @@ def auto_keyswitch(perm, key_rows, kp: PBSKernelPlan):
     """The automorphism key switch with per-row gathered keys (K6-old, the
     TPU package's `auto_keyswitch`): perm [B, C, N] already permuted,
     key_rows [B, (C-1)t, C, P, N] int32 (u32 residues), row b's keyset
-    entry.  CUDA tensors: one launch of the kernel (its one-limb form for
-    int32 words), and an error raised if it does not build or launch.  CPU
-    tensors: the plain version.  Returns [B, C, N] of perm's dtype."""
+    entry.  CUDA tensors: one launch of K6's kernel in its gathered
+    instances, entry b for row b and ginv 1 (its one-limb form for int32
+    words), and an error raised if it does not build or launch; the kernel
+    reads ``key_rows`` 16 bytes at a time, so a view off that alignment
+    raises ValueError.  CPU tensors: the plain version.  Returns [B, C, N]
+    of perm's dtype."""
     bits = _word_width("auto_keyswitch", perm, kp)
     dev = perm.device
     if dev.type == "cpu":
@@ -1189,11 +1190,13 @@ def auto_keyswitch(perm, key_rows, kp: PBSKernelPlan):
     _check("perm", perm, perm.dtype, (B, kp.C, kp.N), dev)
     _check("key_rows", key_rows, torch.int32,
            (B, (kp.C - 1) * kp.l, kp.C, kp.P, kp.N), dev)
+    _check_aligned("key_rows", key_rows)
     _check_plan(kp, dev)
     out = torch.empty_like(perm)
     if B == 0:
         return out
-    layout, ws = _layout("auto_keyswitch", kp, B, dev)
+    layout, ws = _layout("auto_keyswitch_stream", kp, B, dev,
+                         source="auto_keyswitch")
     _launch("auto_keyswitch", "auto_keyswitch_rows_launch", 10, 2, dev,
             perm.data_ptr(), key_rows.data_ptr(), out.data_ptr(),
             kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),

@@ -939,32 +939,34 @@ def test_cuda_cmux_delta_matches_plain(N, l, Bg_bit, B):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("torus_bits", [64, 32])
-def test_cuda_auto_keyswitch_gathered_matches_plain(torus_bits):
-    """K6-old at L2 (t=4, base_bit=9) or L2_32 (t=3, base_bit=7) widths:
-    B=5 permuted rows, one random keyset entry each."""
+@pytest.mark.parametrize("N,k,t,base_bit,B,bits", [
+    (2048, 1, 4, 9, 5, 64),         # TFHEpp-L2 widths (t=4, base_bit=9)
+    (2048, 1, 3, 7, 5, 32),         # L2_32 widths (t=3, base_bit=7)
+    (4096, 1, 1, 22, 133, 64),      # SET_3, four primes: perm read in place
+    # ragged batches around the resident blocks (two of 384 per SM: 264)
+    (2048, 1, 4, 9, 1, 64), (2048, 1, 4, 9, 263, 64),
+    (2048, 1, 4, 9, 265, 64), (2048, 1, 4, 9, 529, 64),
+])
+def test_cuda_auto_keyswitch_gathered_matches_plain(N, k, t, base_bit, B,
+                                                    bits):
+    """K6-old: B permuted rows, one random keyset entry each, against its
+    plain version, and K6's kernel on those rows as a keyset with entry b
+    for row b and ginv 1, which K6-old launches: the same words."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    rng = np.random.default_rng(410 + torus_bits)
-    B = 5
-    if torus_bits == 32:
-        kp = _ks_plan32()
-        perm = _words32(rng, B, kp.C, kp.N)
-    else:
-        N, k, t, base_bit = 2048, 1, 4, 9
-        primes, _ = random_ks_keyset(rng, N, k, t, base_bit, 1)
-        kp = tpk.get_kernel_plan(N, primes, t, base_bit, k, "cuda")
-        perm = to_tensor(rng.integers(0, 1 << 64, size=(B, k + 1, N),
-                                      dtype=np.uint64), "cuda")
-    rows = random_residues(rng, (B, (kp.C - 1) * kp.l, kp.C, kp.P, kp.N),
-                           kp.primes)
-    args = (perm, as_i32(rows, "cuda"), kp)
+    perm, rows, _, _, kp = auto_ks_args(N, k, t, base_bit, B, B, bits,
+                                        seed=410 + N + B + bits)
+    args = (perm, rows, kp)
     launches = tpk.auto_keyswitch.launches
     got = tpk.auto_keyswitch(*args)
     torch.cuda.synchronize()
     assert tpk.auto_keyswitch.launches == launches + 1
     assert got.dtype == perm.dtype
     assert torch.equal(got, tpk.auto_keyswitch_plain(*args))
+    ones = torch.ones(B, dtype=torch.int32, device="cuda")
+    assert torch.equal(got, tpk.auto_keyswitch_stream(
+        perm, rows, torch.arange(B, dtype=torch.int32, device="cuda"), ones,
+        kp))
 
 
 # --- K7 on K1's schedule: generators at their extremes, ragged batches ----
@@ -1093,14 +1095,16 @@ def test_cuda_pbs_step_matches_plain(N, k, l, Bg_bit, B, torus_bits):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,k,l,Bg_bit,B,torus_bits", STEP_CASES,
-                         ids=STEP_IDS)
+@pytest.mark.parametrize("N,k,l,Bg_bit,B,torus_bits", STEP_CASES + [
+    # ragged batches around the resident blocks (two of 384 per SM: 264)
+    (2048, 1, 4, 9, B, 64) for B in (1, 263, 265, 529)],
+    ids=STEP_IDS + [f"l2_b{B}" for B in (1, 263, 265, 529)])
 @pytest.mark.parametrize("per_row", [False, True],
                          ids=["broadcast", "per_row"])
 def test_cuda_ext_product_apply_step_matches_plain(N, k, l, Bg_bit, B,
                                                    torus_bits, per_row):
     """K3-step: one replace-mode product in place; the plain version's
-    words, and K3's with G = 1."""
+    words, and K3's with G = 1, whose kernel K3-step launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     kp = _step_plan(N, k, l, Bg_bit, torus_bits)
@@ -1428,9 +1432,9 @@ def test_cuda_unfolded_rotate_beyond_shared_memory(name, B, u):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["l2", "l2_32", "set3"])
 def test_cuda_apply_and_unfolded_residency(name):
-    """K3's and K4's blocks per SM and threads, as K1's: two of 384 at L2,
-    three of 256 at L2_32 (u=4: 16 exponents beside K1's buffers), one of
-    1,024 at SET_3."""
+    """K3's (so K3-step's) and K4's blocks per SM and threads, as K1's: two
+    of 384 at L2, three of 256 at L2_32 (u=4: 16 exponents beside K1's
+    buffers), one of 1,024 at SET_3."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     kp, _ = _apply_case(name, 1, 1, False, seed=1400)
@@ -1441,17 +1445,21 @@ def test_cuda_apply_and_unfolded_residency(name):
 
 @pytest.mark.gpu
 def test_cuda_ext_product_apply_refuses_a_misaligned_key():
-    """K3 reads its keys 16 bytes at a time: a view that starts off a
-    16-byte boundary raises before any launch."""
+    """K3 and K3-step read their keys 16 bytes at a time: a view that
+    starts off a 16-byte boundary raises before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     kp, (acc, sa, _, _) = _apply_case("l2", 2, 1, False, seed=1500)
     shifted = torch.empty(sa.numel() + 1, dtype=torch.int32,
                           device="cuda")[1:].view(sa.shape).copy_(sa)
-    launches = tpk.ext_product_apply_scan.launches
+    launches = (tpk.ext_product_apply_scan.launches,
+                tpk.ext_product_apply_step.launches)
     with pytest.raises(ValueError, match="16-byte"):
         tpk.ext_product_apply_scan(acc, shifted, kp)
-    assert tpk.ext_product_apply_scan.launches == launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tpk.ext_product_apply_step(acc, shifted[0], kp)
+    assert (tpk.ext_product_apply_scan.launches,
+            tpk.ext_product_apply_step.launches) == launches
 
 
 # --- K1-delta and K6 on K1's schedule ---------------------------------------
@@ -1459,15 +1467,16 @@ def test_cuda_ext_product_apply_refuses_a_misaligned_key():
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["l2", "l2_32", "set3"])
 def test_cuda_cmux_delta_and_auto_keyswitch_residency(name):
-    """K1-delta's and K6's blocks per SM and threads, as K3's: two of 384
-    at L2, three of 256 at L2_32 (K6; K1-delta is 64-bit only), one of
-    1,024 at SET_3."""
+    """K1-delta's, K6's and K6-old's (K6's gathered instances) blocks per
+    SM and threads, as K3's: two of 384 at L2, three of 256 at L2_32 (K6
+    and K6-old; K1-delta is 64-bit only), one of 1,024 at SET_3."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     want = {"l2": (2, 384), "l2_32": (3, 256), "set3": (1, 1024)}[name]
     N, l, Bg_bit, bits = ROTATION_WIDTHS[name]
     kp = auto_ks_args(N, 1, l, Bg_bit, 1, 1, bits, seed=1800)[-1]
     assert tpk.auto_keyswitch_residency(kp, bits) == want
+    assert tpk.auto_keyswitch_residency(kp, bits, gathered=True) == want
     if bits == 64:
         kp = cmux_delta_args(N, l, Bg_bit, 1, seed=1801)[-1]
         assert tpk.cmux_delta_residency(kp) == want
@@ -1475,8 +1484,8 @@ def test_cuda_cmux_delta_and_auto_keyswitch_residency(name):
 
 @pytest.mark.gpu
 def test_cuda_cmux_delta_and_auto_keyswitch_refuse_misaligned_keys():
-    """K1-delta and K6 read their keys 16 bytes at a time: a view that
-    starts off a 16-byte boundary raises before any launch."""
+    """K1-delta, K6 and K6-old read their keys 16 bytes at a time: a view
+    that starts off a 16-byte boundary raises before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
@@ -1486,13 +1495,16 @@ def test_cuda_cmux_delta_and_auto_keyswitch_refuse_misaligned_keys():
     x, keyv, keyvs, kp = cmux_delta_args(2048, 4, 9, 2, seed=1900)
     w, ak, kidx, ginv, kp_ks = auto_ks_args(2048, 1, 4, 9, 64, 2, 64,
                                             seed=1901)
-    launches = (tpk.cmux_delta.launches, tpk.auto_keyswitch_stream.launches)
+    launches = (tpk.cmux_delta.launches, tpk.auto_keyswitch_stream.launches,
+                tpk.auto_keyswitch.launches)
     with pytest.raises(ValueError, match="16-byte"):
         tpk.cmux_delta(x, shifted(keyv), keyvs, kp)
     with pytest.raises(ValueError, match="16-byte"):
         tpk.auto_keyswitch_stream(w, shifted(ak), kidx, ginv, kp_ks)
-    assert (tpk.cmux_delta.launches,
-            tpk.auto_keyswitch_stream.launches) == launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tpk.auto_keyswitch(w, shifted(ak[:2]), kp_ks)
+    assert (tpk.cmux_delta.launches, tpk.auto_keyswitch_stream.launches,
+            tpk.auto_keyswitch.launches) == launches
 
 
 @pytest.mark.gpu

@@ -259,12 +259,39 @@ def test_apply_rendering_matches_ext_product_apply_scan_plain(name, G, B,
         else got.view(np.int64), want.numpy())
 
 
+@pytest.mark.parametrize("name,B", [("toy", 2), ("toy32", 2), ("l2", 1),
+                                    ("l2_32", 1)])
+@pytest.mark.parametrize("per_row", [False, True],
+                         ids=["broadcast", "per_row"])
+def test_apply_rendering_at_one_product_matches_the_step_plain(name, B,
+                                                               per_row):
+    """K3-step is K3's block at G = 1: the rendering of one product,
+    broadcast [J, C, P, N] or one key per row [B, J, C, P, N], a key word
+    at p - 1 of every prime, against ext_product_apply_step_plain (acc
+    replaced in place)."""
+    kp = _plan(name)
+    N, C, J, P, bits = kp.N, kp.C, kp.J, kp.P, kp.torus_bits
+    rng = np.random.default_rng(N + 5 * B + bits + per_row)
+    acc = rng.integers(0, 1 << bits, (B, C, N), dtype=np.uint64)
+    rows = (B,) if per_row else ()
+    pr = np.array(kp.primes, np.uint64)[:, None]
+    key = rng.integers(0, 1 << 62, rows + (J, C, P, N), dtype=np.uint64) % pr
+    key[(0,) * len(rows) + (0, 0, slice(None), 0)] = pr[:, 0] - np.uint64(1)
+    got = render_apply(acc, key[None], kp, per_row)
+    words = _words(acc, bits)
+    want = tpk.ext_product_apply_step_plain(words, _i32(key), kp, per_row)
+    assert want is words
+    np.testing.assert_array_equal(
+        got.astype(np.uint32).view(np.int32) if bits == 32
+        else got.view(np.int64), want.numpy())
+
+
 @pytest.mark.parametrize("name", ["l2", "l2_32", "toy", "n8192"])
 def test_rendered_buffers_match_the_placement_tables(name):
     """`kernel_buffers` sizes the rendered blocks: K4's M exponents, one
     exchange row per thread group, C*P spectra rows and acc [C][N] words;
-    K3's the same without the exponents; K3-step keeps the first design's
-    P NTT rows and spectra [C][P][N]."""
+    K3's the same without the exponents.  K3-step launches K3's kernel at
+    G = 1 and has no table of its own."""
     kp = _plan(name)
     s = schedule(kp.N, kp.P)
     work, spec = s["NG"] * s["SR"] * 4, kp.C * kp.P * s["SR"] * 4
@@ -274,9 +301,8 @@ def test_rendered_buffers_match_the_placement_tables(name):
         == [M * 4, work, spec, words]
     assert [n for n, _, _ in tpk.kernel_buffers("ext_product_apply", kp)] \
         == [work, spec, words]
-    assert [n for n, _, _ in tpk.kernel_buffers("ext_product_apply_step",
-                                                kp)] \
-        == [kp.P * kp.N * 4, kp.C * kp.P * kp.N * 4, words]
+    with pytest.raises(ValueError, match="no buffer table"):
+        tpk.kernel_buffers("ext_product_apply_step", kp)
 
 
 def test_combine_writes_every_top_window_slot_once():

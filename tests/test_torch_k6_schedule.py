@@ -17,7 +17,9 @@ by one thread and read or written by another between two barriers.  Since
 the output is distinct from acc, K6 reads b' after the barrier; written in
 place, as K7 writes acc, that read is the hazard the log catches.  Cases:
 TOY and TFHEpp-L2 widths, two ciphertexts; K6 with u64 and u32 words,
-ginv 1 and 2N-1, one keyset entry for both ciphertexts or one each.
+ginv 1 and 2N-1, one keyset entry for both ciphertexts or one each; and
+K6-old, which launches K6's kernel with ginv 1 and entry b for row b, on
+rows already permuted and keyset entries gathered per row.
 Nothing on the port's path calls these renderings; the kernels themselves
 meet the plain versions on the card (`test_torch_gpu.py`)."""
 
@@ -180,6 +182,27 @@ def test_auto_keyswitch_rendering_matches_plain(name, entries):
     want = tpk.auto_keyswitch_stream_plain(
         _words(x, bits), ak32, torch.from_numpy(kidx),
         torch.from_numpy(ginv), kp)
+    np.testing.assert_array_equal(_got(got, bits), want.numpy())
+
+
+@pytest.mark.parametrize("name", ["toy", "toy32", "l2", "l2_32"])
+def test_auto_keyswitch_rendering_on_gathered_rows_matches_k6_old_plain(
+        name):
+    """K6-old is K6's block with keyset entry b for row b and ginv 1: on
+    two rows already permuted, each with its own gathered keyset entry
+    (the rows `auto_keyswitch_rows` takes from the keyset, so the route is
+    the TPU package's `auto_keyswitch` through `test_torch_ga_stepwise`),
+    the rendering against auto_keyswitch_plain."""
+    kp = _plan(name)
+    N, C, bits = kp.N, kp.C, kp.torus_bits
+    rng = np.random.default_rng(N + bits + 3)
+    perm = rng.integers(0, 1 << bits, (2, C, N), dtype=np.uint64)
+    key_rows, key_rows32 = keyset(rng, 2, ((C - 1) * kp.l, C, kp.P, N),
+                                  kp.primes, N)
+    B = perm.shape[0]
+    got = render_auto_keyswitch(perm, key_rows, np.arange(B, dtype=np.int32),
+                                np.ones(B, np.int32), kp)
+    want = tpk.auto_keyswitch_plain(_words(perm, bits), key_rows32, kp)
     np.testing.assert_array_equal(_got(got, bits), want.numpy())
 
 

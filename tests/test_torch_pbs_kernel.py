@@ -72,13 +72,15 @@ KERNELS = {"K1": ("blind_rotate", {}), "K3": ("ext_product_apply", {}),
            "K6": ("auto_keyswitch_stream", {}), "K7": ("ga_scan", {"P_ks": 3}),
            "K8a": ("tp_step", {}), "K8b": ("finish_step", {}),
            "K1-step": ("pbs_step", {}),
-           "K3-step": ("ext_product_apply_step", {}),
-           "K1-delta": ("cmux_delta", {}), "K6-old": ("auto_keyswitch", {})}
+           "K3-step": ("ext_product_apply", {}),
+           "K1-delta": ("cmux_delta", {}),
+           "K6-old": ("auto_keyswitch_stream", {})}
 # the kernels with 32-bit forms
 ONE_LIMB = ("K1", "K3", "K4", "K6", "K7", "K8a", "K8b", "K1-step", "K3-step",
             "K6-old")
 # K3's buffer table: K1's exchange rows, spectra and acc (K1-delta and K6
-# read their input in place where acc does not fit)
+# read their input in place where acc does not fit; K3-step and K6-old
+# launch K3's and K6's kernels and take their tables)
 K1_TABLE = ("blind_rotate", "pbs_step", "ga_scan", "ext_product_apply",
             "unfolded_rotate", "cmux_delta", "auto_keyswitch_stream")
 
@@ -113,9 +115,9 @@ def test_layout_keeps_every_buffer_shared_where_it_fits(name, k_id):
     ("tp_step", {}, "SS", 204),
     ("finish_step", {}, "SSS", 196),
     ("pbs_step", {}, "SSI", 204),
-    ("ext_product_apply_step", {}, "SSI", 192),
+    ("ext_product_apply", {}, "SSI", 204),
     ("cmux_delta", {}, "SSI", 204),
-    ("auto_keyswitch", {}, "SSW", 192)],
+    ("auto_keyswitch_stream", {}, "SSI", 204)],
     ids=["K1", "K3", "K4", "K6", "K7", "K8a", "K8b", "K1-step", "K3-step",
          "K1-delta", "K6-old"])
 def test_layout_at_set3_moves_the_u64_buffers(kernel, kw, where, smem_kib):
@@ -125,13 +127,12 @@ def test_layout_at_set3_moves_the_u64_buffers(kernel, kw, where, smem_kib):
     buffer, K4, whose exchange rows carry its combined key rows, and K7,
     with no permutation buffer, keep their four exchange rows and spectra
     and update acc in place; K1-delta and K6 keep K3's and read their
-    input in place; K6-old, the first design, moves its permuted input to
-    the workspace).  K8a (four exchange rows and its groups' MAC
-    slots, acc read from the caller's tensor) and K8b (four exchange rows
-    and all 8 spectra rows) keep everything in shared memory.  K1-step
-    places K1's buffers, K3-step (the first design) its P NTT rows and
-    spectra: acc then stays in the caller's tensor between their
-    launches."""
+    input in place; K3-step and K6-old launch K3's and K6's kernels and
+    place their buffers as those do).  K8a (four exchange rows and its
+    groups' MAC slots, acc read from the caller's tensor) and K8b (four
+    exchange rows and all 8 spectra rows) keep everything in shared
+    memory.  K1-step places K1's buffers and K3-step K3's: acc then stays
+    in the caller's tensor between their launches."""
     kp = _plan(4096, 1, 22)
     assert kp.P == 4
     layout, stride = tpk.kernel_layout(kernel, kp, H100_BUDGET, **kw)
