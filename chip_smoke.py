@@ -11,8 +11,9 @@ Phases; any failure ends the script with a non-zero exit and no result line:
   1. card     CUDA present; the card's name and power limit (nvidia-smi).
   2. build    every kernel under mosfhet_torch/ops/csrc/ with nvcc, sm_90a;
               the registers and spills (ptxas -v) of every instance of K1,
-              K1-step, K3, K4, K7, K8a, K8b, K1-delta, K6 and K6-old (K6's
-              gathered instances; K3-step launches K3's).
+              K1-step, K3, K4, K7, K8a, K8b, K1-delta, K6, K6-old (K6's
+              gathered instances; K3-step launches K3's), K2 and K5 (which
+              K5-v1 launches).
   3. kernel   the blind-rotate kernel against its plain PyTorch version at
               full TFHEpp-L2 width on random inputs, a short rotation, with
               exponents 0 and 2N present: bit-exact.
@@ -45,13 +46,19 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               the card (timed); tlwe.keyswitch of phase 4's 512 outputs
               back to the LWE key: one kernel launch, no plain call, words
               equal to the plain version's, decrypt within 2^60; the kernel
-              timed per launch beside its bound and the plain version.
+              launched once, then timed per launch beside its bound, the
+              ceiling of a gather from shared memory and the plain version,
+              with its schedule (tile, slice, chunk, cluster size, blocks,
+              clusters and blocks resident) and the table bytes it moves
+              through L2 per call.
   8. fdfb     bootstrap.fdfb_this_work at TFHEPP_L2, batch 512, precision
               3, every message m = i mod 8: counts zeroed just before, read
               just after (2 rotation launches and 1 key-switch launch per
               call, no plain call); decrypt within 2^58 of the LUT; the
               whole call with the plain versions on the first 2
-              ciphertexts gives the same words.
+              ciphertexts gives the same words; K2 on the path's own
+              key-switch digits (its sign bootstrap's output), held to the
+              plain version and reported as in phase 7.
   9. k345     the external-product apply-scan kernel (K3, broadcast and
               per-row keys, G=2, B=5), the unfolded-rotation kernel (K4) and
               the UBR phase-1 kernels K5 and K5-v1 (u = 2, 4, 8 with G = 2,
@@ -71,12 +78,12 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               slot 2; both kernels timed beside their bounds and their plain
               versions on the same inputs (bit-exact); peak device memory.
 11b. ubrsteps phase 11's ciphertext, LUTs and cache through
-              bootstrap.multivalue_bootstrap_UBR_phase1_v1 (1 K5-v1 launch,
-              words equal to K5's) and
+              bootstrap.multivalue_bootstrap_UBR_phase1_v1 (1 K5-v1 launch
+              of K5's kernel, words equal to K5's) and
               bootstrap.multivalue_bootstrap_UBR_phase2_stepwise (G = 79
               K3-step launches, words equal to phase 2's), counts zeroed
               just before each call and read just after; K5-v1 timed beside
-              K5 and held to its plain version on the path's inputs, the
+              K5 on the same inputs and held to its plain version, the
               step form warm beside the fused phase 2 (ms per LUT for each),
               K3-step per launch on the first group beside its bound and its
               plain version (bit-exact); K3-step's placement and resident
@@ -179,7 +186,9 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               (1 K2 launch, within 2^27), fdfb_this_work at precision 3 (2
               K1 and 1 K2 launches per call, within 2^26); K1 and K2 timed on
               the path's own inputs beside their bounds and plain versions
-              (bit-exact), with K1's residency and wave curve as in phase 5;
+              (bit-exact; K2 on the gate's and the fdfb's digits, reported
+              as in phases 7-8), with K1's residency and wave curve as in
+              phase 5;
               blind_rotate_stepwise on the PBS's inputs (632 one-limb
               K1-step launches, words equal to its K1), timed as in phase
               4b (one wave: 396, three blocks per SM).  Then the one-limb
@@ -250,6 +259,7 @@ SHOUP_MULTIPLIES = 3        # one Shoup product: mulhi + two 32-bit multiplies
 BARRETT_MULTIPLIES = 4      # a runtime-key product: mul, two mulhi, mul
 CENTRED_SHOUP = 2           # a u64 word to one centred residue: two Shoup
 U64_ADD_OPS = 2             # a u64 add as INT32 operations (a u32 add: 1)
+SMEM_BYTES_PER_CLOCK = 128  # shared memory per SM and clock (Hopper)
 RUNTIME_KEY_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT "
                             "external product or an unfolded combine")
 KERNELS = ("blind_rotate_scan", "tlwe_keyswitch_sum", "ext_product_apply_scan",
@@ -412,6 +422,81 @@ def keyswitch_bound_ms(dig, ab, max_clock_mhz):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "word_adds": adds, "int32_ops": ops, "bytes": nbytes,
             "rows_selected": rows, "int32_per_s": int_rate}
+
+
+def k2_report(pk, tag, dig, ab, max_clock_mhz):
+    """K2 on these inputs, launched once before KS_REPS timed launches:
+    ms per launch beside its bound and the ceiling of a gather from shared
+    memory (every selected word loaded once at SMEM_BYTES_PER_CLOCK per SM
+    and clock), its schedule (`tlwe_keyswitch_schedule`), and the table
+    bytes it moves through L2 per call (each tile of ciphertexts reads the
+    whole table once) against the first design's (each selected row read
+    once per ciphertext).  Returns the report and the last output."""
+    pk.tlwe_keyswitch_sum(dig, ab)
+    torch.cuda.synchronize()
+    ms, out = cuda_ms(lambda: pk.tlwe_keyswitch_sum(dig, ab), KS_REPS)
+    B, n_in, t = dig.shape
+    w = ab.element_size()
+    bound = keyswitch_bound_ms(dig, ab, max_clock_mhz)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ceiling = 1e3 * bound["word_adds"] * w / (
+        SMEM_BYTES_PER_CLOCK * sms * max_clock_mhz * 1e6)
+    sched = pk.tlwe_keyswitch_schedule(B, n_in * t, ab.shape[2], ab.shape[3],
+                                       8 * w)
+    r = {"ms": ms, "bound": bound, "smem_ceiling_ms": ceiling,
+         "share_of_bound": bound["bound_ms"] / ms, "schedule": sched,
+         "table_l2_bytes": sched["tiles"] * ab.numel() * w,
+         "first_design_l2_bytes": bound["word_adds"] * w}
+    log(f"# K2 {tag}, B={B}: {ms:.4f} ms/launch (one launch, then the mean "
+        f"of {KS_REPS}); bound {bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']}), {100 * r['share_of_bound']:.1f}% of it; "
+        f"shared-memory ceiling {ceiling:.4f} ms ({bound['word_adds']:.4g} "
+        f"words of {w} B at {SMEM_BYTES_PER_CLOCK} B per SM and clock); "
+        f"table through L2 {r['table_l2_bytes'] / 1e9:.3f} GB per call "
+        f"(first design {r['first_design_l2_bytes'] / 1e9:.3f} GB); "
+        f"schedule: {sched['tile']} ciphertexts x {sched['slice']} columns "
+        f"per block, {sched['chunk_rows']}-row chunks in {sched['stages']} "
+        f"stages of {sched['stage_bytes']} B ({sched['smem']} B per block), "
+        f"{sched['tiles']} tiles x {sched['slices']} slices x cluster "
+        f"{sched['cluster']} = {sched['blocks']} blocks of "
+        f"{sched['threads']} threads, {sched['clusters_resident']} clusters "
+        f"and {sched['blocks_per_sm']} blocks per SM resident")
+    if sched["blocks_per_sm"] < 1:
+        fail(f"K2 {tag}: no block fits an SM")
+    return r, out
+
+
+def fdfb_ks_digits(bootstrap, tlwe, trlwe, torus, c, bk, ksk, precision):
+    """The digits of fdfb_this_work's key switch (`bootstrap.fdfb_this_work`:
+    the key switch of its sign bootstrap's output), to time K2 on that
+    path's own inputs."""
+    sign = torus.to_signed((1 << (torus.TORUS_BITS - 2))
+                           - (1 << (torus.TORUS_BITS - precision - 2)))
+    tv_sign = trlwe.torus_packing(torch.tensor(
+        [sign], dtype=torus.TORUS_DTYPE, device=c.b.device), bk.k, bk.N)
+    ct = bootstrap.functional_bootstrap(tv_sign, c, bk, 1 << (precision - 1))
+    return tlwe.keyswitch_inputs(ct, ksk)
+
+
+def k2_entry(name, launches, launches_by_path, gate, fdfb, plain_ms,
+             library_ms, library_note):
+    """K2's kernels-line entry: the gate's inputs' time, the fdfb's beside
+    it, the schedule and the L2 traffic."""
+    return {
+        "name": name, "route": "cuda",
+        "source": "mosfhet_torch/ops/csrc/tlwe_keyswitch.cu",
+        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:2070",
+        "launches": launches, "launches_by_path": launches_by_path,
+        "max_abs_err": 0.0, "bit_exact": True, "ms": gate["ms"],
+        "plain_ms": plain_ms, "bound_ms": gate["bound"]["bound_ms"],
+        "bound_by": gate["bound"]["bound_by"], "library_ms": library_ms,
+        "library_note": library_note, "fdfb_ms": fdfb["ms"],
+        "fdfb_bound_ms": fdfb["bound"]["bound_ms"],
+        "smem_ceiling_ms": gate["smem_ceiling_ms"],
+        "table_l2_bytes": gate["table_l2_bytes"],
+        "first_design_l2_bytes": gate["first_design_l2_bytes"],
+        "schedule": gate["schedule"],
+        "resident_blocks_per_sm": gate["schedule"]["blocks_per_sm"]}
 
 
 def int_rate_per_s(max_clock_mhz):
@@ -926,11 +1011,31 @@ def sched_ptxas(text, kernel, tag):
     return ptxas_instances(text, match, tag)
 
 
+def k2_k5_ptxas(k2_text, k5_text):
+    """Every instance of K2's kernel in tlwe_keyswitch.cu (one per word
+    type) and of K5's in ubr_phase1.cu (which K5-v1 launches too)."""
+    def k2(line):
+        m = re.search(r"tlwe_keyswitch_sum_kernelI([mj])E", line)
+        return None if m is None else {
+            "entry": "K2", "P": None, "words": "u64" if m[1] == "m" else "u32",
+            "all_shared": True, "log_n": None}
+
+    def k5(line):
+        m = re.search(r"ubr_phase1_kernelILi(\d)E([mj])E", line)
+        return None if m is None else {
+            "entry": "K5", "P": int(m[1]),
+            "words": "u64" if m[2] == "m" else "u32", "all_shared": True,
+            "log_n": None}
+    return (ptxas_instances(k2_text, k2, "K2")
+            + ptxas_instances(k5_text, k5, "K5"))
+
+
 def log_build(entries):
     for e in entries:
         # K1-step: K1, K8a: K8; K1-delta and K6-old keep their own tags
         tag = re.match(r"K\d+(-delta|-old)?", e["entry"])[0]
-        log(f"# {tag} build: {e['entry']} P={e['P']}"
+        log(f"# {tag} build: {e['entry']}"
+            f"{'' if e['P'] is None else ' P=' + str(e['P'])}"
             f"{' P_ks=' + str(e['P_ks']) if 'P_ks' in e else ''} "
             f"{e['words']} {'all shared' if e['all_shared'] else 'placed'}"
             f"{', N=2^' + str(e['log_n']) if e['log_n'] else ''}: "
@@ -1224,6 +1329,11 @@ def ubr_steps_phase(bk, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock):
          lambda: pk.ubr_phase1_combine_v1(bk.su, rot, kp),
          lambda: pk.ubr_phase1_combine_v1_plain(bk.su, rot, kp),
          ubr_phase1_bound(kp, 1, G, M, max_clock))
+    k5_same_ms, _ = cuda_ms(lambda: pk.ubr_phase1_combine(bk.su, rot, kp),
+                            REPS)
+    runs["ubr_phase1_combine_v1"].update({
+        "kernel_of": "ubr_phase1_combine", "k5_ms": k5_same_ms,
+        "smem_row_bytes": kp.P * kp.N * 4 + M * 4})
     fused_ms, _ = cuda_ms(lambda: bootstrap.multivalue_bootstrap_UBR_phase2(
         tvs, c1, sa, bk, 4), STEP_REPS)
     warm_ms, _ = cuda_ms(
@@ -1249,6 +1359,7 @@ def ubr_steps_phase(bk, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock):
     report = {"unfolding": bk.unfolding, "luts": luts,
               "phase1_v1_first_ms": v1_first_s * 1e3,
               "phase1_v1_ms": v1["ms"], "phase1_k5_ms": k5_ms,
+              "phase1_k5_same_inputs_ms": k5_same_ms,
               "phase1_v1_vs_k5": v1["ms"] / k5_ms,
               "phase2_steps_first_ms": step_first_s * 1e3,
               "phase2_steps_ms": warm_ms, "phase2_fused_ms": fused_ms,
@@ -1258,8 +1369,10 @@ def ubr_steps_phase(bk, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock):
               "phase2_fused_ms_per_lut": fused_ms / luts,
               "k3_step_ms_x_g": k3s["ms"] * G}
     log(f"# UBR v1 and step forms (u={bk.unfolding}, G={G}, M={M}): phase 1 "
-        f"v1 first call {v1_first_s * 1e3:.3f} ms, K5-v1 {v1['ms']:.3f} "
-        f"ms/launch = {v1['ms'] / k5_ms:.3f} x K5's {k5_ms:.3f} (plain "
+        f"v1 first call {v1_first_s * 1e3:.3f} ms (1 K5-v1 launch counted, "
+        f"K5's kernel), K5-v1 {v1['ms']:.3f} ms/launch = "
+        f"{v1['ms'] / k5_ms:.3f} x K5's {k5_ms:.3f} (K5 on the same inputs "
+        f"in this phase {k5_same_ms:.3f}; plain "
         f"{v1['plain_ms']:.3f}, bound {v1['bound_ms']:.4f} {v1['bound_by']}); "
         f"phase 2 step form of {luts} LUTs first call "
         f"{step_first_s * 1e3:.3f} ms, warm {warm_ms:.3f} ms = "
@@ -1292,7 +1405,8 @@ def step_entries(runs, by_path, tag=""):
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "library_note": note})
         entries[-1].update({key: r[key] for key in
-                            ("placement", "resident_blocks_per_sm")
+                            ("placement", "resident_blocks_per_sm",
+                             "kernel_of", "k5_ms", "smem_row_bytes")
                             if key in r})
     return entries
 
@@ -1808,12 +1922,11 @@ def torus32_main():
     if not ks_err < KS_DECRYPT_BOUND_32:
         fail(f"L2_32 gate decrypt: max error 2^{math.log2(ks_err):.1f}")
     dig = tlwe.keyswitch_inputs(out, ksk)
-    k2_ms, sub_k = cuda_ms(lambda: pk.tlwe_keyswitch_sum(dig, ksk.ab),
-                           KS_REPS)
+    k2_gate, sub_k = k2_report(pk, "L2_32 gate", dig, ksk.ab, max_clock)
+    k2_ms, k2_bound = k2_gate["ms"], k2_gate["bound"]
     k2_plain_ms, sub_p = cuda_ms(
         lambda: pk.tlwe_keyswitch_sum_plain(dig, ksk.ab), 1)
     same_or_fail("K2/torus32 vs plain on the gate's inputs", sub_k, sub_p)
-    k2_bound = keyswitch_bound_ms(dig, ksk.ab, max_clock)
     library, library_note = sparse_select_sum(dig, ksk.ab)
     library_ms = None
     if library is not None:
@@ -1825,7 +1938,8 @@ def torus32_main():
     log(f"# L2_32 gate: KS keygen {ks_keygen_s:.3f} s, table "
         f"{tuple(ksk.ab.shape)} int32 = {ks_key_bytes} B; decrypt OK (max "
         f"err 2^{math.log2(max(ks_err, 1.0)):.1f}); K2 {k2_ms:.3f} ms/launch "
-        f"(mean of {KS_REPS}), plain {k2_plain_ms:.3f} ms, bound "
+        f"(one launch, then the mean of {KS_REPS}), plain "
+        f"{k2_plain_ms:.3f} ms, bound "
         f"{k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}); bit-exact")
     del dig, sub_k, sub_p
     luts8 = rng.uniform_torus(gen, (8,), dev)
@@ -1857,6 +1971,12 @@ def torus32_main():
         f"{k2_ms:.3f} + glue {fdfb_ms - 2 * k1_ms - k2_ms:.3f} ms); decrypt "
         f"OK (max err 2^{math.log2(max(fdfb_err, 1.0)):.1f}); peak "
         f"{fdfb_peak / 2**30:.2f} GiB")
+    dig = fdfb_ks_digits(bootstrap, tlwe, trlwe, torus, c8, bk, ksk,
+                         FDFB_PREC)
+    k2_fdfb, sub_k = k2_report(pk, "L2_32 fdfb", dig, ksk.ab, max_clock)
+    same_or_fail("K2/torus32 vs plain on the fdfb's key-switch inputs",
+                 sub_k, pk.tlwe_keyswitch_sum_plain(dig, ksk.ab))
+    del dig, sub_k
     unfolded = torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe,
                                 key_trlwe, key_out, tv, luts, cs, slots)
     mesh = torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded)
@@ -1882,7 +2002,7 @@ def torus32_main():
         "steps": steps,
         "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound,
                "residency": k1_res, "wave_curve": k1_curve},
-        "k2": {"ms": k2_ms, "plain_ms": k2_plain_ms, "bound": k2_bound,
+        "k2": {"gate": k2_gate, "fdfb": k2_fdfb, "plain_ms": k2_plain_ms,
                "library_ms": library_ms, "library_note": library_note},
         "kernel_runs": {**unfolded.pop("kernel_runs"),
                         **mesh.pop("kernel_runs"), **ga.pop("kernel_runs"),
@@ -2444,8 +2564,10 @@ def main():
                             "K1-delta")
     k6_build = sched_ptxas(_build.build_log["auto_keyswitch"],
                            "auto_keyswitch", "K6")
+    k2_k5_build = k2_k5_ptxas(_build.build_log["tlwe_keyswitch"],
+                              _build.build_log["ubr_phase1"])
     log_build(k1_build + k7_build + k8_build + k3_build + k4_build
-              + k1d_build + k6_build)
+              + k1d_build + k6_build + k2_k5_build)
 
     # 3. kernel vs plain at full width on random inputs
     p = params.TFHEPP_L2
@@ -2598,8 +2720,8 @@ def main():
     if not ks_err <= KS_DECRYPT_BOUND:
         fail(f"gate decrypt: max error 2^{math.log2(ks_err):.1f} > 2^60")
     dig = tlwe.keyswitch_inputs(out, ksk)
-    ks_ms, sub_k = cuda_ms(lambda: pk.tlwe_keyswitch_sum(dig, ksk.ab),
-                           KS_REPS)
+    ks_run, sub_k = k2_report(pk, "L2 gate", dig, ksk.ab, max_clock)
+    ks_ms = ks_run["ms"]
     ks_plain_ms, sub_p = cuda_ms(
         lambda: pk.tlwe_keyswitch_sum_plain(dig, ksk.ab), 1)
     ks_max_abs_err = signed_max_abs(sub_k - sub_p)
@@ -2609,9 +2731,10 @@ def main():
     if not (torch.equal(ks_out.a, -sub_k[:, :n_out])
             and torch.equal(ks_out.b, out.b - sub_k[:, n_out])):
         fail("gate output != (0, b) minus the kernel's select-sum")
-    ks_bound = keyswitch_bound_ms(dig, ksk.ab, max_clock)
+    ks_bound = ks_run["bound"]
     log(f"# tlwe_keyswitch_sum at B={BATCH}: kernel {ks_ms:.3f} ms/launch "
-        f"(mean of {KS_REPS}), plain {ks_plain_ms:.3f} ms, bound "
+        f"(one launch, then the mean of {KS_REPS}), plain "
+        f"{ks_plain_ms:.3f} ms, bound "
         f"{ks_bound['bound_ms']:.3f} ms ({ks_bound['bound_by']}: "
         f"{ks_bound['int32_ops']:.4g} int32 ops at "
         f"{ks_bound['int32_per_s']:.4g}/s, {ks_bound['bytes']:.4g} B at "
@@ -2665,6 +2788,12 @@ def main():
         f"err 2^{math.log2(max(fdfb_err, 1.0)):.1f}); peak "
         f"{fdfb_peak / 2**30:.2f} GiB; counts {fdfb_counts}; plain whole "
         f"call on 2 ciphertexts {fdfb_plain2_ms:.3f} ms, bit-exact")
+    dig = fdfb_ks_digits(bootstrap, tlwe, trlwe, torus, c8, bk, ksk,
+                         FDFB_PREC)
+    ks_fdfb, sub_k = k2_report(pk, "L2 fdfb", dig, ksk.ab, max_clock)
+    same_or_fail("K2 vs plain on the fdfb's key-switch inputs", sub_k,
+                 pk.tlwe_keyswitch_sum_plain(dig, ksk.ab))
+    del dig, sub_k
 
     # 9. K3, K4, K5 vs plain at full L2 widths on random inputs
     J, C, P, N = kp.J, kp.C, kp.P, kp.N
@@ -3267,15 +3396,10 @@ def main():
         "bound_by": bound["bound_by"], "library_ms": None,
         "resident_blocks_per_sm": k1_res["K1"]["blocks_per_sm"],
     }, {
-        "name": "tlwe_keyswitch_sum", "route": "cuda",
-        "source": "mosfhet_torch/ops/csrc/tlwe_keyswitch.cu",
-        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:2070",
-        "launches": fdfb_counts["tlwe_keyswitch_sum"],
-        "launches_by_path": by_path("tlwe_keyswitch_sum"),
-        "max_abs_err": ks_max_abs_err, "bit_exact": True,
-        "ms": ks_ms, "plain_ms": ks_plain_ms,
-        "bound_ms": ks_bound["bound_ms"], "bound_by": ks_bound["bound_by"],
-        "library_ms": None, "library_note": KS_LIBRARY_NOTE,
+        **k2_entry("tlwe_keyswitch_sum", fdfb_counts["tlwe_keyswitch_sum"],
+                   by_path("tlwe_keyswitch_sum"), ks_run, ks_fdfb,
+                   ks_plain_ms, None, KS_LIBRARY_NOTE),
+        "max_abs_err": ks_max_abs_err,
     }, {
         "name": "ext_product_apply_scan", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/ext_product_apply.cu",
@@ -3393,20 +3517,12 @@ def main():
         "bound_by": t32["k1"]["bound"]["bound_by"], "library_ms": None,
         "resident_blocks_per_sm":
             t32["k1"]["residency"]["K1"]["blocks_per_sm"],
-    }, {
-        "name": "tlwe_keyswitch_sum/torus32", "route": "cuda",
-        "source": "mosfhet_torch/ops/csrc/tlwe_keyswitch.cu",
-        "replaces": "mosfhet_tpu/ops/pbs_kernel.py:2070",
-        "launches": c32["fdfb"]["tlwe_keyswitch_sum"],
-        "launches_by_path": {f"{path}32": c["tlwe_keyswitch_sum"]
-                             for path, c in c32.items()},
-        "max_abs_err": 0.0, "bit_exact": True, "ms": t32["k2"]["ms"],
-        "plain_ms": t32["k2"]["plain_ms"],
-        "bound_ms": t32["k2"]["bound"]["bound_ms"],
-        "bound_by": t32["k2"]["bound"]["bound_by"],
-        "library_ms": t32["k2"]["library_ms"],
-        "library_note": t32["k2"]["library_note"],
-    }]
+    }, k2_entry("tlwe_keyswitch_sum/torus32",
+                c32["fdfb"]["tlwe_keyswitch_sum"],
+                {f"{path}32": c["tlwe_keyswitch_sum"]
+                 for path, c in c32.items()}, t32["k2"]["gate"],
+                t32["k2"]["fdfb"], t32["k2"]["plain_ms"],
+                t32["k2"]["library_ms"], t32["k2"]["library_note"])]
     # the one-limb K3-K7, K8a and K8b on their L2_32 paths
     for name, source, line, note in (
             ("ext_product_apply_scan", "ext_product_apply.cu", 1944,

@@ -38,31 +38,9 @@
 // one ciphertext, about 1.6 ms at the HBM rate.  Consecutive threads read
 // consecutive words of each rotated key row, so the reads are coalesced.
 //
-// K5-v1 (`ubr_phase1_v1_kernel`, entry `ubr_phase1_v1_launch`): the same
-// function in the design of the TPU package's first phase-1 kernel,
-// `ubr_phase1_combine` (pbs_kernel.py:2744, body `_make_phase1_kernel`
-// :2660), which K5's design superseded there too.  The TPU's v1 holds the
-// whole J*C-row combination of a group tile in scratch, makes the 2^u mask
-// combinations the innermost, accumulating grid axis, and reduces and
-// transforms once at the end.  Here one block per (b, g) walks the M key
-// products of its group in order; each m is the contiguous slab
-// SU[g, m] of J*C*N words, rotated by one exponent for the whole slab (the
-// sign and source index of a column are computed once per m and column
-// and serve every row).  The combination is held in registers across the
-// m loop: each thread owns CPT = N / threads columns of R rows (R*CPT = 16
-// words, 32 registers at u64; 32 u32 words spilled), and the J*C rows take
-// JC/R passes over m (2 at TFHEpp-L2: JC = 16, R = 8), each reading only its
-// rows of each slab, so the key is still read once.  A pass writes its rows'
-// centred residues to `out`; at the end the block brings each row's P
-// residue rows through one shared NTT row (P*N u32) and writes them back
-// transformed.  The key is read in its native [G, M, J*C, N] layout: no
-// group-tiled copy (the TPU's `tile_su_planes`, 5.3 GB at TFHEpp-L2 u=8)
-// and no split into u32 limb planes.
-//
-// Its expected weakness is the grid: one ciphertext at TFHEpp-L2, u=8 has
-// G = 79 blocks for 132 SMs, and each block streams 64 MiB of key, so the
-// bytes bound (the same as K5's) is met only if 79 SMs pull the whole HBM
-// rate; K5's block per output row fills the card instead.
+// K5-v1 (`ubr_phase1_v1_launch`, replacing the TPU package's first
+// phase-1 kernel `ubr_phase1_combine`, pbs_kernel.py:2744) launches this
+// kernel on the same operands.
 
 #include "ntt_common.cuh"
 
@@ -129,125 +107,6 @@ cudaError_t launch(const void* su, const int32_t* rot, uint32_t* out,
   return cudaGetLastError();
 }
 
-// K5-v1.  Threads N / CPT (at most 1024); registers hold R rows x CPT
-// columns of the combination.
-constexpr int kV1Threads = 1024;
-constexpr int kHeldWords = 16;  // of the combination, per thread
-
-template <int P, typename W, int CPT>
-__global__ void __launch_bounds__(kV1Threads)
-ubr_phase1_v1_kernel(const W* __restrict__ su,
-                     const int32_t* __restrict__ rot_g,
-                     uint32_t* __restrict__ out,
-                     const uint32_t* __restrict__ ftw,
-                     const uint32_t* __restrict__ ftws, const PbsConsts Kp,
-                     int G, int M) {
-  constexpr int R = kHeldWords / CPT;  // rows held
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ PbsConsts K;
-  if (threadIdx.x == 0) K = Kp;
-  const int JC = Kp.C * Kp.l * Kp.C, N = Kp.N;
-  uint32_t* work = reinterpret_cast<uint32_t*>(smem);        // [P][N]
-  int32_t* rots = reinterpret_cast<int32_t*>(work + P * N);  // [M]
-
-  // blockIdx.x = b * G + g
-  const int g = blockIdx.x % G;
-  const int32_t* rot_bg = rot_g + size_t(blockIdx.x) * M;
-  for (int m = threadIdx.x; m < M; m += blockDim.x) rots[m] = rot_bg[m];
-  __syncthreads();
-
-  const size_t m_stride = size_t(JC) * N;  // su [G][M][J*C][N]
-  const W* su_g = su + size_t(g) * M * m_stride;
-  uint32_t* out_bg = out + size_t(blockIdx.x) * JC * P * N;  // [J*C][P][N]
-  for (int r0 = 0; r0 < JC; r0 += R) {
-    // 1. rows [r0, r0 + R) combined over the M products, mod 2^64 (2^32)
-    W x[R][CPT];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) x[r][c] = 0;
-    for (int m = 0; m < M; ++m) {
-      const int a = rots[m];  // in [0, 2N]
-      const W* slab = su_g + m * m_stride + size_t(r0) * N;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int e = (int(threadIdx.x) + c * int(blockDim.x) - a) &
-                      (2 * N - 1);
-        const int src = e & (N - 1);
-        const bool neg = (e & N) != 0;
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          if (r0 + r < JC) {
-            const W v = slab[size_t(r) * N + src];
-            x[r][c] += neg ? W(0) - v : v;
-          }
-      }
-    }
-    // 2. their centred residues, out (transformed in step 3)
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (r0 + r < JC)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const int k = threadIdx.x + c * blockDim.x;
-#pragma unroll
-          for (int pi = 0; pi < P; ++pi)
-            out_bg[(size_t(r0 + r) * P + pi) * N + k] =
-                centred_residue(x[r][c], pi, K);
-        }
-  }
-  __syncthreads();
-  // 3. each row's P forward NTTs through the shared row
-  for (int jc = 0; jc < JC; ++jc) {
-    uint32_t* row = out_bg + size_t(jc) * P * N;
-    for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x)
-      work[idx] = row[idx];
-    __syncthreads();
-    forward_ntt<P>(work, P, K, ftw, ftws);
-    for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x)
-      row[idx] = work[idx];
-    __syncthreads();
-  }
-}
-
-template <int P, typename W, int CPT>
-cudaError_t launch_v1_c(const void* su, const int32_t* rot, uint32_t* out,
-                        const uint32_t* ftw, const uint32_t* ftws,
-                        const PbsConsts& K, int B, int G, int M,
-                        cudaStream_t stream) {
-  const size_t smem = size_t(P) * K.N * sizeof(uint32_t) +
-                      size_t(M) * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      ubr_phase1_v1_kernel<P, W, CPT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * G;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  ubr_phase1_v1_kernel<P, W, CPT>
-      <<<unsigned(blocks), K.N / CPT, smem, stream>>>(
-          static_cast<const W*>(su), rot, out, ftw, ftws, K, G, M);
-  return cudaGetLastError();
-}
-
-// CPT = N / 1024 columns per thread (1 for N <= 1024); N up to 8192.
-template <int P, typename W>
-cudaError_t launch_v1(const void* su, const int32_t* rot, uint32_t* out,
-                      const uint32_t* ftw, const uint32_t* ftws,
-                      const PbsConsts& K, int B, int G, int M,
-                      cudaStream_t stream) {
-  switch (K.N <= kV1Threads ? 1 : K.N / kV1Threads) {
-    case 1: return launch_v1_c<P, W, 1>(su, rot, out, ftw, ftws, K, B, G, M,
-                                        stream);
-    case 2: return launch_v1_c<P, W, 2>(su, rot, out, ftw, ftws, K, B, G, M,
-                                        stream);
-    case 4: return launch_v1_c<P, W, 4>(su, rot, out, ftw, ftws, K, B, G, M,
-                                        stream);
-    case 8: return launch_v1_c<P, W, 8>(su, rot, out, ftw, ftws, K, B, G, M,
-                                        stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -274,23 +133,14 @@ int ubr_phase1_launch(const void* su, const void* rot, void* out,
   }));
 }
 
-// K5-v1: the same operands and output as ubr_phase1_launch; N <= 8192.
+// K5-v1: the same operands and output as ubr_phase1_launch, and the same
+// launch of K5's kernel.
 int ubr_phase1_v1_launch(const void* su, const void* rot, void* out,
                          const void* ftw, const void* ftws,
                          const int64_t* consts, int B, int G, int M,
                          int word_bits, void* stream) {
-  PbsConsts K;
-  if (!parse_consts(consts, K)) return int(cudaErrorInvalidValue);
-  if (B == 0 || G == 0) return int(cudaSuccess);
-  auto* r = static_cast<const int32_t*>(rot);
-  auto* o = static_cast<uint32_t*>(out);
-  auto* f = static_cast<const uint32_t*>(ftw);
-  auto* fs = static_cast<const uint32_t*>(ftws);
-  auto st = static_cast<cudaStream_t>(stream);
-  return int(dispatch_pw(K.P, word_bits, [&](auto p, auto w) {
-    return launch_v1<decltype(p)::value, decltype(w)>(su, r, o, f, fs, K, B,
-                                                      G, M, st);
-  }));
+  return ubr_phase1_launch(su, rot, out, ftw, ftws, consts, B, G, M,
+                           word_bits, stream);
 }
 
 const char* cuda_error_string(int err) {

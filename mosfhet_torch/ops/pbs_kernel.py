@@ -30,6 +30,12 @@ PyTorch, only for CPU tensors.  The two give the same words.
                                        (sum mod 2^64) or int32 (mod 2^32)
      out  [B, n_out+1]                 the subtrahend of (0, b), ab's dtype
 
+   A block sums a tile of 128 ciphertexts over a 512-byte slice of table
+   columns, its rows staged in shared memory chunk by chunk; a cluster of
+   blocks splits the rows of one slice and tile and adds its sums through
+   distributed shared memory (`tlwe_keyswitch_tiling`,
+   `tlwe_keyswitch_schedule`).
+
    K1-K8b take the word width from the dtype of their torus words: int64
    runs the two-limb (64-bit) form, int32 the one-limb (32-bit) form, in the
    same kernel source.  K1-delta is 64-bit only, as the TPU kernel is: its
@@ -63,10 +69,9 @@ PyTorch, only for CPU tensors.  The two give the same words.
        out[b, g] = NTT(sum_m X^{rot[b,g,m]} SU[g,m])
      out   [B, G, (k+1)l, k+1, P, N]      int32 holding u32 canonical residues
 
-   K5-v1 (``ubr_phase1_combine_v1``, a second kernel of the same source)
-   computes the same words in the TPU package's first design: one block
-   per (b, g) holding the combination of all (k+1)l (k+1) rows across the
-   2^u products, the reduction and the NTTs once at the end.
+   one block per output row (b, g, j, c).  K5-v1
+   (``ubr_phase1_combine_v1``, the TPU package's first phase-1 entry) is
+   one launch of the same kernel on the same operands.
 
 6. The automorphism key switch (``csrc/auto_keyswitch.cu``): per row the
    Galois permutation psi_g (X -> X^g, given by ginv = g^-1 mod 2N), then
@@ -134,8 +139,9 @@ and UFHE_SET0 keeps all of them in shared memory; N=4096 with 4 primes
 (SET_3) moves the u64 buffers out, N=8192 the spectra too.  The NTT rows
 must stay in shared memory: a shape whose NTT rows alone exceed the limit
 raises ValueError before any launch.  (K5's block holds one row's P NTT
-rows and fits at every registered shape.)  K1, K1-step, K3 and K4 hold no
-rotation buffer and one exchange row per group of N/16 threads
+rows and fits at every registered shape; K5 and K5-v1 raise ValueError
+for a row that does not, N = 16384 with 4 primes.)  K1, K1-step, K3 and
+K4 hold no rotation buffer and one exchange row per group of N/16 threads
 (`rotation_schedule`) instead of the P NTT rows: 108.5 KiB at TFHEpp-L2
 (two blocks per SM; K4 adds its group's 2^u exponents), 67 KiB at L2_32
 (three); SET_3 keeps their spectra in shared memory and acc in place,
@@ -761,12 +767,72 @@ def tlwe_keyswitch_sum_plain(dig, ab):
 
 tlwe_keyswitch_sum_plain.calls = 0
 
+# K2's tiling (``csrc/tlwe_keyswitch.cu``): a block sums KS_TILE ciphertexts
+# over a slice of KS_SLICE_BYTES of table words per row segment (64 u64 or
+# 128 u32 columns), walking its rows in chunks through a ring of KS_STAGES
+# chunks in shared memory; a chunk holds the largest power of two of rows,
+# up to KS_MAX_CHUNK_ROWS, whose (base-1) slices fit KS_STAGE_TABLE_BYTES,
+# each in a slot of KS_SLOT_BYTES (a slice and the 16-byte granules around
+# it), then the tile's digits, KS_DIGIT_PITCH ints per row.
+KS_TILE = 128
+KS_STAGES = 3
+KS_SLICE_BYTES = 512
+KS_SLOT_BYTES = KS_SLICE_BYTES + 16
+KS_STAGE_TABLE_BYTES = 32768
+KS_MAX_CHUNK_ROWS = 32
+KS_DIGIT_PITCH = KS_TILE + 8
+
+
+def tlwe_keyswitch_tiling(base_m1: int, bits: int) -> dict:
+    """K2's block shape for base-1 and the word width: ciphertexts per
+    block (tile), columns per slice, rows per chunk, stages, bytes per stage
+    and dynamic shared bytes per block (the ring, or the block's sums where
+    those are larger), as the kernel's `tiling` computes them."""
+    seg = base_m1 * KS_SLICE_BYTES
+    rows = 1
+    while 2 * rows <= KS_MAX_CHUNK_ROWS and 2 * rows * seg \
+            <= KS_STAGE_TABLE_BYTES:
+        rows *= 2
+    stage = rows * (base_m1 * KS_SLOT_BYTES + 4 * KS_DIGIT_PITCH)
+    return {"tile": KS_TILE, "slice": KS_SLICE_BYTES * 8 // bits,
+            "chunk_rows": rows, "stages": KS_STAGES, "stage_bytes": stage,
+            "smem": max(KS_STAGES * stage, KS_TILE * KS_SLICE_BYTES)}
+
+
+KS_SCHEDULE_KEYS = ("tile", "slice", "chunk_rows", "stages", "stage_bytes",
+                    "smem", "tiles", "slices", "cluster", "blocks",
+                    "clusters_resident", "blocks_per_sm", "threads")
+
+
+def tlwe_keyswitch_schedule(B: int, n_rows: int, base_m1: int, width: int,
+                            bits: int, dev=None) -> dict:
+    """K2's launch for this shape on card ``dev`` (the C entry
+    `tlwe_keyswitch_schedule`): its tiling, the tiles of ciphertexts and
+    column slices, the cluster size S (blocks splitting the rows of one
+    slice and tile) the launch picks from the CUDA runtime's cluster
+    occupancy, the blocks, the clusters and blocks resident at once
+    (per card and per SM), and the threads per block."""
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    lib = _kernel_lib("tlwe_keyswitch", "tlwe_keyswitch_sum_launch", 3, 5)
+    fn = lib.tlwe_keyswitch_schedule
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(KS_SCHEDULE_KEYS))()
+    with torch.cuda.device(dev):
+        err = fn(B, n_rows, base_m1, width, bits, out)
+    if err:
+        raise RuntimeError("tlwe_keyswitch schedule query failed: "
+                           + lib.cuda_error_string(err).decode())
+    return dict(zip(KS_SCHEDULE_KEYS, out))
+
 
 def tlwe_keyswitch_sum(dig, ab):
     """The select-sum.  CUDA tensors: one launch of the kernel (its one-plane
     form for an int32 table, mod 2^32), and an error raised if it does not
-    build or launch.  CPU tensors: the plain version.  Returns [B, n_out+1]
-    words of ab's dtype."""
+    build or launch, or (ValueError, before any launch) if a ring of its
+    chunks does not fit a block's shared memory (base-1 above about 145).
+    CPU tensors: the plain version.  Returns [B, n_out+1] words of ab's
+    dtype."""
     dev = ab.device
     if dev.type == "cpu":
         return tlwe_keyswitch_sum_plain(dig, ab)
@@ -780,6 +846,11 @@ def tlwe_keyswitch_sum(dig, ab):
     _check("dig", dig, torch.int32, (B, n_in, t), dev)
     bits = word_bits(ab)
     _check("ab", ab, ab.dtype, (n_in, t, base_m1, width), dev)
+    smem = tlwe_keyswitch_tiling(base_m1, bits)["smem"]
+    if smem > _smem_budget("tlwe_keyswitch", _index(dev)):
+        raise ValueError(f"tlwe_keyswitch_sum: base-1 = {base_m1} needs "
+                         f"{smem} B of shared memory per block, more than "
+                         "the card gives one")
     out = torch.empty((B, width), dtype=ab.dtype, device=dev)
     if B == 0 or width == 0:
         return out
@@ -1015,6 +1086,7 @@ def ubr_phase1_combine(su, rot, kp: PBSKernelPlan):
     _one_limb_primes("ubr_phase1_combine", bits, kp)
     B = rot.shape[0]
     G, M = _check_unfolded(rot, su, kp, B, dev, su.dtype)
+    _check_ubr_row("ubr_phase1_combine", kp, M, dev)
     out = torch.empty((B, G, kp.J, kp.C, kp.P, kp.N), dtype=torch.int32,
                       device=dev)
     if B == 0 or G == 0:
@@ -1029,8 +1101,18 @@ def ubr_phase1_combine(su, rot, kp: PBSKernelPlan):
 
 ubr_phase1_combine.launches = 0
 
-# K5-v1's threads own N / 1024 columns each, at most 8 (`launch_v1`).
-V1_MAX_N = 8192
+
+def _check_ubr_row(name: str, kp: PBSKernelPlan, M: int, dev):
+    """K5's block holds one row's P residue rows and the M exponents in
+    shared memory (P*N*4 + M*4 bytes): a shape whose row exceeds what a
+    block may have (N = 16384 with 4 or more primes) raises ValueError
+    before any launch."""
+    need = kp.P * kp.N * 4 + M * 4
+    have = _smem_budget("ubr_phase1", _index(dev))
+    if need > have:
+        raise ValueError(f"{name}: a row of N={kp.N}, {kp.P} primes and "
+                         f"{M} exponents needs {need} B of shared memory, "
+                         f"more than the {have} B a block may have")
 
 
 def ubr_phase1_combine_v1_plain(su, rot, kp: PBSKernelPlan):
@@ -1044,11 +1126,11 @@ ubr_phase1_combine_v1_plain.calls = 0
 
 
 def ubr_phase1_combine_v1(su, rot, kp: PBSKernelPlan):
-    """UBR phase 1 in the v1 design (one block per (b, g) holding all
-    rows of the combination; N <= 8192).  CUDA tensors: one launch of the
-    kernel (its one-limb form for int32 key products), and an error raised
-    if it does not build or launch.  CPU tensors: the plain version.
-    Returns [B, G, J, C, P, N] int32 (u32 residues), K5's words."""
+    """UBR phase 1 through the TPU package's first entry
+    (`ubr_phase1_combine`).  CUDA tensors: one launch of K5's kernel (its
+    one-limb form for int32 key products), and an error raised if it does
+    not build or launch.  CPU tensors: the plain version.  Returns [B, G,
+    J, C, P, N] int32 (u32 residues), K5's words."""
     bits = _word_width("ubr_phase1_combine_v1", su, kp)
     dev = su.device
     if dev.type == "cpu":
@@ -1057,11 +1139,9 @@ def ubr_phase1_combine_v1(su, rot, kp: PBSKernelPlan):
         raise ValueError(f"ubr_phase1_combine_v1 runs on cuda or cpu, "
                          f"not {dev}")
     _one_limb_primes("ubr_phase1_combine_v1", bits, kp)
-    if kp.N > V1_MAX_N:
-        raise ValueError(f"ubr_phase1_combine_v1 takes N <= {V1_MAX_N}, "
-                         f"not {kp.N}")
     B = rot.shape[0]
     G, M = _check_unfolded(rot, su, kp, B, dev, su.dtype)
+    _check_ubr_row("ubr_phase1_combine_v1", kp, M, dev)
     out = torch.empty((B, G, kp.J, kp.C, kp.P, kp.N), dtype=torch.int32,
                       device=dev)
     if B == 0 or G == 0:

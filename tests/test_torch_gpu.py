@@ -129,6 +129,11 @@ def random_ks_inputs(B, n_in, t, base_m1, width, seed):
     (5, 64, 8, 15, 17),        # a ragged column block
     (2, 37, 5, 7, 300),        # SET_2-like digits, odd n_in
     (1, 1100, 4, 3, 5),        # more than one shared-memory tile of digits
+    (1, 2048, 8, 15, 633),     # one ciphertext at L2 widths
+    (130, 64, 8, 15, 633),     # B not a multiple of the 128-ciphertext tile
+    (257, 37, 3, 15, 70),      # 111 rows: not a multiple of the 4-row chunk
+    (5, 64, 8, 15, 1),         # width 1
+    (512, 2048, 8, 15, 633),   # the gate's and fdfb's batch at L2
 ])
 def test_cuda_keyswitch_sum_matches_plain(B, n_in, t, base_m1, width):
     if not torch.cuda.is_available():
@@ -147,6 +152,11 @@ def test_cuda_keyswitch_sum_matches_plain(B, n_in, t, base_m1, width):
 @pytest.mark.parametrize("B,n_in,t,base_m1,width", [
     (3, 2048, 6, 15, 633),     # L2_32 key-switch widths
     (5, 64, 5, 15, 17),        # a ragged column block
+    (1, 2048, 6, 15, 633),     # one ciphertext
+    (130, 64, 6, 15, 633),     # B not a multiple of the tile
+    (257, 37, 3, 7, 133),      # 111 rows in 8-row chunks; base 8
+    (3, 37, 3, 3, 1),          # width 1; base 4
+    (512, 2048, 6, 15, 633),   # the gate's and fdfb's batch at L2_32
 ])
 def test_cuda_keyswitch_sum_matches_plain_torus32(B, n_in, t, base_m1, width):
     """K2's one-plane form: an int32 table of u32 words, sums mod 2^32."""
@@ -161,6 +171,59 @@ def test_cuda_keyswitch_sum_matches_plain_torus32(B, n_in, t, base_m1, width):
     assert tpk.tlwe_keyswitch_sum.launches == launches + 1
     want = tpk.tlwe_keyswitch_sum_plain(d, tab)
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,slices", [(64, 10), (32, 5)])
+def test_cuda_keyswitch_schedule_at_l2(bits, slices):
+    """K2's launch at B=512, L2 widths: the tiling of
+    `tlwe_keyswitch_tiling`, 4 tiles of 128 ciphertexts, 64 u64 (128 u32)
+    columns per slice, a cluster of S blocks per (slice, tile), two blocks
+    per SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    got = tpk.tlwe_keyswitch_schedule(512, 2048 * (8 if bits == 64 else 6),
+                                      15, 633, bits)
+    til = tpk.tlwe_keyswitch_tiling(15, bits)
+    assert {k: got[k] for k in til} == til
+    assert (got["tiles"], got["slices"], got["threads"]) == (4, slices, 256)
+    assert got["blocks"] == 4 * slices * got["cluster"]
+    assert 1 <= got["cluster"] <= 16 and got["clusters_resident"] >= 1
+    assert got["blocks_per_sm"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,offset", [(64, 1), (32, 1), (32, 2), (32, 3)])
+def test_cuda_keyswitch_sum_misaligned_table(bits, offset):
+    """A table whose address is 4, 8 or 12 mod 16 (a view into a larger
+    buffer): K2 copies the 16-byte granules around each slice and still
+    gives the plain version's words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    B, n_in, t, base_m1, width = 130, 37, 3, 15, 70
+    dig, ab = random_ks_inputs(B, n_in, t, base_m1, width, seed=offset)
+    flat = ab.reshape(-1) if bits == 64 else ab.reshape(-1).astype(np.uint32)
+    buf = np.concatenate([flat[:offset], flat, flat[:3]])
+    tab = to_tensor(buf, "cuda")[offset:offset + flat.size].view(ab.shape)
+    assert tab.is_contiguous() and tab.data_ptr() % 16 == offset * bits // 8
+    d = torch.from_numpy(dig).cuda()
+    got = tpk.tlwe_keyswitch_sum(d, tab)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tpk.tlwe_keyswitch_sum_plain(d, tab))
+
+
+@pytest.mark.gpu
+def test_cuda_keyswitch_sum_refuses_unplaceable_base():
+    """base-1 = 200: one row's 200 segments three times over exceed a
+    block's shared memory; ValueError before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dig, ab = random_ks_inputs(2, 3, 1, 200, 8, seed=200)
+    launches = tpk.tlwe_keyswitch_sum.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tpk.tlwe_keyswitch_sum(torch.from_numpy(dig).cuda(),
+                               to_tensor(ab, "cuda"))
+    assert tpk.tlwe_keyswitch_sum.launches == launches
 
 
 @pytest.mark.gpu
@@ -1159,6 +1222,39 @@ def test_cuda_ubr_phase1_v1_matches_plain_torus32(u, G, B):
     torch.cuda.synchronize()
     assert tpk.ubr_phase1_combine_v1.launches == launches + 1
     assert torch.equal(got, tpk.ubr_phase1_combine_v1_plain(su, rot, kp))
+    assert torch.equal(got, tpk.ubr_phase1_combine(su, rot, kp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ubr_phase1_combine",
+                                  "ubr_phase1_combine_v1"])
+def test_cuda_ubr_phase1_row_limit(name):
+    """K5's block holds one row's P residue rows: at N = 16384 two primes
+    fit (K5-v1, which took N <= 8192 in its own design, gives K5's and the
+    plain version's words), four do not (ValueError before any launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, M = 16384, 4
+    fn = getattr(tpk, name)
+    rng = np.random.default_rng(530)
+    su = to_tensor(rng.integers(0, 1 << 64, size=(1, M, 2, 2, N),
+                                dtype=np.uint64), "cuda")
+    rot = torch.from_numpy(random_exponents(rng, 1, 1, M, N)).cuda()
+    kp4 = tpk.get_kernel_plan(N, ntt.primes_for_bound(
+        ntt.external_product_bound(N, 22, 1, 1)), 1, 22, 1, "cuda")
+    assert kp4.P == 4
+    launches = fn.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fn(su, rot, kp4)
+    assert fn.launches == launches
+    kp2 = tpk.get_kernel_plan(N, ntt.MASTER_PRIMES[-2:], 1, 22, 1, "cuda")
+    got = fn(su, rot, kp2)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 1
+    assert torch.equal(got, tpk.ubr_phase1_combine_plain(su, rot, kp2))
+    other = (tpk.ubr_phase1_combine_v1 if name == "ubr_phase1_combine"
+             else tpk.ubr_phase1_combine)
+    assert torch.equal(got, other(su, rot, kp2))
 
 
 def _launched(wrappers, call):
