@@ -426,12 +426,14 @@ def keyswitch_bound_ms(dig, ab, max_clock_mhz):
 
 def k2_report(pk, tag, dig, ab, max_clock_mhz):
     """K2 on these inputs, launched once before KS_REPS timed launches:
-    ms per launch beside its bound and the ceiling of a gather from shared
-    memory (every selected word loaded once at SMEM_BYTES_PER_CLOCK per SM
-    and clock), its schedule (`tlwe_keyswitch_schedule`), and the table
-    bytes it moves through L2 per call (each tile of ciphertexts reads the
-    whole table once) against the first design's (each selected row read
-    once per ciphertext).  Returns the report and the last output."""
+    ms per launch beside its bound, and its schedule
+    (`tlwe_keyswitch_schedule`).  The log line adds two figures worked out
+    from the design, not read from the card: the ceiling of a gather from
+    shared memory (every selected word loaded once at SMEM_BYTES_PER_CLOCK
+    per SM and clock), and the table bytes the schedule copies from L2 per
+    call (each tile of ciphertexts copies the whole table's slices once)
+    against the selected rows per ciphertext that the first design read.
+    Returns the report and the last output."""
     pk.tlwe_keyswitch_sum(dig, ab)
     torch.cuda.synchronize()
     ms, out = cuda_ms(lambda: pk.tlwe_keyswitch_sum(dig, ab), KS_REPS)
@@ -443,24 +445,25 @@ def k2_report(pk, tag, dig, ab, max_clock_mhz):
         SMEM_BYTES_PER_CLOCK * sms * max_clock_mhz * 1e6)
     sched = pk.tlwe_keyswitch_schedule(B, n_in * t, ab.shape[2], ab.shape[3],
                                        8 * w)
-    r = {"ms": ms, "bound": bound, "smem_ceiling_ms": ceiling,
-         "share_of_bound": bound["bound_ms"] / ms, "schedule": sched,
-         "table_l2_bytes": sched["tiles"] * ab.numel() * w,
-         "first_design_l2_bytes": bound["word_adds"] * w}
+    r = {"ms": ms, "bound": bound, "share_of_bound": bound["bound_ms"] / ms,
+         "schedule": sched}
     log(f"# K2 {tag}, B={B}: {ms:.4f} ms/launch (one launch, then the mean "
         f"of {KS_REPS}); bound {bound['bound_ms']:.4f} ms "
         f"({bound['bound_by']}), {100 * r['share_of_bound']:.1f}% of it; "
-        f"shared-memory ceiling {ceiling:.4f} ms ({bound['word_adds']:.4g} "
-        f"words of {w} B at {SMEM_BYTES_PER_CLOCK} B per SM and clock); "
-        f"table through L2 {r['table_l2_bytes'] / 1e9:.3f} GB per call "
-        f"(first design {r['first_design_l2_bytes'] / 1e9:.3f} GB); "
+        f"derived from the design, not measured: shared-memory ceiling "
+        f"{ceiling:.4f} ms ({bound['word_adds']:.4g} words of {w} B at "
+        f"{SMEM_BYTES_PER_CLOCK} B per SM and clock), table slices the "
+        f"schedule copies from L2 {sched['tiles'] * ab.numel() * w / 1e9:.3f}"
+        f" GB per call (the first design's selected rows per ciphertext "
+        f"{bound['word_adds'] * w / 1e9:.3f} GB); "
         f"schedule: {sched['tile']} ciphertexts x {sched['slice']} columns "
         f"per block, {sched['chunk_rows']}-row chunks in {sched['stages']} "
         f"stages of {sched['stage_bytes']} B ({sched['smem']} B per block), "
         f"{sched['tiles']} tiles x {sched['slices']} slices x cluster "
         f"{sched['cluster']} = {sched['blocks']} blocks of "
         f"{sched['threads']} threads, {sched['clusters_resident']} clusters "
-        f"and {sched['blocks_per_sm']} blocks per SM resident")
+        f"and {sched['blocks_per_sm']} blocks per SM resident (clusters of "
+        f"1..16 blocks resident: {sched['clusters_by_size']})")
     if sched["blocks_per_sm"] < 1:
         fail(f"K2 {tag}: no block fits an SM")
     return r, out
@@ -481,7 +484,7 @@ def fdfb_ks_digits(bootstrap, tlwe, trlwe, torus, c, bk, ksk, precision):
 def k2_entry(name, launches, launches_by_path, gate, fdfb, plain_ms,
              library_ms, library_note):
     """K2's kernels-line entry: the gate's inputs' time, the fdfb's beside
-    it, the schedule and the L2 traffic."""
+    it, and the launch's placement and residency."""
     return {
         "name": name, "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/tlwe_keyswitch.cu",
@@ -492,10 +495,9 @@ def k2_entry(name, launches, launches_by_path, gate, fdfb, plain_ms,
         "bound_by": gate["bound"]["bound_by"], "library_ms": library_ms,
         "library_note": library_note, "fdfb_ms": fdfb["ms"],
         "fdfb_bound_ms": fdfb["bound"]["bound_ms"],
-        "smem_ceiling_ms": gate["smem_ceiling_ms"],
-        "table_l2_bytes": gate["table_l2_bytes"],
-        "first_design_l2_bytes": gate["first_design_l2_bytes"],
-        "schedule": gate["schedule"],
+        "placement": "{tile} ciphertexts x {slice} columns per block, "
+                     "cluster {cluster}, {blocks} blocks".format(
+                         **gate["schedule"]),
         "resident_blocks_per_sm": gate["schedule"]["blocks_per_sm"]}
 
 
@@ -1332,8 +1334,7 @@ def ubr_steps_phase(bk, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock):
     k5_same_ms, _ = cuda_ms(lambda: pk.ubr_phase1_combine(bk.su, rot, kp),
                             REPS)
     runs["ubr_phase1_combine_v1"].update({
-        "kernel_of": "ubr_phase1_combine", "k5_ms": k5_same_ms,
-        "smem_row_bytes": kp.P * kp.N * 4 + M * 4})
+        "kernel_of": "ubr_phase1_combine", "k5_ms": k5_same_ms})
     fused_ms, _ = cuda_ms(lambda: bootstrap.multivalue_bootstrap_UBR_phase2(
         tvs, c1, sa, bk, 4), STEP_REPS)
     warm_ms, _ = cuda_ms(
@@ -1406,7 +1407,7 @@ def step_entries(runs, by_path, tag=""):
             "library_ms": None, "library_note": note})
         entries[-1].update({key: r[key] for key in
                             ("placement", "resident_blocks_per_sm",
-                             "kernel_of", "k5_ms", "smem_row_bytes")
+                             "kernel_of", "k5_ms")
                             if key in r})
     return entries
 

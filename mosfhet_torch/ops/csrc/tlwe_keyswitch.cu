@@ -68,6 +68,7 @@
 // ciphertexts still stages the whole table: below about 15 ciphertexts a
 // direct gather would read less.
 
+#include <algorithm>
 #include <climits>
 #include <cooperative_groups.h>
 #include <mutex>
@@ -388,8 +389,10 @@ cudaError_t prepare(long long smem) {
                               1);
 }
 
+// Clusters of S blocks resident at once for S = 1..kMaxCluster, copied
+// into clusters[S] while the cache's lock is held.
 template <typename W>
-cudaError_t active_clusters(long long smem, const int** clusters) {
+cudaError_t active_clusters(long long smem, int* clusters) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -397,7 +400,7 @@ cudaError_t active_clusters(long long smem, const int** clusters) {
   for (const Occupancy& o : occupancy_cache)
     if (o.device == device && o.word_bytes == int(sizeof(W)) &&
         o.smem == smem) {
-      *clusters = o.clusters;
+      std::copy(o.clusters, o.clusters + kMaxCluster + 1, clusters);
       return cudaSuccess;
     }
   Occupancy o{device, int(sizeof(W)), smem, {}};
@@ -422,13 +425,14 @@ cudaError_t active_clusters(long long smem, const int** clusters) {
     o.clusters[S] = n;
   }
   occupancy_cache.push_back(o);
-  *clusters = occupancy_cache.back().clusters;
+  std::copy(o.clusters, o.clusters + kMaxCluster + 1, clusters);
   return cudaSuccess;
 }
 
 struct Plan {
   Tiling t;
   int tiles, slices, pairs, chunks, S, active;
+  int clusters[kMaxCluster + 1];  // resident at once, by cluster size
 };
 
 // The tiling and the cluster size S for this shape on the current card.
@@ -444,8 +448,7 @@ cudaError_t make_plan(int B, int n_rows, int base_m1, int width, Plan& p) {
   if (err != cudaSuccess) return err;
   if (p.t.smem > optin - kStaticSmem) return cudaErrorInvalidValue;
   if ((err = prepare<W>(p.t.smem)) != cudaSuccess) return err;
-  const int* clusters = nullptr;
-  if ((err = active_clusters<W>(p.t.smem, &clusters)) != cudaSuccess)
+  if ((err = active_clusters<W>(p.t.smem, p.clusters)) != cudaSuccess)
     return err;
   p.tiles = (B + kTile - 1) / kTile;
   p.slices = (width + kCols<W> - 1) / kCols<W>;
@@ -455,13 +458,14 @@ cudaError_t make_plan(int B, int n_rows, int base_m1, int width, Plan& p) {
   p.chunks = (n_rows + p.t.rows - 1) >> p.t.log_rows;
   long long best = LLONG_MAX;
   for (int S = 1; S <= kMaxCluster && (S == 1 || S <= p.chunks); ++S) {
-    if (clusters[S] <= 0) continue;
-    const long long waves = (p.pairs + clusters[S] - 1) / clusters[S];
+    const int c = p.clusters[S];
+    if (c <= 0) continue;
+    const long long waves = (p.pairs + c - 1) / c;
     const long long cost = waves * ((p.chunks + S - 1) / S + kEpilogueChunks);
     if (cost < best) {
       best = cost;
       p.S = S;
-      p.active = clusters[S];
+      p.active = c;
     }
   }
   return p.S ? cudaSuccess : cudaErrorInvalidConfiguration;
@@ -504,8 +508,11 @@ cudaError_t schedule(int B, int n_rows, int base_m1, int width, int* out) {
   if (err != cudaSuccess) return err;
   const int v[] = {kTile, kCols<W>, p.t.rows, kStages,
                    int(p.t.stage_bytes), int(p.t.smem), p.tiles, p.slices,
-                   p.S, p.pairs * p.S, p.active, per_sm, kThreads};
-  for (int i = 0; i < int(sizeof(v) / sizeof(v[0])); ++i) out[i] = v[i];
+                   p.S, p.pairs * p.S, p.active, per_sm, kThreads,
+                   kEpilogueChunks};
+  constexpr int n = int(sizeof(v) / sizeof(v[0]));
+  for (int i = 0; i < n; ++i) out[i] = v[i];
+  for (int S = 1; S <= kMaxCluster; ++S) out[n + S - 1] = p.clusters[S];
   return cudaSuccess;
 }
 
@@ -537,10 +544,12 @@ int tlwe_keyswitch_sum_launch(const void* dig, const void* ab, void* out,
                                     st));
 }
 
-// The launch's schedule for this shape on the current card, into out[13]:
+// The launch's schedule for this shape on the current card, into out[30]:
 // tile (ciphertexts per block), slice (columns per block), chunk rows,
 // stages, stage bytes, shared bytes per block, tiles, slices, cluster size
-// S, blocks, clusters resident at once, blocks resident per SM, threads.
+// S, blocks, clusters resident at once, blocks resident per SM, threads,
+// the epilogue's weight in chunks when S is chosen, then the clusters of
+// S = 1..16 blocks the runtime can hold at once.
 int tlwe_keyswitch_schedule(int B, int n_rows, int base_m1, int width,
                             int word_bits, int* out) {
   if (!valid(B, n_rows, base_m1, width, word_bits) || B == 0 || width == 0)

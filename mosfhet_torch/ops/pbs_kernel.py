@@ -305,18 +305,26 @@ def _kernel_lib(name: str, entry: str, n_ptr: int, n_int: int):
     return lib
 
 
-def _launch(name: str, entry: str, n_ptr: int, n_int: int, dev, *args):
+_CUDA_ERROR_INVALID_VALUE = 1
+
+
+def _launch(name: str, entry: str, n_ptr: int, n_int: int, dev, *args,
+            refused: str | None = None):
     """Call the C entry, which launches on ``dev``'s current stream and
-    returns `cudaGetLastError()`; raise on anything but success.  ``dev`` is
-    made the current device for the call: the CUDA runtime launches into the
-    current device, and a tensor on another card (a mesh shard) needs its
-    own."""
+    returns `cudaGetLastError()`; raise on anything but success: ValueError
+    with the message ``refused`` where it is given and the entry returns
+    cudaErrorInvalidValue (an entry that refuses a shape before any launch),
+    else RuntimeError.  ``dev`` is made the current device for the call: the
+    CUDA runtime launches into the current device, and a tensor on another
+    card (a mesh shard) needs its own."""
     lib = _kernel_lib(name, entry, n_ptr, n_int)
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(*args, _stream(dev))
     if err:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + lib.cuda_error_string(err).decode())
+        why = lib.cuda_error_string(err).decode()
+        if refused is not None and err == _CUDA_ERROR_INVALID_VALUE:
+            raise ValueError(f"{refused} ({why})")
+        raise RuntimeError(f"{name} kernel launch failed: {why}")
 
 
 def _stream(dev):
@@ -767,7 +775,10 @@ def tlwe_keyswitch_sum_plain(dig, ab):
 
 tlwe_keyswitch_sum_plain.calls = 0
 
-# K2's tiling (``csrc/tlwe_keyswitch.cu``): a block sums KS_TILE ciphertexts
+# K2's tiling (``csrc/tlwe_keyswitch.cu``), mirrored here for the numpy
+# rendering of its schedule (the kernel's entry refuses what does not fit,
+# and `tlwe_keyswitch_schedule` reports the tiling it launches with, which
+# the card's tests hold to this mirror): a block sums KS_TILE ciphertexts
 # over a slice of KS_SLICE_BYTES of table words per row segment (64 u64 or
 # 128 u32 columns), walking its rows in chunks through a ring of KS_STAGES
 # chunks in shared memory; a chunk holds the largest power of two of rows,
@@ -801,7 +812,8 @@ def tlwe_keyswitch_tiling(base_m1: int, bits: int) -> dict:
 
 KS_SCHEDULE_KEYS = ("tile", "slice", "chunk_rows", "stages", "stage_bytes",
                     "smem", "tiles", "slices", "cluster", "blocks",
-                    "clusters_resident", "blocks_per_sm", "threads")
+                    "clusters_resident", "blocks_per_sm", "threads",
+                    "epilogue_chunks")
 
 
 def tlwe_keyswitch_schedule(B: int, n_rows: int, base_m1: int, width: int,
@@ -811,19 +823,23 @@ def tlwe_keyswitch_schedule(B: int, n_rows: int, base_m1: int, width: int,
     column slices, the cluster size S (blocks splitting the rows of one
     slice and tile) the launch picks from the CUDA runtime's cluster
     occupancy, the blocks, the clusters and blocks resident at once
-    (per card and per SM), and the threads per block."""
+    (per card and per SM), the threads per block, the epilogue's weight in
+    chunks by which S is chosen, and ``clusters_by_size``: the clusters of
+    S = 1..16 blocks the runtime can hold at once, from which S was
+    chosen."""
     dev = torch.device("cuda") if dev is None else torch.device(dev)
     lib = _kernel_lib("tlwe_keyswitch", "tlwe_keyswitch_sum_launch", 3, 5)
     fn = lib.tlwe_keyswitch_schedule
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * len(KS_SCHEDULE_KEYS))()
+    n, max_cluster = len(KS_SCHEDULE_KEYS), 16
+    out = (ctypes.c_int * (n + max_cluster))()
     with torch.cuda.device(dev):
         err = fn(B, n_rows, base_m1, width, bits, out)
     if err:
         raise RuntimeError("tlwe_keyswitch schedule query failed: "
                            + lib.cuda_error_string(err).decode())
-    return dict(zip(KS_SCHEDULE_KEYS, out))
+    return dict(zip(KS_SCHEDULE_KEYS, out), clusters_by_size=list(out[n:]))
 
 
 def tlwe_keyswitch_sum(dig, ab):
@@ -846,17 +862,16 @@ def tlwe_keyswitch_sum(dig, ab):
     _check("dig", dig, torch.int32, (B, n_in, t), dev)
     bits = word_bits(ab)
     _check("ab", ab, ab.dtype, (n_in, t, base_m1, width), dev)
-    smem = tlwe_keyswitch_tiling(base_m1, bits)["smem"]
-    if smem > _smem_budget("tlwe_keyswitch", _index(dev)):
-        raise ValueError(f"tlwe_keyswitch_sum: base-1 = {base_m1} needs "
-                         f"{smem} B of shared memory per block, more than "
-                         "the card gives one")
     out = torch.empty((B, width), dtype=ab.dtype, device=dev)
     if B == 0 or width == 0:
         return out
     _launch("tlwe_keyswitch", "tlwe_keyswitch_sum_launch", 3, 5, dev,
             dig.data_ptr(), ab.data_ptr(), out.data_ptr(), B, n_in * t,
-            base_m1, width, bits)
+            base_m1, width, bits,
+            refused=f"tlwe_keyswitch_sum: shape refused before any launch "
+                    f"(B={B}, base-1={base_m1}, width={width}): a ring of "
+                    "its chunks must fit a block's shared memory (base-1 up "
+                    "to about 145)")
     tlwe_keyswitch_sum.launches += 1
     return out
 
@@ -1072,47 +1087,50 @@ def ubr_phase1_combine_plain(su, rot, kp: PBSKernelPlan):
 ubr_phase1_combine_plain.calls = 0
 
 
-def ubr_phase1_combine(su, rot, kp: PBSKernelPlan):
-    """UBR phase 1.  CUDA tensors: one launch of the kernel for all (b, g)
-    (its one-limb form for int32 key products), and an error raised if it
-    does not build or launch.  CPU tensors: the plain version.  Returns
-    [B, G, J, C, P, N] int32 (u32 residues)."""
-    bits = _word_width("ubr_phase1_combine", su, kp)
+def _ubr_phase1(fn, plain, entry: str, su, rot, kp: PBSKernelPlan):
+    """K5's launch for wrapper ``fn`` (K5 or K5-v1), through its C entry
+    ``entry``; CPU tensors go to ``plain``.  K5's block holds one row's P
+    residue rows and the M exponents in shared memory (P*N*4 + M*4 bytes):
+    a shape whose row exceeds what a block may have (N = 16384 with 4 or
+    more primes) raises ValueError before any launch."""
+    name = fn.__name__
+    bits = _word_width(name, su, kp)
     dev = su.device
     if dev.type == "cpu":
-        return ubr_phase1_combine_plain(su, rot, kp)
+        return plain(su, rot, kp)
     if dev.type != "cuda":
-        raise ValueError(f"ubr_phase1_combine runs on cuda or cpu, not {dev}")
-    _one_limb_primes("ubr_phase1_combine", bits, kp)
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    _one_limb_primes(name, bits, kp)
     B = rot.shape[0]
     G, M = _check_unfolded(rot, su, kp, B, dev, su.dtype)
-    _check_ubr_row("ubr_phase1_combine", kp, M, dev)
-    out = torch.empty((B, G, kp.J, kp.C, kp.P, kp.N), dtype=torch.int32,
-                      device=dev)
-    if B == 0 or G == 0:
-        return out
-    _launch("ubr_phase1", "ubr_phase1_launch", 6, 4, dev, su.data_ptr(),
-            rot.data_ptr(), out.data_ptr(), kp.fwd_tw.data_ptr(),
-            kp.fwd_tws.data_ptr(), kp.host_consts.ctypes.data, B, G, M,
-            bits)
-    ubr_phase1_combine.launches += 1
-    return out
-
-
-ubr_phase1_combine.launches = 0
-
-
-def _check_ubr_row(name: str, kp: PBSKernelPlan, M: int, dev):
-    """K5's block holds one row's P residue rows and the M exponents in
-    shared memory (P*N*4 + M*4 bytes): a shape whose row exceeds what a
-    block may have (N = 16384 with 4 or more primes) raises ValueError
-    before any launch."""
     need = kp.P * kp.N * 4 + M * 4
     have = _smem_budget("ubr_phase1", _index(dev))
     if need > have:
         raise ValueError(f"{name}: a row of N={kp.N}, {kp.P} primes and "
                          f"{M} exponents needs {need} B of shared memory, "
                          f"more than the {have} B a block may have")
+    out = torch.empty((B, G, kp.J, kp.C, kp.P, kp.N), dtype=torch.int32,
+                      device=dev)
+    if B == 0 or G == 0:
+        return out
+    _launch("ubr_phase1", entry, 6, 4, dev, su.data_ptr(), rot.data_ptr(),
+            out.data_ptr(), kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
+            kp.host_consts.ctypes.data, B, G, M, bits)
+    fn.launches += 1
+    return out
+
+
+def ubr_phase1_combine(su, rot, kp: PBSKernelPlan):
+    """UBR phase 1.  CUDA tensors: one launch of the kernel for all (b, g)
+    (its one-limb form for int32 key products), and an error raised if it
+    does not build or launch (ValueError, before any launch, where a row
+    does not fit a block's shared memory).  CPU tensors: the plain version.
+    Returns [B, G, J, C, P, N] int32 (u32 residues)."""
+    return _ubr_phase1(ubr_phase1_combine, ubr_phase1_combine_plain,
+                       "ubr_phase1_launch", su, rot, kp)
+
+
+ubr_phase1_combine.launches = 0
 
 
 def ubr_phase1_combine_v1_plain(su, rot, kp: PBSKernelPlan):
@@ -1129,29 +1147,11 @@ def ubr_phase1_combine_v1(su, rot, kp: PBSKernelPlan):
     """UBR phase 1 through the TPU package's first entry
     (`ubr_phase1_combine`).  CUDA tensors: one launch of K5's kernel (its
     one-limb form for int32 key products), and an error raised if it does
-    not build or launch.  CPU tensors: the plain version.  Returns [B, G,
-    J, C, P, N] int32 (u32 residues), K5's words."""
-    bits = _word_width("ubr_phase1_combine_v1", su, kp)
-    dev = su.device
-    if dev.type == "cpu":
-        return ubr_phase1_combine_v1_plain(su, rot, kp)
-    if dev.type != "cuda":
-        raise ValueError(f"ubr_phase1_combine_v1 runs on cuda or cpu, "
-                         f"not {dev}")
-    _one_limb_primes("ubr_phase1_combine_v1", bits, kp)
-    B = rot.shape[0]
-    G, M = _check_unfolded(rot, su, kp, B, dev, su.dtype)
-    _check_ubr_row("ubr_phase1_combine_v1", kp, M, dev)
-    out = torch.empty((B, G, kp.J, kp.C, kp.P, kp.N), dtype=torch.int32,
-                      device=dev)
-    if B == 0 or G == 0:
-        return out
-    _launch("ubr_phase1", "ubr_phase1_v1_launch", 6, 4, dev, su.data_ptr(),
-            rot.data_ptr(), out.data_ptr(), kp.fwd_tw.data_ptr(),
-            kp.fwd_tws.data_ptr(), kp.host_consts.ctypes.data, B, G, M,
-            bits)
-    ubr_phase1_combine_v1.launches += 1
-    return out
+    not build or launch (ValueError, before any launch, where a row does
+    not fit a block's shared memory).  CPU tensors: the plain version.
+    Returns [B, G, J, C, P, N] int32 (u32 residues), K5's words."""
+    return _ubr_phase1(ubr_phase1_combine_v1, ubr_phase1_combine_v1_plain,
+                       "ubr_phase1_v1_launch", su, rot, kp)
 
 
 ubr_phase1_combine_v1.launches = 0

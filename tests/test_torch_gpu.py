@@ -178,18 +178,35 @@ def test_cuda_keyswitch_sum_matches_plain_torus32(B, n_in, t, base_m1, width):
 def test_cuda_keyswitch_schedule_at_l2(bits, slices):
     """K2's launch at B=512, L2 widths: the tiling of
     `tlwe_keyswitch_tiling`, 4 tiles of 128 ciphertexts, 64 u64 (128 u32)
-    columns per slice, a cluster of S blocks per (slice, tile), two blocks
-    per SM."""
+    columns per slice, two blocks per SM, and a cluster of S blocks per
+    (slice, tile) with the S that the launch promises: of the cluster sizes
+    the runtime can hold, the one whose waves of clusters walk the fewest
+    chunks, the epilogue counted.  The last wave may be partial: with u64
+    words on an H100 the 40 clusters of 16 blocks ran in three waves of
+    14, 14 and 12."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    got = tpk.tlwe_keyswitch_schedule(512, 2048 * (8 if bits == 64 else 6),
-                                      15, 633, bits)
+    n_rows = 2048 * (8 if bits == 64 else 6)
+    got = tpk.tlwe_keyswitch_schedule(512, n_rows, 15, 633, bits)
     til = tpk.tlwe_keyswitch_tiling(15, bits)
     assert {k: got[k] for k in til} == til
     assert (got["tiles"], got["slices"], got["threads"]) == (4, slices, 256)
     assert got["blocks"] == 4 * slices * got["cluster"]
-    assert 1 <= got["cluster"] <= 16 and got["clusters_resident"] >= 1
     assert got["blocks_per_sm"] == 2
+    resident = got["clusters_by_size"]
+    assert len(resident) == 16 and resident[0] >= 1
+    chunks = -(-n_rows // got["chunk_rows"])
+    pairs = got["tiles"] * got["slices"]
+
+    def cost(S):
+        waves = -(-pairs // resident[S - 1])
+        return waves * (-(-chunks // S) + got["epilogue_chunks"])
+
+    sizes = [S for S in range(1, 17)
+             if resident[S - 1] > 0 and (S == 1 or S <= chunks)]
+    assert got["cluster"] in sizes
+    assert got["clusters_resident"] == resident[got["cluster"] - 1]
+    assert cost(got["cluster"]) == min(cost(S) for S in sizes)
 
 
 @pytest.mark.gpu
