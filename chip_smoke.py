@@ -217,10 +217,26 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               K6 launch each, within trlwe_ks_bound at 32 bits, 2^25), and
               ga_pbs_on_mesh at (2, 1) (2 K6 + 2 K7 launches) and at (1, 2)
               on 32 ciphertexts (the plain route), equal to the
-              bootstrap's words.  The child's failure fails the script.
- 21. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
-              ga (with the per-step forms), trlweks, mesh, set3 and torus32
-              lines, the card line, the kernels line (the one-limb forms as
+              bootstrap's words.  Last, phase 21's matrix ops at L2_32 (l=3,
+              Bg_bit=7, the primes of the TRGSW key's plan).  The child's
+              failure fails the script.
+ 21. matrix   the TRGSW matrix ops on phase 4's TRGSW key: trgsw_mul
+              (mul_trgsw_dft of TRGSW(X^5) and TRGSW(X^3), the exponent 8)
+              and trgsw_reg_sub (registers of 9 and 4: 5 and N - 5; reg_add
+              13 and N - 13), then 512 pairs of random exponents (seed 2024)
+              built with the batched monomial_encrypt and to_dft: every
+              mul_trgsw_dft output decrypts to (e1 + e2) mod N, every
+              reg_sub half to its difference's index; counts zeroed just
+              before and read just after: one K3 launch per
+              debug_decrypt_exp_dft and nothing else; warm ms of
+              mul_trgsw_dft, reg_sub and debug_decrypt_exp_dft and the peak
+              memory; the plain ops' words (mul_trgsw_dft, from_dft, ntt_mul,
+              full_mul_with_scale) on the first 4 rows equal to the same
+              calls on CPU tensors; K3 on debug_decrypt_exp_dft's inputs
+              timed beside its bound and its plain version (bit-exact).
+ 22. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
+              trgsw_matrix, ga (with the per-step forms), trlweks, mesh, set3
+              and torus32 lines, the card line, the kernels line (the one-limb forms as
               `<kernel>/torus32`, K8b at N=8192 as `finish_step/n8192`,
               K1-delta as `cmux_delta`, K6-old as `auto_keyswitch`, K1-step
               as `pbs_step`, K3-step as `ext_product_apply_step`, K5-v1 as
@@ -1412,6 +1428,142 @@ def step_entries(runs, by_path, tag=""):
     return entries
 
 
+def trgsw_matrix_phase(p, gk, gen, dev, max_clock, tag):
+    """Phase 21 (and its L2_32 counterpart in the phase-20 child): the
+    matrix ops `trgsw_mul` and `trgsw_reg_sub` on the port's TRGSW key
+    ``gk`` (``tag`` "L2" or "L2_32").  (a) TRGSW(X^5) x TRGSW(X^3) through
+    mul_trgsw_dft decrypts to 8; (b) reg_sub of registers of 9 and 4
+    decrypts to 5 and N - 5, reg_add to 13 and N - 13; (c) BATCH pairs of
+    random exponents (0, N and 2N - 1 present) built with the batched
+    monomial_encrypt and to_dft, every mul_trgsw_dft output decrypting to
+    (e1 + e2) mod N and every reg_sub half to its difference's index; counts
+    zeroed before (a) and read after (c): one K3 launch per
+    debug_decrypt_exp_dft and nothing else.  Warm ms of mul_trgsw_dft,
+    reg_sub and debug_decrypt_exp_dft on the batch (one call before timing)
+    and the peak device memory; (d) the plain PyTorch ops' words on the
+    first 4 rows equal to the same calls on CPU tensors; (e) K3 against its
+    plain version on debug_decrypt_exp_dft's inputs, timed beside its
+    bound.  Returns the report and the path's counts."""
+    from mosfhet_torch import ntt, polynomial, torus, trgsw
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    N, k = p.N, p.k
+    plan = gk.plan()
+    exp = trgsw.debug_decrypt_exp_dft
+    ones = torch.ones(BATCH, dtype=torch.int64, device=dev)
+    rs = np.random.default_rng(SEED)
+    e1_np = rs.integers(0, 2 * N, BATCH)
+    e2_np = rs.integers(0, 2 * N, BATCH)
+    e1_np[:3], e2_np[:3] = [0, N, 2 * N - 1], [0, N - 1, 2 * N - 1]
+    e1, e2 = (torch.from_numpy(e).to(dev) for e in (e1_np, e2_np))
+    zero_counts(pk)
+    # (a) trgsw_mul as the matrix runs it
+    g1 = trgsw.monomial_encrypt(1, 5, gk, gen)
+    g2 = trgsw.monomial_encrypt(1, 3, gk, gen)
+    got = int(exp(trgsw.mul_trgsw_dft(g1, trgsw.to_dft(g2, plan)), gk))
+    if got != 8:
+        fail(f"{tag} trgsw_mul: exponent {got}, want 8")
+    # (b) trgsw_reg_sub, and reg_add
+    r1, r2 = (trgsw.reg_encrypt(m, gk, gen) for m in (9, 4))
+    for name, fn, m in (("reg_sub", trgsw.reg_sub, 5),
+                        ("reg_add", trgsw.reg_add, 13)):
+        r = fn(r1, r2)
+        got = (int(exp(r.positive, gk)), int(exp(r.negative, gk)))
+        if got != (m, N - m):
+            fail(f"{tag} {name}: exponents {got}, want {(m, N - m)}")
+    # (c) a batch of pairs, operands built as reg_encrypt builds one
+    torch.cuda.reset_peak_memory_stats()
+    G1 = trgsw.monomial_encrypt(ones, e1, gk, gen)
+    R1 = trgsw.TRGSWReg(
+        trgsw.to_dft(G1, plan),
+        trgsw.to_dft(trgsw.monomial_encrypt(ones, -e1, gk, gen), plan))
+    R2 = trgsw.TRGSWReg(*(trgsw.to_dft(trgsw.monomial_encrypt(
+        ones, e, gk, gen), plan) for e in (e2, -e2)))
+    prod = trgsw.mul_trgsw_dft(G1, R2.positive)
+    sub = trgsw.reg_sub(R1, R2)
+    got = [exp(g, gk) for g in (prod, sub.positive, sub.negative)]
+    torch.cuda.synchronize()
+    counts = read_counts(pk)
+    check_counts(f"{tag} trgsw matrix ops", counts,
+                 {"ext_product_apply_scan": 8})
+    for what, g, want in (("mul_trgsw_dft", got[0], (e1 + e2) % N),
+                          ("reg_sub +", got[1], (e1 - e2) % (2 * N) % N),
+                          ("reg_sub -", got[2], (e2 - e1) % (2 * N) % N)):
+        bad = int((g.to(torch.int64) != want).sum())
+        if bad:
+            fail(f"{tag} {what} on {BATCH} pairs: {bad} exponents wrong")
+    timed = {}
+    for name, fn in (("mul_trgsw_dft",
+                      lambda: trgsw.mul_trgsw_dft(G1, R2.positive)),
+                     ("reg_sub", lambda: trgsw.reg_sub(R1, R2)),
+                     ("debug_decrypt_exp_dft", lambda: exp(prod, gk))):
+        fn()
+        timed[name] = cuda_ms(fn, REPS)[0]
+    peak = torch.cuda.max_memory_allocated()
+    zero_counts(pk)
+    exp(prod, gk)
+    torch.cuda.synchronize()
+    per_call = read_counts(pk)["ext_product_apply_scan"]
+    if per_call != 1:
+        fail(f"{tag} debug_decrypt_exp_dft: {per_call} K3 launches, want 1")
+    # (d) the plain PyTorch ops against the same calls on CPU tensors
+    cpu = torch.device("cpu")
+    d2_cpu = trgsw.TRGSWDFT(R2.positive.v[:4].cpu(),
+                            R2.positive.vs[:4].cpu(), p.l, p.Bg_bit,
+                            plan.primes)
+    prod_cpu = trgsw.mul_trgsw_dft(
+        trgsw.TRGSW(G1.rows[:4].cpu(), p.l, p.Bg_bit), d2_cpu)
+    same_or_fail(f"{tag} mul_trgsw_dft on the card vs the CPU",
+                 prod.v[:4].cpu(), prod_cpu.v)
+    back = trgsw.from_dft(prod).rows
+    same_or_fail(f"{tag} from_dft on the card vs the CPU", back[:4].cpu(),
+                 trgsw.from_dft(prod_cpu).rows)
+    a, b = G1.rows[:4, p.l, -1], back[:4, p.l, -1]
+    wide = ntt.get_plan(N, ntt.TENSOR_PRIMES, dev)
+    wide_cpu = ntt.get_plan(N, ntt.TENSOR_PRIMES, cpu)
+    same_or_fail(f"{tag} ntt_mul on the card vs the CPU",
+                 polynomial.ntt_mul(a, b, wide).cpu(),
+                 polynomial.ntt_mul(a.cpu(), b.cpu(), wide_cpu))
+    for bit_scale in (0, 32, 64):
+        same_or_fail(f"{tag} full_mul_with_scale({bit_scale}) on the card "
+                     f"vs the CPU",
+                     polynomial.full_mul_with_scale(a, b, bit_scale,
+                                                    wide).cpu(),
+                     polynomial.full_mul_with_scale(a.cpu(), b.cpu(),
+                                                    bit_scale, wide_cpu))
+    # (e) K3 against its plain version on debug_decrypt_exp_dft's inputs
+    kp = pk.get_kernel_plan(N, plan.primes, p.l, p.Bg_bit, k, dev,
+                            torus.word_bits(G1.rows))
+    h = torch.zeros(BATCH, k + 1, N, dtype=G1.rows.dtype, device=dev)
+    h[:, k, 0] = torus.to_signed(1 << (torus.TORUS_BITS - p.Bg_bit))
+    sa = pk.u32_as_i32(prod.v).reshape((1, BATCH) + tuple(prod.v.shape[1:]))
+    sa = sa.contiguous()
+    k3_ms, k3_out = cuda_ms(
+        lambda: pk.ext_product_apply_scan(h, sa, kp, True), REPS)
+    k3_plain_ms, k3_want = cuda_ms(
+        lambda: pk.ext_product_apply_scan_plain(h, sa, kp, True), 1)
+    same_or_fail(f"{tag} K3 vs plain on debug_decrypt_exp_dft's inputs",
+                 k3_out, k3_want)
+    k3_bound = apply_scan_bound(kp, BATCH, 1, True, max_clock)
+    del G1, R1, R2, prod, sub, back, sa, h, k3_out, k3_want
+    report = {"batch": BATCH, **{f"{name}_ms": ms
+                                 for name, ms in timed.items()},
+              "peak_bytes": peak, "k3_launches_per_decrypt": per_call,
+              "k3_ms": k3_ms, "k3_plain_ms": k3_plain_ms,
+              "k3_bound_ms": k3_bound["bound_ms"],
+              "k3_bound_by": k3_bound["bound_by"]}
+    log(f"# {tag} trgsw matrix ops: trgsw_mul 8, reg_sub 5 and N-5, "
+        f"reg_add 13 and N-13; {BATCH} pairs: every exponent right; warm "
+        f"mul_trgsw_dft {timed['mul_trgsw_dft']:.3f} ms, reg_sub "
+        f"{timed['reg_sub']:.3f} ms, debug_decrypt_exp_dft "
+        f"{timed['debug_decrypt_exp_dft']:.3f} ms ({per_call} K3 launch per "
+        f"call); peak {peak / 2**30:.2f} GiB; plain ops' words equal to the "
+        f"CPU's on 4 rows; K3 on the decrypt's inputs {k3_ms:.4f} ms, plain "
+        f"{k3_plain_ms:.3f} ms, bound {k3_bound['bound_ms']:.4f} ms "
+        f"({k3_bound['bound_by']}); bit-exact")
+    return report, counts
+
+
 def set3_phase(dev, max_clock):
     """Phase 19: SET_3, whose shapes put buffers of K1, K3, K4, K7 and K8a
     in a global workspace.  Returns its report and the kernels' entries."""
@@ -1983,6 +2135,8 @@ def torus32_main():
     mesh = torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded)
     ga = torus32_ga(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe, key_out,
                     tv, luts, cs, slots, out)
+    matrix, matrix_counts = trgsw_matrix_phase(p, gk, gen, dev, max_clock,
+                                               "L2_32")
     print(json.dumps({
         "params": p.name, "batch": BATCH, "primes": list(primes),
         "keygen_s": keygen_s, "key_bytes": key_bytes,
@@ -1999,8 +2153,8 @@ def torus32_main():
         "counts": {"pbs": pbs_counts, "gate": gate_counts,
                    "fdfb": fdfb_counts, "steps": steps_counts,
                    **unfolded.pop("counts"), **mesh.pop("counts"),
-                   **ga.pop("counts")},
-        "steps": steps,
+                   **ga.pop("counts"), "trgsw_matrix": matrix_counts},
+        "steps": steps, "trgsw_matrix": matrix,
         "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound,
                "residency": k1_res, "wave_curve": k1_curve},
         "k2": {"gate": k2_gate, "fdfb": k2_fdfb, "plain_ms": k2_plain_ms,
@@ -3371,7 +3525,11 @@ def main():
     # 20. the 32-bit torus, in a child interpreter
     t32 = torus32_phase()
 
-    # 21. report
+    # 21. the TRGSW matrix ops trgsw_mul and trgsw_reg_sub on phase 4's key
+    matrix, matrix_counts = trgsw_matrix_phase(p, gk, gen, dev, max_clock,
+                                               "L2")
+
+    # 22. report
     paths = {"pbs": pbs_counts, "gate": gate_counts, "fdfb": fdfb_counts,
              "unfolded": ub_counts, "ubr_phase1": ph1_counts,
              "ubr_phase2": ph2_counts, "ga": ga_counts}
@@ -3381,7 +3539,8 @@ def main():
     paths.update(mesh_counts)
     paths.update({f"extprod_{mode}": {"ext_product_apply_scan":
                                       ep[mode]["launches"]} for mode in ep})
-    paths.update({"steps": steps_counts, **ubr_steps_counts})
+    paths.update({"steps": steps_counts, **ubr_steps_counts,
+                  "trgsw_matrix": matrix_counts})
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}
@@ -3604,6 +3763,7 @@ def main():
     log(json.dumps({"steps": {"params": p.name, "rotation": steps,
                               "ubr": ubr_steps}}))
     log(json.dumps({"extprod": {"params": p.name, "batch": BATCH, **ep}}))
+    log(json.dumps({"trgsw_matrix": {"params": p.name, **matrix}}))
     log(json.dumps({"ga": {
         "params": p.name, "batch": BATCH, "torus_base": 4,
         "keygen_s": ga_keygen_s, "key_bytes": ga_key_bytes,

@@ -19,8 +19,8 @@ from .bootstrap_ga import GABootstrapKey
 from .keyswitch import TRLWEKSKey
 from .ops.pbs_kernel import i32_as_u32, u32_as_i32
 from .tlwe import TLWE, TLWEKey, TLWEKSKey, TLWEKSKeyM, TLWEKSKeyPrepared
-from .trgsw import TRGSW, TRGSWDFT
-from .trlwe import TRLWE, TRLWEKey
+from .trgsw import TRGSW, TRGSWDFT, TRGSWReg
+from .trlwe import TRLWE, TRLWEDFT, TRLWEKey
 
 
 def to_tensor(x, device=None) -> torch.Tensor:
@@ -74,6 +74,18 @@ def trlwe_to_numpy(c: TRLWE):
     return to_numpy(c.a), to_numpy(c.b)
 
 
+def trlwe_dft_from_numpy(v, vs, primes, device=None) -> TRLWEDFT:
+    """An NTT-form TRLWE from its residues [..., k+1, P, N] and Shoup
+    companions (or None)."""
+    return TRLWEDFT(v=to_tensor(v, device),
+                    vs=None if vs is None else to_tensor(vs, device),
+                    primes=tuple(int(p) for p in primes))
+
+
+def trlwe_dft_to_numpy(c: TRLWEDFT):
+    return to_numpy(c.v), None if c.vs is None else to_numpy(c.vs)
+
+
 def trgsw_from_numpy(rows, l: int, Bg_bit: int, device=None) -> TRGSW:
     return TRGSW(rows=to_tensor(rows, device), l=l, Bg_bit=Bg_bit)
 
@@ -95,6 +107,22 @@ def trgsw_dft_from_numpy(v, vs, l: int, Bg_bit: int, primes,
 
 def trgsw_dft_to_numpy(g: TRGSWDFT):
     return to_numpy(g.v), None if g.vs is None else to_numpy(g.vs)
+
+
+def trgsw_reg_from_numpy(pos_v, pos_vs, neg_v, neg_vs, l: int, Bg_bit: int,
+                         primes, device=None) -> TRGSWReg:
+    """A TRGSW register from the NTT-form residues and Shoup companions (or
+    None) of its positive and negative halves, X^m and X^-m."""
+    return TRGSWReg(
+        positive=trgsw_dft_from_numpy(pos_v, pos_vs, l, Bg_bit, primes,
+                                      device),
+        negative=trgsw_dft_from_numpy(neg_v, neg_vs, l, Bg_bit, primes,
+                                      device))
+
+
+def trgsw_reg_to_numpy(r: TRGSWReg):
+    """(pos_v, pos_vs, neg_v, neg_vs), the companions None where absent."""
+    return trgsw_dft_to_numpy(r.positive) + trgsw_dft_to_numpy(r.negative)
 
 
 def bootstrap_key_from_numpy(v, vs, n: int, k: int, N: int, l: int,

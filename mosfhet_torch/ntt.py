@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from .torus import TORUS_BITS, TORUS_DTYPE, wrap
+from .torus import TORUS_BITS, TORUS_DTYPE, to_signed, wrap
 
 # Proth primes in (2^28, 2^30) with 2^21 | p-1, ascending (Garner needs
 # p_j < p_m for j < m).  < 2^30 keeps lazy values and butterfly sums inside
@@ -37,6 +37,9 @@ from .torus import TORUS_BITS, TORUS_DTYPE, wrap
 MASTER_PRIMES = (943718401, 950009857, 962592769, 975175681,
                  985661441, 998244353, 1004535809, 1012924417)
 DEFAULT_PRIMES = MASTER_PRIMES[-3:]   # 2^89.7 of CRT range
+# Wider set for exact 128-bit products (the reference's Karatsuba path,
+# `src/fft/karatsuba.c`): product 2^149.5 > 2 * N * 2^128.
+TENSOR_PRIMES = MASTER_PRIMES[-5:]
 
 
 def primes_for_bound(bound: int):
@@ -112,6 +115,11 @@ def _host_tables(N: int, primes: tuple):
          for name in ("psi_rev", "psi_rev_shoup", "ipsi_rev", "ipsi_rev_shoup")}
     n_inv = np.zeros(P, np.int64)
     n_inv_shoup = np.zeros(P, np.int64)
+    # Monomial spectra: position i of the bit-reversed forward output is the
+    # evaluation at zeta_i = psi^(2 bitrev(i) + 1), so X^a is diagonal in the
+    # NTT domain, NTT(X^a (*) u)[i] = zeta_i^a NTT(u)[i] for a in [0, 2N].
+    # xpow2[m, j] holds zeta^(2^j), and `xpow` multiplies over a's set bits.
+    xpow2 = np.zeros((P, logN + 1, N), np.int64)
     bitrev = [_bitrev(i, logN) for i in range(N)]
     for m, p in enumerate(primes):
         if (p - 1) % (2 * N):
@@ -128,8 +136,14 @@ def _host_tables(N: int, primes: tuple):
         ninv = pow(N, p - 2, p)
         n_inv[m] = ninv
         n_inv_shoup[m] = _shoup_companion(ninv, p)
+        z = t["psi_rev"][m] * t["psi_rev"][m] % p * psi % p
+        for j in range(logN + 1):
+            xpow2[m, j] = z
+            z = z * z % p
     t["n_inv"] = n_inv
     t["n_inv_shoup"] = n_inv_shoup
+    t["xpow2"] = xpow2
+    t["xpow2_shoup"] = (xpow2 << 32) // np.array(primes)[:, None, None]
     return t
 
 
@@ -173,6 +187,10 @@ class NTTPlan:
                 self.garner_cinv.append(None)
         self.half_last = self.primes[-1] // 2
         self.crt_half_range = math.prod(self.primes) // 2
+        # 2^64 mod p: lifts a negative int64 word's residue to its unsigned
+        # representative's (`to_resi_u64_raw`).
+        self.two64 = torch.tensor([(1 << 64) % p for p in self.primes],
+                                  dtype=torch.int64, device=dev)
 
 
 @functools.lru_cache(maxsize=None)
@@ -211,6 +229,30 @@ def barrett_small(z, p, mu):
     return torch.where(r >= p, r - p, r)
 
 
+def barrett_mul(a, b, plan: NTTPlan):
+    """a * b mod p for two runtime residues in [0, p), with no Shoup
+    companion and no division: Barrett with mu62 = floor(2^62 / p).  The
+    product is < 2^60 and the quotient estimate low by less than 2.4, so two
+    conditional subtractions give the canonical residue; that needs every
+    prime > 2^30 / 1.75 (all of MASTER_PRIMES)."""
+    if not plan.barrett_ok:
+        raise ValueError("barrett_mul needs every prime > 2^30 / 1.75")
+    pp = plan.p[:, None]
+    z = a * b
+    r = z - (((z >> 30) * plan.mu62[:, None]) >> 32) * pp
+    r = torch.where(r >= pp, r - pp, r)
+    return torch.where(r >= pp, r - pp, r)
+
+
+def _unsigned_mod(x, p, two64):
+    """The unsigned value of words ``x`` mod p: int32 words zero-extended,
+    a negative int64 word lifted by 2^64 (``two64`` = 2^64 mod p)."""
+    if x.dtype == torch.int32:
+        return torch.remainder(x.to(torch.int64) & 0xFFFFFFFF, p)
+    r = torch.remainder(x, p)
+    return torch.where(x < 0, torch.remainder(r + two64, p), r)
+
+
 def to_resi_i64(x, plan: NTTPlan):
     """Signed int64 coefficients [..., N] -> residues [..., P, N].  The
     floor remainder gives [0, p) for negative inputs too."""
@@ -223,6 +265,17 @@ def to_resi_u64(x, plan: NTTPlan):
     pattern already is at either width.  Halves the magnitude bound of
     downstream convolutions; the final mod-2^bits readback is unaffected."""
     return to_resi_i64(x, plan)
+
+
+def to_resi_u64_raw(x, plan: NTTPlan):
+    """Torus words [..., N] -> residues [..., P, N] of their *unsigned*
+    representatives (u64, or u32 zero-extended).  The exact 128-bit product
+    (`full_mul_with_scale`) needs them: it reproduces the reference's
+    wrapping ``__uint128_t`` accumulation of unsigned products
+    (`fft/karatsuba.c:61-90`), whose high limb differs from the signed
+    representatives' product."""
+    return _unsigned_mod(x.unsqueeze(-2), plan.p[:, None],
+                         plan.two64[:, None])
 
 
 def to_resi_small(d, plan: NTTPlan):
@@ -284,16 +337,12 @@ def inverse_ntt(x, plan: NTTPlan):
                      plan.p[:, None])
 
 
-def garner_u64(r, plan: NTTPlan):
-    """Residues [..., P, N] -> exact signed CRT value mod 2^64 (int64 bits).
-
-    Mixed-radix reconstruction with a centred top digit: any integer with
-    |value| < prod(p)/2 round-trips exactly.  The Horner step wraps mod
-    2^64 in int64, so its low 32 bits are the value mod 2^32 (the TPU
-    kernel's `_garner_limb32`)."""
-    P = plan.P
+def _garner_digits(r, plan: NTTPlan):
+    """The mixed-radix digits t_m of residues [..., P, N], each in [0, p_m):
+    t_m = (r_m - sum_{j<m} t_j prefix_j) inv(prefix_m) mod p_m.  The lazy
+    sum of at most P-1 Shoup products (< 2p each) stays far below 2^59."""
     ts = [r[..., 0, :]]
-    for m in range(1, P):
+    for m in range(1, plan.P):
         p = plan.primes[m]
         acc = ts[0]
         for j in range(1, m):
@@ -305,11 +354,67 @@ def garner_u64(r, plan: NTTPlan):
         diff = torch.where(diff >= p, diff - p, diff)
         c, cs = plan.garner_cinv[m]
         ts.append(shoup_mul(diff, c, cs, p))
+    return ts
+
+
+def garner_u64(r, plan: NTTPlan):
+    """Residues [..., P, N] -> exact signed CRT value mod 2^64 (int64 bits).
+
+    Mixed-radix reconstruction with a centred top digit: any integer with
+    |value| < prod(p)/2 round-trips exactly.  The Horner step wraps mod
+    2^64 in int64, so its low 32 bits are the value mod 2^32 (the TPU
+    kernel's `_garner_limb32`)."""
+    ts = _garner_digits(r, plan)
     top = ts[-1]
     v = torch.where(top > plan.half_last, top - plan.primes[-1], top)
-    for m in range(P - 2, -1, -1):
+    for m in range(plan.P - 2, -1, -1):
         v = v * plan.primes[m] + ts[m]
     return v
+
+
+_SIGN = -(1 << 63)
+
+
+def _below(x, y):
+    """x < y as unsigned 64-bit words held in int64: flipping the sign bit
+    of both turns the unsigned order into the signed one."""
+    return (x + _SIGN) < (y + _SIGN)
+
+
+def garner_u128(r, plan: NTTPlan):
+    """Residues [..., P, N] -> the CRT value mod 2^128 as two int64 tensors
+    of u64 bits (lo, hi), negative values in two's complement (a centred
+    top digit): the reference's exact path accumulates in a wrapping
+    ``__uint128_t`` (`fft/karatsuba.c:61-90`).  The Horner step multiplies
+    the 128-bit value by each prime p < 2^30 through lo's 32-bit halves;
+    the carries are unsigned compares."""
+    ts = _garner_digits(r, plan)
+    top = ts[-1]
+    neg = top > plan.half_last
+    lo = torch.where(neg, top - plan.primes[-1], top)
+    hi = -neg.to(torch.int64)
+    for m in range(plan.P - 2, -1, -1):
+        p = plan.primes[m]
+        a = (lo & 0xFFFFFFFF) * p                 # < 2^62
+        b = ((lo >> 32) & 0xFFFFFFFF) * p         # < 2^62
+        lo2 = a + (b << 32)                       # wraps mod 2^64
+        hi = hi * p + (b >> 32) + _below(lo2, a).to(torch.int64)
+        lo = lo2 + ts[m]
+        hi = hi + _below(lo, lo2).to(torch.int64)
+    return lo, hi
+
+
+def garner_shifted_u64(r, plan: NTTPlan, bit_scale: int):
+    """((value mod 2^128) >> bit_scale) mod 2^64, a logical shift, for 0 <=
+    bit_scale <= 64: the reference's readback of its exact product
+    (`karatsuba_u128_scale64`, `fft/karatsuba.c:92-101`)."""
+    lo, hi = garner_u128(r, plan)
+    if bit_scale == 0:
+        return lo
+    if bit_scale == 64:
+        return hi
+    low_bits = (lo >> bit_scale) & ((1 << (64 - bit_scale)) - 1)
+    return low_bits | (hi << (64 - bit_scale))
 
 
 def from_ntt_u64(x, plan: NTTPlan, dtype: torch.dtype = TORUS_DTYPE):
@@ -329,12 +434,32 @@ def to_ntt_small(d, plan: NTTPlan):
     return forward_ntt(to_resi_small(d, plan), plan)
 
 
+def xpow(a_int, plan: NTTPlan):
+    """Monomial spectra: exponents a_int [...] in [0, 2N] -> [..., P, N]
+    canonical residues of NTT(X^a), one conditional Shoup multiply per bit
+    of a (bit log2(2N), a == 2N, is the identity's row)."""
+    a_int = torch.as_tensor(a_int, device=plan.device).to(torch.int64)
+    x = torch.ones(a_int.shape + (plan.P, plan.N), dtype=torch.int64,
+                   device=plan.device)
+    pp = plan.p[:, None]
+    for j in range(plan.logN + 1):
+        bit = ((a_int >> j) & 1)[..., None, None] == 1
+        xm = shoup_mul(x, plan.xpow2[:, j], plan.xpow2_shoup[:, j], pp)
+        x = torch.where(bit, xm, x)
+    return x
+
+
 # --- pointwise algebra in the NTT domain -------------------------------------
 
 def pointwise_mul(a, b, plan: NTTPlan):
     """Pointwise product of two dynamic operands."""
     pp = plan.p[:, None]
     return shoup_mul(a, b, make_shoup(b, pp), pp)
+
+
+def pointwise_mul_key(a, key_val, key_shoup, plan: NTTPlan):
+    """Pointwise product against key material with Shoup companions."""
+    return shoup_mul(a, key_val, key_shoup, plan.p[:, None])
 
 
 def pointwise_mul_acc_key(a, key_val, key_shoup, plan: NTTPlan, dim: int):
@@ -357,3 +482,25 @@ def add(a, b, plan: NTTPlan):
     pp = plan.p[:, None]
     s = a + b
     return torch.where(s >= pp, s - pp, s)
+
+
+def sub(a, b, plan: NTTPlan):
+    pp = plan.p[:, None]
+    d = a + pp - b
+    return torch.where(d >= pp, d - pp, d)
+
+
+def neg(a, plan: NTTPlan):
+    return torch.where(a == 0, a, plan.p[:, None] - a)
+
+
+def scale_u64(a, c, plan: NTTPlan):
+    """NTT-domain values times the unsigned word ``c`` (a u64 Python int,
+    or a word tensor broadcastable to [P, 1]), the DFT scaling of the
+    reference's `polynomial_scale_and_add_DFT_polynomials`
+    (`polynomial.c:106-120`)."""
+    if isinstance(c, int):
+        c = to_signed(c, 64)
+    c = torch.as_tensor(c, device=a.device)
+    cr = _unsigned_mod(c, plan.p[:, None], plan.two64[:, None])
+    return pointwise_mul(a, cr.expand(a.shape), plan)

@@ -12,9 +12,29 @@ where the result lives.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .torus import TORUS_BITS, TORUS_DTYPE, wrap
+
+
+def new_seed() -> torch.Generator:
+    """A CPU generator seeded from OS entropy (the reference's
+    `generate_rnd_seed`, `misc.c:32-50`); its draws move to wherever the
+    results live."""
+    return torch.Generator().manual_seed(
+        int.from_bytes(os.urandom(8), "little"))
+
+
+def split(generator: torch.Generator, num: int = 2) -> list[torch.Generator]:
+    """``num`` generators on the parent's device, each seeded from two
+    32-bit draws of the parent, so a stream can be handed to independent
+    consumers."""
+    hi, lo = torch.randint(0, 1 << 32, (2, num), dtype=torch.int64,
+                           generator=generator, device=generator.device)
+    return [torch.Generator(device=generator.device).manual_seed(
+        (int(h) << 32) | int(l)) for h, l in zip(hi, lo)]
 
 
 def _bits32(generator: torch.Generator, shape, device) -> torch.Tensor:

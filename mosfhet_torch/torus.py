@@ -25,6 +25,9 @@ TORUS_BITS = int(os.environ.get("MOSFHET_TORUS_BITS", "64"))
 if TORUS_BITS not in (32, 64):
     raise ValueError("MOSFHET_TORUS_BITS must be 32 or 64")
 TORUS_DTYPE = torch.int64 if TORUS_BITS == 64 else torch.int32
+# The TPU package's signed view of a word; here the words already are it.
+SIGNED_DTYPE = TORUS_DTYPE
+TORUS_MASK = (1 << TORUS_BITS) - 1
 
 
 def word_bits(x: torch.Tensor) -> int:
@@ -48,6 +51,17 @@ def wrap(x: torch.Tensor, dtype: torch.dtype = TORUS_DTYPE) -> torch.Tensor:
     int64 -> int32 conversion keeps the low 32 bits (two's complement);
     `tests/test_torch_torus32.py` holds that against Python ints."""
     return x.to(dtype)
+
+
+def torus2double(x):
+    """Torus words -> float64 in [0, 1] (`misc.c:9-11`): the unsigned value
+    over 2^bits, rounded once (a u64 word's 32-bit halves are each exact in
+    float64), so 1.0 where the word rounds up to 2^64."""
+    if x.dtype == torch.int32:
+        return (x.to(torch.int64) & 0xFFFFFFFF).to(torch.float64) / 2.0**32
+    hi = ((x >> 32) & 0xFFFFFFFF).to(torch.float64)
+    lo = (x & 0xFFFFFFFF).to(torch.float64)
+    return (hi * 2.0**32 + lo) / 2.0**64
 
 
 def double2torus(x, device=None):
@@ -109,3 +123,15 @@ def gadget_decompose(x, Bg_bit: int, l: int, rounded: bool = True):
     shifted = (x + offset).unsqueeze(-2) >> shifts[:, None]
     digits = (shifted & ((1 << Bg_bit) - 1)) - (1 << (Bg_bit - 1))
     return digits.to(torch.int32)
+
+
+def gadget_recompose(digits, Bg_bit: int):
+    """sum_i d_i * 2^(bits-(i+1)*Bg_bit) mod 2^bits of signed digits [...,
+    l, N] -> torus words [..., N] of the module's width: the inverse of
+    `gadget_decompose` up to its rounding (a test helper)."""
+    l = digits.shape[-2]
+    weights = torch.tensor(
+        [to_signed(1 << (TORUS_BITS - (i + 1) * Bg_bit)) for i in range(l)],
+        dtype=TORUS_DTYPE, device=digits.device)
+    d = wrap(digits.to(torch.int64))
+    return (d * weights[:, None]).sum(dim=-2, dtype=TORUS_DTYPE)

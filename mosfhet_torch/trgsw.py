@@ -4,7 +4,10 @@
 A TRGSW is (k+1)*l TRLWE rows in one tensor; row r = comp*l + digit
 encrypts m * X^e * h_digit added at component ``comp``.  The NTT form may
 carry Shoup companions for key multiplies; the external product does not
-read them.
+read them, the NTT-domain products (`external_product_dft`,
+`mul_trgsw_dft`) do.  Also the linear ops (`trgsw.c:275-342`), the
+exponent decrypt oracle (`trgsw.c:189-268`) and the registers
+(`src/register.c`).
 """
 
 from __future__ import annotations
@@ -15,10 +18,12 @@ import math
 import torch
 
 from . import ntt as _ntt
+from . import polynomial as _poly
 from . import trlwe as _trlwe
+from ._device import default_device
 from .ops import pbs_kernel as _pk
 from .torus import TORUS_BITS, TORUS_DTYPE, to_signed, word_bits, wrap
-from .trlwe import TRLWE, TRLWEKey, from_stacked
+from .trlwe import TRLWE, TRLWEDFT, TRLWEKey, from_stacked
 
 
 @dataclasses.dataclass
@@ -116,10 +121,70 @@ def monomial_encrypt(m, e, key: TRGSWKey,
     return TRGSW(rows=rows, l=l, Bg_bit=Bg_bit)
 
 
+def encrypt(m, key: TRGSWKey, generator: torch.Generator) -> TRGSW:
+    return monomial_encrypt(m, 0, key, generator)
+
+
+def noiseless_trivial(m, l: int, Bg_bit: int, k: int, N: int,
+                      device=None) -> TRGSW:
+    """The noiseless TRGSW of the integer ``m`` (an int or an int64 tensor;
+    batched over its shape), `trgsw_noiseless_trivial_sample`
+    (`trgsw.c:130-148`)."""
+    dev = default_device(device)
+    m = torch.as_tensor(m, dtype=torch.int64, device=dev)
+    rows = torch.zeros(m.shape + ((k + 1) * l, k + 1, N), dtype=TORUS_DTYPE,
+                       device=dev)
+    rows = _add_monomial_rows(rows, m, torch.zeros_like(m), l, Bg_bit, k, N)
+    return TRGSW(rows=rows, l=l, Bg_bit=Bg_bit)
+
+
 def to_dft(g: TRGSW, plan: _ntt.NTTPlan, with_shoup: bool = True) -> TRGSWDFT:
     v = _ntt.to_ntt_u64(g.rows, plan)
     vs = _ntt.make_shoup(v, plan.p[:, None]) if with_shoup else None
     return TRGSWDFT(v=v, vs=vs, l=g.l, Bg_bit=g.Bg_bit, primes=plan.primes)
+
+
+def from_dft(g: TRGSWDFT) -> TRGSW:
+    return TRGSW(rows=_ntt.from_ntt_u64(g.v, g.plan()), l=g.l,
+                 Bg_bit=g.Bg_bit)
+
+
+def _with_shoup(g: TRGSWDFT) -> TRGSWDFT:
+    plan = g.plan()
+    return dataclasses.replace(g, vs=_ntt.make_shoup(g.v, plan.p[:, None]))
+
+
+# --- linear ops (`trgsw.c:275-342`) ------------------------------------------
+
+def add(g1: TRGSW, g2: TRGSW) -> TRGSW:
+    return TRGSW(rows=g1.rows + g2.rows, l=g1.l, Bg_bit=g1.Bg_bit)
+
+
+def sub(g1: TRGSW, g2: TRGSW) -> TRGSW:
+    return TRGSW(rows=g1.rows - g2.rows, l=g1.l, Bg_bit=g1.Bg_bit)
+
+
+def dft_add(g1: TRGSWDFT, g2: TRGSWDFT) -> TRGSWDFT:
+    return TRGSWDFT(v=_ntt.add(g1.v, g2.v, g1.plan()), vs=None, l=g1.l,
+                    Bg_bit=g1.Bg_bit, primes=g1.primes)
+
+
+def dft_sub(g1: TRGSWDFT, g2: TRGSWDFT) -> TRGSWDFT:
+    return TRGSWDFT(v=_ntt.sub(g1.v, g2.v, g1.plan()), vs=None, l=g1.l,
+                    Bg_bit=g1.Bg_bit, primes=g1.primes)
+
+
+def mul_by_xai(g: TRGSW, a) -> TRGSW:
+    """Every row times X^a; ``a`` may be per-batch."""
+    a = torch.as_tensor(a, device=g.rows.device)
+    return TRGSW(rows=_poly.mul_by_xai(g.rows, a[..., None, None]), l=g.l,
+                 Bg_bit=g.Bg_bit)
+
+
+def mul_by_xai_minus_1(g: TRGSW, a) -> TRGSW:
+    a = torch.as_tensor(a, device=g.rows.device)
+    return TRGSW(rows=_poly.mul_by_xai_minus_1(g.rows, a[..., None, None]),
+                 l=g.l, Bg_bit=g.Bg_bit)
 
 
 def external_product(c: TRLWE, g: TRGSWDFT) -> TRLWE:
@@ -147,3 +212,112 @@ def external_product(c: TRLWE, g: TRGSWDFT) -> TRLWE:
         sa = v32.reshape((1,) + key_shape)
     out = _pk.ext_product_apply_scan(x, sa.contiguous(), kp, per_row)
     return from_stacked(out.reshape(batch + (k + 1, N)))
+
+
+def external_product_dft(c: TRLWE, g: TRGSWDFT) -> TRLWEDFT:
+    """TRGSW (x) TRLWE left in the NTT domain, for callers that add several
+    products before converting: [..., k+1, P, N] canonical residues, the
+    batch axes of both operands broadcast.  Plain PyTorch (the TPU package
+    runs jnp here): the apply-scan kernel replaces acc after its Garner
+    step, so it does not compute this.  Reads ``g.vs``."""
+    if g.vs is None:
+        raise ValueError("external_product_dft needs g's Shoup companions "
+                         "(to_dft with with_shoup=True)")
+    plan = g.plan()
+    digits = _trlwe.decompose(c, g.Bg_bit, g.l)                # [..., J, N]
+    spec = _ntt.to_ntt_small(digits, plan)                     # [..., J, P, N]
+    acc = _ntt.pointwise_mul_acc_key(spec[..., :, None, :, :], g.v, g.vs,
+                                     plan, dim=-4)             # [..., C, P, N]
+    return TRLWEDFT(v=acc, vs=None, primes=g.primes)
+
+
+def mul_trgsw_dft(g1: TRGSW, g2: TRGSWDFT) -> TRGSWDFT:
+    """TRGSW x TRGSW: g1's rows each times g2 (`trgsw_mul_DFT`,
+    `trgsw.c:425-431`), the rows a batch axis of one NTT-domain product.
+    Batched over leading axes: g1 [..., R, C, N] pairs with g2 [..., J, C,
+    P, N], g2 broadcast over g1's rows."""
+    vs = None if g2.vs is None else g2.vs.unsqueeze(-5)
+    g2 = dataclasses.replace(g2, v=g2.v.unsqueeze(-5), vs=vs)
+    out = external_product_dft(from_stacked(g1.rows), g2)  # [..., R, C, P, N]
+    return TRGSWDFT(v=out.v, vs=None, l=g1.l, Bg_bit=g1.Bg_bit,
+                    primes=g2.primes)
+
+
+def mul_trgsw_dft2(g1: TRGSWDFT, g2: TRGSWDFT) -> TRGSWDFT:
+    """TRGSW x TRGSW with both in NTT form: g1 back to coefficients first
+    (`trgsw_mul_DFT2`, `trgsw.c:433-442`)."""
+    return mul_trgsw_dft(from_dft(g1), g2)
+
+
+def _unique_monomial(ph, Bg_bit: int):
+    """The index of the one coefficient of phases [..., N] whose signed
+    value lies outside [-delta, delta], delta = 2^(bits-1-Bg_bit) (the
+    reference's unsigned test delta < ph < -delta), as int32; -1 where none
+    or several do."""
+    delta = 1 << (word_bits(ph) - 1 - Bg_bit)
+    mask = (ph > delta) | (ph < -delta)
+    idx = torch.argmax(mask.to(torch.int32), dim=-1).to(torch.int32)
+    return torch.where(mask.sum(-1) == 1, idx, -1).to(torch.int32)
+
+
+def debug_decrypt_exp(g: TRGSW, key: TRGSWKey):
+    """The exponent e of a TRGSW(X^e), from the phase of row l (digit 0 of
+    the b component): int32 e in [0, N), or -1 where no coefficient or more
+    than one stands out (`_debug_trgsw_decrypt_exp_sample`,
+    `trgsw.c:189-216`).  Batched over g's leading axes."""
+    row = from_stacked(g.rows[..., g.l, :, :])
+    return _unique_monomial(_trlwe.phase(row, key.trlwe_key), g.Bg_bit)
+
+
+def debug_decrypt_exp_dft(g: TRGSWDFT, key: TRGSWKey):
+    """The exponent of an NTT-form TRGSW(X^e): its external product with
+    the trivial TRLWE (0, h X^0), h = 2^(bits-Bg_bit), then the same scan
+    (`_debug_trgsw_decrypt_exp_DFT_sample`, `trgsw.c:240-268`).  One launch
+    of the apply-scan kernel on CUDA (one key per row when g is batched);
+    the Shoup companions are not needed."""
+    k, N = key.trlwe_key.k, key.trlwe_key.N
+    b = torch.zeros(N, dtype=TORUS_DTYPE, device=g.v.device)
+    b[0] = to_signed(1 << (TORUS_BITS - g.Bg_bit))
+    res = external_product(_trlwe.noiseless_trivial(b, k, N), g)
+    return _unique_monomial(_trlwe.phase(res, key.trlwe_key), g.Bg_bit)
+
+
+def naive_mul_trlwe(c: TRLWE, g: TRGSW) -> TRLWE:
+    """The O(N^2) external product on unrounded digits
+    (`trgsw_naive_mul_trlwe`, `trgsw.c:452-470`): the test oracle."""
+    digits = _trlwe.decompose(c, g.Bg_bit, g.l, rounded=False)
+    d = wrap(digits.to(torch.int64), g.rows.dtype)           # [..., J, N]
+    prods = _poly.naive_negacyclic_mul(d[..., :, None, :], g.rows)
+    return from_stacked(prods.sum(dim=-3, dtype=g.rows.dtype))
+
+
+# --- TRGSW registers (`src/register.c`) -------------------------------------
+
+@dataclasses.dataclass
+class TRGSWReg:
+    """NTT-form TRGSWs of X^m and X^-m (`register.c`,
+    `mosfhet.h:123-127`)."""
+    positive: TRGSWDFT
+    negative: TRGSWDFT
+
+
+def reg_encrypt(m: int, key: TRGSWKey,
+                generator: torch.Generator) -> TRGSWReg:
+    plan = key.plan()
+    pos = to_dft(monomial_encrypt(1, m, key, generator), plan)
+    neg = to_dft(monomial_encrypt(1, -m, key, generator), plan)
+    return TRGSWReg(positive=pos, negative=neg)
+
+
+def reg_add(r1: TRGSWReg, r2: TRGSWReg) -> TRGSWReg:
+    """X^(m1+m2) through TRGSW x TRGSW products (`register.c:46-58`)."""
+    p = mul_trgsw_dft(from_dft(r1.positive), r2.positive)
+    n = mul_trgsw_dft(from_dft(r1.negative), r2.negative)
+    return TRGSWReg(positive=_with_shoup(p), negative=_with_shoup(n))
+
+
+def reg_sub(r1: TRGSWReg, r2: TRGSWReg) -> TRGSWReg:
+    """X^(m1-m2) (`register.c:60-71`)."""
+    p = mul_trgsw_dft(from_dft(r1.positive), r2.negative)
+    n = mul_trgsw_dft(from_dft(r1.negative), r2.positive)
+    return TRGSWReg(positive=_with_shoup(p), negative=_with_shoup(n))

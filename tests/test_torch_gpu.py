@@ -1659,3 +1659,98 @@ def test_cuda_ga_step_forms_match_k7():
                                                                      bk))
         assert counts == (n, n + 1 - old, old)
         assert torch.equal(got.a, want.a) and torch.equal(got.b, want.b)
+
+
+def _l2_trgsw_key(seed):
+    """The port's TFHEpp-L2 TRGSW key (N=2048, l=4, Bg_bit=9), made on the
+    CPU from a seed."""
+    from mosfhet_torch import params, trgsw, trlwe
+    p = params.TFHEPP_L2
+    gen = torch.Generator().manual_seed(seed)
+    key = trlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, "cpu")
+    return p, gen, trgsw.new_key(key, p.l, p.Bg_bit)
+
+
+def _key_on(gk, device):
+    from mosfhet_torch import trgsw, trlwe
+    return trgsw.new_key(trlwe.TRLWEKey(s=gk.trlwe_key.s.to(device),
+                                        sigma=gk.trlwe_key.sigma,
+                                        s_bound=gk.trlwe_key.s_bound),
+                         gk.l, gk.Bg_bit)
+
+
+def _dft_on(g, device):
+    import dataclasses
+    return dataclasses.replace(
+        g, v=g.v.to(device), vs=None if g.vs is None else g.vs.to(device))
+
+
+@pytest.mark.gpu
+def test_cuda_trgsw_matrix_ops_match_cpu():
+    """The matrix ops at L2 on the card: mul_trgsw_dft of 3 exponent pairs,
+    reg_sub and reg_add of two registers (plain PyTorch, words equal to the
+    same calls on CPU tensors) and debug_decrypt_exp_dft (one K3 launch per
+    call, exponents equal to the CPU's and to e1 + e2, 5 and N - 5, 13 and
+    N - 13)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from mosfhet_torch import trgsw
+    p, gen, gk = _l2_trgsw_key(17)
+    plan = gk.plan()
+    e1, e2 = torch.tensor([5, 2047, 4000]), torch.tensor([3, 1, 100])
+    g1 = trgsw.monomial_encrypt(torch.ones(3, dtype=torch.int64), e1, gk, gen)
+    d2 = trgsw.to_dft(trgsw.monomial_encrypt(
+        torch.ones(3, dtype=torch.int64), e2, gk, gen), plan)
+    r1, r2 = (trgsw.reg_encrypt(m, gk, gen) for m in (9, 4))
+    gk_c = _key_on(gk, "cuda")
+    prod = trgsw.mul_trgsw_dft(g1, d2)
+    prod_c = trgsw.mul_trgsw_dft(trgsw.TRGSW(g1.rows.cuda(), p.l, p.Bg_bit),
+                                 _dft_on(d2, "cuda"))
+    assert torch.equal(prod_c.v.cpu(), prod.v)
+    assert torch.equal(trgsw.from_dft(prod_c).rows.cpu(),
+                       trgsw.from_dft(prod).rows)
+    launches = tpk.ext_product_apply_scan.launches
+    exps = trgsw.debug_decrypt_exp_dft(prod_c, gk_c)
+    torch.cuda.synchronize()
+    assert tpk.ext_product_apply_scan.launches == launches + 1
+    assert torch.equal(exps.cpu(), trgsw.debug_decrypt_exp_dft(prod, gk))
+    assert exps.tolist() == ((e1 + e2) % p.N).tolist()
+    rc1, rc2 = (trgsw.TRGSWReg(_dft_on(r.positive, "cuda"),
+                               _dft_on(r.negative, "cuda")) for r in (r1, r2))
+    for fn, m in ((trgsw.reg_sub, 5), (trgsw.reg_add, 13)):
+        got, want = fn(rc1, rc2), fn(r1, r2)
+        for half, h_cpu, e in ((got.positive, want.positive, m),
+                               (got.negative, want.negative, p.N - m)):
+            assert torch.equal(half.v.cpu(), h_cpu.v)
+            assert torch.equal(half.vs.cpu(), h_cpu.vs)
+            launches = tpk.ext_product_apply_scan.launches
+            assert int(trgsw.debug_decrypt_exp_dft(half, gk_c)) == e
+            assert tpk.ext_product_apply_scan.launches == launches + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 512])
+def test_cuda_k3_on_debug_decrypt_inputs(B):
+    """K3 against its plain version on debug_decrypt_exp_dft's per-row
+    inputs at L2: the trivial TRLWE (0, 2^(64 - Bg_bit)) broadcast over B
+    random NTT-form TRGSWs, one per row (with a residue at p - 1), as
+    trgsw.external_product hands them over."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from mosfhet_torch import params
+    p = params.TFHEPP_L2
+    primes = ntt.primes_for_bound(
+        ntt.external_product_bound(p.N, p.Bg_bit, p.l, p.k))
+    kp = tpk.get_kernel_plan(p.N, primes, p.l, p.Bg_bit, p.k, "cuda")
+    rng = np.random.default_rng(B)
+    sa = random_residues(rng, (1, B, kp.J, kp.C, kp.P, p.N), primes)
+    sa[0, 0, 0, 0, :, 0] = np.array(primes) - 1
+    x = torch.zeros(B, kp.C, p.N, dtype=torch.int64, device="cuda")
+    x[:, -1, 0] = 1 << (64 - p.Bg_bit)
+    sa32 = as_i32(sa, "cuda")
+    launches = tpk.ext_product_apply_scan.launches
+    got = tpk.ext_product_apply_scan(x, sa32, kp, True)
+    torch.cuda.synchronize()
+    assert tpk.ext_product_apply_scan.launches == launches + 1
+    assert torch.equal(got, tpk.ext_product_apply_scan_plain(x, sa32, kp,
+                                                             True))

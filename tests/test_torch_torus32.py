@@ -29,7 +29,7 @@ CASES = ("gadget_decompose", "double2torus", "torus2int", "ntt_product",
          "keyswitch", "k1_plain_vs_interpret", "k2_plain_vs_interpret",
          "functional_bootstrap", "fdfb_this_work", "port_keygen_decrypts",
          "unported_paths_raise", "k1_step_plain_vs_interpret",
-         "blind_rotate_stepwise")
+         "blind_rotate_stepwise", "trgsw_matrix_ops", "leaf_ops")
 M32 = 1 << 32
 
 i32 = st.integers(-(1 << 31), (1 << 31) - 1)
@@ -98,7 +98,8 @@ def _child(out_path):
                              trlwe as jtrlwe)
     from mosfhet_tpu.ops import pbs_kernel as jpk
     from mosfhet_torch import (bootstrap as tbs, bridge, ntt as tntt,
-                               rng as trng, tlwe as ttlwe, torus as ttorus,
+                               polynomial as tpoly, rng as trng,
+                               tlwe as ttlwe, torus as ttorus,
                                trgsw as ttrgsw, trlwe as ttrlwe)
     from mosfhet_torch.ops import pbs_kernel as tpk
 
@@ -386,6 +387,118 @@ def _child(out_path):
         if not (torch.equal(got.a, fused.a) and torch.equal(got.b, fused.b)):
             return "blind_rotate_stepwise != blind_rotate"
         return same(got.a, want.a) or same(got.b, want.b)
+
+    def jax_trgsw_key(seed):
+        kk = jax.random.split(jax.random.PRNGKey(seed), 3)
+        kr = jtrlwe.new_binary_key(kk[0], p.N, p.k, p.rlwe_sigma)
+        tkr = bridge.trlwe_key_from_numpy(np.asarray(kr.s), kr.sigma,
+                                          kr.s_bound, CPU)
+        return (kk, kr, jtrgsw.new_key(kr, p.l, p.Bg_bit),
+                ttrgsw.new_key(tkr, p.l, p.Bg_bit))
+
+    def case_trgsw_matrix_ops():
+        """The matrix ops `trgsw_mul` and `trgsw_reg_sub` at P32: a batch of
+        4 exponent pairs (0, N and 2N-1 among them) and 2 register pairs
+        made by the TPU package; mul_trgsw_dft's and reg_sub's words and
+        every exponent against JAX (pairs through jax.vmap, one jitted
+        call) and the expected (e1 + e2) mod N and m1 - m2."""
+        kk, kr, gk, tgk = jax_trgsw_key(33)
+        plan, N, B = gk.plan(), p.N, 4
+        if tgk.plan().primes != plan.primes or len(plan.primes) != 2:
+            return f"primes {plan.primes}, port {tgk.plan().primes}"
+        e1 = np.array([0, N, 2 * N - 1, 77], np.int32)
+        e2 = np.array([0, N - 1, 2 * N - 1, 5], np.int32)
+        m1, m2 = np.array([9, 3], np.int32), np.array([4, 7], np.int32)
+        enc = jax.vmap(lambda e, rk: jtrgsw.monomial_encrypt(1, e, gk,
+                                                             rk).rows)
+        reg = jax.vmap(lambda m, rk: jtrgsw.reg_encrypt(m, gk, rk))
+        keys = jax.random.split(kk[1], 2 * B + 4)
+
+        def jax_side(e1, e2, m1, m2, keys):
+            g1 = jtrgsw.TRGSW(rows=enc(e1, keys[:B]), l=p.l,
+                              Bg_bit=p.Bg_bit)
+            g2 = jtrgsw.TRGSW(rows=enc(e2, keys[B:2 * B]), l=p.l,
+                              Bg_bit=p.Bg_bit)
+            prod = jax.vmap(jtrgsw.mul_trgsw_dft)(
+                g1, jtrgsw.to_dft(g2, plan))
+            r1, r2 = reg(m1, keys[2 * B:2 * B + 2]), reg(m2, keys[-2:])
+            rsub = jax.vmap(jtrgsw.reg_sub)(r1, r2)
+            exp = jtrgsw.debug_decrypt_exp_dft
+            return (g1.rows, g2.rows, prod.v, exp(jtrgsw._with_shoup(prod),
+                                                  gk),
+                    (r1.positive.v, r1.positive.vs, r1.negative.v,
+                     r1.negative.vs),
+                    (r2.positive.v, r2.positive.vs, r2.negative.v,
+                     r2.negative.vs),
+                    rsub.positive.v, rsub.negative.v,
+                    exp(rsub.positive, gk), exp(rsub.negative, gk))
+
+        (g1, g2, prod, exps, r1, r2, sub_p, sub_n, exp_p, exp_n) = \
+            jax.tree_util.tree_map(np.asarray, jax.jit(jax_side)(
+                e1, e2, m1, m2, keys))
+        tg1 = bridge.trgsw_from_numpy(g1, p.l, p.Bg_bit, CPU)
+        tg2 = bridge.trgsw_from_numpy(g2, p.l, p.Bg_bit, CPU)
+        if tg1.rows.dtype != torch.int32:
+            return f"TRGSW rows {tg1.rows.dtype}"
+        tprod = ttrgsw.mul_trgsw_dft(tg1, ttrgsw.to_dft(tg2, tgk.plan()))
+        texps = ttrgsw.debug_decrypt_exp_dft(tprod, tgk).numpy()
+        tr1 = bridge.trgsw_reg_from_numpy(*r1, p.l, p.Bg_bit, plan.primes,
+                                          CPU)
+        tr2 = bridge.trgsw_reg_from_numpy(*r2, p.l, p.Bg_bit, plan.primes,
+                                          CPU)
+        tsub = ttrgsw.reg_sub(tr1, tr2)
+        tp = ttrgsw.debug_decrypt_exp_dft(tsub.positive, tgk).numpy()
+        tn = ttrgsw.debug_decrypt_exp_dft(tsub.negative, tgk).numpy()
+        msgs = [same(tprod.v, prod), same(tsub.positive.v, sub_p),
+                same(tsub.negative.v, sub_n)]
+        for got, want, oracle in (
+                (texps, exps, (e1 + e2) % N), (tp, exp_p, (m1 - m2) % N),
+                (tn, exp_n, (m2 - m1) % N)):
+            if not (np.array_equal(got, want) and np.array_equal(got,
+                                                                 oracle)):
+                msgs.append(f"exponents {got}, JAX {want}, want {oracle}")
+        return "; ".join(m for m in msgs if m)
+
+    def case_leaf_ops():
+        """to_resi_u64_raw and full_mul_with_scale (shifts 0, 1, 32, 63,
+        64) on u32 words, dft_phase of int32 ciphertexts and the
+        coefficient-form debug_decrypt_exp, against JAX."""
+        kk, kr, gk, tgk = jax_trgsw_key(34)
+        x, y, m = words((3, p.N)), words((3, p.N)), words((2, p.N))
+        x[0, :3] = [0, M32 - 1, 1 << 31]
+        shifts = (0, 1, 32, 63, 64)
+        wide = jntt.get_plan(p.N, jntt.TENSOR_PRIMES)
+
+        def jax_side(x, y, m):
+            c = jtrlwe.encrypt(m, kr, kk[1])
+            jd = jtrlwe.to_dft(c, kr.plan())
+            return (jntt.to_resi_u64_raw(x, wide),
+                    [jpoly.full_mul_with_scale(x, y, s) for s in shifts],
+                    c.a, c.b, jd.v, jtrlwe.dft_phase(jd, kr))
+
+        resi, muls, ca, cb, dv, ph = jax.jit(jax_side)(x, y, m)
+        tplan = tntt.get_plan(p.N, jntt.TENSOR_PRIMES, CPU)
+        msgs = [same(tntt.to_resi_u64_raw(T(x, CPU), tplan), resi)]
+        for s_, want in zip(shifts, muls):
+            got = tpoly.full_mul_with_scale(T(x, CPU), T(y, CPU), s_)
+            if got.dtype != torch.int32:
+                return f"full_mul_with_scale gave {got.dtype}"
+            msgs.append(same(got, want))
+        td = ttrlwe.to_dft(bridge.trlwe_from_numpy(
+            np.asarray(ca), np.asarray(cb), CPU), tgk.trlwe_key.plan())
+        msgs += [same(td.v, dv),
+                 same(ttrlwe.dft_phase(td, tgk.trlwe_key), ph)]
+        e = jnp.array([0, 5, p.N + 2], jnp.int32)
+        g = jax.jit(jax.vmap(lambda e_, rk: jtrgsw.monomial_encrypt(
+            1, e_, gk, rk).rows))(e, jax.random.split(kk[2], 3))
+        got = ttrgsw.debug_decrypt_exp(bridge.trgsw_from_numpy(
+            np.asarray(g), p.l, p.Bg_bit, CPU), tgk).numpy()
+        want = np.asarray(jax.jit(lambda r: jtrgsw.debug_decrypt_exp(
+            jtrgsw.TRGSW(rows=r, l=p.l, Bg_bit=p.Bg_bit), gk))(g))
+        if not (np.array_equal(got, want)
+                and np.array_equal(got, np.asarray(e) % p.N)):
+            msgs.append(f"debug_decrypt_exp {got}, JAX {want}")
+        return "; ".join(m for m in msgs if m)
 
     results = {}
     for name in CASES:
