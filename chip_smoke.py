@@ -218,8 +218,8 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               ga_pbs_on_mesh at (2, 1) (2 K6 + 2 K7 launches) and at (1, 2)
               on 32 ciphertexts (the plain route), equal to the
               bootstrap's words.  Last, phase 21's matrix ops at L2_32 (l=3,
-              Bg_bit=7, the primes of the TRGSW key's plan).  The child's
-              failure fails the script.
+              Bg_bit=7, the primes of the TRGSW key's plan), then phase 22's
+              L2_32 part.  The child's failure fails the script.
  21. matrix   the TRGSW matrix ops on phase 4's TRGSW key: trgsw_mul
               (mul_trgsw_dft of TRGSW(X^5) and TRGSW(X^3), the exponent 8)
               and trgsw_reg_sub (registers of 9 and 4: 5 and N - 5; reg_add
@@ -234,9 +234,33 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               full_mul_with_scale) on the first 4 rows equal to the same
               calls on CPU tensors; K3 on debug_decrypt_exp_dft's inputs
               timed beside its bound and its plain version (bit-exact).
- 22. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
-              trgsw_matrix, ga (with the per-step forms), trlweks, mesh, set3
-              and torus32 lines, the card line, the kernels line (the one-limb forms as
+ 22. ksfamily the key-switch family on phase 4's ring key (`ks_family_phase`):
+              `priv_ks` as the TPU matrix runs it (a private KS pair, t=8,
+              base_bit=4, three primes; one priv_keyswitch_2 of a uniform
+              message: exactly 2 K6 launches, the phase within 2^50 of
+              -s m); `tlwe_mul` of 5 and 11 at precision 4 through a seeded
+              packing1 key (the streamed gather; 1 K6 relinearization at
+              four primes, t=2, base_bit=20) and through its expansion (1 K2
+              launch for both packing switches, 1 K6): equal words, 7 by
+              both, K2 timed on those two ciphertexts (below a tile of
+              128 it stages the whole table); the packing1 switch streamed
+              and by K2 on 16 TLWEs (equal words, the streamed one timed);
+              at B=512 K2 on the dense table's rows of 4,096 words, K6 on
+              the relinearization key (P=4) and on the pair's first key
+              (P=3),
+              each held bit-exact to its plain version and timed beside its
+              bound; priv_keyswitch_2 of 512 TRLWEs and ks_b_to_a of one
+              TRGSW (2 K6 launches each, the plain route's words); keygen
+              seconds and bytes of the seeded and expanded tables, warm ms,
+              peak.  Its L2_32 part runs at the end of the phase-20 child
+              (`ks_family32_phase`): dense packing1 and private-SK tables
+              (t=6, 3.02 GB each), packing1_keyswitch and priv_keyswitch of
+              512 TLWEs (1 one-plane K2 launch each, within 2^27),
+              priv_keyswitch_2 of 512 TRLWEs (2 one-limb K6 launches, within
+              2^25), each kernel held bit-exact and timed.
+ 23. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
+              trgsw_matrix, ga (with the per-step forms), trlweks, mesh, set3,
+              ks_family and torus32 lines, the card line, the kernels line (the one-limb forms as
               `<kernel>/torus32`, K8b at N=8192 as `finish_step/n8192`,
               K1-delta as `cmux_delta`, K6-old as `auto_keyswitch`, K1-step
               as `pbs_step`, K3-step as `ext_product_apply_step`, K5-v1 as
@@ -332,6 +356,19 @@ MESH_SHAPES_32 = ((1, 2), (1, 3), (2, 2))
 # K8b at N=8192 with 4 primes (SET_3's digits): a random key cut to this
 # depth, this many random ciphertexts, on a (1, 2) mesh of the card
 N8192_DEPTH, N8192_BATCH = 8, 64
+# Phase 22: the TPU matrix's priv_ks and tlwe_mul (full_matrix_tpu.py:167-169,
+# 308-339): the pair's decrypt bound, tlwe_mul's inputs and precision, the
+# relinearization gadget; ks_b_to_a's exponent
+PRIV_KS_BOUND = 2.0**50
+TLWE_MUL_INPUTS, TLWE_MUL_PREC = (5, 11), 4
+RL_T, RL_BASE_BIT = 2, 20
+KS_B_TO_A_EXP = 13
+STREAM_CHECK = 16    # TLWEs of the streamed packing1 switch held to K2's
+# The pair at L2_32 (t=6, base_bit=4): each digit's rounding (uniform
+# within 2^7) times the key product s s' (binary keys: coefficients up to
+# N/4, mean square ~(N/4)^2/3 = 2^16.4) over N = 2048 coefficients gives
+# sigma ~(2^11 2^14/3 2^16.4)^(1/2) = 2^19.9 in u32 words; 2^25 is ~34 sigma
+PRIV_KS_BOUND_32 = 2.0**25
 # No PyTorch call computes the key-switch select-sum on int64 CUDA tensors.
 KS_LIBRARY_NOTE = ("none: torch.sparse.mm of the one-hot digits and the "
                    "table raises \"addmm_sparse_cuda\" not implemented for "
@@ -1564,6 +1601,329 @@ def trgsw_matrix_phase(p, gk, gen, dev, max_clock, tag):
     return report, counts
 
 
+def decode_prec(tlwe, torus, c, key, prec):
+    """The message of a TLWE at precision prec, as an int mod 2^prec."""
+    ph = tlwe.phase(c, key)
+    return int(torus.torus2int(ph, prec)) % (1 << prec)
+
+
+def ks_family_phase(p, key_trlwe, gk, gen, dev, max_clock):
+    """Phase 22: the key-switch family on phase 4's ring key at TFHEpp-L2.
+    (a) `priv_ks` as the TPU matrix runs it (`full_matrix_tpu.py:308-322`):
+    a private KS pair (t=8, base_bit=4, three primes), one
+    `priv_keyswitch_2` of a uniform message, exactly 2 K6 launches and no
+    plain call, the phase within 2^50 of -s m.  (b) `tlwe_mul` as the matrix
+    runs it (`:324-339`): 5 x 11 at precision 4 through a seeded packing1
+    key (the TPU matrix's choice above 6 GiB; the streamed gather, no K2)
+    and through the same key expanded (`expand_generic_ks_key`: one K2
+    launch for both packing switches), each with one K6 relinearization at
+    four primes (t=2, base_bit=20); the two give the same words and 7; the
+    packing1 switch streamed and on the dense table, the same words (the
+    check of `tests/test_keyswitch.py:240`) on STREAM_CHECK
+    TLWEs, the streamed one timed.  (c) At B=512: K2 on
+    the dense table's rows of 2N = 4096 words, K6 on the relinearization
+    key (P=4) and on the pair's first key (P=3), each held bit-exact to its
+    plain version on the path's inputs and timed beside its bound;
+    `priv_keyswitch_2` of 512 TRLWEs (2 K6 launches, the plain route's
+    words); `trgsw.ks_b_to_a` of one TRGSW(X^13) (2 K6 launches, exponent
+    13, the plain route's words).  Keygen seconds and bytes of the seeded
+    and the expanded table, warm ms of `tlwe_mul` (both keys),
+    `priv_keyswitch_2` and the streamed apply, and the peak device memory.
+    Returns the report, the paths' counts and the kernel runs."""
+    from mosfhet_torch import keyswitch, polynomial, product, rng, tlwe, \
+        torus, trgsw, trlwe
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    N, t, bb = p.N, p.t, p.base_bit
+    key_out = trlwe.extract_tlwe_key(key_trlwe)
+    counts, runs, rep = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def counted(path, fn, want):
+        zero_counts(pk)
+        out = fn()
+        torch.cuda.synchronize()
+        counts[path] = read_counts(pk)
+        check_counts(path, counts[path], want)
+        return out
+
+    def plain_same(what, fn, got):
+        with plain_kernels(pk):
+            want = fn()
+        torch.cuda.synchronize()
+        w = want.rows if hasattr(want, "rows") else want.stacked()
+        g = got.rows if hasattr(got, "rows") else got.stacked()
+        same_or_fail(f"{what} vs its plain route", g, w)
+
+    # (a) priv_ks
+    pair = keyswitch.new_priv_ks_key_pair(key_trlwe, key_trlwe, t, bb, gen,
+                                          dev)
+    m = rng.uniform_torus(gen, (N,), dev)
+    cc = trlwe.encrypt(m, key_trlwe, gen)
+    out = counted("priv_ks", lambda: keyswitch.priv_keyswitch_2(cc, pair),
+                  {"auto_keyswitch_stream": 2})
+    want = -polynomial.ntt_mul_small(key_trlwe.s[0], m, key_trlwe.plan())
+    e = signed_max_abs(trlwe.phase(out, key_trlwe) - want)
+    if not e <= PRIV_KS_BOUND:
+        fail(f"priv_ks: max error 2^{math.log2(e):.1f} > 2^50")
+    rep["priv_ks"] = {
+        "primes": len(pair[0].primes),
+        "ms": cuda_ms(lambda: keyswitch.priv_keyswitch_2(cc, pair), REPS)[0],
+        "decrypt_max_err_log2": math.log2(max(e, 1.0))}
+
+    # (b) tlwe_mul, seeded then expanded
+    rlk = keyswitch.new_rl_key(key_trlwe, RL_T, RL_BASE_BIT, gen, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seeded = keyswitch.new_packing1_ks_key_seeded(key_trlwe, key_out, t, bb,
+                                                  gen, dev)
+    torch.cuda.synchronize()
+    seeded_s = time.perf_counter() - t0
+    seeded_bytes = (seeded.seeds.numel() + seeded.b.numel()) * 8
+    c1, c2 = (tlwe.encrypt(torus.int2torus(torch.tensor(v, device=dev),
+                                           TLWE_MUL_PREC), key_out, gen)
+              for v in TLWE_MUL_INPUTS)
+    want_mul = TLWE_MUL_INPUTS[0] * TLWE_MUL_INPUTS[1] % (1 << TLWE_MUL_PREC)
+
+    def mul(key):
+        return product.tlwe_mul(c1, c2, TLWE_MUL_PREC, key, rlk)
+
+    out_s = counted("tlwe_mul_streamed", lambda: mul(seeded),
+                    {"auto_keyswitch_stream": 1})
+    got_s = decode_prec(tlwe, torus, out_s, key_out, TLWE_MUL_PREC)
+    mul_s_ms = cuda_ms(lambda: mul(seeded), REPS)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = keyswitch.expand_generic_ks_key(seeded)
+    torch.cuda.synchronize()
+    expand_s = time.perf_counter() - t0
+    dense_bytes = dense.table.numel() * 8
+    out_d = counted("tlwe_mul_dense", lambda: mul(dense),
+                    {"tlwe_keyswitch_sum": 1, "auto_keyswitch_stream": 1})
+    got_d = decode_prec(tlwe, torus, out_d, key_out, TLWE_MUL_PREC)
+    if (got_s, got_d) != (want_mul, want_mul):
+        fail(f"tlwe_mul: streamed {got_s}, K2 {got_d}, want {want_mul}")
+    if not (torch.equal(out_s.a, out_d.a) and torch.equal(out_s.b, out_d.b)):
+        fail("tlwe_mul: the streamed and the K2 route's words differ")
+    mul_d_ms = cuda_ms(lambda: mul(dense), REPS)[0]
+    # K2 on tlwe_mul's own two ciphertexts: below a tile of 128 it still
+    # stages the whole table (PERF.md section 7)
+    R, base_m1 = dense.table.shape[0], dense.table.shape[2]
+    ab = dense.table.reshape(R, t, base_m1, -1)
+    dig2 = keyswitch._gather_digits(torch.stack([c1.a, c2.a]), R, t, bb)
+    k2_small, _ = k2_report(pk, "L2 tlwe_mul packing", dig2, ab, max_clock)
+    rep["tlwe_mul"] = {
+        "inputs": list(TLWE_MUL_INPUTS), "result": got_d,
+        "streamed_ms": mul_s_ms, "dense_ms": mul_d_ms,
+        "seeded_keygen_s": seeded_s, "seeded_bytes": seeded_bytes,
+        "expand_s": expand_s, "dense_bytes": dense_bytes,
+        "rl_primes": len(rlk.primes), "k2_ms": k2_small["ms"],
+        "k2_bound": k2_small["bound"]}
+    log(f"# L2 priv_ks: 2 K6 launches, max err "
+        f"2^{rep['priv_ks']['decrypt_max_err_log2']:.1f} (bound 2^50), "
+        f"{rep['priv_ks']['ms']:.3f} ms per call; tlwe_mul 5 x 11 = {got_d} "
+        f"mod 16 by both routes, equal words: streamed {mul_s_ms:.3f} ms (1 "
+        f"K6), dense {mul_d_ms:.3f} ms (1 K2 + 1 K6 at "
+        f"{len(rlk.primes)} primes); seeded packing1 keygen {seeded_s:.3f} s,"
+        f" {seeded_bytes / 2**30:.3f} GiB; expansion {expand_s:.3f} s, dense "
+        f"table {dense_bytes / 2**30:.3f} GiB")
+
+    # (c) the packing1 switch streamed and by K2 on the dense table, on
+    # STREAM_CHECK TLWEs (the streamed gather is plain PyTorch: ~20 ms per
+    # table row at B=512 on the card), then K2 at B=512
+    cs = tlwe.encrypt(rng.uniform_torus(gen, (BATCH,), dev), key_out, gen)
+    few = tlwe.TLWE(a=cs.a[:STREAM_CHECK], b=cs.b[:STREAM_CHECK])
+    keyswitch.packing1_keyswitch(few, seeded)
+    stream_ms, p_s = cuda_ms(lambda: keyswitch.packing1_keyswitch(few,
+                                                                  seeded), 1)
+    p_d = keyswitch.packing1_keyswitch(few, dense)
+    if not (torch.equal(p_s.a, p_d.a) and torch.equal(p_s.b, p_d.b)):
+        fail(f"packing1 on {STREAM_CHECK} TLWEs: streamed != K2 on the "
+             f"expanded table")
+    p_d = counted("packing1_batch",
+                  lambda: keyswitch.packing1_keyswitch(cs, dense),
+                  {"tlwe_keyswitch_sum": 1})
+    dig = keyswitch._gather_digits(cs.a, R, t, bb)
+    k2_run, sub_k = k2_report(pk, "L2 packing1", dig, ab, max_clock)
+    k2_plain_ms, sub_p = cuda_ms(lambda: pk.tlwe_keyswitch_sum_plain(dig, ab),
+                                 1)
+    same_or_fail("K2 vs plain on packing1's inputs", sub_k, sub_p)
+    runs["tlwe_keyswitch_sum"] = {
+        "ms": k2_run["ms"], "plain_ms": k2_plain_ms, "max_abs_err": 0.0,
+        "bound_ms": k2_run["bound"]["bound_ms"],
+        "bound_by": k2_run["bound"]["bound_by"], "width": ab.shape[-1],
+        "schedule": k2_run["schedule"]}
+    rep["packing1_batch"] = {"streamed_ms": stream_ms,
+                             "streamed_batch": STREAM_CHECK,
+                             "k2_ms": k2_run["ms"],
+                             "k2_bound": k2_run["bound"],
+                             "k2_plain_ms": k2_plain_ms}
+    del dig, ab, sub_k, sub_p, p_s, p_d
+    # K6 at four primes on the relinearization key, 512 TRLWEs
+    rs = np.random.default_rng(SEED + 22)
+    x = random_u64(rs, (BATCH, p.k + 1, N), dev)
+    kidx = torch.zeros(BATCH, dtype=torch.int32, device=dev)
+    ginv = torch.ones_like(kidx)
+    for name, key in (("relinearization", rlk), ("priv_ks", pair[0])):
+        kp = key.kernel_plan()
+        ak = key.v32.reshape((1, -1) + tuple(key.v32.shape[2:]))
+        pk.auto_keyswitch_stream_plain(x, ak, kidx, ginv, kp)   # warm
+        hold(runs, f"auto_keyswitch_stream/{name}",
+             lambda: pk.auto_keyswitch_stream(x, ak, kidx, ginv, kp),
+             lambda: pk.auto_keyswitch_stream_plain(x, ak, kidx, ginv, kp),
+             auto_ks_bound(kp, BATCH, kidx, max_clock), reps=KS_REPS)
+        runs[f"auto_keyswitch_stream/{name}"]["primes"] = kp.P
+    # priv_keyswitch_2 of 512 TRLWEs; ks_b_to_a of one TRGSW
+    cb = trlwe.encrypt(rng.uniform_torus(gen, (BATCH, N), dev), key_trlwe,
+                       gen)
+    pb = counted("priv_ks_batch", lambda: keyswitch.priv_keyswitch_2(cb, pair),
+                 {"auto_keyswitch_stream": 2})
+    plain_same("priv_keyswitch_2 on 512 TRLWEs",
+               lambda: keyswitch.priv_keyswitch_2(cb, pair), pb)
+    rep["priv_ks_batch_ms"] = cuda_ms(
+        lambda: keyswitch.priv_keyswitch_2(cb, pair), REPS)[0]
+    g = trgsw.monomial_encrypt(1, KS_B_TO_A_EXP, gk, gen)
+    gb = counted("ks_b_to_a", lambda: trgsw.ks_b_to_a(g, pair),
+                 {"auto_keyswitch_stream": 2})
+    if int(trgsw.debug_decrypt_exp(gb, gk)) != KS_B_TO_A_EXP:
+        fail(f"ks_b_to_a: exponent {int(trgsw.debug_decrypt_exp(gb, gk))}, "
+             f"want {KS_B_TO_A_EXP}")
+    plain_same("ks_b_to_a", lambda: trgsw.ks_b_to_a(g, pair), gb)
+    rep["ks_b_to_a_ms"] = cuda_ms(lambda: trgsw.ks_b_to_a(g, pair), REPS)[0]
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+    r4, r3 = (runs[f"auto_keyswitch_stream/{n}"]
+              for n in ("relinearization", "priv_ks"))
+    log(f"# L2 key-switch family: packing1 streamed {stream_ms:.3f} ms on "
+        f"{STREAM_CHECK} TLWEs (K2's words); at B={BATCH} K2 on the dense "
+        f"table {k2_run['ms']:.4f} ms "
+        f"(bound {k2_run['bound']['bound_ms']:.4f}, plain "
+        f"{k2_plain_ms:.3f}); K6 P=4 (relinearization) {r4['ms']:.4f} ms "
+        f"(bound {r4['bound_ms']:.4f}, plain {r4['plain_ms']:.3f}); K6 P=3 "
+        f"(the pair) {r3['ms']:.4f} ms (bound {r3['bound_ms']:.4f}, plain "
+        f"{r3['plain_ms']:.3f}); priv_keyswitch_2 "
+        f"{rep['priv_ks_batch_ms']:.3f} ms (2 K6); ks_b_to_a exponent "
+        f"{KS_B_TO_A_EXP}, {rep['ks_b_to_a_ms']:.3f} ms (2 K6); all "
+        f"bit-exact to their plain versions; peak "
+        f"{rep['peak_bytes'] / 2**30:.2f} GiB")
+    del pair, rlk, seeded, dense, cs, x, cb, pb, g, gb
+    torch.cuda.empty_cache()
+    return rep, counts, runs
+
+
+def ks_family32_phase(p, key_trlwe, gen, dev, max_clock):
+    """Phase 22's L2_32 part, in the phase-20 child (t=6, base_bit=4,
+    int32 words): the dense packing1 and private-SK tables (n and n+1
+    rows, 3.02 GB each), packing1_keyswitch and priv_keyswitch of 512 TLWEs
+    (1 K2 one-plane launch each, decrypt within 2^27), K2 held bit-exact to
+    its plain version on each path's inputs and timed; priv_keyswitch_2 of
+    512 TRLWEs (2 one-limb K6 launches, the plain route's words, decrypt
+    within PRIV_KS_BOUND_32), K6 held and timed on its first launch's
+    inputs.  Returns the report, the counts and the kernel runs."""
+    from mosfhet_torch import keyswitch, polynomial, rng, tlwe, trlwe
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    N, t, bb = p.N, p.t, p.base_bit
+    key_out = trlwe.extract_tlwe_key(key_trlwe)
+    counts, runs, rep = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    m = rng.uniform_torus(gen, (BATCH,), dev)
+    cs = tlwe.encrypt(m, key_out, gen)
+    m_poly = torch.zeros((BATCH, N), dtype=m.dtype, device=dev)
+    m_poly[:, 0] = m
+    for path, new, fn, want in (
+            ("packing1_batch", keyswitch.new_packing1_ks_key,
+             keyswitch.packing1_keyswitch, lambda: m),
+            ("priv_sk_batch", keyswitch.new_priv_sk_ks_key,
+             keyswitch.priv_keyswitch,
+             lambda: -polynomial.ntt_mul_small(key_trlwe.s[0], m_poly,
+                                               key_trlwe.plan()))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ksk = new(key_trlwe, key_out, t, bb, gen, dev)
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+        zero_counts(pk)
+        out = fn(cs, ksk)
+        torch.cuda.synchronize()
+        counts[path] = read_counts(pk)
+        check_counts(f"L2_32 {path}", counts[path], {"tlwe_keyswitch_sum": 1})
+        ph = trlwe.phase(out, key_trlwe)
+        e = signed_max_abs(ph[:, 0] - want() if path == "packing1_batch"
+                           else ph - want())
+        if not e <= KS_DECRYPT_BOUND_32:
+            fail(f"L2_32 {path}: max error 2^{math.log2(e):.1f} > 2^27")
+        R, base_m1 = ksk.table.shape[0], ksk.table.shape[2]
+        a_vals = cs.a if path == "packing1_batch" else torch.cat(
+            [cs.a, cs.b[:, None]], dim=1)
+        dig = keyswitch._gather_digits(a_vals, R, t, bb)
+        ab = ksk.table.reshape(R, t, base_m1, -1)
+        k2_run, sub_k = k2_report(pk, f"L2_32 {path}", dig, ab, max_clock)
+        plain_ms, sub_p = cuda_ms(lambda: pk.tlwe_keyswitch_sum_plain(dig, ab),
+                                  1)
+        same_or_fail(f"K2/torus32 vs plain on {path}'s inputs", sub_k, sub_p)
+        runs[f"tlwe_keyswitch_sum/{path}"] = {
+            "ms": k2_run["ms"], "plain_ms": plain_ms, "max_abs_err": 0.0,
+            "bound_ms": k2_run["bound"]["bound_ms"],
+            "bound_by": k2_run["bound"]["bound_by"], "width": ab.shape[-1],
+            "rows": R, "schedule": k2_run["schedule"]}
+        rep[path] = {"keygen_s": keygen_s,
+                     "table_bytes": ksk.table.numel() * 4,
+                     "decrypt_max_err_log2": math.log2(max(e, 1.0)),
+                     "k2_ms": k2_run["ms"], "k2_plain_ms": plain_ms,
+                     "k2_bound_ms": k2_run["bound"]["bound_ms"]}
+        del ksk, out, dig, ab, sub_k, sub_p
+        torch.cuda.empty_cache()
+    pair = keyswitch.new_priv_ks_key_pair(key_trlwe, key_trlwe, t, bb, gen,
+                                          dev)
+    mm = rng.uniform_torus(gen, (BATCH, N), dev)
+    cb = trlwe.encrypt(mm, key_trlwe, gen)
+    zero_counts(pk)
+    pb = keyswitch.priv_keyswitch_2(cb, pair)
+    torch.cuda.synchronize()
+    counts["priv_ks_batch"] = read_counts(pk)
+    check_counts("L2_32 priv_ks_batch", counts["priv_ks_batch"],
+                 {"auto_keyswitch_stream": 2})
+    with plain_kernels(pk):
+        pw = keyswitch.priv_keyswitch_2(cb, pair)
+    same_or_fail("L2_32 priv_keyswitch_2 vs its plain route", pb.stacked(),
+                 pw.stacked())
+    want = -polynomial.ntt_mul_small(key_trlwe.s[0], mm, key_trlwe.plan())
+    e = signed_max_abs(trlwe.phase(pb, key_trlwe) - want)
+    if not e <= PRIV_KS_BOUND_32:
+        fail(f"L2_32 priv_ks: max error 2^{math.log2(e):.1f} > "
+             f"2^{math.log2(PRIV_KS_BOUND_32):.0f}")
+    kp = pair[0].kernel_plan()
+    ak = pair[0].v32.reshape((1, -1) + tuple(pair[0].v32.shape[2:]))
+    x = torch.cat([cb.a, torch.zeros_like(cb.b)[:, None]], dim=1)
+    kidx = torch.zeros(BATCH, dtype=torch.int32, device=dev)
+    ginv = torch.ones_like(kidx)
+    pk.auto_keyswitch_stream_plain(x, ak, kidx, ginv, kp)   # warm
+    hold(runs, "auto_keyswitch_stream/priv_ks",
+         lambda: pk.auto_keyswitch_stream(x, ak, kidx, ginv, kp),
+         lambda: pk.auto_keyswitch_stream_plain(x, ak, kidx, ginv, kp),
+         auto_ks_bound(kp, BATCH, kidx, max_clock), reps=KS_REPS)
+    rep["priv_ks_batch"] = {
+        "ms": cuda_ms(lambda: keyswitch.priv_keyswitch_2(cb, pair),
+                      REPS)[0],
+        "decrypt_max_err_log2": math.log2(max(e, 1.0)),
+        "k6_ms": runs["auto_keyswitch_stream/priv_ks"]["ms"]}
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+    r = runs["auto_keyswitch_stream/priv_ks"]
+    log(f"# L2_32 key-switch family at B={BATCH}: packing1 K2 "
+        f"{rep['packing1_batch']['k2_ms']:.4f} ms (plain "
+        f"{rep['packing1_batch']['k2_plain_ms']:.3f}), priv-SK K2 "
+        f"{rep['priv_sk_batch']['k2_ms']:.4f} ms, tables "
+        f"{rep['packing1_batch']['table_bytes'] / 1e9:.2f} GB each (keygen "
+        f"{rep['packing1_batch']['keygen_s']:.3f} / "
+        f"{rep['priv_sk_batch']['keygen_s']:.3f} s); priv_keyswitch_2 "
+        f"{rep['priv_ks_batch']['ms']:.3f} ms, K6 one-limb {r['ms']:.4f} ms "
+        f"(bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.3f}); all "
+        f"bit-exact; decrypt OK; peak {rep['peak_bytes'] / 2**30:.2f} GiB")
+    del pair, cb, pb, pw, x, cs
+    torch.cuda.empty_cache()
+    return rep, counts, runs
+
+
 def set3_phase(dev, max_clock):
     """Phase 19: SET_3, whose shapes put buffers of K1, K3, K4, K7 and K8a
     in a global workspace.  Returns its report and the kernels' entries."""
@@ -2137,6 +2497,8 @@ def torus32_main():
                     tv, luts, cs, slots, out)
     matrix, matrix_counts = trgsw_matrix_phase(p, gk, gen, dev, max_clock,
                                                "L2_32")
+    ksf, ksf_counts, ksf_runs = ks_family32_phase(p, key_trlwe, gen, dev,
+                                                  max_clock)
     print(json.dumps({
         "params": p.name, "batch": BATCH, "primes": list(primes),
         "keygen_s": keygen_s, "key_bytes": key_bytes,
@@ -2153,8 +2515,10 @@ def torus32_main():
         "counts": {"pbs": pbs_counts, "gate": gate_counts,
                    "fdfb": fdfb_counts, "steps": steps_counts,
                    **unfolded.pop("counts"), **mesh.pop("counts"),
-                   **ga.pop("counts"), "trgsw_matrix": matrix_counts},
-        "steps": steps, "trgsw_matrix": matrix,
+                   **ga.pop("counts"), "trgsw_matrix": matrix_counts,
+                   **ksf_counts},
+        "steps": steps, "trgsw_matrix": matrix, "ks_family": ksf,
+        "ks_family_runs": ksf_runs,
         "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound,
                "residency": k1_res, "wave_curve": k1_curve},
         "k2": {"gate": k2_gate, "fdfb": k2_fdfb, "plain_ms": k2_plain_ms,
@@ -3529,7 +3893,11 @@ def main():
     matrix, matrix_counts = trgsw_matrix_phase(p, gk, gen, dev, max_clock,
                                                "L2")
 
-    # 22. report
+    # 22. the key-switch family: priv_ks and tlwe_mul on phase 4's key
+    ksf, ksf_counts, ksf_runs = ks_family_phase(p, key_trlwe, gk, gen, dev,
+                                                max_clock)
+
+    # 23. report
     paths = {"pbs": pbs_counts, "gate": gate_counts, "fdfb": fdfb_counts,
              "unfolded": ub_counts, "ubr_phase1": ph1_counts,
              "ubr_phase2": ph2_counts, "ga": ga_counts}
@@ -3540,7 +3908,7 @@ def main():
     paths.update({f"extprod_{mode}": {"ext_product_apply_scan":
                                       ep[mode]["launches"]} for mode in ep})
     paths.update({"steps": steps_counts, **ubr_steps_counts,
-                  "trgsw_matrix": matrix_counts})
+                  "trgsw_matrix": matrix_counts, **ksf_counts})
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}
@@ -3560,6 +3928,7 @@ def main():
                    by_path("tlwe_keyswitch_sum"), ks_run, ks_fdfb,
                    ks_plain_ms, None, KS_LIBRARY_NOTE),
         "max_abs_err": ks_max_abs_err,
+        "packing_rows": ksf_runs["tlwe_keyswitch_sum"],
     }, {
         "name": "ext_product_apply_scan", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/ext_product_apply.cu",
@@ -3604,6 +3973,8 @@ def main():
         "library_ms": None, "library_note": GA_LIBRARY_NOTE,
         "resident_blocks_per_sm": k6_res["blocks_per_sm"],
         "stepwise_first_step": step_runs["auto_keyswitch_stream"],
+        "ks_family": {name.split("/")[1]: r for name, r in ksf_runs.items()
+                      if name.startswith("auto_keyswitch_stream/")},
     }, {
         "name": "ga_scan_fused", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/ga_scan.cu",
@@ -3683,6 +4054,9 @@ def main():
                  for path, c in c32.items()}, t32["k2"]["gate"],
                 t32["k2"]["fdfb"], t32["k2"]["plain_ms"],
                 t32["k2"]["library_ms"], t32["k2"]["library_note"])]
+    kernels[-1]["packing_rows"] = {
+        name.split("/")[1]: r for name, r in t32["ks_family_runs"].items()
+        if name.startswith("tlwe_keyswitch_sum/")}
     # the one-limb K3-K7, K8a and K8b on their L2_32 paths
     for name, source, line, note in (
             ("ext_product_apply_scan", "ext_product_apply.cu", 1944,
@@ -3709,6 +4083,9 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "library_note": note})
+        if name == "auto_keyswitch_stream":
+            kernels[-1]["ks_family"] = {"priv_ks": t32["ks_family_runs"][
+                "auto_keyswitch_stream/priv_ks"]}
         if name in ("ga_scan_fused", "auto_keyswitch_stream"):
             kernels[-1]["resident_blocks_per_sm"] = t32["ga"][
                 "k7_residency" if name[0] == "g" else "k6_residency"][
@@ -3788,8 +4165,10 @@ def main():
         "k8_residency": k8_res, "k8_build": k8_build,
         "plain_routes": plain_routes}}))
     log(json.dumps({"set3": set3}))
+    log(json.dumps({"ks_family": {"params": p.name, "batch": BATCH, **ksf}}))
     log(json.dumps({"torus32": {key: t32[key] for key in t32
-                                if key not in ("counts", "kernel_runs")}}))
+                                if key not in ("counts", "kernel_runs",
+                                               "ks_family_runs")}}))
     log(f"# whole script: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

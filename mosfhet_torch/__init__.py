@@ -21,7 +21,9 @@ from . import tlwe
 from . import trlwe
 from . import trgsw
 from . import bootstrap
+from . import seeded
 from . import keyswitch
+from . import product
 from . import bootstrap_ga
 from . import bridge
 from . import parallel

@@ -4,6 +4,8 @@ Key material made elsewhere (the TPU package, a file) crosses as numpy
 arrays: u64 torus words and residues as ``uint64`` (or their ``int64``
 view), u32 torus words (the 32-bit torus) as ``uint32`` (or ``int32``),
 secret keys as ``int64``.  Residues cross as ``uint64`` at either width.
+Threefry seeds cross as ``uint32`` key words [..., 2] and are held as
+int64 values in [0, 2^32).
 This module imports no other framework; the caller hands over plain arrays
 of the objects' fields.
 """
@@ -16,7 +18,10 @@ import torch
 from ._device import default_device
 from .bootstrap import BootstrapKey
 from .bootstrap_ga import GABootstrapKey
-from .keyswitch import TRLWEKSKey
+from .keyswitch import (FullPackingKSKey, GenericKSKey, LUTPackingKSKey,
+                        SeededGenericKSKey, SeededLUTPackingKSKey,
+                        SeededTRLWEKSKey, TRLWEKSKey)
+from .seeded import SeededTRLWE
 from .ops.pbs_kernel import i32_as_u32, u32_as_i32
 from .tlwe import TLWE, TLWEKey, TLWEKSKey, TLWEKSKeyM, TLWEKSKeyPrepared
 from .trgsw import TRGSW, TRGSWDFT, TRGSWReg
@@ -238,3 +243,107 @@ def tlwe_ks_key_prepared_from_numpy(a_nib, b_nib, t: int, base_bit: int,
 
 def tlwe_ks_key_prepared_to_numpy(ksk: TLWEKSKeyPrepared):
     return ksk.a_nib.cpu().numpy(), ksk.b_nib.cpu().numpy()
+
+
+def seeds_to_tensor(x, device=None) -> torch.Tensor:
+    """Threefry key words [..., 2] (u32) -> int64 tensor of their values."""
+    x = np.asarray(x).astype(np.uint32).astype(np.int64)
+    return torch.from_numpy(x).to(default_device(device))
+
+
+def seeds_to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.uint32)
+
+
+def seeded_trlwe_from_numpy(seed, b, k: int, device=None) -> SeededTRLWE:
+    return SeededTRLWE(seed=seeds_to_tensor(seed, device),
+                       b=to_tensor(b, device), k=k)
+
+
+def seeded_trlwe_to_numpy(c: SeededTRLWE):
+    return seeds_to_numpy(c.seed), to_numpy(c.b)
+
+
+def seeded_trlwe_ks_key_from_numpy(seeds, b_v, k_out: int, t: int,
+                                   base_bit: int, primes,
+                                   device=None) -> SeededTRLWEKSKey:
+    """A seeded TRLWE key-switch key from its seeds [k_in, t, 2] and the b
+    rows' residues [k_in, t, P, N] (the Shoup companions are not needed)."""
+    return SeededTRLWEKSKey(seeds_to_tensor(seeds, device),
+                            u32_as_i32(to_tensor(b_v, device)), k_out, t,
+                            base_bit, primes)
+
+
+def seeded_trlwe_ks_key_to_numpy(ksk: SeededTRLWEKSKey):
+    return seeds_to_numpy(ksk.seeds), to_numpy(i32_as_u32(ksk.b_v32))
+
+
+def trlwe_ks_keys_from_numpy(vs, t: int, base_bit: int, primes,
+                             device=None) -> list:
+    """A list of TRLWE key-switch keys of one gadget and plan from their
+    residues: the private KS pair, the CDKS21 trace keys, the
+    gadget-to-RGSW keys."""
+    return [trlwe_ks_key_from_numpy(v, t, base_bit, primes, device)
+            for v in vs]
+
+
+def trlwe_ks_keys_to_numpy(ksks) -> list:
+    return [trlwe_ks_key_to_numpy(k) for k in ksks]
+
+
+def priv_ks_key_pair_from_numpy(v1, v2, t: int, base_bit: int, primes,
+                                device=None):
+    """The private KS pair (KS for -s_out s_in, KS for -s_out)."""
+    return tuple(trlwe_ks_keys_from_numpy((v1, v2), t, base_bit, primes,
+                                          device))
+
+
+def full_packing_ks_key_from_numpy(v, vs, t: int, base_bit: int, primes,
+                                   device=None) -> FullPackingKSKey:
+    """A full packing key from its residues and Shoup companions [n, t,
+    k+1, P, N]."""
+    return FullPackingKSKey(to_tensor(v, device), to_tensor(vs, device), t,
+                            base_bit, primes)
+
+
+def full_packing_ks_key_to_numpy(ksk: FullPackingKSKey):
+    return to_numpy(ksk.v), to_numpy(ksk.vs)
+
+
+def generic_ks_key_from_numpy(table, t: int, base_bit: int, include_b: bool,
+                              device=None) -> GenericKSKey:
+    """A packing1 or private-SK table [n(+1), t, base-1, k+1, N]."""
+    return GenericKSKey(to_tensor(table, device), t, base_bit, include_b)
+
+
+def lut_packing_ks_key_from_numpy(table, t: int, base_bit: int,
+                                  torus_base: int,
+                                  device=None) -> LUTPackingKSKey:
+    """A LUT packing table [n, torus_base, t, base-1, k+1, N]."""
+    return LUTPackingKSKey(to_tensor(table, device), t, base_bit, torus_base)
+
+
+def ks_table_to_numpy(ksk) -> np.ndarray:
+    """The table of a `GenericKSKey` or `LUTPackingKSKey`."""
+    return to_numpy(ksk.table)
+
+
+def seeded_generic_ks_key_from_numpy(seeds, b, k: int, t: int, base_bit: int,
+                                     include_b: bool,
+                                     device=None) -> SeededGenericKSKey:
+    return SeededGenericKSKey(seeds_to_tensor(seeds, device),
+                              to_tensor(b, device), k, t, base_bit,
+                              include_b)
+
+
+def seeded_lut_packing_ks_key_from_numpy(seeds, b, k: int, t: int,
+                                         base_bit: int, torus_base: int,
+                                         device=None) -> SeededLUTPackingKSKey:
+    return SeededLUTPackingKSKey(seeds_to_tensor(seeds, device),
+                                 to_tensor(b, device), k, t, base_bit,
+                                 torus_base)
+
+
+def seeded_ks_table_to_numpy(ksk):
+    """(seeds, b) of a `SeededGenericKSKey` or `SeededLUTPackingKSKey`."""
+    return seeds_to_numpy(ksk.seeds), to_numpy(ksk.b)

@@ -249,6 +249,22 @@ def mul_trgsw_dft2(g1: TRGSWDFT, g2: TRGSWDFT) -> TRGSWDFT:
     return mul_trgsw_dft(from_dft(g1), g2)
 
 
+def ks_b_to_a(g: TRGSW, ksk_pair) -> TRGSW:
+    """Rebuild the component-0 (a-side) rows of a TRGSW from its b-side rows
+    by the TRLWE private-KS pair (`trgsw_ks_b_to_a`, `trgsw.c:479-483`):
+    `keyswitch.priv_keyswitch_2` on the l b-side rows as one batch, two K6
+    launches on the card.  k must be 1."""
+    from . import keyswitch as _ks
+    l = g.l
+    if g.k != 1:
+        raise ValueError(f"ks_b_to_a takes the reference's k = 1 layout, "
+                         f"got k = {g.k}")
+    b_rows = g.rows[..., l:2 * l, :, :]
+    a_rows = _ks.priv_keyswitch_2(from_stacked(b_rows), ksk_pair)
+    return TRGSW(rows=torch.cat([a_rows.stacked(), b_rows], dim=-3), l=l,
+                 Bg_bit=g.Bg_bit)
+
+
 def _unique_monomial(ph, Bg_bit: int):
     """The index of the one coefficient of phases [..., N] whose signed
     value lies outside [-delta, delta], delta = 2^(bits-1-Bg_bit) (the

@@ -10,7 +10,11 @@ key switch and the GA rotation; the GA step's external product alone
 (K1-delta) and the key switch on gathered keys (K6-old); the one-step
 kernels K1-step and K3-step and the v1 UBR phase 1 (K5-v1) at both
 widths, and their entry points' launch counts (the per-step GA forms'
-among them); the kernels at N=4096 with 4 primes (SET_3) and N=8192,
+among them); the key-switch family's launches (K2 on packing tables'
+rows of (k+1)N words, the streamed seeded apply against K2 on the
+expanded table, `priv_keyswitch_2` and `ks_b_to_a` as two K6 launches, the
+relinearization's K6 at four primes); the kernels at N=4096 with 4 primes
+(SET_3) and N=8192,
 whose buffers do not all fit shared memory; and, for the kernels on K1's
 schedule, ragged batches, residency and misaligned keys.
 Needs a CUDA card: without one every test here skips.
@@ -396,6 +400,8 @@ def auto_ks_args(N, k, t, base_bit, G, B, bits, seed):
     (2048, 1, 4, 9, 64, 265, 64), (2048, 1, 4, 9, 64, 529, 64),
     (2048, 1, 3, 7, 64, 1, 32), (2048, 1, 3, 7, 64, 263, 32),
     (2048, 1, 3, 7, 64, 265, 32), (2048, 1, 3, 7, 64, 529, 32),
+    # the relinearization key (t=2, base_bit=20): four primes at N=2048
+    (2048, 1, 2, 20, 1, 1, 64), (2048, 1, 2, 20, 1, 512, 64),
 ])
 def test_cuda_auto_keyswitch_matches_plain(N, k, t, base_bit, G, B, bits):
     if not torch.cuda.is_available():
@@ -1754,3 +1760,124 @@ def test_cuda_k3_on_debug_decrypt_inputs(B):
     assert tpk.ext_product_apply_scan.launches == launches + 1
     assert torch.equal(got, tpk.ext_product_apply_scan_plain(x, sa32, kp,
                                                              True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2, 129])
+@pytest.mark.parametrize("bits", [64, 32])
+def test_cuda_keyswitch_sum_packing_rows_match_plain(bits, B):
+    """K2 on a packing table's rows of (k+1)N = 4096 words (TFHEpp-L2's
+    N=2048; a row is 64 of its 512-byte slices at 64 bits), 256 of the
+    2048 rows (1 GB at 64 bits), t = 8 (6 at 32 bits), base-1 = 15, ragged
+    B; its schedule query at that shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    R, t, base_m1, width = 256, 8 if bits == 64 else 6, 15, 4096
+    dig, ab = random_ks_inputs(B, R, t, base_m1, width, seed=B + bits)
+    d = torch.from_numpy(dig).cuda()
+    tab = to_tensor(ab.astype(np.uint32) if bits == 32 else ab, "cuda")
+    launches = tpk.tlwe_keyswitch_sum.launches
+    got = tpk.tlwe_keyswitch_sum(d, tab)
+    torch.cuda.synchronize()
+    assert tpk.tlwe_keyswitch_sum.launches == launches + 1
+    assert torch.equal(got, tpk.tlwe_keyswitch_sum_plain(d, tab))
+    sched = tpk.tlwe_keyswitch_schedule(B, R * t, base_m1, width, bits)
+    assert sched["slices"] == width * bits // 8 // 512
+    assert sched["blocks_per_sm"] >= 1
+
+
+def _l2_ring_key(gen):
+    from mosfhet_torch import params, trlwe
+    p = params.TFHEPP_L2
+    return p, trlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, "cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_streamed_seeded_apply_matches_k2_on_expanded_table(
+        monkeypatch):
+    """`keyswitch.packing1_keyswitch` at N=2048 from a 64-coefficient TLWE
+    key: the seeded table's streamed gather (no K2 launch) and one K2
+    launch on its expansion give the same words, which the plain
+    select-sum gives too and which decrypt within 2^48; likewise the
+    private-SK switch (n+1 rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from mosfhet_torch import keyswitch, rng, tlwe, trlwe
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    p, kr = _l2_ring_key(gen)
+    in_key = tlwe.new_binary_key(64, p.rlwe_sigma, gen, "cuda")
+    m = rng.uniform_torus(gen, (130,), "cuda")
+    c = tlwe.encrypt(m, in_key, gen)
+    for new, fn in ((keyswitch.new_packing1_ks_key_seeded,
+                     keyswitch.packing1_keyswitch),
+                    (keyswitch.new_priv_sk_ks_key_seeded,
+                     keyswitch.priv_keyswitch)):
+        sk = new(kr, in_key, p.t, p.base_bit, gen, "cuda")
+        dense = keyswitch.expand_generic_ks_key(sk)
+        launches = tpk.tlwe_keyswitch_sum.launches
+        got_s = fn(c, sk)
+        torch.cuda.synchronize()
+        assert tpk.tlwe_keyswitch_sum.launches == launches
+        got_d = fn(c, dense)
+        torch.cuda.synchronize()
+        assert tpk.tlwe_keyswitch_sum.launches == launches + 1
+        assert torch.equal(got_s.a, got_d.a) and torch.equal(got_s.b, got_d.b)
+        with monkeypatch.context() as mp:
+            mp.setattr(tpk, "tlwe_keyswitch_sum",
+                       tpk.tlwe_keyswitch_sum_plain)
+            want = fn(c, dense)
+        assert torch.equal(got_d.a, want.a) and torch.equal(got_d.b, want.b)
+    got = keyswitch.packing1_keyswitch(c, keyswitch.expand_generic_ks_key(
+        keyswitch.new_packing1_ks_key_seeded(kr, in_key, p.t, p.base_bit,
+                                             gen, "cuda")))
+    err = (trlwe.phase(got, kr)[:, 0] - m).to(torch.float64).abs().max()
+    assert float(err) <= 2.0**48
+
+
+@pytest.mark.gpu
+def test_cuda_priv_keyswitch_2_is_two_k6_launches(monkeypatch):
+    """At TFHEpp-L2 (t=8, base_bit=4, three primes): `priv_keyswitch_2` of
+    5 TRLWEs is exactly 2 K6 launches and no plain call, the plain route's
+    words, within 2^50 of -s m; `trgsw.ks_b_to_a` of one TRGSW is 2 more
+    and decrypts to its exponent; `product.tensor_prod_fft` relinearizes in
+    1 K6 launch at four primes, the plain route's words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from mosfhet_torch import keyswitch, polynomial, product, rng, trgsw, \
+        trlwe
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    p, kr = _l2_ring_key(gen)
+    pair = keyswitch.new_priv_ks_key_pair(kr, kr, p.t, p.base_bit, gen,
+                                          "cuda")
+    assert len(pair[0].primes) == 3
+    m = rng.uniform_torus(gen, (5, p.N), "cuda")
+    c = trlwe.encrypt(m, kr, gen)
+    gk = trgsw.new_key(kr, p.l, p.Bg_bit)
+    g = trgsw.monomial_encrypt(1, 77, gk, gen)
+    rlk = keyswitch.new_rl_key(kr, 2, 20, gen, "cuda")
+    assert len(rlk.primes) == 4
+    calls = [(keyswitch.priv_keyswitch_2, (c, pair), 2),
+             (trgsw.ks_b_to_a, (g, pair), 2),
+             (lambda c1, c2: product.tensor_prod_fft(c1, c2, 4, rlk),
+              (trlwe.TRLWE(a=c.a[:2], b=c.b[:2]),
+               trlwe.TRLWE(a=c.a[2:4], b=c.b[2:4])), 1)]
+    outs = []
+    for fn, args, n in calls:
+        launches = tpk.auto_keyswitch_stream.launches
+        plain = tpk.auto_keyswitch_stream_plain.calls
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert tpk.auto_keyswitch_stream.launches == launches + n
+        assert tpk.auto_keyswitch_stream_plain.calls == plain
+        with monkeypatch.context() as mp:
+            mp.setattr(tpk, "auto_keyswitch_stream",
+                       tpk.auto_keyswitch_stream_plain)
+            want = fn(*args)
+        got_w = got.rows if hasattr(got, "rows") else got.stacked()
+        want_w = want.rows if hasattr(want, "rows") else want.stacked()
+        assert torch.equal(got_w, want_w)
+        outs.append(got)
+    want = -polynomial.ntt_mul_small(kr.s[0], m, kr.plan())
+    err = (trlwe.phase(outs[0], kr) - want).to(torch.float64).abs().max()
+    assert float(err) <= 2.0**50
+    assert int(trgsw.debug_decrypt_exp(outs[1], gk)) == 77

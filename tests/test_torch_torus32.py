@@ -29,7 +29,8 @@ CASES = ("gadget_decompose", "double2torus", "torus2int", "ntt_product",
          "keyswitch", "k1_plain_vs_interpret", "k2_plain_vs_interpret",
          "functional_bootstrap", "fdfb_this_work", "port_keygen_decrypts",
          "unported_paths_raise", "k1_step_plain_vs_interpret",
-         "blind_rotate_stepwise", "trgsw_matrix_ops", "leaf_ops")
+         "blind_rotate_stepwise", "trgsw_matrix_ops", "leaf_ops",
+         "packing1_and_priv_ks", "full_packing", "seeded")
 M32 = 1 << 32
 
 i32 = st.integers(-(1 << 31), (1 << 31) - 1)
@@ -92,15 +93,18 @@ def _child(out_path):
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from mosfhet_tpu import (bootstrap as jbs, ntt as jntt, params,
-                             polynomial as jpoly, rng as jrng, tlwe as jtlwe,
+    from mosfhet_tpu import (bootstrap as jbs, keyswitch as jks,
+                             ntt as jntt, params, polynomial as jpoly,
+                             rng as jrng, seeded as jseeded, tlwe as jtlwe,
                              torus as jtorus, trgsw as jtrgsw,
                              trlwe as jtrlwe)
     from mosfhet_tpu.ops import pbs_kernel as jpk
-    from mosfhet_torch import (bootstrap as tbs, bridge, ntt as tntt,
-                               polynomial as tpoly, rng as trng,
+    from mosfhet_torch import (bootstrap as tbs, bridge, keyswitch as tks,
+                               ntt as tntt, polynomial as tpoly,
+                               rng as trng, seeded as tseeded,
                                tlwe as ttlwe, torus as ttorus,
                                trgsw as ttrgsw, trlwe as ttrlwe)
+    from mosfhet_torch.ops import prng as tprng
     from mosfhet_torch.ops import pbs_kernel as tpk
 
     assert jtorus.TORUS_BITS == 32 and ttorus.TORUS_BITS == 32
@@ -499,6 +503,160 @@ def _child(out_path):
                 and np.array_equal(got, np.asarray(e) % p.N)):
             msgs.append(f"debug_decrypt_exp {got}, JAX {want}")
         return "; ".join(m for m in msgs if m)
+
+    # --- the key-switch family (`_torus32_suite.py:318-372`), t=5, bb=4 --
+    KS_T, KS_BIT = 5, 4
+    base_m1 = (1 << KS_BIT) - 1
+    gen32 = torch.Generator().manual_seed(3218)
+
+    def ks_residues(lead, primes):
+        """The NTT form of random u32 words [*lead, N]: a key's rows."""
+        plan = tntt.get_plan(p.N, primes, CPU)
+        v = tntt.to_ntt_u64(T(words(tuple(lead) + (p.N,)), CPU), plan)
+        return v.numpy().astype(np.uint64)
+
+    def ks_key(v, primes):
+        plan = jntt.get_plan(p.N, primes)
+        return jks.TRLWEKSKey(v=v, vs=jntt.make_shoup(v, plan.p[:, None]),
+                              t=KS_T, base_bit=KS_BIT, primes=primes)
+
+    def err32(ph, want):
+        d = bridge.to_numpy(ph - want).astype(np.int64)
+        d = np.abs(np.where(d >= 1 << 31, d - M32, d))
+        return int(d.max())
+
+    def case_packing1_and_priv_ks():
+        """packing1 and private-SK tables (dense through K2's one-plane
+        plain form, seeded through the streamed gather), the private pair
+        (two K6 one-limb plain calls): jnp words; the port's keygens
+        decrypt, packing1 within the TPU suite's 2^16, the pair within
+        2^20: its error is the 20-bit gadget's rounding (uniform within
+        2^11 per coefficient) times the key products s s' (about 16 terms
+        of +-1 per coefficient) over N = 64 coefficients, sigma about
+        2^16.7, so the suite's 2^18 is about 3 sigma and 2^20 about 10."""
+        n = p.k * p.N
+        tab = words((n, KS_T, base_m1, 2, p.N))
+        tab_sk = words((n + 1, KS_T, base_m1, 2, p.N))
+        sd = words((n, KS_T, base_m1, 2))
+        sb = words((n, KS_T, base_m1, p.N))
+        primes = jks._ks_plan(p.N, KS_BIT, KS_T, KS_T).primes
+        pair_v = [ks_residues((1, KS_T, 2), primes) for _ in range(2)]
+        ca, cb = words((3, n)), words((3,))
+        ra, rb = words((3, 1, p.N)), words((3, p.N))
+
+        def jax_side(tab, tab_sk, sd, sb, v0, v1, ca, cb, ra, rb):
+            c = jtlwe.TLWE(a=ca, b=cb)
+            outs = [jks.packing1_keyswitch(c, jks.GenericKSKey(
+                        table=tab, t=KS_T, base_bit=KS_BIT, include_b=False)),
+                    jks.priv_keyswitch(c, jks.GenericKSKey(
+                        table=tab_sk, t=KS_T, base_bit=KS_BIT,
+                        include_b=True)),
+                    jks.packing1_keyswitch(c, jks.SeededGenericKSKey(
+                        seeds=sd, b=sb, k=1, t=KS_T, base_bit=KS_BIT,
+                        include_b=False)),
+                    jks.priv_keyswitch_2(jtrlwe.TRLWE(a=ra, b=rb),
+                                         [ks_key(v0, primes),
+                                          ks_key(v1, primes)])]
+            return [(o.a, o.b) for o in outs]
+
+        want = jax.jit(jax_side)(tab, tab_sk, sd, sb, *pair_v, ca, cb, ra, rb)
+        c = bridge.tlwe_from_numpy(ca, cb, CPU)
+        got = [tks.packing1_keyswitch(c, bridge.generic_ks_key_from_numpy(
+                   tab, KS_T, KS_BIT, False, CPU)),
+               tks.priv_keyswitch(c, bridge.generic_ks_key_from_numpy(
+                   tab_sk, KS_T, KS_BIT, True, CPU)),
+               tks.packing1_keyswitch(
+                   c, bridge.seeded_generic_ks_key_from_numpy(
+                       sd, sb, 1, KS_T, KS_BIT, False, CPU)),
+               tks.priv_keyswitch_2(
+                   bridge.trlwe_from_numpy(ra, rb, CPU),
+                   bridge.priv_ks_key_pair_from_numpy(
+                       *pair_v, KS_T, KS_BIT, primes, CPU))]
+        msgs = [same(g.a, w[0]) or same(g.b, w[1])
+                for g, w in zip(got, want)]
+        if got[0].a.dtype != torch.int32:
+            msgs.append(f"packing1 words {got[0].a.dtype}")
+        kr = ttrlwe.new_binary_key(p.N, p.k, 0.0, gen32, CPU)
+        kt = ttrlwe.extract_tlwe_key(kr)
+        m = ttorus.double2torus(torch.tensor([3 / 16.0, 5 / 16.0]))
+        ksk = tks.new_packing1_ks_key(kr, kt, KS_T, KS_BIT, gen32, CPU)
+        out = tks.packing1_keyswitch(ttlwe.encrypt(m, kt, gen32), ksk)
+        e = err32(ttrlwe.phase(out, kr)[:, 0], m)
+        if e >= 1 << 16:
+            msgs.append(f"port packing1 decrypt error {e}")
+        pair = tks.new_priv_ks_key_pair(kr, kr, KS_T, KS_BIT, gen32, CPU)
+        mm = trng.uniform_torus(gen32, (p.N,), CPU)
+        out = tks.priv_keyswitch_2(ttrlwe.encrypt(mm, kr, gen32), pair)
+        want_p = -tpoly.ntt_mul_small(kr.s[0], mm, kr.plan())
+        e = err32(ttrlwe.phase(out, kr), want_p)
+        if e >= 1 << 20:
+            msgs.append(f"port priv pair decrypt error {e}")
+        return "; ".join(m_ for m_ in msgs if m_)
+
+    def case_full_packing():
+        """Full packing (plain PyTorch on the NTT): jnp words; the port's
+        keygen decrypts within 2^16."""
+        n, size = p.k * p.N, 4
+        primes = jks._ks_plan(p.N, KS_BIT, KS_T, n * KS_T).primes
+        v = ks_residues((n, KS_T, 2), primes)
+        ca, cb = words((size, n)), words((size,))
+        want = jax.jit(lambda v, a, b: (lambda o: (o.a, o.b))(
+            jks.full_packing_keyswitch(jtlwe.TLWE(a=a, b=b), size,
+                                       jks.FullPackingKSKey(
+                                           v=v, vs=ks_key(v, primes).vs,
+                                           t=KS_T, base_bit=KS_BIT,
+                                           primes=primes))))(v, ca, cb)
+        plan = tntt.get_plan(p.N, primes, CPU)
+        vs = tntt.make_shoup(torch.from_numpy(v.view(np.int64)),
+                             plan.p[:, None]).numpy()
+        got = tks.full_packing_keyswitch(
+            bridge.tlwe_from_numpy(ca, cb, CPU), size,
+            bridge.full_packing_ks_key_from_numpy(v, vs, KS_T, KS_BIT,
+                                                  primes, CPU))
+        msg = same(got.a, want[0]) or same(got.b, want[1])
+        kr = ttrlwe.new_binary_key(p.N, p.k, 0.0, gen32, CPU)
+        kt = ttrlwe.extract_tlwe_key(kr)
+        ms = ttorus.double2torus(torch.arange(size) / 8.0)
+        fk = tks.new_full_packing_ks_key(kr, kt, KS_T, KS_BIT, gen32, CPU)
+        out = tks.full_packing_keyswitch(ttlwe.encrypt(ms, kt, gen32), size,
+                                         fk)
+        e = err32(ttrlwe.phase(out, kr)[:size], ms)
+        return msg or (f"port full packing decrypt error {e}"
+                       if e >= 1 << 16 else "")
+
+    def case_seeded():
+        """The 32-bit stream against `rng.uniform_torus`, the TPU package's
+        seeded samples expanded and subtracted by the port (jnp words), and
+        the port's seeded encryption decrypting within 2^10."""
+        keys = jax.random.split(jax.random.PRNGKey(37), 3)
+        kd = np.asarray(jax.random.key_data(keys))
+        want = jax.jit(jax.vmap(lambda k_: jrng.uniform_torus(
+            k_, (2, 70))))(keys)
+        msgs = [same(tprng.uniform_torus_from_key_data(
+            bridge.seeds_to_tensor(kd, CPU), (2, 70)), want)]
+        kr = jtrlwe.new_binary_key(keys[0], p.N, p.k, 2.0**-25)
+        m = words((2, p.N))
+        ca, cb = words((2, 1, p.N)), words((2, p.N))
+
+        def jax_side(m, ca, cb):
+            sc = jseeded.encrypt(m, kr, keys[1])
+            full = jseeded.expand(sc)
+            sub = jseeded.subto(jtrlwe.TRLWE(a=ca, b=cb), sc)
+            return sc.seed, sc.b, full.a, sub.a, sub.b
+
+        seed, sb, fa, sa, sbb = jax.jit(jax_side)(m, ca, cb)
+        sc = bridge.seeded_trlwe_from_numpy(np.asarray(seed), np.asarray(sb),
+                                            1, CPU)
+        msgs.append(same(tseeded.expand(sc).a, fa))
+        sub = tseeded.subto(bridge.trlwe_from_numpy(ca, cb, CPU), sc)
+        msgs.append(same(sub.a, sa) or same(sub.b, sbb))
+        kp = ttrlwe.new_binary_key(p.N, p.k, 2.0**-25, gen32, CPU)
+        mm = trng.uniform_torus(gen32, (p.N,), CPU)
+        e = err32(ttrlwe.phase(tseeded.expand(tseeded.encrypt(
+            mm, kp, gen32)), kp), mm)
+        if e >= 1 << 10:
+            msgs.append(f"port seeded decrypt error {e}")
+        return "; ".join(m_ for m_ in msgs if m_)
 
     results = {}
     for name in CASES:
