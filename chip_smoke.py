@@ -219,7 +219,8 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               on 32 ciphertexts (the plain route), equal to the
               bootstrap's words.  Last, phase 21's matrix ops at L2_32 (l=3,
               Bg_bit=7, the primes of the TRGSW key's plan), then phase 22's
-              L2_32 part.  The child's failure fails the script.
+              L2_32 part, then phase 23's.  The child's failure fails the
+              script.
  21. matrix   the TRGSW matrix ops on phase 4's TRGSW key: trgsw_mul
               (mul_trgsw_dft of TRGSW(X^5) and TRGSW(X^3), the exponent 8)
               and trgsw_reg_sub (registers of 9 and 4: 5 and N - 5; reg_add
@@ -258,9 +259,32 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               512 TLWEs (1 one-plane K2 launch each, within 2^27),
               priv_keyswitch_2 of 512 TRLWEs (2 one-limb K6 launches, within
               2^25), each kernel held bit-exact and timed.
- 23. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
+ 23. family   the rest of `bootstrap` on phase 4's keys and phase 22's
+              dense packing1 table, relinearization key and private KS pair,
+              with a dense private-SK table made here (`boot_family_phase`):
+              the TPU matrix's trgsw_bootstrap, fdfb_ks21, fdfb_clot21 and
+              circuit_bootstrap as it runs them (one ciphertext each, its
+              bounds); then 512 ciphertexts of every message through the
+              TRGSW bootstrap, CB v1-v3, fdfb_ks21 (both forms), fdfb_clot21
+              and _2, multi-value CLOT21 and phases 1/2, and public_mux:
+              exact launch counts (PERF.md section 3), decrypt bounds, warm
+              ms, each call's plain route on the first 2 ciphertexts giving
+              the same words; K1 on the TRGSW bootstrap's 4,096 rows (timed
+              at full depth, held over its first 8 steps) and K2 on CB v1's
+              private-SK rows, held and timed; peak memory.  Its L2_32 part
+              runs at the end of the phase-20 child (`boot_family32_phase`).
+ 24. apps     ufhe at UFHE_SET0 (`apps_phase`): the port's keygens
+              (seconds, bytes), 64 pairs of 6-bit integers through add, sub,
+              mul, cmp, relu, lut_integer and mux_integer_array, every
+              element decrypted to its cleartext, launches per op exactly
+              `ufhe_launches`, warm ms; K1 at l=6 and K2 at base_bit=2 held
+              and timed on the path's inputs; then the leveled LUT at L2
+              (`eval_lut`: 1 K3; `eval_lut_vertical` over 4N entries: 2 K3,
+              1 K1).
+ 25. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
               trgsw_matrix, ga (with the per-step forms), trlweks, mesh, set3,
-              ks_family and torus32 lines, the card line, the kernels line (the one-limb forms as
+              ks_family, boot_family, apps and torus32 lines, the card
+              line, the kernels line (the one-limb forms as
               `<kernel>/torus32`, K8b at N=8192 as `finish_step/n8192`,
               K1-delta as `cmux_delta`, K6-old as `auto_keyswitch`, K1-step
               as `pbs_step`, K3-step as `ext_product_apply_step`, K5-v1 as
@@ -369,6 +393,26 @@ STREAM_CHECK = 16    # TLWEs of the streamed packing1 switch held to K2's
 # N/4, mean square ~(N/4)^2/3 = 2^16.4) over N = 2048 coefficients gives
 # sigma ~(2^11 2^14/3 2^16.4)^(1/2) = 2^19.9 in u32 words; 2^25 is ~34 sigma
 PRIV_KS_BOUND_32 = 2.0**25
+# Phases 24-25: the rest of bootstrap and the applications.  FAMILY_REPS
+# warm calls timed per function; each call's plain route on the first
+# FAMILY_PLAIN ciphertexts (a plain K1 rotation takes ~5.5 s at L2 on one
+# H100); K1 on the TRGSW rows held over its first ROWS_CHECK_STEPS steps
+# (the plain version takes ~2 s per step on 4,096 rows); fdfb_ks21's torus
+# base and fdfb_clot21's precision (full_matrix_tpu.py:341-366);
+# bench_ufhe_batch.py's batch and precision
+FAMILY_REPS = 1
+FAMILY_PLAIN = 2
+ROWS_CHECK_STEPS = 8
+KS21_TB, CLOT21_PREC = 8, 4
+UFHE_BATCH, UFHE_PREC = 64, 6
+# CB v3's a rows are the private pair's switch of its b rows: the pair's
+# noise (its phase 22 output reached 2^45.2 on one TRLWE, one H100) and the b
+# rows' noise times the key, which the external product multiplies by
+# digits up to 2^8 over l N = 8,192 terms.  Its 512 x 2,048 outputs
+# reached 2^59.2 (measured on one H100) where v1's reach ~2^53: 2^60 for
+# v3.  The TPU package checks v3 only at TOY, N = 64, against 2^59
+# (tests/test_advanced.py:75-97).
+CB3_BOUND = 2.0**60
 # No PyTorch call computes the key-switch select-sum on int64 CUDA tensors.
 KS_LIBRARY_NOTE = ("none: torch.sparse.mm of the one-hot digits and the "
                    "table raises \"addmm_sparse_cuda\" not implemented for "
@@ -1629,7 +1673,9 @@ def ks_family_phase(p, key_trlwe, gk, gen, dev, max_clock):
     13, the plain route's words).  Keygen seconds and bytes of the seeded
     and the expanded table, warm ms of `tlwe_mul` (both keys),
     `priv_keyswitch_2` and the streamed apply, and the peak device memory.
-    Returns the report, the paths' counts and the kernel runs."""
+    Returns the report, the paths' counts, the kernel runs and the keys the
+    bootstrap family (phase 23) reuses: the dense packing1 table, the
+    relinearization key and the pair."""
     from mosfhet_torch import keyswitch, polynomial, product, rng, tlwe, \
         torus, trgsw, trlwe
     from mosfhet_torch.ops import pbs_kernel as pk
@@ -1805,9 +1851,9 @@ def ks_family_phase(p, key_trlwe, gk, gen, dev, max_clock):
         f"{KS_B_TO_A_EXP}, {rep['ks_b_to_a_ms']:.3f} ms (2 K6); all "
         f"bit-exact to their plain versions; peak "
         f"{rep['peak_bytes'] / 2**30:.2f} GiB")
-    del pair, rlk, seeded, dense, cs, x, cb, pb, g, gb
+    del seeded, cs, x, cb, pb, g, gb
     torch.cuda.empty_cache()
-    return rep, counts, runs
+    return rep, counts, runs, {"packing1": dense, "rlk": rlk, "pair": pair}
 
 
 def ks_family32_phase(p, key_trlwe, gen, dev, max_clock):
@@ -1818,13 +1864,14 @@ def ks_family32_phase(p, key_trlwe, gen, dev, max_clock):
     its plain version on each path's inputs and timed; priv_keyswitch_2 of
     512 TRLWEs (2 one-limb K6 launches, the plain route's words, decrypt
     within PRIV_KS_BOUND_32), K6 held and timed on its first launch's
-    inputs.  Returns the report, the counts and the kernel runs."""
+    inputs.  Returns the report, the counts, the kernel runs and the two
+    tables, which the bootstrap family's L2_32 part reuses."""
     from mosfhet_torch import keyswitch, polynomial, rng, tlwe, trlwe
     from mosfhet_torch.ops import pbs_kernel as pk
 
     N, t, bb = p.N, p.t, p.base_bit
     key_out = trlwe.extract_tlwe_key(key_trlwe)
-    counts, runs, rep = {}, {}, {}
+    counts, runs, rep, tables = {}, {}, {}, {}
     torch.cuda.reset_peak_memory_stats()
     m = rng.uniform_torus(gen, (BATCH,), dev)
     cs = tlwe.encrypt(m, key_out, gen)
@@ -1871,7 +1918,8 @@ def ks_family32_phase(p, key_trlwe, gen, dev, max_clock):
                      "decrypt_max_err_log2": math.log2(max(e, 1.0)),
                      "k2_ms": k2_run["ms"], "k2_plain_ms": plain_ms,
                      "k2_bound_ms": k2_run["bound"]["bound_ms"]}
-        del ksk, out, dig, ab, sub_k, sub_p
+        tables[path] = ksk
+        del out, dig, ab, sub_k, sub_p
         torch.cuda.empty_cache()
     pair = keyswitch.new_priv_ks_key_pair(key_trlwe, key_trlwe, t, bb, gen,
                                           dev)
@@ -1921,6 +1969,750 @@ def ks_family32_phase(p, key_trlwe, gen, dev, max_clock):
         f"bit-exact; decrypt OK; peak {rep['peak_bytes'] / 2**30:.2f} GiB")
     del pair, cb, pb, pw, x, cs
     torch.cuda.empty_cache()
+    return rep, counts, runs, tables
+
+
+def head_words(out, n):
+    """The word tensors of the first n ciphertexts of an output: a TLWE or
+    TRLWE (a, b), a TRGSW (rows), or a list of them."""
+    if isinstance(out, (list, tuple)):
+        return [w for o in out for w in head_words(o, n)]
+    if hasattr(out, "rows"):
+        return [out.rows[:n]]
+    return [out.a[:n], out.b[:n]]
+
+
+def first_cts(c, n):
+    from mosfhet_torch import tlwe
+    return tlwe.TLWE(a=c.a[:n].contiguous(), b=c.b[:n].contiguous())
+
+
+def err_log2(e):
+    return math.log2(max(e, 1.0))
+
+
+def run_family(pk, name, fn, c, want, counts, rep, plain_n=FAMILY_PLAIN):
+    """``fn(c)`` for the batch ``c``: the counts zeroed just before and read
+    just after must be exactly ``want``; then one warm call timed, and the
+    whole call with the plain versions on the first ``plain_n`` ciphertexts
+    (0: none), which must give the same words.  Returns the output."""
+    zero_counts(pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(c)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts[name] = read_counts(pk)
+    check_counts(name, counts[name], want)
+    warm_ms, _ = cuda_ms(lambda: fn(c), FAMILY_REPS)
+    r = {"first_call_s": first_s, "warm_ms": warm_ms,
+         "batch": int(c.b.shape[0])}
+    if plain_n:
+        few = first_cts(c, plain_n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with plain_kernels(pk):
+            ref = fn(few)
+        torch.cuda.synchronize()
+        r["plain_first2_s"] = time.perf_counter() - t0
+        for g, w in zip(head_words(out, plain_n), head_words(ref, plain_n)):
+            same_or_fail(f"{name} on the first {plain_n} ciphertexts vs its "
+                         f"plain route", g, w)
+    rep[name] = r
+    return out
+
+
+def boot_family_phase(p, key_tlwe, key_trlwe, gk, bk, tv, luts, gen, dev,
+                      max_clock, ks_keys):
+    """Phase 23: the rest of `bootstrap` at TFHEpp-L2 on phase 4's keys,
+    phase 22's dense packing1 table, relinearization key and private KS
+    pair, and a dense private-SK table (t=8, base_bit=4) made here.
+    (a) The four matrix ops of `benchmarks/full_matrix_tpu.py` as it runs
+    them, one ciphertext each: trgsw_bootstrap (m = 2/8, torus base 4,
+    within 2^59 of luts[2]), fdfb_ks21 (8 LUT values each repeated 2N/8
+    times, m = 5, torus base 8, within 2^58), fdfb_clot21 (precision 4,
+    m = 6, within 2^59), circuit_bootstrap v1 (m = 1/4, then
+    `trgsw.external_product` of a TRLWE of a uniform message, within 2^59
+    of it).  (b) B = 512 ciphertexts of every message through each function
+    (`run_family`: the launch counts of PERF.md's table exactly, the
+    decrypt bounds above, the warm ms, and the plain route on the first 2
+    ciphertexts giving the same words), with public_mux on 512 selectors
+    (no kernel, within 2^56) and phase 2 for one and for 4 LUTs (no
+    kernel, within 2^58).  (c) K1 on the TRGSW bootstrap's 4,096 rows
+    timed at full depth beside its bound and held bit-exact to its plain
+    version over the first ROWS_CHECK_STEPS steps (the plain version takes
+    about 2 s per step on 4,096 rows); K2 on CB v1's private-SK rows (n+1 =
+    2,049 rows of 4,096 words) held and timed.  Frees the tables.  Returns
+    the report, the counts and the kernel runs."""
+    from mosfhet_torch import bootstrap, keyswitch, rng, tlwe, torus, \
+        trgsw, trlwe
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    t_phase = time.perf_counter()
+    N, k, l, bg = p.N, p.k, p.l, p.Bg_bit
+    key_out = trlwe.extract_tlwe_key(key_trlwe)
+    p1, rlk, pair = ks_keys["packing1"], ks_keys["rlk"], ks_keys["pair"]
+    counts, runs, rep = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kska = keyswitch.new_priv_sk_ks_key(key_trlwe, key_out, p.t, p.base_bit,
+                                        gen, dev)
+    torch.cuda.synchronize()
+    rep["priv_sk_keygen_s"] = time.perf_counter() - t0
+    rep["priv_sk_bytes"] = kska.table.numel() * 8
+    rep["packing1_bytes"] = p1.table.numel() * 8
+
+    def enc(m):
+        return tlwe.encrypt(m, key_tlwe, gen)
+
+    def err(ph, want):
+        return signed_max_abs(ph - want)
+
+    def bounded(what, e, bound):
+        if not e <= bound:
+            fail(f"{what}: max error 2^{err_log2(e):.1f} > "
+                 f"2^{math.log2(bound):.0f}")
+        return err_log2(e)
+
+    def cb_err(g, ctrl, want):
+        out = trgsw.external_product(ctrl, trgsw.to_dft(g, gk.plan()))
+        return err(trlwe.phase(out, key_trlwe), want)
+
+    # (a) the matrix ops, one ciphertext each
+    matrix = {}
+    cm = enc(torus.double2torus(torch.tensor(2 / 8.0)))
+    g = bootstrap.functional_bootstrap_trgsw_phase1(cm, bk, 4, l, bg)
+    out = bootstrap.functional_bootstrap_trgsw_phase2(g, tv)
+    matrix["trgsw_bootstrap"] = bounded(
+        "matrix trgsw_bootstrap", err(tlwe.phase(out, key_out), luts[2]),
+        2.0**59)
+    luts8 = rng.uniform_torus(gen, (8,), dev)
+    tvp = torch.repeat_interleave(luts8, (2 * N) // 8)
+    cm = enc(torus.int2torus(torch.tensor(5, device=dev), 3))
+    out = bootstrap.fdfb_ks21(tvp, cm, bk, p1, KS21_TB)
+    matrix["fdfb_ks21"] = bounded(
+        "matrix fdfb_ks21", err(tlwe.phase(out, key_out), luts8[5]), 2.0**58)
+    lutsq = torus.int2torus(rng.uniform_torus(gen, (8,), dev) & 15,
+                            CLOT21_PREC)
+    tv0 = trlwe.torus_packing(lutsq[:4], k, N)
+    tv1 = trlwe.torus_packing(lutsq[4:], k, N)
+    cm = enc(torus.int2torus(torch.tensor(6, device=dev), 3))
+    out = bootstrap.fdfb_clot21(tv0, tv1, cm, bk, p1, rlk, CLOT21_PREC)
+    matrix["fdfb_clot21"] = bounded(
+        "matrix fdfb_clot21", err(tlwe.phase(out, key_out), lutsq[6]),
+        2.0**59)
+    m0 = rng.uniform_torus(gen, (N,), dev)
+    ctrl = trlwe.encrypt(m0, key_trlwe, gen)
+    cm = enc(torus.double2torus(torch.tensor(1 / 4.0)))
+    g = bootstrap.circuit_bootstrap(cm, bk, kska, p1, l, bg)
+    matrix["circuit_bootstrap"] = bounded("matrix circuit_bootstrap",
+                                          cb_err(g, ctrl, m0), 2.0**59)
+    log(f"# L2 matrix ops trgsw_bootstrap, fdfb_ks21, fdfb_clot21, "
+        f"circuit_bootstrap pass: max err "
+        + ", ".join(f"2^{v:.1f}" for v in matrix.values())
+        + " (bounds 2^59, 2^58, 2^59, 2^59)")
+    rep["matrix_err_log2"] = matrix
+
+    # (b) B = 512 ciphertexts of every message through each function
+    idx = torch.arange(BATCH, device=dev)
+    m4, bits, m8 = idx % 4, idx % 2, idx % 8
+    c4 = enc(torus.double2torus(m4.to(torch.float64) / 8.0))
+    cbits = enc(torus.double2torus(bits.to(torch.float64) / 4.0))
+    c8 = enc(torus.int2torus(m8, 3))
+    errs = {}
+    K1, K2, K3, K6 = ("blind_rotate_scan", "tlwe_keyswitch_sum",
+                      "ext_product_apply_scan", "auto_keyswitch_stream")
+
+    out = run_family(pk, "trgsw_bootstrap", lambda c: (
+        bootstrap.functional_bootstrap_trgsw_phase2(
+            bootstrap.functional_bootstrap_trgsw_phase1(c, bk, 4, l, bg),
+            tv)), c4, {K1: 1, K3: 1}, counts, rep)
+    errs["trgsw_bootstrap"] = bounded(
+        "trgsw_bootstrap", err(tlwe.phase(out, key_out), luts[m4]), 2.0**59)
+    want_cb = m0 * bits[:, None]
+    for name, fn, ka, want, cb_bound in (
+            ("circuit_bootstrap", bootstrap.circuit_bootstrap, kska,
+             {K1: l, K2: 2 * l}, 2.0**59),
+            ("circuit_bootstrap_2", bootstrap.circuit_bootstrap_2, kska,
+             {K1: 1, K2: 2 * l}, 2.0**59),
+            ("circuit_bootstrap_3", bootstrap.circuit_bootstrap_3, pair,
+             {K1: 1, K2: l, K6: 2 * l}, CB3_BOUND)):
+        g = run_family(pk, name, lambda c, fn=fn, ka=ka: fn(
+            c, bk, ka, p1, l, bg), cbits, want, counts, rep)
+        errs[name] = bounded(name, cb_err(g, ctrl, want_cb), cb_bound)
+    for name, many, want in (("fdfb_ks21", True, {K1: 2, K2: l}),
+                             ("fdfb_ks21_single", False, {K1: l + 1,
+                                                          K2: l})):
+        out = run_family(pk, name, lambda c, many=many: bootstrap.fdfb_ks21(
+            tvp, c, bk, p1, KS21_TB, use_many_lut=many), c8, want, counts,
+            rep)
+        errs[name] = bounded(name, err(tlwe.phase(out, key_out), luts8[m8]),
+                             2.0**58)
+    for name, fn, want in (
+            ("fdfb_clot21", lambda c: bootstrap.fdfb_clot21(
+                tv0, tv1, c, bk, p1, rlk, CLOT21_PREC), {K1: 3, K2: 2,
+                                                         K6: 2}),
+            ("fdfb_clot21_2", lambda c: bootstrap.fdfb_clot21_2(
+                lutsq, c, bk, p1, rlk, CLOT21_PREC), {K1: 1, K2: 2, K6: 2})):
+        out = run_family(pk, name, fn, c8, want, counts, rep)
+        errs[name] = bounded(name, err(tlwe.phase(out, key_out), lutsq[m8]),
+                             2.0**59)
+    tvm = trlwe.torus_packing_many_lut(luts8, 4, 2, k, N)
+    outs = run_family(pk, "multivalue_CLOT21", lambda c: (
+        bootstrap.multivalue_bootstrap_CLOT21(tvm, c, bk, 4, 2)), c4,
+        {K1: 1}, counts, rep)
+    errs["multivalue_CLOT21"] = bounded("multivalue_CLOT21", max(
+        err(tlwe.phase(o, key_out), luts8[4 * j + m4])
+        for j, o in enumerate(outs)), 2.0**58)
+    rot = run_family(pk, "multivalue_phase1", lambda c: (
+        bootstrap.multivalue_bootstrap_phase1(c, bk, 4)), c4, {K1: 1},
+        counts, rep)
+    lut_tables = [[1, 0, 3, 2], [3, 0, 2, 1], [1, 1, 2, 3], [0, 3, 3, 0]]
+    zero_counts(pk)
+    o1 = bootstrap.multivalue_bootstrap_phase2(lut_tables[0], rot, 4, 2)
+    om = bootstrap.multivalue_bootstrap_phase2_many(lut_tables, rot, 4, 2)
+    torch.cuda.synchronize()
+    counts["multivalue_phase2"] = read_counts(pk)
+    check_counts("multivalue_phase2", counts["multivalue_phase2"], {})
+    rep["multivalue_phase2_ms"] = cuda_ms(
+        lambda: bootstrap.multivalue_bootstrap_phase2(lut_tables[0], rot, 4,
+                                                      2), FAMILY_REPS)[0]
+    rep["multivalue_phase2_many_ms"] = cuda_ms(
+        lambda: bootstrap.multivalue_bootstrap_phase2_many(lut_tables, rot,
+                                                           4, 2),
+        FAMILY_REPS)[0]
+    e2 = err(tlwe.phase(o1, key_out), torus.double2torus(
+        torch.tensor(lut_tables[0], device=dev)[m4] / 8.0))
+    for i, lv in enumerate(lut_tables):
+        want = torus.double2torus(torch.tensor(lv, device=dev)[m4] / 8.0)
+        e2 = max(e2, err(tlwe.phase(tlwe.TLWE(a=om.a[i], b=om.b[i]),
+                                    key_out), want))
+    errs["multivalue_phase2"] = bounded("multivalue_phase2", e2, 2.0**58)
+    # public_mux on 512 selectors TRLWE(bit h_i)
+    plan = key_trlwe.plan()
+    q0 = rng.uniform_torus(gen, (N,), dev)
+    q1 = rng.uniform_torus(gen, (N,), dev)
+    rows = []
+    for i in range(l):
+        m = torch.zeros((BATCH, N), dtype=torus.TORUS_DTYPE, device=dev)
+        m[:, 0] = bits * torus.to_signed(1 << (64 - (i + 1) * bg))
+        rows.append(trlwe.to_dft(trlwe.encrypt(m, key_trlwe, gen), plan).v)
+    sel_v = torch.stack(rows, dim=-4)
+    zero_counts(pk)
+    out = bootstrap.public_mux(q0, q1, sel_v, l, bg, k, N, plan.primes)
+    torch.cuda.synchronize()
+    counts["public_mux"] = read_counts(pk)
+    check_counts("public_mux", counts["public_mux"], {})
+    rep["public_mux_ms"] = cuda_ms(lambda: bootstrap.public_mux(
+        q0, q1, sel_v, l, bg, k, N, plan.primes), FAMILY_REPS)[0]
+    errs["public_mux"] = bounded("public_mux", err(
+        trlwe.phase(out, key_trlwe),
+        torch.where(bits[:, None] == 1, q1, q0)), 2.0**56)
+    del sel_v, rows, rot, outs, o1, om
+    rep["decrypt_max_err_log2"] = errs
+
+    # (c) K1 on the TRGSW bootstrap's rows, K2 on CB v1's private-SK rows
+    log_N2 = int(math.log2(2 * N))
+    b_int = torus.torus2int(c4.b + bootstrap._prec_offset(4), log_N2)
+    tg = trgsw.mul_by_xai(trgsw.noiseless_trivial(1, l, bg, k, N, dev),
+                          2 * N - b_int)
+    R = tg.rows.shape[-3]
+    acc0, a_int, _ = bootstrap.blind_rotate_inputs(
+        trlwe.from_stacked(tg.rows), c4.a.unsqueeze(-2).expand(
+            BATCH, R, c4.a.shape[-1]), bk)
+    kp = bk.kernel_plan()
+    key_bytes = (bk.v32.numel() + bk.vs32.numel()) * 4
+    pk.blind_rotate_scan(acc0, a_int, bk.v32, bk.vs32, kp)
+    k1_ms, _ = cuda_ms(lambda: pk.blind_rotate_scan(
+        acc0, a_int, bk.v32, bk.vs32, kp), REPS)
+    S = ROWS_CHECK_STEPS
+    got = pk.blind_rotate_scan(acc0, a_int[:S], bk.v32[:S], bk.vs32[:S], kp)
+    p_ms, want = cuda_ms(lambda: pk.blind_rotate_scan_plain(
+        acc0, a_int[:S], bk.v32[:S], bk.vs32[:S], kp), 1)
+    same_or_fail(f"K1 on the TRGSW rows' first {S} steps vs plain", got,
+                 want)
+    bound = rotation_bound_ms(kp, bk.n, acc0.shape[0], key_bytes, max_clock)
+    runs["blind_rotate_scan/trgsw_rows"] = {
+        "ms": k1_ms, "plain_ms": p_ms, "plain_steps": S, "max_abs_err": 0.0,
+        "rows": int(acc0.shape[0]), "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"]}
+    lut0 = torch.tensor([0, bootstrap._gadget_h(0, bg)],
+                        dtype=torus.TORUS_DTYPE, device=dev)
+    tmp = bootstrap.functional_bootstrap(trlwe.torus_packing(lut0, k, N),
+                                         cbits, bk, 2)
+    Rk, base_m1 = kska.table.shape[0], kska.table.shape[2]
+    ab = kska.table.reshape(Rk, p.t, base_m1, -1)
+    dig = keyswitch._gather_digits(torch.cat([tmp.a, tmp.b[:, None]], 1), Rk,
+                                   p.t, p.base_bit)
+    k2_run, sub_k = k2_report(pk, "L2 priv-SK (CB v1)", dig, ab, max_clock)
+    k2_plain_ms, sub_p = cuda_ms(lambda: pk.tlwe_keyswitch_sum_plain(dig, ab),
+                                 1)
+    same_or_fail("K2 vs plain on CB v1's private-SK rows", sub_k, sub_p)
+    runs["tlwe_keyswitch_sum/priv_sk"] = {
+        "ms": k2_run["ms"], "plain_ms": k2_plain_ms, "max_abs_err": 0.0,
+        "bound_ms": k2_run["bound"]["bound_ms"],
+        "bound_by": k2_run["bound"]["bound_by"], "rows": Rk,
+        "width": ab.shape[-1], "schedule": k2_run["schedule"]}
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+    r1 = runs["blind_rotate_scan/trgsw_rows"]
+    log(f"# L2 K1 on {r1['rows']} TRGSW rows: {k1_ms:.3f} ms (bound "
+        f"{r1['bound_ms']:.3f}, {r1['bound_by']}); plain on the first {S} "
+        f"steps {p_ms:.1f} ms, bit-exact; K2 on the private-SK table "
+        f"({Rk} rows of {ab.shape[-1]} words) {k2_run['ms']:.4f} ms (bound "
+        f"{k2_run['bound']['bound_ms']:.4f}, plain {k2_plain_ms:.2f}), "
+        f"bit-exact")
+    log("# L2 bootstrap family at B=512: " + "; ".join(
+        f"{name} {r['warm_ms']:.1f} ms (plain route on 2: "
+        f"{r.get('plain_first2_s', 0):.1f} s)" for name, r in rep.items()
+        if isinstance(r, dict) and "warm_ms" in r)
+        + f"; decrypt max err " + ", ".join(
+            f"{n} 2^{v:.1f}" for n, v in errs.items())
+        + f"; private-SK keygen {rep['priv_sk_keygen_s']:.2f} s, "
+          f"{rep['priv_sk_bytes'] / 1e9:.2f} GB; peak "
+          f"{rep['peak_bytes'] / 2**30:.2f} GiB")
+    del kska, acc0, a_int, got, want, dig, ab, sub_k, sub_p, tg
+    ks_keys.clear()
+    torch.cuda.empty_cache()
+    rep["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 23 (bootstrap family): {rep['seconds']:.1f} s")
+    return rep, counts, runs
+
+
+def boot_family32_phase(p, key_tlwe, key_trlwe, gk, bk, luts, gen, dev,
+                        max_clock, tables):
+    """Phase 23's L2_32 part, in the phase-20 child (l=3, Bg_bit=7, N=2048;
+    the packing1 and private-SK tables of phase 22's L2_32 part, t=6,
+    base_bit=4), B = 512 ciphertexts of every message: the TRGSW bootstrap
+    (1 K1 + 1 K3), the circuit bootstrap v1 (3 K1 + 6 K2), fdfb_ks21 with a
+    bootstrap per level (4 K1 + 3 K2), multi-value CLOT21 and phase 1 (1
+    K1 each), phase 2 and public_mux (no kernel), each through the
+    one-limb kernels with the launch counts exact; multi-value CLOT21
+    within 2^26 (the PBS's bound: the same rotation), phase 2 within 2^28
+    (half the 2^29 spacing of its digit values) and public_mux within 2^28
+    (the TPU suite's).  The TRGSW bootstrap, CB v1 and fdfb_ks21 carry a
+    rotated ciphertext's noise (sigma ~2^23.7 at L2_32) times gadget digits
+    up to 2^6 over (k+1)l N terms (~2^12) into their outputs, past what
+    the 32-bit torus holds (in the TPU package too: the same words): their
+    errors are reported, not bounded.  CB v2/v3 and fdfb_ks21's many-LUT
+    form need 2l and l torus_base / 2 to divide N, which l = 3 does not;
+    fdfb_clot21 and _2 raise NotImplementedError (64-bit only), checked
+    here before any launch.  One-limb K1 on the TRGSW bootstrap's 4,096
+    rows (timed at full depth, held over the first ROWS_CHECK_STEPS
+    steps) and one-limb K2 on CB v1's private-SK rows, held and timed.
+    Frees the tables.  Returns the report, the counts and the kernel
+    runs."""
+    from mosfhet_torch import bootstrap, keyswitch, rng, tlwe, torus, \
+        trgsw, trlwe
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    t_phase = time.perf_counter()
+    N, k, l, bg = p.N, p.k, p.l, p.Bg_bit
+    key_out = trlwe.extract_tlwe_key(key_trlwe)
+    p1, kska = tables["packing1_batch"], tables["priv_sk_batch"]
+    counts, runs, rep, errs = {}, {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    K1, K2, K3 = ("blind_rotate_scan", "tlwe_keyswitch_sum",
+                  "ext_product_apply_scan")
+
+    def err(ph, want):
+        return signed_max_abs(ph - want)
+
+    def bounded(what, e, bound):
+        if not e <= bound:
+            fail(f"L2_32 {what}: max error 2^{err_log2(e):.1f} > "
+                 f"2^{math.log2(bound):.0f}")
+        return err_log2(e)
+
+    idx = torch.arange(BATCH, device=dev)
+    m4, bits, m8 = idx % 4, idx % 2, idx % 8
+    c4 = tlwe.encrypt(torus.double2torus(m4.to(torch.float64) / 8.0),
+                      key_tlwe, gen)
+    cbits = tlwe.encrypt(torus.double2torus(bits.to(torch.float64) / 4.0),
+                         key_tlwe, gen)
+    c8 = tlwe.encrypt(torus.int2torus(m8, 3), key_tlwe, gen)
+    tv = trlwe.torus_packing(luts, k, N)
+    out = run_family(pk, "trgsw_bootstrap", lambda c: (
+        bootstrap.functional_bootstrap_trgsw_phase2(
+            bootstrap.functional_bootstrap_trgsw_phase1(c, bk, 4, l, bg),
+            tv)), c4, {K1: 1, K3: 1}, counts, rep, 0)
+    errs["trgsw_bootstrap"] = err_log2(err(tlwe.phase(out, key_out),
+                                           luts[m4]))
+    m0 = rng.uniform_torus(gen, (N,), dev)
+    ctrl = trlwe.encrypt(m0, key_trlwe, gen)
+    g = run_family(pk, "circuit_bootstrap", lambda c: (
+        bootstrap.circuit_bootstrap(c, bk, kska, p1, l, bg)), cbits,
+        {K1: l, K2: 2 * l}, counts, rep, 0)
+    out = trgsw.external_product(ctrl, trgsw.to_dft(g, gk.plan()))
+    errs["circuit_bootstrap"] = err_log2(err(trlwe.phase(out, key_trlwe),
+                                             m0 * bits[:, None]))
+    luts8 = rng.uniform_torus(gen, (8,), dev)
+    tvp = torch.repeat_interleave(luts8, (2 * N) // 8)
+    out = run_family(pk, "fdfb_ks21_single", lambda c: bootstrap.fdfb_ks21(
+        tvp, c, bk, p1, KS21_TB, use_many_lut=False), c8,
+        {K1: l + 1, K2: l}, counts, rep, 0)
+    errs["fdfb_ks21_single"] = err_log2(err(tlwe.phase(out, key_out),
+                                            luts8[m8]))
+    tvm = trlwe.torus_packing_many_lut(luts8, 4, 2, k, N)
+    outs = run_family(pk, "multivalue_CLOT21", lambda c: (
+        bootstrap.multivalue_bootstrap_CLOT21(tvm, c, bk, 4, 2)), c4,
+        {K1: 1}, counts, rep, 0)
+    errs["multivalue_CLOT21"] = bounded("multivalue_CLOT21", max(
+        err(tlwe.phase(o, key_out), luts8[4 * j + m4])
+        for j, o in enumerate(outs)), DECRYPT_BOUND_32)
+    rot = run_family(pk, "multivalue_phase1", lambda c: (
+        bootstrap.multivalue_bootstrap_phase1(c, bk, 4)), c4, {K1: 1},
+        counts, rep, 0)
+    lv = [1, 0, 3, 2]
+    zero_counts(pk)
+    o2 = bootstrap.multivalue_bootstrap_phase2(lv, rot, 4, 2)
+    torch.cuda.synchronize()
+    counts["multivalue_phase2"] = read_counts(pk)
+    check_counts("L2_32 multivalue_phase2", counts["multivalue_phase2"], {})
+    errs["multivalue_phase2"] = bounded("multivalue_phase2", err(
+        tlwe.phase(o2, key_out), torus.double2torus(
+            torch.tensor(lv, device=dev)[m4] / 8.0)), 2.0**28)
+    plan = key_trlwe.plan()
+    q0 = rng.uniform_torus(gen, (N,), dev)
+    q1 = rng.uniform_torus(gen, (N,), dev)
+    rows = []
+    for i in range(l):
+        m = torch.zeros((BATCH, N), dtype=torus.TORUS_DTYPE, device=dev)
+        m[:, 0] = (bits * (1 << (32 - (i + 1) * bg))).to(torus.TORUS_DTYPE)
+        rows.append(trlwe.to_dft(trlwe.encrypt(m, key_trlwe, gen), plan).v)
+    zero_counts(pk)
+    out = bootstrap.public_mux(q0, q1, torch.stack(rows, dim=-4), l, bg, k,
+                               N, plan.primes)
+    torch.cuda.synchronize()
+    counts["public_mux"] = read_counts(pk)
+    check_counts("L2_32 public_mux", counts["public_mux"], {})
+    errs["public_mux"] = bounded("public_mux", err(
+        trlwe.phase(out, key_trlwe), torch.where(bits[:, None] == 1, q1, q0)),
+        2.0**28)
+    for name in ("fdfb_clot21", "fdfb_clot21_2"):
+        zero_counts(pk)
+        try:
+            getattr(bootstrap, name)(*([None] * (7 if name[-1] == "1"
+                                                 else 6)))
+            fail(f"L2_32 {name} did not raise NotImplementedError")
+        except NotImplementedError:
+            pass
+        check_counts(f"L2_32 {name}", read_counts(pk), {})
+    del rows, rot, outs, o2
+    rep["decrypt_max_err_log2"] = errs
+    # one-limb K1 on the TRGSW rows, one-limb K2 on CB v1's private-SK rows
+    log_N2 = int(math.log2(2 * N))
+    b_int = torus.torus2int(c4.b + bootstrap._prec_offset(4), log_N2)
+    tg = trgsw.mul_by_xai(trgsw.noiseless_trivial(1, l, bg, k, N, dev),
+                          2 * N - b_int)
+    R = tg.rows.shape[-3]
+    acc0, a_int, _ = bootstrap.blind_rotate_inputs(
+        trlwe.from_stacked(tg.rows), c4.a.unsqueeze(-2).expand(
+            BATCH, R, c4.a.shape[-1]), bk)
+    kp = bk.kernel_plan()
+    pk.blind_rotate_scan(acc0, a_int, bk.v32, bk.vs32, kp)
+    k1_ms, _ = cuda_ms(lambda: pk.blind_rotate_scan(
+        acc0, a_int, bk.v32, bk.vs32, kp), REPS)
+    S = ROWS_CHECK_STEPS
+    got = pk.blind_rotate_scan(acc0, a_int[:S], bk.v32[:S], bk.vs32[:S], kp)
+    p_ms, want = cuda_ms(lambda: pk.blind_rotate_scan_plain(
+        acc0, a_int[:S], bk.v32[:S], bk.vs32[:S], kp), 1)
+    same_or_fail(f"one-limb K1 on the TRGSW rows' first {S} steps vs plain",
+                 got, want)
+    bound = rotation_bound_ms(kp, bk.n, acc0.shape[0],
+                              (bk.v32.numel() + bk.vs32.numel()) * 4,
+                              max_clock)
+    runs["blind_rotate_scan/trgsw_rows"] = {
+        "ms": k1_ms, "plain_ms": p_ms, "plain_steps": S, "max_abs_err": 0.0,
+        "rows": int(acc0.shape[0]), "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"]}
+    lut0 = torch.tensor([0, bootstrap._gadget_h(0, bg)],
+                        dtype=torus.TORUS_DTYPE, device=dev)
+    tmp = bootstrap.functional_bootstrap(trlwe.torus_packing(lut0, k, N),
+                                         cbits, bk, 2)
+    Rk, base_m1 = kska.table.shape[0], kska.table.shape[2]
+    ab = kska.table.reshape(Rk, p.t, base_m1, -1)
+    dig = keyswitch._gather_digits(torch.cat([tmp.a, tmp.b[:, None]], 1), Rk,
+                                   p.t, p.base_bit)
+    k2_run, sub_k = k2_report(pk, "L2_32 priv-SK (CB v1)", dig, ab,
+                              max_clock)
+    k2_plain_ms, sub_p = cuda_ms(lambda: pk.tlwe_keyswitch_sum_plain(dig, ab),
+                                 1)
+    same_or_fail("one-plane K2 vs plain on CB v1's private-SK rows", sub_k,
+                 sub_p)
+    runs["tlwe_keyswitch_sum/priv_sk"] = {
+        "ms": k2_run["ms"], "plain_ms": k2_plain_ms, "max_abs_err": 0.0,
+        "bound_ms": k2_run["bound"]["bound_ms"],
+        "bound_by": k2_run["bound"]["bound_by"], "rows": Rk,
+        "width": ab.shape[-1], "schedule": k2_run["schedule"]}
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rep["seconds"] = time.perf_counter() - t_phase
+    log(f"# L2_32 bootstrap family at B={BATCH}: " + "; ".join(
+        f"{name} {r['warm_ms']:.1f} ms" for name, r in rep.items()
+        if isinstance(r, dict) and "warm_ms" in r)
+        + "; decrypt max err " + ", ".join(
+            f"{n} 2^{v:.1f}" for n, v in errs.items())
+        + f"; one-limb K1 on {acc0.shape[0]} rows {k1_ms:.3f} ms (bound "
+          f"{bound['bound_ms']:.3f}), K2 on the private-SK rows "
+          f"{k2_run['ms']:.4f} ms, both bit-exact; "
+          f"{rep['seconds']:.1f} s")
+    del acc0, a_int, got, want, dig, ab, sub_k, sub_p, tg
+    tables.clear()
+    torch.cuda.empty_cache()
+    return rep, counts, runs
+
+
+def etl_launches(S, tb):
+    """(K1, K2) launches of `ufhe.encrypted_tlwe_lut` on S entries: per
+    level one key switch of the selector's digit, then per group of tb
+    entries one LUT packing switch and one bootstrap."""
+    k1 = k2 = 0
+    while S > 1:
+        k1 += S // tb
+        k2 += 1 + S // tb
+        S //= tb
+    return k1, k2
+
+
+def ufhe_launches(op, d, out_d, tb):
+    """(K1, K2) launches of the ufhe op on unsigned integers of d digits
+    (relu: signed), derived from `mosfhet_torch/apps/ufhe.py`: every carry
+    bootstrap is 1 K2 (the key switch back to the LWE key) + 1 K1, a
+    multi-value phase 1 is 1 K1, a LUT packing switch 1 K2."""
+    if op == "add":                       # sl_add_integer, g = h = 0
+        n = min(d + 1, out_d)
+        return n, n
+    if op == "sub":
+        return out_d, out_d
+    if op == "cmp":                       # switch, packing, bootstrap per digit
+        return d, 2 * d
+    if op == "relu":                      # one switch; d - 1 packings; d boots
+        return d, d
+    if op == "mul":
+        size = min(2 * d + 1, out_d)
+        k1 = k2 = 0
+        for i in range(d):
+            js = min(d, max(0, size - i))
+            carries = max(0, min(d + 1 + i + 1, out_d) - i)
+            k1 += 1 + 2 * js + d + carries      # phase 1, two LUTs per digit
+            k2 += 1 + 2 + js + d + carries      # switch, two packings, ...
+        return k1, k2
+    if op == "lut":                       # phase 1, then a tree per digit
+        e1, e2 = etl_launches(tb ** d // tb, tb)
+        return 1 + out_d * e1, 1 + out_d * e2
+    if op == "mux":                       # a tree over tb entries per digit
+        e1, e2 = etl_launches(tb, tb)
+        return out_d * e1, out_d * e2
+    raise ValueError(op)
+
+
+def apps_phase(p_l2, gk_l2, key_trlwe_l2, gen, dev, max_clock):
+    """Phase 24: the applications.  ufhe at UFHE_SET0 (n=630, N=2048, l=6,
+    Bg_bit=7, t=6, base_bit=2, torus base 4): the port's keygens (seconds,
+    bytes; the LUT packing table 2,048 x 4 x 6 x 3 rows of 4,096 words),
+    then UFHE_BATCH pairs of UFHE_PREC-bit integers (3 digits; the defaults
+    of `benchmarks/bench_ufhe_batch.py`) through add (4 digits), sub (3),
+    mul (6), cmp, relu (signed), lut_integer (a 64-entry LUT, 3 digits) and
+    mux_integer_array (a 1-digit selector over 4 integers, 3 digits): every
+    element decrypts to its cleartext result; counts zeroed just before
+    each op and read just after equal `ufhe_launches` exactly; warm ms per
+    op.  K1 at l=6 (J = 12 rows) held bit-exact to its plain version on
+    add's first carry bootstrap (64 ciphertexts, full depth) and timed
+    beside its bound; K2 at base_bit=2 on add's first key switch (2,048
+    rows of 631 words) and on mux's first LUT packing switch (the 4
+    integers' digit 0: 8,192 rows of 4,096 words), each held and timed.  Then `apps.leveled_lut` at
+    TFHEpp-L2 on phase 4's TRGSW key: `eval_lut` of m = 1234 over an
+    N-entry LUT (1 K3 launch, within 2^57 of its value) and
+    `eval_lut_vertical` of m = 5000 over a 4N-entry LUT (2 K3 launches for
+    the CMUX tree, 1 K1 launch of log2 N steps; within 2^58).  Returns the
+    report, the counts and the kernel runs."""
+    from mosfhet_torch import bootstrap, params, tlwe, torus, trlwe
+    from mosfhet_torch.apps import leveled_lut, ufhe
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    t_phase = time.perf_counter()
+    p = params.UFHE_SET0
+    counts, runs, rep = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    priv = ufhe.new_priv_keyset(gen, p, dev)
+    pub = ufhe.new_public_keyset(gen, priv, torus_base=4, device=dev)
+    ctx = ufhe.setup_context(pub)
+    torch.cuda.synchronize()
+    rep["keygen_s"] = time.perf_counter() - t0
+    bk = pub.bootstrap_key
+    rep["key_bytes"] = {
+        "bootstrap": (bk.v32.numel() + bk.vs32.numel()) * 4,
+        "ks": pub.ks_key.ab.numel() * 8,
+        "lut_packing": pub.packing_key.table.numel() * 8}
+    rep["keygen_peak_bytes"] = torch.cuda.max_memory_allocated()
+    tb, lt = ctx.torus_base, ctx.log_torus_base
+    d = ufhe._n_digits(UFHE_PREC, ctx)
+    rs = np.random.default_rng(SEED + 25)
+    va = rs.integers(0, 1 << UFHE_PREC, UFHE_BATCH)
+    vb = rs.integers(0, 1 << UFHE_PREC, UFHE_BATCH)
+    vs_ = rs.integers(-(1 << (UFHE_PREC - 1)), 1 << (UFHE_PREC - 1),
+                      UFHE_BATCH)
+    vsel = rs.integers(0, tb, UFHE_BATCH)
+    lut = [int(x) for x in rs.integers(0, 1 << UFHE_PREC, 1 << UFHE_PREC)]
+
+    def enc(vals, digits, signed):
+        v = torch.from_numpy(np.asarray(vals) % (1 << (lt * digits))).to(dev)
+        digs = torch.stack([(v >> (i * lt)) & (tb - 1)
+                            for i in range(digits)])
+        c = tlwe.encrypt(ufhe._digit_torus(digs, ctx), priv.extracted, gen)
+        return ufhe.Integer(digits=c, signed=signed)
+
+    def dec(c):
+        ph = tlwe.phase(c.digits, priv.extracted)
+        vals = (torch.round(torus.torus2double(ph) * (2 * tb))
+                .to(torch.int64) % tb).cpu().numpy()
+        out = np.zeros(vals.shape[1], np.int64)
+        for i in range(vals.shape[0] - 1, -1, -1):
+            out = (out << lt) | vals[i]
+        if c.signed:
+            bits = lt * c.d
+            out = np.where(out >= 1 << (bits - 1), out - (1 << bits), out)
+        return out
+
+    a, b = enc(va, d, False), enc(vb, d, False)
+    sa = enc(vs_, d, True)
+    sel = enc(vsel, 1, False)
+    vec = [enc(rs.integers(0, 1 << UFHE_PREC, UFHE_BATCH), d, False)
+           for _ in range(tb)]
+    vec_vals = [dec(v) for v in vec]
+    ops = {
+        "add": (lambda: ufhe.add_integer(a, b, d + 1, ctx), d + 1,
+                (va + vb) % (1 << (lt * (d + 1)))),
+        "sub": (lambda: ufhe.sub_integer(a, b, d, ctx), d,
+                (va - vb) % (1 << UFHE_PREC)),
+        "mul": (lambda: ufhe.mul_integer(a, b, 2 * d, ctx), 2 * d,
+                (va * vb) % (1 << (2 * UFHE_PREC))),
+        "cmp": (lambda: ufhe.cmp_integer(a, b, ctx), 1,
+                np.where(va > vb, 2, np.where(va == vb, 1, 0))),
+        "relu": (lambda: ufhe.relu_integer(sa, ctx), d, np.maximum(vs_, 0)),
+        "lut": (lambda: ufhe.lut_integer(a, lut, 1 << UFHE_PREC, d, ctx), d,
+                np.asarray(lut)[va]),
+        "mux": (lambda: ufhe.mux_integer_array(sel, vec, d, ctx), d,
+                np.stack(vec_vals)[vsel, np.arange(UFHE_BATCH)])}
+    for name, (fn, out_d, want) in ops.items():
+        k1, k2 = ufhe_launches(name, d, out_d, tb)
+        zero_counts(pk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts[f"ufhe_{name}"] = read_counts(pk)
+        check_counts(f"ufhe {name}", counts[f"ufhe_{name}"],
+                     {"blind_rotate_scan": k1, "tlwe_keyswitch_sum": k2})
+        got = dec(out)
+        if not np.array_equal(got, want):
+            bad = int((got != want).sum())
+            fail(f"ufhe {name}: {bad} of {UFHE_BATCH} integers decrypt "
+                 f"wrong")
+        warm_ms, _ = cuda_ms(fn, FAMILY_REPS)
+        rep[name] = {"first_call_s": first_s, "warm_ms": warm_ms,
+                     "ms_per_integer_op": warm_ms / UFHE_BATCH,
+                     "launches": {"K1": k1, "K2": k2},
+                     "output_digits": out_d}
+    # K1 at l=6 on add's first carry bootstrap; K2 at base_bit=2
+    d0 = tlwe.add(ufhe._digit(a, 0), ufhe._digit(b, 0))
+    sw = tlwe.keyswitch(d0, pub.ks_key)
+    acc = bootstrap.rotate_test_vector(ctx.addsub_lut, sw, bk, tb)
+    acc0, a_int, _ = bootstrap.blind_rotate_inputs(acc, sw.a, bk)
+    kp = bk.kernel_plan()
+    bound = rotation_bound_ms(kp, bk.n, acc0.shape[0],
+                              (bk.v32.numel() + bk.vs32.numel()) * 4,
+                              max_clock)
+    pk.blind_rotate_scan(acc0, a_int, bk.v32, bk.vs32, kp)
+    hold(runs, "blind_rotate_scan/ufhe_set0",
+         lambda: pk.blind_rotate_scan(acc0, a_int, bk.v32, bk.vs32, kp),
+         lambda: pk.blind_rotate_scan_plain(acc0, a_int, bk.v32, bk.vs32,
+                                            kp), bound)
+    runs["blind_rotate_scan/ufhe_set0"].update(
+        {"J": kp.J, "batch": int(acc0.shape[0])})
+    dig_ks = tlwe.keyswitch_inputs(d0, pub.ks_key)
+    lut_in = ufhe._stack_tlwe([ufhe._digit(v, 0) for v in vec])
+    tab = pub.packing_key.table
+    R = tab.shape[0] * tab.shape[1]
+    from mosfhet_torch import keyswitch
+    a_vals = lut_in.a.transpose(-1, -2).reshape(UFHE_BATCH, -1)
+    dig_lp = keyswitch._gather_digits(a_vals, R, p.t, p.base_bit)
+    for tag, dig, ab in (
+            ("ks", dig_ks, pub.ks_key.ab),
+            ("lut_packing", dig_lp, tab.reshape(R, p.t, tab.shape[3], -1))):
+        k2_run, sub_k = k2_report(pk, f"UFHE_SET0 {tag}", dig, ab, max_clock)
+        plain_ms, sub_p = cuda_ms(lambda: pk.tlwe_keyswitch_sum_plain(dig, ab),
+                                  1)
+        same_or_fail(f"K2 vs plain on ufhe's {tag} digits", sub_k, sub_p)
+        runs[f"tlwe_keyswitch_sum/ufhe_{tag}"] = {
+            "ms": k2_run["ms"], "plain_ms": plain_ms, "max_abs_err": 0.0,
+            "bound_ms": k2_run["bound"]["bound_ms"],
+            "bound_by": k2_run["bound"]["bound_by"], "rows": ab.shape[0],
+            "values_per_digit": ab.shape[2], "width": ab.shape[-1],
+            "schedule": k2_run["schedule"]}
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+    r1 = runs["blind_rotate_scan/ufhe_set0"]
+    log(f"# UFHE_SET0 keygen {rep['keygen_s']:.2f} s, "
+        + ", ".join(f"{n} {v / 1e9:.3f} GB" for n, v in
+                    rep["key_bytes"].items())
+        + f"; at B={UFHE_BATCH}, {UFHE_PREC}-bit integers ({d} digits): "
+        + "; ".join(f"{n} {rep[n]['warm_ms']:.1f} ms ({rep[n]['launches']['K1']}"
+                    f" K1, {rep[n]['launches']['K2']} K2)" for n in ops)
+        + f"; every integer decrypts right; K1 at l=6 {r1['ms']:.3f} ms "
+          f"(bound {r1['bound_ms']:.3f}, plain {r1['plain_ms']:.1f}), "
+          f"bit-exact; peak {rep['peak_bytes'] / 2**30:.2f} GiB")
+    del pub, ctx, priv, bk, acc0, a_int, dig_ks, dig_lp, tab, a_vals
+    torch.cuda.empty_cache()
+
+    # leveled LUT at TFHEpp-L2
+    N = p_l2.N
+    key_out = trlwe.extract_tlwe_key(key_trlwe_l2)
+    values = torch.arange(N, device=dev) * 7 % 128
+    enc_lut = leveled_lut.encrypt_lut(values, 7, key_trlwe_l2, gen)
+    m_lut = 1234 % N
+    enc_in = leveled_lut.encrypt_input(m_lut, gk_l2, gen)
+    zero_counts(pk)
+    out = leveled_lut.eval_lut(enc_in, enc_lut)
+    torch.cuda.synchronize()
+    counts["leveled_lut"] = read_counts(pk)
+    check_counts("leveled_lut", counts["leveled_lut"],
+                 {"ext_product_apply_scan": 1})
+    e = signed_max_abs(tlwe.phase(out, key_out)
+                       - torus.int2torus(values[m_lut], 7))
+    if not e <= 2.0**57:
+        fail(f"leveled_lut: max error 2^{err_log2(e):.1f} > 2^57")
+    rep["leveled_lut"] = {"ms": cuda_ms(lambda: leveled_lut.eval_lut(
+        enc_in, enc_lut), REPS)[0], "decrypt_max_err_log2": err_log2(e)}
+    size = p_l2.log_N + 2
+    table = torch.from_numpy(rs.integers(0, 16, 1 << size)).to(dev)
+    luts = trlwe.encrypt(torus.int2torus(table, 4).reshape(-1, N),
+                         key_trlwe_l2, gen)
+    m_vert = 5000 % (1 << size)
+    bits = leveled_lut.encrypt_input_bits(m_vert, size, gk_l2, gen)
+    zero_counts(pk)
+    out = leveled_lut.eval_lut_vertical(bits, size, luts)
+    torch.cuda.synchronize()
+    counts["vertical_packing"] = read_counts(pk)
+    check_counts("vertical_packing", counts["vertical_packing"],
+                 {"ext_product_apply_scan": 2, "blind_rotate_scan": 1})
+    e = signed_max_abs(tlwe.phase(out, key_out)
+                       - torus.int2torus(table[m_vert], 4))
+    if not e <= 2.0**58:
+        fail(f"vertical packing: max error 2^{err_log2(e):.1f} > 2^58")
+    rep["vertical_packing"] = {
+        "entries": 1 << size, "ms": cuda_ms(lambda: (
+            leveled_lut.eval_lut_vertical(bits, size, luts)), REPS)[0],
+        "decrypt_max_err_log2": err_log2(e)}
+    rep["seconds"] = time.perf_counter() - t_phase
+    log(f"# leveled LUT at L2: eval_lut {rep['leveled_lut']['ms']:.3f} ms "
+        f"(1 K3, err 2^{rep['leveled_lut']['decrypt_max_err_log2']:.1f}), "
+        f"eval_lut_vertical over {1 << size} entries "
+        f"{rep['vertical_packing']['ms']:.3f} ms (2 K3 + 1 K1, err "
+        f"2^{rep['vertical_packing']['decrypt_max_err_log2']:.1f}); "
+        f"phase 24 (apps): {rep['seconds']:.1f} s")
     return rep, counts, runs
 
 
@@ -2497,8 +3289,11 @@ def torus32_main():
                     tv, luts, cs, slots, out)
     matrix, matrix_counts = trgsw_matrix_phase(p, gk, gen, dev, max_clock,
                                                "L2_32")
-    ksf, ksf_counts, ksf_runs = ks_family32_phase(p, key_trlwe, gen, dev,
-                                                  max_clock)
+    ksf, ksf_counts, ksf_runs, ksf_tables = ks_family32_phase(
+        p, key_trlwe, gen, dev, max_clock)
+    fam, fam_counts, fam_runs = boot_family32_phase(
+        p, key_tlwe, key_trlwe, gk, bk, luts, gen, dev, max_clock,
+        ksf_tables)
     print(json.dumps({
         "params": p.name, "batch": BATCH, "primes": list(primes),
         "keygen_s": keygen_s, "key_bytes": key_bytes,
@@ -2516,9 +3311,11 @@ def torus32_main():
                    "fdfb": fdfb_counts, "steps": steps_counts,
                    **unfolded.pop("counts"), **mesh.pop("counts"),
                    **ga.pop("counts"), "trgsw_matrix": matrix_counts,
-                   **ksf_counts},
+                   **ksf_counts, **{f"family_{name}": c
+                                    for name, c in fam_counts.items()}},
         "steps": steps, "trgsw_matrix": matrix, "ks_family": ksf,
-        "ks_family_runs": ksf_runs,
+        "ks_family_runs": ksf_runs, "boot_family": fam,
+        "family_runs": fam_runs,
         "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound,
                "residency": k1_res, "wave_curve": k1_curve},
         "k2": {"gate": k2_gate, "fdfb": k2_fdfb, "plain_ms": k2_plain_ms,
@@ -3894,10 +4691,19 @@ def main():
                                                "L2")
 
     # 22. the key-switch family: priv_ks and tlwe_mul on phase 4's key
-    ksf, ksf_counts, ksf_runs = ks_family_phase(p, key_trlwe, gk, gen, dev,
-                                                max_clock)
+    ksf, ksf_counts, ksf_runs, ksf_keys = ks_family_phase(
+        p, key_trlwe, gk, gen, dev, max_clock)
 
-    # 23. report
+    # 23. the rest of bootstrap on phase 4's keys and phase 22's tables
+    fam, fam_counts, fam_runs = boot_family_phase(
+        p, key_tlwe, key_trlwe, gk, bk, tv, luts, gen, dev, max_clock,
+        ksf_keys)
+
+    # 24. the applications: ufhe at UFHE_SET0, the leveled LUT at L2
+    apps, apps_counts, apps_runs = apps_phase(p, gk, key_trlwe, gen, dev,
+                                              max_clock)
+
+    # 25. report
     paths = {"pbs": pbs_counts, "gate": gate_counts, "fdfb": fdfb_counts,
              "unfolded": ub_counts, "ubr_phase1": ph1_counts,
              "ubr_phase2": ph2_counts, "ga": ga_counts}
@@ -3909,6 +4715,8 @@ def main():
                                       ep[mode]["launches"]} for mode in ep})
     paths.update({"steps": steps_counts, **ubr_steps_counts,
                   "trgsw_matrix": matrix_counts, **ksf_counts})
+    paths.update({f"family_{name}": c for name, c in fam_counts.items()})
+    paths.update(apps_counts)
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}
@@ -3923,12 +4731,17 @@ def main():
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": None,
         "resident_blocks_per_sm": k1_res["K1"]["blocks_per_sm"],
+        "trgsw_rows": fam_runs["blind_rotate_scan/trgsw_rows"],
+        "ufhe_set0": apps_runs["blind_rotate_scan/ufhe_set0"],
     }, {
         **k2_entry("tlwe_keyswitch_sum", fdfb_counts["tlwe_keyswitch_sum"],
                    by_path("tlwe_keyswitch_sum"), ks_run, ks_fdfb,
                    ks_plain_ms, None, KS_LIBRARY_NOTE),
         "max_abs_err": ks_max_abs_err,
         "packing_rows": ksf_runs["tlwe_keyswitch_sum"],
+        "priv_sk_rows": fam_runs["tlwe_keyswitch_sum/priv_sk"],
+        "ufhe_set0": {tag: apps_runs[f"tlwe_keyswitch_sum/ufhe_{tag}"]
+                      for tag in ("ks", "lut_packing")},
     }, {
         "name": "ext_product_apply_scan", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/ext_product_apply.cu",
@@ -4057,6 +4870,10 @@ def main():
     kernels[-1]["packing_rows"] = {
         name.split("/")[1]: r for name, r in t32["ks_family_runs"].items()
         if name.startswith("tlwe_keyswitch_sum/")}
+    kernels[-1]["priv_sk_rows"] = t32["family_runs"][
+        "tlwe_keyswitch_sum/priv_sk"]
+    kernels[-2]["trgsw_rows"] = t32["family_runs"][
+        "blind_rotate_scan/trgsw_rows"]
     # the one-limb K3-K7, K8a and K8b on their L2_32 paths
     for name, source, line, note in (
             ("ext_product_apply_scan", "ext_product_apply.cu", 1944,
@@ -4166,9 +4983,13 @@ def main():
         "plain_routes": plain_routes}}))
     log(json.dumps({"set3": set3}))
     log(json.dumps({"ks_family": {"params": p.name, "batch": BATCH, **ksf}}))
+    log(json.dumps({"boot_family": {"params": p.name, "batch": BATCH,
+                                    **fam}}))
+    log(json.dumps({"apps": apps}))
     log(json.dumps({"torus32": {key: t32[key] for key in t32
                                 if key not in ("counts", "kernel_runs",
-                                               "ks_family_runs")}}))
+                                               "ks_family_runs",
+                                               "family_runs")}}))
     log(f"# whole script: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -347,3 +347,93 @@ def seeded_lut_packing_ks_key_from_numpy(seeds, b, k: int, t: int,
 def seeded_ks_table_to_numpy(ksk):
     """(seeds, b) of a `SeededGenericKSKey` or `SeededLUTPackingKSKey`."""
     return seeds_to_numpy(ksk.seeds), to_numpy(ksk.b)
+
+
+# --- ufhe keysets and integers --------------------------------------------
+
+def ufhe_priv_keyset_from_numpy(tlwe_s, trlwe_s, params, trlwe_s_bound=1,
+                                device=None):
+    """A ufhe private keyset from its LWE key [n] and ring key [k, N]
+    (int64), with the parameters' sigmas, as `ufhe.new_priv_keyset` builds
+    it (the extracted key takes the LWE sigma)."""
+    from .apps import ufhe
+    from .trgsw import new_key
+    key_tlwe = tlwe_key_from_numpy(tlwe_s, params.lwe_sigma, device)
+    key_trlwe = trlwe_key_from_numpy(trlwe_s, params.rlwe_sigma,
+                                     trlwe_s_bound, device)
+    extracted = TLWEKey(s=key_trlwe.s.reshape(-1), sigma=params.lwe_sigma)
+    return ufhe.PrivKeyset(tlwe=key_tlwe, trlwe=key_trlwe,
+                           extracted=extracted,
+                           trgsw=new_key(key_trlwe, params.l, params.Bg_bit),
+                           params=params)
+
+
+def ufhe_priv_keyset_to_numpy(priv):
+    """(LWE key, ring key) as int64."""
+    return key_to_numpy(priv.tlwe), key_to_numpy(priv.trlwe)
+
+
+def ufhe_public_keyset_from_numpy(bk_v, bk_vs, ks_a, ks_b, lut_table, params,
+                                  torus_base: int, primes, device=None):
+    """A ufhe public keyset from the TPU package's fields: the bootstrap
+    key's residues and Shoup companions [n, (k+1)l, k+1, P, N], the TLWE
+    key switch's a [kN, t, base-1, n] and b [kN, t, base-1], and the LUT
+    packing table [kN, torus_base, t, base-1, k+1, N]."""
+    from .apps import ufhe
+    p = params
+    bk = bootstrap_key_from_numpy(bk_v, bk_vs, p.n, p.k, p.N, p.l, p.Bg_bit,
+                                  primes, device)
+    ksk = tlwe_ks_key_from_numpy(ks_a, ks_b, p.t, p.base_bit, device)
+    pk = lut_packing_ks_key_from_numpy(lut_table, p.t, p.base_bit,
+                                       torus_base, device)
+    return ufhe.PublicKeyset(bk, pk, ksk, p)
+
+
+def ufhe_public_keyset_to_numpy(pub) -> dict:
+    """The fields `ufhe_public_keyset_from_numpy` takes, by name."""
+    bk_v, bk_vs = bootstrap_key_to_numpy(pub.bootstrap_key)
+    ks_a, ks_b = tlwe_ks_key_to_numpy(pub.ks_key)
+    return {"bk_v": bk_v, "bk_vs": bk_vs, "ks_a": ks_a, "ks_b": ks_b,
+            "lut_table": ks_table_to_numpy(pub.packing_key),
+            "torus_base": pub.packing_key.torus_base,
+            "primes": pub.bootstrap_key.primes}
+
+
+def ufhe_context_from_numpy(keyset, addsub_a, addsub_b, signextend_a,
+                            signextend_b, torus_base: int):
+    """A ufhe context on ``keyset`` (a port `PublicKeyset`) with its two
+    test vectors as given; the multiplication tables follow from
+    ``torus_base``."""
+    import dataclasses
+
+    from .apps import ufhe
+    if keyset.packing_key.torus_base != torus_base:
+        raise ValueError(f"the keyset packs {keyset.packing_key.torus_base} "
+                         f"slots, the context says {torus_base}")
+    dev = keyset.device
+    return dataclasses.replace(
+        ufhe.setup_context(keyset),
+        addsub_lut=trlwe_from_numpy(addsub_a, addsub_b, dev),
+        signextend_lut=trlwe_from_numpy(signextend_a, signextend_b, dev))
+
+
+def ufhe_context_to_numpy(ctx) -> dict:
+    """The context's test vectors and torus base, and its keyset's fields
+    (`ufhe_public_keyset_to_numpy`)."""
+    addsub_a, addsub_b = trlwe_to_numpy(ctx.addsub_lut)
+    se_a, se_b = trlwe_to_numpy(ctx.signextend_lut)
+    return {"addsub_a": addsub_a, "addsub_b": addsub_b,
+            "signextend_a": se_a, "signextend_b": se_b,
+            "keyset": ufhe_public_keyset_to_numpy(ctx.keyset)}
+
+
+def ufhe_integer_from_numpy(a, b, signed: bool, device=None):
+    """An encrypted integer from its digits' TLWE words a [d, ..., n], b
+    [d, ...]."""
+    from .apps import ufhe
+    return ufhe.Integer(digits=tlwe_from_numpy(a, b, device), signed=signed)
+
+
+def ufhe_integer_to_numpy(c):
+    """(a, b, signed)."""
+    return to_numpy(c.digits.a), to_numpy(c.digits.b), c.signed

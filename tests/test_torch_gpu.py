@@ -13,7 +13,9 @@ widths, and their entry points' launch counts (the per-step GA forms'
 among them); the key-switch family's launches (K2 on packing tables'
 rows of (k+1)N words, the streamed seeded apply against K2 on the
 expanded table, `priv_keyswitch_2` and `ks_b_to_a` as two K6 launches, the
-relinearization's K6 at four primes); the kernels at N=4096 with 4 primes
+relinearization's K6 at four primes); K1 on a TRGSW accumulator's rows
+(`bootstrap.blind_rotate_trgsw`), K1 at UFHE_SET0's gadget (l=6) and K2 at
+its base_bit=2; the kernels at N=4096 with 4 primes
 (SET_3) and N=8192,
 whose buffers do not all fit shared memory; and, for the kernels on K1's
 schedule, ragged batches, residency and misaligned keys.
@@ -1881,3 +1883,87 @@ def test_cuda_priv_keyswitch_2_is_two_k6_launches(monkeypatch):
     err = (trlwe.phase(outs[0], kr) - want).to(torch.float64).abs().max()
     assert float(err) <= 2.0**50
     assert int(trgsw.debug_decrypt_exp(outs[1], gk)) == 77
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n", [(5, 3), (64, 2)])
+def test_cuda_blind_rotate_trgsw_rows_match_plain(monkeypatch, B, n):
+    """`bootstrap.blind_rotate_trgsw` at TFHEpp-L2 widths (rotation cut to n
+    steps) on B random TRGSWs: one K1 launch on B (k+1)l rows, each
+    ciphertext's exponents repeated over its rows, the plain route's
+    words; then `functional_bootstrap_trgsw_phase1` and `_phase2` are one
+    K1 and one K3 launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from mosfhet_torch import bootstrap, tlwe, trgsw, trlwe
+    N, k, l, Bg_bit = 2048, 1, 4, 9
+    primes, _, _, keyv, keyvs = random_rotation_inputs(N, k, l, Bg_bit, n, 1,
+                                                       seed=19)
+    bk = bootstrap.BootstrapKey(as_i32(keyv, "cuda"), as_i32(keyvs, "cuda"),
+                                n, k, N, l, Bg_bit, primes)
+    rng = np.random.default_rng(B)
+    R = (k + 1) * l
+    g = trgsw.TRGSW(rows=to_tensor(rng.integers(
+        0, 1 << 64, (B, R, k + 1, N), dtype=np.uint64), "cuda"), l=l,
+        Bg_bit=Bg_bit)
+    a = to_tensor(rng.integers(0, 1 << 64, (B, n), dtype=np.uint64), "cuda")
+    launches = tpk.blind_rotate_scan.launches
+    got = bootstrap.blind_rotate_trgsw(g, a, bk)
+    torch.cuda.synchronize()
+    assert tpk.blind_rotate_scan.launches == launches + 1
+    with monkeypatch.context() as mp:
+        mp.setattr(tpk, "blind_rotate_scan", tpk.blind_rotate_scan_plain)
+        want = bootstrap.blind_rotate_trgsw(g, a, bk)
+    assert torch.equal(got.rows, want.rows)
+    c = tlwe.TLWE(a=a, b=a[:, 0])
+    tv = trlwe.TRLWE(a=g.rows[0, 0, :1].clone(), b=g.rows[0, 0, 1].clone())
+    counts = (tpk.blind_rotate_scan.launches,
+              tpk.ext_product_apply_scan.launches)
+    gd = bootstrap.functional_bootstrap_trgsw_phase1(c, bk, 4, l, Bg_bit)
+    out = bootstrap.functional_bootstrap_trgsw_phase2(gd, tv)
+    torch.cuda.synchronize()
+    assert (tpk.blind_rotate_scan.launches,
+            tpk.ext_product_apply_scan.launches) == (counts[0] + 1,
+                                                     counts[1] + 1)
+    assert out.a.shape == (B, k * N)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,B", [(3, 5), (2, 130)])
+def test_cuda_kernel_matches_plain_at_ufhe_set0(n, B):
+    """K1 at UFHE_SET0's gadget (l=6, Bg_bit=7: J = 12 rows), n cut."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, k, l, Bg_bit = 2048, 1, 6, 7
+    primes, acc0, a_int, keyv, keyvs = random_rotation_inputs(
+        N, k, l, Bg_bit, n, B, seed=630 + B)
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cuda")
+    args = (to_tensor(acc0, "cuda"), torch.from_numpy(a_int).cuda(),
+            as_i32(keyv, "cuda"), as_i32(keyvs, "cuda"), kp)
+    launches = tpk.blind_rotate_scan.launches
+    got = tpk.blind_rotate_scan(*args)
+    torch.cuda.synchronize()
+    assert tpk.blind_rotate_scan.launches == launches + 1
+    assert torch.equal(got, tpk.blind_rotate_scan_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_in,t,base_m1,width", [
+    (64, 2048, 6, 3, 631),     # UFHE_SET0's key switch (base_bit=2)
+    (3, 2048, 6, 3, 631),
+    (64, 512, 6, 3, 4096),     # LUT packing rows of 2N words, rows cut
+    (130, 96, 6, 3, 4096),
+])
+def test_cuda_keyswitch_sum_matches_plain_at_base_bit_2(B, n_in, t, base_m1,
+                                                        width):
+    """K2 with 3 values per digit (UFHE_SET0's base_bit=2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dig, ab = random_ks_inputs(B, n_in, t, base_m1, width, seed=n_in + B)
+    d = torch.from_numpy(dig).cuda()
+    tab = to_tensor(ab, "cuda")
+    launches = tpk.tlwe_keyswitch_sum.launches
+    got = tpk.tlwe_keyswitch_sum(d, tab)
+    torch.cuda.synchronize()
+    assert tpk.tlwe_keyswitch_sum.launches == launches + 1
+    assert torch.equal(got, tpk.tlwe_keyswitch_sum_plain(d, tab))

@@ -18,7 +18,8 @@ def test_import_loads_no_forbidden_module():
     code = ("import sys, mosfhet_torch, mosfhet_torch.bridge, "
             "mosfhet_torch.keyswitch, mosfhet_torch.bootstrap_ga, "
             "mosfhet_torch.ops.pbs_kernel, mosfhet_torch.ops._build, "
-            "mosfhet_torch.parallel.mesh\n"
+            "mosfhet_torch.parallel.mesh, mosfhet_torch.apps.leveled_lut, "
+            "mosfhet_torch.apps.ufhe\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")

@@ -30,7 +30,8 @@ CASES = ("gadget_decompose", "double2torus", "torus2int", "ntt_product",
          "functional_bootstrap", "fdfb_this_work", "port_keygen_decrypts",
          "unported_paths_raise", "k1_step_plain_vs_interpret",
          "blind_rotate_stepwise", "trgsw_matrix_ops", "leaf_ops",
-         "packing1_and_priv_ks", "full_packing", "seeded")
+         "packing1_and_priv_ks", "full_packing", "seeded",
+         "bootstrap_family", "bootstrap_family_decrypts", "clot21_raises")
 M32 = 1 << 32
 
 i32 = st.integers(-(1 << 31), (1 << 31) - 1)
@@ -83,6 +84,9 @@ def test_torus32_case(torus32_results, case):
 
 P32 = dict(n=16, N=64, k=1, l=3, Bg_bit=7, t=5, base_bit=4,
            lwe_sigma=2.0**-20, rlwe_sigma=2.0**-25)
+# the TPU suite's P32K (`tests/_torus32_suite.py:222`)
+P32K = dict(n=8, N=128, k=1, l=2, Bg_bit=8, t=5, base_bit=4,
+            lwe_sigma=2.0**-20, rlwe_sigma=2.0**-25)
 
 
 def _child(out_path):
@@ -657,6 +661,241 @@ def _child(out_path):
         if e >= 1 << 10:
             msgs.append(f"port seeded decrypt error {e}")
         return "; ".join(m_ for m_ in msgs if m_)
+
+
+    # --- the rest of bootstrap (`_torus32_suite.py:215-301`) at P32K, where
+    # 2l and l torus_base / 2 divide N (CB v2/v3, fdfb_ks21's many-LUT form)
+    pk32 = params.TFHEParams(name="T32K", **P32K)
+    FAM_TB, KS21_TB = 4, 8
+
+    def case_bootstrap_family():
+        """Random key material in the TPU package's layouts (bootstrap key
+        residues, packing1 and private-SK tables, the private pair): the
+        multi-value family, blind_rotate_trgsw and the TRGSW bootstrap,
+        public_mux, fdfb_ks21 in both forms and the circuit bootstrap v1-v3
+        give the jnp words, int32 throughout."""
+        q = pk32
+        R, n_ext, base_m1 = (q.k + 1) * q.l, q.k * q.N, (1 << q.base_bit) - 1
+        bpr = jntt.primes_for_bound(jntt.external_product_bound(
+            q.N, q.Bg_bit, q.l, q.k))
+        kpr = jks._ks_plan(q.N, q.base_bit, q.t, q.t).primes
+
+        def res_of(lead, primes):
+            v = tntt.to_ntt_u64(T(words(tuple(lead) + (q.N,)), CPU),
+                                tntt.get_plan(q.N, primes, CPU))
+            return v.numpy().astype(np.uint64)
+
+        keys = {"bk": res_of((q.n, R, 2), bpr),
+                "p1": words((n_ext, q.t, base_m1, 2, q.N)),
+                "sk": words((n_ext + 1, q.t, base_m1, 2, q.N)),
+                "pair": [res_of((1, q.t, 2), kpr) for _ in range(2)]}
+        x = {"ca": words((3, q.n)), "cb": words((3,)),
+             "ta": words((1, q.N)), "tb": words((q.N,)),
+             "rows": words((3, R, 2, q.N)), "tvp": words((2 * q.N,)),
+             "p0": words((3, q.N)), "p1": words((3, q.N)),
+             "sel": res_of((3, q.l, 2), bpr)}
+
+        def jax_side(keys, x):
+            plan = jntt.get_plan(q.N, bpr)
+            bk = jbs.BootstrapKey(
+                v=keys["bk"], vs=jntt.make_shoup(keys["bk"], plan.p[:, None]),
+                su=None, n=q.n, k=1, N=q.N, l=q.l, Bg_bit=q.Bg_bit,
+                unfolding=1, primes=bpr)
+            c = jtlwe.TLWE(a=x["ca"], b=x["cb"])
+            tv = jtrlwe.TRLWE(a=x["ta"], b=x["tb"])
+            p1 = jks.GenericKSKey(table=keys["p1"], t=q.t, base_bit=q.base_bit,
+                                  include_b=False)
+            sk = jks.GenericKSKey(table=keys["sk"], t=q.t, base_bit=q.base_bit,
+                                  include_b=True)
+            kplan = jntt.get_plan(q.N, kpr)
+            pair = [jks.TRLWEKSKey(v=v, vs=jntt.make_shoup(v, kplan.p[:, None]),
+                                   t=q.t, base_bit=q.base_bit, primes=kpr)
+                    for v in keys["pair"]]
+            out = {"vs": bk.vs}
+            out["clot21"] = [(o.a, o.b) for o in
+                             jbs.multivalue_bootstrap_CLOT21(tv, c, bk, FAM_TB,
+                                                             2)]
+            rot = jbs.multivalue_bootstrap_phase1(c, bk, FAM_TB)
+            out["phase1"] = [(r.a, r.b) for r in rot]
+            o = jbs.multivalue_bootstrap_phase2([1, 0, 3, 2], rot, FAM_TB, 2)
+            out["phase2"] = (o.a, o.b)
+            o = jbs.multivalue_bootstrap_phase2_many(
+                [[3, 0, 2, 1], [0, 0, 0, 0]], rot, FAM_TB, 2)
+            out["phase2_many"] = (o.a, o.b)
+            out["br"] = jbs.blind_rotate_trgsw(jtrgsw.TRGSW(
+                rows=x["rows"], l=q.l, Bg_bit=q.Bg_bit), x["ca"], bk,
+                impl="jnp").rows
+            g = jbs.functional_bootstrap_trgsw_phase1(c, bk, FAM_TB, q.l,
+                                                      q.Bg_bit)
+            o = jbs.functional_bootstrap_trgsw_phase2(g, tv)
+            out["trgsw"] = (g.v, o.a, o.b)
+            o = jbs.public_mux(x["p0"], x["p1"], x["sel"], q.l, q.Bg_bit, 1,
+                               q.N, bpr)
+            out["mux"] = (o.a, o.b)
+            for many in (True, False):
+                o = jbs.fdfb_ks21(x["tvp"], c, bk, p1, KS21_TB,
+                                  use_many_lut=many)
+                out[f"ks21_{many}"] = (o.a, o.b)
+            out["cb1"] = jbs.circuit_bootstrap(c, bk, sk, p1, q.l,
+                                               q.Bg_bit).rows
+            out["cb2"] = jbs.circuit_bootstrap_2(c, bk, sk, p1, q.l,
+                                                 q.Bg_bit).rows
+            out["cb3"] = jbs.circuit_bootstrap_3(c, bk, pair, p1, q.l,
+                                                 q.Bg_bit).rows
+            return out
+
+        want = jax.jit(jax_side)(keys, x)
+        bk = bridge.bootstrap_key_from_numpy(
+            keys["bk"], np.asarray(want["vs"]), q.n, 1, q.N, q.l, q.Bg_bit,
+            bpr, CPU)
+        c = bridge.tlwe_from_numpy(x["ca"], x["cb"], CPU)
+        tv = bridge.trlwe_from_numpy(x["ta"], x["tb"], CPU)
+        p1 = bridge.generic_ks_key_from_numpy(keys["p1"], q.t, q.base_bit,
+                                              False, CPU)
+        sk = bridge.generic_ks_key_from_numpy(keys["sk"], q.t, q.base_bit,
+                                              True, CPU)
+        pair = bridge.priv_ks_key_pair_from_numpy(*keys["pair"], q.t,
+                                                  q.base_bit, kpr, CPU)
+        msgs = []
+
+        def pair_same(got, w):
+            msgs.append(same(got.a, w[0]) or same(got.b, w[1]))
+
+        for got, w in zip(tbs.multivalue_bootstrap_CLOT21(tv, c, bk, FAM_TB,
+                                                          2), want["clot21"]):
+            pair_same(got, w)
+        rot = tbs.multivalue_bootstrap_phase1(c, bk, FAM_TB)
+        for got, w in zip(rot, want["phase1"]):
+            pair_same(got, w)
+        pair_same(tbs.multivalue_bootstrap_phase2([1, 0, 3, 2], rot, FAM_TB,
+                                                  2), want["phase2"])
+        pair_same(tbs.multivalue_bootstrap_phase2_many(
+            [[3, 0, 2, 1], [0, 0, 0, 0]], rot, FAM_TB, 2),
+            want["phase2_many"])
+        msgs.append(same(tbs.blind_rotate_trgsw(
+            bridge.trgsw_from_numpy(x["rows"], q.l, q.Bg_bit, CPU),
+            T(x["ca"], CPU), bk).rows, want["br"]))
+        g = tbs.functional_bootstrap_trgsw_phase1(c, bk, FAM_TB, q.l,
+                                                  q.Bg_bit)
+        msgs.append(same(g.v, want["trgsw"][0]))
+        pair_same(tbs.functional_bootstrap_trgsw_phase2(g, tv),
+                  want["trgsw"][1:])
+        pair_same(tbs.public_mux(T(x["p0"], CPU), T(x["p1"], CPU),
+                                 T(x["sel"], CPU), q.l, q.Bg_bit, 1, q.N,
+                                 bpr), want["mux"])
+        for many in (True, False):
+            out = tbs.fdfb_ks21(T(x["tvp"], CPU), c, bk, p1, KS21_TB,
+                                use_many_lut=many)
+            pair_same(out, want[f"ks21_{many}"])
+            if out.b.dtype != torch.int32:
+                msgs.append(f"fdfb_ks21 words {out.b.dtype}")
+        for key, fn, kska in (("cb1", tbs.circuit_bootstrap, sk),
+                              ("cb2", tbs.circuit_bootstrap_2, sk),
+                              ("cb3", tbs.circuit_bootstrap_3, pair)):
+            msgs.append(same(fn(c, bk, kska, p1, q.l, q.Bg_bit).rows,
+                             want[key]))
+        return "; ".join(m_ for m_ in msgs if m_)
+
+    def case_bootstrap_family_decrypts():
+        """The port's own keygens at 32 bits: at P32 the TRGSW bootstrap of 8
+        messages within 2^30 and public_mux within 2^28 (the TPU suite's);
+        at P32K multi-value CLOT21 and phases 1/2 within 2^26 (the suite's)
+        and fdfb_ks21, both forms, within 2^29 on all 8 messages.
+
+        The suite checks one message against 2^27 for the TRGSW bootstrap
+        and fdfb_ks21; over 8 messages both packages' outputs go past it
+        (the same words on the same inputs, `bootstrap_family`): the
+        TRGSW bootstrap's phase 2 multiplies the rotated TRGSW's noise by
+        the test vector's digits (rms 2^27.4-2^27.7 in both, max 2^29.1
+        over 32 outputs), and the public mux carries its selector rows'
+        key-switch noise times digits up to 2^7 into fdfb_ks21's last
+        test vector (16 outputs reached 2^27.8 over four seeds).  A wrong
+        slot is off by a random LUT difference, ~2^31.  The circuit
+        bootstrap is not decrypted at 32 bits: at P32 its last gadget
+        level h_2 = 2^11 lies below the private-SK switch's rounding noise
+        (t=5, base_bit=4 keep 20 bits), and in both packages a share of
+        the ciphertexts flip (7 of 48 with the port's keys, 4 of 16 with
+        the TPU package's keys on one seed); CB v2 and v3 need 2l to
+        divide N.  Their 32-bit words are held in `bootstrap_family`."""
+        msgs = []
+
+        def check(what, ph, want, bound):
+            e = err32(ph, want)
+            if e >= bound:
+                msgs.append(f"{what}: error {e} >= 2^{bound.bit_length() - 1}")
+
+        def port_keys(q, seed):
+            gen = torch.Generator().manual_seed(seed)
+            kt = ttlwe.new_binary_key(q.n, q.lwe_sigma, gen, CPU)
+            kr = ttrlwe.new_binary_key(q.N, q.k, q.rlwe_sigma, gen, CPU)
+            gk = ttrgsw.new_key(kr, q.l, q.Bg_bit)
+            return (gen, kt, kr, ttrlwe.extract_tlwe_key(kr), gk,
+                    tbs.new_key(gk, kt, gen, CPU))
+
+        # P32: the TRGSW bootstrap, public_mux
+        q = p
+        gen, kt, kr, ko, gk, bk = port_keys(q, 3219)
+        luts = trng.uniform_torus(gen, (8,), CPU)
+        m4 = torch.arange(8) % 4
+        c = ttlwe.encrypt(ttorus.double2torus(m4 / 8.0), kt, gen)
+        g = tbs.functional_bootstrap_trgsw_phase1(c, bk, 4, q.l, q.Bg_bit)
+        out = tbs.functional_bootstrap_trgsw_phase2(
+            g, ttrlwe.torus_packing(luts[:4], q.k, q.N))
+        check("trgsw bootstrap", ttlwe.phase(out, ko), luts[m4], 1 << 30)
+        plan = kr.plan()
+        p0 = trng.uniform_torus(gen, (q.N,), CPU)
+        p1_ = trng.uniform_torus(gen, (q.N,), CPU)
+        for bit in (0, 1):
+            rows = []
+            for i in range(q.l):
+                m = torch.zeros(q.N, dtype=torch.int32)
+                m[0] = ttorus.to_signed(bit << (32 - (i + 1) * q.Bg_bit))
+                rows.append(ttrlwe.to_dft(ttrlwe.encrypt(m, kr, gen), plan).v)
+            out = tbs.public_mux(p0, p1_, torch.stack(rows, dim=-4), q.l,
+                                 q.Bg_bit, q.k, q.N, plan.primes)
+            check(f"public_mux bit={bit}", ttrlwe.phase(out, kr),
+                  p1_ if bit else p0, 1 << 28)
+        # P32K: multi-value CLOT21 and phases, fdfb_ks21
+        q = pk32
+        gen, kt, kr, ko, gk, bk = port_keys(q, 3220)
+        luts = trng.uniform_torus(gen, (8,), CPU)
+        c = ttlwe.encrypt(ttorus.double2torus(m4 / 8.0), kt, gen)
+        outs = tbs.multivalue_bootstrap_CLOT21(
+            ttrlwe.torus_packing_many_lut(luts, 4, 2, q.k, q.N), c, bk, 4, 2)
+        for j, o in enumerate(outs):
+            check(f"CLOT21 lut {j}", ttlwe.phase(o, ko), luts[m4 + 4 * j],
+                  1 << 26)
+        rot = tbs.multivalue_bootstrap_phase1(c, bk, 4)
+        lv = [3, 0, 2, 1]
+        check("phase2", ttlwe.phase(tbs.multivalue_bootstrap_phase2(
+            lv, rot, 4, 2), ko), ttorus.double2torus(
+            torch.tensor(lv)[m4] / 8.0), 1 << 26)
+        kskb = tks.new_packing1_ks_key(kr, ko, q.t, q.base_bit, gen, CPU)
+        m8 = torch.arange(8)
+        c8 = ttlwe.encrypt(ttorus.int2torus(m8, 3), kt, gen)
+        tvp = torch.repeat_interleave(luts, (2 * q.N) // 8)
+        for many in (True, False):
+            out = tbs.fdfb_ks21(tvp, c8, bk, kskb, KS21_TB, use_many_lut=many)
+            check(f"fdfb_ks21 many={many}", ttlwe.phase(out, ko), luts[m8],
+                  1 << 29)
+        return "; ".join(msgs)
+
+    def case_clot21_raises():
+        """fdfb_clot21 and fdfb_clot21_2 run on the TLWE product, whose
+        relinearization gadget does not fit 32 bits: NotImplementedError
+        before any kernel call."""
+        msgs = []
+        for name in ("fdfb_clot21", "fdfb_clot21_2"):
+            calls = tpk.blind_rotate_scan_plain.calls
+            args = ((None,) * 7 if name == "fdfb_clot21" else (None,) * 6)
+            try:
+                getattr(tbs, name)(*args)
+                msgs.append(f"{name} returned")
+            except NotImplementedError:
+                pass
+            if tpk.blind_rotate_scan_plain.calls != calls:
+                msgs.append(f"{name} ran a rotation first")
+        return "; ".join(msgs)
 
     results = {}
     for name in CASES:
