@@ -281,9 +281,24 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               and timed on the path's inputs; then the leveled LUT at L2
               (`eval_lut`: 1 K3; `eval_lut_vertical` over 4N entries: 2 K3,
               1 K1).
- 25. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
+ 25. io       keysets through `io` onto the card (`io_phase`): phase 4's
+              u=1 key and phase 7's TLWE key-switch key saved in the
+              versioned container and loaded, 512 gates (1 K1, 1 K2) with
+              the in-memory keyset's words; a u=4 key in the reference's
+              time-domain layout, back bit for bit, one PBS of 512 (1 K4)
+              word-equal; phase 4's key in the FFNT and SPQLIOS f64 DFT
+              layouts, 512 PBS (1 K1) within 2^58; phase 15's TRLWE
+              key-switch key in both, 512 switched (1 K6) within 2^40; the
+              reference's files under tests/vectors/ (u=2 key through K4,
+              u=1 DFT keys through K1, TRLWE key-switch keys through K6,
+              packing and packing1 keys through K2, the vaes sample, the
+              replayed stream and its key through K1), each path also whole
+              on the plain versions, word for word; ufhe's keyset, context
+              and integers (phase 24's) saved and loaded, one add with the
+              loaded context word-equal.  Bytes, seconds, peak, errors.
+ 26. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
               trgsw_matrix, ga (with the per-step forms), trlweks, mesh, set3,
-              ks_family, boot_family, apps and torus32 lines, the card
+              ks_family, boot_family, apps, io and torus32 lines, the card
               line, the kernels line (the one-limb forms as
               `<kernel>/torus32`, K8b at N=8192 as `finish_step/n8192`,
               K1-delta as `cmux_delta`, K6-old as `auto_keyswitch`, K1-step
@@ -298,8 +313,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -405,6 +422,14 @@ FAMILY_PLAIN = 2
 ROWS_CHECK_STEPS = 8
 KS21_TB, CLOT21_PREC = 8, 4
 UFHE_BATCH, UFHE_PREC = 64, 6
+# Phase 25: the reference's files (tests/vectors/, generator n=32 or 16,
+# N=256, k=1) and their bounds (tests/test_mosfhet_vectors*.py,
+# tests/test_replay_vectors.py); the vaes vectors' process AES key.
+VECTORS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "vectors")
+VEC_N, VEC_K = 256, 1
+VEC_KS_BOUND = 2.0**52      # t*base_bit = 16 bits of decomposition
+VEC_AES_KEY = bytes(range(1, 17))
 # CB v3's a rows are the private pair's switch of its b rows: the pair's
 # noise (its phase 22 output reached 2^45.2 on one TRLWE, one H100) and the b
 # rows' noise times the key, which the external product multiplies by
@@ -670,17 +695,21 @@ def ubr_phase1_bound(kp, B, G, M, max_clock_mhz):
     return ops_bytes_bound(ops, nbytes, max_clock_mhz)
 
 
-def trlwe_ks_bound(p, t, base_bit, bits=64):
+def trlwe_ks_bound(p, t, base_bit, bits=64, key_err=0.0):
     """Decrypt bound of a TRLWE key switch with t digits of base_bit bits
     under a binary ring key, on the bits-bit torus: per coefficient k t N
     products of a digit (uniform, variance 2^(2 base_bit)/12) with a key
-    row's noise (sigma rlwe_sigma 2^bits in words), plus the k N/2 dropped
-    remainders of the mask words (uniform below 2^(bits - t base_bit)) times
-    the key bits, plus the input's own noise.  Returns
-    2^ceil(log2(64 sigma)): 2^40 at TFHEpp-L2 with t=4, base_bit=9 (sigma
-    2^33.7); 2^25 at L2_32 with t=3, base_bit=7 (sigma 2^18.6)."""
+    row's noise (sigma rlwe_sigma 2^bits in words, plus key_err, the
+    largest error of the key's words beyond their noise, taken as uniform
+    in [-key_err, key_err]: the f64 rounding of a key read from a DFT
+    layout), plus the k N/2 dropped remainders of the mask words (uniform
+    below 2^(bits - t base_bit)) times the key bits, plus the input's own
+    noise.  Returns 2^ceil(log2(64 sigma)): 2^40 at TFHEpp-L2 with t=4,
+    base_bit=9 (sigma 2^33.7); 2^25 at L2_32 with t=3, base_bit=7 (sigma
+    2^18.6)."""
     sig_w = p.rlwe_sigma * 2.0**bits
-    var = (p.k * t * p.N * 2.0**(2 * base_bit) / 12 * sig_w**2
+    var = (p.k * t * p.N * 2.0**(2 * base_bit) / 12
+           * (sig_w**2 + key_err**2 / 3)
            + p.k * p.N / 2 * 2.0**(2 * (bits - t * base_bit)) / 12
            + sig_w**2)
     return 2.0**math.ceil(math.log2(64 * math.sqrt(var)))
@@ -2525,7 +2554,8 @@ def apps_phase(p_l2, gk_l2, key_trlwe_l2, gen, dev, max_clock):
     N-entry LUT (1 K3 launch, within 2^57 of its value) and
     `eval_lut_vertical` of m = 5000 over a 4N-entry LUT (2 K3 launches for
     the CMUX tree, 1 K1 launch of log2 N steps; within 2^58).  Returns the
-    report, the counts and the kernel runs."""
+    report, the counts, the kernel runs and the ufhe keyset, context and
+    add's integer pair, which phase 25 saves and loads."""
     from mosfhet_torch import bootstrap, params, tlwe, torus, trlwe
     from mosfhet_torch.apps import leveled_lut, ufhe
     from mosfhet_torch.ops import pbs_kernel as pk
@@ -2664,7 +2694,9 @@ def apps_phase(p_l2, gk_l2, key_trlwe_l2, gen, dev, max_clock):
         + f"; every integer decrypts right; K1 at l=6 {r1['ms']:.3f} ms "
           f"(bound {r1['bound_ms']:.3f}, plain {r1['plain_ms']:.1f}), "
           f"bit-exact; peak {rep['peak_bytes'] / 2**30:.2f} GiB")
-    del pub, ctx, priv, bk, acc0, a_int, dig_ks, dig_lp, tab, a_vals
+    # phase 25 saves and loads this keyset, context and these integers
+    keep = {"priv": priv, "ctx": ctx, "ints": [a, b]}
+    del pub, bk, acc0, a_int, dig_ks, dig_lp, tab, a_vals, sa, sel, vec
     torch.cuda.empty_cache()
 
     # leveled LUT at TFHEpp-L2
@@ -2713,7 +2745,414 @@ def apps_phase(p_l2, gk_l2, key_trlwe_l2, gen, dev, max_clock):
         f"{rep['vertical_packing']['ms']:.3f} ms (2 K3 + 1 K1, err "
         f"2^{rep['vertical_packing']['decrypt_max_err_log2']:.1f}); "
         f"phase 24 (apps): {rep['seconds']:.1f} s")
-    return rep, counts, runs
+    return rep, counts, runs, keep
+
+
+def torus_dist(x, y):
+    """|x - y| on the 64-bit torus, for Python ints."""
+    d = (int(x) - int(y)) % (1 << 64)
+    return min(d, (1 << 64) - d)
+
+
+def io_phase(p, key_tlwe, key_trlwe, gk, bk, ksk, tv, cs, luts, slots,
+             ksk_r, key_in, ufhe_keep, gen, dev, max_clock):
+    """Phase 25: keysets through `io` onto the card.  (a) The L2 gate
+    keyset (phase 4's u=1 bootstrap key, phase 7's TLWE key-switch key)
+    saved in the versioned container and loaded: 512 gates (1 K1, 1 K2)
+    give the in-memory keyset's words.  (b) The reference's layouts at L2:
+    a u=4 key (made here as phase 10 makes its own) in `save_bootstrap_key`'s
+    time-domain layout, back bit for bit, one PBS of 512 (1 K4) with equal
+    words; phase 4's key in the FFNT and SPQLIOS f64 DFT layouts, 512 PBS
+    (1 K1 each) within 2^58; phase 15's TRLWE key-switch key in both DFT
+    layouts, one `trlwe_keyswitch` of 512 (1 K6 each) within phase 15's
+    bound.  (c) The reference's own files (tests/vectors/) imported onto
+    the card: the u=2 key (K4) within 2^36 of the reference's output phase,
+    the u=1 DFT keys (K1), the TRLWE key-switch keys (K6), the packing and
+    packing1 keys with their masks expanded by `native` (K2), the vaes
+    sample, and the replayed stream and its DFT-stored key (K1); every path
+    also run whole on the plain versions, word for word.  (d) ufhe at
+    UFHE_SET0: phase 24's keyset, context and 64-integer pairs saved and
+    loaded, one `add_integer` with the loaded context giving the in-memory
+    words.  Prints bytes, seconds, peak memory and each decrypt error.
+    Returns the report, the counts and the paths held per kernel."""
+    from mosfhet_torch import bootstrap, io, keyswitch, ntt, rng, tlwe
+    from mosfhet_torch import torus, trlwe
+    from mosfhet_torch.apps import ufhe
+    from mosfhet_torch.ops import pbs_kernel as pk
+    from mosfhet_torch.refrng import RefStream
+
+    t_phase = time.perf_counter()
+    rep, counts, held = {}, {}, {}
+    key_out = trlwe.extract_tlwe_key(key_trlwe)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    rep["disk_free_bytes"] = shutil.disk_usage(tmp).free
+    log(f"# phase 25 (io): {rep['disk_free_bytes'] / 1e9:.1f} GB free "
+        f"under {os.path.dirname(tmp)}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def write(name, fn):
+        path = os.path.join(tmp, name)
+        with open(path, "wb") as f:
+            fn(f)
+        return path
+
+    def read(path, fn, *args, **kw):
+        with open(path, "rb") as f:
+            return fn(f, *args, **kw)
+
+    def vec(name, fn, *args, **kw):
+        return read(os.path.join(VECTORS, name), fn, *args, **kw)
+
+    def on_path(name, fn, want):
+        """fn() with the counts zeroed just before and read just after, then
+        whole on the plain versions: the same words."""
+        zero_counts(pk)
+        out = fn()
+        torch.cuda.synchronize()
+        counts[name] = read_counts(pk)
+        check_counts(name, counts[name], want)
+        with plain_kernels(pk):
+            ref = fn()
+        same_or_fail(f"{name} vs its plain route (a)", out.a, ref.a)
+        same_or_fail(f"{name} vs its plain route (b)", out.b, ref.b)
+        for kernel in want:
+            held.setdefault(kernel, []).append(name)
+        return out
+
+    def counted(name, fn, want):
+        zero_counts(pk)
+        out = fn()
+        torch.cuda.synchronize()
+        counts[name] = read_counts(pk)
+        check_counts(name, counts[name], want)
+        return out
+
+    def same_ct(what, x, y):
+        same_or_fail(f"{what} (a)", x.a, y.a)
+        same_or_fail(f"{what} (b)", x.b, y.b)
+
+    try:
+        # (a) the gate keyset through the container
+        torch.cuda.reset_peak_memory_stats()
+        path = os.path.join(tmp, "l2_gate.mtpu")
+        save_s, _ = timed(lambda: io.save(path, {"bk": bk, "ksk": ksk}))
+        load_s, keys = timed(lambda: io.load(path))
+
+        def gate(b, k):
+            return tlwe.keyswitch(bootstrap.functional_bootstrap(
+                tv, cs, b, 4), k)
+
+        out_l = counted("io_gate", lambda: gate(keys["bk"], keys["ksk"]),
+                        {"blind_rotate_scan": 1, "tlwe_keyswitch_sum": 1})
+        same_ct("gate on the loaded keyset vs in memory", out_l, gate(bk, ksk))
+        err = signed_max_abs(tlwe.phase(out_l, key_tlwe) - luts[slots])
+        if not err <= KS_DECRYPT_BOUND:
+            fail(f"io gate decrypt: max error 2^{err_log2(err):.1f} > 2^60")
+        rep["gate"] = {"file_bytes": os.path.getsize(path), "save_s": save_s,
+                       "load_s": load_s, "decrypt_max_err_log2": err_log2(err),
+                       "peak_bytes": torch.cuda.max_memory_allocated()}
+        del keys, out_l
+        os.remove(path)
+        log(f"# io gate keyset: {rep['gate']['file_bytes']} B, save "
+            f"{save_s:.2f} s, load {load_s:.2f} s; {BATCH} gates (1 K1, 1 K2) "
+            f"word-equal to the in-memory keyset's; decrypt OK (max err "
+            f"2^{err_log2(err):.1f}); peak "
+            f"{rep['gate']['peak_bytes'] / 2**30:.2f} GiB")
+
+        # (b) the reference's layouts at L2: u=4 time domain
+        bk4 = bootstrap.new_key(gk, key_tlwe, gen, dev, unfolding=U_PBS)
+        ex_s, path = timed(lambda: write(
+            "u4.bin", lambda f: io.export_mosfhet_bootstrap_key(f, bk4)))
+        im_s, bk4_i = timed(lambda: read(
+            path, io.import_mosfhet_bootstrap_key))
+        if not (torch.equal(bk4_i.su, bk4.su) and bk4_i.primes == bk4.primes):
+            fail("u=4 key through save_bootstrap_key's layout != the key")
+        out_i = counted("io_u4", lambda: bootstrap.functional_bootstrap(
+            tv, cs, bk4_i, 4), {"unfolded_rotate": 1})
+        same_ct("u=4 PBS on the imported key vs in memory", out_i,
+                bootstrap.functional_bootstrap(tv, cs, bk4, 4))
+        rep["u4"] = {"file_bytes": os.path.getsize(path), "export_s": ex_s,
+                     "import_s": im_s}
+        del bk4, bk4_i, out_i
+        os.remove(path)
+        log(f"# io u=4 key, time-domain layout: {rep['u4']['file_bytes']} B, "
+            f"export {ex_s:.2f} s, import {im_s:.2f} s; su bit for bit; PBS "
+            f"of {BATCH} (1 K4) word-equal")
+
+        # u=1 in both f64 DFT layouts
+        plan = bk.plan()
+        rows = ntt.garner_u64(ntt.inverse_ntt(bk.v, plan), plan)
+        for layout in ("ffnt", "spqlios"):
+            ex_s, path = timed(lambda: write(
+                f"u1_{layout}.bin",
+                lambda f: io.export_mosfhet_bootstrap_key(f, bk, layout)))
+            im_s, bk_d = timed(lambda: read(
+                path, io.import_mosfhet_bootstrap_key_dft, layout))
+            if bk_d.primes != bk.primes:
+                fail(f"DFT-imported key's primes {bk_d.primes}")
+            key_err = signed_max_abs(ntt.garner_u64(
+                ntt.inverse_ntt(bk_d.v, plan), plan) - rows)
+            out_d = counted(f"io_dft_{layout}",
+                            lambda: bootstrap.functional_bootstrap(
+                                tv, cs, bk_d, 4), {"blind_rotate_scan": 1})
+            err = signed_max_abs(tlwe.phase(out_d, key_out) - luts[slots])
+            if not err <= DECRYPT_BOUND:
+                fail(f"io u=1 {layout} decrypt: max error "
+                     f"2^{err_log2(err):.1f} > 2^58")
+            rep[f"u1_{layout}"] = {
+                "file_bytes": os.path.getsize(path), "export_s": ex_s,
+                "import_s": im_s, "key_word_err_log2": err_log2(key_err),
+                "decrypt_max_err_log2": err_log2(err)}
+            del bk_d, out_d
+            os.remove(path)
+            log(f"# io u=1 key, {layout} DFT layout: "
+                f"{rep[f'u1_{layout}']['file_bytes']} B, export {ex_s:.2f} s,"
+                f" import {im_s:.2f} s; key words within 2^"
+                f"{err_log2(key_err):.1f} of the original; PBS of {BATCH} "
+                f"(1 K1) decrypt OK (max err 2^{err_log2(err):.1f})")
+        del rows
+
+        # phase 15's TRLWE key-switch key in both DFT layouts
+        m_ks = rng.uniform_torus(gen, (BATCH, p.N), dev)
+        c_ks = trlwe.encrypt(m_ks, key_in, gen)
+        ks_plan = ntt.get_plan(p.N, ksk_r.primes, dev)
+        ks_words = ntt.from_ntt_u64(ksk_r.v, ks_plan, torch.int64)
+        for layout in ("ffnt", "spqlios"):
+            ex_s, path = timed(lambda: write(
+                f"trlwe_ks_{layout}.bin",
+                lambda f: io.export_mosfhet_trlwe_ks_key(f, ksk_r, layout)))
+            im_s, ksk_i = timed(lambda: read(
+                path, io.import_mosfhet_trlwe_ks_key, layout))
+            if ksk_i.primes != ksk_r.primes:
+                fail(f"DFT-imported TRLWE KS key's primes {ksk_i.primes}")
+            # phase 15's bound with the layout's f64 rounding of the key's
+            # words added to its noise
+            key_err = signed_max_abs(ntt.from_ntt_u64(
+                ksk_i.v, ks_plan, torch.int64) - ks_words)
+            rks_bound = trlwe_ks_bound(p, p.l, p.Bg_bit, key_err=key_err)
+            out_k = counted(f"io_trlwe_ks_{layout}",
+                            lambda: keyswitch.trlwe_keyswitch(c_ks, ksk_i),
+                            {"auto_keyswitch_stream": 1})
+            err = signed_max_abs(trlwe.phase(out_k, key_trlwe) - m_ks)
+            if not err <= rks_bound:
+                fail(f"io TRLWE KS {layout} decrypt: max error "
+                     f"2^{err_log2(err):.1f} > 2^{math.log2(rks_bound):.0f}")
+            rep[f"trlwe_ks_{layout}"] = {
+                "file_bytes": os.path.getsize(path), "export_s": ex_s,
+                "import_s": im_s, "key_word_err_log2": err_log2(key_err),
+                "decrypt_max_err_log2": err_log2(err),
+                "decrypt_bound_log2": math.log2(rks_bound)}
+            os.remove(path)
+            log(f"# io TRLWE KS key, {layout} DFT layout: "
+                f"{rep[f'trlwe_ks_{layout}']['file_bytes']} B, export "
+                f"{ex_s:.3f} s, import {im_s:.3f} s; key words within 2^"
+                f"{err_log2(key_err):.1f}; trlwe_keyswitch of "
+                f"{BATCH} (1 K6) decrypt OK (max err 2^{err_log2(err):.1f} "
+                f"against 2^{math.log2(rks_bound):.0f})")
+        del m_ks, c_ks, out_k, ksk_i, ks_words
+
+        # (c) the reference's own files
+        t0 = time.perf_counter()
+        ref = {}
+        tk = vec("vec2_tlwe_key.bin", io.import_mosfhet_tlwe_key)
+        rk = vec("vec2_trlwe_key.bin", io.import_mosfhet_trlwe_key)
+        bk2 = vec("vec2_bootstrap_key.bin", io.import_mosfhet_bootstrap_key)
+        c_in = vec("vec2_input.bin", io.import_mosfhet_tlwe, tk.n)
+        c_ref = vec("vec2_output.bin", io.import_mosfhet_tlwe, rk.k * rk.N)
+        lut = torus.double2torus(torch.arange(4, dtype=torch.float64) / 8.0,
+                                 dev)
+        tv2 = trlwe.torus_packing(lut, rk.k, rk.N)
+        out = on_path("io_vec2_u2", lambda: bootstrap.functional_bootstrap(
+            tv2, c_in, bk2, 4), {"unfolded_rotate": 1})
+        ko = trlwe.extract_tlwe_key(rk)
+        ph, ph_ref = tlwe.phase(out, ko), tlwe.phase(c_ref, ko)
+        want = torus.double2torus(2 / 8.0, dev)
+        d_ref, d_want = torus_dist(ph, ph_ref), torus_dist(ph, want)
+        if not (d_ref < 2.0**36 and d_want < 2.0**40):
+            fail(f"vec2 bootstrap: 2^{err_log2(d_ref):.1f} from the "
+                 f"reference's output, 2^{err_log2(d_want):.1f} from 2/8")
+        ref["vec2_u2"] = {"from_reference_log2": err_log2(d_ref),
+                          "from_message_log2": err_log2(d_want)}
+
+        for tag, layout in (("v2", "ffnt"), ("v3_sp", "spqlios")):
+            tk = vec(f"{tag}_tlwe_key.bin", io.import_mosfhet_tlwe_key)
+            ok = vec(f"{tag}_trlwe_okey.bin", io.import_mosfhet_trlwe_key)
+            bk1 = vec(f"{tag}_bootstrap_key_u1.bin",
+                      io.import_mosfhet_bootstrap_key_dft, layout)
+            luts1 = rng.uniform_torus(gen, (4,), dev)
+            m = torch.arange(64, device=dev) % 4
+            c1 = tlwe.encrypt(torus.double2torus(
+                m.to(torch.float64) / 8.0, dev), tk, gen)
+            tv1 = trlwe.torus_packing(luts1, VEC_K, VEC_N)
+            out = on_path(f"io_{tag}_bk_u1",
+                          lambda: bootstrap.functional_bootstrap(
+                              tv1, c1, bk1, 4), {"blind_rotate_scan": 1})
+            err = signed_max_abs(tlwe.phase(out, trlwe.extract_tlwe_key(ok))
+                                 - luts1[m])
+            if not err <= DECRYPT_BOUND:
+                fail(f"{tag} u=1 key: max error 2^{err_log2(err):.1f} > 2^58")
+            ref[f"{tag}_bk_u1"] = {"decrypt_max_err_log2": err_log2(err)}
+
+            ks_key = vec(f"{tag}_trlwe_ks_key.bin",
+                         io.import_mosfhet_trlwe_ks_key, layout)
+            cin = vec("v2_trlwe_ks_in.bin" if tag == "v2"
+                      else "v3_sp_trlwe_sample.bin", io.import_mosfhet_trlwe,
+                      VEC_K, VEC_N)
+            c_out = vec(f"{tag}_trlwe_ks_out.bin", io.import_mosfhet_trlwe,
+                        VEC_K, VEC_N)
+            out = on_path(f"io_{tag}_trlwe_ks",
+                          lambda: keyswitch.trlwe_keyswitch(cin, ks_key),
+                          {"auto_keyswitch_stream": 1})
+            msg = torch.arange(VEC_N, device=dev) << 48
+            errs = [signed_max_abs(trlwe.phase(c, ok) - msg)
+                    for c in (out, c_out)]
+            if not max(errs) <= VEC_KS_BOUND:
+                fail(f"{tag} TRLWE KS: max errors 2^{err_log2(errs[0]):.1f} "
+                     f"(port), 2^{err_log2(errs[1]):.1f} (reference)")
+            ref[f"{tag}_trlwe_ks"] = {"decrypt_max_err_log2": err_log2(
+                errs[0]), "reference_max_err_log2": err_log2(errs[1])}
+
+        ok = vec("v2_trlwe_okey.bin", io.import_mosfhet_trlwe_key)
+        t1 = time.perf_counter()
+        pk_key = vec("v2_packing_ks_key.bin", io.import_mosfhet_packing_ks_key,
+                     "shake")
+        gk_key = vec("v2_generic_ks_key.bin", io.import_mosfhet_generic_ks_key,
+                     "shake")
+        ref["packing_import_s"] = time.perf_counter() - t1
+        ins = vec("v2_packing_in.bin", lambda f: [
+            io.import_mosfhet_tlwe(f, 32) for _ in range(4)])
+        cs4 = tlwe.TLWE(a=torch.stack([c.a for c in ins]),
+                        b=torch.stack([c.b for c in ins]))
+        out = on_path("io_v2_packing",
+                      lambda: keyswitch.lut_packing_keyswitch(cs4, pk_key),
+                      {"tlwe_keyswitch_sum": 1})
+        want = torch.repeat_interleave(
+            (torch.arange(4, device=dev) + 1) << 60, VEC_N // 4)
+        errs = [signed_max_abs(trlwe.phase(c, ok) - want) for c in (
+            out, vec("v2_packing_out.bin", io.import_mosfhet_trlwe, VEC_K,
+                     VEC_N))]
+        gin = vec("v2_generic_in.bin", io.import_mosfhet_tlwe, 32)
+        out = on_path("io_v2_generic",
+                      lambda: keyswitch.packing1_keyswitch(gin, gk_key),
+                      {"tlwe_keyswitch_sum": 1})
+        errs += [signed_max_abs(trlwe.phase(c, ok)[:1] - (5 << 60)) for c in (
+            out, vec("v2_generic_out.bin", io.import_mosfhet_trlwe, VEC_K,
+                     VEC_N))]
+        if not max(errs) <= VEC_KS_BOUND:
+            fail(f"packing / packing1 keys: max errors "
+                 f"{[round(err_log2(e), 1) for e in errs]} (log2)")
+        ref["packing"] = {"decrypt_max_err_log2": [err_log2(e)
+                                                   for e in errs]}
+
+        vkey = vec("v2_vaes_trlwe_key.bin", io.import_mosfhet_trlwe_key)
+        cv = vec("v2_vaes_compressed.bin",
+                 io.import_mosfhet_compressed_trlwe_vaes, VEC_K, VEC_N,
+                 VEC_AES_KEY)
+        err = signed_max_abs(trlwe.phase(cv, vkey) - (
+            (3 * torch.arange(VEC_N, device=dev) + 1) << 47))
+        if not err <= 2.0**30:
+            fail(f"vaes sample: max error 2^{err_log2(err):.1f} > 2^30")
+        ref["vaes"] = {"decrypt_max_err_log2": err_log2(err)}
+
+        st = RefStream()
+        stream = b"".join(st.bytes(n) for n in [16, 100, 600, 16, 1000, 512,
+                                                 3])
+        normal = st.normal_torus_array(1.0 / (1 << 15), 256)
+        with open(os.path.join(VECTORS, "v3_replay_stream.bin"), "rb") as f:
+            ok_stream = stream == f.read()
+        with open(os.path.join(VECTORS, "v3_replay_normal.bin"), "rb") as f:
+            ok_normal = np.array_equal(normal, np.frombuffer(f.read(), "<u8"))
+        s_lwe = st.binary_key(32)
+        rk = vec("v3_replay_trlwe_key.bin", io.import_mosfhet_trlwe_key)
+        tk = vec("v3_replay_tlwe_key.bin", io.import_mosfhet_tlwe_key)
+        if not (ok_stream and ok_normal
+                and np.array_equal(tk.s.cpu().numpy(), s_lwe)
+                and np.array_equal(rk.s.cpu().numpy(),
+                                   st.trlwe_binary_key(VEC_N, VEC_K))):
+            fail("RefStream != the reference's replayed stream, noise or keys")
+        bkr = vec("v3_replay_bootstrap_key.bin",
+                  io.import_mosfhet_bootstrap_key_dft)
+        c_in = vec("v3_replay_bs_in.bin", io.import_mosfhet_tlwe, 32)
+        c_ref = vec("v3_replay_bs_out.bin", io.import_mosfhet_tlwe, VEC_N)
+        tvr = trlwe.noiseless_trivial(
+            (torch.arange(VEC_N, device=dev) // (VEC_N // 4) + 1) << 59,
+            VEC_K, VEC_N)
+        out = on_path("io_v3_replay", lambda: bootstrap.functional_bootstrap(
+            tvr, c_in, bkr, 4), {"blind_rotate_scan": 1})
+        ko = trlwe.extract_tlwe_key(rk)
+        ph = tlwe.phase(out, ko)
+        d_ref = torus_dist(ph, tlwe.phase(c_ref, ko))
+        d_want = torus_dist(ph, 2 << 59)
+        # the key's b words carry the DFT layout's f64 rounding: 2^34.2
+        # from the reference's output on the CPU (2^34 with the key rebuilt
+        # exactly from the stream, tests/test_replay_vectors.py)
+        if not (d_ref < 2.0**36 and d_want < 2.0**52):
+            fail(f"replayed bootstrap: 2^{err_log2(d_ref):.1f} from the "
+                 f"reference's output, 2^{err_log2(d_want):.1f} from slot 1")
+        ref["v3_replay"] = {"from_reference_log2": err_log2(d_ref),
+                            "from_message_log2": err_log2(d_want)}
+        ref["seconds"] = time.perf_counter() - t0
+        rep["reference_files"] = ref
+        log(f"# io reference files: vec2 u=2 (K4) 2^"
+            f"{ref['vec2_u2']['from_reference_log2']:.1f} from the "
+            f"reference's output; u=1 DFT keys (K1) err 2^"
+            f"{ref['v2_bk_u1']['decrypt_max_err_log2']:.1f} / 2^"
+            f"{ref['v3_sp_bk_u1']['decrypt_max_err_log2']:.1f}; TRLWE KS (K6)"
+            f" 2^{ref['v2_trlwe_ks']['decrypt_max_err_log2']:.1f} / 2^"
+            f"{ref['v3_sp_trlwe_ks']['decrypt_max_err_log2']:.1f}; packing "
+            f"keys (K2, imported in {ref['packing_import_s']:.2f} s); vaes 2^"
+            f"{ref['vaes']['decrypt_max_err_log2']:.1f}; replay (K1) 2^"
+            f"{ref['v3_replay']['from_reference_log2']:.1f} from the "
+            f"reference; each path word-equal on its plain route; "
+            f"{ref['seconds']:.1f} s")
+
+        # (d) ufhe at UFHE_SET0: keyset, context and integers
+        priv, ctx, ints = (ufhe_keep[k] for k in ("priv", "ctx", "ints"))
+        rep["ufhe"] = {"disk_free_bytes": shutil.disk_usage(tmp).free}
+        log(f"# io ufhe: {rep['ufhe']['disk_free_bytes'] / 1e9:.1f} GB free")
+        torch.cuda.reset_peak_memory_stats()
+        loaded = {}
+        for name, obj in (("priv", priv), ("ctx", ctx), ("ints", ints)):
+            path = os.path.join(tmp, f"ufhe_{name}.mtpu")
+            save_s, _ = timed(lambda: io.save(path, obj))
+            load_s, loaded[name] = timed(lambda: io.load(path))
+            rep["ufhe"][name] = {"file_bytes": os.path.getsize(path),
+                                 "save_s": save_s, "load_s": load_s}
+            os.remove(path)
+        ctx_l, (a_l, b_l) = loaded["ctx"], loaded["ints"]
+        same_or_fail("loaded ufhe LUT packing table",
+                     ctx_l.keyset.packing_key.table,
+                     ctx.keyset.packing_key.table)
+        same_or_fail("loaded ufhe extracted key", loaded["priv"].extracted.s,
+                     priv.extracted.s)
+        d = ints[0].d
+        k1, k2 = ufhe_launches("add", d, d + 1, ctx.torus_base)
+        out_l = counted("io_ufhe_add", lambda: ufhe.add_integer(
+            a_l, b_l, d + 1, ctx_l),
+            {"blind_rotate_scan": k1, "tlwe_keyswitch_sum": k2})
+        same_ct("ufhe add with the loaded context vs in memory",
+                out_l.digits, ufhe.add_integer(ints[0], ints[1], d + 1,
+                                               ctx).digits)
+        rep["ufhe"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del loaded, ctx_l, a_l, b_l, out_l
+        u = rep["ufhe"]
+        log("# io ufhe at UFHE_SET0: " + "; ".join(
+            f"{n} {u[n]['file_bytes']} B, save {u[n]['save_s']:.2f} s, load "
+            f"{u[n]['load_s']:.2f} s" for n in ("priv", "ctx", "ints"))
+            + f"; add of {int(ints[0].digits.b.shape[-1])} pairs with the "
+              f"loaded context ({k1} K1,"
+              f" {k2} K2) word-equal; peak {u['peak_bytes'] / 2**30:.2f} GiB")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 25 (io): {rep['seconds']:.1f} s")
+    return rep, counts, held
 
 
 def set3_phase(dev, max_clock):
@@ -4524,7 +4963,7 @@ def main():
             f"(max err 2^{trlwe_ks[name]['decrypt_max_err_log2']:.1f} "
             f"against 2^{math.log2(rks_bound):.0f})")
     trlwe_ks["eval_automorphism"]["gen"] = gen_auto
-    del ksk_r, ksk_auto, m_ks, ks_cases, out_ks, out_p
+    del ksk_auto, m_ks, ks_cases, out_ks, out_p    # ksk_r, key_in: phase 25
 
     # 16. K8a and K8b vs plain at full L2 widths on random inputs
     B_r = 5
@@ -4700,10 +5139,18 @@ def main():
         ksf_keys)
 
     # 24. the applications: ufhe at UFHE_SET0, the leveled LUT at L2
-    apps, apps_counts, apps_runs = apps_phase(p, gk, key_trlwe, gen, dev,
-                                              max_clock)
+    apps, apps_counts, apps_runs, ufhe_keep = apps_phase(
+        p, gk, key_trlwe, gen, dev, max_clock)
 
-    # 25. report
+    # 25. keysets through io: the container, the reference's layouts and
+    #     files, ufhe's keyset IO
+    io_rep, io_counts, io_held = io_phase(
+        p, key_tlwe, key_trlwe, gk, bk, ksk, tv, cs, luts, slots, ksk_r,
+        key_in, ufhe_keep, gen, dev, max_clock)
+    del ufhe_keep, ksk_r
+    torch.cuda.empty_cache()
+
+    # 26. report
     paths = {"pbs": pbs_counts, "gate": gate_counts, "fdfb": fdfb_counts,
              "unfolded": ub_counts, "ubr_phase1": ph1_counts,
              "ubr_phase2": ph2_counts, "ga": ga_counts}
@@ -4717,6 +5164,7 @@ def main():
                   "trgsw_matrix": matrix_counts, **ksf_counts})
     paths.update({f"family_{name}": c for name, c in fam_counts.items()})
     paths.update(apps_counts)
+    paths.update(io_counts)
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}
@@ -4733,6 +5181,7 @@ def main():
         "resident_blocks_per_sm": k1_res["K1"]["blocks_per_sm"],
         "trgsw_rows": fam_runs["blind_rotate_scan/trgsw_rows"],
         "ufhe_set0": apps_runs["blind_rotate_scan/ufhe_set0"],
+        "io_paths_held": io_held["blind_rotate_scan"],
     }, {
         **k2_entry("tlwe_keyswitch_sum", fdfb_counts["tlwe_keyswitch_sum"],
                    by_path("tlwe_keyswitch_sum"), ks_run, ks_fdfb,
@@ -4742,6 +5191,7 @@ def main():
         "priv_sk_rows": fam_runs["tlwe_keyswitch_sum/priv_sk"],
         "ufhe_set0": {tag: apps_runs[f"tlwe_keyswitch_sum/ufhe_{tag}"]
                       for tag in ("ks", "lut_packing")},
+        "io_paths_held": io_held["tlwe_keyswitch_sum"],
     }, {
         "name": "ext_product_apply_scan", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/ext_product_apply.cu",
@@ -4764,6 +5214,7 @@ def main():
         "bound_ms": k4_bound["bound_ms"], "bound_by": k4_bound["bound_by"],
         "library_ms": None, "library_note": RUNTIME_KEY_LIBRARY_NOTE,
         "resident_blocks_per_sm": k34_res["K4"]["blocks_per_sm"],
+        "io_paths_held": io_held["unfolded_rotate"],
     }, {
         "name": "ubr_phase1_combine", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/ubr_phase1.cu",
@@ -4788,6 +5239,7 @@ def main():
         "stepwise_first_step": step_runs["auto_keyswitch_stream"],
         "ks_family": {name.split("/")[1]: r for name, r in ksf_runs.items()
                       if name.startswith("auto_keyswitch_stream/")},
+        "io_paths_held": io_held["auto_keyswitch_stream"],
     }, {
         "name": "ga_scan_fused", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/ga_scan.cu",
@@ -4986,6 +5438,7 @@ def main():
     log(json.dumps({"boot_family": {"params": p.name, "batch": BATCH,
                                     **fam}}))
     log(json.dumps({"apps": apps}))
+    log(json.dumps({"io": io_rep}))
     log(json.dumps({"torus32": {key: t32[key] for key in t32
                                 if key not in ("counts", "kernel_runs",
                                                "ks_family_runs",

@@ -26,6 +26,7 @@ from . import keyswitch
 from . import product
 from . import bootstrap_ga
 from . import bridge
+from . import io
 from . import parallel
 from .ops import pbs_kernel
 from ._device import default_device

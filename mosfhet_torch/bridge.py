@@ -21,7 +21,7 @@ from .bootstrap_ga import GABootstrapKey
 from .keyswitch import (FullPackingKSKey, GenericKSKey, LUTPackingKSKey,
                         SeededGenericKSKey, SeededLUTPackingKSKey,
                         SeededTRLWEKSKey, TRLWEKSKey)
-from .seeded import SeededTRLWE
+from .seeded import MosfhetSeededTRLWE, SeededTRLWE
 from .ops.pbs_kernel import i32_as_u32, u32_as_i32
 from .tlwe import TLWE, TLWEKey, TLWEKSKey, TLWEKSKeyM, TLWEKSKeyPrepared
 from .trgsw import TRGSW, TRGSWDFT, TRGSWReg
@@ -262,6 +262,20 @@ def seeded_trlwe_from_numpy(seed, b, k: int, device=None) -> SeededTRLWE:
 
 def seeded_trlwe_to_numpy(c: SeededTRLWE):
     return seeds_to_numpy(c.seed), to_numpy(c.b)
+
+
+def mosfhet_seeded_trlwe_from_numpy(seed, b, k: int, prng: str = "xoroshiro",
+                                    device=None) -> MosfhetSeededTRLWE:
+    """A reference-format seeded TRLWE: 16-byte seeds [..., 16] (uint8) and
+    the b words [..., N]."""
+    dev = default_device(device)
+    return MosfhetSeededTRLWE(
+        seed=torch.from_numpy(np.array(seed, dtype=np.uint8)).to(dev),
+        b=to_tensor(b, dev), k=k, prng=prng)
+
+
+def mosfhet_seeded_trlwe_to_numpy(c: MosfhetSeededTRLWE):
+    return c.seed.cpu().numpy(), to_numpy(c.b)
 
 
 def seeded_trlwe_ks_key_from_numpy(seeds, b_v, k_out: int, t: int,

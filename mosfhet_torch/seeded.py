@@ -9,16 +9,19 @@ between the two packages.  Seeds are drawn from the caller's
 ``torch.Generator``.
 
 A seed is a pair of u32 words held as int64 values in [0, 2^32), [..., 2].
-The reference's own wire format (`MosfhetSeededTRLWE`) needs its native
-PRNGs and is not carried over here.
+The reference's own wire format, a 16-byte seed whose mask is the stream of
+xoroshiro128++ or SHAKE-128, is `MosfhetSeededTRLWE`; `expand_mosfhet`
+regenerates its mask on the host through `native`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from . import native as _native
 from . import rng as _rng
 from . import trlwe as _trlwe
 from .ops import prng as _prng
@@ -67,3 +70,39 @@ def subto(c: TRLWE, s: SeededTRLWE) -> TRLWE:
     """c - expand(s) (`trlwe_compressed_subto`,
     `trlwe_compressed.c:118-154`)."""
     return _trlwe.sub(c, expand(s))
+
+
+# --- reference-format seeded samples -----------------------------------------
+
+@dataclasses.dataclass
+class MosfhetSeededTRLWE:
+    """A seeded TRLWE in the reference's wire format: a 16-byte seed and the
+    b polynomial (`trlwe_save_compressed_sample`, `trlwe_compressed.c:66-69`);
+    the mask is the seed's xoroshiro128++ stream (``prng="xoroshiro"``, the
+    reference's default) or SHAKE-128 stream (``prng="shake"``, USE_SHAKE
+    builds)."""
+    seed: torch.Tensor  # [..., 16] uint8
+    b: torch.Tensor     # [..., N] torus words
+    k: int
+    prng: str = "xoroshiro"
+
+    @property
+    def N(self):
+        return self.b.shape[-1]
+
+
+def expand_mosfhet(c: MosfhetSeededTRLWE) -> TRLWE:
+    """Decompress a reference-format seeded sample bit for bit: the masks
+    are expanded on the host by `native` (`trlwe_compressed_sample`,
+    `trlwe_compressed.c:72-99`) and moved to ``c.b``'s device."""
+    if c.prng not in ("xoroshiro", "shake"):
+        raise ValueError(f"unknown prng {c.prng!r}")
+    expand = (_native.xoroshiro_expand if c.prng == "xoroshiro"
+              else _native.shake_mask_expand)
+    N, k = c.N, c.k
+    seeds = c.seed.cpu().numpy().astype(np.uint8)
+    batch = seeds.shape[:-1]
+    masks = [expand(s.tobytes(), k, N) for s in seeds.reshape(-1, 16)]
+    a = np.stack(masks).reshape(batch + (k, N)).view(np.int64)
+    return TRLWE(a=wrap(torch.from_numpy(a).to(c.b.device), c.b.dtype),
+                 b=c.b)

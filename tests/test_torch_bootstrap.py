@@ -18,6 +18,16 @@ KEY = jax.random.PRNGKey(2718)
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: this file's torch ops are small, and idle
+    threads spinning in each of the suite's workers slow the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_keys(p, seed, n=None):
     """TPU-package keys; ``n`` cuts the LWE dimension (the bootstrap key's
     depth) while keeping every other width."""

@@ -32,6 +32,16 @@ P_GA = params.TFHEParams(
     lwe_sigma=2.0**-28, rlwe_sigma=2.0**-44, name="GA_TEST")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: this file's torch ops are small, and idle
+    threads spinning in each of the suite's workers slow the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.cache
 def _jax_keys(p=P_GA):
     """TPU-package keys with a GA bootstrap key, generated as one compiled

@@ -1967,3 +1967,69 @@ def test_cuda_keyswitch_sum_matches_plain_at_base_bit_2(B, n_in, t, base_m1,
     torch.cuda.synchronize()
     assert tpk.tlwe_keyswitch_sum.launches == launches + 1
     assert torch.equal(got, tpk.tlwe_keyswitch_sum_plain(d, tab))
+
+
+@pytest.mark.gpu
+def test_cuda_io_container_loads_to_card(tmp_path):
+    """A keyset saved from the CPU loads onto the card by default (`io.load`
+    with no device) and bootstraps and switches there through K1 and K2,
+    with the CPU's words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from mosfhet_torch import bootstrap, io, params, rng, tlwe, torus, trgsw, \
+        trlwe
+    p = params.TOY
+    gen = torch.Generator().manual_seed(77)
+    key_tlwe = tlwe.new_binary_key(p.n, p.lwe_sigma, gen, "cpu")
+    key_trlwe = trlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, "cpu")
+    key_out = trlwe.extract_tlwe_key(key_trlwe)
+    bk = bootstrap.new_key(trgsw.new_key(key_trlwe, p.l, p.Bg_bit),
+                           key_tlwe, gen, "cpu")
+    ksk = tlwe.new_ks_key(key_tlwe, key_out, p.t, p.base_bit, gen, "cpu")
+    luts = rng.uniform_torus(gen, (4,), "cpu")
+    tv = trlwe.torus_packing(luts, p.k, p.N)
+    cs = tlwe.encrypt(torus.double2torus(
+        (torch.arange(130) % 4).to(torch.float64) / 8.0), key_tlwe, gen)
+    want = tlwe.keyswitch(bootstrap.functional_bootstrap(tv, cs, bk, 4), ksk)
+    io.save(tmp_path / "keys.mtpu", {"bk": bk, "ksk": ksk, "tv": tv,
+                                     "cs": cs})
+    back = io.load(tmp_path / "keys.mtpu")
+    assert back["bk"].device.type == "cuda" and back["ksk"].ab.is_cuda
+    counts = (tpk.blind_rotate_scan.launches, tpk.tlwe_keyswitch_sum.launches)
+    got = tlwe.keyswitch(bootstrap.functional_bootstrap(
+        back["tv"], back["cs"], back["bk"], 4), back["ksk"])
+    torch.cuda.synchronize()
+    assert (tpk.blind_rotate_scan.launches,
+            tpk.tlwe_keyswitch_sum.launches) == (counts[0] + 1, counts[1] + 1)
+    assert torch.equal(got.a.cpu(), want.a) and torch.equal(got.b.cpu(),
+                                                            want.b)
+
+
+@pytest.mark.gpu
+def test_cuda_reference_unfolded_key_imports_to_card():
+    """The reference's u=2 key and input (tests/vectors/vec2_*) imported
+    onto the card bootstrap through K4 with the CPU import's words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import os
+
+    from mosfhet_torch import bootstrap, io, torus, trlwe
+    vec = os.path.join(os.path.dirname(__file__), "vectors")
+
+    def run(device):
+        with open(os.path.join(vec, "vec2_bootstrap_key.bin"), "rb") as f:
+            bk = io.import_mosfhet_bootstrap_key(f, device=device)
+        with open(os.path.join(vec, "vec2_input.bin"), "rb") as f:
+            c = io.import_mosfhet_tlwe(f, 16, device=device)
+        lut = torus.double2torus(torch.arange(4, dtype=torch.float64) / 8.0,
+                                 bk.device)
+        return bootstrap.functional_bootstrap(
+            trlwe.torus_packing(lut, 1, 256), c, bk, 4)
+
+    launches = tpk.unfolded_rotate.launches
+    got = run(None)
+    torch.cuda.synchronize()
+    assert tpk.unfolded_rotate.launches == launches + 1
+    want = run("cpu")
+    assert torch.equal(got.a.cpu(), want.a) and torch.equal(got.b.cpu(),
+                                                            want.b)

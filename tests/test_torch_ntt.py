@@ -14,6 +14,16 @@ from mosfhet_torch.ops import pbs_kernel as tpk
 PRIMES = jntt.DEFAULT_PRIMES
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: this file's torch ops are small, and idle
+    threads spinning in each of the suite's workers slow the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _u64(x):
     return np.asarray(x).astype(np.uint64)
 

@@ -37,6 +37,16 @@ L2 = params.TFHEPP_L2                # N=2048, k=1, l=4, Bg_bit=9
 UB = dict(N=128, k=1, l=2, Bg_bit=10)   # the UBR tests' widths
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: this file's torch ops are small, and idle
+    threads spinning in each of the suite's workers slow the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _digits(p):
     return (p.N, p.k, p.l, p.Bg_bit) if not isinstance(p, dict) else \
         (p["N"], p["k"], p["l"], p["Bg_bit"])

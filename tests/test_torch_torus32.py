@@ -31,7 +31,8 @@ CASES = ("gadget_decompose", "double2torus", "torus2int", "ntt_product",
          "unported_paths_raise", "k1_step_plain_vs_interpret",
          "blind_rotate_stepwise", "trgsw_matrix_ops", "leaf_ops",
          "packing1_and_priv_ks", "full_packing", "seeded",
-         "bootstrap_family", "bootstrap_family_decrypts", "clot21_raises")
+         "bootstrap_family", "bootstrap_family_decrypts", "clot21_raises",
+         "io_container")
 M32 = 1 << 32
 
 i32 = st.integers(-(1 << 31), (1 << 31) - 1)
@@ -63,7 +64,8 @@ def test_int32_arithmetic_wraps_mod_2_32(pairs):
 def torus32_results(tmp_path_factory):
     """Run every case once in a child interpreter at the 32-bit torus."""
     out = tmp_path_factory.mktemp("torus32") / "results.json"
-    env = dict(os.environ, MOSFHET_TORUS_BITS="32", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, MOSFHET_TORUS_BITS="32", JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1")
     t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-m", "tests.test_torch_torus32", str(out)],
@@ -895,6 +897,56 @@ def _child(out_path):
                 pass
             if tpk.blind_rotate_scan_plain.calls != calls:
                 msgs.append(f"{name} ran a rotation first")
+        return "; ".join(msgs)
+
+    def case_io_container():
+        """The container both ways at 32 bits: u32 torus words, an unfolded
+        key's one limb plane, u64 residues, u32 seeds."""
+        import tempfile
+
+        from mosfhet_tpu import io as jio
+        from mosfhet_torch import io as tio
+        primes = tntt.primes_for_bound(
+            tntt.external_product_bound(p.N, p.Bg_bit, p.l, p.k))
+        R, C = (p.k + 1) * p.l, p.k + 1
+        a, b, su = words((3, p.n)), words((3,)), words((1, 8, 4, R, C, p.N))
+        v = rs.integers(0, 1 << 62, (p.k, p.t, C, len(primes), p.N),
+                        dtype=np.uint64) % np.array(primes, np.uint64)[:, None]
+        seed, sb = words((2, 2)), words((2, p.N))
+        shape = dict(n=p.n, k=p.k, N=p.N, l=p.l, Bg_bit=p.Bg_bit)
+        J = jnp.asarray
+        objs = [
+            (jtlwe.TLWE(a=J(a), b=J(b)), bridge.tlwe_from_numpy(a, b, CPU)),
+            (jbs.BootstrapKey(v=None, vs=None, su=J(su), unfolding=2,
+                              primes=primes, **shape),
+             bridge.unfolded_bootstrap_key_from_numpy(
+                 su, *shape.values(), primes, 2, CPU)),
+            (jks.TRLWEKSKey(v=J(v), vs=J((v << np.uint64(32)) // np.array(
+                primes, np.uint64)[:, None]), t=p.t, base_bit=p.base_bit,
+                primes=primes),
+             bridge.trlwe_ks_key_from_numpy(v, p.t, p.base_bit, primes, CPU)),
+            (jseeded.SeededTRLWE(seed=J(seed), b=J(sb), k=p.k),
+             bridge.seeded_trlwe_from_numpy(seed, sb, p.k, CPU))]
+        def tensors(o):
+            return (dict(o.state_dict()) if isinstance(o, torch.nn.Module)
+                    else {k: x for k, x in vars(o).items()
+                          if isinstance(x, torch.Tensor)})
+
+        msgs = []
+        with tempfile.TemporaryDirectory() as d:
+            for i, (j, t) in enumerate(objs):
+                jio.save(f"{d}/j{i}", j)
+                back = tensors(tio.load(f"{d}/j{i}", device=CPU))
+                for name, x in tensors(t).items():
+                    if x.dtype != back[name].dtype or \
+                            not torch.equal(x, back[name]):
+                        msgs.append(f"{type(t).__name__}.{name}")
+                tio.save(f"{d}/t{i}", t)
+                lj, tj = jax.tree_util.tree_flatten(jio.load(f"{d}/t{i}"))
+                lw, tw = jax.tree_util.tree_flatten(j)
+                msgs += [f"{type(t).__name__} treedef"] if tj != tw else []
+                msgs += [m for x, y in zip(lj, lw)
+                         if (m := same(np.asarray(x), np.asarray(y)))]
         return "; ".join(msgs)
 
     results = {}

@@ -44,6 +44,7 @@ def torus32_ga_results(tmp_path_factory):
     """Run every case once in a child interpreter at the 32-bit torus."""
     out = tmp_path_factory.mktemp("torus32_ga") / "results.json"
     env = dict(os.environ, MOSFHET_TORUS_BITS="32", JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     r = subprocess.run(
         [sys.executable, "-m", "tests.test_torch_torus32_ga", str(out)],

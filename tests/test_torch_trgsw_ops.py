@@ -25,6 +25,16 @@ CPU = "cpu"
 B = 6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: this file's torch ops are small, and idle
+    threads spinning in each of the suite's workers slow the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _same(got, want):
     np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
 

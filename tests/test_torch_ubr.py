@@ -31,6 +31,16 @@ UNFOLD_TEST = params.TFHEParams(
 U = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: this file's torch ops are small, and idle
+    threads spinning in each of the suite's workers slow the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.cache
 def _jax_setup():
     """TPU-package keys at u=2 and their port copies, once for the file."""

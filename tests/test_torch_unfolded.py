@@ -30,6 +30,16 @@ UNFOLD_TEST = params.TFHEParams(
     lwe_sigma=2.0**-28, rlwe_sigma=2.0**-44, name="UNFOLD_TEST")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: this file's torch ops are small, and idle
+    threads spinning in each of the suite's workers slow the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.cache
 def _jax_keys(u, p=UNFOLD_TEST):
     """TPU-package keys with an unfolded bootstrap key, generated as one
