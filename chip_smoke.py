@@ -62,7 +62,10 @@ Phases; any failure ends the script with a non-zero exit and no result line:
   9. k345     the external-product apply-scan kernel (K3, broadcast and
               per-row keys, G=2, B=5), the unfolded-rotation kernel (K4) and
               the UBR phase-1 kernels K5 and K5-v1 (u = 2, 4, 8 with G = 2,
-              2, 1 and B=3, exponents 0, N and 2N present), the one-step
+              2, 1 and B=3, exponents 0, N and 2N present; and u=4, G=2 at
+              one ciphertext, a tile less one, a tile, a tile plus one and
+              64: B = 1, 7, 8, 9, 64 with u64 words and, at L2_32 widths,
+              B = 1, 2, 3, 64 with u32 words), the one-step
               kernels K1-step (B=5, exponents 0, N and 2N present) and
               K3-step (both key modes) against their plain versions at full
               TFHEpp-L2 widths on random inputs: bit-exact.
@@ -77,6 +80,11 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               launch, phase 2 is 1 K3 launch; every LUT within 2^58 of its
               slot 2; both kernels timed beside their bounds and their plain
               versions on the same inputs (bit-exact); peak device memory.
+              Then UBR phase 1 of phase 4's first 64 ciphertexts
+              (`k5_batch_phase`): 1 K5 launch counted, warm ms, K5 alone
+              beside its bound and its shared-memory ceiling, ciphertexts 0,
+              1 and 63 held to the plain version, K5's schedule and
+              resident blocks per SM at B = 1 and 64.
 11b. ubrsteps phase 11's ciphertext, LUTs and cache through
               bootstrap.multivalue_bootstrap_UBR_phase1_v1 (1 K5-v1 launch
               of K5's kernel, words equal to K5's) and
@@ -197,7 +205,8 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               launch per call, decrypt within 2^28); UBR at u=4 (one ciphertext, 256 LUTs: 1 K5 and 1 K3
               launch, every LUT within 2^28), then its phase 1 v1 and phase
               2 step form as in phase 11b (1 one-limb K5-v1 and G = 158
-              K3-step launches); trgsw.external_product on 512
+              K3-step launches), and phase 1 of 64 ciphertexts as in phase
+              11; trgsw.external_product on 512
               TRLWEs, broadcast and per row (1 K3 launch each, within
               2^26); pbs_on_mesh on (1, 2), (1, 3) and (2, 2) meshes of the
               card (J = 6 rows split over 2 or 3 shards; exact K8a and K8b
@@ -305,6 +314,12 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               as `pbs_step`, K3-step as `ext_product_apply_step`, K5-v1 as
               `ubr_phase1_combine_v1`), and the result line last.
 
+`python3 chip_smoke.py --k5` times K5 alone at B = 1 and 64 at TFHEpp-L2
+(u=8) and L2_32 (u=4), as the phases above time it, K5 at 64 under each
+tile cap of K5_TILES, and K4 at the u=4 PBS's shape, on random inputs,
+and prints one JSON line; a copy of the script in another checkout times
+that checkout's kernels.
+
 Imports nothing but PyTorch, numpy and the port.
 """
 
@@ -325,6 +340,7 @@ import torch
 BATCH = 512          # the TPU bench's accelerator default
 REPS = 3             # timed repetitions of the warm bootstrap
 KS_REPS = 10         # timed launches of the key-switch kernel
+K5_REPS = 10         # timed (queued) launches of K5 and K5-v1
 FDFB_PREC = 3        # the TPU bench suite's fdfb_this_work precision
 SEED = 2024
 U_PBS = 4            # the README's best full-bootstrap unfolding
@@ -373,6 +389,9 @@ STEP_KERNELS = {
                                STEP_LIBRARY_NOTE),
     "ubr_phase1_combine_v1": ("ubr_phase1.cu", 2744, "none: no PyTorch call "
                               "computes an exact unfolded combine")}
+# UBR phase 1 at a batch (phases 11, 20): the main path's first ciphertexts
+K5_BATCH = 64
+K5_TILES = (1, 2, 4, 7, 8)   # `--k5`: caps of K5's tile timed at K5_BATCH
 SET3_CUT = 64        # ciphertexts of the SET_3 K3, K4, K7, K8a checks
 SET3_GA_ENTRIES = 64  # keyset entries of the SET_3 K7 check
 # The 32-bit torus: benchmarks/bench_torus32.py's parameter set (L2_32)
@@ -856,6 +875,11 @@ def random_u64(rs, shape, dev):
                             .view(np.int64)).to(dev)
 
 
+def random_u32(rs, shape, dev):
+    return torch.from_numpy(rs.integers(0, 1 << 32, shape, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+
+
 def random_residues_i32(rs, shape, primes, dev):
     """Random canonical residues [..., P, N] as u32 bits in int32."""
     pr = np.array(primes, np.uint64)[:, None]
@@ -1148,14 +1172,19 @@ def k2_k5_ptxas(k2_text, k5_text):
             "entry": "K2", "P": None, "words": "u64" if m[1] == "m" else "u32",
             "all_shared": True, "log_n": None}
 
-    def k5(line):
-        m = re.search(r"ubr_phase1_kernelILi(\d)E([mj])E", line)
+    return ptxas_instances(k2_text, k2, "K2") + k5_ptxas(k5_text)
+
+
+def k5_ptxas(text):
+    """Every instance of K5's kernel in ubr_phase1.cu (which K5-v1 launches
+    too); a LogN template argument where the source has one."""
+    def match(line):
+        m = re.search(r"ubr_phase1_kernelILi(\d)E([mj])(?:Li(\d+)E)?E", line)
         return None if m is None else {
             "entry": "K5", "P": int(m[1]),
             "words": "u64" if m[2] == "m" else "u32", "all_shared": True,
-            "log_n": None}
-    return (ptxas_instances(k2_text, k2, "K2")
-            + ptxas_instances(k5_text, k5, "K5"))
+            "log_n": int(m[3] or 0) or None}
+    return ptxas_instances(text, match, "K5")
 
 
 def log_build(entries):
@@ -1456,9 +1485,8 @@ def ubr_steps_phase(bk, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock):
     hold(runs, "ubr_phase1_combine_v1",
          lambda: pk.ubr_phase1_combine_v1(bk.su, rot, kp),
          lambda: pk.ubr_phase1_combine_v1_plain(bk.su, rot, kp),
-         ubr_phase1_bound(kp, 1, G, M, max_clock))
-    k5_same_ms, _ = cuda_ms(lambda: pk.ubr_phase1_combine(bk.su, rot, kp),
-                            REPS)
+         ubr_phase1_bound(kp, 1, G, M, max_clock), K5_REPS, queued_ms)
+    k5_same_ms, _ = k5_time(pk.ubr_phase1_combine, bk.su, rot, kp)
     runs["ubr_phase1_combine_v1"].update({
         "kernel_of": "ubr_phase1_combine", "k5_ms": k5_same_ms})
     fused_ms, _ = cuda_ms(lambda: bootstrap.multivalue_bootstrap_UBR_phase2(
@@ -1510,6 +1538,103 @@ def ubr_steps_phase(bk, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock):
         f"{k3s['bound_by']}); words equal to K5's and phase 2's; bit-exact")
     del sa_v1, out_s, acc_u, sa32, rot
     return report, counts, runs
+
+
+def k5_batches(pk, N, bits):
+    """Phase 9's batches for K5 and K5-v1 at row length N and ``bits``-bit
+    words: one ciphertext, a tile less one, a tile, a tile plus one and
+    K5_BATCH."""
+    tile = pk.ubr_phase1_tiling(K5_BATCH, N, bits)["tile"]
+    return sorted({1, tile - 1, tile, tile + 1, K5_BATCH})
+
+
+def k5_time(fn, su, rot, kp):
+    """Milliseconds per launch of K5 (or of K5-v1, ``fn``) on these
+    operands, warm: K5_REPS launches queued (`queued_ms`: at L2_32 and one
+    ciphertext the host's time per call is near K5's own).  Every phase
+    and `--k5` time K5 so.  Returns the last result too."""
+    return queued_ms(lambda: fn(su, rot, kp), K5_REPS)
+
+
+def smem_ceiling_ms(kp, B, G, M, max_clock_mhz):
+    """K5's shared-memory ceiling, derived from its design, not measured:
+    each staged rotate-add reads one word of shared memory (8 B, 4 at the
+    32-bit torus), B G M J C N of them, at SMEM_BYTES_PER_CLOCK per SM and
+    clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    nbytes = B * G * M * kp.J * kp.C * kp.N * word_bytes(kp)
+    return 1e3 * nbytes / (sms * SMEM_BYTES_PER_CLOCK * max_clock_mhz * 1e6)
+
+
+def k5_batch_phase(bk, c, max_clock, tag):
+    """UBR phase 1 of the ciphertexts ``c`` (phases 11 and 20, K5_BATCH of
+    them): multivalue_bootstrap_UBR_phase1 with the counts zeroed just
+    before and read just after (exactly 1 K5 launch), then warm; K5 alone
+    on its exponents, timed beside its bound and its shared-memory ceiling,
+    its words the call's, and the first two and the last ciphertext held to
+    the plain version (each ciphertext's words are independent of the
+    others'); K5's schedule (tile, tiles, stages, shared bytes) and resident
+    blocks per SM at this batch and at one ciphertext.  Returns (report,
+    counts)."""
+    from mosfhet_torch import bootstrap
+    from mosfhet_torch.ops import pbs_kernel as pk
+
+    kp = bk.kernel_plan()
+    B, G, M = c.a.shape[0], bk.su.shape[0], bk.su.shape[1]
+    zero_counts(pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sa = bootstrap.multivalue_bootstrap_UBR_phase1(c, bk)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts(pk)
+    check_counts(f"{tag} UBR phase 1 of {B}", counts,
+                 {"ubr_phase1_combine": 1})
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    warm_ms, _ = cuda_ms(
+        lambda: bootstrap.multivalue_bootstrap_UBR_phase1(c, bk), REPS)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    rot, _ = bootstrap.ubr_phase1_inputs(c, bk)
+    k5_ms, got = k5_time(pk.ubr_phase1_combine, bk.su, rot, kp)
+    same_or_fail(f"{tag} UBR phase 1 of {B} vs K5's words",
+                 pk.i32_as_u32(got), sa.v)
+    pick = torch.tensor([0, 1, B - 1], device=rot.device)
+    plain_ms, want = cuda_ms(lambda: pk.ubr_phase1_combine_plain(
+        bk.su, rot[pick].contiguous(), kp), 1)
+    same_or_fail(f"{tag} K5 at B={B} vs plain on ciphertexts 0, 1, {B - 1}",
+                 got[pick], want)
+    bound = ubr_phase1_bound(kp, B, G, M, max_clock)
+    ceiling = smem_ceiling_ms(kp, B, G, M, max_clock)
+    budget = pk._smem_budget("ubr_phase1", torch.cuda.current_device())
+    shape = {}
+    for b in (1, B):
+        sc = pk.ubr_phase1_schedule(kp, b, M, budget)
+        blocks, threads = pk.ubr_phase1_residency(kp, kp.torus_bits, b, M)
+        shape[b] = {"tile": sc["tile"], "tiles": sc["tiles"],
+                    "stages": sc["stages"],
+                    "smem_bytes": int(sc["layout"][0]),
+                    "blocks_per_sm": blocks, "threads_per_block": threads}
+    report = {"batch": B, "first_call_ms": first_s * 1e3,
+              "phase1_warm_ms": warm_ms, "warm_alloc_retries": retries,
+              "k5_ms": k5_ms,
+              "k5_ms_per_ciphertext": k5_ms / B,
+              "plain_ms_3_ciphertexts": plain_ms, "bound": bound,
+              "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+              "smem_ceiling_ms": ceiling, "schedule": shape}
+    log(f"# {tag} K5 at B={B} (G={G}, M={M}): UBR phase 1 first call "
+        f"{first_s * 1e3:.3f} ms (1 K5 launch counted), warm {warm_ms:.3f} "
+        f"ms ({retries} allocator retries); K5 {k5_ms:.4f} ms/launch = {k5_ms / B:.5f} ms per ciphertext,"
+        f" bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+        f"{100 * bound['bound_ms'] / k5_ms:.1f}% of it), shared-memory "
+        f"ceiling {ceiling:.4f} ms (derived, not measured); plain on "
+        f"ciphertexts 0, 1, {B - 1} {plain_ms:.3f} ms, bit-exact; schedule "
+        + "; ".join(f"B={b}: tile {x['tile']} x {x['tiles']} tiles, "
+                    f"{x['stages']} stages, {x['smem_bytes']} B, "
+                    f"{x['blocks_per_sm']} blocks of "
+                    f"{x['threads_per_block']} threads per SM"
+                    for b, x in shape.items()))
+    del sa, got, want, rot
+    return report, counts
 
 
 def step_entries(runs, by_path, tag=""):
@@ -3766,11 +3891,11 @@ def torus32_main():
     return 0
 
 
-def hold(runs, name, kernel_fn, plain_fn, bound, reps=REPS):
-    """The kernel (timed over reps) and its plain version (once) on the same
-    inputs, word for word, recorded in ``runs[name]``; returns the kernel's
-    output."""
-    k_ms, got = cuda_ms(kernel_fn, reps)
+def hold(runs, name, kernel_fn, plain_fn, bound, reps=REPS, timer=None):
+    """The kernel (timed over reps by ``timer``, `cuda_ms` by default) and
+    its plain version (once) on the same inputs, word for word, recorded in
+    ``runs[name]``; returns the kernel's output."""
+    k_ms, got = (timer or cuda_ms)(kernel_fn, reps)
     p_ms, want = cuda_ms(plain_fn, 1)
     same_or_fail(f"{name} vs plain on the path's inputs", got, want)
     runs[name] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": 0.0,
@@ -3886,7 +4011,8 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
     sa_k = held("ubr_phase1_combine",
                 lambda: pk.ubr_phase1_combine(bk4.su, rot_u, kp4),
                 lambda: pk.ubr_phase1_combine_plain(bk4.su, rot_u, kp4),
-                ubr_phase1_bound(kp4, 1, G4, M4, max_clock))
+                ubr_phase1_bound(kp4, 1, G4, M4, max_clock), K5_REPS,
+                queued_ms)
     if not torch.equal(pk.i32_as_u32(sa_k[0]), sa.v):
         fail("L2_32 UBR phase 1 output != K5's words")
     acc_u, sa32, per_row, _ = bootstrap.ubr_phase2_inputs(tvs, c1, sa, bk4, 4)
@@ -3911,6 +4037,13 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
     counts.update(ubr_counts)
     runs.update(ubr_runs)
     del sa, sa_k, sa32, acc_u, acc_k3, rot_u
+    k5_batch, counts[f"ubr_phase1_b{K5_BATCH}"] = k5_batch_phase(
+        bk4, first_cts(cs, K5_BATCH), max_clock, "L2_32")
+    k5.update({"resident_blocks_per_sm":
+                   k5_batch["schedule"][1]["blocks_per_sm"],
+               f"batch{K5_BATCH}": {key: k5_batch[key] for key in (
+                   "k5_ms", "bound_ms", "bound_by", "phase1_warm_ms",
+                   "schedule")}})
 
     # trgsw.external_product on BATCH TRLWEs: one TRGSW broadcast, one per
     # row
@@ -3973,7 +4106,8 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
                     "phase1_first_ms": ph1_s * 1e3, "phase1_ms": k5["ms"],
                     "phase2_first_ms": ph2_s * 1e3, "phase2_ms": k3["ms"],
                     "phase2_ms_per_lut": k3["ms"] / UBR_LUTS,
-                    "decrypt_max_err_log2": math.log2(max(ubr_err, 1.0))},
+                    "decrypt_max_err_log2": math.log2(max(ubr_err, 1.0)),
+                    "phase1_batch": k5_batch},
             "ubr_steps": ubr_steps, "extprod": ep}
 
 
@@ -4596,10 +4730,32 @@ def main():
         same_or_fail(f"K3-step (per_row={per_row}) vs plain at L2 widths",
                      got, pk.ext_product_apply_step_plain(acc_r.clone(), key_r,
                                                           kp, per_row))
-    del acc_r, su_r, rot_r, sa_r, got, key_r
+    # K5 and K5-v1 at the batch shapes (`k5_batches`), u=4, G=2: L2 widths
+    # with u64 words, L2_32 widths with u32 words
+    # (L2_32's 2 primes: this process's torus is 64 bits wide)
+    kp_32 = pk.get_kernel_plan(N, ntt.MASTER_PRIMES[-2:], L2_32["l"],
+                               L2_32["Bg_bit"], 1, dev, 32)
+    batches = {}
+    for kp_r in (kp, kp_32):
+        bits = kp_r.torus_bits
+        su_r = (random_u64 if bits == 64 else random_u32)(
+            rs, (2, 16, kp_r.J, C, N), dev)
+        batches[bits] = k5_batches(pk, N, bits)
+        for B_r in batches[bits]:
+            rot_r = random_exponents(rs, B_r, 2, 16, N, dev)
+            want = pk.ubr_phase1_combine_plain(su_r, rot_r, kp_r)
+            for name in ("ubr_phase1_combine", "ubr_phase1_combine_v1"):
+                got = getattr(pk, name)(su_r, rot_r, kp_r)
+                torch.cuda.synchronize()
+                same_or_fail(f"{name} (u=4, B={B_r}, u{bits} words) vs "
+                             "plain", got, want)
+    del acc_r, su_r, rot_r, sa_r, got, key_r, want
     log("# K3 (broadcast and per-row, G=2, B=5), K4, K5 and K5-v1 (u=2, 4, "
         "8; exponents 0, N, 2N), K1-step (B=5; exponents 0, N, 2N) and "
-        "K3-step (broadcast and per-row) vs plain at L2 widths: bit-exact")
+        "K3-step (broadcast and per-row) vs plain at L2 widths; K5 and K5-v1 "
+        f"also at u=4, B = {', '.join(map(str, batches[64]))} (L2 widths) "
+        f"and B = {', '.join(map(str, batches[32]))} (L2_32 widths, u32 "
+        "words): bit-exact")
 
     # 10. the unfolded PBS at u=4 on phase 4's LUT and ciphertexts
     torch.cuda.synchronize()
@@ -4702,8 +4858,7 @@ def main():
         fail(f"UBR decrypt: max error 2^{math.log2(ubr_err):.1f} > 2^58")
     kp8 = bk8.kernel_plan()
     rot8, _ = bootstrap.ubr_phase1_inputs(c1, bk8)
-    k5_ms, sa_k = cuda_ms(lambda: pk.ubr_phase1_combine(bk8.su, rot8, kp8),
-                          REPS)
+    k5_ms, sa_k = k5_time(pk.ubr_phase1_combine, bk8.su, rot8, kp8)
     k5_plain_ms, sa_p = cuda_ms(
         lambda: pk.ubr_phase1_combine_plain(bk8.su, rot8, kp8), 1)
     k5_err = signed_max_abs(pk.i32_as_u32(sa_k) - pk.i32_as_u32(sa_p))
@@ -4737,11 +4892,16 @@ def main():
         f"bit-exact; decrypt OK (max err 2^{math.log2(max(ubr_err, 1.0)):.1f}"
         f"); peak {ubr_peak / 2**30:.2f} GiB")
 
+    del sa_k, sa_p, sa32, acc_u, acc_k3, acc_p3
+    k5_batch, k5_batch_counts = k5_batch_phase(
+        bk8, first_cts(cs, K5_BATCH), max_clock, "L2")
+    k5_batch["build"] = [e for e in k2_k5_build if e["entry"] == "K5"]
+
     # 11b. UBR phase 1 through K5-v1, phase 2 one cached group per launch
     #      (K3-step), on phase 11's key, ciphertext, LUTs and cache
     ubr_steps, ubr_steps_counts, ubr_steps_runs = ubr_steps_phase(
         bk8, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock)
-    del bk8, sa, sa_k, sa_p, sa32, acc_u, acc_k3, acc_p3, rot8
+    del bk8, sa, rot8
 
     # 12. trgsw.external_product at L2 on 512 TRLWEs, both modes
     m_ep = rng.uniform_torus(gen, (BATCH, p.N), dev)
@@ -5153,6 +5313,7 @@ def main():
     # 26. report
     paths = {"pbs": pbs_counts, "gate": gate_counts, "fdfb": fdfb_counts,
              "unfolded": ub_counts, "ubr_phase1": ph1_counts,
+             f"ubr_phase1_b{K5_BATCH}": k5_batch_counts,
              "ubr_phase2": ph2_counts, "ga": ga_counts}
     paths.update({name: {"auto_keyswitch_stream": c["launches"]}
                   for name, c in trlwe_ks.items()})
@@ -5225,6 +5386,9 @@ def main():
         "ms": k5_ms, "plain_ms": k5_plain_ms,
         "bound_ms": k5_bound["bound_ms"], "bound_by": k5_bound["bound_by"],
         "library_ms": None, "library_note": RUNTIME_KEY_LIBRARY_NOTE,
+        "resident_blocks_per_sm": k5_batch["schedule"][1]["blocks_per_sm"],
+        f"batch{K5_BATCH}": {key: k5_batch[key] for key in (
+            "k5_ms", "bound_ms", "bound_by", "phase1_warm_ms", "schedule")},
     }, {
         "name": "auto_keyswitch_stream", "route": "cuda",
         "source": "mosfhet_torch/ops/csrc/auto_keyswitch.cu",
@@ -5363,6 +5527,9 @@ def main():
             kernels[-1]["resident_blocks_per_sm"] = t32["unfolded"][
                 "k3_k4_residency"]["K3" if name[0] == "e" else "K4"][
                 "blocks_per_sm"]
+        if name == "ubr_phase1_combine":
+            kernels[-1].update({key: r[key] for key in (
+                "resident_blocks_per_sm", f"batch{K5_BATCH}")})
     kernels += step_entries(
         t32["kernel_runs"],
         lambda name: {f"{path}32": c[name] for path, c in c32.items()},
@@ -5405,6 +5572,7 @@ def main():
         "phase2_ms_per_lut": k3_ms / UBR_LUTS,
         "decrypt_max_err_log2": math.log2(max(ubr_err, 1.0)),
         "phase1_bound": k5_bound, "phase2_bound": k3_bound,
+        "phase1_batch": k5_batch,
         "k3_residency": k34_res["K3"], "k3_build": k3_build}}))
     log(json.dumps({"steps": {"params": p.name, "rotation": steps,
                               "ubr": ubr_steps}}))
@@ -5452,5 +5620,101 @@ def main():
     return 0
 
 
+def k5_main():
+    """`chip_smoke.py --k5`: K5 alone on random key products at TFHEpp-L2,
+    u=8 (G=79, u64 words) and L2_32, u=4 (G=158, u32 words), at B = 1 and
+    K5_BATCH, timed as every phase times it (`k5_time`) beside its bound;
+    where the package caps K5's tile by word width (`UBR_TILE`), K5 at
+    K5_BATCH again under each cap of K5_TILES, its words the same; K4,
+    which shares K5's combine helpers, at the u=4 PBS's shape (L2,
+    B=BATCH, random inputs), its launches queued the same way; K4's and
+    K5's registers and spills.  Prints one JSON line.  It calls the
+    wrappers' entry points only, so a copy of it in another checkout times
+    that checkout's kernels on the same inputs (a comparison on one
+    card)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from mosfhet_torch import ntt
+    from mosfhet_torch.ops import _build, pbs_kernel as pk
+
+    dev = torch.device("cuda")
+    card = nvidia_smi("name,power.limit")
+    max_clock = float(nvidia_smi("clocks.max.sm").split()[0])
+    build_s = _build.build(["ubr_phase1", "unfolded_rotate"])
+    log(f"# card: {card}; build {build_s:.1f} s")
+    log_build(sched_ptxas(_build.build_log["unfolded_rotate"],
+                          "unfolded_rotate", "K4")
+              + k5_ptxas(_build.build_log["ubr_phase1"]))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    caps = getattr(pk, "UBR_TILE", None)
+    runs = []
+    for name, bits, l, Bg_bit, u, primes in (
+            ("L2", 64, 4, 9, U_UBR, ntt.primes_for_bound(
+                ntt.external_product_bound(2048, 9, 4, 1))),
+            ("L2_32", 32, L2_32["l"], L2_32["Bg_bit"], U_PBS,
+             ntt.MASTER_PRIMES[-2:])):
+        N, C, M, G = 2048, 2, 1 << u, 632 // u
+        kp = pk.get_kernel_plan(N, primes, l, Bg_bit, 1, dev, bits)
+        dtype = torch.int64 if bits == 64 else torch.int32
+        info = torch.iinfo(dtype)
+        su = torch.randint(info.min, info.max, (G, M, kp.J, C, N),
+                           dtype=dtype, device=dev, generator=gen)
+        rot64 = torch.randint(0, 2 * N + 1, (K5_BATCH, G, M),
+                              dtype=torch.int32, device=dev, generator=gen)
+        default = caps[bits] if isinstance(caps, dict) else None
+        outs = {}
+        for B, cap in ([(1, None), (K5_BATCH, None)] + [
+                (K5_BATCH, c) for c in (K5_TILES if default else ())]):
+            rot = rot64[:B].contiguous()
+            if cap:
+                caps[bits] = cap
+            pk.ubr_phase1_combine(su, rot, kp)     # its first launch
+            k5_ms, out = k5_time(pk.ubr_phase1_combine, su, rot, kp)
+            if default:
+                caps[bits] = default
+            if cap:
+                same_or_fail(f"K5 {name} B={B}: tile cap {cap} vs "
+                             f"{default}", out, outs[B])
+            else:
+                outs[B] = out
+            bound = ubr_phase1_bound(kp, B, G, M, max_clock)
+            runs.append({"kernel": "K5", "width": name, "B": B, "G": G,
+                         "M": M, "tile_cap": cap or default, "ms": k5_ms,
+                         "bound_ms": bound["bound_ms"],
+                         "bound_by": bound["bound_by"]})
+            log(f"# K5 {name} u={u} B={B} tile cap {cap or default}: "
+                f"{k5_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                f"({bound['bound_by']}), shared-memory ceiling "
+                f"{smem_ceiling_ms(kp, B, G, M, max_clock):.4f} ms (derived, "
+                "not measured)")
+        same_or_fail(f"K5 {name}: ciphertext 0 at B={K5_BATCH} vs B=1",
+                     outs[K5_BATCH][:1], outs[1])
+        del su, rot64, outs, out
+        torch.cuda.empty_cache()
+    primes = ntt.primes_for_bound(ntt.external_product_bound(2048, 9, 4, 1))
+    kp = pk.get_kernel_plan(2048, primes, 4, 9, 1, dev, 64)
+    G, M = 632 // U_PBS, 1 << U_PBS
+    su = torch.randint(-2**63, 2**63 - 1, (G, M, kp.J, kp.C, kp.N),
+                       dtype=torch.int64, device=dev, generator=gen)
+    acc = torch.randint(-2**63, 2**63 - 1, (BATCH, kp.C, kp.N),
+                        dtype=torch.int64, device=dev, generator=gen)
+    rot = torch.randint(0, 2 * kp.N + 1, (BATCH, G, M), dtype=torch.int32,
+                        device=dev, generator=gen)
+    pk.unfolded_rotate(acc, rot, su, kp)           # its first launch
+    k4_ms, _ = queued_ms(lambda: pk.unfolded_rotate(acc, rot, su, kp),
+                         K5_REPS)
+    bound = unfolded_bound(kp, BATCH, G, M, max_clock)
+    runs.append({"kernel": "K4", "width": "L2", "B": BATCH, "G": G, "M": M,
+                 "ms": k4_ms, "bound_ms": bound["bound_ms"],
+                 "bound_by": bound["bound_by"]})
+    log(f"# K4 L2 u={U_PBS} B={BATCH}: {k4_ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    log(card)
+    log(json.dumps({"k5": runs}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(torus32_main() if sys.argv[1:] == ["--torus32"] else main())
+    modes = {"--torus32": torus32_main, "--k5": k5_main}
+    sys.exit(modes.get(sys.argv[1] if sys.argv[1:] else None, main)())

@@ -1,18 +1,16 @@
 // Device helpers shared by the port's CUDA kernels (sm_90a): 32-bit modular
-// products, the block-wide negacyclic NTT on the plan's psi_rev tables (UBR
-// phase 1's), gadget digits, the negacyclic rotation, and where a block's
-// buffers live.  The other kernels' NTTs and Garner run on K1's schedule
+// products, gadget digits, the negacyclic rotation, and where a block's
+// buffers live.  The kernels' NTTs and Garner run on K1's schedule
 // (rotate_sched.cuh).
 //
 // Counterparts of the TPU package's kernel helpers (ops/pbs_kernel.py):
-// `_shoup_lazy` (108), `_barrett_lazy` (125), `_fwd_ntt` (150),
-// `_decompose_digit` (661), `_negacyclic_rotate_limbs` (998) and
-// `_limbs_to_resi` (1694), and the one-limb (TORUS32) form
-// `_negacyclic_rotate_limb32` (1099).  Torus words are the type W: uint64_t
-// at the 64-bit torus, uint32_t at the 32-bit one, and every word operation
-// wraps mod 2^(8 sizeof W).  Every function here returns canonical residues
-// in [0, p), so any kernel built from them gives the same words as the
-// plain PyTorch versions.
+// `_shoup_lazy` (108), `_barrett_lazy` (125), `_decompose_digit` (661),
+// `_negacyclic_rotate_limbs` (998) and `_limbs_to_resi` (1694), and the
+// one-limb (TORUS32) form `_negacyclic_rotate_limb32` (1099).  Torus words
+// are the type W: uint64_t at the 64-bit torus, uint32_t at the 32-bit one,
+// and every word operation wraps mod 2^(8 sizeof W).  Every function here
+// returns canonical residues in [0, p), so any kernel built from them gives
+// the same words as the plain PyTorch versions.
 //
 // Each kernel source includes this header and is compiled into its own
 // shared library, so everything here has internal linkage.
@@ -161,35 +159,6 @@ __device__ __forceinline__ int gadget_digit(W x_plus_offset, int d,
 
 __device__ __forceinline__ uint32_t small_residue(int digit, uint32_t p) {
   return digit < 0 ? uint32_t(digit + int(p)) : uint32_t(digit);
-}
-
-// Forward negacyclic NTT of `rows` rows of length N in place; row r uses
-// prime r % P.  Cooley-Tukey with merged psi powers: stage (m, t) pairs
-// x[i 2t + j] with x[i 2t + j + t] under psi_rev[m + i].  Block-wide; ends
-// with a barrier.
-template <int P>
-__device__ void forward_ntt(uint32_t* x, int rows, const PbsConsts& K,
-                            const uint32_t* __restrict__ tw,
-                            const uint32_t* __restrict__ tws) {
-  const int N = K.N, lh = K.logN - 1;
-  const int total = rows << lh;
-  for (int m = 1, lt = lh; m < N; m <<= 1, --lt) {
-    const int t = 1 << lt;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int r = idx >> lh, b = idx & ((1 << lh) - 1);
-      const int pi = r % P;
-      const uint32_t p = K.p[pi];
-      const int i = b >> lt, j = b & (t - 1);
-      uint32_t* row = x + r * N;
-      const int u = (i << (lt + 1)) + j;
-      const uint32_t S = tw[pi * N + m + i], Ss = tws[pi * N + m + i];
-      const uint32_t U = row[u];
-      const uint32_t V = shoup(row[u + t], S, Ss, p);
-      row[u] = add_mod(U, V, p);
-      row[u + t] = sub_mod(U, V, p);
-    }
-    __syncthreads();
-  }
 }
 
 // Where each of a block's buffers lives, as the wrapper placed it

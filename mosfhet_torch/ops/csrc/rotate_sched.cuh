@@ -2,7 +2,8 @@
 // (ga_scan.cu), the split CMUX step K8a/K8b (tp_step.cu), the external-product
 // scan K3 (ext_product_apply.cu), the unfolded rotation K4
 // (unfolded_rotate.cu), the GA step's external product K1-delta
-// (cmux_delta.cu) and the automorphism key switch K6 (auto_keyswitch.cu):
+// (cmux_delta.cu), the automorphism key switch K6 (auto_keyswitch.cu) and
+// UBR phase 1 K5 (ubr_phase1.cu, whose groups are ciphertexts, not primes):
 // a block of groups of T = N/16 threads, one group per prime, each thread
 // owning 16 coefficients of its group's row and running up to four radix-2
 // stages on them between exchanges through the group's exchange row; lazy
@@ -115,6 +116,13 @@ __device__ __forceinline__ void load_tw(const uint32_t* __restrict__ tw,
 // x in [0, 4p) -> [0, 2p)
 __device__ __forceinline__ uint32_t lazy2(uint32_t x, uint32_t p2) {
   return min(x, x - p2);
+}
+
+// x in [0, 4p) -> [0, p): a forward transform's output made canonical (K4's
+// digit spectra, K5's output)
+__device__ __forceinline__ uint32_t canonical4(uint32_t x, uint32_t p) {
+  const uint32_t y = lazy2(x, 2 * p);
+  return min(y, y - p);
 }
 
 // x * k mod p in [0, 2p) for a forward-NTT output x < 4p and a key residue

@@ -149,10 +149,7 @@ unfolded_rotate_kernel(W* __restrict__ acc_g,
           }
           forward_row(xd, buf, s, t, g, fw, fws, p);
 #pragma unroll
-          for (int v = 0; v < kR; ++v) {
-            const uint32_t y = lazy2(xd[v], p2);
-            xd[v] = min(y, y - p);
-          }
+          for (int v = 0; v < kR; ++v) xd[v] = canonical4(xd[v], p);
         }
         for (int c = 0; c < C; ++c) {
           // 2a. the combine of key row (j, c), once per block, into every

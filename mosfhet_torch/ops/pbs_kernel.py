@@ -69,7 +69,9 @@ PyTorch, only for CPU tensors.  The two give the same words.
        out[b, g] = NTT(sum_m X^{rot[b,g,m]} SU[g,m])
      out   [B, G, (k+1)l, k+1, P, N]      int32 holding u32 canonical residues
 
-   one block per output row (b, g, j, c).  K5-v1
+   one block per key row (g, j, c) and tile of ciphertexts
+   (`ubr_phase1_tiling`), the row's M key products staged through a ring
+   in shared memory once per tile (`ubr_phase1_schedule`).  K5-v1
    (``ubr_phase1_combine_v1``, the TPU package's first phase-1 entry) is
    one launch of the same kernel on the same operands.
 
@@ -138,17 +140,18 @@ caller's tensor, updated in place.  Every shape of TFHEpp-L2, SET_1, SET_2
 and UFHE_SET0 keeps all of them in shared memory; N=4096 with 4 primes
 (SET_3) moves the u64 buffers out, N=8192 the spectra too.  The NTT rows
 must stay in shared memory: a shape whose NTT rows alone exceed the limit
-raises ValueError before any launch.  (K5's block holds one row's P NTT
-rows and fits at every registered shape; K5 and K5-v1 raise ValueError
-for a row that does not, N = 16384 with 4 primes.)  K1, K1-step, K3 and
-K4 hold no rotation buffer and one exchange row per group of N/16 threads
-(`rotation_schedule`) instead of the P NTT rows: 108.5 KiB at TFHEpp-L2
-(two blocks per SM; K4 adds its group's 2^u exponents), 67 KiB at L2_32
-(three); SET_3 keeps their spectra in shared memory and acc in place,
-N=8192 their spectra in the workspace.  N above 16384 raises ValueError (a
-block of N/16 threads).  K1-delta and K6 hold K3's buffers (K6 on its
-key-switch plan's primes): where acc leaves shared memory they read their
-input in place.  K3-step and K6-old are K3's and K6's kernels and hold
+raises ValueError before any launch.  (K5's block holds a ring of up to
+4 key rows, which its tile's exchange rows reuse, and the tile's
+exponents, all in shared memory: one key row at N = 16384 with u64
+words; K5 and K5-v1 raise ValueError where not one fits.)  K1, K1-step,
+K3 and K4 hold no rotation buffer and one exchange row per group of N/16
+threads (`rotation_schedule`) instead of the P NTT rows: 108.5 KiB at
+TFHEpp-L2 (two blocks per SM; K4 adds its group's 2^u exponents), 67 KiB
+at L2_32 (three); SET_3 keeps their spectra in shared memory and acc in
+place, N=8192 their spectra in the workspace.  N above 16384 raises
+ValueError (a block of N/16 threads).  K1-delta and K6 hold K3's buffers
+(K6 on its key-switch plan's primes): where acc leaves shared memory they
+read their input in place.  K3-step and K6-old are K3's and K6's kernels and hold
 theirs.  K8a and K8b (redesigned on K1's schedule) hold the same
 exchange rows.  K8a adds its groups' MAC slots and reads acc from the
 caller's tensor: 76.5 KiB at TFHEpp-L2, all in shared memory at every
@@ -451,7 +454,7 @@ def rotation_schedule(N: int, P: int) -> dict:
 
 
 def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
-                   P_ks: int = 0):
+                   P_ks: int = 0, tile: int = 1, stages: int = 1):
     """(nbytes, home, rank) of each of a block's buffers in ``kernel``
     (the source's name), in the order of its enum.  K1, K1-step and K3
     ("blind_rotate", "pbs_step", "ext_product_apply") hold one exchange row
@@ -472,7 +475,10 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
     where they fit, the other components' rows; left out, it runs once per
     component.  The one-step kernel "pbs_step" (K1-step) holds K1's
     buffers; K3-step and K6-old launch K3's and K6's kernels and take
-    their tables.  M: K4's 2^u; P_ks: K7's key-switch prime count."""
+    their tables.  K5 ("ubr_phase1") holds a ring of ``stages`` key rows
+    of N words, which one exchange row per ciphertext of its ``tile``
+    reuses after the adds, and their M exponents, all in shared memory.
+    M: K4's and K5's 2^u; P_ks: K7's key-switch prime count."""
     C, P, N = kp.C, kp.P, kp.N
     row, spec, words = P * N * 4, C * P * N * 4, C * N * kp.torus_bits // 8
     if kernel in ("blind_rotate", "pbs_step", "ext_product_apply",
@@ -487,6 +493,11 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
                 (sc["groups"] * sc["row_stride"] * 4, SHARED_ONLY, 0),
                 (C * P * sc["row_stride"] * 4, WORKSPACE, 1),
                 (words, IN_PLACE, 2)]
+    if kernel == "ubr_phase1":         # ring (then work), rots
+        sc = rotation_schedule(N, P)
+        ring = stages * N * kp.torus_bits // 8
+        return [(max(ring, tile * sc["row_stride"] * 4), SHARED_ONLY, 0),
+                (tile * M * 4, SHARED_ONLY, 1)]
     if kernel == "ga_scan":            # work, spec, acc
         PM = max(P, P_ks)
         sc = rotation_schedule(N, PM)
@@ -506,12 +517,13 @@ def kernel_buffers(kernel: str, kp: PBSKernelPlan, M: int = 1,
 
 @functools.lru_cache(maxsize=None)
 def kernel_layout(kernel: str, kp: PBSKernelPlan, budget: int, M: int = 1,
-                  P_ks: int = 0):
+                  P_ks: int = 0, tile: int = 1, stages: int = 1):
     """`_place` of ``kernel``'s buffers at ``kp``'s shape for a block that
     may have ``budget`` bytes of dynamic shared memory, once per shape (a
     wrapper asks at every launch; the arrays are read only)."""
     return _place(f"{kernel} at N={kp.N}, k={kp.k}, P={kp.P}, M={M}, "
-                  f"P_ks={P_ks}", kernel_buffers(kernel, kp, M, P_ks),
+                  f"P_ks={P_ks}, tile={tile}, stages={stages}",
+                  kernel_buffers(kernel, kp, M, P_ks, tile, stages),
                   budget)
 
 
@@ -530,7 +542,8 @@ def _check_aligned(name, t):
     """K1's, K1-step's, K1-delta's, K3's, K3-step's, K6's, K6-old's, K7's
     and K8a's key rows, K8a's partial and K8b's partials are read or
     written 16 bytes at a time (the keys' Shoup companions are not read:
-    the kernels' MACs take Barrett products)."""
+    the kernels' MACs take Barrett products); K5's key products come by
+    TMA bulk copies, which want 16-byte aligned addresses."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel reads it in 16-byte vectors; "
                          f"its data pointer is not 16-byte aligned")
@@ -657,6 +670,62 @@ def unfolded_rotate_residency(kp: PBSKernelPlan, bits: int, M: int,
                       "unfolded_rotate_residency", dev,
                       [kp.host_consts.ctypes.data, layout.ctypes.data],
                       [bits])
+
+
+# ciphertexts per K5 block, at most, by word width: u64 words add in
+# shared-memory loads and two-word adds, which a tile of 8 shares best;
+# with u32 words the NTTs weigh as much as the adds and smaller blocks,
+# more of them per SM, overlap them better (PERF.md, K5)
+UBR_TILE = {64: 8, 32: 2}
+UBR_STAGES = (4, 2, 1)   # key rows K5's ring may hold (ubr_phase1.cu)
+
+
+def ubr_phase1_tiling(B: int, N: int, bits: int) -> dict:
+    """K5's tiles for B ciphertexts at row length N and ``bits``-bit words:
+    at most UBR_TILE[bits] ciphertexts per block (and groups of N/16
+    threads within 1,024), as few tiles as that allows and ciphertexts
+    spread evenly over them, so a batch of 9 takes two tiles of 5 at u64.
+    ``tiles`` blocks share each key row."""
+    T = rotation_schedule(N, 1)["threads_per_group"]
+    cap = min(UBR_TILE[bits], ROTATION_MAX_THREADS // T)
+    tiles = -(-B // cap)
+    tile = -(-B // tiles) if tiles else 1
+    return {"tile": tile, "tiles": tiles, "threads": tile * T}
+
+
+def ubr_phase1_schedule(kp: PBSKernelPlan, B: int, M: int,
+                        budget: int) -> dict:
+    """K5's block for B ciphertexts and M = 2^u exponents at ``kp``'s shape,
+    on a card that gives a block ``budget`` bytes of dynamic shared memory:
+    the tiling (`ubr_phase1_tiling`), the most key rows of UBR_STAGES its
+    ring holds beside the tile's exponents (the tile's exchange rows reuse
+    the ring), and that placement (`kernel_layout`).  Raises ValueError
+    where not one row fits."""
+    tiling = ubr_phase1_tiling(B, kp.N, kp.torus_bits)
+    for stages in UBR_STAGES:
+        try:
+            layout, _ = kernel_layout("ubr_phase1", kp, budget, M=M,
+                                      tile=tiling["tile"], stages=stages)
+        except ValueError:
+            if stages == 1:
+                raise
+            continue
+        return dict(tiling, stages=stages, layout=layout)
+
+
+def ubr_phase1_residency(kp: PBSKernelPlan, bits: int, B: int, M: int,
+                         dev=None) -> tuple[int, int]:
+    """(blocks resident on one SM, threads per block) of K5, and so of
+    K5-v1, on card ``dev`` at ``kp``'s shape, its schedule for B
+    ciphertexts and M exponents and the word width ``bits`` (the C entry
+    `ubr_phase1_residency`)."""
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    sc = ubr_phase1_schedule(kp, B, M,
+                             _smem_budget("ubr_phase1", _index(dev)))
+    return _residency("ubr_phase1", "ubr_phase1_launch", 7, 6,
+                      "ubr_phase1_residency", dev,
+                      [kp.host_consts.ctypes.data, sc["layout"].ctypes.data],
+                      [sc["tile"], sc["stages"], bits])
 
 
 def _ptr(t) -> int | None:
@@ -1087,12 +1156,14 @@ def ubr_phase1_combine_plain(su, rot, kp: PBSKernelPlan):
 ubr_phase1_combine_plain.calls = 0
 
 
-def _ubr_phase1(fn, plain, entry: str, su, rot, kp: PBSKernelPlan):
-    """K5's launch for wrapper ``fn`` (K5 or K5-v1), through its C entry
-    ``entry``; CPU tensors go to ``plain``.  K5's block holds one row's P
-    residue rows and the M exponents in shared memory (P*N*4 + M*4 bytes):
-    a shape whose row exceeds what a block may have (N = 16384 with 4 or
-    more primes) raises ValueError before any launch."""
+def _ubr_phase1(fn, plain, su, rot, kp: PBSKernelPlan):
+    """K5's launch for wrapper ``fn`` (K5 or K5-v1: the same C entry
+    `ubr_phase1_launch`, each counting its own launches); CPU tensors go to
+    ``plain``.  K5's block holds its ring of key rows, its tile's exchange
+    rows and exponents in shared memory (`ubr_phase1_schedule`): a shape
+    where not one key row fits beside them raises ValueError before any
+    launch, as does a key whose data pointer is not 16-byte aligned (the
+    rows come by TMA bulk copies)."""
     name = fn.__name__
     bits = _word_width(name, su, kp)
     dev = su.device
@@ -1103,19 +1174,17 @@ def _ubr_phase1(fn, plain, entry: str, su, rot, kp: PBSKernelPlan):
     _one_limb_primes(name, bits, kp)
     B = rot.shape[0]
     G, M = _check_unfolded(rot, su, kp, B, dev, su.dtype)
-    need = kp.P * kp.N * 4 + M * 4
-    have = _smem_budget("ubr_phase1", _index(dev))
-    if need > have:
-        raise ValueError(f"{name}: a row of N={kp.N}, {kp.P} primes and "
-                         f"{M} exponents needs {need} B of shared memory, "
-                         f"more than the {have} B a block may have")
+    sc = ubr_phase1_schedule(kp, max(B, 1), M,
+                             _smem_budget("ubr_phase1", _index(dev)))
+    _check_aligned(f"{name} su", su)
     out = torch.empty((B, G, kp.J, kp.C, kp.P, kp.N), dtype=torch.int32,
                       device=dev)
     if B == 0 or G == 0:
         return out
-    _launch("ubr_phase1", entry, 6, 4, dev, su.data_ptr(), rot.data_ptr(),
-            out.data_ptr(), kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
-            kp.host_consts.ctypes.data, B, G, M, bits)
+    _launch("ubr_phase1", "ubr_phase1_launch", 7, 6, dev, su.data_ptr(),
+            rot.data_ptr(), out.data_ptr(), kp.fwd_tw.data_ptr(),
+            kp.fwd_tws.data_ptr(), kp.host_consts.ctypes.data,
+            sc["layout"].ctypes.data, B, G, M, sc["tile"], sc["stages"], bits)
     fn.launches += 1
     return out
 
@@ -1126,8 +1195,8 @@ def ubr_phase1_combine(su, rot, kp: PBSKernelPlan):
     does not build or launch (ValueError, before any launch, where a row
     does not fit a block's shared memory).  CPU tensors: the plain version.
     Returns [B, G, J, C, P, N] int32 (u32 residues)."""
-    return _ubr_phase1(ubr_phase1_combine, ubr_phase1_combine_plain,
-                       "ubr_phase1_launch", su, rot, kp)
+    return _ubr_phase1(ubr_phase1_combine, ubr_phase1_combine_plain, su, rot,
+                       kp)
 
 
 ubr_phase1_combine.launches = 0
@@ -1151,7 +1220,7 @@ def ubr_phase1_combine_v1(su, rot, kp: PBSKernelPlan):
     not fit a block's shared memory).  CPU tensors: the plain version.
     Returns [B, G, J, C, P, N] int32 (u32 residues), K5's words."""
     return _ubr_phase1(ubr_phase1_combine_v1, ubr_phase1_combine_v1_plain,
-                       "ubr_phase1_v1_launch", su, rot, kp)
+                       su, rot, kp)
 
 
 ubr_phase1_combine_v1.launches = 0

@@ -343,8 +343,17 @@ def test_cuda_unfolded_rotate_matches_plain(N, k, l, Bg_bit, u, G, B):
     assert torch.equal(got, tpk.unfolded_rotate_plain(acc0, rot, su, kp))
 
 
+# K5 at batches, by word width: one ciphertext, a tile less one, a tile (8
+# ciphertexts with u64 words, 2 with u32 at N = 2048), a tile plus one and
+# 64, at TFHEpp-L2 widths (u64) and L2_32 widths (u32), u=4
+UBR_BATCHES = {bits: sorted({1, tb - 1, tb, tb + 1, 64})
+               for bits, tb in tpk.UBR_TILE.items()}
+UBR_BATCH_CASES = [(2048, 1, 4, 9, 4, 1, B) for B in UBR_BATCHES[64]]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,k,l,Bg_bit,u,G,B", UNFOLDED_CASES)
+@pytest.mark.parametrize("N,k,l,Bg_bit,u,G,B",
+                         UNFOLDED_CASES + UBR_BATCH_CASES)
 def test_cuda_ubr_phase1_matches_plain(N, k, l, Bg_bit, u, G, B):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -821,7 +830,8 @@ def test_cuda_ext_product_apply_matches_plain_torus32(per_row):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("u,G,B", [(2, 2, 3), (4, 2, 3)])
+@pytest.mark.parametrize("u,G,B", [(2, 2, 3), (4, 2, 3)] + [
+    (4, 1, B) for B in UBR_BATCHES[32]])
 def test_cuda_unfolded_kernels_match_plain_torus32(u, G, B):
     """K4 and K5's one-limb forms at L2_32 widths: u32 key products summed
     mod 2^32, exponents 0, N and 2N present."""
@@ -1215,7 +1225,8 @@ def test_cuda_ext_product_apply_step_matches_plain(N, k, l, Bg_bit, B,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("N,k,l,Bg_bit,u,G,B", UNFOLDED_CASES + [
-    (4096, 1, 1, 22, 2, 3, 2)])      # SET_3 widths: 4 primes, 4 columns
+    (4096, 1, 1, 22, 2, 3, 2)]       # SET_3 widths: 4 primes, 4 columns
+    + UBR_BATCH_CASES)
 def test_cuda_ubr_phase1_v1_matches_plain(N, k, l, Bg_bit, u, G, B):
     """K5-v1 on u64 key products: the plain version's words and K5's."""
     if not torch.cuda.is_available():
@@ -1231,7 +1242,8 @@ def test_cuda_ubr_phase1_v1_matches_plain(N, k, l, Bg_bit, u, G, B):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("u,G,B", [(2, 3, 2), (4, 2, 3)])
+@pytest.mark.parametrize("u,G,B", [(2, 3, 2), (4, 2, 3)] + [
+    (4, 1, B) for B in UBR_BATCHES[32]])
 def test_cuda_ubr_phase1_v1_matches_plain_torus32(u, G, B):
     """K5-v1's one-limb form at L2_32 widths: u32 key products summed mod
     2^32."""
@@ -1253,33 +1265,45 @@ def test_cuda_ubr_phase1_v1_matches_plain_torus32(u, G, B):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["ubr_phase1_combine",
                                   "ubr_phase1_combine_v1"])
-def test_cuda_ubr_phase1_row_limit(name):
-    """K5's block holds one row's P residue rows: at N = 16384 two primes
-    fit (K5-v1, which took N <= 8192 in its own design, gives K5's and the
-    plain version's words), four do not (ValueError before any launch)."""
+def test_cuda_ubr_phase1_row_limit(name, monkeypatch):
+    """K5's block holds a ring of key rows, and one exchange row and the
+    exponents per ciphertext of its tile, in shared memory: at N = 16384
+    one u64 key row fits beside them whatever the prime count (the primes
+    share the exchange row), so 2 and 4 primes give the plain version's
+    words (and K5-v1's, K5's).  Where not one row fits (a card giving a
+    block 120,000 B) the wrapper raises ValueError before any launch, as it
+    does for a key that is not 16-byte aligned (TMA copies its rows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     N, M = 16384, 4
     fn = getattr(tpk, name)
+    other = (tpk.ubr_phase1_combine_v1 if name == "ubr_phase1_combine"
+             else tpk.ubr_phase1_combine)
     rng = np.random.default_rng(530)
     su = to_tensor(rng.integers(0, 1 << 64, size=(1, M, 2, 2, N),
                                 dtype=np.uint64), "cuda")
     rot = torch.from_numpy(random_exponents(rng, 1, 1, M, N)).cuda()
     kp4 = tpk.get_kernel_plan(N, ntt.primes_for_bound(
         ntt.external_product_bound(N, 22, 1, 1)), 1, 22, 1, "cuda")
+    kp2 = tpk.get_kernel_plan(N, ntt.MASTER_PRIMES[-2:], 1, 22, 1, "cuda")
     assert kp4.P == 4
+    for kp in (kp2, kp4):
+        launches = fn.launches
+        got = fn(su, rot, kp)
+        torch.cuda.synchronize()
+        assert fn.launches == launches + 1
+        assert torch.equal(got, tpk.ubr_phase1_combine_plain(su, rot, kp))
+        assert torch.equal(got, other(su, rot, kp))
     launches = fn.launches
+    flat = torch.empty(su.numel() + 1, dtype=su.dtype, device="cuda")
+    misaligned = flat[1:].view(su.shape)
+    misaligned.copy_(su)
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(misaligned, rot, kp2)
+    monkeypatch.setattr(tpk, "_smem_budget", lambda name, index: 120000)
     with pytest.raises(ValueError, match="shared memory"):
         fn(su, rot, kp4)
     assert fn.launches == launches
-    kp2 = tpk.get_kernel_plan(N, ntt.MASTER_PRIMES[-2:], 1, 22, 1, "cuda")
-    got = fn(su, rot, kp2)
-    torch.cuda.synchronize()
-    assert fn.launches == launches + 1
-    assert torch.equal(got, tpk.ubr_phase1_combine_plain(su, rot, kp2))
-    other = (tpk.ubr_phase1_combine_v1 if name == "ubr_phase1_combine"
-             else tpk.ubr_phase1_combine)
-    assert torch.equal(got, other(su, rot, kp2))
 
 
 def _launched(wrappers, call):
