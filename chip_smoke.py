@@ -305,14 +305,44 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               on the plain versions, word for word; ufhe's keyset, context
               and integers (phase 24's) saved and loaded, one add with the
               loaded context word-equal.  Bytes, seconds, peak, errors.
- 26. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
+ 26. nsharded the coefficient-sharded path (`parallel.dist_ntt`, plain
+              PyTorch on virtual shards of the card, no kernel launched):
+              the exact product at N=16384 over 8 shards equal to
+              polynomial.ntt_mul_small; the blind rotation at TFHEpp-L2
+              widths over 4 shards on phase 4's first 64 ciphertexts, all
+              632 steps, word-equal to the single-card rotation-free loop
+              (`bootstrap._cmux_step_rotntt`) at the dist plan's primes, both
+              timed warm; the N-sharded bootstrap of them within 2^58; the
+              dist primes beside the key's; peak memory.
+ 27. multihost two processes over gloo on localhost, both on the card (this
+              script with --multihost, after the build): rank 0 makes phase
+              4's key, LUT and ciphertexts from the seed and `replicate`s
+              them, each rank bootstraps 256 through
+              `multihost.pbs_on_global_mesh` at model 1 (exactly 1 K1) and on
+              a (1, 2) mesh (2n K8a, n K8b), counts per process, warm ms per
+              process; the gathered words equal phase 4's; a child that
+              fails or outlives 300 s fails the phase.
+ 28. dryrun   `parallel.dryrun.dryrun_multichip` on 8 shards of the card:
+              its five modes decrypted within 2^58, its line printed,
+              exactly the (4, 2) mesh's K8a and K8b launches.
+ 29. profile  `utils.profiling.measure` of phase 4's warm bootstrap within
+              10% of its CUDA-event time; `utils.profiling.trace` of one
+              warm call holds one K1 event within 10% of phase 5's K1 time;
+              `utils.roofline.count_pbs(TFHEPP_L2, 512)` and `report` against
+              phase 4's time: sol_ms and mfu, its K1 part K1's formula, and
+              sol_ms the bound of K1's work plus the counted glue.
+ 30. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
               trgsw_matrix, ga (with the per-step forms), trlweks, mesh, set3,
-              ks_family, boot_family, apps, io and torus32 lines, the card
+              ks_family, boot_family, apps, io, n_sharded, multihost, dryrun,
+              profile and torus32 lines, the card
               line, the kernels line (the one-limb forms as
               `<kernel>/torus32`, K8b at N=8192 as `finish_step/n8192`,
               K1-delta as `cmux_delta`, K6-old as `auto_keyswitch`, K1-step
               as `pbs_step`, K3-step as `ext_product_apply_step`, K5-v1 as
               `ubr_phase1_combine_v1`), and the result line last.
+
+Every bound comes from `mosfhet_torch.utils.roofline` at the card's SM
+count and maximum SM clock.
 
 `python3 chip_smoke.py --k5` times K5 alone at B = 1 and 64 at TFHEpp-L2
 (u=8) and L2_32 (u=4), as the phases above time it, K5 at 64 under each
@@ -337,6 +367,10 @@ import time
 import numpy as np
 import torch
 
+from mosfhet_torch.utils import roofline as rl
+from mosfhet_torch.utils.roofline import (
+    HBM_BYTES_PER_S, SMEM_BYTES_PER_CLOCK, smem_ceiling_ms, word_bytes)
+
 BATCH = 512          # the TPU bench's accelerator default
 REPS = 3             # timed repetitions of the warm bootstrap
 KS_REPS = 10         # timed launches of the key-switch kernel
@@ -350,13 +384,6 @@ DECRYPT_BOUND = 2.0**58
 # Key-switch noise at L2: ~15,360 nonzero digits x (2^-15)^2 gives sigma
 # ~2^-8.05 of the torus, ~2^56 in words; 2^60 is ~8 sigma.
 KS_DECRYPT_BOUND = 2.0**60
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
-INT32_LANES_PER_SM = 64     # Hopper SM: 64 INT32 units (Hopper white paper)
-SHOUP_MULTIPLIES = 3        # one Shoup product: mulhi + two 32-bit multiplies
-BARRETT_MULTIPLIES = 4      # a runtime-key product: mul, two mulhi, mul
-CENTRED_SHOUP = 2           # a u64 word to one centred residue: two Shoup
-U64_ADD_OPS = 2             # a u64 add as INT32 operations (a u32 add: 1)
-SMEM_BYTES_PER_CLOCK = 128  # shared memory per SM and clock (Hopper)
 RUNTIME_KEY_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT "
                             "external product or an unfolded combine")
 KERNELS = ("blind_rotate_scan", "tlwe_keyswitch_sum", "ext_product_apply_scan",
@@ -457,6 +484,16 @@ VEC_AES_KEY = bytes(range(1, 17))
 # v3.  The TPU package checks v3 only at TOY, N = 64, against 2^59
 # (tests/test_advanced.py:75-97).
 CB3_BOUND = 2.0**60
+# Phases 26-29: the N-sharded path, multihost, the dry run, the profiler.
+DIST_NTT_N = 16384       # the sharded product's ring: beyond the reference's
+DIST_NTT_SHARDS = 8      # N <= 8192 (`misc.c:147-158`), as tests/test_mesh.py
+DIST_BR_SHARDS = 4
+DIST_BR_BATCH = 64
+MULTIHOST_PROCS = 2
+MULTIHOST_TIMEOUT_S = 300
+DRYRUN_SHARDS = 8
+PROFILE_TOL = 0.10       # measure / trace against the CUDA-event times
+K1_SYMBOL = "blind_rotate_kernel"
 # No PyTorch call computes the key-switch select-sum on int64 CUDA tensors.
 KS_LIBRARY_NOTE = ("none: torch.sparse.mm of the one-hot digits and the "
                    "table raises \"addmm_sparse_cuda\" not implemented for "
@@ -514,58 +551,19 @@ def queued_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def card_peaks(dev):
+    """The card's peak rates (`utils.roofline.Peaks`: its SM count, asked
+    once here) at its maximum SM clock, as nvidia-smi reads it."""
+    return rl.Peaks.of_device(
+        dev, float(nvidia_smi("clocks.max.sm").split()[0]))
+
+
 def signed_max_abs(x):
     """max |x| over int64 words read as signed torus differences."""
     return float(x.to(torch.float64).abs().max().item()) if x.numel() else 0.0
 
 
-def rotation_bound_ms(kp, n, B, key_bytes, max_clock_mhz):
-    """Least time the card needs for an n-step rotation of B ciphertexts:
-    the larger of its integer multiplies over the INT32 rate and its bytes
-    (key read once, accumulators in and out, exponents) over HBM."""
-    J, C, P, N = kp.J, kp.C, kp.P, kp.N
-    butterflies = (J * P + C * P) * (N // 2) * int(math.log2(N))
-    mod_products = butterflies + J * C * P * N + C * N
-    multiplies = SHOUP_MULTIPLIES * mod_products * n * B
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    int_rate = sms * INT32_LANES_PER_SM * max_clock_mhz * 1e6
-    nbytes = key_bytes + 2 * B * C * N * kp.torus_bits // 8 + n * B * 4
-    t_ops, t_bytes = multiplies / int_rate, nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "multiplies": multiplies, "bytes": nbytes,
-            "int32_per_s": int_rate, "mod_products_per_step": mod_products}
-
-
-def keyswitch_bound_ms(dig, ab, max_clock_mhz):
-    """Least time the card needs for the select-sum on these digits: the
-    larger of its word adds (one per nonzero digit and column; 2 INT32
-    operations for a u64 word, 1 for a u32 word) over the INT32 rate and its
-    bytes (the distinct table rows the digits select, read once, the
-    digits, the output) over HBM."""
-    B, n_in, t = dig.shape
-    base_m1, width = ab.shape[2], ab.shape[3]
-    d = dig.to(torch.int64).reshape(B, n_in * t)
-    nz = d != 0
-    adds = int(nz.sum()) * width
-    flat = torch.arange(n_in * t, device=d.device) * base_m1 + d - 1
-    selected = torch.zeros(n_in * t * base_m1, dtype=torch.bool,
-                           device=d.device)
-    selected[flat[nz]] = True
-    rows = int(selected.sum())
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    int_rate = sms * INT32_LANES_PER_SM * max_clock_mhz * 1e6
-    w = ab.element_size()
-    nbytes = rows * width * w + dig.numel() * dig.element_size() + B * width * w
-    ops = adds * w // 4
-    t_ops, t_bytes = ops / int_rate, nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "word_adds": adds, "int32_ops": ops, "bytes": nbytes,
-            "rows_selected": rows, "int32_per_s": int_rate}
-
-
-def k2_report(pk, tag, dig, ab, max_clock_mhz):
+def k2_report(pk, tag, dig, ab, peaks):
     """K2 on these inputs, launched once before KS_REPS timed launches:
     ms per launch beside its bound, and its schedule
     (`tlwe_keyswitch_schedule`).  The log line adds two figures worked out
@@ -580,10 +578,8 @@ def k2_report(pk, tag, dig, ab, max_clock_mhz):
     ms, out = cuda_ms(lambda: pk.tlwe_keyswitch_sum(dig, ab), KS_REPS)
     B, n_in, t = dig.shape
     w = ab.element_size()
-    bound = keyswitch_bound_ms(dig, ab, max_clock_mhz)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ceiling = 1e3 * bound["word_adds"] * w / (
-        SMEM_BYTES_PER_CLOCK * sms * max_clock_mhz * 1e6)
+    bound = rl.bound(rl.keyswitch_work(dig, ab), peaks)
+    ceiling = rl.smem_ms(bound["word_adds"] * w, peaks)
     sched = pk.tlwe_keyswitch_schedule(B, n_in * t, ab.shape[2], ab.shape[3],
                                        8 * w)
     r = {"ms": ms, "bound": bound, "share_of_bound": bound["bound_ms"] / ms,
@@ -642,78 +638,6 @@ def k2_entry(name, launches, launches_by_path, gate, fdfb, plain_ms,
         "resident_blocks_per_sm": gate["schedule"]["blocks_per_sm"]}
 
 
-def int_rate_per_s(max_clock_mhz):
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * INT32_LANES_PER_SM * max_clock_mhz * 1e6
-
-
-def ops_bytes_bound(int32_ops, nbytes, max_clock_mhz):
-    """The larger of INT32 operations over the INT32 rate and bytes over
-    HBM, in ms, with its basis."""
-    rate = int_rate_per_s(max_clock_mhz)
-    t_ops, t_bytes = int32_ops / rate, nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "int32_ops": int32_ops, "bytes": nbytes, "int32_per_s": rate}
-
-
-def butterflies(kp, rows):
-    return rows * (kp.N // 2) * int(math.log2(kp.N))
-
-
-def word_bytes(kp):
-    """Bytes of one torus word at the plan's width (8 or 4)."""
-    return kp.torus_bits // 8
-
-
-def word_ops(kp):
-    """INT32 operations of a word add, and Shoup products of a word's
-    centred residue, at the plan's width: (2, 2) for u64, (1, 1) for u32."""
-    return (U64_ADD_OPS, CENTRED_SHOUP) if kp.torus_bits == 64 else (1, 1)
-
-
-def apply_scan_bound(kp, B, G, per_row, max_clock_mhz):
-    """K3, per ciphertext and step: J*P digit and C*P inverse NTTs (one
-    Shoup product per butterfly), J*C*P*N Barrett products, one Garner
-    product per output word; bytes: the keys read once, acc in and out."""
-    J, C, P, N = kp.J, kp.C, kp.P, kp.N
-    shoup = butterflies(kp, J * P + C * P) + C * N
-    ops = (SHOUP_MULTIPLIES * shoup + BARRETT_MULTIPLIES * J * C * P * N) \
-        * B * G
-    nbytes = (G * (B if per_row else 1) * J * C * P * N * 4
-              + 2 * B * C * N * word_bytes(kp))
-    return ops_bytes_bound(ops, nbytes, max_clock_mhz)
-
-
-def unfolded_bound(kp, B, G, M, max_clock_mhz):
-    """K4, per ciphertext and group: J*P digit, J*C*P key and C*P inverse
-    NTTs, J*C*P*N centred reductions (two Shoup products each) and Barrett
-    products, J*C*N*M word rotate-adds, one Garner product per word; bytes:
-    the key products read once, acc in and out, the exponents."""
-    J, C, P, N = kp.J, kp.C, kp.P, kp.N
-    add_ops, centred = word_ops(kp)
-    shoup = (butterflies(kp, J * P + J * C * P + C * P)
-             + centred * J * C * P * N + C * N)
-    ops = (SHOUP_MULTIPLIES * shoup + BARRETT_MULTIPLIES * J * C * P * N
-           + add_ops * J * C * N * M) * B * G
-    nbytes = ((G * M * J * C * N + 2 * B * C * N) * word_bytes(kp)
-              + B * G * M * 4)
-    return ops_bytes_bound(ops, nbytes, max_clock_mhz)
-
-
-def ubr_phase1_bound(kp, B, G, M, max_clock_mhz):
-    """K5, per ciphertext and group: J*C*P key NTTs, J*C*P*N centred
-    reductions, J*C*N*M word rotate-adds; bytes: the key products read once,
-    the exponents, the u32 output."""
-    J, C, P, N = kp.J, kp.C, kp.P, kp.N
-    add_ops, centred = word_ops(kp)
-    shoup = butterflies(kp, J * C * P) + centred * J * C * P * N
-    ops = (SHOUP_MULTIPLIES * shoup + add_ops * J * C * N * M) * B * G
-    nbytes = (G * M * J * C * N * word_bytes(kp) + B * G * M * 4
-              + B * G * J * C * P * N * 4)
-    return ops_bytes_bound(ops, nbytes, max_clock_mhz)
-
-
 def trlwe_ks_bound(p, t, base_bit, bits=64, key_err=0.0):
     """Decrypt bound of a TRLWE key switch with t digits of base_bit bits
     under a binary ring key, on the bits-bit torus: per coefficient k t N
@@ -732,107 +656,6 @@ def trlwe_ks_bound(p, t, base_bit, bits=64, key_err=0.0):
            + p.k * p.N / 2 * 2.0**(2 * (bits - t * base_bit)) / 12
            + sig_w**2)
     return 2.0**math.ceil(math.log2(64 * math.sqrt(var)))
-
-
-def entry_bytes(kp_ks):
-    """Bytes of one keyset entry [Jk, C, Pk, N] u32."""
-    return (kp_ks.C - 1) * kp_ks.l * kp_ks.C * kp_ks.P * kp_ks.N * 4
-
-
-def distinct_entry_bytes(kidx, kp_ks):
-    """Bytes of the distinct keyset entries that these indices select."""
-    return int(torch.unique(kidx).numel()) * entry_bytes(kp_ks)
-
-
-def auto_ks_ops(kp_ks, B):
-    """INT32 operations of B key switches (K6, K6-old): per ciphertext Jk*P
-    digit and C*P inverse NTTs, Jk*C*P*N Barrett key products, one Garner
-    product per word."""
-    C, P, N = kp_ks.C, kp_ks.P, kp_ks.N
-    Jk = (C - 1) * kp_ks.l
-    shoup = butterflies(kp_ks, Jk * P + C * P) + C * N
-    return (SHOUP_MULTIPLIES * shoup + BARRETT_MULTIPLIES * Jk * C * P * N) * B
-
-
-def auto_ks_bound(kp_ks, B, kidx, max_clock_mhz):
-    """K6: one key switch per ciphertext (a step's second half); bytes: the
-    distinct keyset entries read once, the words in and out, kidx and
-    ginv."""
-    nbytes = (distinct_entry_bytes(kidx, kp_ks)
-              + 2 * B * kp_ks.C * kp_ks.N * word_bytes(kp_ks) + B * 8)
-    return ops_bytes_bound(auto_ks_ops(kp_ks, B), nbytes, max_clock_mhz)
-
-
-def auto_ks_gathered_bound(kp_ks, B, max_clock_mhz):
-    """K6-old: K6's operations; bytes: the B gathered keyset rows (one entry
-    per ciphertext, each an input read once), the words in and out."""
-    nbytes = (B * entry_bytes(kp_ks)
-              + 2 * B * kp_ks.C * kp_ks.N * word_bytes(kp_ks))
-    return ops_bytes_bound(auto_ks_ops(kp_ks, B), nbytes, max_clock_mhz)
-
-
-def cmux_delta_bound(kp, B, max_clock_mhz):
-    """K1-delta for B ciphertexts: per ciphertext J*P digit and C*P inverse
-    NTTs, J*C*P*N key products (counted as Shoup products: the function is
-    given the key's Shoup companions, as K1's bound counts them) and one
-    Garner product per word; bytes: the TRGSW's residues read once (the
-    companions are not needed to move), the words in and out."""
-    J, C, P, N = kp.J, kp.C, kp.P, kp.N
-    shoup = butterflies(kp, J * P + C * P) + J * C * P * N + C * N
-    nbytes = J * C * P * N * 4 + 2 * B * C * N * word_bytes(kp)
-    return ops_bytes_bound(SHOUP_MULTIPLIES * shoup * B, nbytes,
-                           max_clock_mhz)
-
-
-def ga_bound(kp, kp_ks, gens, max_clock_mhz):
-    """K7 over n steps and B ciphertexts.  Per step and ciphertext: the
-    external product (J*P digit and C*P inverse NTTs, J*C*P*N Shoup key
-    products, one Garner product per word), then the key switch (Jk*Pk digit
-    and C*Pk inverse NTTs, Jk*C*Pk*N Barrett key products, Garner).  Bytes:
-    the TRGSW keys and the distinct keyset entries these generators select,
-    each read once, acc in and out, the generators.  Also the keyset bytes
-    the blocks gather (one entry per ciphertext and step)."""
-    n, B = gens.shape
-    J, C, P, N = kp.J, kp.C, kp.P, kp.N
-    Jk, Pk = (C - 1) * kp_ks.l, kp_ks.P
-    shoup = (butterflies(kp, J * P + C * P) + J * C * P * N + C * N
-             + butterflies(kp_ks, Jk * Pk + C * Pk) + C * N)
-    barrett = Jk * C * Pk * N
-    ops = (SHOUP_MULTIPLIES * shoup + BARRETT_MULTIPLIES * barrett) * n * B
-    kidx = (gens.to(torch.int64) - 1) >> 1
-    nbytes = (2 * n * kp.J * kp.C * kp.P * kp.N * 4
-              + distinct_entry_bytes(kidx, kp_ks)
-              + 2 * B * kp.C * kp.N * word_bytes(kp) + n * B * 4)
-    out = ops_bytes_bound(ops, nbytes, max_clock_mhz)
-    out["gathered_bytes"] = n * B * entry_bytes(kp_ks)
-    out["products_per_step"] = shoup + barrett
-    return out
-
-
-def partial_step_bound(kp, B, j_local, max_clock_mhz):
-    """K8a for B ciphertexts over j_local key rows: per ciphertext j_local*P
-    digit NTTs and j_local*C*P*N key products (counted as Shoup products,
-    as K1's bound counts them); bytes: acc in, the exponents, the key rows'
-    residues (the Shoup companions are not needed), the partial out."""
-    C, P, N = kp.C, kp.P, kp.N
-    shoup = butterflies(kp, j_local * P) + j_local * C * P * N
-    nbytes = (B * C * N * word_bytes(kp) + B * 4
-              + j_local * C * P * N * 4 + B * C * P * N * 4)
-    out = ops_bytes_bound(SHOUP_MULTIPLIES * shoup * B, nbytes, max_clock_mhz)
-    out["products_per_ciphertext"] = shoup
-    return out
-
-
-def finish_step_bound(kp, B, m, max_clock_mhz):
-    """K8b for B ciphertexts on m partials: per ciphertext C*P inverse NTTs
-    and one Garner product per word; bytes: the m partials in, acc in and
-    out."""
-    C, P, N = kp.C, kp.P, kp.N
-    shoup = butterflies(kp, C * P) + C * N
-    nbytes = m * B * C * P * N * 4 + 2 * B * C * N * word_bytes(kp)
-    out = ops_bytes_bound(SHOUP_MULTIPLIES * shoup * B, nbytes, max_clock_mhz)
-    out["products_per_ciphertext"] = shoup
-    return out
 
 
 @contextlib.contextmanager
@@ -941,7 +764,7 @@ def placement(pk, kernel, kp, source=None, **kw):
             "workspace_bytes_per_block": int(stride)}
 
 
-def ga_stepwise_phase(bkg, tv, cs, acc_k6, acc_k7, gens, k7_ms, max_clock):
+def ga_stepwise_phase(bkg, tv, cs, acc_k6, acc_k7, gens, k7_ms, peaks):
     """Phase 14b: the per-step GA forms on phase 14's GA key, LUT and
     ciphertexts.  blind_rotate_ga_stepwise (n K1-delta and n+1 K6 launches)
     and blind_rotate_ga_gathered (n K1-delta and n+1 K6-old launches, no
@@ -994,7 +817,7 @@ def ga_stepwise_phase(bkg, tv, cs, acc_k6, acc_k7, gens, k7_ms, max_clock):
     t_k = hold(runs, "cmux_delta", fns["cmux_delta"],
                lambda: pk.cmux_delta_plain(acc_k6, bkg.s_v32[0],
                                            bkg.s_vs32[0], kp),
-               cmux_delta_bound(kp, BATCH, max_clock), reps=KS_REPS)
+               rl.bound(rl.cmux_delta_work(kp, BATCH), peaks), reps=KS_REPS)
     kidx = ((gens[0].to(torch.int64) - 1) >> 1)
     kidx32, ginv = kidx.to(torch.int32), bkg.inv2n[kidx].contiguous()
     fns["auto_keyswitch_stream"] = lambda: pk.auto_keyswitch_stream(
@@ -1002,14 +825,15 @@ def ga_stepwise_phase(bkg, tv, cs, acc_k6, acc_k7, gens, k7_ms, max_clock):
     o_6 = hold(runs, "auto_keyswitch_stream", fns["auto_keyswitch_stream"],
                lambda: pk.auto_keyswitch_stream_plain(t_k, bkg.ak, kidx32,
                                                       ginv, kp_ks),
-               auto_ks_bound(kp_ks, BATCH, kidx, max_clock), reps=KS_REPS)
+               rl.bound(rl.auto_ks_work(kp_ks, BATCH, kidx), peaks),
+               reps=KS_REPS)
     perm = bootstrap_ga._permute_dyn(t_k, gens[0], bkg.inv2n,
                                      bkg.N).contiguous()
     rows = bkg.ak[kidx]
     fns["auto_keyswitch"] = lambda: pk.auto_keyswitch(perm, rows, kp_ks)
     o_k = hold(runs, "auto_keyswitch", fns["auto_keyswitch"],
                lambda: pk.auto_keyswitch_plain(perm, rows, kp_ks),
-               auto_ks_gathered_bound(kp_ks, BATCH, max_clock),
+               rl.bound(rl.auto_ks_gathered_work(kp_ks, BATCH), peaks),
                reps=KS_REPS)
     same_or_fail("K6-old vs K6 on the path's first step", o_k, o_6)
     for name, fn in fns.items():
@@ -1078,13 +902,6 @@ def hold_in_place(runs, name, kernel_fn, plain_fn, acc, bound, reps):
                   "bound_ms": bound["bound_ms"],
                   "bound_by": bound["bound_by"], "bound": bound}
     return got
-
-
-def step_bound_ms(kp, B, max_clock):
-    """K1-step: K1's bound over one step (one step's key rows and Shoup
-    companions read once, acc in and out, the exponents)."""
-    return rotation_bound_ms(kp, 1, B, 2 * kp.J * kp.C * kp.P * kp.N * 4,
-                             max_clock)
 
 
 def ptxas_instances(text, match, what):
@@ -1364,7 +1181,7 @@ def log_wave_curve(tag, name, r, curve, note=""):
                     for c in curve))
 
 
-def rotation_steps_phase(bk, tv, cs, acc_k, k1_ms, max_clock):
+def rotation_steps_phase(bk, tv, cs, acc_k, k1_ms, peaks):
     """Phase 4b (and its L2_32 counterpart in phase 20): the per-step
     rotation on a path's key, LUT and ciphertexts.  blind_rotate_stepwise,
     counts zeroed just before the call and read just after (n K1-step
@@ -1401,7 +1218,7 @@ def rotation_steps_phase(bk, tv, cs, acc_k, k1_ms, max_clock):
                                           bk.vs32[0], kp),
                   lambda acc: pk.pbs_step_plain(acc, a_int[0], bk.v32[0],
                                                 bk.vs32[0], kp),
-                  acc_in, step_bound_ms(kp, B, max_clock), KS_REPS)
+                  acc_in, rl.bound(rl.step_work(kp, B), peaks), KS_REPS)
     r = runs["pbs_step"]
     resident = k1_residency(pk, kp, kp.torus_bits)["K1"]
     wave = min(B, resident["resident_ciphertexts"])
@@ -1442,7 +1259,7 @@ def rotation_steps_phase(bk, tv, cs, acc_k, k1_ms, max_clock):
     return report, counts, runs
 
 
-def ubr_steps_phase(bk, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock):
+def ubr_steps_phase(bk, c1, tvs, sa, out_u, k5_ms, k3_ms, peaks):
     """Phase 11b (and its L2_32 counterpart in phase 20): UBR phase 1
     through K5-v1 and phase 2 one cached group per launch (K3-step) on a
     UBR path's key, ciphertext, LUTs, cache ``sa`` and output ``out_u``.
@@ -1485,7 +1302,7 @@ def ubr_steps_phase(bk, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock):
     hold(runs, "ubr_phase1_combine_v1",
          lambda: pk.ubr_phase1_combine_v1(bk.su, rot, kp),
          lambda: pk.ubr_phase1_combine_v1_plain(bk.su, rot, kp),
-         ubr_phase1_bound(kp, 1, G, M, max_clock), K5_REPS, queued_ms)
+         rl.bound(rl.ubr_phase1_work(kp, 1, G, M), peaks), K5_REPS, queued_ms)
     k5_same_ms, _ = k5_time(pk.ubr_phase1_combine, bk.su, rot, kp)
     runs["ubr_phase1_combine_v1"].update({
         "kernel_of": "ubr_phase1_combine", "k5_ms": k5_same_ms})
@@ -1500,7 +1317,8 @@ def ubr_steps_phase(bk, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock):
                                                         per_row),
                   lambda acc: pk.ext_product_apply_step_plain(
                       acc, sa32[0], kp, per_row),
-                  acc_u, apply_scan_bound(kp, luts, 1, per_row, max_clock),
+                  acc_u,
+                  rl.bound(rl.apply_scan_work(kp, luts, 1, per_row), peaks),
                   KS_REPS)
     v1, k3s = runs["ubr_phase1_combine_v1"], runs["ext_product_apply_step"]
     k3s["placement"] = placement(pk, "ext_product_apply", kp)
@@ -1556,17 +1374,7 @@ def k5_time(fn, su, rot, kp):
     return queued_ms(lambda: fn(su, rot, kp), K5_REPS)
 
 
-def smem_ceiling_ms(kp, B, G, M, max_clock_mhz):
-    """K5's shared-memory ceiling, derived from its design, not measured:
-    each staged rotate-add reads one word of shared memory (8 B, 4 at the
-    32-bit torus), B G M J C N of them, at SMEM_BYTES_PER_CLOCK per SM and
-    clock."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    nbytes = B * G * M * kp.J * kp.C * kp.N * word_bytes(kp)
-    return 1e3 * nbytes / (sms * SMEM_BYTES_PER_CLOCK * max_clock_mhz * 1e6)
-
-
-def k5_batch_phase(bk, c, max_clock, tag):
+def k5_batch_phase(bk, c, peaks, tag):
     """UBR phase 1 of the ciphertexts ``c`` (phases 11 and 20, K5_BATCH of
     them): multivalue_bootstrap_UBR_phase1 with the counts zeroed just
     before and read just after (exactly 1 K5 launch), then warm; K5 alone
@@ -1603,8 +1411,8 @@ def k5_batch_phase(bk, c, max_clock, tag):
         bk.su, rot[pick].contiguous(), kp), 1)
     same_or_fail(f"{tag} K5 at B={B} vs plain on ciphertexts 0, 1, {B - 1}",
                  got[pick], want)
-    bound = ubr_phase1_bound(kp, B, G, M, max_clock)
-    ceiling = smem_ceiling_ms(kp, B, G, M, max_clock)
+    bound = rl.bound(rl.ubr_phase1_work(kp, B, G, M), peaks)
+    ceiling = smem_ceiling_ms(kp, B, G, M, peaks)
     budget = pk._smem_budget("ubr_phase1", torch.cuda.current_device())
     shape = {}
     for b in (1, B):
@@ -1663,7 +1471,7 @@ def step_entries(runs, by_path, tag=""):
     return entries
 
 
-def trgsw_matrix_phase(p, gk, gen, dev, max_clock, tag):
+def trgsw_matrix_phase(p, gk, gen, dev, peaks, tag):
     """Phase 21 (and its L2_32 counterpart in the phase-20 child): the
     matrix ops `trgsw_mul` and `trgsw_reg_sub` on the port's TRGSW key
     ``gk`` (``tag`` "L2" or "L2_32").  (a) TRGSW(X^5) x TRGSW(X^3) through
@@ -1779,7 +1587,7 @@ def trgsw_matrix_phase(p, gk, gen, dev, max_clock, tag):
         lambda: pk.ext_product_apply_scan_plain(h, sa, kp, True), 1)
     same_or_fail(f"{tag} K3 vs plain on debug_decrypt_exp_dft's inputs",
                  k3_out, k3_want)
-    k3_bound = apply_scan_bound(kp, BATCH, 1, True, max_clock)
+    k3_bound = rl.bound(rl.apply_scan_work(kp, BATCH, 1, True), peaks)
     del G1, R1, R2, prod, sub, back, sa, h, k3_out, k3_want
     report = {"batch": BATCH, **{f"{name}_ms": ms
                                  for name, ms in timed.items()},
@@ -1805,7 +1613,7 @@ def decode_prec(tlwe, torus, c, key, prec):
     return int(torus.torus2int(ph, prec)) % (1 << prec)
 
 
-def ks_family_phase(p, key_trlwe, gk, gen, dev, max_clock):
+def ks_family_phase(p, key_trlwe, gk, gen, dev, peaks):
     """Phase 22: the key-switch family on phase 4's ring key at TFHEpp-L2.
     (a) `priv_ks` as the TPU matrix runs it (`full_matrix_tpu.py:308-322`):
     a private KS pair (t=8, base_bit=4, three primes), one
@@ -1911,7 +1719,7 @@ def ks_family_phase(p, key_trlwe, gk, gen, dev, max_clock):
     R, base_m1 = dense.table.shape[0], dense.table.shape[2]
     ab = dense.table.reshape(R, t, base_m1, -1)
     dig2 = keyswitch._gather_digits(torch.stack([c1.a, c2.a]), R, t, bb)
-    k2_small, _ = k2_report(pk, "L2 tlwe_mul packing", dig2, ab, max_clock)
+    k2_small, _ = k2_report(pk, "L2 tlwe_mul packing", dig2, ab, peaks)
     rep["tlwe_mul"] = {
         "inputs": list(TLWE_MUL_INPUTS), "result": got_d,
         "streamed_ms": mul_s_ms, "dense_ms": mul_d_ms,
@@ -1944,7 +1752,7 @@ def ks_family_phase(p, key_trlwe, gk, gen, dev, max_clock):
                   lambda: keyswitch.packing1_keyswitch(cs, dense),
                   {"tlwe_keyswitch_sum": 1})
     dig = keyswitch._gather_digits(cs.a, R, t, bb)
-    k2_run, sub_k = k2_report(pk, "L2 packing1", dig, ab, max_clock)
+    k2_run, sub_k = k2_report(pk, "L2 packing1", dig, ab, peaks)
     k2_plain_ms, sub_p = cuda_ms(lambda: pk.tlwe_keyswitch_sum_plain(dig, ab),
                                  1)
     same_or_fail("K2 vs plain on packing1's inputs", sub_k, sub_p)
@@ -1971,7 +1779,7 @@ def ks_family_phase(p, key_trlwe, gk, gen, dev, max_clock):
         hold(runs, f"auto_keyswitch_stream/{name}",
              lambda: pk.auto_keyswitch_stream(x, ak, kidx, ginv, kp),
              lambda: pk.auto_keyswitch_stream_plain(x, ak, kidx, ginv, kp),
-             auto_ks_bound(kp, BATCH, kidx, max_clock), reps=KS_REPS)
+             rl.bound(rl.auto_ks_work(kp, BATCH, kidx), peaks), reps=KS_REPS)
         runs[f"auto_keyswitch_stream/{name}"]["primes"] = kp.P
     # priv_keyswitch_2 of 512 TRLWEs; ks_b_to_a of one TRGSW
     cb = trlwe.encrypt(rng.uniform_torus(gen, (BATCH, N), dev), key_trlwe,
@@ -2010,7 +1818,7 @@ def ks_family_phase(p, key_trlwe, gk, gen, dev, max_clock):
     return rep, counts, runs, {"packing1": dense, "rlk": rlk, "pair": pair}
 
 
-def ks_family32_phase(p, key_trlwe, gen, dev, max_clock):
+def ks_family32_phase(p, key_trlwe, gen, dev, peaks):
     """Phase 22's L2_32 part, in the phase-20 child (t=6, base_bit=4,
     int32 words): the dense packing1 and private-SK tables (n and n+1
     rows, 3.02 GB each), packing1_keyswitch and priv_keyswitch of 512 TLWEs
@@ -2058,7 +1866,7 @@ def ks_family32_phase(p, key_trlwe, gen, dev, max_clock):
             [cs.a, cs.b[:, None]], dim=1)
         dig = keyswitch._gather_digits(a_vals, R, t, bb)
         ab = ksk.table.reshape(R, t, base_m1, -1)
-        k2_run, sub_k = k2_report(pk, f"L2_32 {path}", dig, ab, max_clock)
+        k2_run, sub_k = k2_report(pk, f"L2_32 {path}", dig, ab, peaks)
         plain_ms, sub_p = cuda_ms(lambda: pk.tlwe_keyswitch_sum_plain(dig, ab),
                                   1)
         same_or_fail(f"K2/torus32 vs plain on {path}'s inputs", sub_k, sub_p)
@@ -2103,7 +1911,7 @@ def ks_family32_phase(p, key_trlwe, gen, dev, max_clock):
     hold(runs, "auto_keyswitch_stream/priv_ks",
          lambda: pk.auto_keyswitch_stream(x, ak, kidx, ginv, kp),
          lambda: pk.auto_keyswitch_stream_plain(x, ak, kidx, ginv, kp),
-         auto_ks_bound(kp, BATCH, kidx, max_clock), reps=KS_REPS)
+         rl.bound(rl.auto_ks_work(kp, BATCH, kidx), peaks), reps=KS_REPS)
     rep["priv_ks_batch"] = {
         "ms": cuda_ms(lambda: keyswitch.priv_keyswitch_2(cb, pair),
                       REPS)[0],
@@ -2177,7 +1985,7 @@ def run_family(pk, name, fn, c, want, counts, rep, plain_n=FAMILY_PLAIN):
 
 
 def boot_family_phase(p, key_tlwe, key_trlwe, gk, bk, tv, luts, gen, dev,
-                      max_clock, ks_keys):
+                      peaks, ks_keys):
     """Phase 23: the rest of `bootstrap` at TFHEpp-L2 on phase 4's keys,
     phase 22's dense packing1 table, relinearization key and private KS
     pair, and a dense private-SK table (t=8, base_bit=4) made here.
@@ -2386,7 +2194,8 @@ def boot_family_phase(p, key_tlwe, key_trlwe, gk, bk, tv, luts, gen, dev,
         acc0, a_int[:S], bk.v32[:S], bk.vs32[:S], kp), 1)
     same_or_fail(f"K1 on the TRGSW rows' first {S} steps vs plain", got,
                  want)
-    bound = rotation_bound_ms(kp, bk.n, acc0.shape[0], key_bytes, max_clock)
+    bound = rl.bound(rl.rotation_work(kp, bk.n, acc0.shape[0], key_bytes),
+                     peaks)
     runs["blind_rotate_scan/trgsw_rows"] = {
         "ms": k1_ms, "plain_ms": p_ms, "plain_steps": S, "max_abs_err": 0.0,
         "rows": int(acc0.shape[0]), "bound_ms": bound["bound_ms"],
@@ -2399,7 +2208,7 @@ def boot_family_phase(p, key_tlwe, key_trlwe, gk, bk, tv, luts, gen, dev,
     ab = kska.table.reshape(Rk, p.t, base_m1, -1)
     dig = keyswitch._gather_digits(torch.cat([tmp.a, tmp.b[:, None]], 1), Rk,
                                    p.t, p.base_bit)
-    k2_run, sub_k = k2_report(pk, "L2 priv-SK (CB v1)", dig, ab, max_clock)
+    k2_run, sub_k = k2_report(pk, "L2 priv-SK (CB v1)", dig, ab, peaks)
     k2_plain_ms, sub_p = cuda_ms(lambda: pk.tlwe_keyswitch_sum_plain(dig, ab),
                                  1)
     same_or_fail("K2 vs plain on CB v1's private-SK rows", sub_k, sub_p)
@@ -2434,7 +2243,7 @@ def boot_family_phase(p, key_tlwe, key_trlwe, gk, bk, tv, luts, gen, dev,
 
 
 def boot_family32_phase(p, key_tlwe, key_trlwe, gk, bk, luts, gen, dev,
-                        max_clock, tables):
+                        peaks, tables):
     """Phase 23's L2_32 part, in the phase-20 child (l=3, Bg_bit=7, N=2048;
     the packing1 and private-SK tables of phase 22's L2_32 part, t=6,
     base_bit=4), B = 512 ciphertexts of every message: the TRGSW bootstrap
@@ -2573,9 +2382,9 @@ def boot_family32_phase(p, key_tlwe, key_trlwe, gk, bk, luts, gen, dev,
         acc0, a_int[:S], bk.v32[:S], bk.vs32[:S], kp), 1)
     same_or_fail(f"one-limb K1 on the TRGSW rows' first {S} steps vs plain",
                  got, want)
-    bound = rotation_bound_ms(kp, bk.n, acc0.shape[0],
-                              (bk.v32.numel() + bk.vs32.numel()) * 4,
-                              max_clock)
+    bound = rl.bound(rl.rotation_work(
+        kp, bk.n, acc0.shape[0], (bk.v32.numel() + bk.vs32.numel()) * 4),
+        peaks)
     runs["blind_rotate_scan/trgsw_rows"] = {
         "ms": k1_ms, "plain_ms": p_ms, "plain_steps": S, "max_abs_err": 0.0,
         "rows": int(acc0.shape[0]), "bound_ms": bound["bound_ms"],
@@ -2589,7 +2398,7 @@ def boot_family32_phase(p, key_tlwe, key_trlwe, gk, bk, luts, gen, dev,
     dig = keyswitch._gather_digits(torch.cat([tmp.a, tmp.b[:, None]], 1), Rk,
                                    p.t, p.base_bit)
     k2_run, sub_k = k2_report(pk, "L2_32 priv-SK (CB v1)", dig, ab,
-                              max_clock)
+                              peaks)
     k2_plain_ms, sub_p = cuda_ms(lambda: pk.tlwe_keyswitch_sum_plain(dig, ab),
                                  1)
     same_or_fail("one-plane K2 vs plain on CB v1's private-SK rows", sub_k,
@@ -2660,7 +2469,7 @@ def ufhe_launches(op, d, out_d, tb):
     raise ValueError(op)
 
 
-def apps_phase(p_l2, gk_l2, key_trlwe_l2, gen, dev, max_clock):
+def apps_phase(p_l2, gk_l2, key_trlwe_l2, gen, dev, peaks):
     """Phase 24: the applications.  ufhe at UFHE_SET0 (n=630, N=2048, l=6,
     Bg_bit=7, t=6, base_bit=2, torus base 4): the port's keygens (seconds,
     bytes; the LUT packing table 2,048 x 4 x 6 x 3 rows of 4,096 words),
@@ -2778,9 +2587,9 @@ def apps_phase(p_l2, gk_l2, key_trlwe_l2, gen, dev, max_clock):
     acc = bootstrap.rotate_test_vector(ctx.addsub_lut, sw, bk, tb)
     acc0, a_int, _ = bootstrap.blind_rotate_inputs(acc, sw.a, bk)
     kp = bk.kernel_plan()
-    bound = rotation_bound_ms(kp, bk.n, acc0.shape[0],
-                              (bk.v32.numel() + bk.vs32.numel()) * 4,
-                              max_clock)
+    bound = rl.bound(rl.rotation_work(
+        kp, bk.n, acc0.shape[0], (bk.v32.numel() + bk.vs32.numel()) * 4),
+        peaks)
     pk.blind_rotate_scan(acc0, a_int, bk.v32, bk.vs32, kp)
     hold(runs, "blind_rotate_scan/ufhe_set0",
          lambda: pk.blind_rotate_scan(acc0, a_int, bk.v32, bk.vs32, kp),
@@ -2798,7 +2607,7 @@ def apps_phase(p_l2, gk_l2, key_trlwe_l2, gen, dev, max_clock):
     for tag, dig, ab in (
             ("ks", dig_ks, pub.ks_key.ab),
             ("lut_packing", dig_lp, tab.reshape(R, p.t, tab.shape[3], -1))):
-        k2_run, sub_k = k2_report(pk, f"UFHE_SET0 {tag}", dig, ab, max_clock)
+        k2_run, sub_k = k2_report(pk, f"UFHE_SET0 {tag}", dig, ab, peaks)
         plain_ms, sub_p = cuda_ms(lambda: pk.tlwe_keyswitch_sum_plain(dig, ab),
                                   1)
         same_or_fail(f"K2 vs plain on ufhe's {tag} digits", sub_k, sub_p)
@@ -2880,7 +2689,7 @@ def torus_dist(x, y):
 
 
 def io_phase(p, key_tlwe, key_trlwe, gk, bk, ksk, tv, cs, luts, slots,
-             ksk_r, key_in, ufhe_keep, gen, dev, max_clock):
+             ksk_r, key_in, ufhe_keep, gen, dev, peaks):
     """Phase 25: keysets through `io` onto the card.  (a) The L2 gate
     keyset (phase 4's u=1 bootstrap key, phase 7's TLWE key-switch key)
     saved in the versioned container and loaded: 512 gates (1 K1, 1 K2)
@@ -3280,7 +3089,7 @@ def io_phase(p, key_tlwe, key_trlwe, gk, bk, ksk, tv, cs, luts, slots,
     return rep, counts, held
 
 
-def set3_phase(dev, max_clock):
+def set3_phase(dev, peaks):
     """Phase 19: SET_3, whose shapes put buffers of K1, K3, K4, K7 and K8a
     in a global workspace.  Returns its report and the kernels' entries."""
     from mosfhet_torch import bootstrap, bootstrap_ga, ntt, params, \
@@ -3342,7 +3151,7 @@ def set3_phase(dev, max_clock):
     ext = trlwe.extract_tlwe(trlwe.from_stacked(acc_k), 0)
     if not (torch.equal(ext.a, out.a) and torch.equal(ext.b, out.b)):
         fail("SET_3 PBS output != extract of the kernel's rotation")
-    k1_bound = rotation_bound_ms(kp, bk.n, BATCH, key_bytes, max_clock)
+    k1_bound = rl.bound(rl.rotation_work(kp, bk.n, BATCH, key_bytes), peaks)
     log(f"# SET_3 PBS (n={p.n}, N={p.N}, P={kp.P}): first call "
         f"{first_s:.3f} s; warm {pbs_ms:.3f} ms per batch of {BATCH} = "
         f"{BATCH / pbs_ms * 1e3:.2f} boot/s; decrypt OK (max err "
@@ -3373,14 +3182,14 @@ def set3_phase(dev, max_clock):
         held("ext_product_apply_scan" + ("/per_row" if per_row else ""),
              lambda: pk.ext_product_apply_scan(acc_r, sa, kp, per_row),
              lambda: pk.ext_product_apply_scan_plain(acc_r, sa, kp, per_row),
-             apply_scan_bound(kp, B, G3, per_row, max_clock))
+             rl.bound(rl.apply_scan_work(kp, B, G3, per_row), peaks))
     del sa
     M4 = 4                                    # u = 2
     su = random_u64(rs, (G3, M4, J, C, N), dev)
     rot = random_exponents(rs, B, G3, M4, N, dev)
     held("unfolded_rotate", lambda: pk.unfolded_rotate(acc_r, rot, su, kp),
          lambda: pk.unfolded_rotate_plain(acc_r, rot, su, kp),
-         unfolded_bound(kp, B, G3, M4, max_clock))
+         rl.bound(rl.unfolded_work(kp, B, G3, M4), peaks))
     del su, rot
     n7, G7 = 4, SET3_GA_ENTRIES
     ks_primes = ntt.primes_for_bound(ntt.conv_bound(
@@ -3399,7 +3208,7 @@ def set3_phase(dev, max_clock):
          lambda: pk.ga_scan_fused(acc_r, gens, sv, svs, ak, inv2n, kp, kp_ks),
          lambda: pk.ga_scan_fused_plain(acc_r, gens, sv, svs, ak, inv2n, kp,
                                         kp_ks),
-         ga_bound(kp, kp_ks, gens, max_clock))
+         rl.bound(rl.ga_work(kp, kp_ks, gens), peaks))
     where["ga_scan"] = placement(pk, "ga_scan", kp, P_ks=kp_ks.P)
     del sv, svs, ak
     a_r = torch.from_numpy(rs.integers(0, 2 * N + 1, B, dtype=np.int32)).to(
@@ -3413,7 +3222,7 @@ def set3_phase(dev, max_clock):
              lambda: pk.partial_step(acc_r, a_r, j0, rows_v, rows_s, kp),
              lambda: pk.partial_step_plain(acc_r, a_r, j0, rows_v, rows_s,
                                            kp),
-             partial_step_bound(kp, B, j_local, max_clock))
+             rl.bound(rl.partial_step_work(kp, B, j_local), peaks))
     k8_res = k8_residency(pk, kp, 64, "SET_3")
     k34_res = k3_k4_residency(pk, kp, 64, M4, "SET_3")
     log("# SET_3 K3 (broadcast, per row; G=2), K4 (u=2, G=2), K7 (n=4, "
@@ -3428,7 +3237,7 @@ def set3_phase(dev, max_clock):
     hold_in_place(runs, "pbs_step",
                   lambda acc: pk.pbs_step(acc, a_s, kv, kvs, kp),
                   lambda acc: pk.pbs_step_plain(acc, a_s, kv, kvs, kp),
-                  acc_r, step_bound_ms(kp, B, max_clock), REPS)
+                  acc_r, rl.bound(rl.step_work(kp, B), peaks), REPS)
     for per_row in (False, True):
         key_s = random_residues_i32(
             rs, ((B,) if per_row else ()) + (J, C, P, N), kp.primes, dev)
@@ -3438,7 +3247,8 @@ def set3_phase(dev, max_clock):
                                                             per_row),
                       lambda acc: pk.ext_product_apply_step_plain(
                           acc, key_s, kp, per_row),
-                      acc_r, apply_scan_bound(kp, B, 1, per_row, max_clock),
+                      acc_r,
+                      rl.bound(rl.apply_scan_work(kp, B, 1, per_row), peaks),
                       REPS)
     for name in ("pbs_step", "ext_product_apply_step",
                  "ext_product_apply_step/per_row"):
@@ -3486,7 +3296,7 @@ def set3_phase(dev, max_clock):
                                           kpg_ks),
          lambda: pk.auto_keyswitch_stream_plain(acc_g, bkg.ak, kidx0, ginv0,
                                                 kpg_ks),
-         auto_ks_bound(kpg_ks, BATCH, kidx0, max_clock), reps=KS_REPS)
+         rl.bound(rl.auto_ks_work(kpg_ks, BATCH, kidx0), peaks), reps=KS_REPS)
     where["auto_keyswitch"] = placement(pk, "auto_keyswitch_stream", kpg_ks,
                                         "auto_keyswitch")
     # K6-old (K6's kernel, entry b, ginv 1) on that key switch's rows
@@ -3500,7 +3310,8 @@ def set3_phase(dev, max_clock):
     held("auto_keyswitch/ga_path",
          lambda: pk.auto_keyswitch(perm, rows, kpg_ks),
          lambda: pk.auto_keyswitch_plain(perm, rows, kpg_ks),
-         auto_ks_gathered_bound(kpg_ks, BATCH, max_clock), reps=KS_REPS)
+         rl.bound(rl.auto_ks_gathered_work(kpg_ks, BATCH), peaks),
+         reps=KS_REPS)
     # K6's own instances on the gathered rows (entry b, ginv 1): the same
     # words and data, so the two times differ by the instance alone
     iota = torch.arange(B, dtype=torch.int32, device=dev)
@@ -3562,7 +3373,7 @@ def set3_phase(dev, max_clock):
     return report, k1_entry, runs
 
 
-def n8192_phase(dev, max_clock):
+def n8192_phase(dev, peaks):
     """Phase 19b: K8b at N=8192 with 4 primes (SET_3's digits, 64-bit
     torus), whose C*P spectra (256 KiB) exceed a block: pbs_on_mesh on a
     (1, 2) mesh of the card with a random key cut to N8192_DEPTH steps, on
@@ -3619,7 +3430,7 @@ def n8192_phase(dev, max_clock):
     same_or_fail("K8b at N=8192 on 4 random partials",
                  pk.finish_step(acc_in.clone(), parts4, kp),
                  pk.finish_step_plain(acc_in.clone(), parts4, kp))
-    bound = finish_step_bound(kp, B, 2, max_clock)
+    bound = rl.bound(rl.finish_step_work(kp, B, 2), peaks)
     where = placement(pk, "finish_step", kp, source="tp_step")
     k8_res = k8_residency(pk, kp, 64, "N=8192")
     log(f"# N=8192 (P=4) pbs_on_mesh (1 x 2), n={n}, B={B}: {2 * n} K8a + "
@@ -3665,7 +3476,7 @@ def torus32_main():
     if torus.TORUS_BITS != 32 or torus.TORUS_DTYPE != torch.int32:
         fail("the TORUS32 child needs MOSFHET_TORUS_BITS=32")
     dev = torch.device("cuda")
-    max_clock = float(nvidia_smi("clocks.max.sm").split()[0])
+    peaks = card_peaks(dev)
     p = params.TFHEParams(**L2_32)
     primes = ntt.primes_for_bound(
         ntt.external_product_bound(p.N, p.Bg_bit, p.l, p.k))
@@ -3757,7 +3568,7 @@ def torus32_main():
     ext = trlwe.extract_tlwe(trlwe.from_stacked(acc_k), 0)
     if not (torch.equal(ext.a, out.a) and torch.equal(ext.b, out.b)):
         fail("L2_32 PBS output != extract of the kernel's rotation")
-    k1_bound = rotation_bound_ms(kp, bk.n, BATCH, key_bytes, max_clock)
+    k1_bound = rl.bound(rl.rotation_work(kp, bk.n, BATCH, key_bytes), peaks)
     log(f"# L2_32 PBS: first call {first_s:.3f} s; warm {pbs_ms:.3f} ms per "
         f"batch of {BATCH} = {BATCH / pbs_ms * 1e3:.2f} boot/s; decrypt OK "
         f"(max err 2^{math.log2(max(err, 1.0)):.1f}); peak "
@@ -3772,7 +3583,7 @@ def torus32_main():
     log_wave_curve("L2_32", "K1", k1_res["K1"], k1_curve,
                    f"; K1-step {k1_res['K1-step']['blocks_per_sm']}")
     steps, steps_counts, steps_runs = rotation_steps_phase(
-        bk, tv, cs, acc_k, k1_ms, max_clock)
+        bk, tv, cs, acc_k, k1_ms, peaks)
     del acc_in, a_int, acc_k, acc_p
 
     # the gate's key switch, then fdfb_this_work
@@ -3791,7 +3602,7 @@ def torus32_main():
     if not ks_err < KS_DECRYPT_BOUND_32:
         fail(f"L2_32 gate decrypt: max error 2^{math.log2(ks_err):.1f}")
     dig = tlwe.keyswitch_inputs(out, ksk)
-    k2_gate, sub_k = k2_report(pk, "L2_32 gate", dig, ksk.ab, max_clock)
+    k2_gate, sub_k = k2_report(pk, "L2_32 gate", dig, ksk.ab, peaks)
     k2_ms, k2_bound = k2_gate["ms"], k2_gate["bound"]
     k2_plain_ms, sub_p = cuda_ms(
         lambda: pk.tlwe_keyswitch_sum_plain(dig, ksk.ab), 1)
@@ -3842,21 +3653,21 @@ def torus32_main():
         f"{fdfb_peak / 2**30:.2f} GiB")
     dig = fdfb_ks_digits(bootstrap, tlwe, trlwe, torus, c8, bk, ksk,
                          FDFB_PREC)
-    k2_fdfb, sub_k = k2_report(pk, "L2_32 fdfb", dig, ksk.ab, max_clock)
+    k2_fdfb, sub_k = k2_report(pk, "L2_32 fdfb", dig, ksk.ab, peaks)
     same_or_fail("K2/torus32 vs plain on the fdfb's key-switch inputs",
                  sub_k, pk.tlwe_keyswitch_sum_plain(dig, ksk.ab))
     del dig, sub_k
-    unfolded = torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe,
+    unfolded = torus32_unfolded(p, dev, peaks, gen, gk, key_tlwe,
                                 key_trlwe, key_out, tv, luts, cs, slots)
-    mesh = torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded)
-    ga = torus32_ga(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe, key_out,
+    mesh = torus32_mesh(p, dev, peaks, bk, tv, cs, out, unfolded)
+    ga = torus32_ga(p, dev, peaks, gen, gk, key_tlwe, key_trlwe, key_out,
                     tv, luts, cs, slots, out)
-    matrix, matrix_counts = trgsw_matrix_phase(p, gk, gen, dev, max_clock,
+    matrix, matrix_counts = trgsw_matrix_phase(p, gk, gen, dev, peaks,
                                                "L2_32")
     ksf, ksf_counts, ksf_runs, ksf_tables = ks_family32_phase(
-        p, key_trlwe, gen, dev, max_clock)
+        p, key_trlwe, gen, dev, peaks)
     fam, fam_counts, fam_runs = boot_family32_phase(
-        p, key_tlwe, key_trlwe, gk, bk, luts, gen, dev, max_clock,
+        p, key_tlwe, key_trlwe, gk, bk, luts, gen, dev, peaks,
         ksf_tables)
     print(json.dumps({
         "params": p.name, "batch": BATCH, "primes": list(primes),
@@ -3904,7 +3715,7 @@ def hold(runs, name, kernel_fn, plain_fn, bound, reps=REPS, timer=None):
     return got
 
 
-def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
+def torus32_unfolded(p, dev, peaks, gen, gk, key_tlwe, key_trlwe,
                      key_out, tv, luts, cs, slots):
     """Phase 20's unfolded paths at L2_32: the u=4 PBS (K4), UBR at u=4
     (K5, then K3) and the external product (K3), each through its entry
@@ -3961,7 +3772,7 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
     acc_k4 = held("unfolded_rotate",
                   lambda: pk.unfolded_rotate(acc_in4, rot4, bk4.su, kp4),
                   lambda: pk.unfolded_rotate_plain(acc_in4, rot4, bk4.su, kp4),
-                  unfolded_bound(kp4, BATCH, G4, M4, max_clock))
+                  rl.bound(rl.unfolded_work(kp4, BATCH, G4, M4), peaks))
     ext4 = trlwe.extract_tlwe(trlwe.from_stacked(acc_k4), 0)
     if not (torch.equal(ext4.a, out4.a) and torch.equal(ext4.b, out4.b)):
         fail("L2_32 unfolded PBS output != extract of K4's rotation")
@@ -4011,7 +3822,7 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
     sa_k = held("ubr_phase1_combine",
                 lambda: pk.ubr_phase1_combine(bk4.su, rot_u, kp4),
                 lambda: pk.ubr_phase1_combine_plain(bk4.su, rot_u, kp4),
-                ubr_phase1_bound(kp4, 1, G4, M4, max_clock), K5_REPS,
+                rl.bound(rl.ubr_phase1_work(kp4, 1, G4, M4), peaks), K5_REPS,
                 queued_ms)
     if not torch.equal(pk.i32_as_u32(sa_k[0]), sa.v):
         fail("L2_32 UBR phase 1 output != K5's words")
@@ -4020,7 +3831,8 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
                   lambda: pk.ext_product_apply_scan(acc_u, sa32, kp4, per_row),
                   lambda: pk.ext_product_apply_scan_plain(acc_u, sa32, kp4,
                                                           per_row),
-                  apply_scan_bound(kp4, UBR_LUTS, G4, per_row, max_clock))
+                  rl.bound(rl.apply_scan_work(kp4, UBR_LUTS, G4, per_row),
+                           peaks))
     ext_u = trlwe.extract_tlwe(trlwe.from_stacked(acc_k3), 0)
     if not (torch.equal(ext_u.a, out_u.a) and torch.equal(ext_u.b, out_u.b)):
         fail("L2_32 UBR phase 2 output != extract of K3's products")
@@ -4033,12 +3845,12 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
         f"(plain {k3['plain_ms']:.3f}, bound {k3['bound_ms']:.4f} "
         f"{k3['bound_by']}); bit-exact")
     ubr_steps, ubr_counts, ubr_runs = ubr_steps_phase(
-        bk4, c1, tvs, sa, out_u, k5["ms"], k3["ms"], max_clock)
+        bk4, c1, tvs, sa, out_u, k5["ms"], k3["ms"], peaks)
     counts.update(ubr_counts)
     runs.update(ubr_runs)
     del sa, sa_k, sa32, acc_u, acc_k3, rot_u
     k5_batch, counts[f"ubr_phase1_b{K5_BATCH}"] = k5_batch_phase(
-        bk4, first_cts(cs, K5_BATCH), max_clock, "L2_32")
+        bk4, first_cts(cs, K5_BATCH), peaks, "L2_32")
     k5.update({"resident_blocks_per_sm":
                    k5_batch["schedule"][1]["blocks_per_sm"],
                f"batch{K5_BATCH}": {key: k5_batch[key] for key in (
@@ -4085,8 +3897,8 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
                     "launches": counts[f"extprod_{mode}"][
                         "ext_product_apply_scan"],
                     "decrypt_max_err_log2": math.log2(max(ep_err, 1.0)),
-                    "bound": apply_scan_bound(kp4, BATCH, 1,
-                                              mode == "per_row", max_clock)}
+                    "bound": rl.bound(rl.apply_scan_work(kp4, BATCH, 1,
+                                              mode == "per_row"), peaks)}
         log(f"# L2_32 external_product ({mode}) on {BATCH} TRLWEs: "
             f"{ep_ms:.3f} ms per call (K3 alone {ep[mode]['k3_ms']:.4f} ms), "
             f"plain {plain_ep_ms:.3f} ms, bound "
@@ -4111,7 +3923,7 @@ def torus32_unfolded(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe,
             "ubr_steps": ubr_steps, "extprod": ep}
 
 
-def torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded):
+def torus32_mesh(p, dev, peaks, bk, tv, cs, out, unfolded):
     """Phase 20's sharded paths at L2_32: pbs_on_mesh on MESH_SHAPES_32
     meshes of the card through the one-limb K8a and K8b (exact counts,
     words equal to the one-limb K1 path's ``out``), K8a and K8b held to
@@ -4166,7 +3978,7 @@ def torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded):
     parts = torch.empty((2, BATCH, kp.C, kp.P, kp.N), dtype=torch.int32,
                         device=dev)
     pk.partial_step(*tp_args[1], out=parts[1])
-    k8a_bound = partial_step_bound(kp, BATCH, jl, max_clock)
+    k8a_bound = rl.bound(rl.partial_step_work(kp, BATCH, jl), peaks)
     k8a_ms, _ = queued_ms(
         lambda: pk.partial_step(*tp_args[0], out=parts[0]), TP_REPS)
     k8a_plain_ms, part_p = cuda_ms(
@@ -4185,7 +3997,7 @@ def torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded):
     one_step = pk.blind_rotate_scan(acc_in, a_int[:1].contiguous(),
                                     bk.v32[:1], bk.vs32[:1], kp)
     same_or_fail("K8a x 2 + K8b vs one K1 step at L2_32", acc_k8, one_step)
-    k8b_bound = finish_step_bound(kp, BATCH, 2, max_clock)
+    k8b_bound = rl.bound(rl.finish_step_work(kp, BATCH, 2), peaks)
     for name, ms, plain_ms, bound in (
             ("partial_step", k8a_ms, k8a_plain_ms, k8a_bound),
             ("finish_step", k8b_ms, k8b_plain_ms, k8b_bound)):
@@ -4230,7 +4042,7 @@ def torus32_mesh(p, dev, max_clock, bk, tv, cs, out, unfolded):
     return report
 
 
-def torus32_ga(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe, key_out,
+def torus32_ga(p, dev, peaks, gen, gk, key_tlwe, key_trlwe, key_out,
                tv, luts, cs, slots, out):
     """Phase 20's GA family at L2_32 through the one-limb K6 and K7: the GA
     keygen (seconds, bytes, peak), functional_bootstrap_ga of the PBS's 512
@@ -4297,13 +4109,13 @@ def torus32_ga(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe, key_out,
                   lambda: pk.auto_keyswitch_stream_plain(acc_g, bkg.ak,
                                                          kidx0, ginv0,
                                                          kpg_ks),
-                  auto_ks_bound(kpg_ks, BATCH, kidx0, max_clock),
+                  rl.bound(rl.auto_ks_work(kpg_ks, BATCH, kidx0), peaks),
                   reps=KS_REPS)
     ga_args = (gens, bkg.s_v32, bkg.s_vs32, bkg.ak, bkg.inv2n, kpg, kpg_ks)
     acc_k7 = hold(runs, "ga_scan_fused",
                   lambda: pk.ga_scan_fused(acc_k6, *ga_args),
                   lambda: pk.ga_scan_fused_plain(acc_k6, *ga_args),
-                  ga_bound(kpg, kpg_ks, gens, max_clock))
+                  rl.bound(rl.ga_work(kpg, kpg_ks, gens), peaks))
     ext_g = trlwe.extract_tlwe(trlwe.from_stacked(acc_k7), 0)
     if not (torch.equal(ext_g.a, out_g.a) and torch.equal(ext_g.b, out_g.b)):
         fail("L2_32 GA output != extract of K7's rotation")
@@ -4419,6 +4231,335 @@ def torus32_ga(p, dev, max_clock, gen, gk, key_tlwe, key_trlwe, key_out,
             "trlweks": {"t": p.l, "base_bit": p.Bg_bit, **ks}}
 
 
+def l2_keys(p, gen, dev):
+    """Phase 4's keys, made from ``gen`` in phase 4's order (the multihost
+    ranks make them so too): the LWE key, the ring key, its extracted LWE
+    key, the TRGSW key and the u=1 bootstrap key."""
+    from mosfhet_torch import bootstrap, tlwe, trgsw, trlwe
+    key_tlwe = tlwe.new_binary_key(p.n, p.lwe_sigma, gen, dev)
+    key_trlwe = trlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, dev)
+    key_out = trlwe.extract_tlwe_key(key_trlwe)
+    gk = trgsw.new_key(key_trlwe, p.l, p.Bg_bit)
+    return key_tlwe, key_trlwe, key_out, gk, bootstrap.new_key(
+        gk, key_tlwe, gen, dev)
+
+
+def l2_batch(p, key_tlwe, gen, dev):
+    """Phase 4's random 4-slot LUT, its test vector, the slots and the
+    BATCH ciphertexts of them, made from ``gen`` after `l2_keys`."""
+    from mosfhet_torch import rng, tlwe, torus, trlwe
+    luts = rng.uniform_torus(gen, (4,), dev)
+    tv = trlwe.torus_packing(luts, p.k, p.N)
+    slots = torch.arange(BATCH, device=dev) % 4
+    cs = tlwe.encrypt(torus.double2torus(slots.to(torch.float64) / 8.0),
+                      key_tlwe, gen)
+    return luts, tv, slots, cs
+
+
+def n_sharded_phase(p, bk, tv, cs, key_out, luts, slots, dev):
+    """Phase 26: the coefficient-sharded path (`parallel.dist_ntt`), plain
+    PyTorch on virtual shards of the card (no kernel: counts zeroed before,
+    read after, all zero).  The exact product at N=DIST_NTT_N over
+    DIST_NTT_SHARDS shards against `polynomial.ntt_mul_small`; the blind
+    rotation at phase 4's widths over DIST_BR_SHARDS shards, DIST_BR_BATCH
+    of phase 4's ciphertexts, all n steps, against the single-card
+    rotation-free loop (`bootstrap._cmux_step_rotntt`) at the dist plan's
+    primes (phase 4's key's own, where they agree), both timed warm; the
+    N-sharded bootstrap of those ciphertexts decrypted within 2^58; the
+    peak memory."""
+    from mosfhet_torch import bootstrap, ntt, polynomial, tlwe
+    from mosfhet_torch.ops import pbs_kernel as pk
+    from mosfhet_torch.parallel import dist_ntt, mesh as pmesh
+
+    def shards(D):
+        return pmesh.make_mesh([dev] * D, data=D, model=1, names=("x", "y"))
+
+    N = DIST_NTT_N
+    rs = np.random.default_rng(SEED + 26)
+    d = torch.from_numpy(rs.integers(-256, 257, N)).to(dev)
+    b = random_u64(rs, (N,), dev)
+    zero_counts(pk)
+    torch.cuda.reset_peak_memory_stats()
+    run8 = dist_ntt.make_dist_ntt_mul_small(shards(DIST_NTT_SHARDS), N)
+    plan = ntt.get_plan(N, ntt.primes_for_bound(ntt.conv_bound(N, 256, 1)),
+                        dev)
+    run8(d, b)
+    mul_ms, got = cuda_ms(lambda: run8(d, b), REPS)
+    one_ms, want = cuda_ms(lambda: polynomial.ntt_mul_small(d, b, plan),
+                           REPS)
+    same_or_fail(f"dist NTT product, N={N}, {DIST_NTT_SHARDS} shards", got,
+                 want)
+    log(f"# n-sharded product N={N}, {DIST_NTT_SHARDS} shards of the card: "
+        f"{mul_ms:.3f} ms, single-card ntt_mul_small {one_ms:.3f} ms; words "
+        f"equal")
+
+    m4 = shards(DIST_BR_SHARDS)
+    primes = ntt.primes_for_bound(ntt.external_product_bound(p.N, p.Bg_bit,
+                                                             p.l, p.k))
+    prep_key, drun = dist_ntt.make_dist_blind_rotate(m4, p.N, p.k, p.l,
+                                                     p.Bg_bit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kd = prep_key(bk)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    c = first_cts(cs, DIST_BR_BATCH)
+    sl = slots[:DIST_BR_BATCH]
+    t0 = time.perf_counter()
+    out_n = dist_ntt.functional_bootstrap_n_sharded(m4, tv, c, bk, kd, drun,
+                                                    4)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    err = signed_max_abs(tlwe.phase(out_n, key_out) - luts[sl])
+    if not err <= DECRYPT_BOUND:
+        fail(f"n-sharded PBS decrypt: max error 2^{math.log2(err):.1f} > "
+             f"2^58")
+    acc_in, a_int, _ = bootstrap.blind_rotate_inputs(
+        bootstrap.rotate_test_vector(tv, c, bk, 4), c.a, bk)
+    a_bn = a_int.t().contiguous()
+    dist_ms, acc_d = cuda_ms(lambda: drun(acc_in, a_bn, kd), 1)
+    plan_d = ntt.get_plan(p.N, primes, dev)
+    if primes == bk.primes:
+        kv, kvs = bk.v, bk.vs
+    else:
+        kv = ntt.to_ntt_u64(ntt.from_ntt_u64(bk.v, bk.plan()), plan_d)
+        kvs = ntt.make_shoup(kv, plan_d.p[:, None])
+
+    def loop(steps):
+        acc = acc_in
+        for i in range(steps):
+            acc = bootstrap._cmux_step_rotntt(acc, kv[i], kvs[i], a_int[i],
+                                              plan_d, p.l, p.Bg_bit, p.k,
+                                              p.N)
+        return acc
+
+    loop(2)
+    loop_ms, acc_l = cuda_ms(lambda: loop(bk.n), 1)
+    same_or_fail(f"n-sharded rotation over {DIST_BR_SHARDS} shards vs the "
+                 f"single-card rotation-free loop", acc_d, acc_l)
+    counts = read_counts(pk)
+    check_counts("the n-sharded path (plain PyTorch)", counts, {})
+    peak = torch.cuda.max_memory_allocated()
+    log(f"# n-sharded rotation, {DIST_BR_SHARDS} shards, B={DIST_BR_BATCH}, "
+        f"n={bk.n}: {dist_ms:.1f} ms warm, single-card rotation-free loop "
+        f"{loop_ms:.1f} ms warm, words equal; dist primes {primes} "
+        f"{'=' if primes == bk.primes else '!='} the key's {bk.primes}; "
+        f"key spectra {prep_s:.2f} s; N-sharded PBS first call "
+        f"{first_s:.2f} s, decrypt OK (max err "
+        f"2^{math.log2(max(err, 1.0)):.1f}); peak {peak / 2**30:.2f} GiB")
+    del kd, kv, kvs
+    torch.cuda.empty_cache()
+    return {"product": {"N": N, "shards": DIST_NTT_SHARDS, "ms": mul_ms,
+                        "single_card_ms": one_ms},
+            "rotation": {"shards": DIST_BR_SHARDS, "batch": DIST_BR_BATCH,
+                         "n": bk.n, "ms": dist_ms, "rotntt_loop_ms": loop_ms,
+                         "primes": list(primes),
+                         "primes_equal_key": primes == bk.primes,
+                         "key_prep_s": prep_s, "pbs_first_s": first_s,
+                         "decrypt_max_err_log2": math.log2(max(err, 1.0))},
+            "peak_bytes": peak}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def multihost_phase(out, dev):
+    """Phase 27: MULTIHOST_PROCS processes on localhost over gloo, all on
+    the one card (this script with --multihost; the kernels are built
+    already, so no two builds race): rank 0 makes phase 4's key, LUT and
+    ciphertexts from the seed and replicates them, each rank bootstraps its
+    share of the batch through `multihost.pbs_on_global_mesh` at model 1
+    (1 K1) and on a (1, 2) mesh of its own (2n K8a, n K8b), counts checked
+    per process; the gathered words must equal phase 4's.  A child that
+    fails, or outlives MULTIHOST_TIMEOUT_S, fails the phase."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multihost_")
+    env = dict(os.environ, MOSFHET_COORDINATOR=f"127.0.0.1:{_free_port()}",
+               MOSFHET_NUM_PROCESSES=str(MULTIHOST_PROCS))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost", tmp],
+        env=dict(env, MOSFHET_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(MULTIHOST_PROCS)]
+    t0 = time.perf_counter()
+    try:
+        outs = []
+        for r, proc in enumerate(procs):
+            left = MULTIHOST_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                outs.append(proc.communicate(timeout=max(left, 1.0)))
+            except subprocess.TimeoutExpired:
+                fail(f"multihost rank {r} outlived {MULTIHOST_TIMEOUT_S} s")
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r, (proc, (so, se)) in enumerate(zip(procs, outs)):
+        lines = so.strip().splitlines()
+        for line in lines[:-1]:
+            log(f"# [multihost {r}] {line.lstrip('# ')}")
+        if proc.returncode != 0 or not lines:
+            print(se[-4000:], file=sys.stderr)
+            fail(f"multihost rank {r} exited with {proc.returncode}")
+        ranks.append(json.loads(lines[-1])["multihost"])
+    for model in (1, 2):
+        got = np.load(os.path.join(tmp, f"model{model}.npz"))
+        for name in ("a", "b"):
+            same_or_fail(f"multihost model {model}, gathered {name}",
+                         torch.from_numpy(got[name]),
+                         getattr(out, name).cpu())
+    shutil.rmtree(tmp)
+    log(f"# multihost: {MULTIHOST_PROCS} processes over gloo on one card, "
+        f"{BATCH // MULTIHOST_PROCS} ciphertexts each, wall {wall_s:.1f} s; "
+        + "; ".join(f"rank {x['rank']}: model 1 {x['model1']['warm_ms']:.3f}"
+                    f" ms warm, model 2 {x['model2']['warm_ms']:.3f} ms"
+                    for x in ranks)
+        + "; gathered words equal phase 4's at both")
+    return {"processes": MULTIHOST_PROCS, "wall_s": wall_s, "ranks": ranks}
+
+
+def multihost_main():
+    """`chip_smoke.py --multihost OUT_DIR`: one rank of phase 27, its rank
+    and the coordinator from MOSFHET_PROCESS_ID, MOSFHET_NUM_PROCESSES and
+    MOSFHET_COORDINATOR.  Prints its report (JSON) last; rank 0 writes the
+    gathered words to OUT_DIR."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from mosfhet_torch import params, tlwe
+    from mosfhet_torch.ops import pbs_kernel as pk
+    from mosfhet_torch.parallel import multihost
+
+    if not multihost.initialize():
+        fail("--multihost needs MOSFHET_COORDINATOR")
+    rank, world = multihost.process_index(), multihost.process_count()
+    dev = torch.device("cuda")
+    p = params.TFHEPP_L2
+    gm = multihost.make_global_mesh(devices=[dev])
+    tree = None
+    if rank == 0:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        key_tlwe, _, _, _, bk = l2_keys(p, gen, dev)
+        _, tv, _, cs = l2_batch(p, key_tlwe, gen, dev)
+        tree = (bk, tv, cs)
+    t0 = time.perf_counter()
+    bk, tv, cs = multihost.replicate(tree, gm)
+    torch.cuda.synchronize()
+    rep = {"rank": rank, "replicate_s": time.perf_counter() - t0}
+    share = BATCH // world
+    c = multihost.distribute_batch(tlwe.TLWE(
+        a=cs.a[rank * share:(rank + 1) * share],
+        b=cs.b[rank * share:(rank + 1) * share]), gm)
+    for model, want in ((1, {"blind_rotate_scan": 1}),
+                        (2, {"partial_step": 2 * bk.n, "finish_step": bk.n})):
+        gm = multihost.make_global_mesh(model=model, devices=[dev] * model)
+        run = multihost.pbs_on_global_mesh(
+            gm, bk, 4, model_axis="model" if model > 1 else None)
+        zero_counts(pk)
+        got = run(tv, c)
+        torch.cuda.synchronize()
+        counts = read_counts(pk)
+        check_counts(f"multihost rank {rank}, model {model}", counts, want)
+        ms, _ = cuda_ms(lambda: run(tv, c), REPS)
+        t0 = time.perf_counter()
+        gathered = multihost.gather_results(got)
+        gather_s = time.perf_counter() - t0
+        if rank == 0:
+            np.savez(os.path.join(sys.argv[2], f"model{model}.npz"),
+                     a=gathered.a.numpy(), b=gathered.b.numpy())
+        rep[f"model{model}"] = {"warm_ms": ms, "gather_s": gather_s,
+                                "counts": want}
+    torch.distributed.destroy_process_group()
+    log(json.dumps({"multihost": rep}))
+    return 0
+
+
+def dryrun_phase(dev):
+    """Phase 28: `parallel.dryrun.dryrun_multichip` on DRYRUN_SHARDS virtual
+    shards of the card (its five modes, each decrypted within 2^58; its
+    line printed), counts zeroed before and read after: the (4, 2) mesh's
+    K8a and K8b, and no other kernel (the unfolded and GA routes at model 2
+    and the N-sharded one are plain PyTorch)."""
+    from mosfhet_torch.ops import pbs_kernel as pk
+    from mosfhet_torch.parallel import dryrun
+
+    n = dryrun.small_params().n
+    data = DRYRUN_SHARDS // 2
+    zero_counts(pk)
+    t0 = time.perf_counter()
+    errs = dryrun.dryrun_multichip([dev] * DRYRUN_SHARDS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts(pk)
+    check_counts("dryrun", counts, {"partial_step": 2 * n * data,
+                                    "finish_step": n * data})
+    log(f"# dryrun on {DRYRUN_SHARDS} shards of the card: {wall_s:.2f} s "
+        f"with the keygens")
+    return {"shards": DRYRUN_SHARDS, "wall_s": wall_s, "err_log2": errs}, \
+        counts
+
+
+def profile_phase(p, bk, tv, cs, bkp, key_bytes, pbs_ms, k1_ms, dev, peaks):
+    """Phase 29: `utils.profiling.measure` of phase 4's warm bootstrap
+    within PROFILE_TOL of its CUDA-event time; `utils.profiling.trace` of
+    one warm call holds one K1 event within PROFILE_TOL of K1's event time
+    (phase 5); `utils.roofline.count_pbs` at phase 4's widths and batch,
+    and `report` against phase 4's time: its K1 part is K1's formula, and
+    sol_ms is the bound of K1's work plus the counted glue."""
+    from mosfhet_torch import bootstrap
+    from mosfhet_torch.utils import profiling
+
+    m = profiling.measure(bootstrap.functional_bootstrap, tv, cs, bk, 4,
+                          reps=REPS, warmup=1)
+    measure_ms = m["mean_s"] * 1e3
+    if abs(measure_ms - pbs_ms) > PROFILE_TOL * pbs_ms:
+        fail(f"profiling.measure {measure_ms:.3f} ms vs CUDA events "
+             f"{pbs_ms:.3f} ms")
+    tdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    with profiling.trace(tdir) as t:
+        bootstrap.functional_bootstrap(tv, cs, bk, 4)
+    k1_events = t.device_ms(K1_SYMBOL)
+    trace_bytes = os.path.getsize(t.path)
+    n_events = len(t.device_events)
+    shutil.rmtree(tdir)
+    if len(k1_events) != 1 or abs(k1_events[0] - k1_ms) > PROFILE_TOL * k1_ms:
+        fail(f"trace: K1 events {k1_events} vs K1's {k1_ms:.3f} ms")
+    counts = rl.count_pbs(p, BATCH, device=dev)
+    r = rl.report(counts, pbs_ms / BATCH / 1e3, peaks)
+    k1 = rl.rotation_work(bkp, bk.n, BATCH, key_bytes)
+    if (list(counts.kernels) != ["blind_rotate_scan"]
+            or counts.kernels["blind_rotate_scan"].int32_ops * BATCH
+            != k1["int32_ops"]
+            or counts.kernels["blind_rotate_scan"].hbm_bytes * BATCH
+            != k1["bytes"]):
+        fail(f"count_pbs: kernels {counts.kernels}, K1's formula {k1}")
+    glue = counts.glue * BATCH
+    k1_bound = rl.bound(k1, peaks)
+    whole = rl.bound({"int32_ops": k1["int32_ops"] + glue.int32_ops,
+                      "bytes": k1["bytes"] + glue.hbm_bytes}, peaks)
+    if not math.isclose(r["sol_ms"] * BATCH, whole["bound_ms"],
+                        rel_tol=1e-9):
+        fail(f"roofline sol_ms {r['sol_ms'] * BATCH} per batch != K1 + "
+             f"glue {whole['bound_ms']}")
+    log(f"# profile: measure {measure_ms:.3f} ms (CUDA events {pbs_ms:.3f}); "
+        f"trace {n_events} device events, K1 {k1_events[0]:.3f} ms (events "
+        f"{k1_ms:.3f}), {trace_bytes} B; roofline per bootstrap: sol "
+        f"{r['sol_ms']:.6f} ms ({r['bound']}), mfu {r['mfu']:.4f}; per batch "
+        f"of {BATCH}: K1 bound {k1_bound['bound_ms']:.3f} ms + glue "
+        f"{glue.int32_ops:.4g} int32 ops, {glue.hbm_bytes:.4g} B = "
+        f"{whole['bound_ms']:.3f} ms")
+    return {"measure": m, "measure_ms": measure_ms, "events_ms": pbs_ms,
+            "trace_device_events": n_events, "trace_k1_ms": k1_events[0],
+            "k1_events_ms": k1_ms, "trace_bytes": trace_bytes,
+            "roofline": r, "k1_bound_ms": k1_bound["bound_ms"],
+            "glue_int32_ops": glue.int32_ops, "glue_bytes": glue.hbm_bytes,
+            "sol_batch_ms": whole["bound_ms"]}
+
+
 def main():
     t_start = time.perf_counter()
     # 1. card
@@ -4431,8 +4572,9 @@ def main():
 
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
-    max_clock = float(nvidia_smi("clocks.max.sm").split()[0])
-    log(f"# card: {card}; max SM clock {max_clock} MHz; torch "
+    peaks = card_peaks(dev)
+    log(f"# card: {card}; max SM clock {peaks.max_clock_mhz} MHz; "
+        f"{peaks.sms} SMs; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
 
     # 2. build
@@ -4488,21 +4630,13 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    key_tlwe = tlwe.new_binary_key(p.n, p.lwe_sigma, gen, dev)
-    key_trlwe = trlwe.new_binary_key(p.N, p.k, p.rlwe_sigma, gen, dev)
-    key_out = trlwe.extract_tlwe_key(key_trlwe)
-    gk = trgsw.new_key(key_trlwe, p.l, p.Bg_bit)
-    bk = bootstrap.new_key(gk, key_tlwe, gen, dev)
+    key_tlwe, key_trlwe, key_out, gk, bk = l2_keys(p, gen, dev)
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
     key_bytes = (bk.v32.numel() + bk.vs32.numel()) * 4
     log(f"# keygen: {keygen_s:.3f} s; key {tuple(bk.v32.shape)} u32 x2 = "
         f"{key_bytes / 2**20:.1f} MiB")
-    luts = rng.uniform_torus(gen, (4,), dev)
-    tv = trlwe.torus_packing(luts, p.k, p.N)
-    slots = torch.arange(BATCH, device=dev) % 4
-    cs = tlwe.encrypt(torus.double2torus(slots.to(torch.float64) / 8.0),
-                      key_tlwe, gen)
+    luts, tv, slots, cs = l2_batch(p, key_tlwe, gen, dev)
 
     zero_counts(pk)
     torch.cuda.reset_peak_memory_stats()
@@ -4553,7 +4687,7 @@ def main():
                                            bk.v32, bk.vs32, bkp), 1)
     if not torch.equal(acc_p2, acc_k[:2]):
         fail("plain rotation of the first 2 ciphertexts != kernel")
-    bound = rotation_bound_ms(bkp, bk.n, BATCH, key_bytes, max_clock)
+    bound = rl.bound(rl.rotation_work(bkp, bk.n, BATCH, key_bytes), peaks)
     log(f"# blind_rotate_scan at B={BATCH}, n={bk.n}: kernel {kernel_ms:.3f} "
         f"ms/launch, plain {plain_ms:.3f} ms (first 2 ciphertexts: "
         f"{plain2_ms:.3f} ms), bound {bound['bound_ms']:.3f} ms "
@@ -4570,7 +4704,7 @@ def main():
     # 4b. the per-step rotation (K1-step) on phase 4's key, LUT and
     #     ciphertexts, held to phase 5's K1 output
     steps, steps_counts, steps_runs = rotation_steps_phase(
-        bk, tv, cs, acc_k, kernel_ms, max_clock)
+        bk, tv, cs, acc_k, kernel_ms, peaks)
 
     # 6. the key-switch kernel vs plain at full L2 widths, random inputs
     n_in, n_out, base_m1 = p.k * p.N, p.n, (1 << p.base_bit) - 1
@@ -4609,7 +4743,7 @@ def main():
     if not ks_err <= KS_DECRYPT_BOUND:
         fail(f"gate decrypt: max error 2^{math.log2(ks_err):.1f} > 2^60")
     dig = tlwe.keyswitch_inputs(out, ksk)
-    ks_run, sub_k = k2_report(pk, "L2 gate", dig, ksk.ab, max_clock)
+    ks_run, sub_k = k2_report(pk, "L2 gate", dig, ksk.ab, peaks)
     ks_ms = ks_run["ms"]
     ks_plain_ms, sub_p = cuda_ms(
         lambda: pk.tlwe_keyswitch_sum_plain(dig, ksk.ab), 1)
@@ -4679,7 +4813,7 @@ def main():
         f"call on 2 ciphertexts {fdfb_plain2_ms:.3f} ms, bit-exact")
     dig = fdfb_ks_digits(bootstrap, tlwe, trlwe, torus, c8, bk, ksk,
                          FDFB_PREC)
-    ks_fdfb, sub_k = k2_report(pk, "L2 fdfb", dig, ksk.ab, max_clock)
+    ks_fdfb, sub_k = k2_report(pk, "L2 fdfb", dig, ksk.ab, peaks)
     same_or_fail("K2 vs plain on the fdfb's key-switch inputs", sub_k,
                  pk.tlwe_keyswitch_sum_plain(dig, ksk.ab))
     del dig, sub_k
@@ -4802,7 +4936,7 @@ def main():
     if not (torch.equal(ext4.a, out4.a) and torch.equal(ext4.b, out4.b)):
         fail("unfolded path output != extract of K4's rotation")
     G4, M4 = bk4.su.shape[0], bk4.su.shape[1]
-    k4_bound = unfolded_bound(kp4, BATCH, G4, M4, max_clock)
+    k4_bound = rl.bound(rl.unfolded_work(kp4, BATCH, G4, M4), peaks)
     k34_res = k3_k4_residency(pk, kp4, 64, M4, "L2")
     k4_l2 = unfolded_l2_traffic(kp4, BATCH, G4, M4, k4_ms)
     log(f"# unfolded PBS (u={U_PBS}): first call {first4_s:.3f} s; warm "
@@ -4880,8 +5014,8 @@ def main():
     if not (torch.equal(ext_u.a, out_u.a) and torch.equal(ext_u.b, out_u.b)):
         fail("UBR phase 2 output != extract of K3's products")
     G8, M8 = bk8.su.shape[0], bk8.su.shape[1]
-    k5_bound = ubr_phase1_bound(kp8, 1, G8, M8, max_clock)
-    k3_bound = apply_scan_bound(kp8, UBR_LUTS, G8, per_row, max_clock)
+    k5_bound = rl.bound(rl.ubr_phase1_work(kp8, 1, G8, M8), peaks)
+    k3_bound = rl.bound(rl.apply_scan_work(kp8, UBR_LUTS, G8, per_row), peaks)
     log(f"# UBR (u={U_UBR}, G={G8}, M={M8}): phase 1 first call "
         f"{ph1_s * 1e3:.3f} ms, K5 {k5_ms:.3f} ms/launch (plain "
         f"{k5_plain_ms:.3f} ms, bound {k5_bound['bound_ms']:.3f} ms "
@@ -4894,13 +5028,13 @@ def main():
 
     del sa_k, sa_p, sa32, acc_u, acc_k3, acc_p3
     k5_batch, k5_batch_counts = k5_batch_phase(
-        bk8, first_cts(cs, K5_BATCH), max_clock, "L2")
+        bk8, first_cts(cs, K5_BATCH), peaks, "L2")
     k5_batch["build"] = [e for e in k2_k5_build if e["entry"] == "K5"]
 
     # 11b. UBR phase 1 through K5-v1, phase 2 one cached group per launch
     #      (K3-step), on phase 11's key, ciphertext, LUTs and cache
     ubr_steps, ubr_steps_counts, ubr_steps_runs = ubr_steps_phase(
-        bk8, c1, tvs, sa, out_u, k5_ms, k3_ms, max_clock)
+        bk8, c1, tvs, sa, out_u, k5_ms, k3_ms, peaks)
     del bk8, sa, rot8
 
     # 12. trgsw.external_product at L2 on 512 TRLWEs, both modes
@@ -4940,8 +5074,8 @@ def main():
                     "k3_ms": k3_alone_ms(pk, c_ep, g, kp, mode == "per_row"),
                     "launches": counts["ext_product_apply_scan"],
                     "decrypt_max_err_log2": math.log2(max(ep_err, 1.0)),
-                    "bound": apply_scan_bound(kp, BATCH, 1,
-                                              mode == "per_row", max_clock)}
+                    "bound": rl.bound(rl.apply_scan_work(kp, BATCH, 1,
+                                              mode == "per_row"), peaks)}
         log(f"# external_product ({mode}) on {BATCH} TRLWEs: {ep_ms:.3f} ms "
             f"per call (K3 alone {ep[mode]['k3_ms']:.4f} ms), plain "
             f"{plain_ep_ms:.3f} ms, bound "
@@ -5046,8 +5180,8 @@ def main():
     ext_g = trlwe.extract_tlwe(trlwe.from_stacked(acc_k7), 0)
     if not (torch.equal(ext_g.a, out_g.a) and torch.equal(ext_g.b, out_g.b)):
         fail("GA path output != extract of K7's rotation")
-    k6_bound = auto_ks_bound(kpg_ks, BATCH, kidx0, max_clock)
-    k7_bound = ga_bound(kpg, kpg_ks, gens, max_clock)
+    k6_bound = rl.bound(rl.auto_ks_work(kpg_ks, BATCH, kidx0), peaks)
+    k7_bound = rl.bound(rl.ga_work(kpg, kpg_ks, gens), peaks)
     log(f"# GA bootstrap: first call {ga_first_s:.3f} s; warm {ga_ms:.3f} ms "
         f"per batch of {BATCH} = {BATCH / ga_ms * 1e3:.2f} boot/s (PBS u=1: "
         f"{BATCH / pbs_ms * 1e3:.2f}); decrypt OK (max err "
@@ -5073,7 +5207,7 @@ def main():
 
     # 14b. the per-step GA forms (K1-delta, K6, K6-old) against K7's words
     step_report, step_counts, step_runs = ga_stepwise_phase(
-        bkg, tv, cs, acc_k6, acc_k7, gens, k7_ms, max_clock)
+        bkg, tv, cs, acc_k6, acc_k7, gens, k7_ms, peaks)
     del acc_g, acc_k6, acc_p6, acc_k7, acc_p7
 
     # 15. the TRLWE key switch and eval_automorphism on 512 TRLWEs
@@ -5229,8 +5363,8 @@ def main():
     one_step = pk.blind_rotate_scan(acc_in, a_int[:1].contiguous(),
                                     bk.v32[:1], bk.vs32[:1], bkp)
     same_or_fail("K8a x 2 + K8b vs one K1 step", acc_k8, one_step)
-    k8a_bound = partial_step_bound(bkp, BATCH, jl2, max_clock)
-    k8b_bound = finish_step_bound(bkp, BATCH, 2, max_clock)
+    k8a_bound = rl.bound(rl.partial_step_work(bkp, BATCH, jl2), peaks)
+    k8b_bound = rl.bound(rl.finish_step_work(bkp, BATCH, 2), peaks)
     log(f"# partial_step (K8a) at B={BATCH}, {jl2} key rows: kernel "
         f"{k8a_ms:.4f} ms/launch (mean of {TP_REPS}), plain "
         f"{k8a_plain_ms:.3f} ms, bound {k8a_bound['bound_ms']:.4f} ms "
@@ -5277,40 +5411,53 @@ def main():
     del bk4, out4, got_m, c_cut
 
     # 19. SET_3, with buffers beyond shared memory
-    set3, k1_set3, set3_runs = set3_phase(dev, max_clock)
+    set3, k1_set3, set3_runs = set3_phase(dev, peaks)
 
     # 19b. K8b at N=8192 with 4 primes, one pass per component
-    k8b_n8192 = n8192_phase(dev, max_clock)
+    k8b_n8192 = n8192_phase(dev, peaks)
 
     # 20. the 32-bit torus, in a child interpreter
     t32 = torus32_phase()
 
     # 21. the TRGSW matrix ops trgsw_mul and trgsw_reg_sub on phase 4's key
-    matrix, matrix_counts = trgsw_matrix_phase(p, gk, gen, dev, max_clock,
+    matrix, matrix_counts = trgsw_matrix_phase(p, gk, gen, dev, peaks,
                                                "L2")
 
     # 22. the key-switch family: priv_ks and tlwe_mul on phase 4's key
     ksf, ksf_counts, ksf_runs, ksf_keys = ks_family_phase(
-        p, key_trlwe, gk, gen, dev, max_clock)
+        p, key_trlwe, gk, gen, dev, peaks)
 
     # 23. the rest of bootstrap on phase 4's keys and phase 22's tables
     fam, fam_counts, fam_runs = boot_family_phase(
-        p, key_tlwe, key_trlwe, gk, bk, tv, luts, gen, dev, max_clock,
+        p, key_tlwe, key_trlwe, gk, bk, tv, luts, gen, dev, peaks,
         ksf_keys)
 
     # 24. the applications: ufhe at UFHE_SET0, the leveled LUT at L2
     apps, apps_counts, apps_runs, ufhe_keep = apps_phase(
-        p, gk, key_trlwe, gen, dev, max_clock)
+        p, gk, key_trlwe, gen, dev, peaks)
 
     # 25. keysets through io: the container, the reference's layouts and
     #     files, ufhe's keyset IO
     io_rep, io_counts, io_held = io_phase(
         p, key_tlwe, key_trlwe, gk, bk, ksk, tv, cs, luts, slots, ksk_r,
-        key_in, ufhe_keep, gen, dev, max_clock)
+        key_in, ufhe_keep, gen, dev, peaks)
     del ufhe_keep, ksk_r
     torch.cuda.empty_cache()
 
-    # 26. report
+    # 26. the coefficient-sharded product and rotation on shards of the card
+    nsh = n_sharded_phase(p, bk, tv, cs, key_out, luts, slots, dev)
+
+    # 27. multihost: two processes over gloo on the card
+    mh = multihost_phase(out, dev)
+
+    # 28. the multi-device dry run on 8 shards of the card
+    dry, dry_counts = dryrun_phase(dev)
+
+    # 29. the profiler and the roofline on phase 4's bootstrap
+    prof = profile_phase(p, bk, tv, cs, bkp, key_bytes, pbs_ms, kernel_ms,
+                         dev, peaks)
+
+    # 30. report
     paths = {"pbs": pbs_counts, "gate": gate_counts, "fdfb": fdfb_counts,
              "unfolded": ub_counts, "ubr_phase1": ph1_counts,
              f"ubr_phase1_b{K5_BATCH}": k5_batch_counts,
@@ -5326,6 +5473,10 @@ def main():
     paths.update({f"family_{name}": c for name, c in fam_counts.items()})
     paths.update(apps_counts)
     paths.update(io_counts)
+    paths["dryrun"] = dry_counts
+    paths.update({f"multihost_model{m}_rank{x['rank']}":
+                  x[f"model{m}"]["counts"] for x in mh["ranks"]
+                  for m in (1, 2)})
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}
@@ -5607,6 +5758,10 @@ def main():
                                     **fam}}))
     log(json.dumps({"apps": apps}))
     log(json.dumps({"io": io_rep}))
+    log(json.dumps({"n_sharded": nsh}))
+    log(json.dumps({"multihost": mh}))
+    log(json.dumps({"dryrun": dry}))
+    log(json.dumps({"profile": prof}))
     log(json.dumps({"torus32": {key: t32[key] for key in t32
                                 if key not in ("counts", "kernel_runs",
                                                "ks_family_runs",
@@ -5640,7 +5795,7 @@ def k5_main():
 
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
-    max_clock = float(nvidia_smi("clocks.max.sm").split()[0])
+    peaks = card_peaks(dev)
     build_s = _build.build(["ubr_phase1", "unfolded_rotate"])
     log(f"# card: {card}; build {build_s:.1f} s")
     log_build(sched_ptxas(_build.build_log["unfolded_rotate"],
@@ -5678,7 +5833,7 @@ def k5_main():
                              f"{default}", out, outs[B])
             else:
                 outs[B] = out
-            bound = ubr_phase1_bound(kp, B, G, M, max_clock)
+            bound = rl.bound(rl.ubr_phase1_work(kp, B, G, M), peaks)
             runs.append({"kernel": "K5", "width": name, "B": B, "G": G,
                          "M": M, "tile_cap": cap or default, "ms": k5_ms,
                          "bound_ms": bound["bound_ms"],
@@ -5686,7 +5841,7 @@ def k5_main():
             log(f"# K5 {name} u={u} B={B} tile cap {cap or default}: "
                 f"{k5_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
                 f"({bound['bound_by']}), shared-memory ceiling "
-                f"{smem_ceiling_ms(kp, B, G, M, max_clock):.4f} ms (derived, "
+                f"{smem_ceiling_ms(kp, B, G, M, peaks):.4f} ms (derived, "
                 "not measured)")
         same_or_fail(f"K5 {name}: ciphertext 0 at B={K5_BATCH} vs B=1",
                      outs[K5_BATCH][:1], outs[1])
@@ -5704,7 +5859,7 @@ def k5_main():
     pk.unfolded_rotate(acc, rot, su, kp)           # its first launch
     k4_ms, _ = queued_ms(lambda: pk.unfolded_rotate(acc, rot, su, kp),
                          K5_REPS)
-    bound = unfolded_bound(kp, BATCH, G, M, max_clock)
+    bound = rl.bound(rl.unfolded_work(kp, BATCH, G, M), peaks)
     runs.append({"kernel": "K4", "width": "L2", "B": BATCH, "G": G, "M": M,
                  "ms": k4_ms, "bound_ms": bound["bound_ms"],
                  "bound_by": bound["bound_by"]})
@@ -5716,5 +5871,6 @@ def k5_main():
 
 
 if __name__ == "__main__":
-    modes = {"--torus32": torus32_main, "--k5": k5_main}
+    modes = {"--torus32": torus32_main, "--k5": k5_main,
+             "--multihost": multihost_main}
     sys.exit(modes.get(sys.argv[1] if sys.argv[1:] else None, main)())

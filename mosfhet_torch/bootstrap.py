@@ -189,6 +189,40 @@ def blind_rotate_stepwise(tv: TRLWE, a, bk: BootstrapKey) -> TRLWE:
     return from_stacked(acc.reshape(batch + (bk.k + 1, bk.N)))
 
 
+def _cmux_step_rotntt(acc_st, bk_v, bk_vs, ai, plan: _ntt.NTTPlan, l: int,
+                      Bg_bit: int, k: int, N: int):
+    """The rotation-free CMUX step (the TPU package's ``MOSFHET_ROT_NTT``
+    step; plain PyTorch): the accumulator is gadget-decomposed directly and
+    the factor X^{a_i} - 1 applied in the NTT domain, where a monomial is
+    diagonal (`ntt.xpow`):
+
+        acc += invNTT((zeta^a - 1) . sum_j NTT(decompose(acc)_j) * KEY_j)
+
+    acc_st [..., k+1, N] words; ai [...] exponents in [0, 2N]; bk_v, bk_vs
+    [(k+1)l, k+1, P, N] int64 canonical key residues and Shoup companions.
+    Rotation commutes with gadget recomposition, so this equals the classic
+    step up to the decomposition's rounding term, here scaled by X^a - 1
+    (covered by `ntt.external_product_bound`'s doubled prime budget).  That
+    factor also scales the key-noise term: up to half a bit of output noise
+    margin against the classic step.  It is the oracle of the N-sharded
+    blind rotation (`parallel.dist_ntt.make_dist_blind_rotate`).
+
+    Raises ValueError on a plan that is not Barrett-capable (the TPU package
+    takes the step only when ``plan.barrett_ok``)."""
+    if not plan.barrett_ok:
+        raise ValueError("the rotation-free step needs a Barrett-capable "
+                         "prime set (every prime > 2^30 / 1.75)")
+    digits = gadget_decompose(acc_st, Bg_bit, l)          # [..., k+1, l, N]
+    digits = digits.reshape(digits.shape[:-3] + ((k + 1) * l, N))
+    spec = _ntt.to_ntt_small(digits, plan)                # [..., J, P, N]
+    acc_ntt = _ntt.pointwise_mul_acc_key(spec.unsqueeze(-3), bk_v, bk_vs,
+                                         plan, dim=-4)    # [..., C, P, N]
+    # zeta^a - 1, canonical: zeta^a is a root power, never 0
+    t = _ntt.xpow(ai, plan) - 1                           # [..., P, N]
+    acc_ntt = _ntt.barrett_mul(acc_ntt, t.unsqueeze(-3), plan)
+    return acc_st + _ntt.from_ntt_u64(acc_ntt, plan, acc_st.dtype)
+
+
 def _unfold_rotations(a, bk: BootstrapKey):
     """Per group and mask combination, round((sum_{i in m} a[g u + i]) 2N)
     (`bootstrap.c:128-136`): int32 [..., n/u, 2^u] in [0, 2N), as the TPU

@@ -18,7 +18,9 @@ relinearization's K6 at four primes); K1 on a TRGSW accumulator's rows
 its base_bit=2; the kernels at N=4096 with 4 primes
 (SET_3) and N=8192,
 whose buffers do not all fit shared memory; and, for the kernels on K1's
-schedule, ragged batches, residency and misaligned keys.
+schedule, ragged batches, residency and misaligned keys; the
+coefficient-sharded product on 4 shards of the card and
+`multihost.pbs_on_global_mesh` in one process.
 Needs a CUDA card: without one every test here skips.
 
 This file imports nothing but PyTorch, numpy and the port, so it runs on a
@@ -2057,3 +2059,60 @@ def test_cuda_reference_unfolded_key_imports_to_card():
     want = run("cpu")
     assert torch.equal(got.a.cpu(), want.a) and torch.equal(got.b.cpu(),
                                                             want.b)
+
+
+# --- the coefficient-sharded product and one process of the multihost path -
+
+@pytest.mark.gpu
+def test_cuda_dist_ntt_mul_small_on_four_shards():
+    """The coefficient-sharded exact product at N=4096 over 4 virtual
+    shards of the card (`parallel.dist_ntt`, plain PyTorch): the words of
+    the single-card `polynomial.ntt_mul_small`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mosfhet_torch import polynomial
+    from mosfhet_torch.parallel import dist_ntt, mesh
+    N = 4096
+    rng = np.random.default_rng(130)
+    d = torch.from_numpy(rng.integers(-256, 257, N)).cuda()
+    b = to_tensor(rng.integers(0, 1 << 64, size=N, dtype=np.uint64), "cuda")
+    run = dist_ntt.make_dist_ntt_mul_small(
+        mesh.make_mesh([torch.device("cuda")] * 4, data=4, model=1,
+                       names=("x", "y")), N)
+    plan = ntt.get_plan(N, ntt.primes_for_bound(ntt.conv_bound(N, 256, 1)),
+                        "cuda")
+    got = run(d, b)
+    assert got.device.type == "cuda"
+    assert torch.equal(got, polynomial.ntt_mul_small(d, b, plan))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", [1, 2])
+def test_cuda_pbs_on_global_mesh_one_process(model):
+    """`multihost.pbs_on_global_mesh` in one process (no coordinator) over
+    `replicate`d keys, n cut to 6: 1 K1 launch at model 1, 12 K8a and 6 K8b
+    on a (1, 2) mesh of the card; the single-device bootstrap's words,
+    gathered on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mosfhet_torch import bootstrap
+    from mosfhet_torch.parallel import multihost
+    n, B = 6, 4
+    bk, tv, c = _mesh_case(n, B, seed=140)
+    want = bootstrap.functional_bootstrap(tv, c, bk, 4)
+    gm = multihost.make_global_mesh(model=model,
+                                    devices=[torch.device("cuda")] * model)
+    bk_r, tv_r = multihost.replicate((bk, tv), gm)
+    run = multihost.pbs_on_global_mesh(
+        gm, bk_r, 4, model_axis="model" if model > 1 else None)
+    before = (tpk.blind_rotate_scan.launches, tpk.partial_step.launches,
+              tpk.finish_step.launches)
+    got = run(tv_r, multihost.distribute_batch(c, gm))
+    torch.cuda.synchronize()
+    assert (tpk.blind_rotate_scan.launches - before[0],
+            tpk.partial_step.launches - before[1],
+            tpk.finish_step.launches - before[2]) == (
+        (1, 0, 0) if model == 1 else (0, 2 * n, n))
+    got = multihost.gather_results(got)
+    assert torch.equal(got.a, want.a.cpu()) and torch.equal(got.b,
+                                                            want.b.cpu())

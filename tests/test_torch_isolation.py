@@ -20,7 +20,9 @@ def test_import_loads_no_forbidden_module():
             "mosfhet_torch.ops.pbs_kernel, mosfhet_torch.ops._build, "
             "mosfhet_torch.parallel.mesh, mosfhet_torch.apps.leveled_lut, "
             "mosfhet_torch.apps.ufhe, mosfhet_torch.io, mosfhet_torch.native, "
-            "mosfhet_torch.refrng\n"
+            "mosfhet_torch.refrng, mosfhet_torch.parallel.dist_ntt, "
+            "mosfhet_torch.parallel.multihost, mosfhet_torch.parallel.dryrun, "
+            "mosfhet_torch.utils.profiling, mosfhet_torch.utils.roofline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")
