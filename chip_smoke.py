@@ -331,15 +331,30 @@ Phases; any failure ends the script with a non-zero exit and no result line:
               `utils.roofline.count_pbs(TFHEPP_L2, 512)` and `report` against
               phase 4's time: sol_ms and mfu, its K1 part K1's formula, and
               sol_ms the bound of K1's work plus the counted glue.
- 30. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
+ 30. rotntt   the rotation-free blind rotation (`rot_ntt=True`) on phase
+              4's key, LUT and 512 ciphertexts (`rotntt_phase`; its L2_32
+              part ends the phase-20 child): functional_bootstrap (1 K1-rot
+              launch per call, decrypt within 2^58, 2^26.5 at L2_32: the
+              classic bound times sqrt 2 for the ~2x variance; the classic
+              path's error beside it), blind_rotate_stepwise (n K1-step-rot
+              launches, K1-rot's words) and pbs_on_mesh on (1, 2) (2n
+              K8a-rot, n K8b, the bootstrap's words), counts zeroed just
+              before each and read just after; K1-rot held to its plain
+              version at B=512 over the first 8 steps and at full depth on
+              2 ciphertexts, K1-step-rot and K8a-rot (both row halves) on
+              the first step; each timed per launch (one launch, then 10
+              queued) beside the classic instance on the same inputs, with
+              its bound (the twiddle's work added) and share of it.
+ 31. report   the pbs, gate, fdfb, unfolded, ubr, steps (4b, 11b), extprod,
               trgsw_matrix, ga (with the per-step forms), trlweks, mesh, set3,
               ks_family, boot_family, apps, io, n_sharded, multihost, dryrun,
-              profile and torus32 lines, the card
+              profile, rot_ntt and torus32 lines, the card
               line, the kernels line (the one-limb forms as
               `<kernel>/torus32`, K8b at N=8192 as `finish_step/n8192`,
               K1-delta as `cmux_delta`, K6-old as `auto_keyswitch`, K1-step
               as `pbs_step`, K3-step as `ext_product_apply_step`, K5-v1 as
-              `ubr_phase1_combine_v1`), and the result line last.
+              `ubr_phase1_combine_v1`, the rotation-free instances as
+              `<kernel>/rot_ntt`), and the result line last.
 
 Every bound comes from `mosfhet_torch.utils.roofline` at the card's SM
 count and maximum SM clock.
@@ -348,7 +363,10 @@ count and maximum SM clock.
 (u=8) and L2_32 (u=4), as the phases above time it, K5 at 64 under each
 tile cap of K5_TILES, and K4 at the u=4 PBS's shape, on random inputs,
 and prints one JSON line; a copy of the script in another checkout times
-that checkout's kernels.
+that checkout's kernels.  `python3 chip_smoke.py --k1` times K1, K1-step
+and K8a the same way at TFHEpp-L2 and L2_32, classic and (where the
+checkout has it) rotation-free, on random inputs: a parent comparison on
+one card.
 
 Imports nothing but PyTorch, numpy and the port.
 """
@@ -425,6 +443,8 @@ SET3_GA_ENTRIES = 64  # keyset entries of the SET_3 K7 check
 L2_32 = dict(n=632, N=2048, k=1, l=3, Bg_bit=7, t=6, base_bit=4,
              lwe_sigma=2.0**-15, rlwe_sigma=2.0**-25, name="L2_32")
 DECRYPT_BOUND_32 = 2.0**26   # bench_torus32.py:45,54
+# the rotation-free step's variance is up to ~2x the classic step's
+ROT_DECRYPT_BOUND_32 = DECRYPT_BOUND_32 * math.sqrt(2.0)
 # Key-switch noise at L2_32: ~11,520 nonzero digits x (2^-15)^2 gives sigma
 # ~2^-8.26 of the torus, ~2^23.7 in u32 words; 2^27 is ~10 sigma.
 KS_DECRYPT_BOUND_32 = 2.0**27
@@ -928,12 +948,14 @@ def ptxas_instances(text, match, what):
 
 
 def k1_ptxas(text):
-    """Every instance of K1's and K1-step's kernels in blind_rotate.cu."""
+    """Every instance of K1's and K1-step's kernels in blind_rotate.cu (the
+    rotation-free ones, a last template flag, as K1-rot and K1-step-rot)."""
     def match(line):
         m = re.search(r"(blind_rotate_kernel|pbs_step_kernel)ILi(\d)E"
-                      r"([mj])Lb([01])ELi(\d+)E", line)
+                      r"([mj])Lb([01])ELi(\d+)E(?:Lb([01])E)?", line)
         return None if m is None else {
-            "entry": "K1" if m[1] == "blind_rotate_kernel" else "K1-step",
+            "entry": ("K1" if m[1] == "blind_rotate_kernel" else "K1-step")
+            + ("-rot" if m[6] == "1" else ""),
             "P": int(m[2]), "words": "u64" if m[3] == "m" else "u32",
             "all_shared": m[4] == "1", "log_n": int(m[5]) or None}
     return ptxas_instances(text, match, "K1")
@@ -953,12 +975,14 @@ def k7_ptxas(text):
 
 def k8_ptxas(text):
     """Every instance of K8a's and K8b's kernels in tp_step.cu (K8b's flag:
-    one pass over all C*P rows in shared memory)."""
+    one pass over all C*P rows in shared memory; K8a's rotation-free
+    instances, a last template flag, as K8a-rot)."""
     def match(line):
         m = re.search(r"(partial_step_kernel|finish_step_kernel)ILi(\d)E"
-                      r"([mj])Lb([01])ELi(\d+)E", line)
+                      r"([mj])Lb([01])ELi(\d+)E(?:Lb([01])E)?", line)
         return None if m is None else {
-            "entry": "K8a" if m[1] == "partial_step_kernel" else "K8b",
+            "entry": ("K8a" if m[1] == "partial_step_kernel" else "K8b")
+            + ("-rot" if m[6] == "1" else ""),
             "P": int(m[2]), "words": "u64" if m[3] == "m" else "u32",
             "all_shared": m[4] == "1", "log_n": int(m[5]) or None}
     return ptxas_instances(text, match, "K8")
@@ -3669,6 +3693,9 @@ def torus32_main():
     fam, fam_counts, fam_runs = boot_family32_phase(
         p, key_tlwe, key_trlwe, gk, bk, luts, gen, dev, peaks,
         ksf_tables)
+    rot, rot_counts, rot_runs = rotntt_phase(
+        p, bk, tv, cs, key_out, luts, slots, err, ROT_DECRYPT_BOUND_32,
+        "L2_32", dev, peaks)
     print(json.dumps({
         "params": p.name, "batch": BATCH, "primes": list(primes),
         "keygen_s": keygen_s, "key_bytes": key_bytes,
@@ -3689,6 +3716,9 @@ def torus32_main():
                    **ksf_counts, **{f"family_{name}": c
                                     for name, c in fam_counts.items()}},
         "steps": steps, "trgsw_matrix": matrix, "ks_family": ksf,
+        "rot_ntt": rot, "rot_counts": rot_counts,
+        "rot_runs": {name: {key: v for key, v in r.items() if key != "bound"}
+                     for name, r in rot_runs.items()},
         "ks_family_runs": ksf_runs, "boot_family": fam,
         "family_runs": fam_runs,
         "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound,
@@ -4558,6 +4588,230 @@ def profile_phase(p, bk, tv, cs, bkp, key_bytes, pbs_ms, k1_ms, dev, peaks):
             "roofline": r, "k1_bound_ms": k1_bound["bound_ms"],
             "glue_int32_ops": glue.int32_ops, "glue_bytes": glue.hbm_bytes,
             "sol_batch_ms": whole["bound_ms"]}
+
+
+
+ROT_STEPS = 8        # steps of the rotation-free K1 held to plain at B
+ROT_FULL_CTS = 2     # ciphertexts of the full-depth K1-rot plain check
+ROT_REPS = 10        # queued launches timed per kernel (after one launch)
+# the rotation-free instances: wrapper, CUDA source, TPU kernel line
+ROT_KERNELS = (("blind_rotate_scan", "blind_rotate.cu", 1404),
+               ("pbs_step", "blind_rotate.cu", 1253),
+               ("partial_step", "tp_step.cu", 1536))
+ROT_LIBRARY_NOTE = ("none: no PyTorch call computes an exact NTT CMUX "
+                    "step")
+
+
+def rot_time(fn, *args, **kw):
+    """Milliseconds per launch of ``fn(*args, **kw)``: one launch, then
+    ROT_REPS launches queued (`queued_ms`).  Returns the last result."""
+    fn(*args, **kw)
+    return queued_ms(lambda: fn(*args, **kw), ROT_REPS)
+
+
+def rotntt_phase(p, bk, tv, cs, key_out, luts, slots, classic_err, bound_err,
+                 tag, dev, peaks):
+    """Phase 30 (and its L2_32 part at the end of the TORUS32 child): the
+    rotation-free blind rotation (`rot_ntt=True`) on a path's key, LUT and
+    BATCH ciphertexts.  Through the entry points, counts zeroed just before
+    each call and read just after: `functional_bootstrap` (one K1-rot
+    launch, decrypt within ``bound_err``, the classic path's error
+    ``classic_err`` beside it), `blind_rotate_stepwise` (n K1-step-rot
+    launches, the words of K1-rot) and `pbs_on_mesh` on a (1, 2) mesh of
+    the card (n K8b and 2n K8a-rot launches, the bootstrap's words).  Then
+    each instance word for word against its plain version: K1-rot at full
+    batch over the first ROT_STEPS steps and at full depth on ROT_FULL_CTS
+    ciphertexts, K1-step-rot and K8a-rot (both row halves) on the path's
+    first step; each timed per launch beside the classic instance on the
+    same inputs (`rot_time`), with its bound (the twiddle's work added).
+    Returns (report, counts by path, runs by wrapper name)."""
+    from mosfhet_torch import bootstrap, tlwe, trlwe
+    from mosfhet_torch.ops import pbs_kernel as pk
+    from mosfhet_torch.parallel import mesh as pmesh
+
+    n, B = bk.n, cs.b.shape[0]
+    kp = bk.kernel_plan()
+    bits = kp.torus_bits
+    counts = {}
+    zero_counts(pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = bootstrap.functional_bootstrap(tv, cs, bk, 4, rot_ntt=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    pbs_ms, out2 = cuda_ms(
+        lambda: bootstrap.functional_bootstrap(tv, cs, bk, 4, rot_ntt=True),
+        REPS)
+    counts["rotntt_pbs"] = read_counts(pk)
+    check_counts(f"{tag} rot-NTT PBS over {1 + REPS} calls",
+                 counts["rotntt_pbs"], {"blind_rotate_scan": 1 + REPS})
+    if not (torch.equal(out.a, out2.a) and torch.equal(out.b, out2.b)):
+        fail(f"{tag} rot-NTT PBS: repeated calls differ")
+    err = signed_max_abs(tlwe.phase(out, key_out) - luts[slots])
+    if not err <= bound_err:
+        fail(f"{tag} rot-NTT decrypt: max error 2^{math.log2(err):.2f} > "
+             f"2^{math.log2(bound_err):.2f}")
+    tv_r = bootstrap.rotate_test_vector(tv, cs, bk, 4)
+    acc_in, a_int, _ = bootstrap.blind_rotate_inputs(tv_r, cs.a, bk)
+    acc_k = pk.blind_rotate_scan(acc_in, a_int, bk.v32, bk.vs32, kp,
+                                 rot_ntt=True)
+    ext = trlwe.extract_tlwe(trlwe.from_stacked(acc_k), 0)
+    if not (torch.equal(ext.a, out.a) and torch.equal(ext.b, out.b)):
+        fail(f"{tag} rot-NTT PBS != extract of K1-rot's rotation")
+    # the per-step form
+    zero_counts(pk)
+    steps = bootstrap.blind_rotate_stepwise(tv_r, cs.a, bk, rot_ntt=True)
+    torch.cuda.synchronize()
+    counts["rotntt_steps"] = read_counts(pk)
+    check_counts(f"{tag} rot-NTT blind_rotate_stepwise",
+                 counts["rotntt_steps"], {"pbs_step": n})
+    same_or_fail(f"{tag} rot-NTT stepwise vs K1-rot",
+                 steps.stacked().reshape(acc_k.shape), acc_k)
+    # the (1, 2) mesh: K8a-rot and K8b
+    run = pmesh.pbs_on_mesh(pmesh.make_mesh([dev] * 2, data=1, model=2), bk,
+                            4, rot_ntt=True)
+    zero_counts(pk)
+    mesh_out = run(tv, cs)
+    torch.cuda.synchronize()
+    counts["rotntt_mesh"] = read_counts(pk)
+    check_counts(f"{tag} rot-NTT pbs_on_mesh (1, 2)",
+                 counts["rotntt_mesh"],
+                 {"partial_step": 2 * n, "finish_step": n})
+    if not (torch.equal(mesh_out.a, out.a) and torch.equal(mesh_out.b, out.b)):
+        fail(f"{tag} rot-NTT pbs_on_mesh (1, 2) != the bootstrap's words")
+    del steps, mesh_out, out2, run
+    # each instance against its plain version, and timed beside the
+    # classic instance on the same inputs
+    key_bytes = (bk.v32.numel() + bk.vs32.numel()) * 4
+    runs, timing = {}, {}
+    a8, kv8, kvs8 = (a_int[:ROT_STEPS].contiguous(), bk.v32[:ROT_STEPS],
+                     bk.vs32[:ROT_STEPS])
+    got = pk.blind_rotate_scan(acc_in, a8, kv8, kvs8, kp, rot_ntt=True)
+    plain8_ms, want = cuda_ms(lambda: pk.blind_rotate_scan_plain(
+        acc_in, a8, kv8, kvs8, kp, rot_ntt=True), 1)
+    same_or_fail(f"{tag} K1-rot vs plain, {ROT_STEPS} steps at B={B}", got,
+                 want)
+    acc2, a2 = (acc_in[:ROT_FULL_CTS].contiguous(),
+                a_int[:, :ROT_FULL_CTS].contiguous())
+    plain_ms, want = cuda_ms(lambda: pk.blind_rotate_scan_plain(
+        acc2, a2, bk.v32, bk.vs32, kp, rot_ntt=True), 1)
+    same_or_fail(f"{tag} K1-rot vs plain, {n} steps on {ROT_FULL_CTS} "
+                 "ciphertexts", pk.blind_rotate_scan(
+                     acc2, a2, bk.v32, bk.vs32, kp, rot_ntt=True), want)
+    same_or_fail(f"{tag} K1-rot on {ROT_FULL_CTS} ciphertexts vs at B={B}",
+                 want, acc_k[:ROT_FULL_CTS])
+    for rot in (True, False):
+        timing["blind_rotate_scan", rot], _ = rot_time(
+            pk.blind_rotate_scan, acc_in, a_int, bk.v32, bk.vs32, kp,
+            rot_ntt=rot)
+    runs["blind_rotate_scan"] = {
+        "plain_ms": plain_ms, "plain_what": f"{n} steps on {ROT_FULL_CTS} "
+        "ciphertexts", f"plain_{ROT_STEPS}_steps_ms": plain8_ms,
+        "bound": rl.bound(rl.rotation_work(kp, n, B, key_bytes, True),
+                          peaks)}
+    # K1-step-rot on the first step
+    acc_s = acc_in.clone()
+    want = pk.pbs_step_plain(acc_in.clone(), a_int[0], bk.v32[0],
+                             bk.vs32[0], kp, rot_ntt=True)
+    step_plain_ms, _ = cuda_ms(lambda: pk.pbs_step_plain(
+        acc_in.clone(), a_int[0], bk.v32[0], bk.vs32[0], kp, rot_ntt=True),
+        1)
+    same_or_fail(f"{tag} K1-step-rot vs plain", pk.pbs_step(
+        acc_s, a_int[0], bk.v32[0], bk.vs32[0], kp, rot_ntt=True), want)
+    for rot in (True, False):
+        scratch = acc_in.clone()
+        timing["pbs_step", rot], _ = rot_time(
+            pk.pbs_step, scratch, a_int[0], bk.v32[0], bk.vs32[0], kp,
+            rot_ntt=rot)
+    runs["pbs_step"] = {"plain_ms": step_plain_ms, "plain_what": "one step",
+                        "bound": rl.bound(rl.step_work(kp, B, True), peaks)}
+    # K8a-rot on the first step, both halves of the key's rows
+    jl = kp.J // 2
+    halves = [(j0, bk.v32[0, j0:j0 + jl].contiguous(),
+               bk.vs32[0, j0:j0 + jl].contiguous()) for j0 in (0, jl)]
+    for j0, kv, kvs in halves:
+        same_or_fail(f"{tag} K8a-rot rows [{j0}, {j0 + jl}) vs plain",
+                     pk.partial_step(acc_in, a_int[0], j0, kv, kvs, kp,
+                                     rot_ntt=True),
+                     pk.partial_step_plain(acc_in, a_int[0], j0, kv, kvs, kp,
+                                           rot_ntt=True))
+    j0, kv, kvs = halves[0]
+    k8_plain_ms, _ = cuda_ms(lambda: pk.partial_step_plain(
+        acc_in, a_int[0], j0, kv, kvs, kp, rot_ntt=True), 1)
+    part = torch.empty((B, kp.C, kp.P, kp.N), dtype=torch.int32, device=dev)
+    for rot in (True, False):
+        timing["partial_step", rot], _ = rot_time(
+            pk.partial_step, acc_in, a_int[0], j0, kv, kvs, kp,
+            out=part, rot_ntt=rot)
+    runs["partial_step"] = {
+        "plain_ms": k8_plain_ms, "plain_what": f"rows [0, {jl}) of one step",
+        "bound": rl.bound(rl.partial_step_work(kp, B, jl, True), peaks)}
+    res = {name: residency(*(pk.tp_step_residency(kp, bits, name,
+                                                  rot_ntt=True)
+                             if name == "partial_step" else
+                             pk.rotation_residency(
+                                 kp, bits, name == "pbs_step",
+                                 rot_ntt=True)), f"{name}-rot")
+           for name, _, _ in ROT_KERNELS}
+    for name, _, _ in ROT_KERNELS:
+        r, b = runs[name], runs[name]["bound"]
+        r.update({"ms": timing[name, True], "classic_ms": timing[name, False],
+                  "rot_vs_classic": timing[name, True] / timing[name, False],
+                  "max_abs_err": 0.0, "bound_ms": b["bound_ms"],
+                  "bound_by": b["bound_by"],
+                  "share_of_bound": b["bound_ms"] / timing[name, True],
+                  "resident_blocks_per_sm": res[name]["blocks_per_sm"]})
+        log(f"# {tag} {name} rot-NTT: {r['ms']:.4f} ms/launch (one launch, "
+            f"then {ROT_REPS} queued), classic {r['classic_ms']:.4f} ms on "
+            f"the same inputs ({r['rot_vs_classic']:.4f} x); bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+            f"{r['share_of_bound']:.4f} of it; plain {r['plain_ms']:.3f} ms "
+            f"({r['plain_what']}); {res[name]['blocks_per_sm']} blocks per "
+            "SM; bit-exact")
+    report = {"batch": B, "n": n, "first_call_s": first_s,
+              "warm_ms": pbs_ms, "boot_per_s": B / pbs_ms * 1e3,
+              "decrypt_max_err_log2": math.log2(max(err, 1.0)),
+              "classic_decrypt_max_err_log2":
+                  math.log2(max(classic_err, 1.0)),
+              "decrypt_bound_log2": math.log2(bound_err),
+              "runs": {name: {key: v for key, v in r.items() if key != "bound"}
+                       for name, r in runs.items()}}
+    log(f"# {tag} rot-NTT PBS at B={B}: first call {first_s:.3f} s; warm "
+        f"{pbs_ms:.3f} ms = {B / pbs_ms * 1e3:.2f} boot/s; decrypt OK (max "
+        f"err 2^{math.log2(max(err, 1.0)):.2f} <= "
+        f"2^{math.log2(bound_err):.2f}; classic path 2^"
+        f"{math.log2(max(classic_err, 1.0)):.2f}); blind_rotate_stepwise "
+        f"({n} K1-step-rot) and pbs_on_mesh (1, 2) ({2 * n} K8a-rot, {n} "
+        f"K8b) give its words")
+    del acc_in, a_int, acc_k, acc_s, part, got, want
+    torch.cuda.empty_cache()
+    return report, counts, runs
+
+
+def rot_entries(runs, counts, tag=""):
+    """The kernels-line entries of the rotation-free instances (``tag``:
+    "" or "/torus32"), their launches from the rot-NTT paths alone."""
+    entries = []
+    for name, source, line in ROT_KERNELS:
+        r = runs[name]
+        by = {path + tag.replace("/torus", ""): c[name]
+              for path, c in counts.items() if c[name]}
+        if not by:
+            fail(f"{name}/rot_ntt{tag} was launched no time on its paths")
+        entries.append({
+            "name": f"{name}/rot_ntt{tag}", "route": "cuda",
+            "source": f"mosfhet_torch/ops/csrc/{source}",
+            "replaces": f"mosfhet_tpu/ops/pbs_kernel.py:{line}",
+            "launches": sum(by.values()), "launches_by_path": by,
+            "max_abs_err": r["max_abs_err"], "bit_exact": True,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "library_note": ROT_LIBRARY_NOTE,
+            "classic_ms": r["classic_ms"],
+            "share_of_bound": r["share_of_bound"],
+            "resident_blocks_per_sm": r["resident_blocks_per_sm"],
+            "plain_what": r["plain_what"]})
+    return entries
 
 
 def main():
@@ -5457,7 +5711,12 @@ def main():
     prof = profile_phase(p, bk, tv, cs, bkp, key_bytes, pbs_ms, kernel_ms,
                          dev, peaks)
 
-    # 30. report
+    # 30. the rotation-free blind rotation on phase 4's key and ciphertexts
+    rot, rot_counts, rot_runs = rotntt_phase(
+        p, bk, tv, cs, key_out, luts, slots, err, DECRYPT_BOUND, "L2", dev,
+        peaks)
+
+    # 31. report
     paths = {"pbs": pbs_counts, "gate": gate_counts, "fdfb": fdfb_counts,
              "unfolded": ub_counts, "ubr_phase1": ph1_counts,
              f"ubr_phase1_b{K5_BATCH}": k5_batch_counts,
@@ -5685,6 +5944,8 @@ def main():
         t32["kernel_runs"],
         lambda name: {f"{path}32": c[name] for path, c in c32.items()},
         "/torus32")
+    kernels += rot_entries(rot_runs, rot_counts)
+    kernels += rot_entries(t32["rot_runs"], t32["rot_counts"], "/torus32")
     log(json.dumps({"pbs": {
         "params": p.name, "batch": BATCH, "keygen_s": keygen_s,
         "first_call_s": first_s, "warm_ms": pbs_ms,
@@ -5762,10 +6023,12 @@ def main():
     log(json.dumps({"multihost": mh}))
     log(json.dumps({"dryrun": dry}))
     log(json.dumps({"profile": prof}))
+    log(json.dumps({"rot_ntt": {"params": p.name, **rot}}))
     log(json.dumps({"torus32": {key: t32[key] for key in t32
                                 if key not in ("counts", "kernel_runs",
                                                "ks_family_runs",
-                                               "family_runs")}}))
+                                               "family_runs", "rot_runs",
+                                               "rot_counts")}}))
     log(f"# whole script: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
@@ -5870,7 +6133,86 @@ def k5_main():
     return 0
 
 
+def k1_main():
+    """`chip_smoke.py --k1`: K1 (all n = 632 steps), K1-step and K8a (rows
+    [0, J/2)) on the first step, at TFHEpp-L2 (u64 words, 3 primes) and
+    L2_32 (u32 words, 2 primes) on BATCH random ciphertexts and a random
+    key (exponents 0, N and 2N present), each timed as phase 30 times it
+    (`rot_time`: one launch, then ROT_REPS queued), classic and, where the
+    checkout's wrappers take ``rot_ntt``, rotation-free; the registers and
+    spills of every instance.  Prints one JSON line.  It calls the wrappers
+    only, so a copy of it in another checkout times that checkout's
+    kernels on the same inputs (a comparison on one card)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import inspect
+
+    from mosfhet_torch import ntt
+    from mosfhet_torch.ops import _build, pbs_kernel as pk
+
+    dev = torch.device("cuda")
+    card = nvidia_smi("name,power.limit")
+    peaks = card_peaks(dev)
+    build_s = _build.build(["blind_rotate", "tp_step"])
+    log(f"# card: {card}; build {build_s:.1f} s")
+    log_build(k1_ptxas(_build.build_log["blind_rotate"])
+              + k8_ptxas(_build.build_log["tp_step"]))
+    has_rot = "rot_ntt" in inspect.signature(pk.blind_rotate_scan).parameters
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    runs = []
+    for name, bits, l, Bg_bit, primes in (
+            ("L2", 64, 4, 9, ntt.primes_for_bound(
+                ntt.external_product_bound(2048, 9, 4, 1))),
+            ("L2_32", 32, L2_32["l"], L2_32["Bg_bit"],
+             ntt.MASTER_PRIMES[-2:])):
+        N, n, B = 2048, 632, BATCH
+        kp = pk.get_kernel_plan(N, primes, l, Bg_bit, 1, dev, bits)
+        dtype = torch.int64 if bits == 64 else torch.int32
+        info = torch.iinfo(dtype)
+        acc = torch.randint(info.min, info.max, (B, kp.C, N), dtype=dtype,
+                            device=dev, generator=gen)
+        a = torch.randint(0, 2 * N + 1, (n, B), dtype=torch.int32,
+                          device=dev, generator=gen)
+        a[0, :3] = torch.tensor([0, N, 2 * N], dtype=torch.int32)
+        pr = kp.ntt.p[:, None]
+        kv = pk.u32_as_i32(torch.randint(
+            0, 1 << 62, (n, kp.J, kp.C, kp.P, N), device=dev,
+            generator=gen) % pr)
+        kvs = pk.u32_as_i32((pk.i32_as_u32(kv) << 32) // pr)
+        jl = kp.J // 2
+        kv8, kvs8 = kv[0, :jl].contiguous(), kvs[0, :jl].contiguous()
+        part = torch.empty((B, kp.C, kp.P, N), dtype=torch.int32, device=dev)
+        key_bytes = (kv.numel() + kvs.numel()) * 4
+        for rot in ((False, True) if has_rot else (False,)):
+            # a parent's roofline has no rot_ntt argument either
+            kw, r = ({"rot_ntt": True}, (True,)) if rot else ({}, ())
+            scratch = acc.clone()
+            for kernel, fn, args, work in (
+                    ("K1", pk.blind_rotate_scan, (acc, a, kv, kvs, kp),
+                     rl.rotation_work(kp, n, B, key_bytes, *r)),
+                    ("K1-step", pk.pbs_step,
+                     (scratch, a[0], kv[0], kvs[0], kp),
+                     rl.step_work(kp, B, *r)),
+                    ("K8a", pk.partial_step,
+                     (acc, a[0], 0, kv8, kvs8, kp, part),
+                     rl.partial_step_work(kp, B, jl, *r))):
+                ms, _ = rot_time(fn, *args, **kw)
+                bound = rl.bound(work, peaks)
+                runs.append({"kernel": kernel, "rot_ntt": rot, "width": name,
+                             "B": B, "ms": ms, "bound_ms": bound["bound_ms"],
+                             "bound_by": bound["bound_by"]})
+                log(f"# {kernel}{'-rot' if rot else ''} {name} B={B}: "
+                    f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                    f"({bound['bound_by']})")
+        del acc, a, kv, kvs, kv8, kvs8, part, scratch
+        torch.cuda.empty_cache()
+    log(card)
+    log(json.dumps({"k1": runs}))
+    return 0
+
+
 if __name__ == "__main__":
-    modes = {"--torus32": torus32_main, "--k5": k5_main,
+    modes = {"--torus32": torus32_main, "--k5": k5_main, "--k1": k1_main,
              "--multihost": multihost_main}
     sys.exit(modes.get(sys.argv[1] if sys.argv[1:] else None, main)())

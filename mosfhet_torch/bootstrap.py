@@ -160,24 +160,34 @@ def blind_rotate_inputs(tv: TRLWE, a, bk: BootstrapKey):
     return acc0.contiguous(), a_int.t().contiguous(), batch
 
 
-def blind_rotate(tv: TRLWE, a, bk: BootstrapKey) -> TRLWE:
+def blind_rotate(tv: TRLWE, a, bk: BootstrapKey,
+                 rot_ntt: bool = False) -> TRLWE:
     """n-step CMUX chain (`blind_rotate`, `bootstrap.c:107-122`).
 
     tv: TRLWE accumulator (batched or not); a: [..., n] LWE mask.  On CUDA
-    tensors one kernel launch, on CPU tensors the plain version."""
+    tensors one kernel launch, on CPU tensors the plain version.
+
+    ``rot_ntt``: the rotation-free step (`_cmux_step_rotntt`; the TPU
+    package's ``MOSFHET_ROT_NTT=1``).  Its words are not the classic
+    step's, and its per-step noise variance is up to ~2x theirs (up to half
+    a bit of output margin).  Raises ValueError on a prime set without the
+    Barrett window the step needs, where the TPU package falls back to the
+    classic step."""
     if bk.unfolding != 1:
         raise ValueError("blind_rotate needs a key without unfolding")
     acc0, a_int, batch = blind_rotate_inputs(tv, a, bk)
-    acc = _pk.blind_rotate_scan(acc0, a_int, bk.v32, bk.vs32, bk.kernel_plan())
+    acc = _pk.blind_rotate_scan(acc0, a_int, bk.v32, bk.vs32, bk.kernel_plan(),
+                                rot_ntt=rot_ntt)
     return from_stacked(acc.reshape(batch + (bk.k + 1, bk.N)))
 
 
-def blind_rotate_stepwise(tv: TRLWE, a, bk: BootstrapKey) -> TRLWE:
+def blind_rotate_stepwise(tv: TRLWE, a, bk: BootstrapKey,
+                          rot_ntt: bool = False) -> TRLWE:
     """`blind_rotate` one CMUX step per launch (K1-step), the accumulator
     through device memory between steps: the TPU package's per-step
     `blind_rotate_scan`, `lax.scan` of `_pbs_step_tiles`.  The same words
-    as `blind_rotate`; n launches on CUDA tensors, n plain calls on CPU
-    tensors."""
+    as `blind_rotate` (with the same ``rot_ntt``); n launches on CUDA
+    tensors, n plain calls on CPU tensors."""
     if bk.unfolding != 1:
         raise ValueError("blind_rotate_stepwise needs a key without "
                          "unfolding")
@@ -185,7 +195,8 @@ def blind_rotate_stepwise(tv: TRLWE, a, bk: BootstrapKey) -> TRLWE:
     kp = bk.kernel_plan()
     acc = acc0.clone()                  # updated in place, step by step
     for i in range(bk.n):
-        _pk.pbs_step(acc, a_int[i], bk.v32[i], bk.vs32[i], kp)
+        _pk.pbs_step(acc, a_int[i], bk.v32[i], bk.vs32[i], kp,
+                     rot_ntt=rot_ntt)
     return from_stacked(acc.reshape(batch + (bk.k + 1, bk.N)))
 
 
@@ -205,7 +216,9 @@ def _cmux_step_rotntt(acc_st, bk_v, bk_vs, ai, plan: _ntt.NTTPlan, l: int,
     (covered by `ntt.external_product_bound`'s doubled prime budget).  That
     factor also scales the key-noise term: up to half a bit of output noise
     margin against the classic step.  It is the oracle of the N-sharded
-    blind rotation (`parallel.dist_ntt.make_dist_blind_rotate`).
+    blind rotation (`parallel.dist_ntt.make_dist_blind_rotate`) and the
+    plain version of the kernels' rotation-free step
+    (`blind_rotate(..., rot_ntt=True)`).
 
     Raises ValueError on a plan that is not Barrett-capable (the TPU package
     takes the step only when ``plan.barrett_ok``)."""
@@ -280,33 +293,42 @@ def rotate_test_vector(tv: TRLWE, c: TLWE, bk: BootstrapKey,
 
 
 def functional_bootstrap_wo_extract(tv: TRLWE, c: TLWE, bk: BootstrapKey,
-                                    torus_base: int) -> TRLWE:
+                                    torus_base: int,
+                                    rot_ntt: bool = False) -> TRLWE:
     """Rotate the test vector by -round(b), then blind-rotate by the mask,
-    unfolded when the key is (`bootstrap.c:192-198`)."""
+    unfolded when the key is (`bootstrap.c:192-198`).  ``rot_ntt``: the
+    rotation-free step (`blind_rotate`); an unfolded key has none, and
+    raises ValueError (the TPU package's unfolded rotation ignores its
+    switch)."""
     acc = rotate_test_vector(tv, c, bk, torus_base)
     if bk.unfolding == 1:
-        return blind_rotate(acc, c.a, bk)
+        return blind_rotate(acc, c.a, bk, rot_ntt=rot_ntt)
+    if rot_ntt:
+        raise ValueError("the unfolded rotation has no rotation-free step")
     return blind_rotate_unfolded(acc, c.a, bk)
 
 
 def functional_bootstrap(tv: TRLWE, c: TLWE, bk: BootstrapKey,
-                         torus_base: int) -> TLWE:
+                         torus_base: int, rot_ntt: bool = False) -> TLWE:
     """The programmable bootstrap (`functional_bootstrap`,
-    `bootstrap.c:200-206`)."""
-    acc = functional_bootstrap_wo_extract(tv, c, bk, torus_base)
+    `bootstrap.c:200-206`); ``rot_ntt`` as in `blind_rotate`."""
+    acc = functional_bootstrap_wo_extract(tv, c, bk, torus_base, rot_ntt)
     return _trlwe.extract_tlwe(acc, 0)
 
 
 def programmable_bootstrap(tv: TRLWE, c: TLWE, bk: BootstrapKey,
-                           precision: int, kappa: int, theta: int) -> TLWE:
+                           precision: int, kappa: int, theta: int,
+                           rot_ntt: bool = False) -> TLWE:
     """Input rounding (kappa shift, theta mask), then the bootstrap
-    (`programmable_bootstrap`, `bootstrap.c:208-220`)."""
+    (`programmable_bootstrap`, `bootstrap.c:208-220`); ``rot_ntt`` as in
+    `blind_rotate`."""
     log_N2 = int(math.log2(2 * bk.N))
     rnd_os = to_signed(1 << (TORUS_BITS - log_N2 + theta - 1))
     theta_mask = to_signed(~((1 << (TORUS_BITS - log_N2 + theta)) - 1))
     a = ((c.a << kappa) + rnd_os) & theta_mask
     b = ((c.b << kappa) + rnd_os) & theta_mask
-    return functional_bootstrap(tv, TLWE(a=a, b=b), bk, 1 << (precision - 1))
+    return functional_bootstrap(tv, TLWE(a=a, b=b), bk, 1 << (precision - 1),
+                                rot_ntt)
 
 
 def fdfb_this_work(tv: TRLWE, c: TLWE, bk: BootstrapKey,

@@ -119,7 +119,11 @@ def _host_tables(N: int, primes: tuple):
     # evaluation at zeta_i = psi^(2 bitrev(i) + 1), so X^a is diagonal in the
     # NTT domain, NTT(X^a (*) u)[i] = zeta_i^a NTT(u)[i] for a in [0, 2N].
     # xpow2[m, j] holds zeta^(2^j), and `xpow` multiplies over a's set bits.
+    # rot_pow[m, e] holds psi^e for e in [0, 2N) and rot_exp[i] the odd
+    # exponent 2 bitrev(i) + 1 of slot i, so zeta_i^a is the one lookup
+    # rot_pow[m, rot_exp[i] a mod 2N] (`rot_twiddle`).
     xpow2 = np.zeros((P, logN + 1, N), np.int64)
+    rot_pow = np.zeros((P, 2 * N), np.int64)
     bitrev = [_bitrev(i, logN) for i in range(N)]
     for m, p in enumerate(primes):
         if (p - 1) % (2 * N):
@@ -140,10 +144,16 @@ def _host_tables(N: int, primes: tuple):
         for j in range(logN + 1):
             xpow2[m, j] = z
             z = z * z % p
+        w = 1
+        for e in range(2 * N):
+            rot_pow[m, e] = w
+            w = w * psi % p
     t["n_inv"] = n_inv
     t["n_inv_shoup"] = n_inv_shoup
     t["xpow2"] = xpow2
     t["xpow2_shoup"] = (xpow2 << 32) // np.array(primes)[:, None, None]
+    t["rot_pow"] = rot_pow
+    t["rot_exp"] = 2 * np.array(bitrev, np.int64) + 1
     return t
 
 
@@ -447,6 +457,19 @@ def xpow(a_int, plan: NTTPlan):
         xm = shoup_mul(x, plan.xpow2[:, j], plan.xpow2_shoup[:, j], pp)
         x = torch.where(bit, xm, x)
     return x
+
+
+def rot_twiddle(a_int, plan: NTTPlan):
+    """The rotation-free step's twiddle zeta^a - 1: exponents a_int [...] in
+    [0, 2N] -> [..., P, N] canonical residues, `xpow` less one, as one
+    lookup per slot in the plan's table of psi's powers (``rot_pow`` [P,
+    2N] at the slot's exponent ``rot_exp`` [N] times a, mod 2N).  The
+    kernels of the rotation-free step read the same two tables."""
+    a_int = torch.as_tensor(a_int, device=plan.device).to(torch.int64)
+    e = (a_int[..., None] * plan.rot_exp) % (2 * plan.N)        # [..., N]
+    pw = plan.rot_pow.expand(e.shape[:-1] + plan.rot_pow.shape)
+    idx = e.unsqueeze(-2).expand(e.shape[:-1] + (plan.P, plan.N))
+    return torch.gather(pw, -1, idx) - 1
 
 
 # --- pointwise algebra in the NTT domain -------------------------------------

@@ -63,6 +63,22 @@
 // caller's tensor (SET_3: acc in place; N=8192: spec in the workspace).
 // N from 16 to 16384.
 //
+// The rotation-free step (the TPU package's MOSFHET_ROT_NTT form of the same
+// kernels: `_step_body` with `kp.rot_ntt`, pbs_kernel.py:1206-1207 and
+// :1289, tables :419-431) computes instead
+//
+//   acc += INTT((zeta^{a_i} - 1) . sum_j NTT(dec_j(acc)) * BK_i[j])
+//
+// whose words differ from the classic step's (the decomposition's rounding
+// term is scaled by X^a - 1; per-step noise variance grows by up to ~2x).
+// Its instances (template flag Rot) take the digits of acc itself, with no
+// rotation (step 1 goes), and after the MAC of each prime multiply the
+// thread's own slots of both components by zeta^a - 1 at their positions
+// (`apply_rot_twiddle`, rotate_sched.cuh): a lazy Barrett product per slot
+// and component, the twiddle one lookup per slot in the plan's table of
+// psi's powers, and no barrier, since the slots are the thread's own.  The
+// classic instances compile as before.
+//
 // K1-step (`pbs_step_kernel`, entry `pbs_step_launch`) is the same step body
 // run once per launch: the TPU kernel `_pbs_step_tiles` (pbs_kernel.py:1253,
 // the per-step `blind_rotate_scan` at :1335).  acc comes from and goes back
@@ -81,14 +97,17 @@ enum { kWork, kSpec, kAcc, kNumBuf };  // buffers, as the wrapper lists
 // spec [C][P][SR] and work [NG][SR] u32 wherever they were placed; kv the
 // step's key rows [J][C][P][N].  Fixed: the shape of the 80-register
 // instances (N = 2^LogN, C = 2; see kBlockThreads), whose MAC has both
-// components' key words in flight; else one component's at a time.
-// Starts after a block barrier and ends with one.
-template <int P, typename W, bool Fixed>
+// components' key words in flight; else one component's at a time.  Rot:
+// the rotation-free step, with rpow [P][2N] (psi's powers) and rexp [N]
+// (each slot's exponent), unread otherwise.  Starts after a block barrier
+// and ends with one.
+template <int P, typename W, bool Fixed, bool Rot>
 __device__ __forceinline__ void cmux_step(
     W* acc, uint32_t* spec, uint32_t* work, int a,
     const uint32_t* __restrict__ kv, const uint32_t* __restrict__ ftw,
     const uint32_t* __restrict__ ftws, const uint32_t* __restrict__ itw,
-    const uint32_t* __restrict__ itws, const PbsConsts& K, const Sched& s) {
+    const uint32_t* __restrict__ itws, const uint32_t* __restrict__ rpow,
+    const uint32_t* __restrict__ rexp, const PbsConsts& K, const Sched& s) {
   constexpr int H = Fixed ? 2 : 1;
   const int N = 1 << s.logN, C = Fixed ? 2 : K.C, l = K.l, J = C * l;
   const int g = threadIdx.x >> s.logT, t = threadIdx.x & (s.T - 1);
@@ -99,15 +118,20 @@ __device__ __forceinline__ void cmux_step(
   for (int pi = g; pi < P; pi += s.NG) {
     const uint32_t p = K.p[pi], p2 = 2 * p, mup = K.mup[pi];
     const uint32_t *fw = ftw + pi * N, *fws = ftws + pi * N;
-    // 2-3. digit rows through the forward NTT, then the MAC into this
-    //      thread's window-0 slots of spec[c][pi]
+    // 2-3. digit rows (of acc itself in the rotation-free step) through the
+    //      forward NTT, then the MAC into this thread's window-0 slots of
+    //      spec[c][pi]
     for (int j = 0; j < J; ++j) {
       const int cj = j / l, d = j % l;
       const W* row = acc + cj * N;
 #pragma unroll
       for (int v = 0; v < kR; ++v) {
         const int k = t | (v << s.logT);
-        const W word = rotated_word(row, k, a, N) - row[k] + offset;
+        W word;
+        if constexpr (Rot)
+          word = row[k] + offset;
+        else
+          word = rotated_word(row, k, a, N) - row[k] + offset;
         x[v] = small_residue(gadget_digit(word, d, K), p);
       }
       forward_row(x, buf, s, t, g, fw, fws, p);
@@ -138,6 +162,10 @@ __device__ __forceinline__ void cmux_step(
         }
       }
     }
+    // 3b. the rotation-free step's factor zeta^a - 1 on those slots
+    if constexpr (Rot)
+      apply_rot_twiddle(spec + pi * s.SR + slot0, P * s.SR, C, a, N, t,
+                        rpow + size_t(pi) * 2 * N, rexp, p, mup);
     // 4. inverse NTTs of spec[c][pi], from this thread's slots to natural
     //    order in the same row (every slot is read before the exchanges'
     //    group barrier, every output written after it)
@@ -164,12 +192,13 @@ __device__ __forceinline__ void cmux_step(
 // and keyv [n][J][C][P][N] (K1), or with Step one step with a_g [B] and
 // keyv [J][C][P][N] (K1-step).  acc is loaded into its buffer
 // and stored back where that is not the caller's tensor itself.
-template <int P, typename W, bool S, bool Step, int LogN>
+template <int P, typename W, bool S, bool Step, int LogN, bool Rot>
 __device__ __forceinline__ void rotate_block(
     W* __restrict__ acc_g, const int32_t* __restrict__ a_g,
     const uint32_t* __restrict__ keyv, const uint32_t* __restrict__ ftw,
     const uint32_t* __restrict__ ftws, const uint32_t* __restrict__ itw,
-    const uint32_t* __restrict__ itws, unsigned char* ws,
+    const uint32_t* __restrict__ itws, const uint32_t* __restrict__ rpow,
+    const uint32_t* __restrict__ rexp, unsigned char* ws,
     const PbsConsts& Kp, const Layout& L, int n, int B) {
   extern __shared__ __align__(16) unsigned char smem[];
   // The constants are indexed by a per-group prime index: keep one copy in
@@ -190,15 +219,15 @@ __device__ __forceinline__ void rotate_block(
   __syncthreads();
 
   if (Step) {
-    cmux_step<P, W, LogN != 0>(acc, spec, work, a_g[blockIdx.x], keyv, ftw,
-                               ftws, itw, itws, K, s);
+    cmux_step<P, W, LogN != 0, Rot>(acc, spec, work, a_g[blockIdx.x], keyv,
+                                    ftw, ftws, itw, itws, rpow, rexp, K, s);
   } else {
     const size_t step_stride = size_t(J) * C * P * N;
     for (int i = 0; i < n; ++i)  // a in [0, 2N]
-      cmux_step<P, W, LogN != 0>(acc, spec, work,
-                                 a_g[size_t(i) * B + blockIdx.x],
-                                 keyv + i * step_stride, ftw, ftws, itw, itws,
-                                 K, s);
+      cmux_step<P, W, LogN != 0, Rot>(acc, spec, work,
+                                      a_g[size_t(i) * B + blockIdx.x],
+                                      keyv + i * step_stride, ftw, ftws, itw,
+                                      itws, rpow, rexp, K, s);
   }
   if (acc != acc_b)
     for (int i = threadIdx.x; i < CN; i += blockDim.x) acc_b[i] = acc[i];
@@ -206,90 +235,88 @@ __device__ __forceinline__ void rotate_block(
 
 
 // K1: the whole rotation, one block per ciphertext.
-template <int P, typename W, bool S, int LogN>
+template <int P, typename W, bool S, int LogN, bool Rot>
 __global__ void __launch_bounds__(kBlockThreads<LogN>, kMinBlocks<LogN>)
 blind_rotate_kernel(W* __restrict__ acc_g, const int32_t* __restrict__ a_g,
                     const uint32_t* __restrict__ keyv,
                     const uint32_t* __restrict__ ftw,
                     const uint32_t* __restrict__ ftws,
                     const uint32_t* __restrict__ itw,
-                    const uint32_t* __restrict__ itws, unsigned char* ws,
+                    const uint32_t* __restrict__ itws,
+                    const uint32_t* __restrict__ rpow,
+                    const uint32_t* __restrict__ rexp, unsigned char* ws,
                     const PbsConsts Kp, const Layout L, int n, int B) {
-  rotate_block<P, W, S, false, LogN>(acc_g, a_g, keyv, ftw, ftws, itw, itws,
-                                     ws, Kp, L, n, B);
+  rotate_block<P, W, S, false, LogN, Rot>(acc_g, a_g, keyv, ftw, ftws, itw,
+                                          itws, rpow, rexp, ws, Kp, L, n, B);
 }
 
 // K1-step: one step per launch, one block per ciphertext.
-template <int P, typename W, bool S, int LogN>
+template <int P, typename W, bool S, int LogN, bool Rot>
 __global__ void __launch_bounds__(kBlockThreads<LogN>, kMinBlocks<LogN>)
 pbs_step_kernel(W* __restrict__ acc_g, const int32_t* __restrict__ a_g,
                 const uint32_t* __restrict__ keyv,
                 const uint32_t* __restrict__ ftw,
                 const uint32_t* __restrict__ ftws,
                 const uint32_t* __restrict__ itw,
-                const uint32_t* __restrict__ itws, unsigned char* ws,
+                const uint32_t* __restrict__ itws,
+                const uint32_t* __restrict__ rpow,
+                const uint32_t* __restrict__ rexp, unsigned char* ws,
                 const PbsConsts Kp, const Layout L, int n, int B) {
-  rotate_block<P, W, S, true, LogN>(acc_g, a_g, keyv, ftw, ftws, itw, itws,
-                                    ws, Kp, L, 1, B);
+  rotate_block<P, W, S, true, LogN, Rot>(acc_g, a_g, keyv, ftw, ftws, itw,
+                                         itws, rpow, rexp, ws, Kp, L, 1, B);
 }
 
 struct Args {
   void* acc;
   const int32_t* a;
-  const uint32_t *keyv, *ftw, *ftws, *itw, *itws;
+  const uint32_t *keyv, *ftw, *ftws, *itw, *itws, *rpow, *rexp;
   unsigned char* ws;
   int n, B;
   cudaStream_t stream;
   int* blocks_per_sm;  // non-null: report the residency, launch nothing
 };
 
-template <int P, typename W, bool S, bool Step, int LogN>
-cudaError_t launch(const Args& x, const PbsConsts& K, const Layout& L) {
-  auto* kernel = Step ? pbs_step_kernel<P, W, S, LogN>
-                      : blind_rotate_kernel<P, W, S, LogN>;
-  Sched s;
-  if (!make_sched(K.logN, P, s)) return cudaErrorInvalidValue;
-  const int threads = s.NG * s.T;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.smem));
-  if (err != cudaSuccess) return err;
-  if (x.blocks_per_sm)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        x.blocks_per_sm, kernel, threads, size_t(L.smem));
-  kernel<<<x.B, threads, L.smem, x.stream>>>(
-      static_cast<W*>(x.acc), x.a, x.keyv, x.ftw, x.ftws, x.itw, x.itws, x.ws,
-      K, L, x.n, x.B);
-  return cudaGetLastError();
+template <int P, typename W, bool S, bool Step, int LogN, bool Rot>
+cudaError_t launch(const Args& x, const PbsConsts& K, const Layout& L,
+                   const Sched& s) {
+  return launch_sched(Step ? pbs_step_kernel<P, W, S, LogN, Rot>
+                           : blind_rotate_kernel<P, W, S, LogN, Rot>,
+                      s, L, x.B, x.stream, x.blocks_per_sm,
+                      static_cast<W*>(x.acc), x.a, x.keyv, x.ftw, x.ftws,
+                      x.itw, x.itws, x.rpow, x.rexp, x.ws, K, L, x.n, x.B);
 }
 
-template <int P, typename W, bool Step>
-cudaError_t launch_s(const Args& x, const PbsConsts& K, const Layout& L) {
-  if (!all_shared(L, kNumBuf)) return launch<P, W, false, Step, 0>(x, K, L);
-  if constexpr (P <= 3)
-    if (K.logN == kFixedLogN && K.C == 2)
-      return launch<P, W, true, Step, kFixedLogN>(x, K, L);
-  return launch<P, W, true, Step, 0>(x, K, L);
+template <int P, typename W, bool Step, bool Rot>
+cudaError_t launch_s(const Args& x, const PbsConsts& K, const Layout& L,
+                     const Sched& s) {
+  if (!all_shared(L, kNumBuf))
+    return launch<P, W, false, Step, 0, Rot>(x, K, L, s);
+  return with_log_n<P>(K, [&](auto n) {
+    return launch<P, W, true, Step, decltype(n)::value, Rot>(x, K, L, s);
+  });
 }
 
-template <typename W, bool Step>
-cudaError_t launch_w(const Args& x, const PbsConsts& K, const Layout& L) {
+template <typename W, bool Step, bool Rot>
+cudaError_t launch_w(const Args& x, const PbsConsts& K, const Layout& L,
+                     const Sched& s) {
   switch (K.P) {
-    case 2: return launch_s<2, W, Step>(x, K, L);
-    case 3: return launch_s<3, W, Step>(x, K, L);
-    case 4: return launch_s<4, W, Step>(x, K, L);
-    default: return launch_s<5, W, Step>(x, K, L);
+    case 2: return launch_s<2, W, Step, Rot>(x, K, L, s);
+    case 3: return launch_s<3, W, Step, Rot>(x, K, L, s);
+    case 4: return launch_s<4, W, Step, Rot>(x, K, L, s);
+    default: return launch_s<5, W, Step, Rot>(x, K, L, s);
   }
 }
 
 template <bool Step>
 int launch_entry(void* acc, const void* a, const void* keyv, const void* ftw,
-                 const void* ftws, const void* itw, const void* itws, void* ws,
+                 const void* ftws, const void* itw, const void* itws,
+                 const void* rpow, const void* rexp, void* ws,
                  const int64_t* consts, const int64_t* layout, int B, int n,
                  int word_bits, void* stream, int* blocks_per_sm = nullptr) {
   PbsConsts K;
   Sched s;
   if (!parse_consts(consts, K) || !make_sched(K.logN, K.P, s) ||
-      (word_bits != 32 && word_bits != 64))
+      (word_bits != 32 && word_bits != 64) || (!rpow != !rexp))
     return int(cudaErrorInvalidValue);
   if (B == 0 && !blocks_per_sm) return int(cudaSuccess);
   const Args x{acc,
@@ -299,14 +326,19 @@ int launch_entry(void* acc, const void* a, const void* keyv, const void* ftw,
                static_cast<const uint32_t*>(ftws),
                static_cast<const uint32_t*>(itw),
                static_cast<const uint32_t*>(itws),
+               static_cast<const uint32_t*>(rpow),
+               static_cast<const uint32_t*>(rexp),
                static_cast<unsigned char*>(ws),
                n,
                B,
                static_cast<cudaStream_t>(stream),
                blocks_per_sm};
   const Layout L = parse_layout(layout, kNumBuf);
-  return int(word_bits == 32 ? launch_w<uint32_t, Step>(x, K, L)
-                             : launch_w<uint64_t, Step>(x, K, L));
+  if (rpow)
+    return int(word_bits == 32 ? launch_w<uint32_t, Step, true>(x, K, L, s)
+                               : launch_w<uint64_t, Step, true>(x, K, L, s));
+  return int(word_bits == 32 ? launch_w<uint32_t, Step, false>(x, K, L, s)
+                             : launch_w<uint64_t, Step, false>(x, K, L, s));
 }
 
 }  // namespace
@@ -320,14 +352,18 @@ extern "C" {
 // u64 words (word_bits 64) or u32 words (word_bits 32) is rotated in place;
 // a [n, B] int32 in [0, 2N]; keyv [n, (k+1)l, k+1, P, N] u32 (16-byte
 // aligned); keyvs, the key's Shoup companions, is not read (the MAC's
-// Barrett products need only the residues); twiddles [P, N] u32.
+// Barrett products need only the residues); twiddles [P, N] u32.  rpow
+// [P, 2N] u32 (psi^e) and rexp [N] u32 (16-byte aligned, each slot's
+// exponent 2 bitrev(i) + 1) select the rotation-free step; both null, the
+// classic one.
 int blind_rotate_launch(void* acc, const void* a, const void* keyv,
                         const void* keyvs, const void* ftw, const void* ftws,
-                        const void* itw, const void* itws, void* ws,
-                        const int64_t* consts, const int64_t* layout, int B,
-                        int n, int word_bits, void* stream) {
-  return launch_entry<false>(acc, a, keyv, ftw, ftws, itw, itws, ws, consts,
-                             layout, B, n, word_bits, stream);
+                        const void* itw, const void* itws, const void* rpow,
+                        const void* rexp, void* ws, const int64_t* consts,
+                        const int64_t* layout, int B, int n, int word_bits,
+                        void* stream) {
+  return launch_entry<false>(acc, a, keyv, ftw, ftws, itw, itws, rpow, rexp,
+                             ws, consts, layout, B, n, word_bits, stream);
 }
 
 // K1-step: one CMUX step of acc [B, k+1, N] (updated in place) with the
@@ -335,30 +371,36 @@ int blind_rotate_launch(void* acc, const void* a, const void* keyv,
 // P, N] u32; the rest as above.
 int pbs_step_launch(void* acc, const void* a, const void* keyv,
                     const void* keyvs, const void* ftw, const void* ftws,
-                    const void* itw, const void* itws, void* ws,
-                    const int64_t* consts, const int64_t* layout, int B,
-                    int word_bits, void* stream) {
-  return launch_entry<true>(acc, a, keyv, ftw, ftws, itw, itws, ws, consts,
-                            layout, B, 1, word_bits, stream);
+                    const void* itw, const void* itws, const void* rpow,
+                    const void* rexp, void* ws, const int64_t* consts,
+                    const int64_t* layout, int B, int word_bits,
+                    void* stream) {
+  return launch_entry<true>(acc, a, keyv, ftw, ftws, itw, itws, rpow, rexp,
+                            ws, consts, layout, B, 1, word_bits, stream);
 }
 
-// The blocks of K1 (step 0) or K1-step (step 1) resident on one SM at the
-// plan's shape, placement and word width (cudaOccupancyMaxActiveBlocks-
-// PerMultiprocessor on the current device), and the threads of a block.
+// The blocks of K1 (step 0) or K1-step (step 1), in their rotation-free
+// instances with rot 1, resident on one SM at the plan's shape, placement
+// and word width (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the
+// current device), and the threads of a block.
 int blind_rotate_residency(const int64_t* consts, const int64_t* layout,
-                           int word_bits, int step, int* blocks,
+                           int word_bits, int step, int rot, int* blocks,
                            int* threads) {
   PbsConsts K;
   Sched s;
   if (!parse_consts(consts, K) || !make_sched(K.logN, K.P, s))
     return int(cudaErrorInvalidValue);
   *threads = s.NG * s.T;
+  // any non-null address selects the instances; nothing is read
+  const void* r = rot ? static_cast<const void*>(consts) : nullptr;
   return step ? launch_entry<true>(nullptr, nullptr, nullptr, nullptr,
-                                   nullptr, nullptr, nullptr, nullptr, consts,
-                                   layout, 0, 1, word_bits, nullptr, blocks)
+                                   nullptr, nullptr, nullptr, r, r, nullptr,
+                                   consts, layout, 0, 1, word_bits, nullptr,
+                                   blocks)
               : launch_entry<false>(nullptr, nullptr, nullptr, nullptr,
-                                    nullptr, nullptr, nullptr, nullptr, consts,
-                                    layout, 0, 1, word_bits, nullptr, blocks);
+                                    nullptr, nullptr, nullptr, r, r, nullptr,
+                                    consts, layout, 0, 1, word_bits, nullptr,
+                                    blocks);
 }
 
 const char* cuda_error_string(int err) {

@@ -140,6 +140,36 @@ __device__ __forceinline__ uint32_t mac_product(uint32_t x, uint32_t k,
   return lazy2(zlo - q * p, 2 * p);
 }
 
+// The rotation-free step's factor X^a - 1 in the NTT domain (the TPU
+// kernel's `_rot_twiddle` and `_apply_rot_twiddle`): a thread's kR MAC
+// slots, which hold the bit-reversed positions 16 t .. 16 t + 15 of C
+// spectra rows (row c at sp + c * cstride), each times t = zeta^a - 1 at its
+// position, lazy (< 2p) in and out.  zeta_i^a is one lookup: pw holds
+// psi^e for e in [0, 2N) of this prime, rexp the slot's odd exponent
+// 2 bitrev(i) + 1, so zeta_i^a = pw[rexp[i] a mod 2N] (a in [0, 2N], the
+// product below 2^30).  The twiddle is read once per slot and applied to
+// every component: it depends on a and the position alone.
+__device__ __forceinline__ void apply_rot_twiddle(
+    uint32_t* sp, int cstride, int C, int a, int N, int t,
+    const uint32_t* __restrict__ pw, const uint32_t* __restrict__ rexp,
+    uint32_t p, uint32_t mup) {
+  const uint32_t mask = 2 * N - 1;
+  const uint4* e4 = reinterpret_cast<const uint4*>(rexp + (t << kQ));
+#pragma unroll
+  for (int q = 0; q < kR / 4; ++q) {
+    const uint4 e = __ldg(e4 + q);
+    const uint32_t ev[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t tw = __ldg(pw + ((ev[u] * uint32_t(a)) & mask)) - 1;
+      for (int c = 0; c < C; ++c) {
+        uint32_t* x = sp + c * cstride + 4 * q + u;
+        *x = mac_product(*x, tw, p, mup);
+      }
+    }
+  }
+}
+
 // One stage on value bit I of a thread's kR coefficients, pass window w,
 // position bit b = w + I: pairs (v, v | 2^I), twiddle index
 // 2^(logN-1-b) + (pos >> (b+1)) = 2^(logN-1-b) + (t >> w) 2^(kQ-1-I)

@@ -29,6 +29,14 @@
 // K8a is K1's steps 1-3 and K8b its steps 4-6, on K1's block schedule
 // (rotate_sched.cuh), so a split step gives K1's words.
 //
+// The rotation-free step (the TPU package's MOSFHET_ROT_NTT form of K8a,
+// `_make_partial_step_kernel` with `kp.rot_ntt`, pbs_kernel.py:1498-1526 and
+// :1574) takes K8a's digits from acc itself, with no rotation, and
+// multiplies the partial by zeta^a - 1 before it is written (template flag
+// Rot, `apply_rot_twiddle` in rotate_sched.cuh): the factor is a scalar per
+// (row, position), so it commutes with K8b's cross-shard sum, and K8b is
+// the same for both steps.
+//
 // At the 32-bit torus (TORUS32) both run on u32 words (the word type W):
 // K8a's rotation, offset (cast to W once) and digits of 32 bits, K8b's
 // Garner step and carry-add mod 2^32 (the TPU kernels' `nl == 1` branches,
@@ -93,14 +101,17 @@ enum { kFinWork, kRows0, kRowsRest, kNumFinishBuf };
 // acc [B][C][N] words (read), keyv [j_local][C][P][N], out [B][C][P][N].
 // LogN: the compile-time row length of the 80-register instances (N = 2048,
 // C = 2; see kBlockThreads), whose MAC has both components' key words in
-// flight; else 0, read from the plan, one component's at a time.
-template <int P, typename W, bool S, int LogN>
+// flight; else 0, read from the plan, one component's at a time.  Rot: the
+// rotation-free step, with rpow [P][2N] and rexp [N] (unread otherwise).
+template <int P, typename W, bool S, int LogN, bool Rot>
 __global__ void __launch_bounds__(kBlockThreads<LogN>, kMinBlocks<LogN>)
 partial_step_kernel(const W* __restrict__ acc_g,
                     const int32_t* __restrict__ a_g,
                     const uint32_t* __restrict__ keyv,
                     const uint32_t* __restrict__ ftw,
                     const uint32_t* __restrict__ ftws,
+                    const uint32_t* __restrict__ rpow,
+                    const uint32_t* __restrict__ rexp,
                     uint32_t* __restrict__ out_g, unsigned char* ws,
                     const PbsConsts Kp, const Layout L, int j0, int j_local) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -127,14 +138,19 @@ partial_step_kernel(const W* __restrict__ acc_g,
     const uint32_t p = K.p[pi], p2 = 2 * p, mup = K.mup[pi];
     const uint32_t *fw = ftw + pi * N, *fws = ftws + pi * N;
     for (int jj = 0; jj < j_local; ++jj) {
-      // 1-2. digit d of component cj of X^a acc - acc + offset, at the top
-      //      window's positions
+      // 1-2. digit d of component cj of X^a acc - acc + offset (of acc +
+      //      offset in the rotation-free step), at the top window's
+      //      positions
       const int j = j0 + jj, cj = j / l, d = j % l;
       const W* row = acc_b + cj * N;
 #pragma unroll
       for (int v = 0; v < kR; ++v) {
         const int k = t | (v << s.logT);
-        const W word = rotated_word(row, k, a, N) - row[k] + offset;
+        W word;
+        if constexpr (Rot)
+          word = row[k] + offset;
+        else
+          word = rotated_word(row, k, a, N) - row[k] + offset;
         x[v] = small_residue(gadget_digit(word, d, K), p);
       }
       // 3. forward NTT, then the MAC into this thread's slots
@@ -165,6 +181,10 @@ partial_step_kernel(const W* __restrict__ acc_g,
         }
       }
     }
+    // the rotation-free step's factor zeta^a - 1 on the slots
+    if constexpr (Rot)
+      apply_rot_twiddle(mine, s.SR, C, a, N, t, rpow + size_t(pi) * 2 * N,
+                        rexp, p, mup);
     // the slots, [0, 2p) -> canonical, as 16 consecutive words per component
     for (int c = 0; c < C; ++c) {
       const uint32_t* sp = mine + c * s.SR;
@@ -249,7 +269,7 @@ finish_step_kernel(W* __restrict__ acc_g,
 struct PartialArgs {
   const void* acc;
   const int32_t* a;
-  const uint32_t *keyv, *ftw, *ftws;
+  const uint32_t *keyv, *ftw, *ftws, *rpow, *rexp;
   uint32_t* out;
   unsigned char* ws;
   int B, j0, j_local;
@@ -257,22 +277,22 @@ struct PartialArgs {
   int* blocks_per_sm;  // non-null: report the residency, launch nothing
 };
 
-template <int P, typename W, bool S, int LogN>
+template <int P, typename W, bool S, int LogN, bool Rot>
 cudaError_t launch_partial(const PartialArgs& x, const PbsConsts& K,
                            const Layout& L, const Sched& s) {
-  return launch_sched(partial_step_kernel<P, W, S, LogN>, s, L, x.B,
+  return launch_sched(partial_step_kernel<P, W, S, LogN, Rot>, s, L, x.B,
                       x.stream, x.blocks_per_sm, static_cast<const W*>(x.acc),
-                      x.a, x.keyv, x.ftw, x.ftws, x.out, x.ws, K, L, x.j0,
-                      x.j_local);
+                      x.a, x.keyv, x.ftw, x.ftws, x.rpow, x.rexp, x.out, x.ws,
+                      K, L, x.j0, x.j_local);
 }
 
-template <int P, typename W>
+template <int P, typename W, bool Rot>
 cudaError_t launch_partial_s(const PartialArgs& x, const PbsConsts& K,
                              const Layout& L, const Sched& s) {
   if (!all_shared(L, kNumBuf))
-    return launch_partial<P, W, false, 0>(x, K, L, s);
+    return launch_partial<P, W, false, 0, Rot>(x, K, L, s);
   return with_log_n<P>(K, [&](auto n) {
-    return launch_partial<P, W, true, decltype(n)::value>(x, K, L, s);
+    return launch_partial<P, W, true, decltype(n)::value, Rot>(x, K, L, s);
   });
 }
 
@@ -307,12 +327,16 @@ int partial_entry(const PartialArgs& x, const int64_t* consts,
   Sched s;
   if (!parse_consts(consts, K) || !make_sched(K.logN, K.P, s))
     return int(cudaErrorInvalidValue);
-  if (x.j0 < 0 || x.j_local < 1 || x.j0 + x.j_local > K.C * K.l)
+  if (x.j0 < 0 || x.j_local < 1 || x.j0 + x.j_local > K.C * K.l ||
+      !x.rpow != !x.rexp)
     return int(cudaErrorInvalidValue);
   if (x.B == 0 && !x.blocks_per_sm) return int(cudaSuccess);
   const Layout L = parse_layout(layout, kNumBuf);
   return int(dispatch_pw(K.P, word_bits, [&](auto p, auto w) {
-    return launch_partial_s<decltype(p)::value, decltype(w)>(x, K, L, s);
+    constexpr int P = decltype(p)::value;
+    using W = decltype(w);
+    return x.rpow ? launch_partial_s<P, W, true>(x, K, L, s)
+                  : launch_partial_s<P, W, false>(x, K, L, s);
   }));
 }
 
@@ -341,10 +365,13 @@ extern "C" {
 // keyv [j_local, k+1, P, N] u32 (16-byte aligned), global key rows [j0, j0 +
 // j_local); keyvs, their Shoup companions, is not read (the MAC's Barrett
 // products need only the residues); out [B, k+1, P, N] u32 canonical
-// residues (16-byte aligned).
+// residues (16-byte aligned).  rpow [P, 2N] u32 (psi^e) and rexp [N] u32
+// (16-byte aligned, each slot's exponent) select the rotation-free step;
+// both null, the classic one.
 int partial_step_launch(const void* acc, const void* a, const void* keyv,
                         const void* keyvs, const void* ftw, const void* ftws,
-                        void* out, void* ws, const int64_t* consts,
+                        const void* rpow, const void* rexp, void* out,
+                        void* ws, const int64_t* consts,
                         const int64_t* layout, int B, int j0, int j_local,
                         int word_bits, void* stream) {
   const PartialArgs x{acc,
@@ -352,6 +379,8 @@ int partial_step_launch(const void* acc, const void* a, const void* keyv,
                       static_cast<const uint32_t*>(keyv),
                       static_cast<const uint32_t*>(ftw),
                       static_cast<const uint32_t*>(ftws),
+                      static_cast<const uint32_t*>(rpow),
+                      static_cast<const uint32_t*>(rexp),
                       static_cast<uint32_t*>(out),
                       static_cast<unsigned char*>(ws),
                       B,
@@ -382,12 +411,14 @@ int finish_step_launch(void* acc, const void* parts, const void* itw,
   return finish_entry(x, consts, layout, word_bits);
 }
 
-// The blocks of K8a (finish 0) or K8b (finish 1) resident on one SM at the
-// plan's shape, the placement (each kernel's own layout) and the word width
+// The blocks of K8a (finish 0; its rotation-free instances with rot 1) or
+// K8b (finish 1) resident on one SM at the plan's shape, the placement (each
+// kernel's own layout) and the word width
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device),
 // and the threads of a block.
 int tp_step_residency(const int64_t* consts, const int64_t* layout,
-                      int word_bits, int finish, int* blocks, int* threads) {
+                      int word_bits, int finish, int rot, int* blocks,
+                      int* threads) {
   PbsConsts K;
   Sched s;
   if (!parse_consts(consts, K) || !make_sched(K.logN, K.P, s))
@@ -397,8 +428,10 @@ int tp_step_residency(const int64_t* consts, const int64_t* layout,
     return finish_entry(
         FinishArgs{nullptr, nullptr, nullptr, nullptr, 0, 1, nullptr, blocks},
         consts, layout, word_bits);
+  // any non-null address selects the instances; nothing is read
+  const auto* r = rot ? reinterpret_cast<const uint32_t*>(consts) : nullptr;
   return partial_entry(PartialArgs{nullptr, nullptr, nullptr, nullptr,
-                                   nullptr, nullptr, nullptr, 0, 0, 1,
+                                   nullptr, r, r, nullptr, nullptr, 0, 0, 1,
                                    nullptr, blocks},
                        consts, layout, word_bits);
 }

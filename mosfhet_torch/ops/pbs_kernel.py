@@ -22,6 +22,16 @@ PyTorch, only for CPU tensors.  The two give the same words.
    n steps per launch, acc updated in place: a [B], keyv/keyvs [(k+1)l,
    k+1, P, N], the step's rows.
 
+   With ``rot_ntt=True`` both run the rotation-free step (the TPU package's
+   ``MOSFHET_ROT_NTT`` form), whose words differ from the classic step's:
+
+       acc += INTT((zeta^{a_i} - 1) . sum_j NTT(dec_j(acc)) * BK_i[j])
+
+   the digits of acc itself and the factor X^{a_i} - 1 applied in the NTT
+   domain, one lookup per slot in the plan's tables ``rot_pow`` [P, 2N]
+   and ``rot_exp`` [N] (`ntt.rot_twiddle`).  Per-step noise variance grows
+   by up to ~2x against the classic step.
+
 2. The TLWE key switch's select-sum (``csrc/tlwe_keyswitch.cu``):
 
        out[b] = sum over (i, j) with d[b, i, j] != 0 of ab[i, j, d - 1]
@@ -114,6 +124,9 @@ PyTorch, only for CPU tensors.  The two give the same words.
      a           [B]                       int32, this step's exponents
      keyv, keyvs [j_local, k+1, P, N]      int32 with u32 bits: the rows
      part        [B, k+1, P, N]            int32 holding u32 canonical residues
+
+   (with ``rot_ntt=True``, part = (zeta^a - 1) . sum_j NTT(dec_j(acc)) *
+   BK_i[j], which K8b finishes as it finishes the classic partial)
 
    and the finish (K8b) on the m partials of all shards,
 
@@ -223,6 +236,9 @@ class PBSKernelPlan:
                 gw[m, j], gws[m, j] = w, ws
             if m:
                 cinv[m], cinvs[m] = self.ntt.garner_cinv[m]
+        # the rotation-free step's twiddle tables (`ntt.rot_twiddle`)
+        self.rot_pow = u32_as_i32(self.ntt.rot_pow)
+        self.rot_exp = self.ntt.rot_exp.to(torch.int32)
         self.offset = gadget_offset(Bg_bit, l, rounded=True, bits=torus_bits)
         self.host_consts = np.concatenate([
             np.array([N, k, l, Bg_bit, P, to_signed(self.offset, 64)],
@@ -255,38 +271,53 @@ def get_kernel_plan(N: int, primes, l: int, Bg_bit: int, k: int, device,
 # --- plain version -------------------------------------------------------------
 
 def cmux_partial(acc, a, j0: int, keyv, keyvs, plan: _ntt.NTTPlan, l: int,
-                 Bg_bit: int):
+                 Bg_bit: int, rot_ntt: bool = False):
     """The NTT-domain external product of key rows [j0, j0 + len(keyv)) with
     the matching digit rows of X^{a} * acc - acc: canonical residues
     [B, C, P, N] int64.  acc [B, C, N] int64; a [B]; keyv/keyvs
     [len, C, P, N] int64 canonical.  Row j is component j // l, digit j % l
-    of the whole decomposition."""
+    of the whole decomposition.  ``rot_ntt``: the rotation-free step's
+    partial, the digit rows of acc and the product times zeta^a - 1 (a
+    Barrett product: `ntt.barrett_mul` raises ValueError on primes outside
+    its window, where the TPU package silently runs the classic step)."""
     B, C, N = acc.shape
-    rot = _poly.mul_by_xai(acc, a.unsqueeze(-1)) - acc
-    digits = gadget_decompose(rot, Bg_bit, l).reshape(B, C * l, N)
+    src = acc if rot_ntt else _poly.mul_by_xai(acc, a.unsqueeze(-1)) - acc
+    digits = gadget_decompose(src, Bg_bit, l).reshape(B, C * l, N)
     spec = _ntt.to_ntt_small(digits[:, j0:j0 + keyv.shape[0]],
                              plan)                             # [B, j, P, N]
-    return _ntt.pointwise_mul_acc_key(spec.unsqueeze(2), keyv, keyvs,
+    part = _ntt.pointwise_mul_acc_key(spec.unsqueeze(2), keyv, keyvs,
                                       plan, dim=1)             # [B, C, P, N]
+    if rot_ntt:
+        part = _ntt.barrett_mul(part, _ntt.rot_twiddle(a, plan).unsqueeze(1),
+                                plan)
+    return part
 
 
-def cmux_step(acc, keyv, keyvs, a, plan: _ntt.NTTPlan, l: int, Bg_bit: int):
+def cmux_step(acc, keyv, keyvs, a, plan: _ntt.NTTPlan, l: int, Bg_bit: int,
+              rot_ntt: bool = False):
     """acc += BK_i (x) (X^{a} * acc - acc), one CMUX (`bootstrap.c:113-118`).
     acc [B, C, N] int64 or int32 words; a [B]; keyv/keyvs [J, C, P, N]
-    int64 canonical."""
+    int64 canonical.  ``rot_ntt``: the rotation-free step,
+    `bootstrap._cmux_step_rotntt`."""
+    if rot_ntt:
+        from .. import bootstrap as _bs   # imports this module
+        return _bs._cmux_step_rotntt(acc, keyv, keyvs, a, plan, l, Bg_bit,
+                                     acc.shape[-2] - 1, acc.shape[-1])
     return acc + _ntt.from_ntt_u64(
         cmux_partial(acc, a, 0, keyv, keyvs, plan, l, Bg_bit), plan,
         acc.dtype)
 
 
-def blind_rotate_scan_plain(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
+def blind_rotate_scan_plain(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan,
+                            rot_ntt: bool = False):
     """The n-step CMUX chain in PyTorch, on any device, at the width of
-    acc0's words (int64: mod 2^64, int32: mod 2^32)."""
+    acc0's words (int64: mod 2^64, int32: mod 2^32); ``rot_ntt``: of the
+    rotation-free step."""
     blind_rotate_scan_plain.calls += 1
     acc = acc0
     for i in range(a_int.shape[0]):
         acc = cmux_step(acc, i32_as_u32(keyv[i]), i32_as_u32(keyvs[i]),
-                        a_int[i], kp.ntt, kp.l, kp.Bg_bit)
+                        a_int[i], kp.ntt, kp.l, kp.Bg_bit, rot_ntt)
     return acc
 
 
@@ -345,6 +376,16 @@ def _check(name, t, dtype, shape, device):
 
 def _check_plan(kp: PBSKernelPlan, dev):
     _check("plan tables", kp.fwd_tw, torch.int32, (kp.P, kp.N), dev)
+
+
+def _rot_tables(kp: PBSKernelPlan, rot_ntt: bool):
+    """The C entry's twiddle-table pointers: those of the plan's ``rot_pow``
+    and ``rot_exp`` for the rotation-free step (whose instances they
+    select), both None for the classic one.  A kernel plan's primes are in
+    the step's Barrett window (`PBSKernelPlan` refuses any other)."""
+    if not rot_ntt:
+        return None, None
+    return kp.rot_pow.data_ptr(), kp.rot_exp.data_ptr()
 
 
 def _word_width(name: str, words, kp: PBSKernelPlan) -> int:
@@ -570,17 +611,18 @@ def _residency(name: str, entry: str, n_ptr: int, n_int: int, query: str,
 
 
 def rotation_residency(kp: PBSKernelPlan, bits: int, step: bool = False,
-                       dev=None) -> tuple[int, int]:
+                       dev=None, rot_ntt: bool = False) -> tuple[int, int]:
     """(blocks resident on one SM, threads per block) of K1, or K1-step
-    with ``step``, on card ``dev`` at ``kp``'s shape, its placement and the
-    word width ``bits`` (the C entry `blind_rotate_residency`)."""
+    with ``step`` (their rotation-free instances with ``rot_ntt``), on card
+    ``dev`` at ``kp``'s shape, its placement and the word width ``bits``
+    (the C entry `blind_rotate_residency`)."""
     dev = torch.device("cuda") if dev is None else torch.device(dev)
     layout, _ = kernel_layout("pbs_step" if step else "blind_rotate", kp,
                               _smem_budget("blind_rotate", _index(dev)))
-    return _residency("blind_rotate", "blind_rotate_launch", 11, 3,
+    return _residency("blind_rotate", "blind_rotate_launch", 13, 3,
                       "blind_rotate_residency", dev,
                       [kp.host_consts.ctypes.data, layout.ctypes.data],
-                      [bits, int(step)])
+                      [bits, int(step), int(rot_ntt)])
 
 
 def ga_scan_residency(kp: PBSKernelPlan, kp_ks: PBSKernelPlan, bits: int,
@@ -600,19 +642,19 @@ def ga_scan_residency(kp: PBSKernelPlan, kp_ks: PBSKernelPlan, bits: int,
 
 
 def tp_step_residency(kp: PBSKernelPlan, bits: int, kernel: str,
-                      dev=None) -> tuple[int, int]:
+                      dev=None, rot_ntt: bool = False) -> tuple[int, int]:
     """(blocks resident on one SM, threads per block) of K8a (``kernel``
-    "partial_step") or K8b ("finish_step") on card ``dev`` at ``kp``'s
-    shape, its placement and the word width ``bits`` (the C entry
-    `tp_step_residency`)."""
+    "partial_step"; its rotation-free instances with ``rot_ntt``) or K8b
+    ("finish_step") on card ``dev`` at ``kp``'s shape, its placement and
+    the word width ``bits`` (the C entry `tp_step_residency`)."""
     finish = {"partial_step": 0, "finish_step": 1}[kernel]
     dev = torch.device("cuda") if dev is None else torch.device(dev)
     layout, _ = kernel_layout("finish_step" if finish else "tp_step", kp,
                               _smem_budget("tp_step", _index(dev)))
-    return _residency("tp_step", "partial_step_launch", 10, 4,
+    return _residency("tp_step", "partial_step_launch", 12, 4,
                       "tp_step_residency", dev,
                       [kp.host_consts.ctypes.data, layout.ctypes.data],
-                      [bits, finish])
+                      [bits, finish, int(rot_ntt)])
 
 
 def ext_product_apply_residency(kp: PBSKernelPlan, bits: int,
@@ -736,14 +778,16 @@ def _index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def blind_rotate_scan(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
-    """The n-step CMUX chain.  CUDA tensors: one launch of the kernel (its
-    one-limb form for int32 words, its two-limb form for int64), and an
-    error raised if it does not build or launch.  CPU tensors: the plain
-    version.  Returns the new accumulator [B, C, N] of acc0's dtype."""
+def blind_rotate_scan(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan,
+                      rot_ntt: bool = False):
+    """The n-step CMUX chain (of the rotation-free step with ``rot_ntt``).
+    CUDA tensors: one launch of the kernel (its one-limb form for int32
+    words, its two-limb form for int64), and an error raised if it does not
+    build or launch.  CPU tensors: the plain version.  Returns the new
+    accumulator [B, C, N] of acc0's dtype."""
     dev = acc0.device
     if dev.type == "cpu":
-        return blind_rotate_scan_plain(acc0, a_int, keyv, keyvs, kp)
+        return blind_rotate_scan_plain(acc0, a_int, keyv, keyvs, kp, rot_ntt)
     if dev.type != "cuda":
         raise ValueError(f"blind_rotate_scan runs on cuda or cpu, not {dev}")
     bits = _word_width("blind_rotate_scan", acc0, kp)
@@ -756,13 +800,15 @@ def blind_rotate_scan(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
     _check("keyvs", keyvs, torch.int32, key_shape, dev)
     _check_aligned("keyv", keyv)
     _check_plan(kp, dev)
+    rpow, rexp = _rot_tables(kp, rot_ntt)
     layout, ws = _layout("blind_rotate", kp, B, dev)
     acc = acc0.clone()
-    _launch("blind_rotate", "blind_rotate_launch", 11, 3, dev,
+    _launch("blind_rotate", "blind_rotate_launch", 13, 3, dev,
             acc.data_ptr(), a_int.data_ptr(), keyv.data_ptr(),
             keyvs.data_ptr(), kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
-            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(), _ptr(ws),
-            kp.host_consts.ctypes.data, layout.ctypes.data, B, n, bits)
+            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(), rpow, rexp,
+            _ptr(ws), kp.host_consts.ctypes.data, layout.ctypes.data, B, n,
+            bits)
     blind_rotate_scan.launches += 1
     return acc
 
@@ -770,28 +816,31 @@ def blind_rotate_scan(acc0, a_int, keyv, keyvs, kp: PBSKernelPlan):
 blind_rotate_scan.launches = 0
 
 
-def pbs_step_plain(acc, a, keyv, keyvs, kp: PBSKernelPlan):
+def pbs_step_plain(acc, a, keyv, keyvs, kp: PBSKernelPlan,
+                   rot_ntt: bool = False):
     """K1-step in int64 PyTorch, on any device, at the width of acc's
-    words: one CMUX step, ``acc`` updated in place and returned."""
+    words: one CMUX step (rotation-free with ``rot_ntt``), ``acc`` updated
+    in place and returned."""
     pbs_step_plain.calls += 1
     return acc.copy_(cmux_step(acc, i32_as_u32(keyv), i32_as_u32(keyvs), a,
-                               kp.ntt, kp.l, kp.Bg_bit))
+                               kp.ntt, kp.l, kp.Bg_bit, rot_ntt))
 
 
 pbs_step_plain.calls = 0
 
 
-def pbs_step(acc, a, keyv, keyvs, kp: PBSKernelPlan):
+def pbs_step(acc, a, keyv, keyvs, kp: PBSKernelPlan, rot_ntt: bool = False):
     """One CMUX step, acc += BK_i (x) (X^{a} acc - acc), in place (the TPU
     kernel `_pbs_step_tiles` aliases acc to its output): acc [B, C, N]
     int64 or int32 words, a [B] int32 in [0, 2N], keyv/keyvs [J, C, P, N]
-    int32, the step's key rows.  CUDA tensors: one launch of the kernel
-    (its one-limb form for int32 words), and an error raised if it does
-    not build or launch.  CPU tensors: the plain version.  Returns acc."""
+    int32, the step's key rows; the rotation-free step with ``rot_ntt``.
+    CUDA tensors: one launch of the kernel (its one-limb form for int32
+    words), and an error raised if it does not build or launch.  CPU
+    tensors: the plain version.  Returns acc."""
     bits = _word_width("pbs_step", acc, kp)
     dev = acc.device
     if dev.type == "cpu":
-        return pbs_step_plain(acc, a, keyv, keyvs, kp)
+        return pbs_step_plain(acc, a, keyv, keyvs, kp, rot_ntt)
     if dev.type != "cuda":
         raise ValueError(f"pbs_step runs on cuda or cpu, not {dev}")
     B = acc.shape[0]
@@ -802,14 +851,16 @@ def pbs_step(acc, a, keyv, keyvs, kp: PBSKernelPlan):
     _check("keyvs", keyvs, torch.int32, row, dev)
     _check_aligned("keyv", keyv)
     _check_plan(kp, dev)
+    rpow, rexp = _rot_tables(kp, rot_ntt)
     if B == 0:
         return acc
     layout, ws = _layout("pbs_step", kp, B, dev, source="blind_rotate")
-    _launch("blind_rotate", "pbs_step_launch", 11, 2, dev,
+    _launch("blind_rotate", "pbs_step_launch", 13, 2, dev,
             acc.data_ptr(), a.data_ptr(), keyv.data_ptr(), keyvs.data_ptr(),
             kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(),
-            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(), _ptr(ws),
-            kp.host_consts.ctypes.data, layout.ctypes.data, B, bits)
+            kp.inv_tw.data_ptr(), kp.inv_tws.data_ptr(), rpow, rexp,
+            _ptr(ws), kp.host_consts.ctypes.data, layout.ctypes.data, B,
+            bits)
     pbs_step.launches += 1
     return acc
 
@@ -1492,29 +1543,33 @@ ga_scan_fused.launches = 0
 
 # --- the gadget-row split CMUX step (K8a, K8b) ------------------------------
 
-def partial_step_plain(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan):
+def partial_step_plain(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan,
+                       rot_ntt: bool = False):
     """K8a in int64 PyTorch, on any device, at the width of acc's words:
-    `cmux_partial` over the global key rows [j0, j0 + j_local).  Returns
-    [B, C, P, N] int32 (u32 canonical residues)."""
+    `cmux_partial` over the global key rows [j0, j0 + j_local) (of the
+    rotation-free step with ``rot_ntt``).  Returns [B, C, P, N] int32 (u32
+    canonical residues)."""
     partial_step_plain.calls += 1
     return u32_as_i32(cmux_partial(acc, a, j0, i32_as_u32(keyv),
                                    i32_as_u32(keyvs), kp.ntt, kp.l,
-                                   kp.Bg_bit))
+                                   kp.Bg_bit, rot_ntt))
 
 
 partial_step_plain.calls = 0
 
 
-def partial_step(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan, out=None):
-    """The partial of one CMUX step over key rows [j0, j0 + j_local).  CUDA
-    tensors: one launch of the kernel (its one-limb form for int32 words),
-    written into ``out`` [B, C, P, N] int32 when given (a slot of the
-    buffer `finish_step` reads), and an error raised if it does not build
-    or launch.  CPU tensors: the plain version.  Returns the partial."""
+def partial_step(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan, out=None,
+                 rot_ntt: bool = False):
+    """The partial of one CMUX step over key rows [j0, j0 + j_local) (of the
+    rotation-free step with ``rot_ntt``).  CUDA tensors: one launch of the
+    kernel (its one-limb form for int32 words), written into ``out`` [B, C,
+    P, N] int32 when given (a slot of the buffer `finish_step` reads), and
+    an error raised if it does not build or launch.  CPU tensors: the plain
+    version.  Returns the partial."""
     bits = _word_width("partial_step", acc, kp)
     dev = acc.device
     if dev.type == "cpu":
-        part = partial_step_plain(acc, a, j0, keyv, keyvs, kp)
+        part = partial_step_plain(acc, a, j0, keyv, keyvs, kp, rot_ntt)
         return part if out is None else out.copy_(part)
     if dev.type != "cuda":
         raise ValueError(f"partial_step runs on cuda or cpu, not {dev}")
@@ -1535,14 +1590,15 @@ def partial_step(acc, a, j0: int, keyv, keyvs, kp: PBSKernelPlan, out=None):
     _check("out", out, torch.int32, (B, kp.C, kp.P, kp.N), dev)
     _check_aligned("keyv", keyv)
     _check_aligned("out", out)
+    rpow, rexp = _rot_tables(kp, rot_ntt)
     if B == 0:
         return out
     layout, ws = _layout("tp_step", kp, B, dev)
-    _launch("tp_step", "partial_step_launch", 10, 4, dev,
+    _launch("tp_step", "partial_step_launch", 12, 4, dev,
             acc.data_ptr(), a.data_ptr(), keyv.data_ptr(), keyvs.data_ptr(),
-            kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(), out.data_ptr(),
-            _ptr(ws), kp.host_consts.ctypes.data, layout.ctypes.data, B, j0,
-            j_local, bits)
+            kp.fwd_tw.data_ptr(), kp.fwd_tws.data_ptr(), rpow, rexp,
+            out.data_ptr(), _ptr(ws), kp.host_consts.ctypes.data,
+            layout.ctypes.data, B, j0, j_local, bits)
     partial_step.launches += 1
     return out
 

@@ -130,7 +130,7 @@ def _gather(outs, batch, like: torch.Tensor, k: int, N: int) -> TLWE:
                                0)
 
 
-def _blind_rotate_tp(acc0, a_int, rows, keys, plans):
+def _blind_rotate_tp(acc0, a_int, rows, keys, plans, rot_ntt=False):
     """The blind rotation with the key's rows sharded, one Python loop over
     the n steps.  In each step and data row, every model shard runs K8a
     (`pbs_kernel.partial_step`) on its own device and key rows, writing its
@@ -139,6 +139,8 @@ def _blind_rotate_tp(acc0, a_int, rows, keys, plans):
     gather); then K8b (`pbs_kernel.finish_step`) reduces the m partials mod
     p, which is exact for every m, and adds the step into the accumulators,
     once per distinct device of the row (once per data row on one card).
+    ``rot_ntt``: the rotation-free step, whose K8a twiddles each partial
+    (a scalar per row and position, so it commutes with the sum).
 
     acc0 [B, C, N] int64 or int32 words; a_int [n, B] int32; rows: the data
     rows' devices (model shards); keys {(s, device): (v32, vs32) [n, J/m,
@@ -162,7 +164,7 @@ def _blind_rotate_tp(acc0, a_int, rows, keys, plans):
             for s, d in enumerate(row):
                 kv, kvs = keys[s, d]
                 _pk.partial_step(accs[d], a_s[d][i], s * jl, kv[i], kvs[i],
-                                 plans[d], out=bufs[d][s])
+                                 plans[d], out=bufs[d][s], rot_ntt=rot_ntt)
             for s, d in enumerate(row):
                 for e, buf in bufs.items():
                     if e != d:
@@ -173,7 +175,8 @@ def _blind_rotate_tp(acc0, a_int, rows, keys, plans):
 
 
 def pbs_on_mesh(mesh: Mesh, bk: _bs.BootstrapKey, torus_base: int,
-                data_axis: str = "data", model_axis: str | None = "model"):
+                data_axis: str = "data", model_axis: str | None = "model",
+                rot_ntt: bool = False):
     """The batched functional bootstrap sharded over ``mesh``: returns
     ``run(tv, c) -> TLWE``, the words of `bootstrap.functional_bootstrap`.
 
@@ -183,7 +186,10 @@ def pbs_on_mesh(mesh: Mesh, bk: _bs.BootstrapKey, torus_base: int,
     key's J rows are split into m slices of J/m (J must divide), made here
     once, each on its shard's device, and every CMUX step runs K8a per
     shard and K8b per data row (`_blind_rotate_tp`): n (data m) K8a and
-    n data K8b launches per call on one card.  The key needs no unfolding."""
+    n data K8b launches per call on one card.  The key needs no unfolding.
+    ``rot_ntt``: the rotation-free step (`bootstrap.blind_rotate`), through
+    K1's or K8a's rotation-free instances; the words of
+    `functional_bootstrap(..., rot_ntt=True)`."""
     if bk.unfolding != 1:
         raise ValueError("pbs_on_mesh needs a key without unfolding "
                          "(see unfolded_pbs_on_mesh)")
@@ -205,14 +211,14 @@ def pbs_on_mesh(mesh: Mesh, bk: _bs.BootstrapKey, torus_base: int,
             _bs.rotate_test_vector(tv, c, bk, torus_base), c.a, bk)
         Bs = _shard_size(acc0.shape[0], len(rows))
         if m > 1:
-            outs = _blind_rotate_tp(acc0, a_int, rows, keys, plans)
+            outs = _blind_rotate_tp(acc0, a_int, rows, keys, plans, rot_ntt)
         else:
             outs = []
             for r, (d,) in enumerate(rows):
                 sl = slice(r * Bs, (r + 1) * Bs)
                 outs.append(_pk.blind_rotate_scan(
                     acc0[sl].to(d), a_int[:, sl].to(d).contiguous(),
-                    *keys[d], plans[d]))
+                    *keys[d], plans[d], rot_ntt=rot_ntt))
         return _gather(outs, batch, acc0, bk.k, bk.N)
 
     return run

@@ -107,24 +107,36 @@ def word_ops(kp):
 
 # --- each kernel's work ------------------------------------------------------
 
-def rotation_work(kp, n, B, key_bytes):
+def rot_twiddle_bytes(kp, rot_ntt):
+    """Bytes of the rotation-free step's twiddle tables (psi's powers [P,
+    2N] and the slots' exponents [N], u32), read once; 0 for the classic
+    step."""
+    return (2 * kp.P + 1) * kp.N * 4 if rot_ntt else 0
+
+
+def rotation_work(kp, n, B, key_bytes, rot_ntt=False):
     """K1, an n-step rotation of B ciphertexts: per step and ciphertext J*P
     digit and C*P inverse NTTs (one Shoup product per butterfly), J*C*P*N
-    key products and one Garner product per word, 3 multiplies each; bytes:
-    the key (``key_bytes``) read once, the accumulators in and out, the
-    exponents."""
+    key products and one Garner product per word, 3 multiplies each, and in
+    the rotation-free step (``rot_ntt``) C*P*N twiddle products more (one
+    table read per slot and prime, C products); bytes: the key
+    (``key_bytes``) read once, the accumulators in and out, the exponents,
+    the twiddle tables."""
     J, C, P, N = kp.J, kp.C, kp.P, kp.N
-    mod_products = butterflies(kp, J * P + C * P) + J * C * P * N + C * N
+    mod_products = (butterflies(kp, J * P + C * P) + J * C * P * N + C * N
+                    + (C * P * N if rot_ntt else 0))
     multiplies = SHOUP_MULTIPLIES * mod_products * n * B
     return {"int32_ops": multiplies, "multiplies": multiplies,
             "bytes": key_bytes + 2 * B * C * N * kp.torus_bits // 8
-            + n * B * 4, "mod_products_per_step": mod_products}
+            + n * B * 4 + rot_twiddle_bytes(kp, rot_ntt),
+            "mod_products_per_step": mod_products}
 
 
-def step_work(kp, B):
+def step_work(kp, B, rot_ntt=False):
     """K1-step: K1's work over one step (one step's key rows and Shoup
     companions read once, acc in and out, the exponents)."""
-    return rotation_work(kp, 1, B, 2 * kp.J * kp.C * kp.P * kp.N * 4)
+    return rotation_work(kp, 1, B, 2 * kp.J * kp.C * kp.P * kp.N * 4,
+                         rot_ntt)
 
 
 def keyswitch_work(dig, ab):
@@ -263,16 +275,19 @@ def ga_work(kp, kp_ks, gens):
             "products_per_step": shoup + barrett}
 
 
-def partial_step_work(kp, B, j_local):
+def partial_step_work(kp, B, j_local, rot_ntt=False):
     """K8a for B ciphertexts over j_local key rows: per ciphertext j_local*P
     digit NTTs and j_local*C*P*N key products (counted as Shoup products, as
-    K1's count takes them); bytes: acc in, the exponents, the key rows'
-    residues (the Shoup companions need not move), the partial out."""
+    K1's count takes them), and C*P*N twiddle products in the rotation-free
+    step; bytes: acc in, the exponents, the key rows' residues (the Shoup
+    companions need not move), the partial out, the twiddle tables."""
     C, P, N = kp.C, kp.P, kp.N
-    shoup = butterflies(kp, j_local * P) + j_local * C * P * N
+    shoup = (butterflies(kp, j_local * P) + j_local * C * P * N
+             + (C * P * N if rot_ntt else 0))
     return {"int32_ops": SHOUP_MULTIPLIES * shoup * B,
             "bytes": B * C * N * word_bytes(kp) + B * 4
-            + j_local * C * P * N * 4 + B * C * P * N * 4,
+            + j_local * C * P * N * 4 + B * C * P * N * 4
+            + rot_twiddle_bytes(kp, rot_ntt),
             "products_per_ciphertext": shoup}
 
 
@@ -391,10 +406,11 @@ class _Counter:
 
 # each kernel wrapper of `ops/pbs_kernel`: its work from its arguments
 KERNEL_WORK = {
-    "blind_rotate_scan": lambda acc0, a_int, keyv, keyvs, kp: rotation_work(
-        kp, a_int.shape[0], acc0.shape[0],
-        (keyv.numel() + keyvs.numel()) * 4),
-    "pbs_step": lambda acc, a, keyv, keyvs, kp: step_work(kp, acc.shape[0]),
+    "blind_rotate_scan": lambda acc0, a_int, keyv, keyvs, kp, rot_ntt=False:
+        rotation_work(kp, a_int.shape[0], acc0.shape[0],
+                      (keyv.numel() + keyvs.numel()) * 4, rot_ntt),
+    "pbs_step": lambda acc, a, keyv, keyvs, kp, rot_ntt=False: step_work(
+        kp, acc.shape[0], rot_ntt),
     "tlwe_keyswitch_sum": keyswitch_work,
     "ext_product_apply_scan": lambda acc0, sa32, kp, per_row=False:
         apply_scan_work(kp, acc0.shape[0], sa32.shape[0], per_row),
@@ -412,8 +428,9 @@ KERNEL_WORK = {
     "cmux_delta": lambda x, keyv, keyvs, kp: cmux_delta_work(kp, x.shape[0]),
     "ga_scan_fused": lambda acc0, gens, sv32, svs32, ak32, inv2n, kp, kp_ks:
         ga_work(kp, kp_ks, gens),
-    "partial_step": lambda acc, a, j0, keyv, keyvs, kp, out=None:
-        partial_step_work(kp, acc.shape[0], keyv.shape[0]),
+    "partial_step": lambda acc, a, j0, keyv, keyvs, kp, out=None,
+        rot_ntt=False: partial_step_work(kp, acc.shape[0], keyv.shape[0],
+                                         rot_ntt),
     "finish_step": lambda acc, parts, kp: finish_step_work(
         kp, acc.shape[0], parts.shape[0]),
 }

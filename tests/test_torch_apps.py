@@ -18,7 +18,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from mosfhet_tpu import params, tlwe as jtlwe, trgsw as jtrgsw, \
@@ -29,6 +28,7 @@ from mosfhet_torch import bridge, tlwe as ttlwe, torus as ttorus, \
 from mosfhet_torch.apps import leveled_lut as tll, ufhe as tufhe
 from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 CPU = "cpu"
 P = params.TOY      # n=16, N=64, l=4, Bg_bit=9, t=8, base_bit=4
@@ -37,16 +37,6 @@ PREC = 4            # integer precision: 2 digits of base 4
 VA, VB = [5, 11, 2], [7, 3, 2]
 KERNELS = ("blind_rotate_scan", "tlwe_keyswitch_sum",
            "ext_product_apply_scan")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small tensors: one intra-op thread per worker keeps this file's many
-    small ops off the other workers' cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _same(got, want):
@@ -150,8 +140,10 @@ def test_leveled_lut_port_encryptions_decrypt():
 def _ufhe():
     """The TPU package's keysets and context at TOY, carried across."""
     k0, k1 = jax.random.split(KEY)
-    priv = jufhe.new_priv_keyset(k0, P)
-    pub = jufhe.new_public_keyset(k1, priv, torus_base=4)
+    priv = jax.jit(lambda k: jufhe.new_priv_keyset(k, P))(k0)
+    pub = jax.jit(lambda k, pv: jufhe.new_public_keyset(k, pv,
+                                                        torus_base=4))(
+        k1, priv)
     ctx = jufhe.setup_context(pub)
     bk, ksk, pk = pub.bootstrap_key, pub.ks_key, pub.packing_key
     t_priv = bridge.ufhe_priv_keyset_from_numpy(
@@ -172,10 +164,11 @@ def _j_int(vals, prec, signed, seed, priv, ctx):
     """A batch of the TPU package's encrypted integers, digits [d, B]."""
     d = jufhe._n_digits(prec, ctx)
     lt = ctx.log_torus_base
-    digs = jnp.stack([(jnp.asarray(vals) >> (i * lt)) & (ctx.torus_base - 1)
-                      for i in range(d)])
-    c = jtlwe.encrypt(jufhe._digit_torus(digs, ctx), priv.extracted,
-                      jax.random.fold_in(KEY, seed))
+    digs = np.stack([(np.asarray(vals) >> (i * lt)) & (ctx.torus_base - 1)
+                     for i in range(d)])
+    c = jax.jit(lambda dg, key, k, cx: jtlwe.encrypt(
+        jufhe._digit_torus(dg, cx), key, k))(
+        jnp.asarray(digs), priv.extracted, jax.random.fold_in(KEY, seed), ctx)
     return jufhe.Integer(digits=c, signed=signed)
 
 
@@ -228,8 +221,8 @@ def test_ufhe_bridge_round_trip_and_context():
         _same(got.a, want.a)
         _same(got.b, want.b)
     assert (own.mulmod, own.mulquo) == (ctx.mulmod, ctx.mulquo)
-    c = jufhe.encrypt_integer(jax.random.fold_in(KEY, 9), 13, PREC, False,
-                              priv, ctx)
+    c = jax.jit(lambda k, pv, cx: jufhe.encrypt_integer(
+        k, 13, PREC, False, pv, cx))(jax.random.fold_in(KEY, 9), priv, ctx)
     tc = _t_int(c)
     a, b, signed = bridge.ufhe_integer_to_numpy(tc)
     np.testing.assert_array_equal(a, np.asarray(c.digits.a))
@@ -237,7 +230,7 @@ def test_ufhe_bridge_round_trip_and_context():
     assert tufhe.decrypt_integer(tc, t_priv, t_ctx) == 13
     three = _j_int([3], PREC, True, 8, priv, ctx)
     neg = tufhe.neg_integer(_t_int(three), t_ctx)
-    _same_int(neg, jufhe.neg_integer(three, ctx))
+    _same_int(neg, jax.jit(jufhe.neg_integer)(three, ctx))
     assert _decrypt_batch(neg, t_priv, t_ctx) == [-3]
 
 

@@ -13,19 +13,10 @@ from mosfhet_tpu import bootstrap as jbs, params, rng as jrng, \
 from mosfhet_torch import bootstrap as tbs, bridge, rng as trng, \
     tlwe as ttlwe, torus as ttorus, trgsw as ttrgsw, trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 KEY = jax.random.PRNGKey(2718)
 CPU = "cpu"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: this file's torch ops are small, and idle
-    threads spinning in each of the suite's workers slow the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_keys(p, seed, n=None):
@@ -56,8 +47,8 @@ def _rotate_both(p, bk_j, bk_t, B, seed):
     a = rng.integers(0, 1 << 64, (B, p.k, p.N), dtype=np.uint64)
     b = rng.integers(0, 1 << 64, (B, p.N), dtype=np.uint64)
     mask = rng.integers(0, 1 << 64, (B, bk_j.n), dtype=np.uint64)
-    want = jbs.blind_rotate(jtrlwe.TRLWE(a=jnp.asarray(a), b=jnp.asarray(b)),
-                            jnp.asarray(mask), bk_j, impl="jnp")
+    want = jax.jit(lambda tv, m: jbs.blind_rotate(tv, m, bk_j, impl="jnp"))(
+        jtrlwe.TRLWE(a=jnp.asarray(a), b=jnp.asarray(b)), jnp.asarray(mask))
     got = tbs.blind_rotate(bridge.trlwe_from_numpy(a, b, CPU),
                            bridge.to_tensor(mask, CPU), bk_t)
     np.testing.assert_array_equal(to_numpy(got.a), np.asarray(want.a))
@@ -105,7 +96,8 @@ def _lut_inputs(p, key_tlwe, seed, batch):
     luts = jrng.uniform_torus(jax.random.fold_in(KEY, seed), (4,))
     tv = jtrlwe.torus_packing(luts, p.k, p.N)
     ms = jtorus.double2torus((jnp.arange(batch) % 4) / 8.0)
-    cs = jtlwe.encrypt(ms, key_tlwe, jax.random.fold_in(KEY, seed + 1))
+    cs = jax.jit(jtlwe.encrypt)(ms, key_tlwe,
+                                jax.random.fold_in(KEY, seed + 1))
     ttv = bridge.trlwe_from_numpy(np.asarray(tv.a), np.asarray(tv.b), CPU)
     tcs = bridge.tlwe_from_numpy(np.asarray(cs.a), np.asarray(cs.b), CPU)
     return luts, tv, cs, ttv, tcs
@@ -117,11 +109,12 @@ def test_functional_and_programmable_bootstrap_match():
     bk = _jax_bk(gk, k2, key_tlwe)
     bk_t = _port_bk(bk)
     luts, tv, cs, ttv, tcs = _lut_inputs(p, key_tlwe, 6, batch=8)
-    want = jbs.functional_bootstrap(tv, cs, bk, 4)
+    want = jax.jit(lambda c: jbs.functional_bootstrap(tv, c, bk, 4))(cs)
     got = tbs.functional_bootstrap(ttv, tcs, bk_t, 4)
     np.testing.assert_array_equal(to_numpy(got.a), np.asarray(want.a))
     np.testing.assert_array_equal(to_numpy(got.b), np.asarray(want.b))
-    want = jbs.programmable_bootstrap(tv, cs, bk, 2, 3, 1)
+    want = jax.jit(lambda c: jbs.programmable_bootstrap(tv, c, bk, 2, 3, 1))(
+        cs)
     got = tbs.programmable_bootstrap(ttv, tcs, bk_t, 2, 3, 1)
     np.testing.assert_array_equal(to_numpy(got.a), np.asarray(want.a))
     np.testing.assert_array_equal(to_numpy(got.b), np.asarray(want.b))

@@ -32,6 +32,7 @@ from mosfhet_torch import bootstrap as tbs, bridge, keyswitch as tks, \
     trgsw as ttrgsw, trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 CPU = "cpu"
 B = 3            # ciphertexts per call
@@ -43,16 +44,6 @@ LUT = [1, 0, 3, 2]
 LUTS = [[3, 0, 2, 1], [1, 1, 2, 3], [0, 3, 3, 0], [0, 0, 0, 0]]
 KERNELS = ("blind_rotate_scan", "tlwe_keyswitch_sum",
            "ext_product_apply_scan", "auto_keyswitch_stream")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small tensors: one intra-op thread per worker keeps this file's many
-    small ops off the other workers' cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _same(got, want):

@@ -14,6 +14,7 @@ from mosfhet_tpu import params, polynomial as jpoly, tlwe as jtlwe, \
 from mosfhet_torch import bridge, polynomial as tpoly, tlwe as ttlwe, \
     trgsw as ttrgsw, trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy, to_tensor
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 KEY = jax.random.PRNGKey(314)
 CPU = "cpu"

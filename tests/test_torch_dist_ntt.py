@@ -21,20 +21,11 @@ from mosfhet_torch import bootstrap as tbs, ntt as tntt, polynomial, rng, \
     tlwe, torus, trgsw, trlwe
 from mosfhet_torch.bridge import to_numpy, to_tensor
 from mosfhet_torch.parallel import dist_ntt, mesh as tmesh
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 P = params.TOY
 CPU = "cpu"
 STEPS = 6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: this file's torch ops are small, and idle
-    threads spinning in each of the suite's workers slow the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.cache

@@ -16,6 +16,7 @@ from mosfhet_torch import bridge, ntt as tntt, trgsw as ttrgsw, \
     trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 CPU = "cpu"
 UNFOLD_TEST = params.TFHEParams(

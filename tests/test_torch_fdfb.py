@@ -13,6 +13,7 @@ from mosfhet_torch import bootstrap as tbs, bridge, rng as trng, \
     tlwe as ttlwe, torus as ttorus, trgsw as ttrgsw, trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 KEY = jax.random.PRNGKey(4243)
 CPU = "cpu"

@@ -23,6 +23,7 @@ from mosfhet_torch import bootstrap_ga as tga, bridge, polynomial as tpoly, \
     trgsw as ttrgsw, trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy, to_tensor
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 KEY = jax.random.PRNGKey(2022)
 CPU = "cpu"
@@ -30,16 +31,6 @@ CPU = "cpu"
 P_GA = params.TFHEParams(
     n=8, N=128, k=1, l=2, Bg_bit=10, t=6, base_bit=4,
     lwe_sigma=2.0**-28, rlwe_sigma=2.0**-44, name="GA_TEST")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: this file's torch ops are small, and idle
-    threads spinning in each of the suite's workers slow the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.cache
@@ -85,22 +76,24 @@ def test_permutations_match():
     for gen in (1, 3, 5 ** 7 % (2 * N), 2 * N - 1):
         np.testing.assert_array_equal(
             to_numpy(tpoly.permute(to_tensor(x, CPU), gen)),
-            np.asarray(jpoly.permute(jnp.asarray(x), gen)))
+            np.asarray(jax.jit(lambda y: jpoly.permute(y, gen))(
+                jnp.asarray(x))))
         c = jtrlwe.TRLWE(a=jnp.asarray(x[:, :1]), b=jnp.asarray(x[:, 1]))
         _eq(ttrlwe.permute(bridge.trlwe_from_numpy(x[:, :1], x[:, 1], CPU),
-                           gen), jtrlwe.permute(c, gen))
+                           gen), jax.jit(lambda y: jtrlwe.permute(y, gen))(c))
     gens = (rng.integers(0, N, 5) * 2 + 1).astype(np.int32)
     gens[0], gens[1] = 1, 2 * N - 1
     inv = tga.inverse_mod_2n_table(N)
-    want = np.asarray(jga._permute_dyn(jnp.asarray(x), jnp.asarray(gens),
-                                       jnp.asarray(inv), N))
+    want = np.asarray(jax.jit(lambda *a: jga._permute_dyn(*a, N))(
+        jnp.asarray(x), jnp.asarray(gens), jnp.asarray(inv)))
     got = tga._permute_dyn(to_tensor(x, CPU), torch.from_numpy(gens),
                            torch.from_numpy(inv), N)
     np.testing.assert_array_equal(to_numpy(got), want)
     np.testing.assert_array_equal(
         to_numpy(tga._permute_log(to_tensor(x, CPU), torch.from_numpy(gens),
                                   N)),
-        np.asarray(jga._permute_log(jnp.asarray(x), jnp.asarray(gens), N)))
+        np.asarray(jax.jit(lambda *a: jga._permute_log(*a, N))(
+            jnp.asarray(x), jnp.asarray(gens))))
     np.testing.assert_array_equal(to_numpy(tga._permute_log(
         to_tensor(x, CPU), torch.from_numpy(gens), N)), want)
     with pytest.raises(ValueError, match="odd"):
@@ -132,7 +125,7 @@ def test_functional_bootstrap_ga_matches_and_decrypts():
     luts = jrng.uniform_torus(jax.random.fold_in(KEY, 5), (4,))
     tv = jtrlwe.torus_packing(luts, p.k, p.N)
     ms = jtorus.double2torus((jnp.arange(5) % 4) / 8.0)
-    cs = jtlwe.encrypt(ms, key_tlwe, jax.random.fold_in(KEY, 6))
+    cs = jax.jit(jtlwe.encrypt)(ms, key_tlwe, jax.random.fold_in(KEY, 6))
     want = jax.jit(lambda c: jga.functional_bootstrap_ga(tv, c, bk, 4))(cs)
     calls = (tpk.auto_keyswitch_stream_plain.calls,
              tpk.ga_scan_fused_plain.calls)

@@ -1,10 +1,16 @@
-"""The port's `blind_rotate_ga` against the TPU package's default GA path
-in Pallas interpret mode (the initial key switch on `auto_keyswitch_stream`
-with its in-kernel permutation, then the whole rotation as one
-`ga_scan_fused`), bit for bit, on random key material at the GA tests'
-widths.  Words need no decryption envelope, so the keys are random
-residues, not encryptions."""
+"""The port's `blind_rotate_ga` against the TPU package's GA rotation, bit
+for bit, on random key material at the GA tests' widths.  Words need no
+decryption envelope, so the keys are random residues, not encryptions.
 
+The oracle is the TPU package's jnp path (jitted).  Its default path in
+Pallas interpret mode (the initial key switch on `auto_keyswitch_stream`
+with its in-kernel permutation, then the whole rotation as one
+`ga_scan_fused`) gives the jnp words at these widths, an unbatched test
+vector and a batch of 3 (`tests/test_ga_kernel.py::
+test_ga_onekernel_bit_exact`); K6 and K7 meet their interpret-mode TPU
+kernels directly in `test_torch_ga_kernels.py`."""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -12,6 +18,7 @@ from mosfhet_tpu import bootstrap_ga as jga, trlwe as jtrlwe
 from mosfhet_torch import bootstrap_ga as tga, bridge, ntt as tntt
 from mosfhet_torch.bridge import to_numpy, to_tensor
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 N, K, L, BG_BIT, N_LWE = 128, 1, 2, 10, 8
 
@@ -44,9 +51,10 @@ def _random_ga_key(rng):
 
 
 def test_blind_rotate_ga_matches_tpu_kernels_interpret(monkeypatch):
-    """An unbatched test vector and an odd batch of 3 masks (the TPU
-    package pads it to its tile): one plain K6 and one plain K7 call in the
-    port, the words of the interpret-mode kernels."""
+    """An unbatched test vector and an odd batch of 3 masks: one plain K6
+    and one plain K7 call in the port, the words of the TPU package's jnp
+    rotation (which its interpret-mode kernels give, as the module's
+    docstring says)."""
     for flag in ("MOSFHET_GA_ONEKERNEL", "MOSFHET_GA_STREAM",
                  "MOSFHET_GA_FUSED"):
         monkeypatch.delenv(flag, raising=False)
@@ -55,9 +63,9 @@ def test_blind_rotate_ga_matches_tpu_kernels_interpret(monkeypatch):
     a = rng.integers(0, 1 << 64, (K, N), dtype=np.uint64)
     b = rng.integers(0, 1 << 64, (N,), dtype=np.uint64)
     mask = rng.integers(0, 1 << 64, (3, N_LWE), dtype=np.uint64)
-    want = jga.blind_rotate_ga(jtrlwe.TRLWE(a=jnp.asarray(a), b=jnp.asarray(b)),
-                               jnp.asarray(mask), bk_j,
-                               impl="pallas_interpret")
+    want = jax.jit(lambda tv, m: jga.blind_rotate_ga(tv, m, bk_j,
+                                                     impl="jnp"))(
+        jtrlwe.TRLWE(a=jnp.asarray(a), b=jnp.asarray(b)), jnp.asarray(mask))
     calls = (tpk.auto_keyswitch_stream_plain.calls,
              tpk.ga_scan_fused_plain.calls)
     got = tga.blind_rotate_ga(bridge.trlwe_from_numpy(a, b, "cpu"),

@@ -2116,3 +2116,109 @@ def test_cuda_pbs_on_global_mesh_one_process(model):
     got = multihost.gather_results(got)
     assert torch.equal(got.a, want.a.cpu()) and torch.equal(got.b,
                                                             want.b.cpu())
+
+
+# --- the rotation-free step (rot_ntt=True): K1-rot, K1-step-rot, K8a-rot ---
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [5, 265])
+@pytest.mark.parametrize("name", ["l2", "l2_32", "set3"])
+def test_cuda_rotntt_kernels_match_plain(name, B):
+    """K1-rot over three steps, K1-step-rot over each and K8a-rot on both
+    halves of the first step's key rows, exponents 0, N and 2N present, at
+    TFHEpp-L2, L2_32 and SET_3 widths (acc in place), on 5 ciphertexts and
+    on a wave and one (265 at L2): the plain versions' words, which the
+    classic step's are not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, (acc, a, kv, ks) = _rotation_case(name, B, 3, seed=630 + B)
+    launches = (tpk.blind_rotate_scan.launches, tpk.pbs_step.launches,
+                tpk.partial_step.launches)
+    got = tpk.blind_rotate_scan(acc, a, kv, ks, kp, rot_ntt=True)
+    steps = acc.clone()
+    for i in range(3):
+        tpk.pbs_step(steps, a[i], kv[i], ks[i], kp, rot_ntt=True)
+    jl = kp.J // 2
+    halves = [(j0, kv[0, j0:j0 + jl].contiguous(),
+               ks[0, j0:j0 + jl].contiguous()) for j0 in (0, jl)]
+    parts = [tpk.partial_step(acc, a[0], j0, v, s, kp, rot_ntt=True)
+             for j0, v, s in halves]
+    torch.cuda.synchronize()
+    assert (tpk.blind_rotate_scan.launches - launches[0],
+            tpk.pbs_step.launches - launches[1],
+            tpk.partial_step.launches - launches[2]) == (1, 3, 2)
+    want = tpk.blind_rotate_scan_plain(acc, a, kv, ks, kp, rot_ntt=True)
+    assert torch.equal(got, want) and torch.equal(steps, want)
+    for (j0, v, s), part in zip(halves, parts):
+        assert torch.equal(part, tpk.partial_step_plain(
+            acc, a[0], j0, v, s, kp, rot_ntt=True))
+    assert not torch.equal(got, tpk.blind_rotate_scan(acc, a, kv, ks, kp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["l2", "l2_32"])
+def test_cuda_rotntt_residency(name):
+    """The rotation-free instances keep the classic ones' threads per block
+    and at least one block per SM; K8a-rot likewise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kp, _ = _rotation_case(name, 1, 1, seed=640)
+    for step in (False, True):
+        blocks, threads = tpk.rotation_residency(kp, kp.torus_bits, step,
+                                                 rot_ntt=True)
+        assert blocks >= 1 and threads == tpk.rotation_residency(
+            kp, kp.torus_bits, step)[1]
+    blocks, threads = tpk.tp_step_residency(kp, kp.torus_bits,
+                                            "partial_step", rot_ntt=True)
+    assert blocks >= 1 and threads == tpk.tp_step_residency(
+        kp, kp.torus_bits, "partial_step")[1]
+
+
+@pytest.mark.gpu
+def test_cuda_rotntt_entry_points():
+    """`functional_bootstrap(..., rot_ntt=True)` (1 K1-rot launch),
+    `blind_rotate_stepwise` (n K1-step-rot) and `pbs_on_mesh` on a (1, 2)
+    mesh of the card (2n K8a-rot, n K8b) give the same words, which a copy
+    of the key and inputs on the CPU gives through the plain versions; L2
+    widths, n cut to 6 (the 32-bit entries run in `chip_smoke.py`'s TORUS32
+    child: the width is fixed at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mosfhet_torch import bootstrap, trlwe
+    from mosfhet_torch.parallel import mesh
+    from mosfhet_torch.tlwe import TLWE
+    n, B = 6, 4
+    N, l, Bg_bit = 2048, 4, 9
+    primes, acc0, _, keyv, keyvs = random_rotation_inputs(
+        N, 1, l, Bg_bit, n, 1, seed=650)
+    words = np.random.default_rng(651).integers(0, 1 << 64, size=(B, n + 1),
+                                                dtype=np.uint64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bk = bootstrap.BootstrapKey(as_i32(keyv, dev), as_i32(keyvs, dev),
+                                    n, 1, N, l, Bg_bit, primes)
+        c = TLWE(a=to_tensor(words[:, :n], dev), b=to_tensor(words[:, n],
+                                                            dev))
+        tv = trlwe.from_stacked(to_tensor(acc0[0], dev))
+        out[dev] = bootstrap.functional_bootstrap(tv, c, bk, 4, rot_ntt=True)
+        if dev == "cpu":
+            break
+        before = (tpk.blind_rotate_scan.launches, tpk.pbs_step.launches,
+                  tpk.partial_step.launches, tpk.finish_step.launches)
+        again = bootstrap.functional_bootstrap(tv, c, bk, 4, rot_ntt=True)
+        tv_r = bootstrap.rotate_test_vector(tv, c, bk, 4)
+        steps = trlwe.extract_tlwe(bootstrap.blind_rotate_stepwise(
+            tv_r, c.a, bk, rot_ntt=True), 0)
+        on_mesh = mesh.pbs_on_mesh(mesh.make_mesh(
+            [torch.device(dev)] * 2, data=1, model=2), bk, 4,
+            rot_ntt=True)(tv, c)
+        torch.cuda.synchronize()
+        assert (tpk.blind_rotate_scan.launches - before[0],
+                tpk.pbs_step.launches - before[1],
+                tpk.partial_step.launches - before[2],
+                tpk.finish_step.launches - before[3]) == (1, n, 2 * n, n)
+        for o in (again, steps, on_mesh):
+            assert torch.equal(o.a, out[dev].a) and torch.equal(o.b,
+                                                                out[dev].b)
+    assert torch.equal(out["cuda"].a.cpu(), out["cpu"].a)
+    assert torch.equal(out["cuda"].b.cpu(), out["cpu"].b)

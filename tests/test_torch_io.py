@@ -41,18 +41,11 @@ from mosfhet_torch import bootstrap as tbs, bridge, io as tio, native, \
     torus as ttorus, trgsw as ttrgsw, trlwe as ttrlwe
 from mosfhet_torch.apps import ufhe as tufhe
 from mosfhet_torch.bridge import to_numpy
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 CPU = "cpu"
 VEC = os.path.join(os.path.dirname(__file__), "vectors")
 AES_KEY = bytes(range(1, 17))     # the vaes vectors' process key
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

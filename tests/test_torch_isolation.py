@@ -9,6 +9,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "mosfhet_tpu")

@@ -11,7 +11,9 @@ alone, u32 wrap-around included, and where the exchanges need only a warp's
 synchronisation.  It meets `mosfhet_torch.ntt`'s forward
 and inverse NTTs at N = 64 ... 4096 with 2, 3 and 4 primes, and one whole
 CMUX step meets `pbs_kernel.cmux_step` at TOY and TFHEpp-L2 widths (one
-step, two ciphertexts) for u64 and u32 words.  Nothing on the port's path
+step, two ciphertexts) for u64 and u32 words, in its classic and its
+rotation-free form (`apply_rot_twiddle`: the digits of acc itself, then the
+MAC slots times zeta^a - 1 looked up at each slot's position).  Nothing on the port's path
 calls this rendering; the kernel itself meets the plain version on the card
 (`test_torch_gpu.py`)."""
 
@@ -22,6 +24,7 @@ import torch
 from mosfhet_torch import ntt
 from mosfhet_torch.ops import pbs_kernel as tpk
 from mosfhet_torch.torus import gadget_offset
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 KQ, KR = 4, 16          # stages per pass, coefficients per thread
 M32 = np.uint64(0xFFFFFFFF)
@@ -218,11 +221,22 @@ def test_schedule_transforms_match_the_ntt(N, P):
         np.testing.assert_array_equal(got, back[m][top])
 
 
-def render_step(acc, a, keyv, kp):
+def rot_twiddle(kp, pi, a, pos):
+    """`apply_rot_twiddle`'s factor at the spectral positions ``pos``: one
+    lookup in the plan's u32 table of psi's powers at the position's
+    exponent times a, mod 2N (a u32 product below 2^30), less one."""
+    rexp = kp.rot_exp.numpy().astype(np.uint64)
+    pw = tpk.i32_as_u32(kp.rot_pow[pi]).numpy().astype(np.uint64)
+    e = (rexp[pos] * np.uint64(a)) & M32
+    assert (e < 1 << 30).all()
+    return pw[e & np.uint64(2 * kp.N - 1)] - np.uint64(1)
+
+
+def render_step(acc, a, keyv, kp, rot=False):
     """One CMUX step as the kernel's block runs it: acc [B, C, N] words
     (numpy uint64 holding 64 or 32 bits), a [B], keyv [J, C, P, N] u32
     residues (the kernel reads no Shoup companion of the key); returns the
-    new acc."""
+    new acc.  ``rot``: the rotation-free instances."""
     bits = kp.torus_bits
     mask = np.uint64((1 << bits) - 1) if bits == 32 else None
     plan, P, C, N, l, Bg = kp.ntt, kp.P, kp.C, kp.N, kp.l, kp.Bg_bit
@@ -243,10 +257,14 @@ def render_step(acc, a, keyv, kp):
                     cj, d = divmod(j, l)
                     row = acc[b, cj]
                     m = (top - a[b]) & (2 * N - 1)
-                    rot = np.where(m & N, -row[m & (N - 1)].astype(object),
-                                   row[m & (N - 1)].astype(object))
-                    word = (rot - row[top].astype(object) + int(offset)) \
-                        % (1 << bits)
+                    xa = np.where(m & N, -row[m & (N - 1)].astype(object),
+                                  row[m & (N - 1)].astype(object))
+                    if rot:
+                        word = (row[top].astype(object) + int(offset)) \
+                            % (1 << bits)
+                    else:
+                        word = (xa - row[top].astype(object)
+                                + int(offset)) % (1 << bits)
                     dig = ((word >> (bits - (d + 1) * Bg)) & ((1 << Bg) - 1)
                            ) - half
                     x = np.where(dig < 0, dig + p, dig).astype(np.uint64)
@@ -256,6 +274,12 @@ def render_step(acc, a, keyv, kp):
                         sl = spec[c, pi]
                         sl[slot0] = mac if j == 0 else lazy2(
                             (sl[slot0] + mac) & M32, np.uint64(2 * p))
+                        assert (sl[slot0] < 2 * p).all()
+                if rot:   # the thread's own slots, lazy in and out
+                    tw_a = rot_twiddle(kp, pi, int(a[b]), w0)
+                    for c in range(C):
+                        sl = spec[c, pi]
+                        sl[slot0] = mac_product(sl[slot0], tw_a, p)
                         assert (sl[slot0] < 2 * p).all()
                 for c in range(C):
                     y = spec[c, pi][slot0].copy()
@@ -300,6 +324,36 @@ def test_schedule_step_matches_cmux_step(N, l, Bg_bit, bits):
                              torch.from_numpy(keyvs.astype(np.int64)),
                              torch.tensor(a), kp.ntt, l, Bg_bit)
         assert want.dtype == dtype
+        np.testing.assert_array_equal(
+            got.astype(np.uint32).view(np.int32) if bits == 32
+            else got.view(np.int64), want.numpy())
+
+
+@pytest.mark.parametrize("N,l,Bg_bit,bits", [
+    (64, 4, 9, 64), (2048, 4, 9, 64),     # TOY, TFHEpp-L2
+    (64, 3, 7, 32), (2048, 3, 7, 32)],    # P32, L2_32
+    ids=["toy", "l2", "toy32", "l2_32"])
+def test_schedule_rot_step_matches_rotntt_step(N, l, Bg_bit, bits):
+    """The rotation-free step of two ciphertexts (exponents 0 and 2N, N and
+    a random one) through the rendered block, against
+    pbs_kernel.cmux_step(..., rot_ntt=True)."""
+    k = 1
+    primes = ntt.MASTER_PRIMES[-2:] if bits == 32 else ntt.primes_for_bound(
+        ntt.external_product_bound(N, Bg_bit, l, k))
+    kp = tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cpu", bits)
+    rng = np.random.default_rng(N + bits + 1)
+    B, C, J, P = 2, k + 1, (k + 1) * l, len(primes)
+    acc = rng.integers(0, 1 << bits, (B, C, N), dtype=np.uint64)
+    pr = np.array(primes, np.uint64)[:, None]
+    keyv = rng.integers(0, 1 << 62, (J, C, P, N), dtype=np.uint64) % pr
+    keyvs = (keyv << np.uint64(32)) // pr
+    words = torch.from_numpy(acc.astype(np.uint32).view(np.int32)
+                             if bits == 32 else acc.view(np.int64))
+    for a in ([0, 2 * N], [N, int(rng.integers(1, 2 * N))]):
+        got = render_step(acc, np.array(a), keyv, kp, rot=True)
+        want = tpk.cmux_step(words, torch.from_numpy(keyv.astype(np.int64)),
+                             torch.from_numpy(keyvs.astype(np.int64)),
+                             torch.tensor(a), kp.ntt, l, Bg_bit, rot_ntt=True)
         np.testing.assert_array_equal(
             got.astype(np.uint32).view(np.int32) if bits == 32
             else got.view(np.int64), want.numpy())

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 WARPS = 8
 PER_WARP = tpk.KS_TILE // WARPS

@@ -35,6 +35,7 @@ from tests.test_torch_k1_schedule import (KQ, M32, forward_row, inverse_row,
                                           u32_tables, window)
 from tests.test_torch_k7_schedule import (AccLog, digits_of, garner_words,
                                           render_spectra)
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 
 def shoup(a, w, ws, p):

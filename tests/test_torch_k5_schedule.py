@@ -36,6 +36,7 @@ from tests.test_torch_k1_schedule import (KQ, KR, M32, forward_row, lazy2,
                                           positions, schedule, u32_tables,
                                           window)
 from tests.test_torch_k4_schedule import _plan, _words, centred_residue
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 # An H100's dynamic shared memory per block: the opt-in 232,448 B less the
 # kernels' static allowance (kStaticSmem, ntt_common.cuh)

@@ -32,6 +32,7 @@ from mosfhet_torch.ops import pbs_kernel as tpk
 from tests.test_torch_k1_schedule import schedule
 from tests.test_torch_k7_schedule import (AccLog, garner_words, i32, keyset,
                                           permuted, render_spectra)
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 
 def _mask(bits):

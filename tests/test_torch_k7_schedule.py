@@ -33,6 +33,7 @@ from tests.test_torch_k1_schedule import (KR, M32, forward_row, inverse_row,
                                           lazy2, mac_product, positions,
                                           schedule, shoup_lazy, slots,
                                           u32_tables, window)
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 
 class AccLog:

@@ -16,7 +16,10 @@ the spectra rows, Garner.  Cases: TOY and TFHEpp-L2 widths at u64 words,
 their 32-bit forms at u32 words; key-row slices [0, J/2), [J/2, J),
 [3J/4, J) and one row; exponents 0, N and 2N present; m = 1, 2, 4 and 8
 partials with a word at p - 1; a split step (two K8a and one K8b) against
-`pbs_kernel.cmux_step`; the rendered buffers against `kernel_buffers`.
+`pbs_kernel.cmux_step`; the rendered buffers against `kernel_buffers`; and
+K8a's rotation-free instances (the digits of acc itself, the slots times
+zeta^a - 1 before the store) against `partial_step_plain(...,
+rot_ntt=True)`.
 Nothing on the port's path calls this rendering; the kernels themselves
 meet the plain versions on the card (`test_torch_gpu.py`)."""
 
@@ -28,9 +31,10 @@ from mosfhet_torch import ntt
 from mosfhet_torch.ops import pbs_kernel as tpk
 from tests.test_torch_k1_schedule import (M32, forward_row, inverse_row,
                                           lazy2, mac_product, positions,
-                                          schedule, slots, u32_tables,
-                                          window)
+                                          rot_twiddle, schedule, slots,
+                                          u32_tables, window)
 from tests.test_torch_k7_schedule import digits_of, garner_words, i32
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 # (N, l, Bg_bit, torus bits): TOY, TFHEpp-L2 and their 32-bit forms
 WIDTHS = {"toy": (64, 4, 9, 64), "l2": (2048, 4, 9, 64),
@@ -43,11 +47,12 @@ def _plan(N, l, Bg_bit, bits, k=1):
     return tpk.get_kernel_plan(N, primes, l, Bg_bit, k, "cpu", bits)
 
 
-def render_partial(acc, a, j0, keyv, kp, sizes=None):
+def render_partial(acc, a, j0, keyv, kp, sizes=None, rot=False):
     """K8a's block on each ciphertext: acc [B, C, N] words (uint64 holding
     64 or 32 bits), a [B], keyv [j_local, C, P, N] u32 residues (the kernel
     reads no Shoup companion).  Returns the partial [B, C, P, N] (uint64
-    holding canonical residues); ``sizes`` gets each buffer's bytes."""
+    holding canonical residues); ``sizes`` gets each buffer's bytes.
+    ``rot``: the rotation-free instances."""
     N, C, P, l = kp.N, kp.C, kp.P, kp.l
     s = schedule(N, P)
     top, w0, slot0 = positions(s, window(s, s["np"] - 1)), positions(s, 0), \
@@ -68,8 +73,9 @@ def render_partial(acc, a, j0, keyv, kp, sizes=None):
                     row = acc[b, cj]
                     m = (top - int(a[b])) & (2 * N - 1)
                     v = row[m & (N - 1)]
-                    rot = np.where(m & N, np.uint64(0) - v, v)
-                    dig = digits_of(rot - row[top], d, kp, kp.torus_bits)
+                    xa = np.where(m & N, np.uint64(0) - v, v)
+                    dig = digits_of(row[top] if rot else xa - row[top], d,
+                                    kp, kp.torus_bits)
                     x = np.where(dig < 0, dig + p, dig).astype(np.uint64)
                     forward_row(x, s, buf, tw, tws, p)
                     for c in range(C):
@@ -78,6 +84,10 @@ def render_partial(acc, a, j0, keyv, kp, sizes=None):
                         sl[slot0] = mac if jj == 0 else lazy2(
                             (sl[slot0] + mac) & M32, np.uint64(2 * p))
                         assert (sl[slot0] < 2 * p).all()
+                if rot:   # the slots times zeta^a - 1 before the store
+                    tw_a = rot_twiddle(kp, pi, int(a[b]), w0)
+                    for c in range(C):
+                        mine[c][slot0] = mac_product(mine[c][slot0], tw_a, p)
                 for c in range(C):
                     y = mine[c][slot0]
                     out[b, c, pi][w0] = np.minimum(y, (y - np.uint64(p))
@@ -153,6 +163,21 @@ def test_partial_rendering_matches_partial_step_plain(name):
         want = tpk.partial_step_plain(
             _words(acc, kp.torus_bits), torch.from_numpy(a), j0,
             i32(keyv[j0:j0 + jl]), i32(keyvs[j0:j0 + jl]), kp)
+        np.testing.assert_array_equal(got.astype(np.uint32).view(np.int32),
+                                      want.numpy())
+
+
+@pytest.mark.parametrize("name", sorted(WIDTHS))
+def test_rot_partial_rendering_matches_partial_step_plain(name):
+    """K8a's rotation-free instances over two key-row slices of four
+    ciphertexts (exponents 0, N, 2N and a random one) against
+    partial_step_plain(..., rot_ntt=True)."""
+    kp, _, acc, a, keyv, keyvs = _inputs(name, 4, 900 + len(name))
+    for j0, jl in _slices(kp.J)[:2]:
+        got = render_partial(acc, a, j0, keyv[j0:j0 + jl], kp, rot=True)
+        want = tpk.partial_step_plain(
+            _words(acc, kp.torus_bits), torch.from_numpy(a), j0,
+            i32(keyv[j0:j0 + jl]), i32(keyvs[j0:j0 + jl]), kp, rot_ntt=True)
         np.testing.assert_array_equal(got.astype(np.uint32).view(np.int32),
                                       want.numpy())
 

@@ -19,20 +19,11 @@ from mosfhet_tpu.ops import pbs_kernel as jpk
 from mosfhet_torch import bridge, tlwe as ttlwe, trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy, to_tensor
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 KEY = jax.random.PRNGKey(1618)
 CPU = "cpu"
 VEC = os.path.join(os.path.dirname(__file__), "vectors")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: this file's torch ops are small, and idle
-    threads spinning in each of the suite's workers slow the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _eq(got, want):
@@ -65,8 +56,9 @@ def test_keyswitch_matches_jnp_and_tpu_kernel_interpret():
     ksk, c, tksk, tc = _jax_ks_case(1, n_out=16, n_in=64, t=8, base_bit=4,
                                     batch=5)
     got = ttlwe.keyswitch(tc, tksk)
-    _eq_tlwe(got, jtlwe.keyswitch(c, ksk, impl="jnp"))
-    _eq_tlwe(got, jtlwe.keyswitch(c, ksk, impl="pallas_interpret"))
+    for impl in ("jnp", "pallas_interpret"):
+        _eq_tlwe(got, jax.jit(lambda c_: jtlwe.keyswitch(c_, ksk,
+                                                         impl=impl))(c))
     # one unbatched ciphertext gives the same words
     one = ttlwe.keyswitch(ttlwe.TLWE(a=tc.a[3], b=tc.b[3]), tksk)
     assert torch.equal(one.a, got.a[3]) and torch.equal(one.b, got.b[3])
@@ -126,11 +118,12 @@ def test_no_precomp_and_int8_forms_match():
     kk = jax.random.split(jax.random.PRNGKey(21), 4)
     out_key = jtlwe.new_binary_key(kk[0], 24, 2.0**-30)
     in_key = jtlwe.new_binary_key(kk[1], 300, 2.0**-30)
-    ksk = jtlwe.new_ks_key_no_precomp(kk[2], out_key, in_key, 5, 3)
-    pksk = jtlwe.prepare_ks_key_mxu(ksk)
-    c = jtlwe.encrypt(jtorus.double2torus(jnp.arange(16) / 32.0), in_key,
-                      kk[3])
-    want = jtlwe.keyswitch_no_precomp(c, ksk)
+    ksk = jax.jit(lambda k: jtlwe.new_ks_key_no_precomp(
+        k, out_key, in_key, 5, 3))(kk[2])
+    pksk = jax.jit(jtlwe.prepare_ks_key_mxu)(ksk)
+    c = jax.jit(jtlwe.encrypt)(jtorus.double2torus(jnp.arange(16) / 32.0),
+                               in_key, kk[3])
+    want = jax.jit(jtlwe.keyswitch_no_precomp)(c, ksk)
     tksk = bridge.tlwe_ks_key_m_from_numpy(np.asarray(ksk.a),
                                            np.asarray(ksk.b), 5, 3, CPU)
     tp = ttlwe.prepare_ks_key_mxu(tksk)
@@ -140,7 +133,7 @@ def test_no_precomp_and_int8_forms_match():
     got_np = ttlwe.keyswitch_no_precomp(tc, tksk)
     got_mxu = ttlwe.keyswitch_mxu(tc, tp)
     _eq_tlwe(got_np, want)
-    _eq_tlwe(got_mxu, jtlwe.keyswitch_mxu(c, pksk))
+    _eq_tlwe(got_mxu, jax.jit(jtlwe.keyswitch_mxu)(c, pksk))
     assert torch.equal(got_np.a, got_mxu.a) and torch.equal(got_np.b,
                                                             got_mxu.b)
 

@@ -35,21 +35,12 @@ from mosfhet_torch import bridge, keyswitch as tks, ntt as tntt, \
     trgsw as ttrgsw, trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 CPU = "cpu"
 TB = 4          # LUT packing's torus base
 GEN = 5         # the seeded automorphism's generator
 B = 3           # ciphertexts per apply
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """This file's tensors are small: one intra-op thread per worker keeps
-    its thousands of small ops off the other workers' cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _same(got, want):

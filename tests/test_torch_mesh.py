@@ -24,6 +24,7 @@ from mosfhet_torch import bootstrap as tbs, bridge
 from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import pbs_kernel as tpk
 from mosfhet_torch.parallel import mesh as tmesh
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 P = params.TOY
 KEY = jax.random.PRNGKey(5150)

@@ -28,21 +28,12 @@ from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import pbs_kernel as tpk
 from mosfhet_torch.params import TOY as P
 from mosfhet_torch.parallel import dryrun, mesh as tmesh, multihost
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
 B = 8
 CHILD_TIMEOUT_S = 120
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: this file's torch ops are small, and idle
-    threads spinning in each of the suite's workers slow the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup():

@@ -26,19 +26,12 @@ from mosfhet_torch import bootstrap as tbs, bridge, io as tio, native, \
     trlwe as ttrlwe
 from mosfhet_torch.polynomial import naive_negacyclic_mul
 from mosfhet_torch.refrng import RefStream
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 CPU = "cpu"
 SEED = bytes(range(16))
 VEC = os.path.join(os.path.dirname(__file__), "vectors")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("n_polys,N", [(1, 4), (3, 256), (2, 2048)])

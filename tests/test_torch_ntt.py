@@ -1,6 +1,9 @@
 """The port's NTT module against the TPU package's, bit for bit: plan tables,
-transforms, Garner CRT, residue maps and the pointwise products."""
+transforms, Garner CRT, residue maps and the pointwise products.  The TPU
+package's transforms are jitted (`_jit`): run eagerly, each of their ops
+compiles on its own."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,22 +13,18 @@ from mosfhet_tpu import ntt as jntt
 from mosfhet_torch import ntt as tntt
 from mosfhet_torch.bridge import to_numpy, to_tensor
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 PRIMES = jntt.DEFAULT_PRIMES
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: this file's torch ops are small, and idle
-    threads spinning in each of the suite's workers slow the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _u64(x):
     return np.asarray(x).astype(np.uint64)
+
+
+def _jit(fn, plan):
+    """``fn(x, plan)`` of the TPU package, one compiled program."""
+    return jax.jit(lambda x: fn(x, plan))
 
 
 def _resi(rng, shape, primes):
@@ -91,13 +90,13 @@ def test_forward_inverse_garner_match(N):
     jp = jntt.get_plan(N, PRIMES)
     tp = tntt.get_plan(N, PRIMES, "cpu")
     x = _resi(rng, (3, len(PRIMES), N), PRIMES)
-    fj = np.asarray(jntt.forward_ntt(jnp.asarray(x), jp))
+    fj = np.asarray(_jit(jntt.forward_ntt, jp)(jnp.asarray(x)))
     ft = tntt.forward_ntt(to_tensor(x, "cpu"), tp)
     np.testing.assert_array_equal(to_numpy(ft), fj)
-    ij = np.asarray(jntt.inverse_ntt(jnp.asarray(x), jp))
+    ij = np.asarray(_jit(jntt.inverse_ntt, jp)(jnp.asarray(x)))
     it = tntt.inverse_ntt(to_tensor(x, "cpu"), tp)
     np.testing.assert_array_equal(to_numpy(it), ij)
-    gj = np.asarray(jntt.garner_u64(jnp.asarray(x), jp))
+    gj = np.asarray(_jit(jntt.garner_u64, jp)(jnp.asarray(x)))
     gt = tntt.garner_u64(to_tensor(x, "cpu"), tp)
     np.testing.assert_array_equal(to_numpy(gt), gj)
 
@@ -112,24 +111,27 @@ def test_residue_maps_and_round_trip():
                         rng.integers(0, 1 << 64, N - 5, dtype=np.uint64)])
     np.testing.assert_array_equal(
         to_numpy(tntt.to_resi_u64(to_tensor(w, "cpu"), tp)),
-        np.asarray(jntt.to_resi_u64(jnp.asarray(w), jp)))
+        np.asarray(_jit(jntt.to_resi_u64, jp)(jnp.asarray(w))))
     s = rng.integers(-(1 << 40), 1 << 40, N, dtype=np.int64)
     np.testing.assert_array_equal(
         tntt.to_resi_i64(torch.from_numpy(s), tp).numpy(),
-        np.asarray(jntt.to_resi_i64(jnp.asarray(s), jp)).astype(np.int64))
+        np.asarray(_jit(jntt.to_resi_i64, jp)(jnp.asarray(s))).astype(
+            np.int64))
     d = rng.integers(-256, 256, (4, N)).astype(np.int32)
     np.testing.assert_array_equal(
         tntt.to_resi_small(torch.from_numpy(d), tp).numpy(),
-        np.asarray(jntt.to_resi_small(jnp.asarray(d), jp)).astype(np.int64))
+        np.asarray(_jit(jntt.to_resi_small, jp)(jnp.asarray(d))).astype(
+            np.int64))
     # small-digit products stay inside the CRT range: exact round trip
     spec = tntt.to_ntt_small(torch.from_numpy(d), tp)
     np.testing.assert_array_equal(
-        to_numpy(spec), np.asarray(jntt.to_ntt_small(jnp.asarray(d), jp)))
+        to_numpy(spec),
+        np.asarray(_jit(jntt.to_ntt_small, jp)(jnp.asarray(d))))
     np.testing.assert_array_equal(
         tntt.from_ntt_u64(spec, tp).numpy(), d.astype(np.int64))
     np.testing.assert_array_equal(
         to_numpy(tntt.to_ntt_u64(to_tensor(w, "cpu"), tp)),
-        np.asarray(jntt.to_ntt_u64(jnp.asarray(w), jp)))
+        np.asarray(_jit(jntt.to_ntt_u64, jp)(jnp.asarray(w))))
 
 
 def test_pointwise_products_match():
@@ -142,8 +144,8 @@ def test_pointwise_products_match():
     kvs_j = np.asarray(jntt.make_shoup(jnp.asarray(kv), jp.p[:, None]))
     kvs_t = tntt.make_shoup(to_tensor(kv, "cpu"), tp.p[:, None])
     np.testing.assert_array_equal(to_numpy(kvs_t), kvs_j)
-    want = jntt.pointwise_mul_acc_key(jnp.asarray(a), jnp.asarray(kv),
-                                      jnp.asarray(kvs_j), jp, axis=-4)
+    want = jax.jit(lambda *x: jntt.pointwise_mul_acc_key(*x, jp, axis=-4))(
+        jnp.asarray(a), jnp.asarray(kv), jnp.asarray(kvs_j))
     got = tntt.pointwise_mul_acc_key(to_tensor(a, "cpu"), to_tensor(kv, "cpu"),
                                      kvs_t, tp, dim=-4)
     np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
@@ -151,7 +153,8 @@ def test_pointwise_products_match():
     np.testing.assert_array_equal(
         to_numpy(tntt.pointwise_mul(to_tensor(a, "cpu"), to_tensor(b, "cpu"),
                                     tp)),
-        np.asarray(jntt.pointwise_mul(jnp.asarray(a), jnp.asarray(b), jp)))
+        np.asarray(jax.jit(lambda x, y: jntt.pointwise_mul(x, y, jp))(
+            jnp.asarray(a), jnp.asarray(b))))
     np.testing.assert_array_equal(
         to_numpy(tntt.add(to_tensor(a, "cpu"), to_tensor(b, "cpu"), tp)),
         np.asarray(jntt.add(jnp.asarray(a), jnp.asarray(b), jp)))

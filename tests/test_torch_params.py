@@ -6,6 +6,7 @@ import pytest
 
 from mosfhet_tpu import params as jparams
 from mosfhet_torch import params as tparams
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 
 def test_registry_names_match():

@@ -13,6 +13,7 @@ from mosfhet_tpu.ops import pbs_kernel as jpk
 from mosfhet_torch.bridge import to_numpy, to_tensor
 from mosfhet_torch.ops import pbs_kernel as tpk
 from tests.test_torch_gpu import as_i32, random_rotation_inputs
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 
 def test_plain_matches_fused_tpu_kernel_interpret():

@@ -18,6 +18,7 @@ import torch
 from mosfhet_tpu import rng as jrng
 from mosfhet_tpu.ops import prng as jprng
 from mosfhet_torch.ops import prng as tprng
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 KEYS = jax.random.split(jax.random.PRNGKey(1818), 5)
 KEY_DATA = np.asarray(jax.random.key_data(KEYS)).astype(np.int64)

@@ -10,7 +10,6 @@ on the port's own keys, dense and seeded, each giving 5 x 11 mod 16 = 7."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from mosfhet_tpu import keyswitch as jks, ntt as jntt, params, \
@@ -19,21 +18,12 @@ from mosfhet_torch import bridge, keyswitch as tks, ntt as tntt, \
     product as tproduct, tlwe as ttlwe, torus as ttorus, trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 CPU = "cpu"
 P = params.TOY
 PREC = 4
 RL_T, RL_BIT = 2, 20
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small tensors: one intra-op thread per worker keeps this file's many
-    small ops off the other workers' cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _same(got, want_a, want_b):

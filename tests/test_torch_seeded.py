@@ -16,6 +16,7 @@ from mosfhet_torch import bridge, rng as trng, seeded as tseeded, \
     trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import prng as tprng
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 CPU = "cpu"
 

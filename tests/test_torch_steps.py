@@ -30,21 +30,12 @@ from mosfhet_torch.bridge import to_numpy, to_tensor
 from mosfhet_torch.ops import pbs_kernel as tpk
 from tests.test_torch_gpu import as_i32, random_exponents, random_residues, \
     random_rotation_inputs
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 CPU = "cpu"
 TOY = params.TOY                     # N=64, k=1, l=4, Bg_bit=9
 L2 = params.TFHEPP_L2                # N=2048, k=1, l=4, Bg_bit=9
 UB = dict(N=128, k=1, l=2, Bg_bit=10)   # the UBR tests' widths
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: this file's torch ops are small, and idle
-    threads spinning in each of the suite's workers slow the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _digits(p):

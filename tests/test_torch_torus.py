@@ -9,6 +9,7 @@ import torch
 from mosfhet_tpu import torus as jtorus
 from mosfhet_torch import torus as ttorus
 from mosfhet_torch.bridge import to_numpy, to_tensor
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 EDGES = np.array(
     [0, 1, 2, (1 << 31) - 1, 1 << 31, (1 << 32) - 1, 1 << 32,

@@ -11,6 +11,8 @@ JAX side is jitted; its kernels run in Pallas interpret mode.  Every word
 must be identical: no tolerance.
 """
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -32,7 +34,8 @@ CASES = ("gadget_decompose", "double2torus", "torus2int", "ntt_product",
          "blind_rotate_stepwise", "trgsw_matrix_ops", "leaf_ops",
          "packing1_and_priv_ks", "full_packing", "seeded",
          "bootstrap_family", "bootstrap_family_decrypts", "clot21_raises",
-         "io_container")
+         "io_container", "rotntt_entry_points", "rotntt_plain_kernels_l2_32",
+         "rotntt_mesh")
 M32 = 1 << 32
 
 i32 = st.integers(-(1 << 31), (1 << 31) - 1)
@@ -64,8 +67,9 @@ def test_int32_arithmetic_wraps_mod_2_32(pairs):
 def torus32_results(tmp_path_factory):
     """Run every case once in a child interpreter at the 32-bit torus."""
     out = tmp_path_factory.mktemp("torus32") / "results.json"
+    from tests.test_torch_suite_env import CHILD_XLA_FLAGS
     env = dict(os.environ, MOSFHET_TORUS_BITS="32", JAX_PLATFORMS="cpu",
-               OMP_NUM_THREADS="1")
+               OMP_NUM_THREADS="1", XLA_FLAGS=CHILD_XLA_FLAGS)
     t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-m", "tests.test_torch_torus32", str(out)],
@@ -169,10 +173,11 @@ def _child(out_path):
         tplan = tntt.get_plan(p.N, primes, CPU)
         a = words((4, p.N))
         d = rs.integers(-256, 256, (4, p.N), dtype=np.int32)
-        want = jpoly.ntt_mul_small(jnp.asarray(d), jnp.asarray(a), jplan)
-        naive = jpoly.naive_negacyclic_mul(
-            jnp.asarray(d).astype(jnp.int64).astype(jnp.uint32),
-            jnp.asarray(a))
+        want, naive = jax.jit(lambda d_, a_: (
+            jpoly.ntt_mul_small(d_, a_, jplan),
+            jpoly.naive_negacyclic_mul(
+                d_.astype(jnp.int64).astype(jnp.uint32), a_)))(
+            jnp.asarray(d), jnp.asarray(a))
         got = tntt.from_ntt_u64(
             tntt.pointwise_mul(tntt.to_ntt_small(torch.from_numpy(d), tplan),
                                tntt.to_ntt_u64(T(a, CPU), tplan), tplan),
@@ -235,6 +240,7 @@ def _child(out_path):
         got = tpk.tlwe_keyswitch_sum(torch.from_numpy(dig), T(ab, CPU))
         return same(got, want)
 
+    @functools.cache
     def jax_keys(seed):
         kk = jax.random.split(jax.random.PRNGKey(seed), 6)
         kt = jtlwe.new_binary_key(kk[0], p.n, p.lwe_sigma)
@@ -262,6 +268,128 @@ def _child(out_path):
             bridge.tlwe_from_numpy(np.asarray(c.a), np.asarray(c.b), CPU),
             bk_t, 4)
         return same(got.a, want.a) or same(got.b, want.b)
+
+    @contextlib.contextmanager
+    def rot_ntt_env():
+        """The TPU package's MOSFHET_ROT_NTT=1 for the JAX calls traced
+        inside (each a fresh jax.jit)."""
+        os.environ["MOSFHET_ROT_NTT"] = "1"
+        try:
+            yield
+        finally:
+            os.environ.pop("MOSFHET_ROT_NTT", None)
+
+    def case_rotntt_entry_points():
+        """`blind_rotate`, `blind_rotate_stepwise` and `functional_bootstrap`
+        with rot_ntt=True on the P32 key: the TPU package's jnp words under
+        MOSFHET_ROT_NTT=1 (one plain K1 call, n plain K1-step calls); the
+        classic words without the variable, and they differ."""
+        kk, kt, ko, bk, bk_t = jax_keys(21)
+        B = 4
+        a, b, mask = words((B, p.k, p.N)), words((B, p.N)), words((B, p.n))
+        mask[0, :3] = [0, 1 << 31, M32 - 1]
+        tv_j = jtrlwe.TRLWE(a=jnp.asarray(a), b=jnp.asarray(b))
+        tv = bridge.trlwe_from_numpy(a, b, CPU)
+        luts = jrng.uniform_torus(kk[3], (4,))
+        c = jax.jit(jtlwe.encrypt)(
+            jtorus.double2torus(jnp.arange(8) % 4 / 8.0), kt, kk[4])
+        with rot_ntt_env():
+            want = jax.jit(lambda t, m: jbs.blind_rotate(t, m, bk,
+                                                         impl="jnp"))(
+                tv_j, jnp.asarray(mask))
+            want_pbs = jax.jit(lambda c_: jbs.functional_bootstrap(
+                jtrlwe.torus_packing(luts, p.k, p.N), c_, bk, 4))(c)
+        classic = jax.jit(lambda t, m: jbs.blind_rotate(t, m, bk,
+                                                        impl="jnp"))(
+            tv_j, jnp.asarray(mask))
+        calls = (tpk.blind_rotate_scan_plain.calls, tpk.pbs_step_plain.calls)
+        got = tbs.blind_rotate(tv, T(mask, CPU), bk_t, rot_ntt=True)
+        steps = tbs.blind_rotate_stepwise(tv, T(mask, CPU), bk_t,
+                                          rot_ntt=True)
+        if (tpk.blind_rotate_scan_plain.calls - calls[0],
+                tpk.pbs_step_plain.calls - calls[1]) != (1, p.n):
+            return "plain call counts"
+        got_pbs = tbs.functional_bootstrap(
+            ttrlwe.torus_packing(T(np.asarray(luts), CPU), p.k, p.N),
+            bridge.tlwe_from_numpy(np.asarray(c.a), np.asarray(c.b), CPU),
+            bk_t, 4, rot_ntt=True)
+        old = tbs.blind_rotate(tv, T(mask, CPU), bk_t)
+        if np.array_equal(np.asarray(want.b), np.asarray(classic.b)):
+            return "rot-NTT words equal the classic ones"
+        return (same(got.a, want.a) or same(got.b, want.b)
+                or same(steps.a, want.a) or same(steps.b, want.b)
+                or same(got_pbs.a, want_pbs.a) or same(got_pbs.b, want_pbs.b)
+                or same(old.a, classic.a) or same(old.b, classic.b))
+
+    def case_rotntt_plain_kernels_l2_32():
+        """At L2_32 widths (N=2048, l=3, Bg_bit=7, 2 primes; 4 steps, random
+        key residues): `blind_rotate_scan_plain`, 4 `pbs_step_plain` calls
+        and per step 2 `partial_step_plain` shards finished by
+        `finish_step_plain`, all with rot_ntt, give the TPU package's
+        `_cmux_step_rotntt` scan; exponents 0, N and 2N present."""
+        N, l, Bg, n, B = 2048, 3, 7, 4, 3
+        primes = jntt.primes_for_bound(jntt.external_product_bound(
+            N, Bg, l, 1), N)
+        jplan = jntt.get_plan(N, primes)
+        J, P = 2 * l, len(primes)
+        pr = np.array(primes, np.uint64)[:, None]
+        v = rs.integers(0, 1 << 62, (n, J, 2, P, N), dtype=np.uint64) % pr
+        vs = (v << np.uint64(32)) // pr
+        acc0 = words((B, 2, N))
+        a_np = rs.integers(0, 2 * N + 1, (n, B), dtype=np.int32)
+        a_np[0, 0], a_np[1, 1], a_np[2, 2] = 0, N, 2 * N
+
+        def step(acc, xs):
+            kv, kvs, ai = xs
+            return jbs._cmux_step_rotntt(acc, kv, kvs, ai, jplan, l, Bg, 1,
+                                         N), None
+        with rot_ntt_env():
+            want = jax.jit(lambda *x: jax.lax.scan(step, x[0], x[1:])[0])(
+                jnp.asarray(acc0), jnp.asarray(v), jnp.asarray(vs),
+                jnp.asarray(a_np))
+        kp = tpk.get_kernel_plan(N, primes, l, Bg, 1, CPU, 32)
+        kv, kvs = T(v.astype(np.uint32), CPU), T(vs.astype(np.uint32), CPU)
+        acc, a = T(acc0, CPU), torch.from_numpy(a_np)
+        got = tpk.blind_rotate_scan(acc, a, kv, kvs, kp, rot_ntt=True)
+        acc_s, acc_p = acc.clone(), acc.clone()
+        for i in range(n):
+            tpk.pbs_step(acc_s, a[i], kv[i], kvs[i], kp, rot_ntt=True)
+            parts = torch.stack([tpk.partial_step(
+                acc_p, a[i], j0, kv[i, j0:j0 + l], kvs[i, j0:j0 + l], kp,
+                rot_ntt=True) for j0 in (0, l)])
+            tpk.finish_step(acc_p, parts, kp)
+        return same(got, want) or same(acc_s, want) or same(acc_p, want)
+
+    def case_rotntt_mesh():
+        """`pbs_on_mesh` with rot_ntt on (1, 2) and (2, 1) meshes of the CPU
+        named twice: the TPU package's jnp `pbs_on_mesh` under
+        MOSFHET_ROT_NTT=1 on two of its CPU devices."""
+        from mosfhet_tpu.parallel import mesh as jmesh
+        from mosfhet_torch.parallel import mesh as tmesh
+        kk, kt, ko, bk, bk_t = jax_keys(29)
+        B = 4
+        lut = np.repeat(words(4), p.N // 4)
+        tv_a = np.zeros((B, p.k, p.N), np.uint32)
+        tv_b = np.broadcast_to(lut, (B, p.N)).copy()
+        c = jax.jit(jtlwe.encrypt)(
+            jtorus.double2torus(jnp.arange(B) % 4 / 8.0), kt, kk[4])
+        tv_j = jtrlwe.TRLWE(a=jnp.asarray(tv_a), b=jnp.asarray(tv_b))
+        tv = bridge.trlwe_from_numpy(tv_a, tv_b, CPU)
+        ct = bridge.tlwe_from_numpy(np.asarray(c.a), np.asarray(c.b), CPU)
+        msgs = []
+        for data, model in ((1, 2), (2, 1)):
+            axis = "model" if model > 1 else None
+            jm = jmesh.make_mesh(jax.devices()[:2], data=data, model=model)
+            with rot_ntt_env():
+                want = jmesh.pbs_on_mesh(jm, bk, 4, model_axis=axis,
+                                         impl="jnp")(tv_j, c)
+            tm = tmesh.make_mesh([torch.device(CPU)] * 2, data=data,
+                                 model=model)
+            got = tmesh.pbs_on_mesh(tm, bk_t, 4, model_axis=axis,
+                                    rot_ntt=True)(tv, ct)
+            msgs += [m for m in (same(got.a, want.a), same(got.b, want.b))
+                     if m]
+        return "; ".join(msgs)
 
     def case_fdfb_this_work():
         kk, kt, ko, bk, bk_t = jax_keys(27)

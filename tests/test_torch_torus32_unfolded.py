@@ -50,9 +50,9 @@ M32 = 1 << 32
 def torus32_results(tmp_path_factory):
     """Run every case once in a child interpreter at the 32-bit torus."""
     out = tmp_path_factory.mktemp("torus32_unfolded") / "results.json"
+    from tests.test_torch_suite_env import CHILD_XLA_FLAGS
     env = dict(os.environ, MOSFHET_TORUS_BITS="32", JAX_PLATFORMS="cpu",
-               OMP_NUM_THREADS="1",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+               OMP_NUM_THREADS="1", XLA_FLAGS=CHILD_XLA_FLAGS)
     t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-m", "tests.test_torch_torus32_unfolded", str(out)],

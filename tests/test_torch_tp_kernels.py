@@ -16,6 +16,7 @@ from mosfhet_tpu.ops import pbs_kernel as jpk
 from mosfhet_torch import ntt as tntt
 from mosfhet_torch.bridge import to_numpy, to_tensor
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 N, K, L, BG_BIT = 128, 1, 2, 10
 C, J = K + 1, (K + 1) * L

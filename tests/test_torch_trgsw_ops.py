@@ -20,19 +20,10 @@ from mosfhet_tpu import params, trgsw as jtrgsw, trlwe as jtrlwe
 from mosfhet_torch import bridge, trgsw as ttrgsw, trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 CPU = "cpu"
 B = 6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: this file's torch ops are small, and idle
-    threads spinning in each of the suite's workers slow the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _same(got, want):

@@ -20,6 +20,7 @@ from mosfhet_torch import bridge, keyswitch as tks, polynomial as tpoly, \
     rng as trng, trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 KEY = jax.random.PRNGKey(5150)
 CPU = "cpu"

@@ -22,6 +22,7 @@ from mosfhet_torch import bootstrap as tbs, bridge, ntt as tntt, \
     trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 KEY = jax.random.PRNGKey(3141)
 CPU = "cpu"
@@ -29,16 +30,6 @@ UNFOLD_TEST = params.TFHEParams(
     n=8, N=128, k=1, l=2, Bg_bit=10, t=6, base_bit=4,
     lwe_sigma=2.0**-28, rlwe_sigma=2.0**-44, name="UNFOLD_TEST")
 U = 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: this file's torch ops are small, and idle
-    threads spinning in each of the suite's workers slow the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.cache
@@ -139,12 +130,15 @@ def _decrypt_err(got, key_trlwe, want):
 
 def test_phase2_broadcast_cache_matches_tpu_kernel_interpret():
     """One ciphertext (m = 1/8), its cache applied to 3 LUTs: the TPU
-    package's phase 2 on its apply-scan kernel in interpret mode."""
+    package's jnp phase 2, which its apply-scan kernel in interpret mode
+    gives at these widths, u and batch (`tests/test_unfolded_kernel.py::
+    test_ubr_phase2_kernel_bit_exact`); K3 meets its interpret-mode TPU
+    kernel in `test_torch_external_product.py`."""
     key_tlwe, key_trlwe, bk, bk_t = _jax_setup()
     c, tc = _encrypt(key_tlwe, 1, seed=2)
     sa_t = tbs.multivalue_bootstrap_UBR_phase1(tc, bk_t)
     luts, tv, ttv = _luts(3, 3)
-    got = _phase2_both(tv, c, ttv, tc, sa_t, bk, bk_t, "pallas_interpret")
+    got = _phase2_both(tv, c, ttv, tc, sa_t, bk, bk_t, "jnp")
     assert _decrypt_err(got, key_trlwe, np.asarray(luts)[:, 1]) <= 2.0**58
 
 

@@ -22,22 +22,13 @@ from mosfhet_torch import bootstrap as tbs, bridge, ntt as tntt, \
     trlwe as ttrlwe
 from mosfhet_torch.bridge import to_numpy
 from mosfhet_torch.ops import pbs_kernel as tpk
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 KEY = jax.random.PRNGKey(1618)
 CPU = "cpu"
 UNFOLD_TEST = params.TFHEParams(
     n=8, N=128, k=1, l=2, Bg_bit=10, t=6, base_bit=4,
     lwe_sigma=2.0**-28, rlwe_sigma=2.0**-44, name="UNFOLD_TEST")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: this file's torch ops are small, and idle
-    threads spinning in each of the suite's workers slow the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.cache

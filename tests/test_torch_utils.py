@@ -16,19 +16,10 @@ import torch
 from mosfhet_torch import keyswitch, ntt, params
 from mosfhet_torch.ops import pbs_kernel as tpk
 from mosfhet_torch.utils import profiling, roofline as rl
+from tests.test_torch_suite_env import port_test_env  # noqa: F401
 
 H100 = rl.Peaks(132, 1980.0)
 CPU = "cpu"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: this file's torch ops are small, and idle
-    threads spinning in each of the suite's workers slow the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _kp(p, bits=64, primes=None):
